@@ -1,0 +1,228 @@
+"""The port's entry points on the CPU: ``LdaModel``, the artifacts, the CLI,
+the device default and the import boundary (the port imports neither jax nor
+the JAX package).  Artifacts must be byte-identical to the JAX writer's for
+the same ``phi``/``theta``/``z`` (same code, same float formatting)."""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ldagibbssampling_tpu.config import LdaConfig as JaxLdaConfig
+from ldagibbssampling_tpu.corpus.documents import Documents as JaxDocuments
+from ldagibbssampling_tpu.corpus.flat import FlatCorpus as JaxFlatCorpus
+from ldagibbssampling_tpu.lda_io.artifacts import (
+    save_iterated_model as jax_save_iterated_model)
+from ldagibbssampling_tpu_torch import cli
+from ldagibbssampling_tpu_torch.backends import make_backend
+from ldagibbssampling_tpu_torch.config import LdaConfig
+from ldagibbssampling_tpu_torch.corpus.documents import Documents
+from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.data import write_minicorpus
+from ldagibbssampling_tpu_torch.evaluation.tracing import MetricsLog, read_metrics
+from ldagibbssampling_tpu_torch.models.lda import LdaModel
+from ldagibbssampling_tpu_torch.runner import run_inference
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "ldagibbssampling_tpu_torch"
+ARTIFACTS = ("params", "phi", "theta", "tassign", "twords")
+
+
+def _corpus(seed=6, docs=24, vocab=50, length=40):
+    rng = np.random.default_rng(seed)
+    ragged = [[int(x) for x in rng.integers(0, vocab, size=length)]
+              for _ in range(docs)]
+    return FlatCorpus.from_ragged(ragged, vocab_size=vocab)
+
+
+def test_model_sweeps_and_counts_consistent():
+    fc = _corpus()
+    model = LdaModel(LdaConfig(topic_num=6, seed=4, block_size=128), fc,
+                     device="cpu")
+    assert model.kernel_tier == "deferred"
+    model.sweep(3)
+    assert model.sweeps_done == 3
+    model.check_counts_consistent()
+    z = model.z()
+    assert z.shape == (fc.num_tokens,)
+    nwk = np.zeros((50, 6), np.int64)
+    np.add.at(nwk, (fc.token_word, z), 1)
+    np.testing.assert_array_equal(model.state.nwk.numpy(), nwk)
+    phi, theta = model.phi(), model.theta()
+    assert phi.shape == (6, 50) and theta.shape == (24, 6)
+    np.testing.assert_allclose(phi.sum(axis=1), 1.0, rtol=1e-4)
+    np.testing.assert_allclose(theta.sum(axis=1), 1.0, rtol=1e-4)
+
+
+def test_batched_sweeps_match_looped():
+    # sweep(5) carries the snapshot and draws five seeds from the model's
+    # generator; five sweep(1) calls must give the same chain
+    fc = _corpus()
+    cfg = LdaConfig(topic_num=6, seed=4, block_size=128)
+    a = LdaModel(cfg, fc, device="cpu")
+    a.sweep(5)
+    b = LdaModel(cfg, fc, device="cpu")
+    for _ in range(5):
+        b.sweep(1)
+    assert torch.equal(a.state.z, b.state.z)
+    assert torch.equal(a.state.nwk, b.state.nwk)
+
+
+def test_artifacts_byte_identical_to_reference_writer(tmp_path):
+    fc = _corpus(seed=2)
+    cfg = LdaConfig(topic_num=5, seed=1, block_size=256, iteration=60)
+    model = LdaModel(cfg, fc, device="cpu")
+    model.sweep(2)
+    model.save_iterated_model(7, tmp_path / "port")
+    jfc = JaxFlatCorpus(fc.token_word, fc.token_doc, fc.doc_ptr, fc.vocab_size)
+    jcfg = JaxLdaConfig(topic_num=5, seed=1, block_size=256, iteration=60)
+    jax_save_iterated_model(tmp_path / "ref", 7, model.phi(), model.theta(),
+                            model.z(), jfc, jcfg)
+    for ext in ARTIFACTS:
+        got = (tmp_path / "port" / f"lda_7.{ext}").read_bytes()
+        assert got == (tmp_path / "ref" / f"lda_7.{ext}").read_bytes(), ext
+
+
+def test_ingest_equals_reference(tmp_path):
+    docs = write_minicorpus(tmp_path / "docs")
+    fc = FlatCorpus.from_documents(Documents().read_docs(docs))
+    ref = JaxFlatCorpus.from_documents(JaxDocuments().read_docs(docs))
+    for name in ("token_word", "token_doc", "doc_ptr"):
+        np.testing.assert_array_equal(getattr(fc, name), getattr(ref, name))
+    assert fc.vocab == ref.vocab and fc.vocab_size == ref.vocab_size
+
+
+def test_cli_runs_end_to_end_on_cpu(tmp_path, capsys):
+    rc = cli.main([
+        "--generate-minicorpus", "--docs", str(tmp_path / "docs"),
+        "--results", str(tmp_path / "res"), "-k", "10", "--iterations", "60",
+        "--save-step", "10", "--begin-save-iters", "50", "--check-counts",
+        "--device", "cpu", "--metrics-file", str(tmp_path / "m.jsonl"),
+        "--metrics-every", "20",
+    ])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "count tables bitwise-consistent" in out and "Iteration 59" in out
+    for it in (50, 60):
+        for ext in ARTIFACTS:
+            assert (tmp_path / "res" / f"lda_{it}.{ext}").stat().st_size > 0
+    rows = read_metrics(tmp_path / "m.jsonl")
+    assert rows[0]["kernel_tier"] == "deferred"
+    assert [r["sweep"] for r in rows[1:]] == [19, 39, 49, 59]
+
+
+@pytest.mark.parametrize("flags,name", [
+    (["--pallas", "fused"], "--pallas"),
+    (["--backend", "cvb0"], "--backend"),
+    (["--chains", "2"], "--chains"),
+    (["--mesh", "data=2"], "--mesh"),
+    (["--ll-every", "5"], "--ll-every"),
+    (["--resume"], "--resume"),
+])
+def test_cli_refuses_unported_flags(tmp_path, capsys, flags, name):
+    rc = cli.main(["--docs", str(tmp_path), "--device", "cpu", *flags])
+    assert rc == 2
+    assert name in capsys.readouterr().err
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fc = _corpus()
+    cfg = LdaConfig(topic_num=6, block_size=128)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LdaModel(cfg, fc)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_backend(cfg, fc)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("use_pallas", "fused"), ("use_pallas", False), ("backend", "svi"),
+    ("chains", 2), ("mesh", {"data": 2}), ("sampler", "serial"),
+    ("draw_method", "inverse_cdf"), ("kernel_compute_dtype", "bfloat16"),
+    ("mirror_dtype", "float32"),
+])
+def test_config_rejects_unported_paths(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LdaConfig(**{field: value})
+
+
+@pytest.mark.parametrize("block,docs", [(64, 24), (2048, 2)])
+def test_blocks_below_128_raise(block, docs):
+    # a small configured block, or a corpus shorter than 128 tokens: the
+    # reference runs its (unported) XLA sweep there
+    with pytest.raises(NotImplementedError, match="item 7"):
+        LdaModel(LdaConfig(topic_num=6, block_size=block), _corpus(docs=docs),
+                 device="cpu")
+
+
+def test_runner_refuses_unported_branches():
+    fc = _corpus()
+    cfg = LdaConfig(topic_num=6, block_size=128, iteration=2)
+    model = LdaModel(cfg, fc, device="cpu")
+    for kw in (dict(ll_every=1), dict(optimize_hyper_every=1),
+               dict(checkpoint_every=1)):
+        with pytest.raises(NotImplementedError):
+            run_inference(model, cfg, fc, **kw)
+    with pytest.raises(NotImplementedError):
+        model.optimize_hyperparameters()
+
+
+def test_runner_metrics_rows(tmp_path):
+    fc = _corpus()
+    cfg = LdaConfig(topic_num=6, block_size=128, iteration=6)
+    model = LdaModel(cfg, fc, device="cpu")
+    with MetricsLog(tmp_path / "m.jsonl") as log:
+        run_inference(model, cfg, fc, metrics=log, metrics_every=3)
+    rows = read_metrics(tmp_path / "m.jsonl")
+    assert [r["sweep"] for r in rows] == [0, 2, 5]
+    assert rows[1]["sweeps_in_chunk"] == 3 and rows[1]["tokens_per_s"] > 0
+    assert model.sweeps_done == 6
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                root = n.split(".")[0]
+                if root in ("jax", "jaxlib", "ldagibbssampling_tpu"):
+                    bad.append(f"{path.relative_to(REPO)}: {n}")
+    assert not bad, bad
+
+
+def test_package_imports_and_runs_with_jax_blocked(tmp_path):
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ldagibbssampling_tpu'] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from ldagibbssampling_tpu_torch import cli\n"
+        f"rc = cli.main(['--generate-minicorpus', '--docs', {str(tmp_path / 'd')!r},"
+        f" '--no-save', '-k', '5', '--iterations', '2', '--device', 'cpu',"
+        " '--check-counts'])\n"
+        "assert rc == 0, rc\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'ldagibbssampling_tpu.'))"
+        " for k, v in sys.modules.items() if v is not None)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
