@@ -11,19 +11,26 @@ success:
 2. build: compiles every kernel source under ``ldagibbssampling_tpu_torch/
    csrc`` with nvcc for sm_90a, one process per source, all at once;
 3. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes: K1 (draw + count update) walked over one block of 65,536
-   tokens in the deterministic (must be equal), external and internal noise
-   modes (z equal on >= 99.99% of tokens, differences printed); K2 (rebuild
-   + bf16 snapshot) over the whole stream (bitwise equal).  Times each kernel,
-   its plain version and, where one exists, a single PyTorch library call;
-4. main path: ``make_backend`` -> ``LdaModel`` -> ``run_inference`` for 10
-   sweeps at bench.py's shape (T = 2^20 Zipf(1.1) tokens, V = 50,000,
-   M = 4,096 documents, K = 500, block 65,536, alpha 0.5, beta 0.1), then
-   ``check_counts_consistent``; every kernel must have launched and no plain
-   version may have run; prints tokens/s; then profiles one more sweep
-   with the port's ``trace`` (device time by kernel, busy share);
-5. CLI: the port's CLI on the generated minicorpus must write the five
-   reference artifacts.
+   paths' shapes, on one block of 65,536 tokens: K1 reading the bf16
+   snapshot (deferred layout) and K1 reading the live int32 table plus the
+   block's word-topic count move (fused layout), each in the deterministic
+   (must be equal), external and internal noise modes (z equal on >= 99.99%
+   of tokens, differences printed); K3 in the same three modes; the count
+   move of all three tables (bitwise); K2 (rebuild + bf16 snapshot) over the
+   whole stream (bitwise).  Times each kernel, its plain version and, where
+   one exists, a single PyTorch library call;
+4. main paths: ``make_backend`` -> ``LdaModel`` -> ``run_inference`` at
+   bench.py's shape (T = 2^20 Zipf(1.1) tokens, V = 50,000, M = 4,096
+   documents, K = 500, block 65,536, alpha 0.5, beta 0.1): 10 sweeps each of
+   the deferred, fused and v1-draw tiers and 2 sweeps of the XLA tier, each
+   then ``check_counts_consistent``; each run must report the tier asked
+   for, launch every kernel of its tier (and the exact number of launches
+   its layout implies), no other kernel and no plain version; prints
+   tokens/s; then profiles one more sweep of each tier with the port's
+   ``trace`` (device time by kernel, busy share);
+5. CLI: the port's CLI on the generated minicorpus, as it is, with
+   ``--pallas fused`` and with ``--sampler serial``, must write the five
+   reference artifacts each time.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -50,12 +57,27 @@ T, V, M, K = 1 << 20, 50_000, 4_096, 500
 BLOCK, ALPHA, BETA, SWEEPS = 65_536, 0.5, 0.1, 10
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# operations per (token, padded topic) of the internal-noise draw, counted
+# operations per (token, padded topic) of K1's internal-noise draw, counted
 # from the kernel source: Philox4x32-10 ~25 integer ops per topic, uniform 3,
 # log ~10, bf16 reciprocal ~10, the conditional ~10, its nk reciprocal ~13,
 # score and argmax ~4 (all charged at the float32 rate)
 SAMPLE_OPS_PER_ELEM = 75
+# per (token, topic) of K3's internal-noise draw: five logf ~50 (three of
+# the conditional, two of the Gumbel noise), Philox ~25, uniform 3, the
+# exclusions and sums ~8, argmax ~4
+BLOCK_SAMPLE_OPS_PER_ELEM = 90
 MIN_MATCH = 0.9999
+MODES = ("deterministic", "external", "internal")
+# the kernels each tier's sweep launches, by use_pallas
+TIER_KERNELS = {
+    "deferred": ("gibbs_tile_sample", "gibbs_tile_update", "rebuild_counts",
+                 "cast_mirror"),
+    "fused": ("gibbs_tile_sample_live", "gibbs_tile_update", "count_move"),
+    True: ("gibbs_block_sample", "count_move"),
+    False: (),
+}
+TIER_NAMES = {"deferred": "deferred", "fused": "fused", True: "pallas-draw",
+              False: "xla"}
 
 
 def log(msg: str) -> None:
@@ -105,7 +127,8 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
-    """Phase 3: every kernel against its plain version, and their times."""
+    """Phase 3: the deferred tier's kernels against their plain versions,
+    and their times."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -123,7 +146,7 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
                     device=dev)
     log(f"[kernels] plan + init {time.perf_counter() - t0:.2f}s: "
         f"T_pad={plan.num_tokens} v_pad={plan.v_pad}")
-    k_pad, v_pad = 512, plan.v_pad
+    k_pad, v_pad = -(-K // 128) * 128, plan.v_pad
     row_tile = _pick_row_tile(BLOCK, K)
     vbeta = float(np.float32(V) * np.float32(BETA))
     hyper = dict(alpha=ALPHA, beta=BETA, vbeta=vbeta, row_tile=row_tile)
@@ -152,7 +175,7 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     # --- K1 walked over one block, per noise mode
     g = torch.Generator(device=dev).manual_seed(seed)
     uniforms = torch.rand((BLOCK, k_pad), generator=g, device=dev) * (1 - 2e-7) + 1e-7
-    for mode in ("deterministic", "external", "internal"):
+    for mode in MODES:
         res = []
         for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
             ndk, nk = st.ndk.clone(), st.nk.clone()
@@ -254,6 +277,175 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         "rebuild_counts": f"one rebuild of {t_pad} stream slots",
         "cast_mirror": f"one [{v_pad}, {k_pad}] table",
     }
+    report(out, times, bounds, units)
+    return out
+
+
+def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
+    """Phase 3b: the fused and v1 tiers' kernels against their plain
+    versions, on the first block of their layout (``pad_to`` +
+    ``sort_within_blocks``), and their times."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch.models.state import init_state
+    from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+    from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
+    from ldagibbssampling_tpu_torch.ops.gibbs import _pick_row_tile
+
+    dev = torch.device(device)
+    pc, _ = corpus.pad_to(BLOCK).sort_within_blocks(BLOCK)
+    st = init_state(pc.token_word, pc.token_doc, pc.token_mask, num_docs=M,
+                    vocab_size=V, num_topics=K, seed=seed + 1, device=dev)
+    k_pad = -(-K // 128) * 128
+    row_tile = _pick_row_tile(BLOCK, K)
+    vbeta = float(np.float32(V) * np.float32(BETA))
+    hyper = dict(alpha=ALPHA, beta=BETA, vbeta=vbeta)
+
+    def on_dev(a):
+        return torch.from_numpy(np.array(a[:BLOCK], np.int32)).to(dev)
+
+    w, d, m = (on_dev(a) for a in (pc.token_word, pc.token_doc, pc.token_mask))
+    z = st.z[:BLOCK].contiguous()
+    real = m > 0
+    n_real = int(real.sum())
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    u_live = torch.rand((BLOCK, k_pad), generator=g, device=dev) * (1 - 2e-7) + 1e-7
+    u_k3 = torch.rand((BLOCK, K), generator=g, device=dev) * (1 - 2e-7) + 1e-7
+    out: dict = {}
+
+    def compare(label, zk, zp):
+        diff = ((zk != zp) & real).nonzero().flatten()
+        match = 1.0 - diff.numel() / n_real
+        moved = float(((zk != z) & real).float().mean())
+        log(f"[kernels] {label}: z equal on {match:.6f} of {n_real} tokens, "
+            f"{moved:.3f} of tokens moved")
+        for i in diff[:20].tolist():
+            log(f"  token {i}: kernel z={int(zk[i])} plain z={int(zp[i])}")
+        return diff.numel(), match
+
+    # --- K1 on the live int32 table, then the block's nwk count move
+    for mode in MODES:
+        res = []
+        for walk, move in ((fk.gibbs_tiles, fk.count_move),
+                           (fk.gibbs_tiles_plain, fk.count_move_plain)):
+            nwk, ndk, nk = st.nwk.clone(), st.ndk.clone(), st.nk.clone()
+            zn = walk(nwk, ndk, nk, z, w, d, m, row_tile=row_tile,
+                      noise_mode=mode, seed=seed + 1234, uniforms=u_live, **hyper)
+            move(z, zn, m, nwk=nwk, token_word=w)
+            torch.cuda.synchronize()
+            res.append((zn, nwk, ndk, nk))
+        n_diff, match = compare(f"K1 live table + nwk move, {mode}", res[0][0], res[1][0])
+        c_err = float(max((a - b).abs().max() for a, b in zip(res[0][1:], res[1][1:])))
+        if mode == "deterministic":
+            if n_diff or c_err:
+                raise AssertionError(
+                    f"K1 live deterministic differs: z {n_diff} tokens, counts {c_err}")
+            out["gibbs_tile_sample_live"] = dict(
+                max_abs_err=float((res[0][0] - res[1][0]).abs().max()))
+            out["count_move"] = dict(max_abs_err=c_err)
+        elif match < MIN_MATCH:
+            raise AssertionError(f"K1 live {mode}: z equal on only {match:.6f}")
+        else:
+            if n_diff == 0 and c_err:
+                raise AssertionError(f"K1 live {mode}: equal z, counts differ by {c_err}")
+            out["gibbs_tile_sample_live"][f"z_match_{mode}"] = match
+
+    # --- K3, all three noise modes
+    draws = {}
+    for mode in MODES:
+        zk, zp = (f(st.nwk, st.ndk, st.nk, z, w, d, noise_mode=mode,
+                    seed=seed + 4321, uniforms=u_k3, **hyper)
+                  for f in (sk.sample_block, sk.sample_block_plain))
+        torch.cuda.synchronize()
+        n_diff, match = compare(f"K3 {mode}", zk, zp)
+        draws[mode] = torch.where(real, zk, z)
+        if mode == "deterministic":
+            if n_diff:
+                raise AssertionError(f"K3 deterministic differs on {n_diff} tokens")
+            out["gibbs_block_sample"] = dict(
+                max_abs_err=float(((zk - zp) * real).abs().max()))
+        elif match < MIN_MATCH:
+            raise AssertionError(f"K3 {mode}: z equal on only {match:.6f}")
+        else:
+            out["gibbs_block_sample"][f"z_match_{mode}"] = match
+
+    # --- the count move of all three tables (the v1 tier's form)
+    z_new = draws["internal"]
+    tables = []
+    for move in (fk.count_move, fk.count_move_plain):
+        t = dict(nwk=st.nwk.clone(), ndk=st.ndk.clone(), nk=st.nk.clone())
+        move(z, z_new, m, token_word=w, token_doc=d, **t)
+        torch.cuda.synchronize()
+        tables.append(t)
+    m_err = float(max((tables[0][n] - tables[1][n]).abs().max() for n in tables[0]))
+    if m_err:
+        raise AssertionError(f"count move (three tables) differs from plain: {m_err}")
+    out["count_move"]["max_abs_err"] = max(out["count_move"]["max_abs_err"], m_err)
+    log("[kernels] count move of nwk, ndk and nk bitwise equal to plain")
+
+    # --- times (internal noise: the main paths' mode)
+    def live_kernel():
+        return fk.gibbs_tile_sample(st.nwk, st.ndk, st.nk, z, w, d, m,
+                                    row_tile=row_tile, noise_mode="internal",
+                                    seed=7, **hyper)
+
+    def live_plain():
+        for s in range(0, BLOCK, row_tile):
+            sl = slice(s, s + row_tile)
+            fk.sample_plain(st.nwk, st.ndk, st.nk, z[sl], w[sl], d[sl], m[sl],
+                            noise_mode="internal", seed=7, slot0=s, **hyper)
+
+    nwk_c = st.nwk.clone()
+    moved = (z_new != z) & real
+    flat = torch.cat([(w.long() * K + z.long())[moved],
+                      (w.long() * K + z_new.long())[moved]])
+    ones = torch.ones(int(moved.sum()), dtype=torch.int32, device=dev)
+    vals = torch.cat([-ones, ones])
+    t3 = dict(nwk=nwk_c, ndk=st.ndk.clone(), nk=st.nk.clone())
+    times = {
+        "gibbs_tile_sample_live": (cuda_ms(live_kernel), cuda_ms(live_plain), None),
+        "gibbs_block_sample": (
+            cuda_ms(lambda: sk.sample_block(st.nwk, st.ndk, st.nk, z, w, d,
+                                            noise_mode="internal", seed=7, **hyper)),
+            cuda_ms(lambda: sk.sample_block_plain(st.nwk, st.ndk, st.nk, z, w, d,
+                                                  noise_mode="internal", seed=7,
+                                                  **hyper)),
+            None),
+        # the fused tier's form: the block's word-topic moves
+        "count_move": (
+            cuda_ms(lambda: fk.count_move(z, z_new, m, nwk=nwk_c, token_word=w)),
+            cuda_ms(lambda: fk.count_move_plain(z, z_new, m, nwk=nwk_c, token_word=w)),
+            cuda_ms(lambda: nwk_c.view(-1).index_put_((flat,), vals, accumulate=True))),
+    }
+    out["count_move"]["ms_three_tables"] = cuda_ms(
+        lambda: fk.count_move(z, z_new, m, token_word=w, token_doc=d, **t3))
+
+    # --- bounds from this run's inputs
+    u_words = torch.unique(w[real]).numel()
+    u_docs = torch.unique(d[real]).numel()
+    cells = torch.unique(flat).numel()
+    bounds = {
+        "gibbs_tile_sample_live": bound(
+            u_words * K * 4 + u_docs * K * 4 + K * 4 + BLOCK * 4 * 5,
+            n_real * k_pad * SAMPLE_OPS_PER_ELEM),
+        "gibbs_block_sample": bound(
+            u_words * K * 4 + u_docs * K * 4 + K * 4 + BLOCK * 4 * 4,
+            BLOCK * K * BLOCK_SAMPLE_OPS_PER_ELEM),
+        "count_move": bound(BLOCK * 4 * 4 + cells * 8, 2 * int(moved.sum())),
+    }
+    units = {
+        "gibbs_tile_sample_live": f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles)",
+        "gibbs_block_sample": f"one block of {BLOCK} tokens (one launch)",
+        "count_move": f"one block of {BLOCK} tokens: its nwk moves (one launch)",
+    }
+    report(out, times, bounds, units)
+    log(f"[kernels] count_move of nwk, ndk and nk: "
+        f"{out['count_move']['ms_three_tables']:.4f} ms per block")
+    return out
+
+
+def report(out: dict, times: dict, bounds: dict, units: dict) -> None:
     for name, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[name]
         out[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -261,58 +453,89 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
             f"{b_ms:.4f} ms by {b_by}) per {units[name]}")
-    return out
 
 
-def main_path(corpus, seed: int, smi: str, device: str = "cuda"):
-    """Phase 4: the entry points a user calls; returns tokens/s and the
-    kernel launches of the run."""
+def counters():
+    from ldagibbssampling_tpu_torch.ops import count_kernel as ck
+    from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+    from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
+
+    return ((fk.LAUNCHES, ck.LAUNCHES, sk.LAUNCHES),
+            (fk.PLAIN_CALLS, ck.PLAIN_CALLS, sk.PLAIN_CALLS))
+
+
+def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
+              device: str = "cuda"):
+    """Phase 4: the entry points a user calls, in the tier ``use_pallas``;
+    returns tokens/s, the kernel launches of the run and the model."""
+    import numpy as np
     import torch
 
     from ldagibbssampling_tpu_torch import make_backend, run_inference
     from ldagibbssampling_tpu_torch.config import LdaConfig
-    from ldagibbssampling_tpu_torch.ops import count_kernel as ck
-    from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
 
-    cfg = LdaConfig(alpha=ALPHA, beta=BETA, topic_num=K, iteration=SWEEPS,
-                    block_size=BLOCK, seed=seed)
+    tier = TIER_NAMES[use_pallas]
+    cfg = LdaConfig(alpha=ALPHA, beta=BETA, topic_num=K, iteration=sweeps,
+                    block_size=BLOCK, seed=seed, use_pallas=use_pallas)
     t0 = time.perf_counter()
     model = make_backend(cfg, corpus, device=device)
     torch.cuda.synchronize()
-    log(f"[main] make_backend {time.perf_counter() - t0:.2f}s "
-        f"(T_pad={model.state.z.shape[0]}, row tile {model._run_sweeps.row_tile})")
-    for counts in (fk.LAUNCHES, fk.PLAIN_CALLS, ck.LAUNCHES, ck.PLAIN_CALLS):
+    t_pad = model.state.z.shape[0]
+    row_tile = model._run_sweeps.row_tile
+    log(f"[main {tier}] make_backend {time.perf_counter() - t0:.2f}s "
+        f"(T_pad={t_pad}, row tile {row_tile})")
+    if model.kernel_tier != tier:
+        raise AssertionError(f"asked for {tier}, the model runs {model.kernel_tier}")
+    launch_dicts, plain_dicts = counters()
+    for counts in (*launch_dicts, *plain_dicts):
         for name in counts:
             counts[name] = 0
     t0 = time.perf_counter()
     run_inference(model, cfg, corpus)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {**fk.LAUNCHES, **ck.LAUNCHES}
-    plain = {**fk.PLAIN_CALLS, **ck.PLAIN_CALLS}
-    log(f"[main] launches {launches}, plain calls {plain}")
-    if model.sweeps_done != SWEEPS:
-        raise AssertionError(f"ran {model.sweeps_done} sweeps, not {SWEEPS}")
-    missing = [n for n, c in launches.items() if c <= 0]
+    launches = {k: v for d in launch_dicts for k, v in d.items()}
+    plain = {k: v for d in plain_dicts for k, v in d.items()}
+    log(f"[main {tier}] launches {launches}, plain calls {plain}")
+    if model.sweeps_done != sweeps:
+        raise AssertionError(f"ran {model.sweeps_done} sweeps, not {sweeps}")
+    expected = TIER_KERNELS[use_pallas]
+    missing = [n for n in expected if launches[n] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the {tier} path: {missing}")
+    stray = [n for n, c in launches.items() if c and n not in expected]
+    if stray:
+        raise AssertionError(f"kernels of other tiers launched on the {tier} path: {stray}")
     if any(plain.values()):
-        raise AssertionError(f"plain versions ran on the main path: {plain}")
+        raise AssertionError(f"plain versions ran on the {tier} path: {plain}")
+    blocks = t_pad // BLOCK
+    want = {
+        "deferred": {"gibbs_tile_sample": sweeps * t_pad // max(row_tile, 1),
+                     "gibbs_tile_update": sweeps * t_pad // max(row_tile, 1),
+                     "rebuild_counts": sweeps, "cast_mirror": sweeps + 1},
+        "fused": {"gibbs_tile_sample_live": sweeps * t_pad // max(row_tile, 1),
+                  "gibbs_tile_update": sweeps * t_pad // max(row_tile, 1),
+                  "count_move": sweeps * blocks},
+        "pallas-draw": {"gibbs_block_sample": sweeps * blocks,
+                        "count_move": sweeps * blocks},
+        "xla": {},
+    }[tier]
+    got = {n: launches[n] for n in want}
+    if got != want:
+        raise AssertionError(f"{tier} launches {got}, its layout implies {want}")
     t1 = time.perf_counter()
     model.check_counts_consistent()
     phi, theta = model.phi(), model.theta()
-    import numpy as np
-
     if not (np.isfinite(phi).all() and np.isfinite(theta).all()):
         raise AssertionError("phi/theta not finite")
     if phi.shape != (K, V) or theta.shape != (M, K):
         raise AssertionError(f"phi {phi.shape} theta {theta.shape}")
-    np.testing.assert_allclose(phi.sum(axis=1), 1.0, rtol=1e-3)
-    tok_s = SWEEPS * corpus.num_tokens / dt
-    log(f"[main] {SWEEPS} sweeps of {corpus.num_tokens} tokens in {dt:.3f}s = "
-        f"{tok_s:,.0f} tokens/s ({dt / SWEEPS * 1e3:.2f} ms/sweep) on {smi}; "
-        f"counts consistent (check {time.perf_counter() - t1:.2f}s)")
-    return tok_s, launches, model
+    np.testing.assert_allclose(phi.sum(axis=1, dtype=np.float64), 1.0, rtol=1e-3)
+    tok_s = sweeps * corpus.num_tokens / dt
+    log(f"[main {tier}] {sweeps} sweeps of {corpus.num_tokens} tokens in "
+        f"{dt:.3f}s = {tok_s:,.0f} tokens/s ({dt / sweeps * 1e3:.2f} ms/sweep) "
+        f"on {smi}; counts consistent (check {time.perf_counter() - t1:.2f}s)")
+    return tok_s, {n: launches[n] for n in expected}, model
 
 
 def profile_sweep(model) -> None:
@@ -323,6 +546,7 @@ def profile_sweep(model) -> None:
 
     from ldagibbssampling_tpu_torch.evaluation.tracing import trace
 
+    tier = model.kernel_tier
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp) as prof:
             t0 = time.perf_counter()
@@ -334,7 +558,7 @@ def profile_sweep(model) -> None:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log("[profile] the profiler recorded no device time (not measured)")
+        log(f"[profile {tier}] the profiler recorded no device time (not measured)")
         return
     by_name: dict = {}
     for e in kernels:
@@ -343,31 +567,36 @@ def profile_sweep(model) -> None:
         n, us = by_name.get(key, (0, 0.0))
         by_name[key] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values())
-    log(f"[profile] one sweep: wall {wall_us / 1e3:.3f} ms, device busy "
+    log(f"[profile {tier}] one sweep: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({busy / wall_us:.3f} of wall)")
-    for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+    for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"  {key}: {n} launches, {us / 1e3:.3f} ms ({us / n:.2f} us each)")
 
 
-def cli_phase() -> None:
+def cli_phase(flags: tuple[str, ...] = ()) -> None:
     """Phase 5: the port's CLI writes the five artifacts on the card."""
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, "-m", f"{PKG}.cli", "--generate-minicorpus",
                "--docs", f"{tmp}/docs", "--results", f"{tmp}/res", "-k", "10",
                "--iterations", "60", "--save-step", "10",
-               "--begin-save-iters", "50", "--check-counts"]
+               "--begin-save-iters", "50", "--check-counts",
+               "--metrics-file", f"{tmp}/m.jsonl", "--metrics-every", "0",
+               *flags]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                               timeout=600)
         if proc.returncode != 0:
-            raise AssertionError(f"CLI exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+            raise AssertionError(f"CLI {flags} exit {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
         tail = [ln for ln in proc.stdout.splitlines() if ln.startswith(("count", "Done"))]
         files = sorted(p.name for p in Path(tmp, "res").iterdir())
         want = sorted(f"lda_{i}.{e}" for i in (50, 60)
                       for e in ("params", "phi", "theta", "tassign", "twords"))
         if files != want:
-            raise AssertionError(f"CLI artifacts {files} != {want}")
-        log(f"[cli] {time.perf_counter() - t0:.1f}s, wrote {len(files)} "
+            raise AssertionError(f"CLI {flags} artifacts {files} != {want}")
+        header = json.loads(Path(tmp, "m.jsonl").read_text().splitlines()[0])
+        log(f"[cli {' '.join(flags) or 'default'}] {time.perf_counter() - t0:.1f}s, "
+            f"kernel tier {header['kernel_tier']}, wrote {len(files)} "
             f"artifacts; {' | '.join(tail)}")
 
 
@@ -399,36 +628,52 @@ def main() -> int:
     log(f"[build] {len(_build.SOURCES)} sources built in {secs:.1f}s")
     for src, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {src}: {line.strip()}")
 
     corpus = synth_corpus(args.seed)
-    kernels = check_kernels(corpus, args.seed)  # 3.
-    tok_s, launches, model = main_path(corpus, args.seed, smi)  # 4.
-    profile_sweep(model)                        # 4b.
-    cli_phase()                                 # 5.
+    kernels = check_kernels(corpus, args.seed)             # 3.
+    kernels.update(check_live_kernels(corpus, args.seed))  # 3b.
+    paths = {}
+    for use_pallas, sweeps in (("deferred", SWEEPS), ("fused", SWEEPS),
+                               (True, SWEEPS), (False, 2)):  # 4.
+        tok_s, launches, model = main_path(corpus, args.seed, smi, use_pallas, sweeps)
+        profile_sweep(model)                               # 4b.
+        paths[TIER_NAMES[use_pallas]] = (tok_s, launches)
+        del model
+        torch.cuda.empty_cache()
+    for flags in ((), ("--pallas", "fused"), ("--sampler", "serial")):  # 5.
+        cli_phase(flags)
 
     src = f"{PKG}/csrc"
+    k1 = "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"
     meta = {
-        "gibbs_tile_sample": (f"{src}/fused_kernel.cu", "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"),
-        "gibbs_tile_update": (f"{src}/fused_kernel.cu", "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"),
+        "gibbs_tile_sample": (f"{src}/fused_kernel.cu", k1),
+        "gibbs_tile_sample_live": (f"{src}/fused_kernel.cu", k1),
+        "gibbs_tile_update": (f"{src}/fused_kernel.cu", k1),
+        "count_move": (f"{src}/fused_kernel.cu", k1),
         "rebuild_counts": (f"{src}/count_kernel.cu", "ldagibbssampling_tpu/ops/count_kernel.py:211"),
         "cast_mirror": (f"{src}/count_kernel.cu", "ldagibbssampling_tpu/ops/count_kernel.py:211"),
+        "gibbs_block_sample": (f"{src}/sample_kernel.cu", "ldagibbssampling_tpu/ops/pallas_gibbs.py:311"),
     }
     rows = []
     for kname, (source, replaces) in meta.items():
         k = kernels[kname]
+        by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
         rows.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces, "launches": sum(by_path.values()),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-            "unit": k["unit"],
-            **{x: v for x, v in k.items() if x.startswith("z_match")},
+            "unit": k["unit"], "launches_by_path": by_path,
+            **{x: v for x, v in k.items()
+               if x.startswith("z_match") or x == "ms_three_tables"},
         })
-    print(json.dumps({"kernels": rows, "main_path_tokens_per_s": tok_s,
-                      "sweeps": SWEEPS}), flush=True)
+    print(json.dumps({"kernels": rows, "main_path_tokens_per_s": {
+        tier: tok_s for tier, (tok_s, _) in paths.items()},
+        "sweeps": {tier: SWEEPS if tier != "xla" else 2 for tier in paths}}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

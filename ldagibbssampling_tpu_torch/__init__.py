@@ -2,13 +2,15 @@
 
 Counterpart of ``ldagibbssampling_tpu`` (the JAX package, kept as the
 reference).  This package imports neither jax nor the JAX package.  It runs
-single-chain blocked collapsed Gibbs in the deferred kernel tier: a draw
-kernel (``ops/fused_kernel.py``) that samples against a sweep-stale bf16
-snapshot of the word-topic table, and a rebuild kernel
-(``ops/count_kernel.py``) that recounts the tables once per sweep, both
-hand-written CUDA (``csrc/``) built on first use.  Entry points run on
-``cuda`` unless given ``device="cpu"``, where the kernels' plain PyTorch
-versions run instead.
+single-chain collapsed Gibbs in the reference's four kernel tiers
+(``ops/gibbs.py``: XLA, v1 draw, fused, deferred), chosen as the reference
+chooses them for the config and corpus (``models/lda.resolve_tier``), and
+the serial Java-fidelity oracle (``models/oracle.py``).  The kernels are
+hand-written CUDA (``csrc/``) built on first use: K1, the per-tile draw and
+count update (``ops/fused_kernel.py``), K2, the count rebuild
+(``ops/count_kernel.py``), and K3, the per-block draw
+(``ops/sample_kernel.py``).  Entry points run on ``cuda`` unless given
+``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 
 Public symbols are re-exported lazily (importing the root pulls in nothing).
 """

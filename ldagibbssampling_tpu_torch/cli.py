@@ -60,16 +60,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="after training, recompute every count table "
                          "serially from z and assert bitwise equality with "
                          "the device tables")
-    # the reference CLI's flags for paths not ported yet: accepted so the
-    # error can name them, and refused in main()
     ap.add_argument("--pallas", dest="use_pallas",
                     choices=["0", "1", "fused", "deferred"], default=None,
-                    help="kernel tier; only 'deferred' is ported")
-    ap.add_argument("--chains", type=int, default=None)
-    ap.add_argument("--sampler", choices=["blocked", "serial"], default=None)
-    ap.add_argument("--backend", choices=["gibbs", "cvb0", "svi", "smc", "warp"], default=None)
+                    help="kernel tier: 0 = XLA sweep, 1 = v1 draw kernel, "
+                         "fused = fused block kernel, deferred = fused kernel "
+                         "+ deferred word-topic rebuild (default)")
+    ap.add_argument("--sampler", choices=["blocked", "serial"], default=None,
+                    help="blocked (device sweep) or serial (Java-fidelity "
+                         "host oracle)")
     ap.add_argument("--draw-method", dest="draw_method",
                     choices=["gumbel", "inverse_cdf"], default=None)
+    # the reference CLI's flags for paths not ported yet: accepted so the
+    # error can name them, and refused in main()
+    ap.add_argument("--chains", type=int, default=None)
+    ap.add_argument("--backend", choices=["gibbs", "cvb0", "svi", "smc", "warp"], default=None)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--ll-every", type=int, default=0)
     ap.add_argument("--optimize-hyper-every", type=int, default=0)
@@ -82,18 +86,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 _OVERRIDE_FIELDS = (
     "alpha", "beta", "topic_num", "iteration", "save_step", "begin_save_iters",
-    "seed", "block_size",
+    "seed", "sampler", "block_size", "draw_method",
 )
 
 
 def unsupported_flags(args: argparse.Namespace) -> list[str]:
     """The given flags whose paths the port does not have yet."""
     checks = [
-        ("--pallas", args.use_pallas not in (None, "deferred")),
         ("--chains", args.chains not in (None, 1)),
-        ("--sampler", args.sampler not in (None, "blocked")),
         ("--backend", args.backend not in (None, "gibbs")),
-        ("--draw-method", args.draw_method not in (None, "gumbel")),
         ("--mesh", bool(args.mesh)),
         ("--ll-every", args.ll_every != 0),
         ("--optimize-hyper-every", args.optimize_hyper_every != 0),
@@ -115,6 +116,10 @@ def config_from_args(args: argparse.Namespace) -> LdaConfig:
     overrides = {
         f: getattr(args, f) for f in _OVERRIDE_FIELDS if getattr(args, f) is not None
     }
+    if args.use_pallas is not None:
+        overrides["use_pallas"] = {
+            "0": False, "1": True, "fused": "fused", "deferred": "deferred",
+        }[args.use_pallas]
     return cfg.replace(**overrides) if overrides else cfg
 
 

@@ -40,10 +40,13 @@ class LdaConfig:
     chains: int = 1
     block_size: int = 2048  # tokens per blocked-Gibbs block; 1 => exact serial chain
     sampler: str = "blocked"  # blocked | serial (Java-fidelity, CPU)
-    # Kernel tier.  The port has only "deferred": the draw kernel samples
-    # against a sweep-stale bf16 snapshot of nwk, and a rebuild kernel
-    # recounts nwk/nk from z once per sweep.  Other values raise (the field
-    # keeps the reference's type so configs load unchanged).
+    # Kernel tier: False = XLA sweep (PyTorch ops); True = v1 draw kernel
+    # (K3) per block; "fused" = K1 against the live word-topic table, tiles
+    # in order, nwk moved after each block; "deferred" = K1 against a
+    # sweep-stale bf16 snapshot of nwk plus a per-sweep rebuild kernel (the
+    # default).  models/lda.resolve_tier applies the reference's layout and
+    # exactness rules to it (and reports the tier that runs as kernel_tier);
+    # no kernel failure falls back to another tier.
     use_pallas: bool | str = "deferred"
     # the reference's interpreter switch; the port has none (raises if set)
     pallas_interpret: bool = False
@@ -66,20 +69,19 @@ class LdaConfig:
             raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.draw_method not in ("inverse_cdf", "gumbel"):
             raise ValueError(f"unknown draw_method {self.draw_method!r}")
+        if self.use_pallas not in (False, True, "fused", "deferred"):
+            raise ValueError(f"unknown use_pallas {self.use_pallas!r}")
         self._check_ported()
 
     def _check_ported(self) -> None:
         """Raise for settings whose code paths the port does not have yet.
 
-        The port runs one path: single-chain blocked collapsed Gibbs in the
-        deferred kernel tier.  Every other setting raises, naming the
-        ROADMAP.md item that ports it; nothing falls back to another path.
+        The port runs single-chain collapsed Gibbs: blocked in the four
+        kernel tiers, or serial through the host oracle.  Every other
+        setting raises, naming the ROADMAP.md item that ports it; nothing
+        falls back to another path.
         """
         missing = []
-        if self.use_pallas != "deferred":
-            missing.append(
-                f"use_pallas={self.use_pallas!r} (ROADMAP Queue 1 items 7-8: "
-                "XLA, v1-draw and fused tiers)")
         if self.backend != "gibbs":
             missing.append(
                 f"backend={self.backend!r} (ROADMAP Queue 1 item 13)")
@@ -87,11 +89,6 @@ class LdaConfig:
             missing.append(f"chains={self.chains} (ROADMAP Queue 1 item 12)")
         if self.mesh:
             missing.append(f"mesh={self.mesh!r} (ROADMAP Queue 1 item 14)")
-        if self.sampler == "serial":
-            missing.append("sampler='serial' (ROADMAP Queue 1 item 7: oracle)")
-        if self.draw_method != "gumbel":
-            missing.append(
-                f"draw_method={self.draw_method!r} (ROADMAP Queue 1 item 7)")
         if self.kernel_compute_dtype != "float32":
             missing.append(
                 f"kernel_compute_dtype={self.kernel_compute_dtype!r} "

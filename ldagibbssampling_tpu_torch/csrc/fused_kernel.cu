@@ -1,8 +1,18 @@
-// K1 of the deferred collapsed-Gibbs sweep: per-tile draw + count update.
+// K1 of the deferred and fused collapsed-Gibbs sweeps: per-tile draw + count
+// update, and the count move that applies a block's word-topic moves.
 //
 // Replaces ldagibbssampling_tpu/ops/pallas_gibbs.py::_fused_kernel (lines
-// 58-192) as the deferred tier calls it through pallas_fused_block
-// (emit_delta=False, compute_dtype="float32").  For each token of a tile:
+// 58-192), float32 chain, in both of its modes:
+//
+// - deferred (emit_delta=False): rows are the sweep-stale bf16 snapshot
+//   [v_pad, k_pad] of nwk (row stride k_pad);
+// - fused (emit_delta=True): rows are the live int32 table nwk [V, K] (row
+//   stride K) as it stood at the start of the block.  The dense [B, Kp]
+//   delta of the reference never leaves the card: its only consumer is the
+//   word-topic scatter (ops/gibbs.py:394), and lda_count_move applies the
+//   same integer moves sparsely after the block's last tile.
+//
+// For each token of a tile:
 //
 //   e     = (k == z_old)                      self-exclusion
 //   r     = 1 / bf16(nk + V*beta),  rr = r * r
@@ -20,27 +30,30 @@
 // No FMA contraction can change a rounding here: the only products that feed
 // an add are e * rr with e in {0, 1} and bits * 2^-24, both exact.
 //
-// What bounds it on an H100: per token the kernel reads one bf16 snapshot
-// row (k_pad * 2 bytes, gathered by word id; this replaces the XLA gather at
-// ops/gibbs.py:605) and one int32 doc row; the snapshot mostly stays in the
-// 50 MB L2 under Zipf word statistics.  The arithmetic is ~2 transcendentals
-// per (token, topic) on the SFUs.  Both are far below what launches cost:
-// tiles must run in order (a tile's draws read the doc counts the previous
-// tile wrote), so a sweep is 2 launches per tile of row_tile tokens, and at
-// the main path's shape the launch count, not bytes or operations, bounds
-// the sweep.  The design keeps each launch cheap (one warp per token,
-// coalesced 8-byte loads of the row, a warp argmax; integer atomics for the
-// update) and issues the whole walk from one host call.  A persistent kernel
-// or a CUDA graph that removes the per-tile launches is later work.
+// What bounds it on an H100: per token the kernel reads one row of nwk
+// (gathered by word id: k_pad * 2 bytes of the snapshot, or K * 4 bytes of
+// the live table; this replaces the XLA gathers at ops/gibbs.py:385 and
+// :605) and one int32 doc row; under Zipf word statistics the rows mostly
+// stay in the 50 MB L2.  The arithmetic is ~2 transcendentals per (token,
+// topic) on the SFUs.  Both are far below what launches cost: tiles must run
+// in order (a tile's draws read the doc counts the previous tile wrote), so
+// a sweep is 2 launches per tile of row_tile tokens (plus one count move per
+// block in the fused tier), and at the main path's shape the launch count,
+// not bytes or operations, bounds the sweep.  The design keeps each launch
+// cheap (one warp per token, a warp argmax; integer atomics for the update)
+// and issues a block's walk from one host call.  A persistent kernel or a
+// CUDA graph that removes the per-tile launches is later work.
 //
 // Noise modes: 0 deterministic (no noise), 1 external (caller uniforms
 // [n, k_pad]), 2 internal (Philox4x32-10 keyed by a per-sweep seed, counter
-// (token slot, topic group of 4); 24-bit uniforms as at pallas_gibbs.py:161).
+// (token slot, topic group of 4); 24-bit uniforms, philox.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -56,39 +69,19 @@ __device__ __forceinline__ float approx_recip(float x) {
   return 1.0f / bf16_round(x);
 }
 
-__device__ __forceinline__ void mulhilo(uint32_t a, uint32_t b, uint32_t& hi,
-                                        uint32_t& lo) {
-  const uint64_t p = static_cast<uint64_t>(a) * static_cast<uint64_t>(b);
-  hi = static_cast<uint32_t>(p >> 32);
-  lo = static_cast<uint32_t>(p);
+__device__ __forceinline__ float count_value(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-// Philox4x32-10 (Salmon et al., SC'11), as in Random123
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    uint32_t hi0, lo0, hi1, lo1;
-    mulhilo(0xD2511F53u, c.x, hi0, lo0);
-    mulhilo(0xCD9E8D57u, c.z, hi1, lo1);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
-  return static_cast<float>(bits & 0xFFFFFFu) * 5.9604644775390625e-8f +
-         2.98023223876953125e-8f;
+// int32 counts below 2^24 convert exactly (guarded in ops/gibbs.make_sweep_fn)
+__device__ __forceinline__ float count_value(int x) {
+  return static_cast<float>(x);
 }
 
 // One warp per token; lane l covers topic groups l, l + 32, ... of 4 topics.
-template <int kMode>
+template <int kMode, typename RowT>
 __global__ void gibbs_tile_sample(
-    const __nv_bfloat16* __restrict__ mirror, int k_pad,
+    const RowT* __restrict__ rows, long long row_stride, int k_pad,
     const int* __restrict__ ndk, int k_real, const int* __restrict__ nk,
     const int* __restrict__ z_old, int* __restrict__ z_new,
     const int* __restrict__ word, const int* __restrict__ doc,
@@ -104,7 +97,7 @@ __global__ void gibbs_tile_sample(
     if (lane == 0) z_new[i] = zo;
     return;
   }
-  const __nv_bfloat16* wrow = mirror + static_cast<long long>(word[i]) * k_pad;
+  const RowT* wrow = rows + static_cast<long long>(word[i]) * row_stride;
   const int* drow = ndk + static_cast<long long>(doc[i]) * k_real;
   const unsigned long long slot = static_cast<unsigned long long>(slot0 + i);
 
@@ -113,15 +106,11 @@ __global__ void gibbs_tile_sample(
   for (int g = lane; g < (k_pad >> 2); g += 32) {
     float inv_e[4] = {1.0f, 1.0f, 1.0f, 1.0f};
     if (kMode == 2) {
-      const uint4 b = philox4x32_10(
-          make_uint4(static_cast<uint32_t>(slot),
-                     static_cast<uint32_t>(slot >> 32),
-                     static_cast<uint32_t>(g), 0u),
-          key0, key1);
-      inv_e[0] = approx_recip(-logf(bits_to_uniform(b.x)));
-      inv_e[1] = approx_recip(-logf(bits_to_uniform(b.y)));
-      inv_e[2] = approx_recip(-logf(bits_to_uniform(b.z)));
-      inv_e[3] = approx_recip(-logf(bits_to_uniform(b.w)));
+      const uint4 b = lda::philox_group(slot, g, key0, key1);
+      inv_e[0] = approx_recip(-logf(lda::bits_to_uniform(b.x)));
+      inv_e[1] = approx_recip(-logf(lda::bits_to_uniform(b.y)));
+      inv_e[2] = approx_recip(-logf(lda::bits_to_uniform(b.z)));
+      inv_e[3] = approx_recip(-logf(lda::bits_to_uniform(b.w)));
     } else if (kMode == 1) {
       const float* urow = uniforms + i * k_pad + 4 * g;
 #pragma unroll
@@ -135,10 +124,9 @@ __global__ void gibbs_tile_sample(
         const float e = (k == zo) ? 1.0f : 0.0f;
         const float r = approx_recip(static_cast<float>(nk[k]) + vbeta);
         const float rr = r * r;
-        const float p =
-            ((__bfloat162float(wrow[k]) - e + beta) *
-             (static_cast<float>(drow[k]) - e + alpha)) *
-            (r + e * rr);
+        const float p = ((count_value(wrow[k]) - e + beta) *
+                         (static_cast<float>(drow[k]) - e + alpha)) *
+                        (r + e * rr);
         s = (kMode == 0) ? p : p * inv_e[j];
       }
       if (s > best) {  // strict: the lane keeps its first maximum
@@ -160,25 +148,62 @@ __global__ void gibbs_tile_sample(
   if (lane == 0) z_new[i] = best_k;
 }
 
-// One thread per token: move the token's count from z_old to z_new.
-__global__ void gibbs_tile_update(int* __restrict__ ndk, int k_real,
-                                  int* __restrict__ nk,
-                                  const int* __restrict__ z_old,
-                                  const int* __restrict__ z_new,
+// One thread per token: move an unmasked token's count from z_old to z_new
+// in each table that is given (null pointers are skipped).
+__global__ void gibbs_tile_update(int* __restrict__ nwk, int* __restrict__ ndk,
+                                  int* __restrict__ nk, int k_real,
+                                  const int* __restrict__ word,
                                   const int* __restrict__ doc,
-                                  const int* __restrict__ mask, long long t0,
-                                  int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+                                  const int* __restrict__ mask,
+                                  const int* __restrict__ z_old,
+                                  const int* __restrict__ z_new, long long t0,
+                                  long long n) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
   if (j >= n) return;
   const long long i = t0 + j;
   const int zo = z_old[i];
   const int zn = z_new[i];
   if (mask[i] == 0 || zo == zn) return;
-  int* drow = ndk + static_cast<long long>(doc[i]) * k_real;
-  atomicSub(drow + zo, 1);
-  atomicAdd(drow + zn, 1);
-  atomicSub(nk + zo, 1);
-  atomicAdd(nk + zn, 1);
+  if (nwk != nullptr) {
+    int* wrow = nwk + static_cast<long long>(word[i]) * k_real;
+    atomicSub(wrow + zo, 1);
+    atomicAdd(wrow + zn, 1);
+  }
+  if (ndk != nullptr) {
+    int* drow = ndk + static_cast<long long>(doc[i]) * k_real;
+    atomicSub(drow + zo, 1);
+    atomicAdd(drow + zn, 1);
+  }
+  if (nk != nullptr) {
+    atomicSub(nk + zo, 1);
+    atomicAdd(nk + zn, 1);
+  }
+}
+
+template <typename RowT>
+cudaError_t launch_sample(int noise_mode, dim3 grid, dim3 block,
+                          cudaStream_t s, const RowT* rows,
+                          long long row_stride, int k_pad, const int* ndk,
+                          int k_real, const int* nk, const int* zo, int* zn,
+                          const int* wd, const int* dc, const int* mk,
+                          const float* un, long long t0, int n, float alpha,
+                          float beta, float vbeta, uint32_t key0,
+                          uint32_t key1, long long slot0) {
+  if (noise_mode == 0) {
+    gibbs_tile_sample<0, RowT><<<grid, block, 0, s>>>(
+        rows, row_stride, k_pad, ndk, k_real, nk, zo, zn, wd, dc, mk, un, t0,
+        n, alpha, beta, vbeta, key0, key1, slot0);
+  } else if (noise_mode == 1) {
+    gibbs_tile_sample<1, RowT><<<grid, block, 0, s>>>(
+        rows, row_stride, k_pad, ndk, k_real, nk, zo, zn, wd, dc, mk, un, t0,
+        n, alpha, beta, vbeta, key0, key1, slot0);
+  } else {
+    gibbs_tile_sample<2, RowT><<<grid, block, 0, s>>>(
+        rows, row_stride, k_pad, ndk, k_real, nk, zo, zn, wd, dc, mk, un, t0,
+        n, alpha, beta, vbeta, key0, key1, slot0);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -187,20 +212,22 @@ extern "C" const char* lda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Walk the tiles of [0, n_tokens) in order.  phases: 1 = sample only,
-// 2 = update only, 3 = both per tile (the sweep).  Returns cudaGetLastError.
+// Walk the tiles of [0, n_tokens) in order.  rows_int32: 0 = bf16 snapshot,
+// 1 = live int32 table.  phases: 1 = sample only, 2 = update only, 3 = both
+// per tile (the sweep).  Returns cudaGetLastError.
 extern "C" int lda_gibbs_tiles(
-    const void* mirror, int k_pad, void* ndk, int k_real, void* nk,
-    const void* z_old, void* z_new, const void* word, const void* doc,
-    const void* mask, const void* uniforms, long long n_tokens, int row_tile,
-    float alpha, float beta, float vbeta, int noise_mode,
-    unsigned long long seed, long long slot0, int phases, void* stream) {
+    const void* rows, int rows_int32, long long row_stride, int k_pad,
+    void* ndk, int k_real, void* nk, const void* z_old, void* z_new,
+    const void* word, const void* doc, const void* mask, const void* uniforms,
+    long long n_tokens, int row_tile, float alpha, float beta, float vbeta,
+    int noise_mode, unsigned long long seed, long long slot0, int phases,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (noise_mode < 0 || noise_mode > 2 || row_tile <= 0 || (k_pad & 3))
+  if (noise_mode < 0 || noise_mode > 2 || row_tile <= 0 ||
+      ((phases & 1) && ((k_pad & 3) || k_real > k_pad)))
     return static_cast<int>(cudaErrorInvalidValue);
   const uint32_t key0 = static_cast<uint32_t>(seed);
   const uint32_t key1 = static_cast<uint32_t>(seed >> 32);
-  const auto* mir = static_cast<const __nv_bfloat16*>(mirror);
   auto* ndk_i = static_cast<int*>(ndk);
   auto* nk_i = static_cast<int*>(nk);
   const auto* zo = static_cast<const int*>(z_old);
@@ -215,29 +242,46 @@ extern "C" int lda_gibbs_tiles(
     if (phases & 1) {
       const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
       const dim3 block(32 * kWarpsPerBlock);
-      if (noise_mode == 0) {
-        gibbs_tile_sample<0><<<grid, block, 0, s>>>(
-            mir, k_pad, ndk_i, k_real, nk_i, zo, zn, wd, dc, mk, un, t0, n,
-            alpha, beta, vbeta, key0, key1, slot0);
-      } else if (noise_mode == 1) {
-        gibbs_tile_sample<1><<<grid, block, 0, s>>>(
-            mir, k_pad, ndk_i, k_real, nk_i, zo, zn, wd, dc, mk, un, t0, n,
-            alpha, beta, vbeta, key0, key1, slot0);
-      } else {
-        gibbs_tile_sample<2><<<grid, block, 0, s>>>(
-            mir, k_pad, ndk_i, k_real, nk_i, zo, zn, wd, dc, mk, un, t0, n,
-            alpha, beta, vbeta, key0, key1, slot0);
-      }
-      const cudaError_t err = cudaGetLastError();
+      const cudaError_t err =
+          rows_int32
+              ? launch_sample(noise_mode, grid, block, s,
+                              static_cast<const int*>(rows), row_stride,
+                              k_pad, ndk_i, k_real, nk_i, zo, zn, wd, dc, mk,
+                              un, t0, n, alpha, beta, vbeta, key0, key1,
+                              slot0)
+              : launch_sample(noise_mode, grid, block, s,
+                              static_cast<const __nv_bfloat16*>(rows),
+                              row_stride, k_pad, ndk_i, k_real, nk_i, zo, zn,
+                              wd, dc, mk, un, t0, n, alpha, beta, vbeta, key0,
+                              key1, slot0);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     if (phases & 2) {
       gibbs_tile_update<<<(n + kUpdateThreads - 1) / kUpdateThreads,
-                          kUpdateThreads, 0, s>>>(ndk_i, k_real, nk_i, zo, zn,
-                                                  dc, mk, t0, n);
+                          kUpdateThreads, 0, s>>>(nullptr, ndk_i, nk_i,
+                                                  k_real, wd, dc, mk, zo, zn,
+                                                  t0, n);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch: move every unmasked token of [0, n_tokens) from z_old to z_new
+// in each of nwk (by word), ndk (by doc) and nk that is not null.
+extern "C" int lda_count_move(void* nwk, void* ndk, void* nk, int k_real,
+                              const void* word, const void* doc,
+                              const void* mask, const void* z_old,
+                              const void* z_new, long long n_tokens,
+                              void* stream) {
+  if (n_tokens <= 0) return static_cast<int>(cudaGetLastError());
+  const long long grid = (n_tokens + kUpdateThreads - 1) / kUpdateThreads;
+  gibbs_tile_update<<<static_cast<unsigned int>(grid), kUpdateThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(nwk), static_cast<int*>(ndk), static_cast<int*>(nk),
+      k_real, static_cast<const int*>(word), static_cast<const int*>(doc),
+      static_cast<const int*>(mask), static_cast<const int*>(z_old),
+      static_cast<const int*>(z_new), 0, n_tokens);
   return static_cast<int>(cudaGetLastError());
 }

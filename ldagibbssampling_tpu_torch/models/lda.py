@@ -1,21 +1,27 @@
 """High-level LDA model: the reference's driver flow on the PyTorch port.
 
-Counterpart of ``ldagibbssampling_tpu/models/lda.py`` for
-``sampler="blocked"`` in the deferred kernel tier.  Reference: ``LdaModel``
-+ ``LdaGibbsSampling.main`` (``src/liuyang/nlp/lda/main/``):
+Counterpart of ``ldagibbssampling_tpu/models/lda.py``.  Reference:
+``LdaModel`` + ``LdaGibbsSampling.main`` (``src/liuyang/nlp/lda/main/``):
 
     initialize (random topics, count tables)            initializeModel :~55
     sweep loop with periodic artifact saves             inferenceModel  :~100
     final artifact dump                                 saveIteratedModel :~190
 
-The model runs on ``cuda`` unless given ``device="cpu"`` (where the kernels'
-plain PyTorch versions run); with no CUDA it raises rather than carry on on
-the CPU.  Hyperparameter optimisation, checkpoints and the device
-log-likelihood are not ported yet and raise.
+``resolve_tier`` picks the kernel tier and block size that the reference
+``LdaModel`` and ``make_sweep_fn`` would run on a TPU for the same config
+and corpus (their layout and exactness rules, not their platform rule), and
+the model runs that tier: on ``cuda`` through its CUDA kernels, or with
+``device="cpu"`` through their plain PyTorch versions.  With no CUDA the
+default device raises rather than carry on on the CPU, and no kernel failure
+falls back to another tier.  ``sampler="serial"`` runs the host oracle
+(``models/oracle.py``).  Hyperparameter optimisation, checkpoints and the
+device log-likelihood are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 from pathlib import Path
 from typing import Any, Callable, Optional
 
@@ -26,8 +32,11 @@ from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus, PaddedCorpus
 from ldagibbssampling_tpu_torch.lda_io.artifacts import save_iterated_model
 from ldagibbssampling_tpu_torch.models import state as state_lib
-from ldagibbssampling_tpu_torch.ops.count_kernel import plan_deferred
-from ldagibbssampling_tpu_torch.ops.gibbs import _round_up, make_sweep_fn
+from ldagibbssampling_tpu_torch.models.oracle import OracleSampler
+from ldagibbssampling_tpu_torch.ops.count_kernel import DeferredPlan, plan_deferred
+from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn, sweep_tier, tier_name
+
+_log = logging.getLogger("ldagibbssampling_tpu_torch")
 
 
 def resolve_device(device: Any = "cuda") -> torch.device:
@@ -42,6 +51,65 @@ def resolve_device(device: Any = "cuda") -> torch.device:
     return dev
 
 
+@dataclasses.dataclass(frozen=True)
+class TierChoice:
+    """What ``resolve_tier`` chose for a config and corpus."""
+
+    kernel_tier: str        # "serial-oracle", "xla", "pallas-draw", "fused", "deferred"
+    use_pallas: Any         # the make_sweep_fn tier (None for the oracle)
+    block: Optional[int]    # tokens per block (None for the oracle)
+    plan: Optional[DeferredPlan]  # the deferred layout, when it was made
+    reason: Optional[str]   # why the tier differs from config.use_pallas
+
+
+def resolve_tier(config: LdaConfig, corpus: FlatCorpus) -> TierChoice:
+    """The tier and block the reference ``LdaModel`` + ``make_sweep_fn``
+    would run on a TPU (``ldagibbssampling_tpu/models/lda.py:43-112``):
+
+    - ``sampler="serial"`` runs the oracle;
+    - ``block = min(block_size, num_tokens)`` (at least 1);
+    - ``inverse_cdf`` turns the fused and deferred tiers into the XLA tier;
+    - a deferred layout that ``plan_deferred`` cannot make (no multiple-of-8
+      tile) turns the deferred tier into the fused tier;
+    - then ``ops/gibbs.sweep_tier``'s block, token-count and row-tile rules.
+
+    A pure function of the config and the corpus's shape and words."""
+    if config.sampler == "serial":
+        return TierChoice("serial-oracle", None, None, None, None)
+    block = max(1, min(config.block_size, max(1, corpus.num_tokens)))
+    use_pallas = config.use_pallas
+    reasons = []
+    if config.draw_method != "gumbel" and use_pallas in ("fused", "deferred"):
+        use_pallas = False
+        reasons.append(f"draw_method {config.draw_method!r} runs the XLA draw")
+    plan = None
+    if use_pallas == "deferred" and block >= 128:
+        try:
+            plan = plan_deferred(corpus.token_word, corpus.token_doc,
+                                 corpus.vocab_size, block)
+        except ValueError as e:  # e.g. no multiple-of-8 tile
+            use_pallas = "fused"
+            reasons.append(f"no deferred layout ({e})")
+    tier, _, why = sweep_tier(
+        use_pallas, draw_method=config.draw_method, block_size=block,
+        num_real_tokens=corpus.num_tokens, num_topics=config.topic_num)
+    if why is not None:
+        reasons.append(why)
+    return TierChoice(tier_name(tier, config.draw_method), tier, block, plan,
+                      "; ".join(reasons) or None)
+
+
+def _assert_recount(token_word, token_doc, z, ndk, nwk, nk) -> None:
+    """The count tables equal a serial recount of ``z`` (real tokens only)."""
+    ndk_ref = np.zeros(ndk.shape, np.int64)
+    nwk_ref = np.zeros(nwk.shape, np.int64)
+    np.add.at(ndk_ref, (token_doc, z), 1)
+    np.add.at(nwk_ref, (token_word, z), 1)
+    np.testing.assert_array_equal(ndk, ndk_ref)
+    np.testing.assert_array_equal(nwk, nwk_ref)
+    np.testing.assert_array_equal(nk, nwk_ref.sum(axis=0))
+
+
 class LdaModel:
     """Collapsed-Gibbs LDA over a flat corpus (single chain, single device)."""
 
@@ -53,50 +121,71 @@ class LdaModel:
         self.doc_lengths = corpus.doc_lengths()
         self.alpha = float(config.alpha)
         self.beta = float(config.beta)
-        # The deferred layout needs a multiple-of-8 block: a corpus shorter
-        # than config.block_size gets one block of its size rounded up to 8
-        # (the reference clamps to the exact token count and, when that has
-        # no multiple-of-8 tile, downgrades to another tier).
-        block = min(config.block_size, _round_up(max(1, corpus.num_tokens), 8))
-        if block < 128:
-            raise NotImplementedError(
-                f"a block of {block} tokens (< 128) runs the reference's XLA "
-                "sweep, which is not ported (ROADMAP Queue 1 item 7)")
+        choice = resolve_tier(config, corpus)
+        self.kernel_tier = choice.kernel_tier
+        log = _log.warning if choice.reason else _log.info
+        log("kernel tier %s, block %s (requested use_pallas=%r, sampler=%r)%s",
+            choice.kernel_tier, choice.block, config.use_pallas, config.sampler,
+            f": {choice.reason}" if choice.reason else "")
+        self._oracle: Optional[OracleSampler] = None
+        self._plan = choice.plan
+        self._perm: Optional[np.ndarray] = None
+        self._mirror: Optional[torch.Tensor] = None
+        if choice.kernel_tier == "serial-oracle":
+            self._oracle = OracleSampler(corpus, config.topic_num, config.alpha,
+                                         config.beta, seed=config.seed)
+            self.state = None
+            self._run_sweeps = None
+            return
+        block = choice.block
         self.block_size = block
-        # slot i of the sweep layout holds real token plan.perm[i] (-1 = pad)
-        self._plan = plan_deferred(corpus.token_word, corpus.token_doc,
-                                   corpus.vocab_size, block)
-        self._padded = PaddedCorpus(
-            token_word=self._plan.token_word,
-            token_doc=self._plan.token_doc,
-            token_mask=self._plan.token_mask,
-            num_real_tokens=corpus.num_tokens,
-            vocab_size=corpus.vocab_size,
-            num_docs=corpus.num_docs,
-        )
-        pc = self._padded
+        if self._plan is not None:
+            # slot i of the deferred layout holds real token plan.perm[i] (-1 = pad)
+            pc = PaddedCorpus(
+                token_word=self._plan.token_word,
+                token_doc=self._plan.token_doc,
+                token_mask=self._plan.token_mask,
+                num_real_tokens=corpus.num_tokens,
+                vocab_size=corpus.vocab_size,
+                num_docs=corpus.num_docs,
+            )
+        else:
+            pc = corpus.pad_to(block)
+            if config.sort_blocks and block > 1:
+                # within-block word sort: statistically free, and the
+                # reference's layout for these tiers
+                pc, self._perm = pc.sort_within_blocks(block)
+        self._padded = pc
         self.state = state_lib.init_state(
             pc.token_word, pc.token_doc, pc.token_mask,
             num_docs=pc.num_docs, vocab_size=pc.vocab_size,
             num_topics=config.topic_num, seed=config.seed, device=self.device,
         )
-        # per-sweep kernel seeds come from this generator (JAX: chain key)
+        # per-sweep seeds come from this generator (JAX: chain key)
         self.generator = torch.Generator().manual_seed(self.state.seed)
         self._run_sweeps = make_sweep_fn(
-            pc.token_word, pc.token_doc, pc.token_mask, alpha=config.alpha,
-            beta=config.beta, block_size=block, num_sweeps=1, use_pallas="deferred", num_topics=config.topic_num,
+            pc.token_word, pc.token_doc, pc.token_mask, self.doc_lengths,
+            alpha=config.alpha, beta=config.beta, block_size=block,
+            draw_method=config.draw_method, num_sweeps=1,
+            use_pallas=choice.use_pallas, num_topics=config.topic_num,
             deferred_plan=self._plan, device=self.device,
         )
-        self.kernel_tier = self._run_sweeps.kernel_tier
-        self._mirror: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
     def sweep(self, n: int = 1) -> None:
-        """``n`` sweeps, carrying the bf16 snapshot across calls: only the
-        first sweep casts it from ``nwk``."""
-        self.state, self._mirror = self._run_sweeps.with_mirror(
-            self.state, self.alpha, self.beta, self._mirror, n_sweeps=n,
-            generator=self.generator)
+        """``n`` sweeps.  The deferred tier carries its bf16 snapshot across
+        calls: only the first sweep casts it from ``nwk``."""
+        if self._oracle is not None:
+            self._oracle.sweep(n)
+            return
+        with_mirror = getattr(self._run_sweeps, "with_mirror", None)
+        if with_mirror is not None:
+            self.state, self._mirror = with_mirror(
+                self.state, self.alpha, self.beta, self._mirror, n_sweeps=n,
+                generator=self.generator)
+            return
+        self.state = self._run_sweeps(self.state, self.alpha, self.beta,
+                                      n_sweeps=n, generator=self.generator)
 
     def optimize_hyperparameters(self, iters: int = 5) -> tuple[float, float]:
         raise NotImplementedError(
@@ -104,42 +193,57 @@ class LdaModel:
 
     @property
     def sweeps_done(self) -> int:
+        if self._oracle is not None:
+            return self._oracle.sweep_idx
         return int(self.state.sweep)
 
     # ------------------------------------------------------------------
     def phi(self) -> np.ndarray:
+        if self._oracle is not None:
+            return self._oracle.phi()
         phi, _ = state_lib.phi_theta(
             self.state, self.doc_lengths, self.alpha, self.beta)
         return phi.cpu().numpy()
 
     def theta(self) -> np.ndarray:
+        if self._oracle is not None:
+            return self._oracle.theta()
         _, theta = state_lib.phi_theta(
             self.state, self.doc_lengths, self.alpha, self.beta)
         return theta.cpu().numpy()
 
     def z(self) -> np.ndarray:
         """Topic assignments of the real (unpadded) tokens, corpus order."""
+        if self._oracle is not None:
+            return self._oracle.z.copy()
         z = self.state.z.cpu().numpy()
-        valid = self._plan.perm >= 0
-        z_orig = np.empty(self.corpus.num_tokens, dtype=z.dtype)
-        z_orig[self._plan.perm[valid]] = z[valid]
-        return z_orig
+        if self._plan is not None:
+            valid = self._plan.perm >= 0
+            z_orig = np.empty(self.corpus.num_tokens, dtype=z.dtype)
+            z_orig[self._plan.perm[valid]] = z[valid]
+            return z_orig
+        if self._perm is not None:
+            # z lives in block-sorted order; map back to corpus order
+            z_orig = np.empty_like(z)
+            z_orig[self._perm] = z
+            z = z_orig
+        return z[: self.corpus.num_tokens]
 
     def check_counts_consistent(self) -> None:
         """Recompute all count tables serially from ``z`` and assert bitwise
-        equality with the device tables (the race-detection analog)."""
+        equality with the model's tables (the race-detection analog)."""
+        if self._oracle is not None:
+            o = self._oracle
+            _assert_recount(self.corpus.token_word, self.corpus.token_doc,
+                            o.z, o.ndk, o.nwk, o.nk)
+            return
         pc = self._padded
         mask = pc.token_mask.astype(bool)
-        z = self.state.z.cpu().numpy()
-        k = self.config.topic_num
-        ndk_ref = np.zeros((pc.num_docs, k), np.int64)
-        nwk_ref = np.zeros((pc.vocab_size, k), np.int64)
-        np.add.at(ndk_ref, (pc.token_doc[mask], z[mask]), 1)
-        np.add.at(nwk_ref, (pc.token_word[mask], z[mask]), 1)
-        np.testing.assert_array_equal(self.state.ndk.cpu().numpy(), ndk_ref)
-        np.testing.assert_array_equal(self.state.nwk.cpu().numpy(), nwk_ref)
-        np.testing.assert_array_equal(self.state.nk.cpu().numpy(),
-                                      nwk_ref.sum(axis=0))
+        _assert_recount(pc.token_word[mask], pc.token_doc[mask],
+                        self.state.z.cpu().numpy()[mask],
+                        self.state.ndk.cpu().numpy(),
+                        self.state.nwk.cpu().numpy(),
+                        self.state.nk.cpu().numpy())
 
     def device_log_likelihood(self) -> float:
         raise NotImplementedError(

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  On first use it compiles
 for Hopper (``sm_90a``) into ``_build/lib<name>-<digest>.so``; the digest
-covers the source and the flags, so an edited source builds anew and an
-unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source at
-once and waits for all of them.  A failed build raises; nothing falls back.
+covers the source, every ``csrc`` header it includes (``#include "x.cuh"``,
+followed into headers that include others) and the flags, so an edit to the
+source or to a header it shares builds anew and an unchanged one is reused.
+``build_all`` starts one ``nvcc`` per source at once and waits for all of
+them.  A failed build raises; nothing falls back.
 
 No ``--use_fast_math``: it would swap ``logf`` for ``__logf`` and ``1/x``
 for an approximation, which changes the draws against the plain versions.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +27,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_kernel", "count_kernel")
+SOURCES = ("fused_kernel", "count_kernel", "sample_kernel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,11 +51,27 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, in the
+    order first reached."""
+    files = [CSRC / f"{name}.cu"]
+    for path in files:  # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep not in files:
+                files.append(dep)
+    return files
+
+
 def _lib_path(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _inputs(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -1,26 +1,38 @@
-"""K1 of the deferred sweep: per-tile draw + doc/topic count update.
+"""K1 of the deferred and fused sweeps: per-tile draw + doc/topic count
+update, and the count move.
 
 Counterpart of ``ldagibbssampling_tpu/ops/pallas_gibbs.py`` (the fused block
-kernel ``_fused_kernel`` as the deferred tier calls it: ``emit_delta=False``,
-float32 chain).  The CUDA kernels are in ``csrc/fused_kernel.cu``:
+kernel ``_fused_kernel``, float32 chain) in both modes: the deferred tier
+(``emit_delta=False``) reads each token's row of a bf16 snapshot ``[v_pad,
+k_pad]`` of ``nwk``; the fused tier (``emit_delta=True``) reads the live
+int32 ``nwk [V, K]`` as it stood at the start of the block.  The CUDA
+kernels are in ``csrc/fused_kernel.cu``:
 
-- ``gibbs_tile_sample``: one warp per token reads the token's row of the
-  bf16 snapshot by word id, its doc row and ``nk``, and draws
+- ``gibbs_tile_sample``: one warp per token reads the token's row (snapshot
+  or live table) by word id, its doc row and ``nk``, and draws
   ``argmax p / E`` (the reference's exponential race);
 - ``gibbs_tile_update``: moves each unmasked token's count from ``z_old`` to
-  ``z_new`` in ``ndk`` and ``nk`` with integer atomics.
+  ``z_new`` with integer atomics: in ``ndk`` and ``nk`` after each tile of
+  K1's walk, and, as ``count_move``, in any of ``nwk``/``ndk``/``nk`` for a
+  whole block (the fused tier's word-topic moves, the v1 tier's three
+  tables).  The reference's dense ``[B, Kp]`` delta (``emit_delta=True``)
+  feeds only the word-topic scatter, so on the card it never leaves the
+  kernel; ``gibbs_tiles_plain(..., emit_delta=True)`` still returns it.
 
 ``ndk [M, K]`` and ``nk [K]`` are int32 and updated IN PLACE, indexed by the
 token's document: the reference's per-block ``[D_LOC, K]`` slab is a VMEM
 artefact, and since ``d0 + d_local == token_doc`` for every real token and
 tiles run in order, in-place updates give the same chain.  Counts become
-float32 only inside the score (exact below the 2^24 guard of
+float32 only inside the score (exact below the 2^24 guards of
 ``ops/gibbs.make_sweep_fn``).
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it; any other device raises, and so does a failed
-launch.  ``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the
-plain versions.
+launch.  ``LAUNCHES`` counts kernel launches (``gibbs_tile_sample`` reading
+the snapshot, ``gibbs_tile_sample_live`` reading the live table,
+``gibbs_tile_update`` the per-tile moves of a walk and ``count_move`` the
+one-launch moves, the same CUDA kernel), ``PLAIN_CALLS`` calls of the plain
+versions under the same names.
 """
 
 from __future__ import annotations
@@ -32,8 +44,9 @@ import torch
 import torch.nn.functional as F
 
 NOISE_MODES = ("deterministic", "external", "internal")
-LAUNCHES = {"gibbs_tile_sample": 0, "gibbs_tile_update": 0}
-PLAIN_CALLS = {"gibbs_tile_sample": 0, "gibbs_tile_update": 0}
+LAUNCHES = {"gibbs_tile_sample": 0, "gibbs_tile_sample_live": 0,
+            "gibbs_tile_update": 0, "count_move": 0}
+PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 _MASK32 = 0xFFFFFFFF
 
@@ -85,24 +98,37 @@ def philox_uniforms(seed: int, slot0: int, n: int, k_pad: int,
     return (bits & 0xFFFFFF).float() * 2.0**-24 + 2.0**-25
 
 
-def sample_plain(mirror, ndk, nk, z, token_word, token_doc, token_mask, *,
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def row_width(rows: torch.Tensor, num_topics: int) -> int:
+    """``k_pad`` of a walk: the bf16 snapshot's width, or ``K`` rounded up to
+    128 for the live int32 table (the reference pads its f32 table so)."""
+    if rows.dtype == torch.int32:
+        return _round_up(num_topics, 128)
+    return rows.shape[1]
+
+
+def sample_plain(rows, ndk, nk, z, token_word, token_doc, token_mask, *,
                  alpha, beta, vbeta, noise_mode, seed=0, uniforms=None,
                  slot0=0) -> torch.Tensor:
     """Draw every token against the given counts (no count update)."""
-    PLAIN_CALLS["gibbs_tile_sample"] += 1
+    live = rows.dtype == torch.int32
+    PLAIN_CALLS["gibbs_tile_sample_live" if live else "gibbs_tile_sample"] += 1
     k = ndk.shape[1]
-    n, k_pad = z.shape[0], mirror.shape[1]
+    n, k_pad = z.shape[0], row_width(rows, k)
     f32 = torch.float32
-    dev = mirror.device
+    dev = rows.device
     alpha, beta, vbeta = (torch.tensor(x, dtype=f32, device=dev)
                           for x in (alpha, beta, vbeta))
     cols = torch.arange(k_pad, device=dev)
     e = (cols[None, :] == z[:, None].long()).to(f32)
-    rows = mirror[token_word.long()].to(f32)
+    wrows = F.pad(rows[token_word.long()], (0, k_pad - rows.shape[1])).to(f32)
     drows = F.pad(ndk[token_doc.long()], (0, k_pad - k)).to(f32)
     r = approx_recip(F.pad(nk, (0, k_pad - k)).to(f32) + vbeta)
     rr = r * r
-    p = ((rows - e + beta) * (drows - e + alpha)) * (r + e * rr)
+    p = ((wrows - e + beta) * (drows - e + alpha)) * (r + e * rr)
     if noise_mode == "deterministic":
         score = p
     else:
@@ -114,30 +140,54 @@ def sample_plain(mirror, ndk, nk, z, token_word, token_doc, token_mask, *,
     return torch.where(token_mask > 0, znew, z)
 
 
-def update_plain(ndk, nk, z_old, z_new, token_doc, token_mask) -> None:
-    """-1 at (doc, z_old), +1 at (doc, z_new) in ``ndk`` and ``nk``, in place."""
-    PLAIN_CALLS["gibbs_tile_update"] += 1
+def _move_plain(z_old, z_new, token_mask, *, nwk=None, token_word=None,
+                ndk=None, token_doc=None, nk=None) -> None:
     real = token_mask > 0
-    d = token_doc[real].long()
     zo = z_old[real].long()
     zn = z_new[real].long()
-    one = torch.ones_like(d, dtype=ndk.dtype)
-    ndk.index_put_((d, zo), -one, accumulate=True)
-    ndk.index_put_((d, zn), one, accumulate=True)
-    nk.index_put_((zo,), -one, accumulate=True)
-    nk.index_put_((zn,), one, accumulate=True)
+    one = torch.ones_like(zo, dtype=torch.int32)
+    for table, ids in ((nwk, token_word), (ndk, token_doc), (nk, None)):
+        if table is None:
+            continue
+        idx = () if ids is None else (ids[real].long(),)
+        table.index_put_((*idx, zo), -one, accumulate=True)
+        table.index_put_((*idx, zn), one, accumulate=True)
 
 
-def gibbs_tiles_plain(mirror, ndk, nk, z, token_word, token_doc, token_mask,
+def count_move_plain(z_old, z_new, token_mask, **tables) -> None:
+    """-1 at ``z_old``, +1 at ``z_new`` for every unmasked token, in place,
+    in each given table: ``nwk`` by ``token_word``, ``ndk`` by
+    ``token_doc``, ``nk``."""
+    PLAIN_CALLS["count_move"] += 1
+    _move_plain(z_old, z_new, token_mask, **tables)
+
+
+def update_plain(ndk, nk, z_old, z_new, token_doc, token_mask) -> None:
+    """One tile's move of ``ndk``/``nk``, in place (K1's walk)."""
+    PLAIN_CALLS["gibbs_tile_update"] += 1
+    _move_plain(z_old, z_new, token_mask, ndk=ndk, token_doc=token_doc, nk=nk)
+
+
+def dense_delta(z_old, z_new, token_mask, k_pad: int) -> torch.Tensor:
+    """The reference kernel's ``delta`` output ``[n, k_pad]`` float32:
+    one-hot(z_new) - one-hot(z_old) on unmasked tokens, 0 on masked ones."""
+    cols = torch.arange(k_pad, device=z_old.device)
+    m = (token_mask > 0).to(torch.float32)[:, None]
+    return ((cols == z_new[:, None].long()).float() * m
+            - (cols == z_old[:, None].long()).float() * m)
+
+
+def gibbs_tiles_plain(rows, ndk, nk, z, token_word, token_doc, token_mask,
                       *, alpha, beta, vbeta, row_tile, noise_mode="internal",
-                      seed=0, uniforms=None, slot0=0) -> torch.Tensor:
+                      seed=0, uniforms=None, slot0=0, emit_delta=False):
     """The plain version of ``gibbs_tiles``: per tile, ``sample_plain`` then
-    ``update_plain`` (on whatever device the tensors are)."""
+    ``update_plain`` (on whatever device the tensors are).  With
+    ``emit_delta`` it returns ``(z_new, dense_delta)``."""
     parts = []
     for s in range(0, z.shape[0], row_tile):
         sl = slice(s, s + row_tile)
         zt = sample_plain(
-            mirror, ndk, nk, z[sl], token_word[sl], token_doc[sl],
+            rows, ndk, nk, z[sl], token_word[sl], token_doc[sl],
             token_mask[sl], alpha=alpha, beta=beta, vbeta=vbeta,
             noise_mode=noise_mode, seed=seed,
             uniforms=None if uniforms is None else uniforms[sl],
@@ -145,7 +195,11 @@ def gibbs_tiles_plain(mirror, ndk, nk, z, token_word, token_doc, token_mask,
         )
         update_plain(ndk, nk, z[sl], zt, token_doc[sl], token_mask[sl])
         parts.append(zt)
-    return torch.cat(parts) if parts else z.clone()
+    z_new = torch.cat(parts) if parts else z.clone()
+    if emit_delta:
+        return z_new, dense_delta(z, z_new, token_mask,
+                                  row_width(rows, ndk.shape[1]))
+    return z_new
 
 
 # ---------------------------------------------------------------------------
@@ -180,13 +234,17 @@ def _check_counts(ndk, nk, z, token_doc, token_mask, extra=()) -> None:
             raise ValueError(f"{name} has {t.shape[0]} tokens, z has {n}")
 
 
-def _check(mirror, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
+def _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
            uniforms):
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
-    extra = [("mirror", mirror, torch.bfloat16, 2),
+    if rows.dtype not in (torch.bfloat16, torch.int32):
+        raise ValueError(
+            f"rows: want the bfloat16 snapshot or the int32 table, got {rows.dtype}")
+    k = ndk.shape[1]
+    k_pad = row_width(rows, k)
+    extra = [("rows", rows, rows.dtype, 2),
              ("token_word", token_word, torch.int32, 1)]
-    k_pad = mirror.shape[1]
     if noise_mode == "external":
         if uniforms is None:
             raise ValueError("noise_mode='external' requires uniforms")
@@ -195,9 +253,10 @@ def _check(mirror, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
             raise ValueError(
                 f"uniforms {tuple(uniforms.shape)} != {(z.shape[0], k_pad)}")
     _check_counts(ndk, nk, z, token_doc, token_mask, extra)
-    if k_pad % 128 or ndk.shape[1] > k_pad:
-        raise ValueError(
-            f"k_pad {k_pad} must be a multiple of 128 holding K={ndk.shape[1]}")
+    if rows.dtype == torch.int32 and rows.shape[1] != k:
+        raise ValueError(f"the int32 table has {rows.shape[1]} topics, ndk {k}")
+    if k_pad % 128 or k > k_pad:
+        raise ValueError(f"k_pad {k_pad} must be a multiple of 128 holding K={k}")
 
 
 def _lib():
@@ -207,27 +266,32 @@ def _lib():
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.lda_gibbs_tiles.restype = i32
     lib.lda_gibbs_tiles.argtypes = [
-        vp, i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32,
+        vp, i32, i64, i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32,
         f32, f32, f32, i32, ctypes.c_ulonglong, i64, i32, vp]
+    lib.lda_count_move.restype = i32
+    lib.lda_count_move.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, vp]
     return _build, lib
 
 
-def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, mirror=None,
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows=None,
             token_word=None, uniforms=None, row_tile, alpha=0.0, beta=0.0,
             vbeta=0.0, noise_mode="deterministic", seed=0, slot0=0,
             phases) -> None:
     """One host call that launches the tiles' kernels (``phases``: 1 draw,
     2 count move, 3 both per tile); the phases' unused tensors may be None."""
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     build, lib = _lib()
+    live = rows is not None and rows.dtype == torch.int32
     with torch.cuda.device(ndk.device):
         err = lib.lda_gibbs_tiles(
-            ptr(mirror), 0 if mirror is None else mirror.shape[1], ptr(ndk),
-            ndk.shape[1], ptr(nk), ptr(z), ptr(z_new), ptr(token_word),
-            ptr(token_doc), ptr(token_mask),
-            ptr(uniforms) if noise_mode == "external" else None,
+            _ptr(rows), int(live), 0 if rows is None else rows.shape[1],
+            0 if rows is None else row_width(rows, ndk.shape[1]), _ptr(ndk),
+            ndk.shape[1], _ptr(nk), _ptr(z), _ptr(z_new), _ptr(token_word),
+            _ptr(token_doc), _ptr(token_mask),
+            _ptr(uniforms) if noise_mode == "external" else None,
             z.shape[0], row_tile, alpha, beta, vbeta,
             NOISE_MODES.index(noise_mode), seed & (2**64 - 1), slot0,
             phases, torch.cuda.current_stream().cuda_stream,
@@ -235,13 +299,13 @@ def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, mirror=None,
     build.check(lib, err, "lda_gibbs_tiles")
     n_tiles = -(-z.shape[0] // row_tile)
     if phases & 1:
-        LAUNCHES["gibbs_tile_sample"] += n_tiles
+        LAUNCHES["gibbs_tile_sample_live" if live else "gibbs_tile_sample"] += n_tiles
     if phases & 2:
         LAUNCHES["gibbs_tile_update"] += n_tiles
 
 
 def gibbs_tiles(
-    mirror: torch.Tensor,       # [v_pad, k_pad] bf16 — sweep-stale snapshot of nwk
+    rows: torch.Tensor,         # [v_pad, k_pad] bf16 snapshot, or [V, K] int32 nwk
     ndk: torch.Tensor,          # [M, K] int32 — updated in place
     nk: torch.Tensor,           # [K] int32 — updated in place
     z: torch.Tensor,            # [n] int32 — assignments before the walk
@@ -259,42 +323,43 @@ def gibbs_tiles(
     slot0: int = 0,
 ) -> torch.Tensor:
     """Walk the tokens in tiles of ``row_tile``, in order: draw each tile,
-    then move its counts, before the next tile draws.  Returns ``z_new``.
+    then move its ``ndk``/``nk`` counts, before the next tile draws.
+    Returns ``z_new``; ``rows`` is only read.
 
     ``slot0`` is the stream position of token 0 (the internal noise
     counter), so a walk over a slice draws what the whole walk would.
     """
-    _check(mirror, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
+    _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
            uniforms)
     if row_tile <= 0:
         raise ValueError(f"row_tile {row_tile} must be positive")
-    if mirror.device.type == "cuda":
+    if rows.device.type == "cuda":
         z_new = torch.empty_like(z)
-        _launch(ndk, nk, z, z_new, token_doc, token_mask, mirror=mirror,
+        _launch(ndk, nk, z, z_new, token_doc, token_mask, rows=rows,
                 token_word=token_word, uniforms=uniforms, row_tile=row_tile,
                 alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
                 seed=seed, slot0=slot0, phases=3)
         return z_new
     return gibbs_tiles_plain(
-        mirror, ndk, nk, z, token_word, token_doc, token_mask, alpha=alpha,
+        rows, ndk, nk, z, token_word, token_doc, token_mask, alpha=alpha,
         beta=beta, vbeta=vbeta, row_tile=row_tile, noise_mode=noise_mode,
         seed=seed, uniforms=uniforms, slot0=slot0)
 
 
-def gibbs_tile_sample(mirror, ndk, nk, z, token_word, token_doc, token_mask,
+def gibbs_tile_sample(rows, ndk, nk, z, token_word, token_doc, token_mask,
                       *, alpha, beta, vbeta, row_tile, noise_mode="internal",
                       seed=0, uniforms=None, slot0=0) -> torch.Tensor:
     """The draw alone: every token against the given counts, launched in
     tiles of ``row_tile``; returns ``z_new`` and moves no count."""
-    _check(mirror, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
+    _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
            uniforms)
-    if mirror.device.type == "cpu":
+    if rows.device.type == "cpu":
         return sample_plain(
-            mirror, ndk, nk, z, token_word, token_doc, token_mask,
+            rows, ndk, nk, z, token_word, token_doc, token_mask,
             alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
             seed=seed, uniforms=uniforms, slot0=slot0)
     z_new = torch.empty_like(z)
-    _launch(ndk, nk, z, z_new, token_doc, token_mask, mirror=mirror,
+    _launch(ndk, nk, z, z_new, token_doc, token_mask, rows=rows,
             token_word=token_word, uniforms=uniforms, row_tile=row_tile,
             alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
             seed=seed, slot0=slot0, phases=1)
@@ -303,8 +368,8 @@ def gibbs_tile_sample(mirror, ndk, nk, z, token_word, token_doc, token_mask,
 
 def gibbs_tile_update(ndk, nk, z_old, z_new, token_doc, token_mask, *,
                       row_tile) -> None:
-    """The count move alone: -1 at (doc, z_old), +1 at (doc, z_new) in
-    ``ndk``/``nk`` (in place) for every unmasked token, in tiles of
+    """The per-tile count move alone: -1 at (doc, z_old), +1 at (doc, z_new)
+    in ``ndk``/``nk`` (in place) for every unmasked token, in tiles of
     ``row_tile``."""
     _check_counts(ndk, nk, z_old, token_doc, token_mask,
                   [("z_new", z_new, torch.int32, 1)])
@@ -313,3 +378,49 @@ def gibbs_tile_update(ndk, nk, z_old, z_new, token_doc, token_mask, *,
         return
     _launch(ndk, nk, z_old, z_new, token_doc, token_mask, row_tile=row_tile,
             phases=2)
+
+
+def count_move(z_old: torch.Tensor, z_new: torch.Tensor,
+               token_mask: torch.Tensor, *, nwk=None, token_word=None,
+               ndk=None, token_doc=None, nk=None) -> None:
+    """One launch: -1 at ``z_old``, +1 at ``z_new`` for every unmasked token,
+    in place, in each given table (``nwk [V, K]`` by ``token_word``,
+    ``ndk [M, K]`` by ``token_doc``, ``nk [K]``).  Integer atomics: exact in
+    any order."""
+    dev, n = z_old.device, z_old.shape[0]
+    expect = [("z_old", z_old, torch.int32, 1), ("z_new", z_new, torch.int32, 1),
+              ("token_mask", token_mask, torch.int32, 1)]
+    given = []
+    for name, table, ids_name, ids in (("nwk", nwk, "token_word", token_word),
+                                       ("ndk", ndk, "token_doc", token_doc),
+                                       ("nk", nk, None, None)):
+        if table is None:
+            continue
+        given.append(table)
+        expect.append((name, table, torch.int32, 1 if ids_name is None else 2))
+        if ids_name is not None:
+            if ids is None:
+                raise ValueError(f"{name} needs {ids_name}")
+            expect.append((ids_name, ids, torch.int32, 1))
+    if not given:
+        raise ValueError("count_move needs at least one table")
+    _check_tensors(dev, expect)
+    k = given[0].shape[-1]
+    if any(t.shape[-1] != k for t in given):
+        raise ValueError("the tables disagree on the number of topics")
+    for name, t, _, ndim in expect:
+        if ndim == 1 and name != "nk" and t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} tokens, z_old has {n}")
+    if dev.type == "cpu":
+        count_move_plain(z_old, z_new, token_mask, nwk=nwk,
+                         token_word=token_word, ndk=ndk, token_doc=token_doc,
+                         nk=nk)
+        return
+    build, lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.lda_count_move(
+            _ptr(nwk), _ptr(ndk), _ptr(nk), k, _ptr(token_word),
+            _ptr(token_doc), _ptr(token_mask), _ptr(z_old), _ptr(z_new), n,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "lda_count_move")
+    LAUNCHES["count_move"] += 1

@@ -1,0 +1,130 @@
+"""K3 of the v1-draw sweep: the log-space Gumbel draw of one block.
+
+Counterpart of ``ldagibbssampling_tpu/ops/pallas_gibbs.py`` (``_sample_kernel``
+through ``pallas_sample_block``), which the XLA sweep calls per block when
+``use_pallas=True``.  The CUDA kernel ``gibbs_block_sample`` is in
+``csrc/sample_kernel.cu``: one warp per token reads the token's ``nwk`` row by
+word id and its ``ndk`` row by doc id straight from the int32 tables (the
+reference takes pre-gathered ``[B, K]`` float32 copies) and draws
+
+    argmax_k  log(nwk - e + β) + log(ndk - e + α) - log(nk - e + Vβ) - log(-log u)
+
+with the self-exclusion ``e = (k == z_old)`` unmasked, as the reference has
+it.  No count moves: the whole block draws against the block-start counts,
+so a block is one launch.  Noise modes: ``deterministic`` (no noise),
+``external`` (caller uniforms ``[n, K]``) and ``internal`` (Philox4x32-10
+keyed per sweep, counter (token slot, topic group of 4): the bits of
+``ops/fused_kernel.philox_uniforms``).
+
+``sample_block`` takes a CUDA tensor to the kernel and a CPU tensor to the
+plain PyTorch version ``sample_block_plain``; any other device raises, and so
+does a failed launch.  ``LAUNCHES`` counts launches, ``PLAIN_CALLS`` calls of
+the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ldagibbssampling_tpu_torch.ops.fused_kernel import (
+    NOISE_MODES, _check_tensors, philox_uniforms)
+
+LAUNCHES = {"gibbs_block_sample": 0}
+PLAIN_CALLS = {"gibbs_block_sample": 0}
+
+
+def sample_block_plain(nwk, ndk, nk, z_old, token_word, token_doc, *, alpha,
+                       beta, vbeta, noise_mode, seed=0, uniforms=None,
+                       slot0=0) -> torch.Tensor:
+    """The plain version of ``sample_block``, in the kernel's operation order."""
+    PLAIN_CALLS["gibbs_block_sample"] += 1
+    f32 = torch.float32
+    n, k = z_old.shape[0], nk.shape[0]
+    dev = nwk.device
+    alpha, beta, vbeta = (torch.tensor(x, dtype=f32, device=dev)
+                          for x in (alpha, beta, vbeta))
+    e = (torch.arange(k, device=dev)[None, :] == z_old[:, None].long()).to(f32)
+    score = (torch.log(nwk[token_word.long()].to(f32) - e + beta)
+             + torch.log(ndk[token_doc.long()].to(f32) - e + alpha)) \
+        - torch.log(nk.to(f32)[None, :] - e + vbeta)
+    if noise_mode != "deterministic":
+        if noise_mode == "internal":
+            k4 = -(-k // 4) * 4
+            uniforms = philox_uniforms(seed, slot0, n, k4, dev)[:, :k]
+        score = score + (-torch.log(-torch.log(uniforms)))
+    return score.argmax(dim=1).to(torch.int32)  # first index of the maximum
+
+
+def _lib():
+    from ldagibbssampling_tpu_torch.ops import _build
+
+    lib = _build.load("sample_kernel")
+    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.lda_block_sample.restype = i32
+    lib.lda_block_sample.argtypes = [
+        vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, f32, f32, f32, i32,
+        ctypes.c_ulonglong, i64, vp]
+    return _build, lib
+
+
+def sample_block(
+    nwk: torch.Tensor,          # [V, K] int32 — block-start word-topic counts
+    ndk: torch.Tensor,          # [M, K] int32 — block-start doc-topic counts
+    nk: torch.Tensor,           # [K] int32 — block-start topic totals
+    z_old: torch.Tensor,        # [n] int32
+    token_word: torch.Tensor,   # [n] int32
+    token_doc: torch.Tensor,    # [n] int32
+    *,
+    alpha: float,
+    beta: float,
+    vbeta: float,
+    noise_mode: str = "internal",
+    seed: int = 0,
+    uniforms: Optional[torch.Tensor] = None,  # [n, K] f32 (external)
+    slot0: int = 0,
+) -> torch.Tensor:
+    """Draw every token against the given counts; returns ``z_new [n]``
+    int32 (masked tokens too: the caller keeps their ``z_old``).
+
+    ``slot0`` is the stream position of token 0 (the internal noise
+    counter)."""
+    if noise_mode not in NOISE_MODES:
+        raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    n, k = z_old.shape[0], nk.shape[0]
+    expect = [("nwk", nwk, torch.int32, 2), ("ndk", ndk, torch.int32, 2),
+              ("nk", nk, torch.int32, 1), ("z_old", z_old, torch.int32, 1),
+              ("token_word", token_word, torch.int32, 1),
+              ("token_doc", token_doc, torch.int32, 1)]
+    if noise_mode == "external":
+        if uniforms is None:
+            raise ValueError("noise_mode='external' requires uniforms")
+        expect.append(("uniforms", uniforms, torch.float32, 2))
+        if tuple(uniforms.shape) != (n, k):
+            raise ValueError(f"uniforms {tuple(uniforms.shape)} != {(n, k)}")
+    _check_tensors(nwk.device, expect)
+    if nwk.shape[1] != k or ndk.shape[1] != k:
+        raise ValueError(
+            f"topics: nwk {nwk.shape[1]}, ndk {ndk.shape[1]}, nk {k}")
+    if token_word.shape[0] != n or token_doc.shape[0] != n:
+        raise ValueError(f"token ids {token_word.shape[0]}/{token_doc.shape[0]}"
+                         f" != z_old {n}")
+    if nwk.device.type == "cpu":
+        return sample_block_plain(
+            nwk, ndk, nk, z_old, token_word, token_doc, alpha=alpha, beta=beta,
+            vbeta=vbeta, noise_mode=noise_mode, seed=seed, uniforms=uniforms,
+            slot0=slot0)
+    build, lib = _lib()
+    z_new = torch.empty_like(z_old)
+    with torch.cuda.device(nwk.device):
+        err = lib.lda_block_sample(
+            nwk.data_ptr(), ndk.data_ptr(), nk.data_ptr(), k, z_old.data_ptr(),
+            z_new.data_ptr(), token_word.data_ptr(), token_doc.data_ptr(),
+            uniforms.data_ptr() if noise_mode == "external" else None, n,
+            alpha, beta, vbeta, NOISE_MODES.index(noise_mode),
+            seed & (2**64 - 1), slot0, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "lda_block_sample")
+    LAUNCHES["gibbs_block_sample"] += 1
+    return z_new

@@ -16,6 +16,10 @@ import jax.numpy as jnp
 from ldagibbssampling_tpu.ops import count_kernel as jax_ck
 from ldagibbssampling_tpu_torch.ops import count_kernel as ck
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's default of one thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 K = 7
 V = 300
 

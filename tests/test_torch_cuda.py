@@ -6,7 +6,8 @@ one (and without jax, hence ``--noconftest``):
 
 Tolerances: none.  On the card both sides run the same float32 operations
 in the same order with the same libdevice ``logf``, so z and every count
-must be equal in all three noise modes.
+must be equal in all three noise modes (K3: on the unmasked tokens, whose
+draws the sweep keeps).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ldagibbssampling_tpu_torch.models.lda import LdaModel
 from ldagibbssampling_tpu_torch.models.state import init_state
 from ldagibbssampling_tpu_torch.ops import count_kernel as ck
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +67,63 @@ def test_k1_walk_equals_plain(cuda, mode):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("mode", ["deterministic", "external", "internal"])
+def test_k1_live_table_walk_and_move_equal_plain(cuda, mode):
+    plan, st, (tw, td, tm) = _setup(cuda, seed=3)
+    uniforms = torch.rand((tw.shape[0], 128), device=cuda) * 0.999 + 5e-4
+    out = []
+    for walk, move in ((fk.gibbs_tiles, fk.count_move),
+                       (fk.gibbs_tiles_plain, fk.count_move_plain)):
+        nwk, ndk, nk = st.nwk.clone(), st.ndk.clone(), st.nk.clone()
+        z = walk(nwk, ndk, nk, st.z, tw, td, tm, row_tile=256,
+                 noise_mode=mode, seed=78, uniforms=uniforms, **HYPER)
+        move(st.z, z, tm, nwk=nwk, token_word=tw)
+        out.append((z, nwk, ndk, nk))
+    torch.cuda.synchronize()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "external", "internal"])
+def test_k3_equals_plain(cuda, mode):
+    plan, st, (tw, td, tm) = _setup(cuda, seed=4)
+    uniforms = torch.rand((tw.shape[0], K), device=cuda) * 0.999 + 5e-4
+    z = [f(st.nwk, st.ndk, st.nk, st.z, tw, td, noise_mode=mode, seed=79,
+           uniforms=uniforms, slot0=5, **HYPER)
+         for f in (sk.sample_block, sk.sample_block_plain)]
+    torch.cuda.synchronize()
+    real = tm > 0
+    assert torch.equal(z[0][real], z[1][real])
+
+
+def test_tile_update_alone_equals_plain(cuda):
+    plan, st, (tw, td, tm) = _setup(cuda, seed=6)
+    z_new = torch.randint(0, K, st.z.shape, device=cuda, dtype=torch.int32)
+    out = []
+    for kernel in (True, False):
+        ndk, nk = st.ndk.clone(), st.nk.clone()
+        if kernel:
+            fk.gibbs_tile_update(ndk, nk, st.z, z_new, td, tm, row_tile=256)
+        else:
+            fk.update_plain(ndk, nk, st.z, z_new, td, tm)
+        out.append((ndk, nk))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+def test_count_move_equals_plain(cuda):
+    plan, st, (tw, td, tm) = _setup(cuda, seed=5)
+    z_new = torch.randint(0, K, st.z.shape, device=cuda, dtype=torch.int32)
+    out = []
+    for move in (fk.count_move, fk.count_move_plain):
+        t = dict(nwk=st.nwk.clone(), ndk=st.ndk.clone(), nk=st.nk.clone())
+        move(st.z, z_new, tm, token_word=tw, token_doc=td, **t)
+        out.append(t)
+    torch.cuda.synchronize()
+    for name in ("nwk", "ndk", "nk"):
+        assert torch.equal(out[0][name], out[1][name]), name
+
+
 def test_k2_equals_plain(cuda):
     plan, st, (tw, _, tm) = _setup(cuda, seed=1)
     nwk, nk = ck.rebuild_counts(st.z, tw, tm, v_pad=plan.v_pad, k_pad=128)
@@ -73,24 +132,32 @@ def test_k2_equals_plain(cuda):
     assert torch.equal(ck.cast_mirror(nwk), ck.cast_mirror_plain(nwk))
 
 
-def test_model_on_card_counts_consistent(cuda):
+@pytest.mark.parametrize("use_pallas,tier,kernel", [
+    ("deferred", "deferred", "gibbs_tile_sample"),
+    ("fused", "fused", "gibbs_tile_sample_live"),
+    (True, "pallas-draw", "gibbs_block_sample"),
+    (False, "xla", None),
+])
+def test_model_on_card_counts_consistent(cuda, use_pallas, tier, kernel):
     rng = np.random.default_rng(2)
     ragged = [[int(x) for x in rng.integers(0, 80, size=60)] for _ in range(30)]
     fc = FlatCorpus.from_ragged(ragged, vocab_size=80)
-    launches = dict(fk.LAUNCHES)
-    model = LdaModel(LdaConfig(topic_num=9, block_size=512), fc)
-    assert model.state.z.is_cuda
+    launches = {**fk.LAUNCHES, **sk.LAUNCHES}
+    model = LdaModel(LdaConfig(topic_num=9, block_size=512,
+                               use_pallas=use_pallas), fc)
+    assert model.state.z.is_cuda and model.kernel_tier == tier
     model.sweep(4)
     model.check_counts_consistent()
-    assert fk.LAUNCHES["gibbs_tile_sample"] > launches["gibbs_tile_sample"]
+    if kernel is not None:
+        assert {**fk.LAUNCHES, **sk.LAUNCHES}[kernel] > launches[kernel]
 
 
 def test_failed_launch_raises(cuda):
     # the C entry point refuses an unknown noise mode with cudaErrorInvalidValue
     build, lib = fk._lib()
-    err = lib.lda_gibbs_tiles(None, 128, None, K, None, None, None, None, None,
-                              None, None, 0, 256, 0.5, 0.1, 1.0, 7, 0, 0, 3,
-                              None)
+    err = lib.lda_gibbs_tiles(None, 0, 128, 128, None, K, None, None, None,
+                              None, None, None, None, 0, 256, 0.5, 0.1, 1.0, 7,
+                              0, 0, 3, None)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib, err, "lda_gibbs_tiles")

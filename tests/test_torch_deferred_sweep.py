@@ -26,6 +26,10 @@ from ldagibbssampling_tpu_torch import interop
 from ldagibbssampling_tpu_torch.ops import count_kernel as ck
 from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's default of one thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 K = 7
 V = 300
 
@@ -82,7 +86,7 @@ def test_sweeps_match_reference(seed, block, t_target, sweeps):
 
     st = interop.from_jax_state(
         {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
-    out = _port_run(plan, "external", sweeps)(st, uniforms=uniforms)
+    out = _port_run(plan, "external", sweeps)(st, noise=uniforms)
     assert out.sweep == sweeps == int(ref.sweep)
     z = out.z.numpy()
     ndk, nwk = _recount(plan, z, dl.shape[0])
@@ -144,10 +148,13 @@ def test_seeded_determinism():
 
 def test_guards_and_unported_tiers_raise():
     plan, dl, _ = _setup(6, 512)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown kernel tier"):
         make_sweep_fn(plan.token_word, plan.token_doc, plan.token_mask,
-                      alpha=0.5, beta=0.1, block_size=512, use_pallas="fused",
+                      alpha=0.5, beta=0.1, block_size=512, use_pallas="v4",
                       deferred_plan=plan)
+    with pytest.raises(ValueError, match="deferred_plan"):
+        make_sweep_fn(plan.token_word, plan.token_doc, plan.token_mask,
+                      alpha=0.5, beta=0.1, block_size=512)
     object.__setattr__(plan, "max_word_freq", 1 << 24)
     with pytest.raises(ValueError, match="word frequency"):
         _port_run(plan)

@@ -1,5 +1,7 @@
-"""K1's plain version against the reference kernel in Pallas interpret mode
-(``pallas_fused_block(..., emit_delta=False, interpret=True)``, bf16 rows).
+"""K1's plain version against the reference kernel in Pallas interpret mode:
+``pallas_fused_block(..., emit_delta=False, interpret=True)`` with bf16 rows
+(the deferred tier's snapshot), and ``emit_delta=True`` with float32 rows
+(the fused tier's live table, including the dense ``delta``).
 
 Tolerances: ``deterministic`` mode is exact (z, doc slab and topic totals
 equal): every step is an IEEE float32 add/multiply or a bf16 rounding, done
@@ -18,6 +20,10 @@ import jax
 import jax.numpy as jnp
 from ldagibbssampling_tpu.ops.pallas_gibbs import pallas_fused_block
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's default of one thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 K = 7
 V = 64
@@ -247,3 +253,105 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="noise_mode"):
         fk.gibbs_tiles(mirror, ndk, nk_t, torch.from_numpy(zold), *toks,
                        noise_mode="gumbel", **good)
+
+
+def _live_port(rows, slab, nk, zold, d_local, msk, noise_mode, noise=None,
+               row_tile=64, seed=0):
+    """The block through the port's live-table walk: the gathered rows ARE
+    the int32 table (token i reads row i); returns the plain walk's dense
+    delta too."""
+    b = rows.shape[0]
+    nwk = torch.from_numpy(rows[:, :K].astype(np.int32))
+    ndk = torch.from_numpy(slab[:, :K].astype(np.int32))
+    nk_t = torch.from_numpy(nk[0, :K].astype(np.int32))
+    znew, delta = fk.gibbs_tiles_plain(
+        nwk, ndk, nk_t, torch.from_numpy(zold),
+        torch.arange(b, dtype=torch.int32), torch.from_numpy(d_local),
+        torch.from_numpy(msk), alpha=ALPHA, beta=BETA, vbeta=VBETA,
+        row_tile=row_tile, noise_mode=noise_mode, seed=seed,
+        uniforms=None if noise is None else torch.from_numpy(noise),
+        emit_delta=True)
+    assert torch.equal(nwk, torch.from_numpy(rows[:, :K].astype(np.int32)))
+    return znew.numpy(), delta.numpy(), ndk.numpy(), nk_t.numpy()
+
+
+@pytest.mark.parametrize("noise_mode,seed,big", [
+    ("deterministic", 11, False), ("deterministic", 12, True),
+    ("external", 13, False), ("external", 14, True),
+])
+def test_live_table_walk_matches_reference_emit_delta(noise_mode, seed, big):
+    # fused tier: float32 rows (no bf16 snapshot rounding: counts up to 3,000
+    # stay exact), and the reference's dense delta
+    _, slab, nk, zold, d_local, msk = _inputs(seed, big=big)
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((128, 128), np.float32)
+    rows[:, :K] = rng.integers(0, 3000 if big else 50, (128, K))
+    rows[np.arange(128), zold] += 1
+    noise = None
+    if noise_mode == "external":
+        noise = rng.uniform(1e-7, 1 - 1e-7, (128, 128)).astype(np.float32)
+    znew, delta, slab_out, nk_out = pallas_fused_block(
+        jnp.asarray(rows), jnp.asarray(slab), jnp.asarray(nk),
+        jnp.asarray(zold), jnp.asarray(d_local), jnp.asarray(msk),
+        jnp.int32(3), None if noise is None else jnp.asarray(noise),
+        alpha=ALPHA, beta=BETA, vbeta=VBETA, k_real=K, noise_mode=noise_mode,
+        interpret=True, row_tile=64, emit_delta=True)
+    z, d, ndk, nk_p = _live_port(rows, slab, nk, zold, d_local, msk,
+                                 noise_mode, noise)
+    np.testing.assert_array_equal(z, np.asarray(znew))
+    np.testing.assert_array_equal(d, np.asarray(delta))
+    np.testing.assert_array_equal(ndk, np.asarray(slab_out)[:, :K].astype(np.int32))
+    np.testing.assert_array_equal(nk_p, np.asarray(nk_out)[0, :K].astype(np.int32))
+    assert (z != zold).any()
+
+
+def test_live_table_kernel_path_equals_plain_walk():
+    # the wrapper's CPU path on the int32 table is the plain walk, and the
+    # count move of its draws is the word-topic scatter of the dense delta
+    rows, slab, nk, zold, d_local, msk = _inputs(15)
+    nwk = torch.from_numpy(rows[:, :K].astype(np.int32))
+    ndk = torch.from_numpy(slab[:, :K].astype(np.int32))
+    nk_t = torch.from_numpy(nk[0, :K].astype(np.int32))
+    words = torch.from_numpy(np.random.default_rng(0).integers(0, 128, 128)
+                             .astype(np.int32))
+    z_old, d_t, m_t = (torch.from_numpy(a) for a in (zold, d_local, msk))
+    z_new = fk.gibbs_tiles(nwk, ndk, nk_t, z_old, words, d_t, m_t, alpha=ALPHA,
+                           beta=BETA, vbeta=VBETA, row_tile=32,
+                           noise_mode="internal", seed=4)
+    z_p, delta = fk.gibbs_tiles_plain(
+        nwk, ndk.clone().copy_(torch.from_numpy(slab[:, :K].astype(np.int32))),
+        torch.from_numpy(nk[0, :K].astype(np.int32)), z_old, words, d_t, m_t,
+        alpha=ALPHA, beta=BETA, vbeta=VBETA, row_tile=32,
+        noise_mode="internal", seed=4, emit_delta=True)
+    assert torch.equal(z_new, z_p)
+    moved = nwk.clone()
+    fk.count_move(z_old, z_new, m_t, nwk=moved, token_word=words)
+    want = nwk.clone().float()
+    want.index_add_(0, words.long(), delta[:, :K])
+    assert torch.equal(moved, want.to(torch.int32))
+
+
+def test_count_move_all_tables_and_inert_masked_tokens():
+    rng = np.random.default_rng(16)
+    n, v, m = 200, 30, 9
+    w = torch.from_numpy(rng.integers(0, v, n).astype(np.int32))
+    d = torch.from_numpy(np.sort(rng.integers(0, m, n)).astype(np.int32))
+    z_old = torch.from_numpy(rng.integers(0, K, n).astype(np.int32))
+    z_new = torch.from_numpy(rng.integers(0, K, n).astype(np.int32))
+    mask = torch.from_numpy((rng.random(n) < 0.9).astype(np.int32))
+    nwk = torch.zeros((v, K), dtype=torch.int32)
+    ndk = torch.zeros((m, K), dtype=torch.int32)
+    nk = torch.zeros(K, dtype=torch.int32)
+    fk.count_move(z_old, z_new, mask, nwk=nwk, token_word=w, ndk=ndk,
+                  token_doc=d, nk=nk)
+    real = mask.numpy() > 0
+    for table, ids in ((nwk, w), (ndk, d), (nk, None)):
+        want = np.zeros(table.shape, np.int64)
+        idx = () if ids is None else (ids.numpy()[real],)
+        np.add.at(want, (*idx, z_old.numpy()[real]), -1)
+        np.add.at(want, (*idx, z_new.numpy()[real]), 1)
+        np.testing.assert_array_equal(table.numpy(), want)
+    with pytest.raises(ValueError, match="token_word"):
+        fk.count_move(z_old, z_new, mask, nwk=nwk)
+    with pytest.raises(ValueError, match="at least one table"):
+        fk.count_move(z_old, z_new, mask)

@@ -29,6 +29,10 @@ from ldagibbssampling_tpu_torch.evaluation.tracing import MetricsLog, read_metri
 from ldagibbssampling_tpu_torch.models.lda import LdaModel
 from ldagibbssampling_tpu_torch.runner import run_inference
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's default of one thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "ldagibbssampling_tpu_torch"
 ARTIFACTS = ("params", "phi", "theta", "tassign", "twords")
@@ -113,12 +117,14 @@ def test_cli_runs_end_to_end_on_cpu(tmp_path, capsys):
         for ext in ARTIFACTS:
             assert (tmp_path / "res" / f"lda_{it}.{ext}").stat().st_size > 0
     rows = read_metrics(tmp_path / "m.jsonl")
-    assert rows[0]["kernel_tier"] == "deferred"
+    # the minicorpus's token count is no multiple of 8: no deferred layout,
+    # so the port runs the reference's tier for it, the fused tier
+    assert rows[0]["kernel_tier"] == "fused"
     assert [r["sweep"] for r in rows[1:]] == [19, 39, 49, 59]
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--pallas", "fused"], "--pallas"),
+    (["--optimize-hyper-every", "5"], "--optimize-hyper-every"),
     (["--backend", "cvb0"], "--backend"),
     (["--chains", "2"], "--chains"),
     (["--mesh", "data=2"], "--mesh"),
@@ -142,23 +148,38 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_pallas", "fused"), ("use_pallas", False), ("backend", "svi"),
-    ("chains", 2), ("mesh", {"data": 2}), ("sampler", "serial"),
-    ("draw_method", "inverse_cdf"), ("kernel_compute_dtype", "bfloat16"),
-    ("mirror_dtype", "float32"),
+    ("backend", "svi"), ("chains", 2), ("mesh", {"data": 2}),
+    ("kernel_compute_dtype", "bfloat16"), ("mirror_dtype", "float32"),
 ])
 def test_config_rejects_unported_paths(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LdaConfig(**{field: value})
 
 
+@pytest.mark.parametrize("field,value,tier", [
+    ("use_pallas", "fused", "fused"), ("use_pallas", False, "xla"),
+    ("sampler", "serial", "serial-oracle"), ("draw_method", "inverse_cdf", "xla"),
+])
+def test_config_of_ported_paths_builds_a_model_that_sweeps(field, value, tier):
+    model = LdaModel(LdaConfig(topic_num=6, block_size=128, **{field: value}),
+                     _corpus(), device="cpu")
+    assert model.kernel_tier == tier
+    model.sweep(2)
+    assert model.sweeps_done == 2
+    model.check_counts_consistent()
+    assert model.z().shape == (960,)
+
+
 @pytest.mark.parametrize("block,docs", [(64, 24), (2048, 2)])
 def test_blocks_below_128_raise(block, docs):
     # a small configured block, or a corpus shorter than 128 tokens: the
-    # reference runs its (unported) XLA sweep there
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LdaModel(LdaConfig(topic_num=6, block_size=block), _corpus(docs=docs),
-                 device="cpu")
+    # reference runs its XLA sweep there, and so does the port
+    fc = _corpus(docs=docs)
+    model = LdaModel(LdaConfig(topic_num=6, block_size=block), fc, device="cpu")
+    assert model.kernel_tier == "xla"
+    assert model.block_size == min(block, fc.num_tokens)
+    model.sweep(2)
+    model.check_counts_consistent()
 
 
 def test_runner_refuses_unported_branches():

@@ -13,6 +13,10 @@ from ldagibbssampling_tpu.models import state as jax_state_lib
 from ldagibbssampling_tpu_torch import interop
 from ldagibbssampling_tpu_torch.models import state as state_lib
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's default of one thread per core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 K = 7
 V = 300
 M = 60
