@@ -18,7 +18,12 @@ success:
    of tokens, differences printed); K3 in the same three modes; the count
    move of all three tables (bitwise); K2 (rebuild + bf16 snapshot) over the
    whole stream (bitwise).  Times each kernel, its plain version and, where
-   one exists, a single PyTorch library call;
+   one exists, a single PyTorch library call.  K1's other chains on the
+   same block: bf16 and bf16p on the bf16 snapshot, and f32, bf16 and bf16p
+   on the float32 snapshot, each in the three noise modes (deterministic
+   bitwise, z equal on >= 99.99% with noise), timed; K2's
+   ``build_nwk(emit_mirror=False)`` (bitwise); K4, the dtype probe, in
+   float32 and bf16 (both bitwise) at [32768, 512];
 4. main paths: ``make_backend`` -> ``LdaModel`` -> ``run_inference`` at
    bench.py's shape (T = 2^20 Zipf(1.1) tokens, V = 50,000, M = 4,096
    documents, K = 500, block 65,536, alpha 0.5, beta 0.1): 10 sweeps each of
@@ -27,17 +32,28 @@ success:
    for, launch every kernel of its tier (and the exact number of launches
    its layout implies), no other kernel and no plain version; prints
    tokens/s; then profiles one more sweep of each tier with the port's
-   ``trace`` (device time by kernel, busy share);
+   ``trace`` (device time by kernel, busy share).  Then the deferred tier in
+   its five other (chain, snapshot) settings, 10 sweeps each, the same
+   checks (``cast_mirror`` only on the bf16 snapshot); the chains' quality
+   on a planted-topic corpus (2,048 documents, V = 5,000, K = 500, about
+   2^19 tokens, alpha 0.1 and beta 0.05 as it was generated): each of the
+   six deferred settings for 20 sweeps from the
+   same seed with ``ll_every=5``, the training LL and perplexity at sweeps
+   5-20 (finite, and the perplexity at 20 below that at 5); one run of 10
+   sweeps with ``optimize_hyper_every=5`` at bench.py's shape (α and β move
+   and stay finite), with the time of one device LL and one Minka update;
+   the K4 probe's entry point (ms and Gops/s);
 5. CLI: the port's CLI on the generated minicorpus, as it is, with
-   ``--pallas fused`` and with ``--sampler serial``, must write the five
-   reference artifacts each time.
+   ``--pallas fused``, with ``--sampler serial`` and with ``--ll-every 5
+   --optimize-hyper-every 5``, must write the five reference artifacts each
+   time (and, the last, metrics rows with ``log_likelihood`` and ``alpha``).
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
-Bounds (``bound_ms``) use the published H100 SXM peaks: 3.35 TB/s of HBM and
-67 TFLOP/s of float32 outside the tensor cores, with the bytes and
-operations of this run's own inputs.
+Bounds (``bound_ms``) use the published H100 SXM peaks: 3.35 TB/s of HBM,
+67 TFLOP/s of float32 and 134 TFLOP/s of packed bf16 outside the tensor
+cores, with the bytes and operations of this run's own inputs.
 """
 
 from __future__ import annotations
@@ -57,11 +73,29 @@ T, V, M, K = 1 << 20, 50_000, 4_096, 500
 BLOCK, ALPHA, BETA, SWEEPS = 65_536, 0.5, 0.1, 10
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# operations per (token, padded topic) of K1's internal-noise draw, counted
-# from the kernel source: Philox4x32-10 ~25 integer ops per topic, uniform 3,
-# log ~10, bf16 reciprocal ~10, the conditional ~10, its nk reciprocal ~13,
-# score and argmax ~4 (all charged at the float32 rate)
-SAMPLE_OPS_PER_ELEM = 75
+# packed bf16 outside the tensor cores: twice the float32 rate (133.8
+# TFLOP/s in NVIDIA's H100 architecture whitepaper, SXM part)
+BF16_OPS_PER_S = 2 * F32_OPS_PER_S
+# K1's internal-noise draw per (token, real topic), counted from the kernel
+# source.  The noise, in float32 in every chain: Philox4x32-10 ~25 integer
+# ops per topic, uniform 3, log ~10, bf16 reciprocal ~10
+SAMPLE_NOISE_OPS = 48
+# the conditional ~10, then score and argmax ~4.  A bf16 chain needs no more
+# operations than the float32 one: float32's 24-bit significand is at least
+# 2*8+2 bits for bf16's 8, so a float32 add, subtract or multiply of bf16
+# values rounded to bf16 has one native bf16 op's bits (the double-rounding
+# condition); its ops are charged at the packed-bf16 rate
+SAMPLE_CONDITIONAL_OPS, SAMPLE_SCORE_OPS = 10, 4
+# per (tile, real topic): the nk reciprocal, ~13
+SAMPLE_OPS_PER_TILE_TOPIC = 13
+CHAIN_SETTINGS = (("bfloat16", "bfloat16"), ("bf16p", "bfloat16"),
+                  ("float32", "float32"), ("bfloat16", "float32"),
+                  ("bf16p", "float32"))
+QUALITY_SWEEPS, LL_EVERY = 20, 5
+# the quality runs use the planted corpus's own priors (data/synthetic.py):
+# at bench.py's alpha 0.5, K*alpha = 250 outweighs a 256-token document and
+# 20 sweeps barely move the perplexity
+QUALITY_ALPHA, QUALITY_BETA = 0.1, 0.05
 # per (token, topic) of K3's internal-noise draw: five logf ~50 (three of
 # the conditional, two of the Gumbel noise), Philox ~25, uniform 3, the
 # exclusions and sums ~8, argmax ~4
@@ -69,9 +103,8 @@ BLOCK_SAMPLE_OPS_PER_ELEM = 90
 MIN_MATCH = 0.9999
 MODES = ("deterministic", "external", "internal")
 # the kernels each tier's sweep launches, by use_pallas
+# (the deferred tier's depend on its chain and snapshot: main_path)
 TIER_KERNELS = {
-    "deferred": ("gibbs_tile_sample", "gibbs_tile_update", "rebuild_counts",
-                 "cast_mirror"),
     "fused": ("gibbs_tile_sample_live", "gibbs_tile_update", "count_move"),
     True: ("gibbs_block_sample", "count_move"),
     False: (),
@@ -120,10 +153,24 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, bf16_ops: float = 0) -> tuple[float, str]:
+    """The least time in ms for ``nbytes`` of HBM traffic, ``ops`` float32
+    operations and ``bf16_ops`` packed-bf16 ones, and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = (ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sample_ops(n_real: int, n_tiles: int, chain: str) -> tuple[int, int]:
+    """(float32, packed-bf16) operations of K1's internal-noise draw of
+    ``n_real`` tokens in ``n_tiles`` tiles in the chain ``chain``."""
+    f32 = n_real * K * SAMPLE_NOISE_OPS + n_tiles * K * SAMPLE_OPS_PER_TILE_TOPIC
+    cond, score = n_real * K * SAMPLE_CONDITIONAL_OPS, n_real * K * SAMPLE_SCORE_OPS
+    if chain == "float32":
+        return f32 + cond + score, 0
+    if chain == "bf16p":  # bf16 conditional, float32 score
+        return f32 + score, cond
+    return f32, cond + score
 
 
 def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
@@ -172,37 +219,46 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         raise AssertionError(f"cast_mirror differs from its plain version: {err}")
     out["cast_mirror"] = dict(max_abs_err=err)
 
-    # --- K1 walked over one block, per noise mode
+    # --- K1 walked over one block, per (chain, snapshot) and noise mode
     g = torch.Generator(device=dev).manual_seed(seed)
     uniforms = torch.rand((BLOCK, k_pad), generator=g, device=dev) * (1 - 2e-7) + 1e-7
-    for mode in MODES:
-        res = []
-        for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
-            ndk, nk = st.ndk.clone(), st.nk.clone()
-            zn = walk(mirror, ndk, nk, z, w, d, m, noise_mode=mode,
-                      seed=seed + 1234, uniforms=uniforms, **hyper)
-            torch.cuda.synchronize()
-            res.append((zn, ndk, nk))
-        (zk, ndk_k, nk_k), (zp, ndk_p, nk_p) = res
-        diff = ((zk != zp) & real).nonzero().flatten()
-        match = 1.0 - diff.numel() / n_real
-        moved = float(((zk != z) & real).float().mean())
-        log(f"[kernels] K1 {mode}: z equal on {match:.6f} of {n_real} tokens, "
-            f"{moved:.3f} of tokens moved")
-        for i in diff[:20].tolist():
-            log(f"  token {i}: kernel z={int(zk[i])} plain z={int(zp[i])}")
-        if mode == "deterministic":
-            z_err = float((zk - zp).abs().max())
+    snaps = {"bfloat16": mirror, "float32": nwk_pad.float()}
+    settings = {}  # counter name -> (chain, snapshot)
+    for chain, rows in (("float32", "bfloat16"), *CHAIN_SETTINGS):
+        name = fk.sample_name(snaps[rows].dtype, chain)
+        settings[name] = (chain, rows)
+        for mode in MODES:
+            res = []
+            for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
+                ndk, nk = st.ndk.clone(), st.nk.clone()
+                zn = walk(snaps[rows], ndk, nk, z, w, d, m, noise_mode=mode,
+                          seed=seed + 1234, uniforms=uniforms,
+                          compute_dtype=chain, **hyper)
+                torch.cuda.synchronize()
+                res.append((zn, ndk, nk))
+            (zk, ndk_k, nk_k), (zp, ndk_p, nk_p) = res
+            diff = ((zk != zp) & real).nonzero().flatten()
+            match = 1.0 - diff.numel() / n_real
+            moved = float(((zk != z) & real).float().mean())
             c_err = float(max((ndk_k - ndk_p).abs().max(), (nk_k - nk_p).abs().max()))
-            if diff.numel() or c_err:
-                raise AssertionError(
-                    f"K1 deterministic differs: z {diff.numel()} tokens, counts {c_err}")
-            out["gibbs_tile_sample"] = dict(max_abs_err=z_err)
-            out["gibbs_tile_update"] = dict(max_abs_err=c_err)
-        elif match < MIN_MATCH:
-            raise AssertionError(f"K1 {mode}: z equal on only {match:.6f}")
-        else:
-            out["gibbs_tile_sample"][f"z_match_{mode}"] = match
+            log(f"[kernels] K1 chain {chain}, {rows} snapshot, {mode}: z equal on "
+                f"{match:.6f} of {n_real} tokens, {moved:.3f} of tokens moved")
+            for i in diff[:20].tolist():
+                log(f"  token {i}: kernel z={int(zk[i])} plain z={int(zp[i])}")
+            if mode == "deterministic":
+                if diff.numel() or c_err:
+                    raise AssertionError(
+                        f"K1 {name} deterministic differs: z {diff.numel()} tokens, "
+                        f"counts {c_err}")
+                out[name] = dict(max_abs_err=float((zk - zp).abs().max()))
+                if name == "gibbs_tile_sample":
+                    out["gibbs_tile_update"] = dict(max_abs_err=c_err)
+            elif match < MIN_MATCH:
+                raise AssertionError(f"K1 {name} {mode}: z equal on only {match:.6f}")
+            elif diff.numel() == 0 and c_err:
+                raise AssertionError(f"K1 {name} {mode}: equal z, counts differ by {c_err}")
+            else:
+                out[name][f"z_match_{mode}"] = match
 
     # --- K2 rebuild over the whole stream
     nwk_k, nk_k = ck.rebuild_counts(st.z, tw, tm, v_pad=v_pad, k_pad=k_pad)
@@ -212,19 +268,33 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     if not (torch.equal(nwk_k, nwk_p) and torch.equal(nk_k, nk_p)):
         raise AssertionError(f"rebuild_counts differs from its plain version: {r_err}")
     out["rebuild_counts"] = dict(max_abs_err=r_err)
-    log("[kernels] K2 rebuild_counts and cast_mirror bitwise equal to plain")
+    # build_nwk without the mirror (the float32-snapshot path): one rebuild
+    casts = ck.LAUNCHES["cast_mirror"]
+    nwk_n, nk_n = ck.build_nwk(st.z, tw, tm, vocab_size=V, num_topics=K,
+                               v_pad=v_pad, k_pad=k_pad, emit_mirror=False)
+    torch.cuda.synchronize()
+    n_err = float(max((nwk_n - nwk_p[:V, :K]).abs().max(),
+                      (nk_n - nk_p[:K]).abs().max()))
+    if n_err or ck.LAUNCHES["cast_mirror"] != casts:
+        raise AssertionError(f"build_nwk(emit_mirror=False) differs ({n_err}) or "
+                             "cast a mirror")
+    out["rebuild_counts"]["no_mirror_max_abs_err"] = n_err
+    log("[kernels] K2 rebuild_counts, cast_mirror and build_nwk(emit_mirror=False) "
+        "bitwise equal to plain")
 
     # --- times (internal noise: the main path's mode)
-    def sample_kernel():
-        return fk.gibbs_tile_sample(mirror, st.ndk, st.nk, z, w, d, m,
-                                    noise_mode="internal", seed=7, **hyper)
+    def sample_kernel(chain="float32", rows="bfloat16"):
+        return fk.gibbs_tile_sample(snaps[rows], st.ndk, st.nk, z, w, d, m,
+                                    noise_mode="internal", seed=7,
+                                    compute_dtype=chain, **hyper)
 
-    def sample_plain():
+    def sample_plain(chain="float32", rows="bfloat16"):
         for s in range(0, BLOCK, row_tile):
             sl = slice(s, s + row_tile)
-            fk.sample_plain(mirror, st.ndk, st.nk, z[sl], w[sl], d[sl], m[sl],
+            fk.sample_plain(snaps[rows], st.ndk, st.nk, z[sl], w[sl], d[sl], m[sl],
                             alpha=ALPHA, beta=BETA, vbeta=vbeta,
-                            noise_mode="internal", seed=7, slot0=s)
+                            noise_mode="internal", seed=7, slot0=s,
+                            compute_dtype=chain)
 
     z_new = sample_kernel()
     ndk_c, nk_c = st.ndk.clone(), st.nk.clone()
@@ -239,7 +309,9 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
 
     key = (tw.long() * k_pad + st.z.long())[tm > 0]
     times = {
-        "gibbs_tile_sample": (cuda_ms(sample_kernel), cuda_ms(sample_plain), None),
+        **{name: (cuda_ms(lambda: sample_kernel(*cr)),
+                  cuda_ms(lambda: sample_plain(*cr)), None)
+           for name, cr in settings.items()},
         "gibbs_tile_update": (cuda_ms(update_kernel), cuda_ms(update_plain), None),
         "rebuild_counts": (
             cuda_ms(lambda: ck.rebuild_counts(st.z, tw, tm, v_pad=v_pad, k_pad=k_pad)),
@@ -262,9 +334,11 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     topics = torch.unique(torch.cat([z[moved], z_new[moved]])).numel()
     t_pad = plan.num_tokens
     bounds = {
-        "gibbs_tile_sample": bound(
-            u_words * k_pad * 2 + u_docs * K * 4 + K * 4 + BLOCK * 4 * 5,
-            n_real * k_pad * SAMPLE_OPS_PER_ELEM),
+        **{name: bound(
+            u_words * k_pad * snaps[rows].element_size() + u_docs * K * 4
+            + K * 4 + BLOCK * 4 * 5,
+            *sample_ops(n_real, BLOCK // row_tile, chain))
+           for name, (chain, rows) in settings.items()},
         "gibbs_tile_update": bound(BLOCK * 4 * 4 + cells * 8 + topics * 8,
                                    4 * int(moved.sum())),
         "rebuild_counts": bound(t_pad * 12 + v_pad * k_pad * 4 + k_pad * 4,
@@ -272,7 +346,8 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         "cast_mirror": bound(v_pad * k_pad * 6, v_pad * k_pad),
     }
     units = {
-        "gibbs_tile_sample": f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles)",
+        **{name: f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles)"
+           for name in settings},
         "gibbs_tile_update": f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles)",
         "rebuild_counts": f"one rebuild of {t_pad} stream slots",
         "cast_mirror": f"one [{v_pad}, {k_pad}] table",
@@ -428,7 +503,7 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     bounds = {
         "gibbs_tile_sample_live": bound(
             u_words * K * 4 + u_docs * K * 4 + K * 4 + BLOCK * 4 * 5,
-            n_real * k_pad * SAMPLE_OPS_PER_ELEM),
+            *sample_ops(n_real, BLOCK // row_tile, "float32")),
         "gibbs_block_sample": bound(
             u_words * K * 4 + u_docs * K * 4 + K * 4 + BLOCK * 4 * 4,
             BLOCK * K * BLOCK_SAMPLE_OPS_PER_ELEM),
@@ -459,47 +534,68 @@ def counters():
     from ldagibbssampling_tpu_torch.ops import count_kernel as ck
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
     from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
+    from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
 
-    return ((fk.LAUNCHES, ck.LAUNCHES, sk.LAUNCHES),
-            (fk.PLAIN_CALLS, ck.PLAIN_CALLS, sk.PLAIN_CALLS))
+    return ((fk.LAUNCHES, ck.LAUNCHES, sk.LAUNCHES, probe.LAUNCHES),
+            (fk.PLAIN_CALLS, ck.PLAIN_CALLS, sk.PLAIN_CALLS, probe.PLAIN_CALLS))
+
+
+def zero_counters() -> None:
+    for counts in (d for group in counters() for d in group):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_counters() -> tuple[dict, dict]:
+    launch_dicts, plain_dicts = counters()
+    return ({k: v for d in launch_dicts for k, v in d.items()},
+            {k: v for d in plain_dicts for k, v in d.items()})
 
 
 def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
-              device: str = "cuda"):
-    """Phase 4: the entry points a user calls, in the tier ``use_pallas``;
-    returns tokens/s, the kernel launches of the run and the model."""
+              device: str = "cuda", chain: str = "float32",
+              mirror: str = "bfloat16"):
+    """Phase 4: the entry points a user calls, in the tier ``use_pallas``
+    (the deferred tier in the given chain and snapshot type); returns
+    tokens/s, the kernel launches of the run and the model."""
     import numpy as np
     import torch
 
     from ldagibbssampling_tpu_torch import make_backend, run_inference
     from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
 
     tier = TIER_NAMES[use_pallas]
+    label = tier if (chain, mirror) == ("float32", "bfloat16") else \
+        f"{tier} {chain}/{mirror}"
     cfg = LdaConfig(alpha=ALPHA, beta=BETA, topic_num=K, iteration=sweeps,
-                    block_size=BLOCK, seed=seed, use_pallas=use_pallas)
+                    block_size=BLOCK, seed=seed, use_pallas=use_pallas,
+                    kernel_compute_dtype=chain, mirror_dtype=mirror)
     t0 = time.perf_counter()
     model = make_backend(cfg, corpus, device=device)
     torch.cuda.synchronize()
     t_pad = model.state.z.shape[0]
     row_tile = model._run_sweeps.row_tile
-    log(f"[main {tier}] make_backend {time.perf_counter() - t0:.2f}s "
+    log(f"[main {label}] make_backend {time.perf_counter() - t0:.2f}s "
         f"(T_pad={t_pad}, row tile {row_tile})")
     if model.kernel_tier != tier:
         raise AssertionError(f"asked for {tier}, the model runs {model.kernel_tier}")
-    launch_dicts, plain_dicts = counters()
-    for counts in (*launch_dicts, *plain_dicts):
-        for name in counts:
-            counts[name] = 0
+    zero_counters()
     t0 = time.perf_counter()
     run_inference(model, cfg, corpus)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: v for d in launch_dicts for k, v in d.items()}
-    plain = {k: v for d in plain_dicts for k, v in d.items()}
-    log(f"[main {tier}] launches {launches}, plain calls {plain}")
+    launches, plain = read_counters()
+    log(f"[main {label}] launches { {k: v for k, v in launches.items() if v} }, "
+        f"plain calls { {k: v for k, v in plain.items() if v} }")
     if model.sweeps_done != sweeps:
         raise AssertionError(f"ran {model.sweeps_done} sweeps, not {sweeps}")
-    expected = TIER_KERNELS[use_pallas]
+    draw = sample_name(getattr(torch, mirror), chain)
+    if use_pallas == "deferred":  # cast_mirror makes the bf16 snapshot only
+        expected = (draw, "gibbs_tile_update", "rebuild_counts",
+                    *(("cast_mirror",) if mirror == "bfloat16" else ()))
+    else:
+        expected = TIER_KERNELS[use_pallas]
     missing = [n for n in expected if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {tier} path: {missing}")
@@ -510,9 +606,10 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
         raise AssertionError(f"plain versions ran on the {tier} path: {plain}")
     blocks = t_pad // BLOCK
     want = {
-        "deferred": {"gibbs_tile_sample": sweeps * t_pad // max(row_tile, 1),
+        "deferred": {draw: sweeps * t_pad // max(row_tile, 1),
                      "gibbs_tile_update": sweeps * t_pad // max(row_tile, 1),
-                     "rebuild_counts": sweeps, "cast_mirror": sweeps + 1},
+                     "rebuild_counts": sweeps,
+                     "cast_mirror": sweeps + 1 if mirror == "bfloat16" else 0},
         "fused": {"gibbs_tile_sample_live": sweeps * t_pad // max(row_tile, 1),
                   "gibbs_tile_update": sweeps * t_pad // max(row_tile, 1),
                   "count_move": sweeps * blocks},
@@ -532,7 +629,7 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
         raise AssertionError(f"phi {phi.shape} theta {theta.shape}")
     np.testing.assert_allclose(phi.sum(axis=1, dtype=np.float64), 1.0, rtol=1e-3)
     tok_s = sweeps * corpus.num_tokens / dt
-    log(f"[main {tier}] {sweeps} sweeps of {corpus.num_tokens} tokens in "
+    log(f"[main {label}] {sweeps} sweeps of {corpus.num_tokens} tokens in "
         f"{dt:.3f}s = {tok_s:,.0f} tokens/s ({dt / sweeps * 1e3:.2f} ms/sweep) "
         f"on {smi}; counts consistent (check {time.perf_counter() - t1:.2f}s)")
     return tok_s, {n: launches[n] for n in expected}, model
@@ -573,6 +670,141 @@ def profile_sweep(model) -> None:
         log(f"  {key}: {n} launches, {us / 1e3:.3f} ms ({us / n:.2f} us each)")
 
 
+def quality_phase(seed: int, device: str = "cuda") -> dict:
+    """Phase 4c: the six deferred (chain, snapshot) settings on a corpus with
+    planted topics, from the same seed and init, with the training LL every
+    LL_EVERY sweeps through ``run_inference``; returns ``{setting: rows}``."""
+    import numpy as np
+
+    from ldagibbssampling_tpu_torch import make_backend, run_inference
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.data.synthetic import planted_topic_corpus
+    from ldagibbssampling_tpu_torch.evaluation.tracing import (
+        MetricsLog, read_metrics)
+
+    t0 = time.perf_counter()
+    corpus, _ = planted_topic_corpus(num_docs=2048, vocab_size=5000,
+                                     num_topics=K, mean_doc_len=256, seed=seed)
+    log(f"[quality] planted corpus {corpus.num_tokens} tokens, V 5000, M 2048, "
+        f"K {K} in {time.perf_counter() - t0:.1f}s")
+    out = {}
+    for chain, mirror in (("float32", "bfloat16"), *CHAIN_SETTINGS):
+        cfg = LdaConfig(alpha=QUALITY_ALPHA, beta=QUALITY_BETA, topic_num=K,
+                        iteration=QUALITY_SWEEPS, block_size=BLOCK, seed=seed,
+                        kernel_compute_dtype=chain, mirror_dtype=mirror)
+        model = make_backend(cfg, corpus, device=device)
+        with tempfile.TemporaryDirectory() as tmp:
+            with MetricsLog(Path(tmp) / "m.jsonl") as mlog:
+                run_inference(model, cfg, corpus, metrics=mlog, metrics_every=0,
+                              ll_every=LL_EVERY)
+            rows = [r for r in read_metrics(Path(tmp) / "m.jsonl")
+                    if "log_likelihood" in r]
+        model.check_counts_consistent()
+        rows[-1]["max_nwk_cell"] = int(model.state.nwk.max())
+        out[f"{chain}/{mirror}"] = rows
+        lls = [r["log_likelihood"] for r in rows]
+        if [r["sweep"] + 1 for r in rows] != list(
+                range(LL_EVERY, QUALITY_SWEEPS + 1, LL_EVERY)):
+            raise AssertionError(f"LL rows at sweeps {[r['sweep'] for r in rows]}")
+        if not np.isfinite(lls).all():
+            raise AssertionError(f"{chain}/{mirror}: LL not finite: {lls}")
+        if not rows[-1]["perplexity"] < rows[0]["perplexity"]:
+            raise AssertionError(f"{chain}/{mirror}: perplexity did not fall "
+                                 f"({rows[0]['perplexity']} -> {rows[-1]['perplexity']})")
+    base = out["float32/bfloat16"]
+    for key, rows in out.items():
+        log(f"[quality] {key} (largest nwk cell {rows[-1]['max_nwk_cell']}): "
+            + "; ".join(
+            f"sweep {r['sweep'] + 1}: LL {r['log_likelihood']:.1f} ppl "
+            f"{r['perplexity']:.3f} (gap {r['perplexity'] - b['perplexity']:+.3f})"
+            for r, b in zip(rows, base)))
+    return out
+
+
+def hyper_phase(corpus, seed: int, device: str = "cuda") -> dict:
+    """Phase 4d: a deferred run with Minka updates every 5 sweeps at
+    bench.py's shape, and the time of one device LL and one update."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch import make_backend, run_inference
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+
+    cfg = LdaConfig(alpha=ALPHA, beta=BETA, topic_num=K, iteration=SWEEPS,
+                    block_size=BLOCK, seed=seed)
+    model = make_backend(cfg, corpus, device=device)
+    run_inference(model, cfg, corpus, optimize_hyper_every=5)
+    torch.cuda.synchronize()
+    a, b = model.alpha, model.beta
+    if not (np.isfinite([a, b]).all() and a != ALPHA and b != BETA):
+        raise AssertionError(f"alpha {a}, beta {b} after {SWEEPS} sweeps")
+    model.check_counts_consistent()
+    times = {}
+    for name, fn in (("device_log_likelihood", model.device_log_likelihood),
+                     ("optimize_hyperparameters", model.optimize_hyperparameters)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        log(f"[hyper] {name}: {times[name]:.3f} ms (host clock around a "
+            f"synchronise) -> {value}")
+    log(f"[hyper] {SWEEPS} sweeps, Minka every 5: alpha {ALPHA} -> {a:.6f}, "
+        f"beta {BETA} -> {b:.6f}; counts consistent")
+    return dict(alpha=a, beta=b, **{f"{n}_ms": t for n, t in times.items()})
+
+
+def check_probe(seed: int, device: str = "cuda") -> dict:
+    """K4 against its plain version at [32768, 512], then its entry point's
+    timing (the launches counted there)."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand((probe.ROWS, probe.K), generator=g, device=dev)
+    b = torch.rand((probe.ROWS, probe.K), generator=g, device=dev)
+    out = {}
+    for dtype in probe.DTYPES:
+        got = probe.dtype_probe(a, b, dtype=dtype)
+        want = probe.probe_plain(a, b, dtype=dtype)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        n_diff = int((got != want).sum())
+        # bitwise in both: float32 has no contraction, and the native packed
+        # bf16 ops give what PyTorch's float32-then-round bf16 ops give (the
+        # double-rounding condition, csrc/dtype_probe.cu)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {dtype} differs from plain on {n_diff} "
+                                 f"values, max abs err {err}")
+        name = probe.counter_name(dtype)
+        out[name] = dict(max_abs_err=err)
+        log(f"[probe] {name}: {n_diff} of {got.numel()} values differ from "
+            f"plain, max abs err {err}")
+        out[name]["plain_ms"] = cuda_ms(lambda: probe.probe_plain(a, b, dtype=dtype))
+        out[name]["ms_64_reps"] = cuda_ms(
+            lambda: probe.dtype_probe(a, b, dtype=dtype, reps=64))
+    zero_counters()
+    res = probe.measure(device)  # the entry point's own timing
+    launches, _ = read_counters()
+    nbytes = 3 * probe.ROWS * probe.K * 4
+    # per element: y - e + 0.5 once, then 5 operations per repeat
+    ops = probe.ROWS * probe.K * (2 + probe.REPS * 5)
+    for dtype, (ms, gops) in res.items():
+        name = probe.counter_name(dtype)
+        b_ms, b_by = bound(nbytes, *((ops, 0) if dtype == "float32" else (0, ops)))
+        out[name].update(ms=ms, gops=gops, launches=launches[name], bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None,
+                         unit=f"one [{probe.ROWS}, {probe.K}] pass, {probe.REPS} repeats")
+        log(f"[probe] {name}: {ms:.4f} ms ({gops:.1f} Gops/s as the reference "
+            f"counts), plain {out[name]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+            f"{b_by}; 64 repeats {out[name]['ms_64_reps']:.4f} ms "
+            f"({probe.ops_counted(reps=64) / out[name]['ms_64_reps'] / 1e6:.1f} Gops/s)")
+    return out
+
+
 def cli_phase(flags: tuple[str, ...] = ()) -> None:
     """Phase 5: the port's CLI writes the five artifacts on the card."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -594,7 +826,14 @@ def cli_phase(flags: tuple[str, ...] = ()) -> None:
                       for e in ("params", "phi", "theta", "tassign", "twords"))
         if files != want:
             raise AssertionError(f"CLI {flags} artifacts {files} != {want}")
-        header = json.loads(Path(tmp, "m.jsonl").read_text().splitlines()[0])
+        rows = [json.loads(x) for x in Path(tmp, "m.jsonl").read_text().splitlines()]
+        header = rows[0]
+        if "--ll-every" in flags:
+            ll_rows = [r for r in rows if "log_likelihood" in r]
+            if not ll_rows or not all("alpha" in r for r in ll_rows):
+                raise AssertionError(f"CLI {flags}: no LL/alpha rows: {rows[:3]}")
+            tail.append(f"LL {ll_rows[-1]['log_likelihood']:.1f}, alpha "
+                        f"{ll_rows[-1]['alpha']:.4f}, beta {ll_rows[-1]['beta']:.4f}")
         log(f"[cli {' '.join(flags) or 'default'}] {time.perf_counter() - t0:.1f}s, "
             f"kernel tier {header['kernel_tier']}, wrote {len(files)} "
             f"artifacts; {' | '.join(tail)}")
@@ -634,32 +873,49 @@ def main() -> int:
     corpus = synth_corpus(args.seed)
     kernels = check_kernels(corpus, args.seed)             # 3.
     kernels.update(check_live_kernels(corpus, args.seed))  # 3b.
+    kernels.update(check_probe(args.seed))                 # 3c.
     paths = {}
-    for use_pallas, sweeps in (("deferred", SWEEPS), ("fused", SWEEPS),
-                               (True, SWEEPS), (False, 2)):  # 4.
-        tok_s, launches, model = main_path(corpus, args.seed, smi, use_pallas, sweeps)
+    runs = [(use_pallas, sweeps, "float32", "bfloat16") for use_pallas, sweeps in (
+        ("deferred", SWEEPS), ("fused", SWEEPS), (True, SWEEPS), (False, 2))]
+    runs += [("deferred", SWEEPS, chain, mirror) for chain, mirror in CHAIN_SETTINGS]
+    for use_pallas, sweeps, chain, mirror in runs:         # 4.
+        tok_s, launches, model = main_path(corpus, args.seed, smi, use_pallas,
+                                           sweeps, chain=chain, mirror=mirror)
         profile_sweep(model)                               # 4b.
-        paths[TIER_NAMES[use_pallas]] = (tok_s, launches)
+        label = TIER_NAMES[use_pallas]
+        if (chain, mirror) != ("float32", "bfloat16"):
+            label = f"{label} {chain}/{mirror}"
+        paths[label] = (tok_s, launches)
         del model
         torch.cuda.empty_cache()
-    for flags in ((), ("--pallas", "fused"), ("--sampler", "serial")):  # 5.
+    quality = quality_phase(args.seed)                     # 4c.
+    hyper = hyper_phase(corpus, args.seed)                 # 4d.
+    for flags in ((), ("--pallas", "fused"), ("--sampler", "serial"),
+                  ("--ll-every", "5", "--optimize-hyper-every", "5")):  # 5.
         cli_phase(flags)
 
     src = f"{PKG}/csrc"
     k1 = "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"
+    k4 = "scripts/vpu_dtype_probe.py:24"
     meta = {
         "gibbs_tile_sample": (f"{src}/fused_kernel.cu", k1),
+        **{name: (f"{src}/fused_kernel.cu", k1) for name in kernels
+           if name.startswith("gibbs_tile_sample_") and name != "gibbs_tile_sample_live"},
         "gibbs_tile_sample_live": (f"{src}/fused_kernel.cu", k1),
         "gibbs_tile_update": (f"{src}/fused_kernel.cu", k1),
         "count_move": (f"{src}/fused_kernel.cu", k1),
         "rebuild_counts": (f"{src}/count_kernel.cu", "ldagibbssampling_tpu/ops/count_kernel.py:211"),
         "cast_mirror": (f"{src}/count_kernel.cu", "ldagibbssampling_tpu/ops/count_kernel.py:211"),
         "gibbs_block_sample": (f"{src}/sample_kernel.cu", "ldagibbssampling_tpu/ops/pallas_gibbs.py:311"),
+        "dtype_probe_f32": (f"{src}/dtype_probe.cu", k4),
+        "dtype_probe_bf16": (f"{src}/dtype_probe.cu", k4),
     }
     rows = []
     for kname, (source, replaces) in meta.items():
         k = kernels[kname]
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
+        if kname.startswith("dtype_probe"):  # launched by the probe's entry point
+            by_path = {"vpu_dtype_probe": k["launches"]}
         rows.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -668,12 +924,16 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "unit": k["unit"], "launches_by_path": by_path,
             **{x: v for x, v in k.items()
-               if x.startswith("z_match") or x == "ms_three_tables"},
+               if x.startswith("z_match") or x in (
+                   "ms_three_tables", "no_mirror_max_abs_err", "gops",
+                   "ms_64_reps")},
         })
     print(json.dumps({"kernels": rows, "main_path_tokens_per_s": {
         tier: tok_s for tier, (tok_s, _) in paths.items()},
-        "sweeps": {tier: SWEEPS if tier != "xla" else 2 for tier in paths}}),
-        flush=True)
+        "sweeps": {tier: SWEEPS if tier != "xla" else 2 for tier in paths},
+        "quality": {key: [{n: r[n] for n in ("sweep", "log_likelihood", "perplexity")}
+                          for r in rows_] for key, rows_ in quality.items()},
+        "hyper": hyper}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

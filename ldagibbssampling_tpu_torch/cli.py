@@ -5,7 +5,9 @@ Counterpart of ``ldagibbssampling_tpu/cli.py`` (reference:
 initialize, run the sweep loop with periodic saves, dump the final model.
 It takes the reference CLI's flags, plus ``--device {cuda,cpu}`` (default
 ``cuda``; without CUDA the run fails rather than carry on on the CPU).  Flags
-of paths this port does not have yet exit with code 2, naming them.
+of paths this port does not have yet exit with code 2, naming them.  K1's
+chain and the deferred snapshot's type come in through ``--config-json``
+(``kernel_compute_dtype``, ``mirror_dtype``), as in the reference.
 
 Usage:
     python -m ldagibbssampling_tpu_torch.cli --docs data/LdaOriginalDocs \\
@@ -51,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-save", action="store_true",
                     help="skip artifact writing (timing / benchmark runs)")
     ap.add_argument("--metrics-file", default=None,
-                    help="append JSONL metrics (throughput) here")
+                    help="append JSONL metrics (throughput, LL, alpha/beta) here")
     ap.add_argument("--metrics-every", type=int, default=1,
                     help="metrics row cadence in sweeps (default 1)")
     ap.add_argument("--profile-dir", default=None,
@@ -70,13 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "host oracle)")
     ap.add_argument("--draw-method", dest="draw_method",
                     choices=["gumbel", "inverse_cdf"], default=None)
+    ap.add_argument("--ll-every", type=int, default=0,
+                    help="log training log-likelihood/perplexity every N "
+                         "sweeps into --metrics-file (0 = off)")
+    ap.add_argument("--optimize-hyper-every", type=int, default=0,
+                    help="Minka fixed-point (alpha, beta) update every N "
+                         "sweeps (0 = off)")
     # the reference CLI's flags for paths not ported yet: accepted so the
     # error can name them, and refused in main()
     ap.add_argument("--chains", type=int, default=None)
     ap.add_argument("--backend", choices=["gibbs", "cvb0", "svi", "smc", "warp"], default=None)
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--ll-every", type=int, default=0)
-    ap.add_argument("--optimize-hyper-every", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
@@ -96,8 +102,6 @@ def unsupported_flags(args: argparse.Namespace) -> list[str]:
         ("--chains", args.chains not in (None, 1)),
         ("--backend", args.backend not in (None, "gibbs")),
         ("--mesh", bool(args.mesh)),
-        ("--ll-every", args.ll_every != 0),
-        ("--optimize-hyper-every", args.optimize_hyper_every != 0),
         ("--checkpoint-dir", args.checkpoint_dir is not None),
         ("--checkpoint-every", args.checkpoint_every != 0),
         ("--resume", args.resume),
@@ -190,6 +194,8 @@ def main(argv=None) -> int:
             run_inference(
                 model, cfg, corpus, result_dir, progress=progress,
                 metrics=metrics, metrics_every=args.metrics_every,
+                ll_every=args.ll_every,
+                optimize_hyper_every=args.optimize_hyper_every,
             )
         except ReferenceGuardError as e:
             print(f"error: {e}", file=sys.stderr)

@@ -50,9 +50,12 @@ class LdaConfig:
     use_pallas: bool | str = "deferred"
     # the reference's interpreter switch; the port has none (raises if set)
     pallas_interpret: bool = False
-    # draw kernel's [B, K] chain dtype: only float32 is ported
+    # deferred tier only: K1's [B, K] chain dtype.  "float32"; "bfloat16"
+    # (the conditional product and the score in bf16, rounded after every
+    # op); "bf16p" (the product in bf16, the score in float32)
     kernel_compute_dtype: str = "float32"
-    # sweep-stale snapshot dtype: only bfloat16 is ported
+    # deferred tier only: the sweep-stale snapshot of nwk that K1 reads,
+    # "bfloat16" (rounds counts above 256) or "float32" (exact counts)
     mirror_dtype: str = "bfloat16"
     draw_method: str = "gumbel"  # gumbel (fast path) | inverse_cdf (fidelity draw)
     sort_blocks: bool = True  # word-sort tokens within blocks (sorted-scatter fast path)
@@ -71,6 +74,11 @@ class LdaConfig:
             raise ValueError(f"unknown draw_method {self.draw_method!r}")
         if self.use_pallas not in (False, True, "fused", "deferred"):
             raise ValueError(f"unknown use_pallas {self.use_pallas!r}")
+        if self.kernel_compute_dtype not in ("float32", "bfloat16", "bf16p"):
+            raise ValueError(
+                f"unknown kernel_compute_dtype {self.kernel_compute_dtype!r}")
+        if self.mirror_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"unknown mirror_dtype {self.mirror_dtype!r}")
         self._check_ported()
 
     def _check_ported(self) -> None:
@@ -89,14 +97,6 @@ class LdaConfig:
             missing.append(f"chains={self.chains} (ROADMAP Queue 1 item 12)")
         if self.mesh:
             missing.append(f"mesh={self.mesh!r} (ROADMAP Queue 1 item 14)")
-        if self.kernel_compute_dtype != "float32":
-            missing.append(
-                f"kernel_compute_dtype={self.kernel_compute_dtype!r} "
-                "(ROADMAP Queue 2, K1 bf16/bf16p chains)")
-        if self.mirror_dtype != "bfloat16":
-            missing.append(
-                f"mirror_dtype={self.mirror_dtype!r} "
-                "(ROADMAP Queue 2, K1 f32-snapshot ablation)")
         if self.pallas_interpret:
             missing.append(
                 "pallas_interpret=True (no interpreter: device='cpu' runs "

@@ -14,8 +14,12 @@ the model runs that tier: on ``cuda`` through its CUDA kernels, or with
 ``device="cpu"`` through their plain PyTorch versions.  With no CUDA the
 default device raises rather than carry on on the CPU, and no kernel failure
 falls back to another tier.  ``sampler="serial"`` runs the host oracle
-(``models/oracle.py``).  Hyperparameter optimisation, checkpoints and the
-device log-likelihood are not ported yet and raise.
+(``models/oracle.py``).  The deferred tier runs K1 in the config's chain
+(``kernel_compute_dtype``) against a snapshot of ``nwk`` in its
+``mirror_dtype``.  ``optimize_hyperparameters`` (Minka's updates,
+``models/hyper.py``) moves α and β between sweeps; the next sweep reads
+them.  ``device_log_likelihood`` is the chunked training LL of
+``evaluation/device_metrics.py``.  Checkpoints are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -30,8 +34,11 @@ import torch
 
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus, PaddedCorpus
+from ldagibbssampling_tpu_torch.evaluation.device_metrics import (
+    device_log_likelihood)
 from ldagibbssampling_tpu_torch.lda_io.artifacts import save_iterated_model
 from ldagibbssampling_tpu_torch.models import state as state_lib
+from ldagibbssampling_tpu_torch.models.hyper import optimize_alpha, optimize_beta
 from ldagibbssampling_tpu_torch.models.oracle import OracleSampler
 from ldagibbssampling_tpu_torch.ops.count_kernel import DeferredPlan, plan_deferred
 from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn, sweep_tier, tier_name
@@ -131,6 +138,7 @@ class LdaModel:
         self._plan = choice.plan
         self._perm: Optional[np.ndarray] = None
         self._mirror: Optional[torch.Tensor] = None
+        self._ll_inputs: Optional[tuple] = None
         if choice.kernel_tier == "serial-oracle":
             self._oracle = OracleSampler(corpus, config.topic_num, config.alpha,
                                          config.beta, seed=config.seed)
@@ -169,12 +177,15 @@ class LdaModel:
             draw_method=config.draw_method, num_sweeps=1,
             use_pallas=choice.use_pallas, num_topics=config.topic_num,
             deferred_plan=self._plan, device=self.device,
+            kernel_compute_dtype=config.kernel_compute_dtype,
+            mirror_dtype=config.mirror_dtype,
         )
 
     # ------------------------------------------------------------------
     def sweep(self, n: int = 1) -> None:
-        """``n`` sweeps.  The deferred tier carries its bf16 snapshot across
-        calls: only the first sweep casts it from ``nwk``."""
+        """``n`` sweeps with the current α and β.  The deferred tier carries
+        its snapshot (counts only, so it outlives a hyperparameter update)
+        across calls: only the first sweep casts it from ``nwk``."""
         if self._oracle is not None:
             self._oracle.sweep(n)
             return
@@ -188,8 +199,18 @@ class LdaModel:
                                       n_sweeps=n, generator=self.generator)
 
     def optimize_hyperparameters(self, iters: int = 5) -> tuple[float, float]:
-        raise NotImplementedError(
-            "hyperparameter optimisation is not ported (ROADMAP Queue 1 item 10)")
+        """Minka fixed-point update of (α, β) from the current count tables
+        (``models/hyper.py``); the next sweep reads the new values.  Not in
+        serial-oracle mode (the oracle is the Java-fidelity chain)."""
+        if self._oracle is not None:
+            raise NotImplementedError(
+                "hyperparameter optimization requires the device sampler")
+        dl = torch.from_numpy(np.asarray(self.doc_lengths)).to(self.device)
+        self.alpha = float(optimize_alpha(self.state.ndk, dl, self.alpha,
+                                          iters=iters))
+        self.beta = float(optimize_beta(self.state.nwk, self.state.nk,
+                                        self.beta, iters=iters))
+        return self.alpha, self.beta
 
     @property
     def sweeps_done(self) -> int:
@@ -246,8 +267,19 @@ class LdaModel:
                         self.state.nk.cpu().numpy())
 
     def device_log_likelihood(self) -> float:
-        raise NotImplementedError(
-            "the device log-likelihood is not ported (ROADMAP Queue 1 item 9)")
+        """Training LL computed on the model's device in token chunks
+        (``evaluation/device_metrics.py``), the ``--ll-every`` path."""
+        if self.state is None:
+            raise NotImplementedError("serial-oracle mode has no device state")
+        if self._ll_inputs is None:  # the token arrays, once, on the device
+            pc = self._padded
+            self._ll_inputs = tuple(
+                torch.from_numpy(np.asarray(a, np.int32)).to(self.device)
+                for a in (pc.token_word, pc.token_doc, pc.token_mask,
+                          self.doc_lengths))
+        return device_log_likelihood(
+            self.state.ndk, self.state.nwk, self.state.nk, *self._ll_inputs,
+            self.alpha, self.beta)
 
     def save_checkpoint(self, directory: str | Path) -> int:
         raise NotImplementedError(

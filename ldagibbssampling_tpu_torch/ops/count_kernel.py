@@ -12,7 +12,10 @@ the table is rebuilt once per sweep from the final assignments.
 - K2 (``csrc/count_kernel.cu``): ``rebuild_counts`` recounts
   ``nwk [v_pad, k_pad]`` and ``nk [k_pad]`` from ``z`` with integer atomics,
   and ``cast_mirror`` writes the bf16 snapshot for the next sweep.
-  ``build_nwk`` runs both and returns the reference's layout.
+  ``build_nwk`` runs both (``emit_mirror=True``) or the rebuild alone
+  (``emit_mirror=False``, the float32-snapshot path, whose snapshot the
+  caller casts outside any kernel, as the reference does in XLA) and
+  returns the reference's layout.
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it; any other device raises, and so does a failed
@@ -354,14 +357,17 @@ def cast_mirror(nwk: torch.Tensor) -> torch.Tensor:
 
 def build_nwk(z: torch.Tensor, token_word: torch.Tensor,
               token_mask: torch.Tensor, *, vocab_size: int, num_topics: int,
-              v_pad: int, k_pad: int):
+              v_pad: int, k_pad: int, emit_mirror: bool = True):
     """Rebuild the word-topic table from ``z`` (sweep-layout order).
 
     Returns ``(nwk [V, K], nk [K], mirror [v_pad, k_pad] bf16)`` in the
     reference's layout and orientation; ``nwk`` and ``nk`` are int32 views of
-    the padded tables, ``mirror`` is the next sweep's snapshot.
+    the padded tables, ``mirror`` is the next sweep's snapshot.  With
+    ``emit_mirror=False`` it returns ``(nwk, nk)`` and casts no snapshot.
     """
     nwk_p, nk_p = rebuild_counts(z, token_word, token_mask,
                                  v_pad=v_pad, k_pad=k_pad)
-    mirror = cast_mirror(nwk_p)
-    return nwk_p[:vocab_size, :num_topics], nk_p[:num_topics], mirror
+    nwk, nk = nwk_p[:vocab_size, :num_topics], nk_p[:num_topics]
+    if not emit_mirror:
+        return nwk, nk
+    return nwk, nk, cast_mirror(nwk_p)

@@ -2,15 +2,23 @@
 update, and the count move.
 
 Counterpart of ``ldagibbssampling_tpu/ops/pallas_gibbs.py`` (the fused block
-kernel ``_fused_kernel``, float32 chain) in both modes: the deferred tier
-(``emit_delta=False``) reads each token's row of a bf16 snapshot ``[v_pad,
-k_pad]`` of ``nwk``; the fused tier (``emit_delta=True``) reads the live
-int32 ``nwk [V, K]`` as it stood at the start of the block.  The CUDA
-kernels are in ``csrc/fused_kernel.cu``:
+kernel ``_fused_kernel``) in both modes: the deferred tier
+(``emit_delta=False``) reads each token's row of a sweep-stale snapshot
+``[v_pad, k_pad]`` of ``nwk``, bf16 or float32 (``mirror_dtype``); the fused
+tier (``emit_delta=True``) reads the live int32 ``nwk [V, K]`` as it stood
+at the start of the block.  The draw's ``[B, K]`` chain runs in one of the
+reference's three ``compute_dtype`` chains (``CHAINS``): ``float32``;
+``bfloat16``, the conditional product and the score in bf16; ``bf16p``, the
+product in bf16 and the score in float32.  A bf16 chain rounds to bf16 after
+every operation, as the reference's kernel is written (and as XLA computes
+it with ``--xla_allow_excess_precision=false``); the fused tier runs the
+float32 chain only, as the reference does.  The CUDA kernels are in
+``csrc/fused_kernel.cu``:
 
 - ``gibbs_tile_sample``: one warp per token reads the token's row (snapshot
   or live table) by word id, its doc row and ``nk``, and draws
-  ``argmax p / E`` (the reference's exponential race);
+  ``argmax p / E`` (the reference's exponential race); templated on the
+  noise mode, the chain and the row type;
 - ``gibbs_tile_update``: moves each unmasked token's count from ``z_old`` to
   ``z_new`` with integer atomics: in ``ndk`` and ``nk`` after each tile of
   K1's walk, and, as ``count_move``, in any of ``nwk``/``ndk``/``nk`` for a
@@ -28,11 +36,13 @@ float32 only inside the score (exact below the 2^24 guards of
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it; any other device raises, and so does a failed
-launch.  ``LAUNCHES`` counts kernel launches (``gibbs_tile_sample`` reading
-the snapshot, ``gibbs_tile_sample_live`` reading the live table,
-``gibbs_tile_update`` the per-tile moves of a walk and ``count_move`` the
-one-launch moves, the same CUDA kernel), ``PLAIN_CALLS`` calls of the plain
-versions under the same names.
+launch.  ``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the
+plain versions, under the same names: ``gibbs_tile_sample`` plus the
+chain's suffix (none, ``_bf16``, ``_bf16p``) and the rows' (none for the
+bf16 snapshot, ``_f32rows``, ``_live`` for the int32 table) — the
+instantiation that ran (``sample_name``); ``gibbs_tile_update`` the
+per-tile moves of a walk and ``count_move`` the one-launch moves, the same
+CUDA kernel.
 """
 
 from __future__ import annotations
@@ -44,8 +54,24 @@ import torch
 import torch.nn.functional as F
 
 NOISE_MODES = ("deterministic", "external", "internal")
-LAUNCHES = {"gibbs_tile_sample": 0, "gibbs_tile_sample_live": 0,
-            "gibbs_tile_update": 0, "count_move": 0}
+CHAINS = ("float32", "bfloat16", "bf16p")
+_CHAIN_SUFFIX = {"float32": "", "bfloat16": "_bf16", "bf16p": "_bf16p"}
+_ROWS_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32rows",
+                torch.int32: "_live"}
+# the C entry point's row kinds
+_ROWS_KIND = {torch.bfloat16: 0, torch.int32: 1, torch.float32: 2}
+
+
+def sample_name(rows_dtype: torch.dtype, compute_dtype: str = "float32") -> str:
+    """The counter name of K1's draw for a row type and a chain."""
+    return ("gibbs_tile_sample" + _CHAIN_SUFFIX[compute_dtype]
+            + _ROWS_SUFFIX[rows_dtype])
+
+
+LAUNCHES = {
+    **{sample_name(r, c): 0 for c in CHAINS
+       for r in (torch.bfloat16, torch.float32)},
+    sample_name(torch.int32): 0, "gibbs_tile_update": 0, "count_move": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 _MASK32 = 0xFFFFFFFF
@@ -103,8 +129,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 def row_width(rows: torch.Tensor, num_topics: int) -> int:
-    """``k_pad`` of a walk: the bf16 snapshot's width, or ``K`` rounded up to
-    128 for the live int32 table (the reference pads its f32 table so)."""
+    """``k_pad`` of a walk: the snapshot's width, or ``K`` rounded up to 128
+    for the live int32 table (the reference pads its f32 table so)."""
     if rows.dtype == torch.int32:
         return _round_up(num_topics, 128)
     return rows.shape[1]
@@ -112,10 +138,10 @@ def row_width(rows: torch.Tensor, num_topics: int) -> int:
 
 def sample_plain(rows, ndk, nk, z, token_word, token_doc, token_mask, *,
                  alpha, beta, vbeta, noise_mode, seed=0, uniforms=None,
-                 slot0=0) -> torch.Tensor:
-    """Draw every token against the given counts (no count update)."""
-    live = rows.dtype == torch.int32
-    PLAIN_CALLS["gibbs_tile_sample_live" if live else "gibbs_tile_sample"] += 1
+                 slot0=0, compute_dtype="float32") -> torch.Tensor:
+    """Draw every token against the given counts (no count update), in the
+    chain ``compute_dtype`` (pallas_gibbs.py:140-177, op for op)."""
+    PLAIN_CALLS[sample_name(rows.dtype, compute_dtype)] += 1
     k = ndk.shape[1]
     n, k_pad = z.shape[0], row_width(rows, k)
     f32 = torch.float32
@@ -126,17 +152,31 @@ def sample_plain(rows, ndk, nk, z, token_word, token_doc, token_mask, *,
     e = (cols[None, :] == z[:, None].long()).to(f32)
     wrows = F.pad(rows[token_word.long()], (0, k_pad - rows.shape[1])).to(f32)
     drows = F.pad(ndk[token_doc.long()], (0, k_pad - k)).to(f32)
-    r = approx_recip(F.pad(nk, (0, k_pad - k)).to(f32) + vbeta)
-    rr = r * r
+    r32 = approx_recip(F.pad(nk, (0, k_pad - k)).to(f32) + vbeta)
+    if compute_dtype == "float32":
+        r, rr = r32, r32 * r32
+    else:
+        # every operand cast to bf16, and every op below rounds to bf16
+        # (PyTorch computes a bf16 op in float32 and rounds its result)
+        bf = torch.bfloat16
+        r, rr = r32.to(bf), (r32 * r32).to(bf)
+        e, wrows, drows = e.to(bf), wrows.to(bf), drows.to(bf)
+        alpha, beta = alpha.to(bf), beta.to(bf)
     p = ((wrows - e + beta) * (drows - e + alpha)) * (r + e * rr)
     if noise_mode == "deterministic":
         score = p
     else:
         u = (philox_uniforms(seed, slot0, n, k_pad, dev)
              if noise_mode == "internal" else uniforms)
-        score = p * approx_recip(-torch.log(u))
-    score = torch.where(cols[None, :] < k, score, torch.tensor(-1.0, device=dev))
-    znew = score.argmax(dim=1).to(z.dtype)  # first index of the maximum
+        inv_e = approx_recip(-torch.log(u))
+        if compute_dtype == "bfloat16":
+            score = p * inv_e.to(torch.bfloat16)
+        else:  # float32, or bf16p's float32 score
+            score = p.to(f32) * inv_e
+    score = torch.where(cols[None, :] < k, score,
+                        torch.tensor(-1.0, dtype=score.dtype, device=dev))
+    # the argmax runs on the float32 cast (exact); first index of the maximum
+    znew = score.to(f32).argmax(dim=1).to(z.dtype)
     return torch.where(token_mask > 0, znew, z)
 
 
@@ -179,7 +219,8 @@ def dense_delta(z_old, z_new, token_mask, k_pad: int) -> torch.Tensor:
 
 def gibbs_tiles_plain(rows, ndk, nk, z, token_word, token_doc, token_mask,
                       *, alpha, beta, vbeta, row_tile, noise_mode="internal",
-                      seed=0, uniforms=None, slot0=0, emit_delta=False):
+                      seed=0, uniforms=None, slot0=0, emit_delta=False,
+                      compute_dtype="float32"):
     """The plain version of ``gibbs_tiles``: per tile, ``sample_plain`` then
     ``update_plain`` (on whatever device the tensors are).  With
     ``emit_delta`` it returns ``(z_new, dense_delta)``."""
@@ -191,7 +232,7 @@ def gibbs_tiles_plain(rows, ndk, nk, z, token_word, token_doc, token_mask,
             token_mask[sl], alpha=alpha, beta=beta, vbeta=vbeta,
             noise_mode=noise_mode, seed=seed,
             uniforms=None if uniforms is None else uniforms[sl],
-            slot0=slot0 + s,
+            slot0=slot0 + s, compute_dtype=compute_dtype,
         )
         update_plain(ndk, nk, z[sl], zt, token_doc[sl], token_mask[sl])
         parts.append(zt)
@@ -235,12 +276,19 @@ def _check_counts(ndk, nk, z, token_doc, token_mask, extra=()) -> None:
 
 
 def _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
-           uniforms):
+           uniforms, compute_dtype):
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
-    if rows.dtype not in (torch.bfloat16, torch.int32):
+    if compute_dtype not in CHAINS:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    if rows.dtype not in _ROWS_KIND:
         raise ValueError(
-            f"rows: want the bfloat16 snapshot or the int32 table, got {rows.dtype}")
+            "rows: want the bfloat16 or float32 snapshot or the int32 table, "
+            f"got {rows.dtype}")
+    if rows.dtype == torch.int32 and compute_dtype != "float32":
+        raise ValueError(
+            "the live int32 table (the fused tier) runs the float32 chain only, "
+            f"not {compute_dtype!r}")
     k = ndk.shape[1]
     k_pad = row_width(rows, k)
     extra = [("rows", rows, rows.dtype, 2),
@@ -267,7 +315,7 @@ def _lib():
     lib.lda_gibbs_tiles.restype = i32
     lib.lda_gibbs_tiles.argtypes = [
         vp, i32, i64, i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32,
-        f32, f32, f32, i32, ctypes.c_ulonglong, i64, i32, vp]
+        f32, f32, f32, i32, i32, ctypes.c_ulonglong, i64, i32, vp]
     lib.lda_count_move.restype = i32
     lib.lda_count_move.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, vp]
     return _build, lib
@@ -280,32 +328,34 @@ def _ptr(t):
 def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows=None,
             token_word=None, uniforms=None, row_tile, alpha=0.0, beta=0.0,
             vbeta=0.0, noise_mode="deterministic", seed=0, slot0=0,
-            phases) -> None:
+            compute_dtype="float32", phases) -> None:
     """One host call that launches the tiles' kernels (``phases``: 1 draw,
-    2 count move, 3 both per tile); the phases' unused tensors may be None."""
+    2 count move, 3 both per tile); the phases' unused tensors may be None.
+    α, β and Vβ go to every launch as values: nothing keeps them."""
     build, lib = _lib()
-    live = rows is not None and rows.dtype == torch.int32
     with torch.cuda.device(ndk.device):
         err = lib.lda_gibbs_tiles(
-            _ptr(rows), int(live), 0 if rows is None else rows.shape[1],
+            _ptr(rows), 0 if rows is None else _ROWS_KIND[rows.dtype],
+            0 if rows is None else rows.shape[1],
             0 if rows is None else row_width(rows, ndk.shape[1]), _ptr(ndk),
             ndk.shape[1], _ptr(nk), _ptr(z), _ptr(z_new), _ptr(token_word),
             _ptr(token_doc), _ptr(token_mask),
             _ptr(uniforms) if noise_mode == "external" else None,
             z.shape[0], row_tile, alpha, beta, vbeta,
-            NOISE_MODES.index(noise_mode), seed & (2**64 - 1), slot0,
-            phases, torch.cuda.current_stream().cuda_stream,
+            NOISE_MODES.index(noise_mode), CHAINS.index(compute_dtype),
+            seed & (2**64 - 1), slot0, phases,
+            torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, err, "lda_gibbs_tiles")
     n_tiles = -(-z.shape[0] // row_tile)
     if phases & 1:
-        LAUNCHES["gibbs_tile_sample_live" if live else "gibbs_tile_sample"] += n_tiles
+        LAUNCHES[sample_name(rows.dtype, compute_dtype)] += n_tiles
     if phases & 2:
         LAUNCHES["gibbs_tile_update"] += n_tiles
 
 
 def gibbs_tiles(
-    rows: torch.Tensor,         # [v_pad, k_pad] bf16 snapshot, or [V, K] int32 nwk
+    rows: torch.Tensor,         # [v_pad, k_pad] bf16/f32 snapshot, or [V, K] int32 nwk
     ndk: torch.Tensor,          # [M, K] int32 — updated in place
     nk: torch.Tensor,           # [K] int32 — updated in place
     z: torch.Tensor,            # [n] int32 — assignments before the walk
@@ -321,6 +371,7 @@ def gibbs_tiles(
     seed: int = 0,
     uniforms: Optional[torch.Tensor] = None,  # [n, k_pad] f32 (external)
     slot0: int = 0,
+    compute_dtype: str = "float32",  # the chain (CHAINS); float32 on int32 rows
 ) -> torch.Tensor:
     """Walk the tokens in tiles of ``row_tile``, in order: draw each tile,
     then move its ``ndk``/``nk`` counts, before the next tile draws.
@@ -330,7 +381,7 @@ def gibbs_tiles(
     counter), so a walk over a slice draws what the whole walk would.
     """
     _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
-           uniforms)
+           uniforms, compute_dtype)
     if row_tile <= 0:
         raise ValueError(f"row_tile {row_tile} must be positive")
     if rows.device.type == "cuda":
@@ -338,31 +389,33 @@ def gibbs_tiles(
         _launch(ndk, nk, z, z_new, token_doc, token_mask, rows=rows,
                 token_word=token_word, uniforms=uniforms, row_tile=row_tile,
                 alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
-                seed=seed, slot0=slot0, phases=3)
+                seed=seed, slot0=slot0, compute_dtype=compute_dtype, phases=3)
         return z_new
     return gibbs_tiles_plain(
         rows, ndk, nk, z, token_word, token_doc, token_mask, alpha=alpha,
         beta=beta, vbeta=vbeta, row_tile=row_tile, noise_mode=noise_mode,
-        seed=seed, uniforms=uniforms, slot0=slot0)
+        seed=seed, uniforms=uniforms, slot0=slot0, compute_dtype=compute_dtype)
 
 
 def gibbs_tile_sample(rows, ndk, nk, z, token_word, token_doc, token_mask,
                       *, alpha, beta, vbeta, row_tile, noise_mode="internal",
-                      seed=0, uniforms=None, slot0=0) -> torch.Tensor:
+                      seed=0, uniforms=None, slot0=0,
+                      compute_dtype="float32") -> torch.Tensor:
     """The draw alone: every token against the given counts, launched in
     tiles of ``row_tile``; returns ``z_new`` and moves no count."""
     _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
-           uniforms)
+           uniforms, compute_dtype)
     if rows.device.type == "cpu":
         return sample_plain(
             rows, ndk, nk, z, token_word, token_doc, token_mask,
             alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
-            seed=seed, uniforms=uniforms, slot0=slot0)
+            seed=seed, uniforms=uniforms, slot0=slot0,
+            compute_dtype=compute_dtype)
     z_new = torch.empty_like(z)
     _launch(ndk, nk, z, z_new, token_doc, token_mask, rows=rows,
             token_word=token_word, uniforms=uniforms, row_tile=row_tile,
             alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
-            seed=seed, slot0=slot0, phases=1)
+            seed=seed, slot0=slot0, compute_dtype=compute_dtype, phases=1)
     return z_new
 
 

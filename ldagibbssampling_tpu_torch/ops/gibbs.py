@@ -20,8 +20,11 @@ after the reference's layout and exactness rules (``sweep_tier``):
   the block-start word-topic table, moving ``ndk`` and ``nk`` after each
   tile; then one count-move launch applies the block's word-topic moves;
 - ``"deferred"`` (``deferred_local_counts``): K1 walks every tile against the
-  sweep-stale bf16 snapshot of ``nwk``, and K2 (``ops/count_kernel.build_nwk``)
-  rebuilds ``nwk``, ``nk`` and the next snapshot from ``z``.
+  sweep-stale snapshot of ``nwk`` (``mirror_dtype`` bf16 or float32) in the
+  chain ``compute_dtype``, and K2 (``ops/count_kernel``) rebuilds ``nwk``,
+  ``nk`` and, for the bf16 snapshot, the next snapshot from ``z``; the
+  float32 snapshot is a PyTorch cast of the rebuilt padded table, as the
+  reference's is an XLA one (its ``ops/gibbs.py:491-501``).
 
 Counts live as int32 on the caller's device and are updated in place on a
 copy of the input state (the input state is not modified).  The reference
@@ -48,9 +51,10 @@ import torch
 import torch.nn.functional as F
 
 from ldagibbssampling_tpu_torch.models.state import SamplerState
-from ldagibbssampling_tpu_torch.ops.count_kernel import build_nwk, cast_mirror
+from ldagibbssampling_tpu_torch.ops.count_kernel import (
+    build_nwk, cast_mirror, rebuild_counts)
 from ldagibbssampling_tpu_torch.ops.fused_kernel import (
-    NOISE_MODES, count_move, gibbs_tiles)
+    CHAINS, NOISE_MODES, count_move, gibbs_tiles)
 from ldagibbssampling_tpu_torch.ops.sample_kernel import sample_block
 
 _log = logging.getLogger("ldagibbssampling_tpu_torch")
@@ -85,6 +89,19 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def snapshot(nwk: torch.Tensor, v_pad: int, k_pad: int,
+             mirror_dtype: str) -> torch.Tensor:
+    """The deferred tier's ``[v_pad, k_pad]`` snapshot of the int32 ``nwk``:
+    bf16 through K2's ``cast_mirror``, or a float32 copy (exact counts)."""
+    v, k = nwk.shape
+    padded = F.pad(nwk, (0, k_pad - k, 0, v_pad - v))
+    if mirror_dtype == "bfloat16":
+        return cast_mirror(padded.contiguous())
+    if mirror_dtype == "float32":
+        return padded.float()
+    raise ValueError(f"unknown mirror_dtype {mirror_dtype!r}")
+
+
 def deferred_local_counts(
     state: SamplerState,
     token_word: torch.Tensor,
@@ -99,21 +116,26 @@ def deferred_local_counts(
     noise_mode: str = "internal",
     seed: int = 0,
     uniforms: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
+    mirror_dtype: str = "bfloat16",
 ):
     """Deferred-mode sweep core: returns ``(z, ndk, nwk, nk, mirror_out)``.
 
     ``state.nwk`` is only read, as the sweep-stale snapshot: ``mirror``
-    (``[v_pad, k_pad]`` bf16, the previous sweep's ``mirror_out``) or, when
-    ``None``, a fresh bf16 cast of ``state.nwk``.  ``ndk`` comes from K1's
-    in-place walk over a copy of ``state.ndk``; ``nwk``, ``nk`` and
-    ``mirror_out`` come from K2's rebuild from the new ``z`` (K1's running
-    ``nk`` is a sampling normaliser only, as in the reference).
+    (``[v_pad, k_pad]`` in ``mirror_dtype``, the previous sweep's
+    ``mirror_out``) or, when ``None``, a fresh ``snapshot`` of
+    ``state.nwk``.  ``ndk`` comes from K1's in-place walk, in the chain
+    ``compute_dtype``, over a copy of ``state.ndk``; ``nwk`` and ``nk`` come
+    from K2's rebuild from the new ``z`` (K1's running ``nk`` is a sampling
+    normaliser only, as in the reference), and so does ``mirror_out``, the
+    next sweep's snapshot: K2's ride-along cast for the bf16 snapshot, a
+    PyTorch cast of the rebuilt padded table for the float32 one (the
+    reference's ``ops/gibbs.py:469-472`` and :491-501).
     """
     v, k = state.nwk.shape
     k_pad = _round_up(k, 128)
     if mirror is None:
-        mirror = cast_mirror(
-            F.pad(state.nwk, (0, k_pad - k, 0, v_pad - v)).contiguous())
+        mirror = snapshot(state.nwk, v_pad, k_pad, mirror_dtype)
     # V·β in float32, as the reference forms it from its f32 β
     vbeta = float(np.float32(v) * np.float32(beta))
     ndk = state.ndk.clone()
@@ -122,10 +144,18 @@ def deferred_local_counts(
         mirror, ndk, nk, state.z, token_word, token_doc, token_mask,
         alpha=_f32(alpha), beta=_f32(beta), vbeta=vbeta, row_tile=row_tile,
         noise_mode=noise_mode, seed=seed, uniforms=uniforms,
+        compute_dtype=compute_dtype,
     )
-    nwk, nk_rebuilt, mirror_out = build_nwk(
-        z, token_word, token_mask, vocab_size=v, num_topics=k,
-        v_pad=v_pad, k_pad=k_pad)
+    rebuild = dict(vocab_size=v, num_topics=k, v_pad=v_pad, k_pad=k_pad)
+    if mirror_dtype == "bfloat16":
+        nwk, nk_rebuilt, mirror_out = build_nwk(z, token_word, token_mask,
+                                                **rebuild)
+    else:
+        # K2's rebuild alone (build_nwk's emit_mirror=False form), and the
+        # float32 snapshot cast straight from its padded table
+        nwk_p, nk_p = rebuild_counts(z, token_word, token_mask,
+                                     v_pad=v_pad, k_pad=k_pad)
+        nwk, nk_rebuilt, mirror_out = nwk_p[:v, :k], nk_p[:k], nwk_p.float()
     return z, ndk, nwk, nk_rebuilt, mirror_out
 
 
@@ -381,10 +411,14 @@ def make_sweep_fn(
     deferred_plan=None,
     device: Any = "cpu",
     noise_mode: str = "internal",
+    kernel_compute_dtype: str = "float32",
+    mirror_dtype: str = "bfloat16",
 ):
     """Build ``run(state, ...) -> state`` running ``num_sweeps`` sweeps of
     the tier ``use_pallas`` (``False``, ``True``, ``"fused"`` or
     ``"deferred"``, resolved by ``sweep_tier``) on ``device``.
+    ``kernel_compute_dtype`` (K1's chain) and ``mirror_dtype`` (the
+    snapshot's type) shape the deferred tier only, as in the reference.
 
     ``doc_lengths`` is needed by ``inverse_cdf``; ``deferred_plan`` (from
     ``ops.count_kernel.plan_deferred``) by the deferred tier, whose
@@ -396,6 +430,10 @@ def make_sweep_fn(
     """
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    if kernel_compute_dtype not in CHAINS:
+        raise ValueError(f"unknown kernel_compute_dtype {kernel_compute_dtype!r}")
+    if mirror_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"unknown mirror_dtype {mirror_dtype!r}")
     td_host = np.asarray(token_doc, np.int32)
     tm_host = np.asarray(token_mask, np.int32)
     tier, row_tile, reason = sweep_tier(
@@ -451,17 +489,19 @@ def make_sweep_fn(
             generator: Optional[torch.Generator] = None,
             noise: Optional[Callable[[int], torch.Tensor]] = None,
         ):
-            """``n_sweeps`` (default ``num_sweeps``) sweeps carrying the bf16
-            snapshot; returns ``(state, mirror)``.  ``mirror=None`` (cold
-            start) casts it from ``state.nwk``; ``noise(sweep)`` gives the
-            sweep's ``[T_pad, k_pad]`` float32 uniforms."""
+            """``n_sweeps`` (default ``num_sweeps``) sweeps carrying the
+            snapshot (in ``mirror_dtype``); returns ``(state, mirror)``.
+            ``mirror=None`` (cold start) casts it from ``state.nwk``;
+            ``noise(sweep)`` gives the sweep's ``[T_pad, k_pad]`` float32
+            uniforms.  ``alpha`` and ``beta`` are read at every call."""
             n = num_sweeps if n_sweeps is None else n_sweeps
             for _ in range(n):
                 seed, u = sweep_noise(state, generator, noise)
                 state, mirror = _deferred_sweep_impl(
                     state, tw, td, tm, alpha, beta, row_tile=row_tile,
                     v_pad=v_pad, mirror=mirror, noise_mode=noise_mode,
-                    seed=seed, uniforms=u,
+                    seed=seed, uniforms=u, compute_dtype=kernel_compute_dtype,
+                    mirror_dtype=mirror_dtype,
                 )
             return state, mirror
 

@@ -3,14 +3,18 @@
 Counterpart of ``ldagibbssampling_tpu/runner.py``: the reference's
 ``inferenceModel`` loop (save schedule + guard) over any
 :class:`InferenceBackend`, batching the sweeps between schedule boundaries
-into one ``backend.sweep(chunk)`` call.  The hyperparameter, checkpoint and
-log-likelihood branches are not ported yet and raise when asked for.
+into one ``backend.sweep(chunk)`` call, with the reference's Minka (α, β)
+updates (``optimize_hyper_every``) and training log-likelihood rows
+(``ll_every``).  The checkpoint branch is not ported yet and raises when
+asked for.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Callable, Optional
+
+import numpy as np
 
 from ldagibbssampling_tpu_torch.backends.base import InferenceBackend
 from ldagibbssampling_tpu_torch.config import LdaConfig
@@ -49,19 +53,18 @@ def run_inference(
     """The reference inference loop: sweep with the periodic save schedule.
 
     ``metrics`` gets one header row and then a throughput row every
-    ``metrics_every`` sweeps (0: rows only at save boundaries); a row forces
-    a device synchronise so its time covers the compute.  ``ll_every``,
-    ``optimize_hyper_every`` and ``checkpoint_*`` raise
-    ``NotImplementedError`` when set (ROADMAP Queue 1 items 9-11).
+    ``metrics_every`` sweeps (0: rows only at the other boundaries); a row
+    forces a device synchronise so its time covers the compute.
+    ``optimize_hyper_every`` runs the backend's ``optimize_hyperparameters``
+    after every N-th sweep.  ``ll_every`` adds ``log_likelihood`` and
+    ``perplexity`` to the metrics row after every N-th sweep (the backend's
+    ``device_log_likelihood``, else the host ``evaluation/metrics``); rows
+    carry the live ``alpha`` and ``beta``.  ``checkpoint_*`` raise
+    ``NotImplementedError`` when set (ROADMAP Queue 1 item 11).
     """
-    missing = [name for name, on in (
-        ("ll_every (ROADMAP Queue 1 item 9)", ll_every > 0),
-        ("optimize_hyper_every (item 10)", optimize_hyper_every > 0),
-        ("checkpoints (item 11)",
-         checkpoint_dir is not None or checkpoint_every > 0),
-    ) if on]
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    if checkpoint_dir is not None or checkpoint_every > 0:
+        raise NotImplementedError(
+            "not ported yet: checkpoints (ROADMAP Queue 1 item 11)")
     if result_dir is not None:
         config.validate_reference_guard()
     timer = SweepTimer(corpus.num_tokens)
@@ -81,7 +84,11 @@ def run_inference(
         n = i + 1
         if _save_due(n):
             return True
-        return metrics is not None and metrics_every > 0 and n % metrics_every == 0
+        if optimize_hyper_every > 0 and n % optimize_hyper_every == 0:
+            return True
+        if metrics is not None and metrics_every > 0 and n % metrics_every == 0:
+            return True
+        return metrics is not None and ll_every > 0 and n % ll_every == 0
 
     i = start
     while i < config.iteration:
@@ -96,15 +103,33 @@ def run_inference(
             if metrics is not None:
                 block_on_backend(backend)
         i_last = i + chunk - 1
+        if (optimize_hyper_every > 0
+                and (i_last + 1) % optimize_hyper_every == 0
+                and hasattr(backend, "optimize_hyperparameters")):
+            backend.optimize_hyperparameters()
         if metrics is not None:
             scalars = {
                 "tokens_per_s": chunk * corpus.num_tokens
                 / max(timer.times[-1], 1e-12),
-                "alpha": getattr(backend, "alpha", None),
-                "beta": getattr(backend, "beta", None),
             }
             if chunk > 1:
                 scalars["sweeps_in_chunk"] = chunk
+            if ll_every > 0 and (i_last + 1) % ll_every == 0:
+                dev_ll = getattr(backend, "device_log_likelihood", None)
+                if callable(dev_ll):
+                    ll = dev_ll()  # chunked on the device
+                else:
+                    from ldagibbssampling_tpu_torch.evaluation.metrics import (
+                        log_likelihood)
+
+                    ll = log_likelihood(backend.phi(), backend.theta(), corpus)
+                scalars["log_likelihood"] = ll
+                if corpus.num_tokens:
+                    scalars["perplexity"] = float(np.exp(-ll / corpus.num_tokens))
+            for name in ("alpha", "beta"):
+                value = getattr(backend, name, None)
+                if value is not None:
+                    scalars[name] = value
             metrics.log(i_last, **scalars)
         if progress is not None:
             for j in range(i, i_last + 1):  # keep per-iteration stdout parity

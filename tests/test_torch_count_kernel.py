@@ -1,6 +1,9 @@
 """K2's plain version against the reference rebuild kernel in Pallas
 interpret mode (``build_nwk(..., emit_mirror=True, interpret=True)``).
 
+Also ``emit_mirror=False``, the float32-snapshot path: ``nwk`` and ``nk``
+alone.
+
 Tolerance: none.  ``nwk``, ``nk`` and the bf16 mirror are bitwise equal:
 both sides count integers exactly (float32 below 2^24 in the reference,
 int32 here) and round them to bf16 to nearest-even.  The assignments are
@@ -34,14 +37,17 @@ def _plan_and_z(seed, t=4000, **plan_kw):
     return plan, z
 
 
-def _reference(plan, z, k_pad):
+def _reference(plan, z, k_pad, emit_mirror=True):
     nt = plan.tile_stripe.shape[0]
     wl8 = jax_ck.replicate_rows(jnp.asarray(plan.w_local.reshape(nt, plan.tile)))
-    nwk, nk, mirror = jax_ck.build_nwk(
+    out = jax_ck.build_nwk(
         jnp.asarray(z), jnp.asarray(plan.row_gather_idx), wl8,
         jnp.asarray(plan.tile_stripe), v_loc=plan.v_loc, v_pad=plan.v_pad,
-        k_pad=k_pad, tile=plan.tile, interpret=True, emit_mirror=True,
+        k_pad=k_pad, tile=plan.tile, interpret=True, emit_mirror=emit_mirror,
     )
+    if not emit_mirror:
+        return np.asarray(out[0]), np.asarray(out[1])
+    nwk, nk, mirror = out
     return np.asarray(nwk), np.asarray(nk), np.asarray(mirror.astype(jnp.float32))
 
 
@@ -59,6 +65,25 @@ def test_build_nwk_bitwise_equals_reference(seed, plan_kw):
     np.testing.assert_array_equal(nwk.numpy(), nwk_ref[:V, :K].astype(np.int32))
     np.testing.assert_array_equal(nk.numpy(), nk_ref[:K].astype(np.int32))
     np.testing.assert_array_equal(mirror.float().numpy(), mirror_ref)
+
+
+@pytest.mark.parametrize("seed,plan_kw", [(6, dict(v_loc=64, tile=128)), (7, dict())])
+def test_build_nwk_without_mirror_equals_reference(seed, plan_kw):
+    # the float32-snapshot path: the rebuild alone, no bf16 snapshot
+    plan, z = _plan_and_z(seed, **plan_kw)
+    ref = _reference(plan, z, 128, emit_mirror=False)
+    assert len(ref) == 2
+    before = dict(ck.PLAIN_CALLS)
+    out = ck.build_nwk(
+        torch.from_numpy(z), torch.from_numpy(plan.token_word),
+        torch.from_numpy(plan.token_mask), vocab_size=V, num_topics=K,
+        v_pad=plan.v_pad, k_pad=128, emit_mirror=False)
+    assert len(out) == 2
+    assert ck.PLAIN_CALLS["cast_mirror"] == before["cast_mirror"]
+    assert ck.PLAIN_CALLS["rebuild_counts"] == before["rebuild_counts"] + 1
+    nwk, nk = out
+    np.testing.assert_array_equal(nwk.numpy(), ref[0][:V, :K].astype(np.int32))
+    np.testing.assert_array_equal(nk.numpy(), ref[1][:K].astype(np.int32))
 
 
 def test_rebuild_padded_tables_equal_reference():

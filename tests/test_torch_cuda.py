@@ -7,7 +7,11 @@ one (and without jax, hence ``--noconftest``):
 Tolerances: none.  On the card both sides run the same float32 operations
 in the same order with the same libdevice ``logf``, so z and every count
 must be equal in all three noise modes (K3: on the unmasked tokens, whose
-draws the sweep keeps).
+draws the sweep keeps); the bf16 chains round to bf16 after the same
+operations on both sides.  K4's bf16 variant is native packed bf16 (one
+rounding per op) against PyTorch's float32-then-round ops, which give the
+same bits (the double-rounding condition, ``csrc/dtype_probe.cu``): bitwise,
+as its float32 variant.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ldagibbssampling_tpu_torch.models.state import init_state
 from ldagibbssampling_tpu_torch.ops import count_kernel as ck
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
 from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
+from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +68,30 @@ def test_k1_walk_equals_plain(cuda, mode):
                  noise_mode=mode, seed=77, uniforms=uniforms, **HYPER)
         out.append((z, ndk, nk))
     torch.cuda.synchronize()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("chain,rows", [
+    ("bfloat16", "bfloat16"), ("bf16p", "bfloat16"), ("float32", "float32"),
+    ("bfloat16", "float32"), ("bf16p", "float32")])
+@pytest.mark.parametrize("mode", ["deterministic", "external", "internal"])
+def test_k1_chains_walk_equals_plain(cuda, chain, rows, mode):
+    plan, st, (tw, td, tm) = _setup(cuda, seed=7)
+    nwk = torch.nn.functional.pad(st.nwk, (0, 128 - K, 0, plan.v_pad - V))
+    snap = (ck.cast_mirror(nwk.contiguous()) if rows == "bfloat16"
+            else nwk.float().contiguous())
+    uniforms = torch.rand((tw.shape[0], 128), device=cuda) * 0.999 + 5e-4
+    name = fk.sample_name(snap.dtype, chain)
+    launched = fk.LAUNCHES[name]
+    out = []
+    for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
+        ndk, nk = st.ndk.clone(), st.nk.clone()
+        z = walk(snap, ndk, nk, st.z, tw, td, tm, row_tile=256, noise_mode=mode,
+                 seed=80, uniforms=uniforms, compute_dtype=chain, **HYPER)
+        out.append((z, ndk, nk))
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[name] > launched
     for a, b in zip(*out):
         assert torch.equal(a, b)
 
@@ -130,6 +159,43 @@ def test_k2_equals_plain(cuda):
     nwk_p, nk_p = ck.rebuild_counts_plain(st.z, tw, tm, v_pad=plan.v_pad, k_pad=128)
     assert torch.equal(nwk, nwk_p) and torch.equal(nk, nk_p)
     assert torch.equal(ck.cast_mirror(nwk), ck.cast_mirror_plain(nwk))
+    casts = ck.LAUNCHES["cast_mirror"]
+    out = ck.build_nwk(st.z, tw, tm, vocab_size=V, num_topics=K,
+                       v_pad=plan.v_pad, k_pad=128, emit_mirror=False)
+    torch.cuda.synchronize()
+    assert len(out) == 2 and ck.LAUNCHES["cast_mirror"] == casts
+    assert torch.equal(out[0], nwk_p[:V, :K]) and torch.equal(out[1], nk_p[:K])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_probe_equals_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.rand((2048, probe.K), generator=g, device=cuda)
+    b = torch.rand((2048, probe.K), generator=g, device=cuda)
+    got = probe.dtype_probe(a, b, dtype=dtype)
+    want = probe.probe_plain(a, b, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chain,mirror", [
+    ("bfloat16", "bfloat16"), ("bf16p", "float32"), ("float32", "float32")])
+def test_deferred_chains_on_card(cuda, chain, mirror):
+    rng = np.random.default_rng(2)
+    ragged = [[int(x) for x in rng.integers(0, 80, size=60)] for _ in range(30)]
+    fc = FlatCorpus.from_ragged(ragged, vocab_size=80)
+    model = LdaModel(LdaConfig(topic_num=9, block_size=512,
+                               kernel_compute_dtype=chain, mirror_dtype=mirror), fc)
+    name = fk.sample_name(getattr(torch, mirror), chain)
+    launches, casts = fk.LAUNCHES[name], ck.LAUNCHES["cast_mirror"]
+    model.sweep(4)
+    model.check_counts_consistent()
+    assert fk.LAUNCHES[name] > launches
+    assert (ck.LAUNCHES["cast_mirror"] > casts) == (mirror == "bfloat16")
+    model.optimize_hyperparameters()
+    model.sweep(1)
+    assert np.isfinite(model.device_log_likelihood())
+    model.check_counts_consistent()
 
 
 @pytest.mark.parametrize("use_pallas,tier,kernel", [
@@ -157,7 +223,7 @@ def test_failed_launch_raises(cuda):
     build, lib = fk._lib()
     err = lib.lda_gibbs_tiles(None, 0, 128, 128, None, K, None, None, None,
                               None, None, None, None, 0, 256, 0.5, 0.1, 1.0, 7,
-                              0, 0, 3, None)
+                              0, 0, 0, 3, None)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib, err, "lda_gibbs_tiles")

@@ -245,8 +245,14 @@ def test_wrapper_rejects_bad_inputs():
     good = dict(alpha=ALPHA, beta=BETA, vbeta=VBETA, row_tile=64)
     toks = (torch.arange(128, dtype=torch.int32), torch.from_numpy(d_local),
             torch.from_numpy(msk))
-    with pytest.raises(ValueError, match="float32"):  # mirror must be bf16
-        fk.gibbs_tiles(mirror.float(), ndk, nk_t, torch.from_numpy(zold), *toks, **good)
+    with pytest.raises(ValueError, match="float64"):  # a bf16/f32 snapshot
+        fk.gibbs_tiles(mirror.double(), ndk, nk_t, torch.from_numpy(zold), *toks, **good)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fk.gibbs_tiles(mirror, ndk, nk_t, torch.from_numpy(zold), *toks,
+                       compute_dtype="float16", **good)
+    with pytest.raises(ValueError, match="float32 chain only"):  # the live table
+        fk.gibbs_tiles(ndk.clone(), ndk, nk_t, torch.from_numpy(zold), *toks,
+                       compute_dtype="bfloat16", **good)
     with pytest.raises(ValueError, match="uniforms"):
         fk.gibbs_tiles(mirror, ndk, nk_t, torch.from_numpy(zold), *toks,
                        noise_mode="external", **good)

@@ -124,11 +124,11 @@ def test_cli_runs_end_to_end_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--optimize-hyper-every", "5"], "--optimize-hyper-every"),
+    (["--checkpoint-every", "5"], "--checkpoint-every"),
     (["--backend", "cvb0"], "--backend"),
     (["--chains", "2"], "--chains"),
     (["--mesh", "data=2"], "--mesh"),
-    (["--ll-every", "5"], "--ll-every"),
+    (["--infer-docs", "x"], "--infer-docs"),
     (["--resume"], "--resume"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flags, name):
@@ -149,7 +149,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("backend", "svi"), ("chains", 2), ("mesh", {"data": 2}),
-    ("kernel_compute_dtype", "bfloat16"), ("mirror_dtype", "float32"),
+    ("backend", "cvb0"), ("backend", "warp"),
 ])
 def test_config_rejects_unported_paths(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -159,6 +159,8 @@ def test_config_rejects_unported_paths(field, value):
 @pytest.mark.parametrize("field,value,tier", [
     ("use_pallas", "fused", "fused"), ("use_pallas", False, "xla"),
     ("sampler", "serial", "serial-oracle"), ("draw_method", "inverse_cdf", "xla"),
+    ("kernel_compute_dtype", "bfloat16", "deferred"),
+    ("mirror_dtype", "float32", "deferred"),
 ])
 def test_config_of_ported_paths_builds_a_model_that_sweeps(field, value, tier):
     model = LdaModel(LdaConfig(topic_num=6, block_size=128, **{field: value}),
@@ -186,12 +188,26 @@ def test_runner_refuses_unported_branches():
     fc = _corpus()
     cfg = LdaConfig(topic_num=6, block_size=128, iteration=2)
     model = LdaModel(cfg, fc, device="cpu")
-    for kw in (dict(ll_every=1), dict(optimize_hyper_every=1),
-               dict(checkpoint_every=1)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(checkpoint_every=1), dict(checkpoint_dir="ckpt")):
+        with pytest.raises(NotImplementedError, match="checkpoints"):
             run_inference(model, cfg, fc, **kw)
     with pytest.raises(NotImplementedError):
-        model.optimize_hyperparameters()
+        model.save_checkpoint("ckpt")
+
+
+def test_runner_runs_ll_and_hyper_branches(tmp_path):
+    fc = _corpus()
+    cfg = LdaConfig(topic_num=6, block_size=128, iteration=4)
+    model = LdaModel(cfg, fc, device="cpu")
+    with MetricsLog(tmp_path / "m.jsonl") as log:
+        run_inference(model, cfg, fc, metrics=log, metrics_every=0,
+                      ll_every=2, optimize_hyper_every=2)
+    rows = read_metrics(tmp_path / "m.jsonl")
+    assert [r["sweep"] for r in rows] == [0, 1, 3]
+    assert all(np.isfinite(r["log_likelihood"]) for r in rows[1:])
+    assert (model.alpha, model.beta) != (0.5, 0.1)
+    assert rows[-1]["alpha"] == model.alpha
+    model.check_counts_consistent()
 
 
 def test_runner_metrics_rows(tmp_path):
