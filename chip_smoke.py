@@ -9,7 +9,9 @@ success:
 
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles every kernel source under ``ldagibbssampling_tpu_torch/
-   csrc`` with nvcc for sm_90a, one process per source, all at once;
+   csrc`` with nvcc for sm_90a, one process per source, all at once; prints
+   each kernel's registers, shared memory and spills (ptxas) and the grid
+   the occupancy query gives K1's walk;
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes, on one block of 65,536 tokens: K1 reading the bf16
    snapshot (deferred layout) and K1 reading the live int32 table plus the
@@ -21,20 +23,28 @@ success:
    one exists, a single PyTorch library call.  K1's other chains on the
    same block: bf16 and bf16p on the bf16 snapshot, and f32, bf16 and bf16p
    on the float32 snapshot, each in the three noise modes (deterministic
-   bitwise, z equal on >= 99.99% with noise), timed; K2's
-   ``build_nwk(emit_mirror=False)`` (bitwise); K4, the dtype probe, in
-   float32 and bf16 (both bitwise) at [32768, 512];
+   bitwise, z equal on >= 99.99% with noise), timed; K1's whole walk
+   (draw and count move per tile, one cooperative launch) of each of its
+   seven instantiations, and the same walk with every token masked, its
+   fixed cost per tile; K2's ``build_nwk(emit_mirror=False)`` (bitwise); K4,
+   the dtype probe, in float32 and bf16 (both bitwise) at [32768, 512]; K1
+   at K = 100, where the sweep's row tile is 2,048 and the walk takes its
+   two-barrier form: the block against the plain walk in the three modes
+   (bitwise), its whole walk and its fixed cost per tile;
 4. main paths: ``make_backend`` -> ``LdaModel`` -> ``run_inference`` at
    bench.py's shape (T = 2^20 Zipf(1.1) tokens, V = 50,000, M = 4,096
    documents, K = 500, block 65,536, alpha 0.5, beta 0.1): 10 sweeps each of
    the deferred, fused and v1-draw tiers and 2 sweeps of the XLA tier, each
    then ``check_counts_consistent``; each run must report the tier asked
    for, launch every kernel of its tier (and the exact number of launches
-   its layout implies), no other kernel and no plain version; prints
+   its layout implies: one K1 walk per sweep and no count move in the
+   deferred tier, one walk and one count move per block in the fused tier),
+   no other kernel and no plain version; prints
    tokens/s; then profiles one more sweep of each tier with the port's
    ``trace`` (device time by kernel, busy share).  Then the deferred tier in
    its five other (chain, snapshot) settings, 10 sweeps each, the same
-   checks (``cast_mirror`` only on the bf16 snapshot); the chains' quality
+   checks (``cast_mirror`` only on the bf16 snapshot), and once more at
+   K = 100 (the two-barrier walk); the chains' quality
    on a planted-topic corpus (2,048 documents, V = 5,000, K = 500, about
    2^19 tokens, alpha 0.1 and beta 0.05 as it was generated): each of the
    six deferred settings for 20 sweeps from the
@@ -53,7 +63,10 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Bounds (``bound_ms``) use the published H100 SXM peaks: 3.35 TB/s of HBM,
 67 TFLOP/s of float32 and 134 TFLOP/s of packed bf16 outside the tensor
-cores, with the bytes and operations of this run's own inputs.
+cores, with the bytes and operations of this run's own inputs; a bound is
+the larger of the bytes' time and the operations' time.  K1's walk bound
+(``walk_bound_ms``) counts the draw's bytes and operations plus the writes
+and integer operations of the count moves of that very walk.
 """
 
 from __future__ import annotations
@@ -70,6 +83,9 @@ REPO = Path(__file__).resolve().parent
 PKG = "ldagibbssampling_tpu_torch"
 
 T, V, M, K = 1 << 20, 50_000, 4_096, 500
+# a topic count at which the sweep's row tile is 2,048 tokens and K1's walk
+# takes its two-barrier form
+K_GENERAL = 100
 BLOCK, ALPHA, BETA, SWEEPS = 65_536, 0.5, 0.1, 10
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -105,7 +121,7 @@ MODES = ("deterministic", "external", "internal")
 # the kernels each tier's sweep launches, by use_pallas
 # (the deferred tier's depend on its chain and snapshot: main_path)
 TIER_KERNELS = {
-    "fused": ("gibbs_tile_sample_live", "gibbs_tile_update", "count_move"),
+    "fused": ("gibbs_tile_sample_live", "count_move"),
     True: ("gibbs_block_sample", "count_move"),
     False: (),
 }
@@ -161,16 +177,89 @@ def bound(nbytes: float, ops: float, bf16_ops: float = 0) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sample_ops(n_real: int, n_tiles: int, chain: str) -> tuple[int, int]:
+def sample_ops(n_real: int, n_tiles: int, chain: str, k: int = K) -> tuple[int, int]:
     """(float32, packed-bf16) operations of K1's internal-noise draw of
-    ``n_real`` tokens in ``n_tiles`` tiles in the chain ``chain``."""
-    f32 = n_real * K * SAMPLE_NOISE_OPS + n_tiles * K * SAMPLE_OPS_PER_TILE_TOPIC
-    cond, score = n_real * K * SAMPLE_CONDITIONAL_OPS, n_real * K * SAMPLE_SCORE_OPS
+    ``n_real`` tokens in ``n_tiles`` tiles at ``k`` topics in the chain
+    ``chain``."""
+    f32 = n_real * k * SAMPLE_NOISE_OPS + n_tiles * k * SAMPLE_OPS_PER_TILE_TOPIC
+    cond, score = n_real * k * SAMPLE_CONDITIONAL_OPS, n_real * k * SAMPLE_SCORE_OPS
     if chain == "float32":
         return f32 + cond + score, 0
     if chain == "bf16p":  # bf16 conditional, float32 score
         return f32 + score, cond
     return f32, cond + score
+
+
+def moved_cells(z, z_new, d, real, k: int = K) -> tuple[int, int, int]:
+    """What the count moves of one block change: (doc cells, topic totals,
+    moved tokens)."""
+    import torch
+
+    moved = (z_new != z) & real
+    dk = d[moved].long() * k
+    cells = torch.unique(torch.cat([dk + z[moved].long(), dk + z_new[moved].long()]))
+    topics = torch.unique(torch.cat([z[moved], z_new[moved]]))
+    return cells.numel(), topics.numel(), int(moved.sum())
+
+
+def update_bound(z, z_new, d, real) -> tuple[float, str]:
+    """The bound of K1's count moves of one block as a function of their
+    own: token arrays read once, each changed doc cell and topic total read
+    and written once, 4 integer operations per moved token."""
+    cells, topics, moved = moved_cells(z, z_new, d, real)
+    return bound(BLOCK * 4 * 4 + (cells + topics) * 8, 4 * moved)
+
+
+def walk_bound(draw_bytes: int, draw_ops: tuple[int, int], z, z_new, d, real,
+               k: int = K) -> tuple[float, str]:
+    """The bound of K1's whole walk of one block: the draw's bytes and
+    operations plus what its count moves add, a write of each doc cell and
+    topic total they change (the draw already reads the block's doc rows,
+    ``nk`` and token arrays) and 4 integer operations per moved token.
+    Bytes and operations overlap, so one bound of the totals."""
+    cells, topics, moved = moved_cells(z, z_new, d, real, k)
+    f32, bf16 = draw_ops
+    return bound(draw_bytes + (cells + topics) * 4, f32 + 4 * moved, bf16)
+
+
+def walk_report(res: dict, name: str, rows, ndk, nk, z, w, d, m, *, chain: str,
+                row_tile: int, hyper: dict, draw_cost: tuple, k: int = K,
+                prefix: str = "") -> None:
+    """K1's whole walk over one block (draw and count move per tile, one
+    launch, internal noise) with its bound from that walk's own moves
+    (``draw_cost``: the draw's bytes and operations), and its fixed cost:
+    the same walk with every token masked (barriers, the reciprocal hoist,
+    index loads), per tile."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+
+    ndk_w, nk_w = ndk.clone(), nk.clone()
+
+    def reset():
+        ndk_w.copy_(ndk)
+        nk_w.copy_(nk)
+
+    def walk(mask):
+        return fk.gibbs_tiles(rows, ndk_w, nk_w, z, w, d, mask, row_tile=row_tile,
+                              noise_mode="internal", seed=7, compute_dtype=chain,
+                              **hyper)
+
+    def whole():
+        reset()
+        walk(m)
+
+    reset()
+    b_ms, _ = walk_bound(*draw_cost, z, walk(m), d, m > 0, k)
+    masked = torch.zeros_like(m)
+    n_tiles = -(-z.shape[0] // row_tile)
+    res[f"{prefix}walk_ms"] = ms = cuda_ms(whole) - cuda_ms(reset)
+    res[f"{prefix}walk_bound_ms"] = b_ms
+    res[f"{prefix}fixed_us_per_tile"] = fixed = (
+        cuda_ms(lambda: walk(masked)) * 1e3 / n_tiles)
+    log(f"[kernels] {name} walk (draw + move, one launch) at K={k}: {ms:.4f} ms "
+        f"per block of {z.shape[0]} tokens (bound {b_ms:.4f} ms); all masked "
+        f"{fixed:.3f} us per tile of {row_tile}")
 
 
 def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
@@ -300,7 +389,7 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     ndk_c, nk_c = st.ndk.clone(), st.nk.clone()
 
     def update_kernel():
-        fk.gibbs_tile_update(ndk_c, nk_c, z, z_new, d, m, row_tile=row_tile)
+        fk.gibbs_tile_update(ndk_c, nk_c, z, z_new, d, m)
 
     def update_plain():
         for s in range(0, BLOCK, row_tile):
@@ -328,31 +417,92 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     wb = plan.token_word[blk][plan.token_mask[blk] > 0]
     db = plan.token_doc[blk][plan.token_mask[blk] > 0]
     u_words, u_docs = np.unique(wb).size, np.unique(db).size
-    moved = (z_new != z) & real
-    cells = torch.unique(d[moved].long() * K + z[moved].long()).numel() + \
-        torch.unique(d[moved].long() * K + z_new[moved].long()).numel()
-    topics = torch.unique(torch.cat([z[moved], z_new[moved]])).numel()
     t_pad = plan.num_tokens
+    draw_cost = {name: (u_words * k_pad * snaps[rows].element_size() + u_docs * K * 4
+                        + K * 4 + BLOCK * 4 * 5,
+                        sample_ops(n_real, BLOCK // row_tile, chain))
+                 for name, (chain, rows) in settings.items()}
     bounds = {
-        **{name: bound(
-            u_words * k_pad * snaps[rows].element_size() + u_docs * K * 4
-            + K * 4 + BLOCK * 4 * 5,
-            *sample_ops(n_real, BLOCK // row_tile, chain))
-           for name, (chain, rows) in settings.items()},
-        "gibbs_tile_update": bound(BLOCK * 4 * 4 + cells * 8 + topics * 8,
-                                   4 * int(moved.sum())),
+        **{name: bound(nbytes, *ops) for name, (nbytes, ops) in draw_cost.items()},
+        "gibbs_tile_update": update_bound(z, z_new, d, real),
         "rebuild_counts": bound(t_pad * 12 + v_pad * k_pad * 4 + k_pad * 4,
                                 2 * int(tm.sum())),
         "cast_mirror": bound(v_pad * k_pad * 6, v_pad * k_pad),
     }
     units = {
-        **{name: f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles)"
+        **{name: f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles, one launch)"
            for name in settings},
-        "gibbs_tile_update": f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles)",
+        "gibbs_tile_update": f"one block of {BLOCK} tokens (one launch)",
         "rebuild_counts": f"one rebuild of {t_pad} stream slots",
         "cast_mirror": f"one [{v_pad}, {k_pad}] table",
     }
     report(out, times, bounds, units)
+    walk_hyper = dict(alpha=ALPHA, beta=BETA, vbeta=vbeta)
+    for name, (chain, rows) in settings.items():
+        walk_report(out[name], name, snaps[rows], st.ndk, st.nk, z, w, d, m,
+                    chain=chain, row_tile=row_tile, hyper=walk_hyper,
+                    draw_cost=draw_cost[name])
+    return out
+
+
+def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
+    """Phase 3d: K1 at K = 100, where the sweep's row tile is 2,048 and
+    the walk takes its two-barrier form (walk_general) over 32 tiles: the
+    first block of the deferred layout against the plain walk in the three
+    noise modes (bitwise), then its whole walk and fixed cost per tile."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ldagibbssampling_tpu_torch.models.state import init_state
+    from ldagibbssampling_tpu_torch.ops import count_kernel as ck
+    from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+    from ldagibbssampling_tpu_torch.ops.gibbs import _pick_row_tile
+
+    dev = torch.device(device)
+    plan = ck.plan_deferred(corpus.token_word, corpus.token_doc, V, BLOCK)
+    st = init_state(plan.token_word, plan.token_doc, plan.token_mask,
+                    num_docs=M, vocab_size=V, num_topics=K_GENERAL, seed=seed,
+                    device=dev)
+    k_pad, row_tile = 128, _pick_row_tile(BLOCK, K_GENERAL)
+    cfg = fk.walk_config(torch.bfloat16, "float32", "internal", k_pad, BLOCK,
+                         row_tile)
+    if cfg["pipelined"]:
+        raise AssertionError(f"K={K_GENERAL}, row tile {row_tile}: {cfg}")
+    mirror = ck.cast_mirror(F.pad(st.nwk, (0, k_pad - K_GENERAL, 0,
+                                           plan.v_pad - V)).contiguous())
+    w, d, m = (torch.from_numpy(np.array(a[:BLOCK], np.int32)).to(dev)
+               for a in (plan.token_word, plan.token_doc, plan.token_mask))
+    z = st.z[:BLOCK].contiguous()
+    hyper = dict(alpha=ALPHA, beta=BETA,
+                 vbeta=float(np.float32(V) * np.float32(BETA)))
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    uniforms = torch.rand((BLOCK, k_pad), generator=g, device=dev) * (1 - 2e-7) + 1e-7
+    for mode in MODES:
+        res = []
+        for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
+            ndk, nk = st.ndk.clone(), st.nk.clone()
+            zn = walk(mirror, ndk, nk, z, w, d, m, row_tile=row_tile, noise_mode=mode,
+                      seed=seed + 1234, uniforms=uniforms, **hyper)
+            torch.cuda.synchronize()
+            res.append((zn, ndk, nk))
+        if not all(torch.equal(a, b) for a, b in zip(*res)):
+            raise AssertionError(f"K1 at K={K_GENERAL} (walk_general), {mode}: "
+                                 "the walk differs from the plain walk")
+    real = m > 0
+    n_real = int(real.sum())
+    log(f"[kernels] K1 at K={K_GENERAL}, row tile {row_tile} ({BLOCK // row_tile} "
+        f"tiles, {cfg['team']} threads per token, two barriers per tile): z, ndk "
+        f"and nk equal to the plain walk in all three modes")
+    nbytes = (torch.unique(w[real]).numel() * k_pad * 2
+              + torch.unique(d[real]).numel() * K_GENERAL * 4 + K_GENERAL * 4
+              + BLOCK * 4 * 5)
+    out: dict = {}
+    walk_report(out, "gibbs_tile_sample", mirror, st.ndk, st.nk, z, w, d, m,
+                chain="float32", row_tile=row_tile, hyper=hyper,
+                draw_cost=(nbytes, sample_ops(n_real, BLOCK // row_tile, "float32",
+                                              K_GENERAL)),
+                k=K_GENERAL, prefix=f"k{K_GENERAL}_")
     return out
 
 
@@ -500,21 +650,24 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     u_words = torch.unique(w[real]).numel()
     u_docs = torch.unique(d[real]).numel()
     cells = torch.unique(flat).numel()
+    live_cost = (u_words * K * 4 + u_docs * K * 4 + K * 4 + BLOCK * 4 * 5,
+                 sample_ops(n_real, BLOCK // row_tile, "float32"))
     bounds = {
-        "gibbs_tile_sample_live": bound(
-            u_words * K * 4 + u_docs * K * 4 + K * 4 + BLOCK * 4 * 5,
-            *sample_ops(n_real, BLOCK // row_tile, "float32")),
+        "gibbs_tile_sample_live": bound(live_cost[0], *live_cost[1]),
         "gibbs_block_sample": bound(
             u_words * K * 4 + u_docs * K * 4 + K * 4 + BLOCK * 4 * 4,
             BLOCK * K * BLOCK_SAMPLE_OPS_PER_ELEM),
         "count_move": bound(BLOCK * 4 * 4 + cells * 8, 2 * int(moved.sum())),
     }
     units = {
-        "gibbs_tile_sample_live": f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles)",
+        "gibbs_tile_sample_live": f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles, one launch)",
         "gibbs_block_sample": f"one block of {BLOCK} tokens (one launch)",
         "count_move": f"one block of {BLOCK} tokens: its nwk moves (one launch)",
     }
     report(out, times, bounds, units)
+    walk_report(out["gibbs_tile_sample_live"], "gibbs_tile_sample_live", st.nwk,
+                st.ndk, st.nk, z, w, d, m, chain="float32", row_tile=row_tile,
+                hyper=hyper, draw_cost=live_cost)
     log(f"[kernels] count_move of nwk, ndk and nk: "
         f"{out['count_move']['ms_three_tables']:.4f} ms per block")
     return out
@@ -552,12 +705,20 @@ def read_counters() -> tuple[dict, dict]:
             {k: v for d in plain_dicts for k, v in d.items()})
 
 
+def run_label(use_pallas, chain: str, mirror: str, k: int) -> str:
+    label = TIER_NAMES[use_pallas]
+    if (chain, mirror) != ("float32", "bfloat16"):
+        label = f"{label} {chain}/{mirror}"
+    return label if k == K else f"{label} K={k}"
+
+
 def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
               device: str = "cuda", chain: str = "float32",
-              mirror: str = "bfloat16"):
+              mirror: str = "bfloat16", k: int = K):
     """Phase 4: the entry points a user calls, in the tier ``use_pallas``
-    (the deferred tier in the given chain and snapshot type); returns
-    tokens/s, the kernel launches of the run and the model."""
+    (the deferred tier in the given chain and snapshot type) at ``k``
+    topics; returns tokens/s, the kernel launches of the run and the
+    model."""
     import numpy as np
     import torch
 
@@ -566,9 +727,8 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
     from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
 
     tier = TIER_NAMES[use_pallas]
-    label = tier if (chain, mirror) == ("float32", "bfloat16") else \
-        f"{tier} {chain}/{mirror}"
-    cfg = LdaConfig(alpha=ALPHA, beta=BETA, topic_num=K, iteration=sweeps,
+    label = run_label(use_pallas, chain, mirror, k)
+    cfg = LdaConfig(alpha=ALPHA, beta=BETA, topic_num=k, iteration=sweeps,
                     block_size=BLOCK, seed=seed, use_pallas=use_pallas,
                     kernel_compute_dtype=chain, mirror_dtype=mirror)
     t0 = time.perf_counter()
@@ -592,7 +752,7 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
         raise AssertionError(f"ran {model.sweeps_done} sweeps, not {sweeps}")
     draw = sample_name(getattr(torch, mirror), chain)
     if use_pallas == "deferred":  # cast_mirror makes the bf16 snapshot only
-        expected = (draw, "gibbs_tile_update", "rebuild_counts",
+        expected = (draw, "rebuild_counts",
                     *(("cast_mirror",) if mirror == "bfloat16" else ()))
     else:
         expected = TIER_KERNELS[use_pallas]
@@ -605,14 +765,16 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the {tier} path: {plain}")
     blocks = t_pad // BLOCK
+    # K1: one walk launch per sweep (deferred) or per block (fused), its
+    # count moves inside the walk: no update-only launch, no count move in
+    # the deferred tier, one (the block's word-topic moves) per block in
+    # the fused tier
     want = {
-        "deferred": {draw: sweeps * t_pad // max(row_tile, 1),
-                     "gibbs_tile_update": sweeps * t_pad // max(row_tile, 1),
+        "deferred": {draw: sweeps, "gibbs_tile_update": 0, "count_move": 0,
                      "rebuild_counts": sweeps,
                      "cast_mirror": sweeps + 1 if mirror == "bfloat16" else 0},
-        "fused": {"gibbs_tile_sample_live": sweeps * t_pad // max(row_tile, 1),
-                  "gibbs_tile_update": sweeps * t_pad // max(row_tile, 1),
-                  "count_move": sweeps * blocks},
+        "fused": {"gibbs_tile_sample_live": sweeps * blocks,
+                  "gibbs_tile_update": 0, "count_move": sweeps * blocks},
         "pallas-draw": {"gibbs_block_sample": sweeps * blocks,
                         "count_move": sweeps * blocks},
         "xla": {},
@@ -625,7 +787,7 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
     phi, theta = model.phi(), model.theta()
     if not (np.isfinite(phi).all() and np.isfinite(theta).all()):
         raise AssertionError("phi/theta not finite")
-    if phi.shape != (K, V) or theta.shape != (M, K):
+    if phi.shape != (k, V) or theta.shape != (M, k):
         raise AssertionError(f"phi {phi.shape} theta {theta.shape}")
     np.testing.assert_allclose(phi.sum(axis=1, dtype=np.float64), 1.0, rtol=1e-3)
     tok_s = sweeps * corpus.num_tokens / dt
@@ -635,7 +797,7 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
     return tok_s, {n: launches[n] for n in expected}, model
 
 
-def profile_sweep(model) -> None:
+def profile_sweep(model, label: str) -> None:
     """Phase 4b: one more sweep under the port's ``trace`` (what the CLI's
     ``--profile-dir`` runs): device time by kernel and the device's busy
     share of the sweep's wall time."""
@@ -643,7 +805,6 @@ def profile_sweep(model) -> None:
 
     from ldagibbssampling_tpu_torch.evaluation.tracing import trace
 
-    tier = model.kernel_tier
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp) as prof:
             t0 = time.perf_counter()
@@ -655,7 +816,7 @@ def profile_sweep(model) -> None:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log(f"[profile {tier}] the profiler recorded no device time (not measured)")
+        log(f"[profile {label}] the profiler recorded no device time (not measured)")
         return
     by_name: dict = {}
     for e in kernels:
@@ -664,7 +825,7 @@ def profile_sweep(model) -> None:
         n, us = by_name.get(key, (0, 0.0))
         by_name[key] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values())
-    log(f"[profile {tier}] one sweep: wall {wall_us / 1e3:.3f} ms, device busy "
+    log(f"[profile {label}] one sweep: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({busy / wall_us:.3f} of wall)")
     for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"  {key}: {n} launches, {us / 1e3:.3f} ms ({us / n:.2f} us each)")
@@ -870,21 +1031,35 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {src}: {line.strip()}")
 
+    from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+    from ldagibbssampling_tpu_torch.ops.gibbs import _pick_row_tile
+
+    k_pad, row_tile = -(-K // 128) * 128, _pick_row_tile(BLOCK, K)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows, chain in ((torch.int32, "float32"), (torch.bfloat16, "float32"),
+                        *((getattr(torch, r), c) for c, r in CHAIN_SETTINGS)):
+        cfg = fk.walk_config(rows, chain, "internal", k_pad, BLOCK, row_tile)
+        log(f"[build] walk {fk.sample_name(rows, chain)}: {cfg['grid']} CTAs "
+            f"({cfg['grid'] // sms} per SM, from the occupancy query) of "
+            f"{cfg['threads']} threads, {cfg['team']} threads per token, "
+            f"{'one barrier' if cfg['pipelined'] else 'two barriers'} per tile")
+
     corpus = synth_corpus(args.seed)
     kernels = check_kernels(corpus, args.seed)             # 3.
     kernels.update(check_live_kernels(corpus, args.seed))  # 3b.
     kernels.update(check_probe(args.seed))                 # 3c.
+    kernels["gibbs_tile_sample"].update(check_general_walk(corpus, args.seed))  # 3d.
     paths = {}
-    runs = [(use_pallas, sweeps, "float32", "bfloat16") for use_pallas, sweeps in (
-        ("deferred", SWEEPS), ("fused", SWEEPS), (True, SWEEPS), (False, 2))]
-    runs += [("deferred", SWEEPS, chain, mirror) for chain, mirror in CHAIN_SETTINGS]
-    for use_pallas, sweeps, chain, mirror in runs:         # 4.
+    runs = [(use_pallas, sweeps, "float32", "bfloat16", K)
+            for use_pallas, sweeps in (("deferred", SWEEPS), ("fused", SWEEPS),
+                                       (True, SWEEPS), (False, 2))]
+    runs += [("deferred", SWEEPS, chain, mirror, K) for chain, mirror in CHAIN_SETTINGS]
+    runs.append(("deferred", SWEEPS, "float32", "bfloat16", K_GENERAL))
+    for use_pallas, sweeps, chain, mirror, k in runs:      # 4.
         tok_s, launches, model = main_path(corpus, args.seed, smi, use_pallas,
-                                           sweeps, chain=chain, mirror=mirror)
-        profile_sweep(model)                               # 4b.
-        label = TIER_NAMES[use_pallas]
-        if (chain, mirror) != ("float32", "bfloat16"):
-            label = f"{label} {chain}/{mirror}"
+                                           sweeps, chain=chain, mirror=mirror, k=k)
+        label = run_label(use_pallas, chain, mirror, k)
+        profile_sweep(model, label)                        # 4b.
         paths[label] = (tok_s, launches)
         del model
         torch.cuda.empty_cache()
@@ -924,9 +1099,9 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "unit": k["unit"], "launches_by_path": by_path,
             **{x: v for x, v in k.items()
-               if x.startswith("z_match") or x in (
+               if x.startswith(("z_match", f"k{K_GENERAL}_")) or x in (
                    "ms_three_tables", "no_mirror_max_abs_err", "gops",
-                   "ms_64_reps")},
+                   "ms_64_reps", "walk_ms", "walk_bound_ms", "fixed_us_per_tile")},
         })
     print(json.dumps({"kernels": rows, "main_path_tokens_per_s": {
         tier: tok_s for tier, (tok_s, _) in paths.items()},

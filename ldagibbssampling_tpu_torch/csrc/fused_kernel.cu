@@ -1,5 +1,7 @@
-// K1 of the deferred and fused collapsed-Gibbs sweeps: per-tile draw + count
-// update, and the count move that applies a block's word-topic moves.
+// K1 of the deferred and fused collapsed-Gibbs sweeps: one persistent,
+// cooperatively launched walk that draws each tile and moves its counts, tile
+// after tile, on the whole card; and the count move that applies a block's
+// word-topic moves.
 //
 // Replaces ldagibbssampling_tpu/ops/pallas_gibbs.py::_fused_kernel (lines
 // 58-192), in both of its modes:
@@ -11,7 +13,7 @@
 //   stride K) as it stood at the start of the block.  The dense [B, Kp]
 //   delta of the reference never leaves the card: its only consumer is the
 //   word-topic scatter (ops/gibbs.py:394), and lda_count_move applies the
-//   same integer moves sparsely after the block's last tile.
+//   same integer moves sparsely after the block's walk.
 //
 // For each token of a tile:
 //
@@ -35,32 +37,62 @@
 // float32.  kBf16 and kBf16p cast e, the two count rows, alpha and beta to
 // bf16, take r = bf16(r), rr = bf16(r * r) from the float32 r, and round
 // every op of p to bf16; kBf16 also rounds 1/E to bf16 and the score to bf16
-// (score = bf16(p * bf16(1/E))), kBf16p scores p * (1/E) in float32.  Each
-// bf16 op is a float32 op (__fadd_rn and friends: no contraction) followed
-// by a round to nearest even, which is what the reference computes with
-// excess precision off and what PyTorch's bf16 ops compute.  Where both
-// operands are bf16 values that is also what one native bf16 op computes:
+// (score = bf16(p * bf16(1/E))), kBf16p scores p * (1/E) in float32.  p runs
+// on packed bf16x2 pairs of topics (__hsub2_rn, __hadd2_rn, __hmul2_rn: one
+// rounding per op, no FMA), which gives the bits of the reference's float32
+// op followed by a round to bf16 (what it computes with excess precision off
+// and what PyTorch's bf16 ops compute): every operand is a bf16 value, and
 // float32's 24-bit significand is at least 2*8+2 bits for bf16's 8
-// (Figueroa's double-rounding condition), and the K4 probe's packed
-// __hadd2/__hmul2 chain matches the float32-then-round chain bitwise on the
-// card.  Only rr = bf16(r * r) takes the float32 r, as the reference does.
-// An FMA would drop a rounding.  Ties are common in bf16: the first index
-// wins, as below.
+// (Figueroa's double-rounding condition; the K4 probe's packed chain matches
+// the float32-then-round chain bitwise on the card).  Only rr = bf16(r * r)
+// takes the float32 r, as the reference does.  Ties are common in bf16: the
+// first index wins, as below.
 //
-// What bounds it on an H100: per token the kernel reads one row of nwk
-// (gathered by word id: k_pad * 2 or k_pad * 4 bytes of the bf16 or float32
-// snapshot, or K * 4 bytes of the live table; this replaces the XLA gathers
-// at ops/gibbs.py:385 and
-// :605) and one int32 doc row; under Zipf word statistics the rows mostly
-// stay in the 50 MB L2.  The arithmetic is ~2 transcendentals per (token,
-// topic) on the SFUs.  Both are far below what launches cost: tiles must run
-// in order (a tile's draws read the doc counts the previous tile wrote), so
-// a sweep is 2 launches per tile of row_tile tokens (plus one count move per
-// block in the fused tier), and at the main path's shape the launch count,
-// not bytes or operations, bounds the sweep.  The design keeps each launch
-// cheap (one warp per token, a warp argmax; integer atomics for the update)
-// and issues a block's walk from one host call.  A persistent kernel or a
-// CUDA graph that removes the per-tile launches is later work.
+// The walk (gibbs_walk).  Tiles must run in order: a tile's draws read the
+// doc counts and nk that the previous tile left.  The TPU's sequential grid
+// becomes a loop over tiles inside one cooperative launch of as many CTAs as
+// fit on the card at once (one per SM at the walk's registers).  A tile is
+// spread over the whole card: each token goes to a team of `team` threads
+// (a power of two from 32 to a CTA, chosen per launch so that the grid holds
+// a tile's tokens) inside one CTA, each thread scanning topic groups of 4 in
+// increasing order with a strict >, so a token's argmax is a warp shuffle and
+// one step through shared memory, and ties keep the lowest topic however the
+// groups are spread.  Each CTA computes the tile's nk reciprocal of each
+// real topic once, into shared memory.  A group's 4 row entries, doc counts
+// and uniforms are one load each where the row stride and alignment allow it
+// (the snapshots always; the live table and ndk, stride K, when K % 4 == 0).
+// Two forms, the same chain to the bit:
+//
+// - walk_general, any shape: every draw of the tile reads the counts; grid
+//   barrier; the tile's unmasked tokens move their ndk and nk counts with
+//   integer atomics; grid barrier; the next tile;
+// - walk_pipelined, a sweep whose tiles are one pass each (the deferred and
+//   fused tiers at K over 256, whose row tiles are at most 512; at K up to
+//   256 their tiles of 1,024 or 2,048 tokens take walk_general): one grid
+//   barrier per tile, and a move per thread of each CTA.  ndk is
+//   double-buffered, each CTA keeps nk in shared memory, and a tile's draws
+//   add the previous tile's moves of their own document to a buffer that
+//   nobody writes between the two barriers around them (see there).  The
+//   next tile's token is read a tile ahead, and its row entries and noise
+//   while the barrier settles.
+//
+// The grid barrier is a sense-reversing arrival counter in an int32 that
+// the caller zeroes (cooperative_groups' grid barrier, written out so that
+// no -rdc build is needed), split in two so that work that needs no other
+// CTA's writes runs while it settles: after a __syncthreads one thread per
+// CTA arrives with a release add, and waits with acquire loads before the
+// next __syncthreads.  ndk, nk and z_new change during the launch, so they
+// are read through L2 (__ldcg), never through the non-coherent read-only
+// path, which could return a previous tile's values.  The rows (only read
+// during a walk), the tokens and the noise take __ldg.
+//
+// What bounds it on an H100: the chain of dependent tiles.  A tile of 512
+// tokens at K = 500 is ~0.2 us of operations for the whole card; what it
+// costs is its grid barrier, the L2 round trips of its doc counts and of the
+// previous tile's moves, the reciprocal hoist and the argmax, none of which
+// more parallelism hides.  Per token the walk reads one row of nwk
+// (k_pad * 2 or * 4 bytes of a snapshot, K * 4 of the live table; under Zipf
+// word statistics mostly from the 50 MB L2) and one int32 doc row.
 //
 // Noise modes: 0 deterministic (no noise), 1 external (caller uniforms
 // [n, k_pad]), 2 internal (Philox4x32-10 keyed by a per-sweep seed, counter
@@ -77,7 +109,8 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWalkThreads = 512;
+constexpr int kWalkWarps = kWalkThreads / 32;
 constexpr int kUpdateThreads = 256;
 // the draw's chains, in the order of ops/fused_kernel.CHAINS
 constexpr int kF32 = 0;
@@ -88,6 +121,38 @@ constexpr int kRowsBf16 = 0;
 constexpr int kRowsInt32 = 1;
 constexpr int kRowsF32 = 2;
 
+struct WalkArgs {
+  const void* rows;
+  long long row_stride;
+  int k_pad;
+  int* ndk;
+  int* ndk_copy;     // a copy of ndk: the pipelined walk's second buffer
+                     // (null in walk_general, which does not read it)
+  int k_real;
+  int* nk;
+  const int* z_old;
+  int* z_new;
+  const int* word;
+  const int* doc;
+  const int* mask;
+  const float* uniforms;
+  long long n_tokens;
+  int row_tile;
+  float alpha;
+  float beta;
+  float vbeta;
+  uint32_t key0;
+  uint32_t key1;
+  long long slot0;
+  int phases;        // 1 draw only, 3 draw and count move per tile
+  int team;          // threads per token: a power of two, 32 .. kWalkThreads
+  bool vec_rows;     // a group's 4 row entries in one load
+  bool vec_ndk;      // a group's 4 doc counts in one load
+  bool vec_noise;    // a group's 4 uniforms in one load
+  bool pipelined;    // walk_pipelined: a sweep whose tiles are one pass each
+  unsigned int* barrier;
+};
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -97,103 +162,199 @@ __device__ __forceinline__ float approx_recip(float x) {
   return 1.0f / bf16_round(x);
 }
 
-__device__ __forceinline__ float count_value(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float bf16_bits(uint32_t hi16) {
+  return __uint_as_float(hi16 & 0xFFFF0000u);
+}
+
+// The row entries of topics 4g .. 4g+3 as float32 (0 past k_real where the
+// row ends there).  Snapshot rows have k_pad columns; the live table K.
+__device__ __forceinline__ void load_row4(const __nv_bfloat16* row, int g,
+                                          int k_real, bool vec, float w[4]) {
+  if (vec) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(row) + g);
+    w[0] = bf16_bits(v.x << 16);
+    w[1] = bf16_bits(v.x);
+    w[2] = bf16_bits(v.y << 16);
+    w[3] = bf16_bits(v.y);
+    return;
+  }
+  const auto* bits = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 4 * g + j;
+    w[j] = k < k_real ? bf16_bits(static_cast<uint32_t>(__ldg(bits + k)) << 16)
+                      : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void load_row4(const float* row, int g, int k_real,
+                                          bool vec, float w[4]) {
+  if (vec) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row) + g);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 4 * g + j;
+    w[j] = k < k_real ? __ldg(row + k) : 0.0f;
+  }
 }
 
 // int32 counts below 2^24 convert exactly (guarded in ops/gibbs.make_sweep_fn)
-__device__ __forceinline__ float count_value(int x) {
-  return static_cast<float>(x);
-}
-
-__device__ __forceinline__ float count_value(float x) { return x; }
-
-// p of one (token, topic) in a bf16 chain, every op rounded to bf16
-__device__ __forceinline__ float bf16_chain_p(float w, float d, float e,
-                                              float r32, float alpha_c,
-                                              float beta_c) {
-  const float r = bf16_round(r32);
-  const float rr = bf16_round(__fmul_rn(r32, r32));
-  const float a = bf16_round(__fadd_rn(bf16_round(__fsub_rn(bf16_round(w), e)),
-                                       beta_c));
-  const float b = bf16_round(__fadd_rn(bf16_round(__fsub_rn(bf16_round(d), e)),
-                                       alpha_c));
-  const float c = bf16_round(__fadd_rn(r, __fmul_rn(e, rr)));
-  return bf16_round(__fmul_rn(bf16_round(__fmul_rn(a, b)), c));
-}
-
-// One warp per token; lane l covers topic groups l, l + 32, ... of 4 topics.
-template <int kMode, int kChain, typename RowT>
-__global__ void gibbs_tile_sample(
-    const RowT* __restrict__ rows, long long row_stride, int k_pad,
-    const int* __restrict__ ndk, int k_real, const int* __restrict__ nk,
-    const int* __restrict__ z_old, int* __restrict__ z_new,
-    const int* __restrict__ word, const int* __restrict__ doc,
-    const int* __restrict__ mask, const float* __restrict__ uniforms,
-    long long t0, int n, float alpha, float beta, float vbeta, uint32_t key0,
-    uint32_t key1, long long slot0) {
-  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (w >= n) return;  // whole warp
-  const long long i = t0 + w;
-  const int zo = z_old[i];
-  if (mask[i] == 0) {  // whole warp
-    if (lane == 0) z_new[i] = zo;
+__device__ __forceinline__ void load_row4(const int* row, int g, int k_real,
+                                          bool vec, float w[4]) {
+  if (vec) {  // K % 4 == 0: a group lies wholly inside the row or past it
+    const int4 v = 4 * g < k_real ? __ldg(reinterpret_cast<const int4*>(row) + g)
+                                  : make_int4(0, 0, 0, 0);
+    w[0] = static_cast<float>(v.x);
+    w[1] = static_cast<float>(v.y);
+    w[2] = static_cast<float>(v.z);
+    w[3] = static_cast<float>(v.w);
     return;
   }
-  const RowT* wrow = rows + static_cast<long long>(word[i]) * row_stride;
-  const int* drow = ndk + static_cast<long long>(doc[i]) * k_real;
-  const unsigned long long slot = static_cast<unsigned long long>(slot0 + i);
-  const float alpha_c = kChain == kF32 ? alpha : bf16_round(alpha);
-  const float beta_c = kChain == kF32 ? beta : bf16_round(beta);
-
-  float best = -INFINITY;
-  int best_k = k_pad;
-  for (int g = lane; g < (k_pad >> 2); g += 32) {
-    float inv_e[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-    if (kMode == 2) {
-      const uint4 b = lda::philox_group(slot, g, key0, key1);
-      inv_e[0] = approx_recip(-logf(lda::bits_to_uniform(b.x)));
-      inv_e[1] = approx_recip(-logf(lda::bits_to_uniform(b.y)));
-      inv_e[2] = approx_recip(-logf(lda::bits_to_uniform(b.z)));
-      inv_e[3] = approx_recip(-logf(lda::bits_to_uniform(b.w)));
-    } else if (kMode == 1) {
-      const float* urow = uniforms + i * k_pad + 4 * g;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) inv_e[j] = approx_recip(-logf(urow[j]));
+  for (int j = 0; j < 4; ++j) {
+    const int k = 4 * g + j;
+    w[j] = k < k_real ? static_cast<float>(__ldg(row + k)) : 0.0f;
+  }
+}
+
+// doc counts of topics 4g .. 4g+3 (0 past k_real): they change during the
+// walk, so through L2
+__device__ __forceinline__ void load_ndk4(const int* row, int g, int k_real,
+                                          bool vec, int d[4]) {
+  if (vec) {
+    const int4 v = 4 * g < k_real ? __ldcg(reinterpret_cast<const int4*>(row) + g)
+                                  : make_int4(0, 0, 0, 0);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 4 * g + j;
+    d[j] = k < k_real ? __ldcg(row + k) : 0;
+  }
+}
+
+// p of topics (k, k + 1) in a bf16 chain: one native bf16 op per op
+__device__ __forceinline__ float2 bf16_chain_p2(float w0, float w1, float d0,
+                                                float d1, float e0, float e1,
+                                                float r0, float r1,
+                                                __nv_bfloat162 alpha2,
+                                                __nv_bfloat162 beta2) {
+  const __nv_bfloat162 e = __floats2bfloat162_rn(e0, e1);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 rr =
+      __floats2bfloat162_rn(__fmul_rn(r0, r0), __fmul_rn(r1, r1));
+  const __nv_bfloat162 a =
+      __hadd2_rn(__hsub2_rn(__floats2bfloat162_rn(w0, w1), e), beta2);
+  const __nv_bfloat162 b =
+      __hadd2_rn(__hsub2_rn(__floats2bfloat162_rn(d0, d1), e), alpha2);
+  const __nv_bfloat162 c = __hadd2_rn(r, __hmul2_rn(e, rr));
+  return __bfloat1622float2(__hmul2_rn(__hmul2_rn(a, b), c));
+}
+
+// 1 / bf16(E) of topics 4g .. 4g+3 of token i (1 in deterministic mode):
+// the noise half of a draw, which no count move changes
+template <int kMode>
+__device__ __forceinline__ void noise4(const WalkArgs& a, long long i, int g,
+                                       float inv_e[4]) {
+  if (kMode == 2) {
+    const uint4 b = lda::philox_group(
+        static_cast<unsigned long long>(a.slot0 + i), g, a.key0, a.key1);
+    inv_e[0] = approx_recip(-logf(lda::bits_to_uniform(b.x)));
+    inv_e[1] = approx_recip(-logf(lda::bits_to_uniform(b.y)));
+    inv_e[2] = approx_recip(-logf(lda::bits_to_uniform(b.z)));
+    inv_e[3] = approx_recip(-logf(lda::bits_to_uniform(b.w)));
+  } else if (kMode == 1) {
+    const float* urow = a.uniforms + i * a.k_pad;
+    float u[4];
+    if (a.vec_noise) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(urow) + g);
+      u[0] = v.x;
+      u[1] = v.y;
+      u[2] = v.z;
+      u[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) u[j] = __ldg(urow + 4 * g + j);
     }
 #pragma unroll
+    for (int j = 0; j < 4; ++j) inv_e[j] = approx_recip(-logf(u[j]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) inv_e[j] = 1.0f;
+  }
+}
+
+// Score topics 4g .. 4g+3 of a token (row entries w, doc counts d, the
+// tile's nk reciprocals r4, noise inv_e, old topic zo) and fold them into
+// (best, best_k): strict >, so a thread keeps the first maximum of the
+// groups it scans in increasing order.
+template <int kMode, int kChain>
+__device__ __forceinline__ void score4(const WalkArgs& a, const float w[4],
+                                       const float d[4], float4 r4,
+                                       const float inv_e[4], int zo, int g,
+                                       float& best, int& best_k) {
+  const float r[4] = {r4.x, r4.y, r4.z, r4.w};
+  float e[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) e[j] = (4 * g + j == zo) ? 1.0f : 0.0f;
+  float s[4];
+  if (kChain == kF32) {
+#pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int k = 4 * g + j;
-      float s = -1.0f;
-      if (k < k_real) {
-        const float e = (k == zo) ? 1.0f : 0.0f;
-        const float r = approx_recip(static_cast<float>(nk[k]) + vbeta);
-        if (kChain == kF32) {
-          const float rr = r * r;
-          const float p = ((count_value(wrow[k]) - e + beta) *
-                           (static_cast<float>(drow[k]) - e + alpha)) *
-                          (r + e * rr);
-          s = (kMode == 0) ? p : p * inv_e[j];
-        } else {
-          const float p =
-              bf16_chain_p(count_value(wrow[k]), static_cast<float>(drow[k]),
-                           e, r, alpha_c, beta_c);
-          if (kMode == 0)
-            s = p;
-          else if (kChain == kBf16)
-            s = bf16_round(__fmul_rn(p, bf16_round(inv_e[j])));
-          else
-            s = __fmul_rn(p, inv_e[j]);
-        }
-      }
-      if (s > best) {  // strict: the lane keeps its first maximum
-        best = s;
-        best_k = k;
+      const float rr = r[j] * r[j];
+      const float p = ((w[j] - e[j] + a.beta) * (d[j] - e[j] + a.alpha)) *
+                      (r[j] + e[j] * rr);
+      s[j] = (kMode == 0) ? p : p * inv_e[j];
+    }
+  } else {
+    const __nv_bfloat162 alpha2 = __float2bfloat162_rn(a.alpha);
+    const __nv_bfloat162 beta2 = __float2bfloat162_rn(a.beta);
+#pragma unroll
+    for (int h = 0; h < 4; h += 2) {
+      const float2 p = bf16_chain_p2(w[h], w[h + 1], d[h], d[h + 1], e[h],
+                                     e[h + 1], r[h], r[h + 1], alpha2, beta2);
+      const float pj[2] = {p.x, p.y};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = h + q;
+        if (kMode == 0)
+          s[j] = pj[q];
+        else if (kChain == kBf16)
+          s[j] = bf16_round(__fmul_rn(pj[q], bf16_round(inv_e[j])));
+        else
+          s[j] = __fmul_rn(pj[q], inv_e[j]);
       }
     }
   }
-  // warp argmax; ties go to the lower topic, as jnp.argmax does
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 4 * g + j;
+    const float sj = k < a.k_real ? s[j] : -1.0f;
+    if (sj > best) {
+      best = sj;
+      best_k = k;
+    }
+  }
+}
+
+// The argmax of a team of `team` threads (a multiple of 32): a warp shuffle,
+// then the team's warps through shared memory; ties go to the lower topic,
+// as jnp.argmax does.  Every thread of the CTA calls it; the result is valid
+// in the team's first thread.  The caller separates two calls with a
+// __syncthreads.
+__device__ __forceinline__ void team_argmax(float& best, int& best_k, int team,
+                                            float* s_best, int* s_k) {
+  const int tid = threadIdx.x;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float ov = __shfl_down_sync(0xffffffffu, best, off);
@@ -203,7 +364,345 @@ __global__ void gibbs_tile_sample(
       best_k = ok;
     }
   }
-  if (lane == 0) z_new[i] = best_k;
+  if ((tid & 31) == 0) {
+    s_best[tid >> 5] = best;
+    s_k[tid >> 5] = best_k;
+  }
+  __syncthreads();
+  if ((tid & (team - 1)) == 0) {
+    for (int w = (tid >> 5) + 1; w < (tid >> 5) + team / 32; ++w) {
+      const float ov = s_best[w];
+      const int ok = s_k[w];
+      if (ov > best || (ov == best && ok < best_k)) {
+        best = ov;
+        best_k = ok;
+      }
+    }
+  }
+}
+
+// A token's move (a leader keeps its own for the tiles after): -1 at
+// (doc, zo), +1 at (doc, zn) in ndk
+struct Move {
+  int doc;
+  int zo;
+  int zn;
+  bool real;
+};
+
+__device__ __forceinline__ void move_doc(int* ndk, int k_real, const Move& m) {
+  if (!m.real || m.zo == m.zn) return;
+  int* drow = ndk + static_cast<long long>(m.doc) * k_real;
+  atomicSub(drow + m.zo, 1);
+  atomicAdd(drow + m.zn, 1);
+}
+
+// the same, and in nk
+__device__ __forceinline__ void move_counts(const WalkArgs& a, int doc, int zo,
+                                            int zn) {
+  if (zo == zn) return;
+  move_doc(a.ndk, a.k_real, {doc, zo, zn, true});
+  atomicSub(a.nk + zo, 1);
+  atomicAdd(a.nk + zn, 1);
+}
+
+// The grid barrier, split: grid_arrive, then work that reads nothing another
+// CTA writes before its arrival, then grid_wait.  CTA 0 adds 2^31 - (n - 1)
+// and the others 1, so the counter's top bit flips once all n CTAs have
+// arrived and its low bits return to 0 (the walk's counter starts at 0);
+// `sense` is the top bit each barrier ends at.  The arrival is a release
+// (after a __syncthreads: it publishes the CTA's writes), the poll an
+// acquire (before a __syncthreads: the CTA then sees every CTA's writes).
+// A wait of more than ~2^26 polls (tens of seconds) traps: the launch fails
+// with an error instead of hanging.
+__device__ __forceinline__ void grid_arrive(unsigned int* bar,
+                                            unsigned int& sense) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+                 :
+                 : "l"(bar), "r"(add)
+                 : "memory");
+  }
+  sense ^= 0x80000000u;
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned int* bar,
+                                          unsigned int sense) {
+  if (threadIdx.x == 0) {
+    unsigned int polls = 0, v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v)
+                   : "l"(bar)
+                   : "memory");
+      if (++polls > (1u << 26)) __trap();
+    } while ((v & 0x80000000u) != sense);
+  }
+  __syncthreads();
+}
+
+// The tile's nk reciprocals, once per CTA (nk through L2: it moves during
+// the walk)
+__device__ __forceinline__ void hoist_recip(const WalkArgs& a, float* s_r) {
+  for (int k = threadIdx.x; k < a.k_pad; k += kWalkThreads)
+    s_r[k] = k < a.k_real
+                 ? approx_recip(static_cast<float>(__ldcg(a.nk + k)) + a.vbeta)
+                 : 0.0f;
+}
+
+// A team's token in a tile (live: the tile has one for the team; real: and
+// it is not masked), as read from the walk's inputs
+struct Token {
+  long long i;
+  int zo;
+  int doc;
+  int word;
+  bool live;
+  bool real;
+};
+
+__device__ __forceinline__ Token fetch_token(const WalkArgs& a, long long t0,
+                                             long long team) {
+  Token tk;
+  tk.i = t0 + team;
+  tk.live = t0 < a.n_tokens && team < a.row_tile && tk.i < a.n_tokens;
+  tk.zo = tk.live ? __ldg(a.z_old + tk.i) : 0;
+  tk.doc = tk.live ? __ldg(a.doc + tk.i) : 0;
+  tk.word = tk.live ? __ldg(a.word + tk.i) : 0;
+  tk.real = tk.live && __ldg(a.mask + tk.i) != 0;
+  return tk;
+}
+
+// Move m of the tile at t0 (m < n), read for fold_move: every load at once
+__device__ __forceinline__ Move fetch_move(const WalkArgs& a, long long t0,
+                                           long long n, int m) {
+  Move mv = {0, 0, 0, false};
+  if (m < n) {
+    const long long i = t0 + m;
+    mv.real = __ldg(a.mask + i) != 0;
+    mv.zo = __ldg(a.z_old + i);
+    mv.zn = __ldcg(a.z_new + i);  // stored by another CTA in this launch
+    mv.doc = __ldg(a.doc + i);
+  }
+  return mv;
+}
+
+// Fold a move into this CTA's topic totals s_nk and into s_corr[q], the
+// doc-row correction of team q, where s_doc[q] is its document
+__device__ __forceinline__ void fold_move(const Move& mv, int per_cta,
+                                          int k_pad, int* s_nk, int* s_corr,
+                                          const int* s_doc) {
+  if (!mv.real || mv.zo == mv.zn) return;
+  atomicSub(s_nk + mv.zo, 1);
+  atomicAdd(s_nk + mv.zn, 1);
+  for (int q = 0; q < per_cta; ++q) {
+    if (s_doc[q] == mv.doc) {
+      atomicSub(s_corr + q * k_pad + mv.zo, 1);
+      atomicAdd(s_corr + q * k_pad + mv.zn, 1);
+    }
+  }
+}
+
+// The walk where every tile is one pass (a team per token, a topic group per
+// thread at most, a move per thread; the launch sets a.pipelined), with ONE
+// grid barrier per tile.  ndk is double-buffered: X0 = a.ndk, X1 =
+// a.ndk_copy (a copy of it at the start).  Tile t's draws read X[t % 2],
+// which holds the counts before tile t - 1 moved, and add tile t - 1's moves
+// of their own document (s_corr), read from the z_new that tile t - 1
+// published before the barrier; meanwhile each leader adds the moves of its
+// tokens of tiles t - 2 and t - 1 to X[(t + 1) % 2], which nobody reads
+// before the next barrier and which then holds the counts after tile t - 1.
+// nk lives in each CTA's shared memory, which folds every tile's moves in.
+// Reads and writes of a buffer never meet between two barriers, so each
+// tile draws against exactly the counts the previous tile left, as the
+// two-barrier walk does.  A thread's next token is read a tile ahead; its
+// row entries and noise are read and computed while the barrier settles.
+// CTAs whose teams have no token in any tile only keep the barrier.  At the
+// end X0 takes the moves it lacks and CTA 0 writes nk back.
+template <int kMode, int kChain, typename RowT>
+__device__ __forceinline__ void walk_pipelined(const WalkArgs& a, float4* s_r4,
+                                               int* s_nk, int* s_corr,
+                                               int* s_doc, float* s_best,
+                                               int* s_k) {
+  const int tid = threadIdx.x;
+  const int per_cta = kWalkThreads / a.team;
+  const int tl = tid & (a.team - 1);
+  const int q = tid / a.team;  // the team's place in the CTA
+  const long long team = static_cast<long long>(blockIdx.x) * per_cta + q;
+  const bool busy = static_cast<long long>(blockIdx.x) * per_cta < a.row_tile;
+  const bool mine_group = 4 * tl < a.k_pad;
+  const RowT* rows = static_cast<const RowT*>(a.rows);
+  float* s_r = reinterpret_cast<float*>(s_r4);
+  unsigned int sense = 0;
+  Move prev = {0, 0, 0, false}, prev2 = prev;
+  // tile 0's token, noise and row entries; nk; the first corrections
+  Token cur = fetch_token(a, 0, team);
+  float inv_e[4], w[4];
+  if (mine_group && cur.real) {
+    load_row4(rows + static_cast<long long>(cur.word) * a.row_stride, tl,
+              a.k_real, a.vec_rows, w);
+    noise4<kMode>(a, cur.i, tl, inv_e);
+  }
+  for (int k = tid; k < a.k_pad; k += kWalkThreads)
+    s_nk[k] = k < a.k_real ? a.nk[k] : 0;
+  for (int k = tid; k < per_cta * a.k_pad; k += kWalkThreads) s_corr[k] = 0;
+  if (tl == 0) s_doc[q] = cur.real ? cur.doc : -1;
+  __syncthreads();
+  long long t = 0;
+  for (long long t0 = 0; t0 < a.n_tokens; t0 += a.row_tile, ++t) {
+    if (busy) {
+      // this tile's doc counts, the previous tile's move and the next
+      // tile's token go out together
+      const bool mine = cur.real && mine_group;
+      int dc[4] = {0, 0, 0, 0};
+      if (mine)
+        load_ndk4((t & 1 ? a.ndk_copy : a.ndk) +
+                      static_cast<long long>(cur.doc) * a.k_real,
+                  tl, a.k_real, a.vec_ndk, dc);
+      const Move mv = t0 > 0 ? fetch_move(a, t0 - a.row_tile, a.row_tile, tid)
+                             : prev;  // prev is not real here
+      const Token nxt = fetch_token(a, t0 + a.row_tile, team);
+      fold_move(mv, per_cta, a.k_pad, s_nk, s_corr, s_doc);
+      __syncthreads();
+      for (int k = tid; k < a.k_pad; k += kWalkThreads)
+        s_r[k] = k < a.k_real
+                     ? approx_recip(static_cast<float>(s_nk[k]) + a.vbeta)
+                     : 0.0f;
+      __syncthreads();
+      float best = -INFINITY;
+      int best_k = a.k_pad;
+      if (mine) {
+        float d[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          d[j] = static_cast<float>(dc[j] + s_corr[q * a.k_pad + 4 * tl + j]);
+        score4<kMode, kChain>(a, w, d, s_r4[tl], inv_e, cur.zo, tl, best,
+                              best_k);
+      }
+      team_argmax(best, best_k, a.team, s_best, s_k);
+      const int zn = cur.real ? best_k : cur.zo;
+      if (tl == 0) {
+        if (cur.live) a.z_new[cur.i] = zn;
+        int* const out = t & 1 ? a.ndk : a.ndk_copy;
+        move_doc(out, a.k_real, prev2);
+        move_doc(out, a.k_real, prev);
+      }
+      prev2 = prev;
+      prev = {cur.doc, cur.zo, zn, cur.real};
+      cur = nxt;
+    }
+    grid_arrive(a.barrier, sense);  // tile t's z_new and the buffer's moves are out
+    if (busy) {  // the next tile's row entries and noise
+      if (mine_group && cur.real) {
+        load_row4(rows + static_cast<long long>(cur.word) * a.row_stride, tl,
+                  a.k_real, a.vec_rows, w);
+        noise4<kMode>(a, cur.i, tl, inv_e);
+      }
+      for (int k = tid; k < per_cta * a.k_pad; k += kWalkThreads) s_corr[k] = 0;
+      if (tl == 0) s_doc[q] = cur.real ? cur.doc : -1;
+    }
+    grid_wait(a.barrier, sense);
+  }
+  // X0 lacks the last tile's moves, and the one before it when X1 was the
+  // last buffer written; CTA 0 folds the last tile into nk and writes it
+  if (tl == 0) {
+    if (t & 1) move_doc(a.ndk, a.k_real, prev2);
+    move_doc(a.ndk, a.k_real, prev);
+  }
+  if (blockIdx.x == 0) {
+    const long long t0 = (t - 1) * a.row_tile;
+    fold_move(fetch_move(a, t0, a.n_tokens - t0, tid), 0, a.k_pad, s_nk,
+              s_corr, s_doc);
+    __syncthreads();
+    for (int k = tid; k < a.k_real; k += kWalkThreads) a.nk[k] = s_nk[k];
+  }
+}
+
+// The walk at any shape: a team loops over the tokens of a tile it has
+// (tile_tokens > teams) and a thread over its topic groups (groups > team).
+template <int kMode, int kChain, typename RowT>
+__device__ __forceinline__ void walk_general(const WalkArgs& a, float4* s_r4,
+                                             float* s_best, int* s_k) {
+  const int tid = threadIdx.x;
+  const int per_cta = kWalkThreads / a.team;
+  const long long teams = static_cast<long long>(gridDim.x) * per_cta;
+  const long long team = static_cast<long long>(blockIdx.x) * per_cta + tid / a.team;
+  const int tl = tid & (a.team - 1);
+  const int ng = a.k_pad >> 2;
+  const bool move = a.phases == 3;
+  const RowT* rows = static_cast<const RowT*>(a.rows);
+  unsigned int sense = 0;
+  for (long long t0 = 0; t0 < a.n_tokens; t0 += a.row_tile) {
+    const long long n =
+        a.n_tokens - t0 < a.row_tile ? a.n_tokens - t0 : a.row_tile;
+    if (t0 == 0 || move) {
+      hoist_recip(a, reinterpret_cast<float*>(s_r4));
+      __syncthreads();
+    }
+    for (long long j0 = 0; j0 < n; j0 += teams) {  // the same trip count in a CTA
+      const long long j = j0 + team;
+      const long long i = t0 + j;
+      float best = -INFINITY;
+      int best_k = a.k_pad;
+      int zo = 0;
+      bool real = false;
+      if (j < n) {
+        zo = __ldg(a.z_old + i);
+        real = __ldg(a.mask + i) != 0;
+        if (real) {
+          const RowT* wrow =
+              rows + static_cast<long long>(__ldg(a.word + i)) * a.row_stride;
+          const int* drow =
+              a.ndk + static_cast<long long>(__ldg(a.doc + i)) * a.k_real;
+          for (int g = tl; g < ng; g += a.team) {
+            float inv_e[4], w[4], d[4];
+            int dc[4];
+            noise4<kMode>(a, i, g, inv_e);
+            load_row4(wrow, g, a.k_real, a.vec_rows, w);
+            load_ndk4(drow, g, a.k_real, a.vec_ndk, dc);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) d[j] = static_cast<float>(dc[j]);
+            score4<kMode, kChain>(a, w, d, s_r4[g], inv_e, zo, g, best, best_k);
+          }
+        }
+      }
+      team_argmax(best, best_k, a.team, s_best, s_k);
+      if (tl == 0 && j < n) a.z_new[i] = real ? best_k : zo;
+      __syncthreads();
+    }
+    if (move) {
+      grid_arrive(a.barrier, sense);  // every draw of the tile has read the counts
+      grid_wait(a.barrier, sense);
+      for (long long j0 = 0; j0 < n; j0 += teams) {
+        const long long i = t0 + j0 + team;
+        // the leader moves the token it drew (its own z_new store)
+        if (tl == 0 && j0 + team < n && __ldg(a.mask + i) != 0)
+          move_counts(a, __ldg(a.doc + i), __ldg(a.z_old + i), a.z_new[i]);
+      }
+      grid_arrive(a.barrier, sense);  // every move is in before the next draws
+      grid_wait(a.barrier, sense);
+    }
+  }
+}
+
+template <int kMode, int kChain, typename RowT>
+__global__ void __launch_bounds__(kWalkThreads, 1) gibbs_walk(const WalkArgs a) {
+  // [k_pad / 4] float4: the tile's nk reciprocals; the pipelined walk adds
+  // its nk [k_pad] and its teams' doc corrections [teams per CTA][k_pad]
+  extern __shared__ float4 s_r4[];
+  __shared__ float s_best[kWalkWarps];
+  __shared__ int s_k[kWalkWarps];
+  __shared__ int s_doc[kWalkWarps];
+  if (a.pipelined) {
+    int* s_nk = reinterpret_cast<int*>(s_r4 + a.k_pad / 4);
+    walk_pipelined<kMode, kChain, RowT>(a, s_r4, s_nk, s_nk + a.k_pad, s_doc,
+                                        s_best, s_k);
+  } else {
+    walk_general<kMode, kChain, RowT>(a, s_r4, s_best, s_k);
+  }
 }
 
 // One thread per token: move an unmasked token's count from z_old to z_new
@@ -214,12 +713,10 @@ __global__ void gibbs_tile_update(int* __restrict__ nwk, int* __restrict__ ndk,
                                   const int* __restrict__ doc,
                                   const int* __restrict__ mask,
                                   const int* __restrict__ z_old,
-                                  const int* __restrict__ z_new, long long t0,
-                                  long long n) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                                  const int* __restrict__ z_new, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  if (j >= n) return;
-  const long long i = t0 + j;
+  if (i >= n) return;
   const int zo = z_old[i];
   const int zn = z_new[i];
   if (mask[i] == 0 || zo == zn) return;
@@ -239,52 +736,95 @@ __global__ void gibbs_tile_update(int* __restrict__ nwk, int* __restrict__ ndk,
   }
 }
 
+using WalkKernel = void (*)(WalkArgs);
+
 template <int kChain, typename RowT>
-cudaError_t launch_sample(int noise_mode, dim3 grid, dim3 block,
-                          cudaStream_t s, const RowT* rows,
-                          long long row_stride, int k_pad, const int* ndk,
-                          int k_real, const int* nk, const int* zo, int* zn,
-                          const int* wd, const int* dc, const int* mk,
-                          const float* un, long long t0, int n, float alpha,
-                          float beta, float vbeta, uint32_t key0,
-                          uint32_t key1, long long slot0) {
-  if (noise_mode == 0) {
-    gibbs_tile_sample<0, kChain, RowT><<<grid, block, 0, s>>>(
-        rows, row_stride, k_pad, ndk, k_real, nk, zo, zn, wd, dc, mk, un, t0,
-        n, alpha, beta, vbeta, key0, key1, slot0);
-  } else if (noise_mode == 1) {
-    gibbs_tile_sample<1, kChain, RowT><<<grid, block, 0, s>>>(
-        rows, row_stride, k_pad, ndk, k_real, nk, zo, zn, wd, dc, mk, un, t0,
-        n, alpha, beta, vbeta, key0, key1, slot0);
-  } else {
-    gibbs_tile_sample<2, kChain, RowT><<<grid, block, 0, s>>>(
-        rows, row_stride, k_pad, ndk, k_real, nk, zo, zn, wd, dc, mk, un, t0,
-        n, alpha, beta, vbeta, key0, key1, slot0);
-  }
-  return cudaGetLastError();
+WalkKernel walk_for_mode(int noise_mode) {
+  if (noise_mode == 0) return gibbs_walk<0, kChain, RowT>;
+  if (noise_mode == 1) return gibbs_walk<1, kChain, RowT>;
+  return gibbs_walk<2, kChain, RowT>;
 }
 
-#define LDA_SAMPLE_ARGS                                                    \
-  noise_mode, grid, block, s, static_cast<const RowT*>(rows), row_stride, \
-      k_pad, ndk, k_real, nk, zo, zn, wd, dc, mk, un, t0, n, alpha, beta, \
-      vbeta, key0, key1, slot0
-
-// the chain's instantiation for rows of type RowT
 template <typename RowT>
-cudaError_t launch_chain(int chain, int noise_mode, dim3 grid, dim3 block,
-                         cudaStream_t s, const void* rows,
-                         long long row_stride, int k_pad, const int* ndk,
-                         int k_real, const int* nk, const int* zo, int* zn,
-                         const int* wd, const int* dc, const int* mk,
-                         const float* un, long long t0, int n, float alpha,
-                         float beta, float vbeta, uint32_t key0,
-                         uint32_t key1, long long slot0) {
-  if (chain == kBf16) return launch_sample<kBf16, RowT>(LDA_SAMPLE_ARGS);
-  if (chain == kBf16p) return launch_sample<kBf16p, RowT>(LDA_SAMPLE_ARGS);
-  return launch_sample<kF32, RowT>(LDA_SAMPLE_ARGS);
+WalkKernel walk_for_chain(int chain, int noise_mode) {
+  if (chain == kBf16) return walk_for_mode<kBf16, RowT>(noise_mode);
+  if (chain == kBf16p) return walk_for_mode<kBf16p, RowT>(noise_mode);
+  return walk_for_mode<kF32, RowT>(noise_mode);
 }
 
-#undef LDA_SAMPLE_ARGS
+// the instantiation of a walk
+WalkKernel walk_kernel(int rows_kind, int chain, int noise_mode) {
+  if (rows_kind == kRowsInt32) return walk_for_mode<kF32, int>(noise_mode);
+  if (rows_kind == kRowsF32) return walk_for_chain<float>(chain, noise_mode);
+  return walk_for_chain<__nv_bfloat16>(chain, noise_mode);
+}
+
+// as many CTAs of `kernel` as the card holds at once, with `smem` bytes of
+// dynamic shared memory each
+cudaError_t walk_grid(WalkKernel kernel, size_t smem, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, reinterpret_cast<const void*>(kernel), kWalkThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *grid = per_sm * sms;
+  return cudaSuccess;
+}
+
+// threads per token: the widest power of two (up to a CTA and to the topic
+// groups) at which the grid still holds one tile's tokens at once
+int walk_team(long long threads, long long tile_tokens, int groups) {
+  int team = 32;
+  while (team * 2 <= kWalkThreads && team * 2 <= groups &&
+         threads / (team * 2) >= tile_tokens)
+    team *= 2;
+  return team;
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// How a walk launches: its grid, team, dynamic shared memory, and whether
+// it runs walk_pipelined (a sweep whose tiles are one pass each, with a
+// move per thread, if its larger shared memory leaves the grid as it is) or
+// walk_general.
+struct WalkConfig {
+  int grid = 0;
+  int team = 32;
+  size_t smem = 0;
+  bool pipelined = false;
+};
+
+cudaError_t walk_config(WalkKernel kernel, int phases, int k_pad,
+                        long long n_tokens, int row_tile, WalkConfig* c) {
+  c->smem = static_cast<size_t>(k_pad) * sizeof(float);
+  cudaError_t err = walk_grid(kernel, c->smem, &c->grid);
+  if (err != cudaSuccess) return err;
+  const long long tile = n_tokens < row_tile ? n_tokens : row_tile;
+  c->team = walk_team(static_cast<long long>(c->grid) * kWalkThreads, tile,
+                      k_pad / 4);
+  const int per_cta = kWalkThreads / c->team;
+  if (phases != 3 || static_cast<long long>(c->grid) * per_cta < tile ||
+      k_pad / 4 > c->team || row_tile > kWalkThreads)
+    return cudaSuccess;
+  const size_t smem = static_cast<size_t>(2 + per_cta) * k_pad * sizeof(int);
+  int grid = 0;
+  err = walk_grid(kernel, smem, &grid);
+  if (err == cudaSuccess && grid == c->grid) {
+    c->smem = smem;
+    c->pipelined = true;
+  }
+  return err;
+}
 
 }  // namespace
 
@@ -292,69 +832,92 @@ extern "C" const char* lda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Walk the tiles of [0, n_tokens) in order.  rows_kind: 0 = bf16 snapshot,
-// 1 = live int32 table (float32 chain only), 2 = float32 snapshot.  chain:
-// 0 = float32, 1 = bfloat16, 2 = bf16p.  phases: 1 = sample only, 2 =
-// update only, 3 = both per tile (the sweep).  Returns cudaGetLastError.
+// The launch configuration lda_gibbs_tiles gives a walk (phases 3) of
+// n_tokens in tiles of row_tile with k_pad topics, on the current device:
+// CTAs (*grid) of *threads, *team threads per token, *pipelined 1 for the
+// one-barrier walk.
+extern "C" int lda_walk_config(int rows_kind, int chain, int noise_mode,
+                               int k_pad, long long n_tokens, int row_tile,
+                               int* grid, int* threads, int* team,
+                               int* pipelined) {
+  WalkConfig c;
+  const cudaError_t err =
+      walk_config(walk_kernel(rows_kind, chain, noise_mode), 3, k_pad,
+                  n_tokens, row_tile, &c);
+  *grid = c.grid;
+  *threads = kWalkThreads;
+  *team = c.team;
+  *pipelined = c.pipelined ? 1 : 0;
+  return static_cast<int>(err);
+}
+
+// Walk the tiles of [0, n_tokens) in order, in one cooperative launch.
+// rows_kind: 0 = bf16 snapshot, 1 = live int32 table (float32 chain only),
+// 2 = float32 snapshot.  chain: 0 = float32, 1 = bfloat16, 2 = bf16p.
+// phases: 1 = draw only (every token against the given counts), 3 = draw
+// and count move per tile (the sweep; needs `barrier`, one int32 that the
+// caller zeroes, and, where lda_walk_config says pipelined, `ndk_copy`, a
+// copy of ndk that the walk overwrites; walk_general ignores it).
+// Returns the launch's CUDA error: a launch the card refuses (cooperative
+// grid too large, too much shared memory) is reported, never split into
+// smaller launches.  (The count move alone is lda_count_move.)
 extern "C" int lda_gibbs_tiles(
     const void* rows, int rows_kind, long long row_stride, int k_pad,
     void* ndk, int k_real, void* nk, const void* z_old, void* z_new,
     const void* word, const void* doc, const void* mask, const void* uniforms,
     long long n_tokens, int row_tile, float alpha, float beta, float vbeta,
     int noise_mode, int chain, unsigned long long seed, long long slot0,
-    int phases, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int phases, void* barrier, void* ndk_copy, void* stream) {
   if (noise_mode < 0 || noise_mode > 2 || row_tile <= 0 ||
-      ((phases & 1) &&
-       ((k_pad & 3) || k_real > k_pad ||
-        (rows_kind != kRowsBf16 && rows_kind != kRowsInt32 &&
-         rows_kind != kRowsF32) ||
-        chain < kF32 || chain > kBf16p ||
-        (rows_kind == kRowsInt32 && chain != kF32))))
+      (phases != 1 && phases != 3) || (phases == 3 && barrier == nullptr) ||
+      (k_pad & 3) || k_pad <= 0 || k_real > k_pad ||
+      (rows_kind != kRowsBf16 && rows_kind != kRowsInt32 &&
+       rows_kind != kRowsF32) ||
+      chain < kF32 || chain > kBf16p ||
+      (rows_kind == kRowsInt32 && chain != kF32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const uint32_t key0 = static_cast<uint32_t>(seed);
-  const uint32_t key1 = static_cast<uint32_t>(seed >> 32);
-  auto* ndk_i = static_cast<int*>(ndk);
-  auto* nk_i = static_cast<int*>(nk);
-  const auto* zo = static_cast<const int*>(z_old);
-  auto* zn = static_cast<int*>(z_new);
-  const auto* wd = static_cast<const int*>(word);
-  const auto* dc = static_cast<const int*>(doc);
-  const auto* mk = static_cast<const int*>(mask);
-  const auto* un = static_cast<const float*>(uniforms);
-  for (long long t0 = 0; t0 < n_tokens; t0 += row_tile) {
-    const int n = static_cast<int>(
-        n_tokens - t0 < row_tile ? n_tokens - t0 : row_tile);
-    if (phases & 1) {
-      const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-      const dim3 block(32 * kWarpsPerBlock);
-      cudaError_t err;
-      if (rows_kind == kRowsInt32)
-        err = launch_sample<kF32, int>(
-            noise_mode, grid, block, s, static_cast<const int*>(rows),
-            row_stride, k_pad, ndk_i, k_real, nk_i, zo, zn, wd, dc, mk, un,
-            t0, n, alpha, beta, vbeta, key0, key1, slot0);
-      else if (rows_kind == kRowsF32)
-        err = launch_chain<float>(chain, noise_mode, grid, block, s, rows,
-                                  row_stride, k_pad, ndk_i, k_real, nk_i, zo,
-                                  zn, wd, dc, mk, un, t0, n, alpha, beta,
-                                  vbeta, key0, key1, slot0);
-      else
-        err = launch_chain<__nv_bfloat16>(
-            chain, noise_mode, grid, block, s, rows, row_stride, k_pad, ndk_i,
-            k_real, nk_i, zo, zn, wd, dc, mk, un, t0, n, alpha, beta, vbeta,
-            key0, key1, slot0);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (phases & 2) {
-      gibbs_tile_update<<<(n + kUpdateThreads - 1) / kUpdateThreads,
-                          kUpdateThreads, 0, s>>>(nullptr, ndk_i, nk_i,
-                                                  k_real, wd, dc, mk, zo, zn,
-                                                  t0, n);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-  }
+  if (n_tokens <= 0) return static_cast<int>(cudaGetLastError());
+  const WalkKernel kernel = walk_kernel(rows_kind, chain, noise_mode);
+  WalkConfig c;  // the same as lda_walk_config's for phases 3
+  cudaError_t err = walk_config(kernel, phases, k_pad, n_tokens, row_tile, &c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (c.pipelined && ndk_copy == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t row_bytes = rows_kind == kRowsBf16 ? 2 : 4;
+  WalkArgs a;
+  a.rows = rows;
+  a.row_stride = row_stride;
+  a.k_pad = k_pad;
+  a.ndk = static_cast<int*>(ndk);
+  a.ndk_copy = static_cast<int*>(ndk_copy);
+  a.k_real = k_real;
+  a.nk = static_cast<int*>(nk);
+  a.z_old = static_cast<const int*>(z_old);
+  a.z_new = static_cast<int*>(z_new);
+  a.word = static_cast<const int*>(word);
+  a.doc = static_cast<const int*>(doc);
+  a.mask = static_cast<const int*>(mask);
+  a.uniforms = static_cast<const float*>(uniforms);
+  a.n_tokens = n_tokens;
+  a.row_tile = row_tile;
+  a.alpha = alpha;
+  a.beta = beta;
+  a.vbeta = vbeta;
+  a.key0 = static_cast<uint32_t>(seed);
+  a.key1 = static_cast<uint32_t>(seed >> 32);
+  a.slot0 = slot0;
+  a.phases = phases;
+  a.team = c.team;
+  a.vec_rows = row_stride % 4 == 0 && aligned(rows, 4 * row_bytes);
+  a.vec_ndk = k_real % 4 == 0 && aligned(ndk, 16) && aligned(ndk_copy, 16);
+  a.vec_noise = aligned(uniforms, 16);
+  a.pipelined = c.pipelined;
+  a.barrier = static_cast<unsigned int*>(barrier);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(c.grid), dim3(kWalkThreads), params,
+                                    c.smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,6 +935,6 @@ extern "C" int lda_count_move(void* nwk, void* ndk, void* nk, int k_real,
       static_cast<int*>(nwk), static_cast<int*>(ndk), static_cast<int*>(nk),
       k_real, static_cast<const int*>(word), static_cast<const int*>(doc),
       static_cast<const int*>(mask), static_cast<const int*>(z_old),
-      static_cast<const int*>(z_new), 0, n_tokens);
+      static_cast<const int*>(z_new), n_tokens);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""K1 of the deferred and fused sweeps: per-tile draw + doc/topic count
-update, and the count move.
+"""K1 of the deferred and fused sweeps: the walk that draws each tile and
+moves its doc/topic counts, and the count move.
 
 Counterpart of ``ldagibbssampling_tpu/ops/pallas_gibbs.py`` (the fused block
 kernel ``_fused_kernel``) in both modes: the deferred tier
@@ -15,17 +15,28 @@ it with ``--xla_allow_excess_precision=false``); the fused tier runs the
 float32 chain only, as the reference does.  The CUDA kernels are in
 ``csrc/fused_kernel.cu``:
 
-- ``gibbs_tile_sample``: one warp per token reads the token's row (snapshot
-  or live table) by word id, its doc row and ``nk``, and draws
-  ``argmax p / E`` (the reference's exponential race); templated on the
-  noise mode, the chain and the row type;
-- ``gibbs_tile_update``: moves each unmasked token's count from ``z_old`` to
-  ``z_new`` with integer atomics: in ``ndk`` and ``nk`` after each tile of
-  K1's walk, and, as ``count_move``, in any of ``nwk``/``ndk``/``nk`` for a
-  whole block (the fused tier's word-topic moves, the v1 tier's three
-  tables).  The reference's dense ``[B, Kp]`` delta (``emit_delta=True``)
-  feeds only the word-topic scatter, so on the card it never leaves the
-  kernel; ``gibbs_tiles_plain(..., emit_delta=True)`` still returns it.
+- ``gibbs_walk``: a walk is ONE cooperative launch of as many CTAs as the
+  card holds at once, which runs every tile in order: each tile's tokens are
+  drawn across the whole card (a team of threads per token reads its row,
+  snapshot or live table, by word id, its doc row and the tile's ``nk``
+  reciprocals, and draws ``argmax p / E``, the reference's exponential
+  race), then the tile's moves of ``ndk`` and ``nk`` go in with integer
+  atomics before the next tile draws; templated on the noise mode, the chain
+  and the row type.  Where every tile is one pass over the grid (the
+  deferred and fused tiers at K over 256, row tiles up to 512) it takes one
+  grid barrier per tile, with ``ndk`` double-buffered; otherwise two
+  (``walk_config`` says which).  The wrapper allocates the barrier's
+  counter (one int32, ``torch.zeros``) per walk and, for the one-barrier
+  walk only, the second ``ndk`` buffer (a clone: ``ndk``'s memory twice
+  while the walk runs).  A launch the card refuses raises; nothing splits
+  a walk into smaller launches;
+- ``gibbs_tile_update``: the count move, ``count_move``: -1 at ``z_old``,
+  +1 at ``z_new`` with integer atomics in any of ``nwk``/``ndk``/``nk`` for
+  a whole block (the fused tier's word-topic moves, the v1 tier's three
+  tables, and ``gibbs_tile_update()``, the walk's count move alone).  The
+  reference's dense ``[B, Kp]`` delta (``emit_delta=True``) feeds only the
+  word-topic scatter, so on the card it never leaves the kernel;
+  ``gibbs_tiles_plain(..., emit_delta=True)`` still returns it.
 
 ``ndk [M, K]`` and ``nk [K]`` are int32 and updated IN PLACE, indexed by the
 token's document: the reference's per-block ``[D_LOC, K]`` slab is a VMEM
@@ -36,18 +47,20 @@ float32 only inside the score (exact below the 2^24 guards of
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it; any other device raises, and so does a failed
-launch.  ``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the
-plain versions, under the same names: ``gibbs_tile_sample`` plus the
-chain's suffix (none, ``_bf16``, ``_bf16p``) and the rows' (none for the
-bf16 snapshot, ``_f32rows``, ``_live`` for the int32 table) — the
-instantiation that ran (``sample_name``); ``gibbs_tile_update`` the
-per-tile moves of a walk and ``count_move`` the one-launch moves, the same
-CUDA kernel.
+launch.  ``LAUNCHES`` counts kernel launches, one per walk, ``PLAIN_CALLS``
+calls of the plain versions (per tile), under the same names: a walk that
+draws counts under ``gibbs_tile_sample`` plus the chain's suffix (none,
+``_bf16``, ``_bf16p``) and the rows' (none for the bf16 snapshot,
+``_f32rows``, ``_live`` for the int32 table) — the instantiation that ran
+(``sample_name``); the count move under ``count_move``, and under
+``gibbs_tile_update`` where ``gibbs_tile_update()`` launches it (the walk's
+count move alone; ``PLAIN_CALLS``: the plain walk's per-tile moves).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -315,7 +328,10 @@ def _lib():
     lib.lda_gibbs_tiles.restype = i32
     lib.lda_gibbs_tiles.argtypes = [
         vp, i32, i64, i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32,
-        f32, f32, f32, i32, i32, ctypes.c_ulonglong, i64, i32, vp]
+        f32, f32, f32, i32, i32, ctypes.c_ulonglong, i64, i32, vp, vp, vp]
+    lib.lda_walk_config.restype = i32
+    lib.lda_walk_config.argtypes = [i32, i32, i32, i32, i64, i32,
+                                    *[ctypes.POINTER(i32)] * 4]
     lib.lda_count_move.restype = i32
     lib.lda_count_move.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, vp]
     return _build, lib
@@ -325,33 +341,63 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows=None,
-            token_word=None, uniforms=None, row_tile, alpha=0.0, beta=0.0,
-            vbeta=0.0, noise_mode="deterministic", seed=0, slot0=0,
-            compute_dtype="float32", phases) -> None:
-    """One host call that launches the tiles' kernels (``phases``: 1 draw,
-    2 count move, 3 both per tile); the phases' unused tensors may be None.
-    α, β and Vβ go to every launch as values: nothing keeps them."""
+@functools.lru_cache(maxsize=256)
+def _walk_config(device_index: int, rows_kind: int, chain: int, mode: int,
+                 k_pad: int, n_tokens: int, row_tile: int) -> tuple:
     build, lib = _lib()
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device_index):
+        err = lib.lda_walk_config(rows_kind, chain, mode, k_pad, n_tokens,
+                                  row_tile, *(ctypes.byref(x) for x in out))
+    build.check(lib, err, "lda_walk_config")
+    return tuple(x.value for x in out)
+
+
+def walk_config(rows_dtype: torch.dtype, compute_dtype: str, noise_mode: str,
+                k_pad: int, n_tokens: int, row_tile: int, device=None) -> dict:
+    """How ``gibbs_tiles`` launches a walk on the card: ``grid`` CTAs (as
+    many as the occupancy query says fit at once) of ``threads``, ``team``
+    threads per token, and ``pipelined`` (the one-barrier walk, where every
+    tile is one pass) or not (two barriers per tile)."""
+    with torch.cuda.device(device):
+        index = torch.cuda.current_device()
+    grid, threads, team, pipelined = _walk_config(
+        index, _ROWS_KIND[rows_dtype], CHAINS.index(compute_dtype),
+        NOISE_MODES.index(noise_mode), k_pad, n_tokens, row_tile)
+    return dict(grid=grid, threads=threads, team=team, pipelined=bool(pipelined))
+
+
+def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
+            uniforms, row_tile, alpha, beta, vbeta, noise_mode, seed, slot0,
+            compute_dtype, phases) -> None:
+    """One cooperative launch that walks every tile (``phases``: 1 draw,
+    3 draw and count move per tile).  α, β and Vβ go to every launch as
+    values: nothing keeps them.  An empty walk launches nothing."""
+    if z.shape[0] == 0:
+        return
+    build, lib = _lib()
+    k_pad = row_width(rows, ndk.shape[1])
+    # a walk that moves counts: the grid barrier's arrival counter, and the
+    # one-barrier walk's second doc-count buffer
+    barrier = ndk_copy = None
+    if phases == 3:
+        barrier = torch.zeros(1, dtype=torch.int32, device=ndk.device)
+        if walk_config(rows.dtype, compute_dtype, noise_mode, k_pad, z.shape[0],
+                       row_tile, ndk.device)["pipelined"]:
+            ndk_copy = ndk.clone()
     with torch.cuda.device(ndk.device):
         err = lib.lda_gibbs_tiles(
-            _ptr(rows), 0 if rows is None else _ROWS_KIND[rows.dtype],
-            0 if rows is None else rows.shape[1],
-            0 if rows is None else row_width(rows, ndk.shape[1]), _ptr(ndk),
+            _ptr(rows), _ROWS_KIND[rows.dtype], rows.shape[1], k_pad, _ptr(ndk),
             ndk.shape[1], _ptr(nk), _ptr(z), _ptr(z_new), _ptr(token_word),
             _ptr(token_doc), _ptr(token_mask),
             _ptr(uniforms) if noise_mode == "external" else None,
             z.shape[0], row_tile, alpha, beta, vbeta,
             NOISE_MODES.index(noise_mode), CHAINS.index(compute_dtype),
-            seed & (2**64 - 1), slot0, phases,
+            seed & (2**64 - 1), slot0, phases, _ptr(barrier), _ptr(ndk_copy),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, err, "lda_gibbs_tiles")
-    n_tiles = -(-z.shape[0] // row_tile)
-    if phases & 1:
-        LAUNCHES[sample_name(rows.dtype, compute_dtype)] += n_tiles
-    if phases & 2:
-        LAUNCHES["gibbs_tile_update"] += n_tiles
+    LAUNCHES[sample_name(rows.dtype, compute_dtype)] += 1
 
 
 def gibbs_tiles(
@@ -374,8 +420,9 @@ def gibbs_tiles(
     compute_dtype: str = "float32",  # the chain (CHAINS); float32 on int32 rows
 ) -> torch.Tensor:
     """Walk the tokens in tiles of ``row_tile``, in order: draw each tile,
-    then move its ``ndk``/``nk`` counts, before the next tile draws.
-    Returns ``z_new``; ``rows`` is only read.
+    then move its ``ndk``/``nk`` counts, before the next tile draws (on the
+    card: one launch for the whole walk).  Returns ``z_new``; ``rows`` is
+    only read.
 
     ``slot0`` is the stream position of token 0 (the internal noise
     counter), so a walk over a slice draws what the whole walk would.
@@ -401,8 +448,9 @@ def gibbs_tile_sample(rows, ndk, nk, z, token_word, token_doc, token_mask,
                       *, alpha, beta, vbeta, row_tile, noise_mode="internal",
                       seed=0, uniforms=None, slot0=0,
                       compute_dtype="float32") -> torch.Tensor:
-    """The draw alone: every token against the given counts, launched in
-    tiles of ``row_tile``; returns ``z_new`` and moves no count."""
+    """The draw alone: every token against the given counts, in tiles of
+    ``row_tile`` (one launch, the walk with its count move off); returns
+    ``z_new`` and moves no count."""
     _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
            uniforms, compute_dtype)
     if rows.device.type == "cpu":
@@ -419,18 +467,19 @@ def gibbs_tile_sample(rows, ndk, nk, z, token_word, token_doc, token_mask,
     return z_new
 
 
-def gibbs_tile_update(ndk, nk, z_old, z_new, token_doc, token_mask, *,
-                      row_tile) -> None:
-    """The per-tile count move alone: -1 at (doc, z_old), +1 at (doc, z_new)
-    in ``ndk``/``nk`` (in place) for every unmasked token, in tiles of
-    ``row_tile``."""
+def gibbs_tile_update(ndk, nk, z_old, z_new, token_doc, token_mask) -> None:
+    """The walk's count move alone: -1 at (doc, z_old), +1 at (doc, z_new)
+    in ``ndk``/``nk`` (in place) for every unmasked token.  On the card it
+    is the count move's launch on the two tables (integer moves commute, so
+    one launch gives what the walk's per-tile moves give), counted under
+    ``gibbs_tile_update``."""
     _check_counts(ndk, nk, z_old, token_doc, token_mask,
                   [("z_new", z_new, torch.int32, 1)])
     if ndk.device.type == "cpu":
         update_plain(ndk, nk, z_old, z_new, token_doc, token_mask)
         return
-    _launch(ndk, nk, z_old, z_new, token_doc, token_mask, row_tile=row_tile,
-            phases=2)
+    _move_launch(z_old, z_new, token_mask, None, None, ndk, token_doc, nk)
+    LAUNCHES["gibbs_tile_update"] += 1
 
 
 def count_move(z_old: torch.Tensor, z_new: torch.Tensor,
@@ -469,11 +518,18 @@ def count_move(z_old: torch.Tensor, z_new: torch.Tensor,
                          token_word=token_word, ndk=ndk, token_doc=token_doc,
                          nk=nk)
         return
+    _move_launch(z_old, z_new, token_mask, nwk, token_word, ndk, token_doc, nk)
+    LAUNCHES["count_move"] += 1
+
+
+def _move_launch(z_old, z_new, token_mask, nwk, token_word, ndk, token_doc,
+                 nk) -> None:
+    """One launch of ``lda_count_move`` on the given (checked) tables."""
+    k = next(t for t in (nwk, ndk, nk) if t is not None).shape[-1]
     build, lib = _lib()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(z_old.device):
         err = lib.lda_count_move(
             _ptr(nwk), _ptr(ndk), _ptr(nk), k, _ptr(token_word),
-            _ptr(token_doc), _ptr(token_mask), _ptr(z_old), _ptr(z_new), n,
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(token_doc), _ptr(token_mask), _ptr(z_old), _ptr(z_new),
+            z_old.shape[0], torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_count_move")
-    LAUNCHES["count_move"] += 1

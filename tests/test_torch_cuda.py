@@ -132,7 +132,9 @@ def test_tile_update_alone_equals_plain(cuda):
     for kernel in (True, False):
         ndk, nk = st.ndk.clone(), st.nk.clone()
         if kernel:
-            fk.gibbs_tile_update(ndk, nk, st.z, z_new, td, tm, row_tile=256)
+            launched = fk.LAUNCHES["gibbs_tile_update"]
+            fk.gibbs_tile_update(ndk, nk, st.z, z_new, td, tm)
+            assert fk.LAUNCHES["gibbs_tile_update"] == launched + 1
         else:
             fk.update_plain(ndk, nk, st.z, z_new, td, tm)
         out.append((ndk, nk))
@@ -223,7 +225,149 @@ def test_failed_launch_raises(cuda):
     build, lib = fk._lib()
     err = lib.lda_gibbs_tiles(None, 0, 128, 128, None, K, None, None, None,
                               None, None, None, None, 0, 256, 0.5, 0.1, 1.0, 7,
-                              0, 0, 0, 3, None)
+                              0, 0, 0, 3, None, None, None)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib, err, "lda_gibbs_tiles")
+
+
+# --- K1's walk: one cooperative launch per call, the chain of the plain
+# version at the shapes and layouts that stress its barriers and loads
+
+
+def _walk_setup(device, *, k, n, v=300, m=20, seed=0, one_doc=False,
+                masked=0.05):
+    """A consistent state for a walk of ``n`` tokens at ``k`` topics: tables
+    counted from ``z``; ``one_doc`` puts every token in document 0."""
+    rng = np.random.default_rng(seed)
+    tw = ((rng.zipf(1.2, size=n) - 1) % v).astype(np.int32)
+    td = (np.zeros(n) if one_doc else np.arange(n) * m // max(n, 1)).astype(np.int32)
+    tm = (rng.random(n) >= masked).astype(np.int32)
+    st = init_state(tw, td, tm, num_docs=m, vocab_size=v, num_topics=k,
+                    seed=seed, device=device)
+    toks = [torch.from_numpy(a).to(device) for a in (tw, td, tm)]
+    k_pad = -(-k // 128) * 128
+    mirror = ck.cast_mirror(torch.nn.functional.pad(st.nwk, (0, k_pad - k)).contiguous())
+    return st, toks, mirror
+
+
+def _both_walks(rows, st, toks, *, row_tile, mode, chain="float32", seed=81,
+                slot0=0, uniforms=None):
+    out = []
+    for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
+        ndk, nk = st.ndk.clone(), st.nk.clone()
+        z = walk(rows, ndk, nk, st.z, *toks, row_tile=row_tile, noise_mode=mode,
+                 seed=seed, uniforms=uniforms, slot0=slot0, compute_dtype=chain,
+                 **HYPER)
+        out.append((z, ndk, nk))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("chain,rows", [
+    ("float32", "bfloat16"), ("bfloat16", "bfloat16"), ("bf16p", "float32"),
+    ("float32", "int32")])
+def test_k1_walk_doc_shared_tiles_equal_plain(cuda, chain, rows):
+    # every token of 4 consecutive tiles in one document: each tile's draws
+    # read the doc row the previous tile moved, so a missing barrier or a
+    # stale read of ndk/nk changes the draws
+    st, toks, mirror = _walk_setup(cuda, k=K, n=4 * 256, one_doc=True, seed=9,
+                                   masked=0.0)
+    snap = {"bfloat16": mirror, "float32": mirror.float(), "int32": st.nwk}[rows]
+    (z, ndk, nk), (zp, ndkp, nkp) = _both_walks(snap, st, toks, row_tile=256,
+                                                mode="deterministic", chain=chain)
+    assert torch.equal(z, zp) and torch.equal(ndk, ndkp) and torch.equal(nk, nkp)
+    assert (z != st.z).any()
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "external", "internal"])
+@pytest.mark.parametrize("k,n,row_tile,pipelined,one_doc", [
+    (1000, 3 * 256, 256, True, False),   # k_pad 1024, the row tile the sweep picks
+    (128, 2048, 2048, False, False),     # a single-tile block of 2,048 tokens
+    (K, 1000, 256, True, False),         # n_tokens not a multiple of row_tile
+    (K, 20000, 20000, False, False),     # more tokens in a tile than the grid has teams
+    # the two-barrier walk over several tiles: each tile's moves, two
+    # barriers, then the next tile's reads of ndk/nk through L2 and its hoist
+    (100, 3 * 2048, 2048, False, True),  # the sweep's tiles at K <= 128, one document
+    (100, 3 * 2048 + 700, 2048, False, False),  # and a ragged last tile
+    (200, 4 * 1024, 1024, False, True),  # the sweep's tiles at 128 < K <= 256
+    (2100, 3 * 128 + 50, 128, False, False),  # k_pad 2176: more groups than a team
+])
+def test_k1_walk_shapes_equal_plain(cuda, mode, k, n, row_tile, pipelined, one_doc):
+    st, toks, mirror = _walk_setup(cuda, k=k, n=n, seed=k + n, one_doc=one_doc,
+                                   masked=0.0 if one_doc else 0.05)
+    cfg = fk.walk_config(mirror.dtype, "float32", mode, mirror.shape[1], n, row_tile)
+    assert cfg["pipelined"] == pipelined  # both forms of the walk are held here
+    uniforms = torch.rand((n, mirror.shape[1]), device=cuda) * 0.999 + 5e-4
+    for rows in (mirror, st.nwk):
+        (z, ndk, nk), (zp, ndkp, nkp) = _both_walks(
+            rows, st, toks, row_tile=row_tile, mode=mode, uniforms=uniforms)
+        assert torch.equal(z, zp) and torch.equal(ndk, ndkp) and torch.equal(nk, nkp)
+        assert all((z[s:s + row_tile] != st.z[s:s + row_tile]).any()
+                   for s in range(0, n, row_tile))
+
+
+@pytest.mark.parametrize("k,row_tile,pipelined", [(100, 2048, False),
+                                                  (500, 512, True)])
+def test_k1_walk_second_ndk_buffer_only_when_pipelined(cuda, k, row_tile,
+                                                       pipelined):
+    # the one-barrier walk needs a copy of ndk; the two-barrier walk none
+    n = 4 * row_tile
+    st, toks, mirror = _walk_setup(cuda, k=k, n=n, m=20000, seed=3)
+    assert fk.walk_config(mirror.dtype, "float32", "internal", mirror.shape[1], n,
+                          row_tile)["pipelined"] == pipelined
+    ndk, nk = st.ndk.clone(), st.nk.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    fk.gibbs_tiles(mirror, ndk, nk, st.z, *toks, row_tile=row_tile, seed=2, **HYPER)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(cuda) - base
+    assert (extra >= ndk.nbytes) == pipelined, (extra, ndk.nbytes)
+
+
+def test_k1_walk_empty_and_all_masked(cuda):
+    st, (tw, td, tm), mirror = _walk_setup(cuda, k=K, n=600, seed=4)
+    name = fk.sample_name(mirror.dtype)
+    launched = fk.LAUNCHES[name]
+    ndk, nk = st.ndk.clone(), st.nk.clone()
+    empty = fk.gibbs_tiles(mirror, ndk, nk, st.z[:0], tw[:0], td[:0], tm[:0],
+                           row_tile=256, seed=1, **HYPER)
+    assert empty.shape == (0,) and fk.LAUNCHES[name] == launched  # nothing to launch
+    z = fk.gibbs_tiles(mirror, ndk, nk, st.z, tw, td, torch.zeros_like(tm),
+                       row_tile=256, seed=1, **HYPER)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES[name] == launched + 1
+    assert torch.equal(z, st.z) and torch.equal(ndk, st.ndk) and torch.equal(nk, st.nk)
+
+
+def test_k1_sliced_walk_equals_whole_walk(cuda):
+    st, (tw, td, tm), mirror = _walk_setup(cuda, k=K, n=1024, seed=12)
+    ndk_all, nk_all = st.ndk.clone(), st.nk.clone()
+    z_all = fk.gibbs_tiles(mirror, ndk_all, nk_all, st.z, tw, td, tm,
+                           row_tile=256, seed=33, **HYPER)
+    ndk, nk = st.ndk.clone(), st.nk.clone()
+    parts = [fk.gibbs_tiles(mirror, ndk, nk, st.z[s:s + 512], tw[s:s + 512],
+                            td[s:s + 512], tm[s:s + 512], row_tile=256, seed=33,
+                            slot0=s, **HYPER) for s in (0, 512)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts), z_all)
+    assert torch.equal(ndk, ndk_all) and torch.equal(nk, nk_all)
+
+
+@pytest.mark.parametrize("rows", ["bfloat16", "int32"])
+def test_k1_walk_is_one_launch(cuda, rows):
+    st, toks, mirror = _walk_setup(cuda, k=K, n=8 * 256, seed=5)
+    snap = mirror if rows == "bfloat16" else st.nwk
+    name = fk.sample_name(snap.dtype)
+    for calls in range(1, 4):
+        before = dict(fk.LAUNCHES)
+        fk.gibbs_tiles(snap, st.ndk.clone(), st.nk.clone(), st.z, *toks,
+                       row_tile=256, seed=calls, **HYPER)
+        after = dict(fk.LAUNCHES)
+        assert after[name] == before[name] + 1
+        assert after["gibbs_tile_update"] == before["gibbs_tile_update"]
+        assert after["count_move"] == before["count_move"]
+    cfg = fk.walk_config(snap.dtype, "float32", "internal", 128, 8 * 256, 256)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cfg["grid"] >= sms and cfg["grid"] % sms == 0 and cfg["pipelined"]

@@ -1,7 +1,10 @@
 """K1's plain version against the reference kernel in Pallas interpret mode:
 ``pallas_fused_block(..., emit_delta=False, interpret=True)`` with bf16 rows
 (the deferred tier's snapshot), and ``emit_delta=True`` with float32 rows
-(the fused tier's live table, including the dense ``delta``).
+(the fused tier's live table, including the dense ``delta``); and the walk
+at the shapes and layouts that stress the card's walk kernel (tiles that
+share one document, K = 1000, one tile of 2,048 tokens), whose plain
+version the card tests then require the kernel to equal bitwise.
 
 Tolerances: ``deterministic`` mode is exact (z, doc slab and topic totals
 equal): every step is an IEEE float32 add/multiply or a bf16 rounding, done
@@ -31,47 +34,49 @@ ALPHA, BETA = 0.5, 0.1
 VBETA = V * BETA
 
 
-def _inputs(seed=0, b=128, k_pad=128, d_loc=8, big=False):
+def _inputs(seed=0, b=128, k_pad=128, d_loc=8, big=False, k=K, one_doc=False):
     """Consistent tables: every token's own (word, z_old) and (doc, z_old)
-    cells hold at least its own count, so exclusion never goes negative."""
+    cells hold at least its own count, so exclusion never goes negative.
+    ``one_doc`` puts every token in document 0."""
     rng = np.random.default_rng(seed)
-    zold = rng.integers(0, K, b).astype(np.int32)
-    d_local = np.sort(rng.integers(0, d_loc, b)).astype(np.int32)
+    zold = rng.integers(0, k, b).astype(np.int32)
+    d_local = (np.zeros(b) if one_doc else np.sort(rng.integers(0, d_loc, b))
+               ).astype(np.int32)
     msk = np.ones(b, np.int32)
     msk[-7:] = 0
     hi = 3000 if big else 50  # > 256 exercises the bf16 snapshot rounding
     rows = np.zeros((b, k_pad), np.float32)
-    rows[:, :K] = rng.integers(0, hi, (b, K))
+    rows[:, :k] = rng.integers(0, hi, (b, k))
     rows[np.arange(b), zold] += 1
     rows = np.asarray(jnp.asarray(rows, jnp.bfloat16).astype(jnp.float32))
     slab = np.zeros((d_loc, k_pad), np.float32)
-    slab[:, :K] = rng.integers(0, 20, (d_loc, K))
+    slab[:, :k] = rng.integers(0, 20, (d_loc, k))
     np.add.at(slab, (d_local[msk > 0], zold[msk > 0]), 1)
     nk = np.zeros((1, k_pad), np.float32)
-    nk[0, :K] = slab[:, :K].sum(0) + rng.integers(100, 200 * (60 if big else 1), K)
+    nk[0, :k] = slab[:, :k].sum(0) + rng.integers(100, 200 * (60 if big else 1), k)
     return rows, slab, nk, zold, d_local, msk
 
 
 def _reference(rows, slab, nk, zold, d_local, msk, noise_mode, noise=None,
-               row_tile=64):
+               row_tile=64, k=K):
     znew, slab_out, nk_out = pallas_fused_block(
         jnp.asarray(rows, jnp.bfloat16), jnp.asarray(slab), jnp.asarray(nk),
         jnp.asarray(zold), jnp.asarray(d_local), jnp.asarray(msk),
         jnp.int32(3), None if noise is None else jnp.asarray(noise),
-        alpha=ALPHA, beta=BETA, vbeta=VBETA, k_real=K, noise_mode=noise_mode,
+        alpha=ALPHA, beta=BETA, vbeta=VBETA, k_real=k, noise_mode=noise_mode,
         interpret=True, row_tile=row_tile, emit_delta=False,
     )
     return np.asarray(znew), np.asarray(slab_out), np.asarray(nk_out)
 
 
 def _port(rows, slab, nk, zold, d_local, msk, noise_mode, noise=None,
-          row_tile=64, seed=0):
+          row_tile=64, seed=0, k=K):
     """The same block through the port: the gathered rows ARE the snapshot
     (token i reads row i) and the slab is ``ndk`` indexed by ``d_local``."""
     b = rows.shape[0]
     mirror = torch.from_numpy(rows).to(torch.bfloat16)
-    ndk = torch.from_numpy(slab[:, :K].astype(np.int32))
-    nk_t = torch.from_numpy(nk[0, :K].astype(np.int32))
+    ndk = torch.from_numpy(slab[:, :k].astype(np.int32))
+    nk_t = torch.from_numpy(nk[0, :k].astype(np.int32))
     znew = fk.gibbs_tiles(
         mirror, ndk, nk_t, torch.from_numpy(zold),
         torch.arange(b, dtype=torch.int32), torch.from_numpy(d_local),
@@ -103,6 +108,40 @@ def test_external_matches_reference(seed, big):
     np.testing.assert_array_equal(z, z_ref)
     np.testing.assert_array_equal(ndk, slab_ref[:, :K].astype(np.int32))
     np.testing.assert_array_equal(nk, nk_ref[0, :K].astype(np.int32))
+
+
+WALK_CASES = {  # name: (k, tokens, row_tile, one_doc); two to four tiles each
+    "doc_shared_tiles": (K, 4 * 64, 64, True),
+    "k1000": (1000, 2 * 256, 256, False),  # k_pad 1024, the sweep's row tile
+    "single_tile_2048": (128, 2048, 2048, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+@pytest.mark.parametrize("noise_mode,seed", [("deterministic", 21),
+                                             ("external", 22)])
+def test_walk_shapes_match_reference(case, noise_mode, seed):
+    # z equal on >= 99.9% of tokens in general (one-ulp log differences),
+    # and exactly for these seeds
+    k, b, row_tile, one_doc = WALK_CASES[case]
+    k_pad = -(-k // 128) * 128
+    inp = _inputs(seed, b=b, k_pad=k_pad, big=True, k=k, one_doc=one_doc)
+    noise = None
+    if noise_mode == "external":
+        noise = np.random.default_rng(seed + 100).uniform(
+            1e-7, 1 - 1e-7, (b, k_pad)).astype(np.float32)
+    z_ref, slab_ref, nk_ref = _reference(*inp, noise_mode, noise,
+                                         row_tile=row_tile, k=k)
+    z, ndk, nk = _port(*inp, noise_mode, noise, row_tile=row_tile, k=k)
+    assert (z == z_ref).mean() >= 0.999
+    np.testing.assert_array_equal(z, z_ref)
+    np.testing.assert_array_equal(ndk, slab_ref[:, :k].astype(np.int32))
+    np.testing.assert_array_equal(nk, nk_ref[0, :k].astype(np.int32))
+    zold, msk = inp[3], inp[5]
+    moved = (z != zold) & (msk > 0)
+    assert moved.any() and (z[msk == 0] == zold[msk == 0]).all()
+    if one_doc:  # the tiles really chain through one doc row
+        assert moved[:row_tile].any() and moved[row_tile:].any()
 
 
 @pytest.mark.parametrize("noise_mode", ["deterministic", "internal"])
@@ -231,7 +270,7 @@ def test_sample_then_update_equals_one_tile_walk():
     z_new = fk.gibbs_tile_sample(mirror, ndk, nk_t, z_old, *args, alpha=ALPHA,
                                  beta=BETA, vbeta=VBETA, row_tile=128,
                                  noise_mode="internal", seed=5)
-    fk.gibbs_tile_update(ndk, nk_t, z_old, z_new, *args[1:], row_tile=128)
+    fk.gibbs_tile_update(ndk, nk_t, z_old, z_new, *args[1:])
     np.testing.assert_array_equal(z_new.numpy(), z_walk)
     np.testing.assert_array_equal(ndk.numpy(), ndk_walk)
     np.testing.assert_array_equal(nk_t.numpy(), nk_walk)
