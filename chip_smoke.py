@@ -17,10 +17,15 @@ success:
    snapshot (deferred layout) and K1 reading the live int32 table plus the
    block's word-topic count move (fused layout), each in the deterministic
    (must be equal), external and internal noise modes (z equal on >= 99.99%
-   of tokens, differences printed); K3 in the same three modes; the count
-   move of all three tables (bitwise); K2 (rebuild + bf16 snapshot) over the
-   whole stream (bitwise).  Times each kernel, its plain version and, where
-   one exists, a single PyTorch library call.  K1's other chains on the
+   of tokens, differences printed); K3 in the same three modes, and again
+   with the block's hottest word's and first document's counts at and past
+   the end of its log tables; the count move of all three tables with its
+   write-back of z (bitwise); K2 (rebuild + bf16 snapshot) over the whole
+   stream (bitwise).  Times each kernel (its device time per launch from
+   ``torch.profiler``, the ``ms`` of the kernels line, beside CUDA events
+   around its wrapper, which for a kernel of microseconds time the host's
+   launch), its plain version and, where one exists, a single PyTorch
+   library call.  K1's other chains on the
    same block: bf16 and bf16p on the bf16 snapshot, and f32, bf16 and bf16p
    on the float32 snapshot, each in the three noise modes (deterministic
    bitwise, z equal on >= 99.99% with noise), timed; K1's whole walk
@@ -112,10 +117,14 @@ QUALITY_SWEEPS, LL_EVERY = 20, 5
 # at bench.py's alpha 0.5, K*alpha = 250 outweighs a 256-token document and
 # 20 sweeps barely move the perplexity
 QUALITY_ALPHA, QUALITY_BETA = 0.1, 0.05
-# per (token, topic) of K3's internal-noise draw: five logf ~50 (three of
-# the conditional, two of the Gumbel noise), Philox ~25, uniform 3, the
-# exclusions and sums ~8, argmax ~4
-BLOCK_SAMPLE_OPS_PER_ELEM = 90
+# per (token, topic) of K3's internal-noise draw, the work no design avoids:
+# the Gumbel noise's two logf ~20, a quarter of Philox4x32-10 ~25, the
+# uniform 3, the conditional's three table lookups (an index and a shared
+# load each) ~3, the score's three adds 3 and the argmax ~4.  The
+# conditional's three logf are not counted: they take 2K + 2 * LOG_TABLE
+# distinct values per launch (ops/sample_kernel.py), so the kernel looks them
+# up (the count before its tables was 90: five logf ~50)
+BLOCK_SAMPLE_OPS_PER_ELEM = 58
 MIN_MATCH = 0.9999
 MODES = ("deterministic", "external", "internal")
 # the kernels each tier's sweep launches, by use_pallas
@@ -154,7 +163,8 @@ def synth_corpus(seed: int):
 
 def cuda_ms(fn, reps: int = 5) -> float:
     """Mean ms per call of ``fn`` on the current stream (CUDA events, after
-    one warm-up call)."""
+    one warm-up call).  For a kernel of a few microseconds this is the
+    host's time per launch of its wrapper: ``device_ms`` is the kernel's."""
     import torch
 
     fn()
@@ -167,6 +177,28 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, counter: str, reps: int = 5):
+    """The device ms per launch of the kernel behind ``counter`` over
+    ``reps`` calls of ``fn``, from ``torch.profiler``; raises where it
+    recorded no launch of that kernel (a renamed kernel, or a counter
+    mapped to the wrong one), so that no host time stands in for it."""
+    from ldagibbssampling_tpu_torch.evaluation.tracing import kernel_device_ms
+
+    # the CUDA kernel's name where it is not the counter's: K1's draws are
+    # walks, and count_move launches gibbs_tile_update
+    kernel = ("gibbs_walk" if counter.startswith("gibbs_tile_sample") else
+              "gibbs_tile_update" if counter == "count_move" else counter)
+    # the profiler has been seen to record no launch of a kernel in a
+    # session now and then (K1's walk at K = 100): more tries before calling
+    # the kernel's name wrong
+    for _ in range(3):
+        ms = kernel_device_ms(fn, kernel, reps)
+        if ms is not None:
+            return ms
+    raise RuntimeError(f"the profiler recorded no device time of {kernel!r} "
+                       f"({counter}) in three tries")
 
 
 def bound(nbytes: float, ops: float, bf16_ops: float = 0) -> tuple[float, str]:
@@ -232,6 +264,7 @@ def walk_report(res: dict, name: str, rows, ndk, nk, z, w, d, m, *, chain: str,
     index loads), per tile."""
     import torch
 
+    from ldagibbssampling_tpu_torch.evaluation.tracing import kernel_device_ms
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
 
     ndk_w, nk_w = ndk.clone(), nk.clone()
@@ -254,11 +287,16 @@ def walk_report(res: dict, name: str, rows, ndk, nk, z, w, d, m, *, chain: str,
     masked = torch.zeros_like(m)
     n_tiles = -(-z.shape[0] // row_tile)
     res[f"{prefix}walk_ms"] = ms = cuda_ms(whole) - cuda_ms(reset)
+    # an extra column beside walk_ms (events, which time a walk of tenths of
+    # a ms well): None, "not measured", where the profiler missed the launch
+    res[f"{prefix}walk_device_ms"] = dev_ms = kernel_device_ms(whole, "gibbs_walk")
     res[f"{prefix}walk_bound_ms"] = b_ms
     res[f"{prefix}fixed_us_per_tile"] = fixed = (
         cuda_ms(lambda: walk(masked)) * 1e3 / n_tiles)
     log(f"[kernels] {name} walk (draw + move, one launch) at K={k}: {ms:.4f} ms "
-        f"per block of {z.shape[0]} tokens (bound {b_ms:.4f} ms); all masked "
+        f"per block of {z.shape[0]} tokens, device "
+        f"{'not measured' if dev_ms is None else dev_ms} ms per launch "
+        f"(bound {b_ms:.4f} ms); all masked "
         f"{fixed:.3f} us per tile of {row_tile}")
 
 
@@ -397,18 +435,18 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
             fk.update_plain(ndk_c, nk_c, z[sl], z_new[sl], d[sl], m[sl])
 
     key = (tw.long() * k_pad + st.z.long())[tm > 0]
-    times = {
-        **{name: (cuda_ms(lambda: sample_kernel(*cr)),
+    times = {  # (the kernel's call, plain ms, library ms)
+        **{name: (lambda cr=cr: sample_kernel(*cr),
                   cuda_ms(lambda: sample_plain(*cr)), None)
            for name, cr in settings.items()},
-        "gibbs_tile_update": (cuda_ms(update_kernel), cuda_ms(update_plain), None),
+        "gibbs_tile_update": (update_kernel, cuda_ms(update_plain), None),
         "rebuild_counts": (
-            cuda_ms(lambda: ck.rebuild_counts(st.z, tw, tm, v_pad=v_pad, k_pad=k_pad)),
+            lambda: ck.rebuild_counts(st.z, tw, tm, v_pad=v_pad, k_pad=k_pad),
             cuda_ms(lambda: ck.rebuild_counts_plain(st.z, tw, tm, v_pad=v_pad,
                                                     k_pad=k_pad)),
             cuda_ms(lambda: torch.bincount(key, minlength=v_pad * k_pad))),
         "cast_mirror": (
-            cuda_ms(lambda: ck.cast_mirror(nwk_pad)),
+            lambda: ck.cast_mirror(nwk_pad),
             cuda_ms(lambda: ck.cast_mirror_plain(nwk_pad)),
             cuda_ms(lambda: nwk_pad.to(torch.bfloat16))),
     }
@@ -595,19 +633,46 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         else:
             out["gibbs_block_sample"][f"z_match_{mode}"] = match
 
-    # --- the count move of all three tables (the v1 tier's form)
+    # --- K3 where counts pass its log tables' end: the block's most frequent
+    # word's row and its first document's row straddle the last entry and
+    # every fifth cell lies far past it (the kernel computes those logs)
+    hot_w = int(torch.bincount(w[real].long()).argmax())
+    nwk_hot, ndk_hot = st.nwk.clone(), st.ndk.clone()
+    g_hot = torch.Generator(device=dev).manual_seed(seed + 5)
+    for table, row in ((nwk_hot, hot_w), (ndk_hot, int(d[0]))):
+        table[row] = torch.randint(sk.LOG_TABLE - 3, sk.LOG_TABLE + 4, (K,),
+                                   generator=g_hot, device=dev, dtype=torch.int32)
+        table[row, ::5] = 5 * sk.LOG_TABLE
+    for mode in MODES:
+        zk, zp = (f(nwk_hot, ndk_hot, st.nk, z, w, d, noise_mode=mode,
+                    seed=seed + 4321, uniforms=u_k3, **hyper)
+                  for f in (sk.sample_block, sk.sample_block_plain))
+        torch.cuda.synchronize()
+        n_diff, match = compare(f"K3 {mode}, counts past the log tables", zk, zp)
+        if (n_diff and mode == "deterministic") or match < MIN_MATCH:
+            raise AssertionError(f"K3 {mode} past the tables: {n_diff} tokens differ")
+        out["gibbs_block_sample"][f"z_match_past_table_{mode}"] = match
+
+    # --- the count move of all three tables and the write-back of z (the
+    # v1 tier's form)
     z_new = draws["internal"]
+    z_raw = torch.where(real, z_new, z.flip(0))  # masked draws to discard
     tables = []
     for move in (fk.count_move, fk.count_move_plain):
         t = dict(nwk=st.nwk.clone(), ndk=st.ndk.clone(), nk=st.nk.clone())
-        move(z, z_new, m, token_word=w, token_doc=d, **t)
+        z_out = z.clone()
+        move(z_out, z_raw, m, token_word=w, token_doc=d, z_out=z_out, **t)
         torch.cuda.synchronize()
-        tables.append(t)
-    m_err = float(max((tables[0][n] - tables[1][n]).abs().max() for n in tables[0]))
-    if m_err:
-        raise AssertionError(f"count move (three tables) differs from plain: {m_err}")
+        tables.append((t, z_out))
+    m_err = float(max((tables[0][0][n] - tables[1][0][n]).abs().max()
+                      for n in tables[0][0]))
+    if m_err or not torch.equal(tables[0][1], tables[1][1]) or not torch.equal(
+            tables[0][1], z_new):
+        raise AssertionError(f"count move (three tables, z written back) differs "
+                             f"from plain: {m_err}")
     out["count_move"]["max_abs_err"] = max(out["count_move"]["max_abs_err"], m_err)
-    log("[kernels] count move of nwk, ndk and nk bitwise equal to plain")
+    log("[kernels] count move of nwk, ndk and nk and its write-back of z bitwise "
+        "equal to plain")
 
     # --- times (internal noise: the main paths' mode)
     def live_kernel():
@@ -628,23 +693,28 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     ones = torch.ones(int(moved.sum()), dtype=torch.int32, device=dev)
     vals = torch.cat([-ones, ones])
     t3 = dict(nwk=nwk_c, ndk=st.ndk.clone(), nk=st.nk.clone())
-    times = {
-        "gibbs_tile_sample_live": (cuda_ms(live_kernel), cuda_ms(live_plain), None),
+    z_back = z.clone()
+
+    def move_three():  # the v1-draw tier's form, z written back
+        fk.count_move(z, z_new, m, token_word=w, token_doc=d, z_out=z_back, **t3)
+
+    times = {  # (the kernel's call, plain ms, library ms)
+        "gibbs_tile_sample_live": (live_kernel, cuda_ms(live_plain), None),
         "gibbs_block_sample": (
-            cuda_ms(lambda: sk.sample_block(st.nwk, st.ndk, st.nk, z, w, d,
-                                            noise_mode="internal", seed=7, **hyper)),
+            lambda: sk.sample_block(st.nwk, st.ndk, st.nk, z, w, d,
+                                    noise_mode="internal", seed=7, **hyper),
             cuda_ms(lambda: sk.sample_block_plain(st.nwk, st.ndk, st.nk, z, w, d,
                                                   noise_mode="internal", seed=7,
                                                   **hyper)),
             None),
         # the fused tier's form: the block's word-topic moves
         "count_move": (
-            cuda_ms(lambda: fk.count_move(z, z_new, m, nwk=nwk_c, token_word=w)),
+            lambda: fk.count_move(z, z_new, m, nwk=nwk_c, token_word=w),
             cuda_ms(lambda: fk.count_move_plain(z, z_new, m, nwk=nwk_c, token_word=w)),
             cuda_ms(lambda: nwk_c.view(-1).index_put_((flat,), vals, accumulate=True))),
     }
-    out["count_move"]["ms_three_tables"] = cuda_ms(
-        lambda: fk.count_move(z, z_new, m, token_word=w, token_doc=d, **t3))
+    out["count_move"]["ms_three_tables"] = device_ms(move_three, "count_move")
+    out["count_move"]["event_ms_three_tables"] = cuda_ms(move_three)
 
     # --- bounds from this run's inputs
     u_words = torch.unique(w[real]).numel()
@@ -659,6 +729,15 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
             BLOCK * K * BLOCK_SAMPLE_OPS_PER_ELEM),
         "count_move": bound(BLOCK * 4 * 4 + cells * 8, 2 * int(moved.sum())),
     }
+    # the three tables' form: the token arrays, the changed cells of each
+    # table read and written once, z written back; 6 integer ops per moved
+    # token
+    dk = d.long()[moved] * K
+    d_cells = torch.unique(torch.cat([dk + z.long()[moved], dk + z_new.long()[moved]]))
+    topics = torch.unique(torch.cat([z[moved], z_new[moved]]))
+    out["count_move"]["bound_three_tables_ms"] = bound(
+        BLOCK * 4 * 6 + (cells + d_cells.numel() + topics.numel()) * 8,
+        6 * int(moved.sum()))[0]
     units = {
         "gibbs_tile_sample_live": f"one block of {BLOCK} tokens ({BLOCK // row_tile} tiles, one launch)",
         "gibbs_block_sample": f"one block of {BLOCK} tokens (one launch)",
@@ -668,17 +747,25 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     walk_report(out["gibbs_tile_sample_live"], "gibbs_tile_sample_live", st.nwk,
                 st.ndk, st.nk, z, w, d, m, chain="float32", row_tile=row_tile,
                 hyper=hyper, draw_cost=live_cost)
-    log(f"[kernels] count_move of nwk, ndk and nk: "
-        f"{out['count_move']['ms_three_tables']:.4f} ms per block")
+    log(f"[kernels] count_move of nwk, ndk and nk with z written back: device "
+        f"{out['count_move']['ms_three_tables']} ms per launch, events "
+        f"{out['count_move']['event_ms_three_tables']:.4f} ms (bound "
+        f"{out['count_move']['bound_three_tables_ms']:.4f} ms) per block")
     return out
 
 
 def report(out: dict, times: dict, bounds: dict, units: dict) -> None:
-    for name, (ms, plain_ms, lib_ms) in times.items():
+    """Each kernel's time: ``ms`` its device time per launch (the profiler),
+    ``event_ms`` CUDA events around its wrapper (host launch time included),
+    beside its plain version's and the library call's event times."""
+    for name, (fn, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[name]
-        out[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by, unit=units[name])
-        log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+        event_ms, dev_ms = cuda_ms(fn), device_ms(fn, name)
+        out[name].update(ms=dev_ms, event_ms=event_ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, unit=units[name])
+        log(f"[kernels] {name}: device {dev_ms} ms per launch, events "
+            f"{event_ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
             f"{b_ms:.4f} ms by {b_by}) per {units[name]}")
 
@@ -945,6 +1032,8 @@ def check_probe(seed: int, device: str = "cuda") -> dict:
         log(f"[probe] {name}: {n_diff} of {got.numel()} values differ from "
             f"plain, max abs err {err}")
         out[name]["plain_ms"] = cuda_ms(lambda: probe.probe_plain(a, b, dtype=dtype))
+        out[name]["device_ms"] = device_ms(lambda: probe.dtype_probe(a, b, dtype=dtype),
+                                           name)
         out[name]["ms_64_reps"] = cuda_ms(
             lambda: probe.dtype_probe(a, b, dtype=dtype, reps=64))
     zero_counters()
@@ -1032,10 +1121,15 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
 
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+    from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
     from ldagibbssampling_tpu_torch.ops.gibbs import _pick_row_tile
 
     k_pad, row_tile = -(-K // 128) * 128, _pick_row_tile(BLOCK, K)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cfg = sk.block_sample_config("internal", K, BLOCK)
+    log(f"[build] K3 gibbs_block_sample: {cfg['grid']} CTAs ({cfg['grid'] // sms} "
+        f"per SM, from the occupancy query) of {cfg['threads']} threads, "
+        f"{cfg['smem']} bytes of log tables each")
     for rows, chain in ((torch.int32, "float32"), (torch.bfloat16, "float32"),
                         *((getattr(torch, r), c) for c, r in CHAIN_SETTINGS)):
         cfg = fk.walk_config(rows, chain, "internal", k_pad, BLOCK, row_tile)
@@ -1101,7 +1195,9 @@ def main() -> int:
             **{x: v for x, v in k.items()
                if x.startswith(("z_match", f"k{K_GENERAL}_")) or x in (
                    "ms_three_tables", "no_mirror_max_abs_err", "gops",
-                   "ms_64_reps", "walk_ms", "walk_bound_ms", "fixed_us_per_tile")},
+                   "ms_64_reps", "walk_ms", "walk_device_ms", "walk_bound_ms",
+                   "fixed_us_per_tile", "event_ms", "device_ms",
+                   "event_ms_three_tables", "bound_three_tables_ms")},
         })
     print(json.dumps({"kernels": rows, "main_path_tokens_per_s": {
         tier: tok_s for tier, (tok_s, _) in paths.items()},

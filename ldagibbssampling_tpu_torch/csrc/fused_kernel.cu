@@ -99,7 +99,23 @@
 // (token slot, topic group of 4); 24-bit uniforms, philox.cuh).
 // alpha, beta and V*beta arrive as launch arguments, so a hyperparameter
 // update between sweeps reaches the next launch.
+//
+// The count move (gibbs_tile_update, launched by lda_count_move): -1 at
+// z_old and +1 at z_new of every unmasked token that moved, in each of nwk
+// (by word), ndk (by doc) and nk that is given, with integer atomics (exact
+// in any order).  What bounds it on an H100 is not bytes (a block's token
+// arrays and the cells it changes are well under a megabyte) but atomics:
+// every moved token adds to nk, whose K totals share a few L2 lines, and
+// same-line atomics queue.  So where nk is moved, each CTA sums its tokens'
+// nk moves in a shared histogram of K ints; a cluster of CTAs adds its
+// histograms into its first CTA's over distributed shared memory, and that
+// CTA flushes one global atomic per non-zero topic.  nwk and ndk cells take
+// one atomic per moved token and sign, as without nk (one thread per token).
+// Optionally the move also writes z_out[i] = mask ? z_new : z_old, the
+// sweep's new assignments, which may be z_old itself (each thread reads its
+// token's z_old before it writes z_out).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,7 +127,12 @@ namespace {
 
 constexpr int kWalkThreads = 512;
 constexpr int kWalkWarps = kWalkThreads / 32;
-constexpr int kUpdateThreads = 256;
+// the count move: one thread per token in CTAs of kMoveThreads; nk goes
+// through the shared histograms of clusters of kMoveCluster CTAs up to
+// kMaxHistTopics topics (48 KB), straight to global atomics above
+constexpr int kMoveThreads = 256;
+constexpr int kMoveCluster = 2;
+constexpr int kMaxHistTopics = 12288;
 // the draw's chains, in the order of ops/fused_kernel.CHAINS
 constexpr int kF32 = 0;
 constexpr int kBf16 = 1;
@@ -705,34 +726,76 @@ __global__ void __launch_bounds__(kWalkThreads, 1) gibbs_walk(const WalkArgs a) 
   }
 }
 
-// One thread per token: move an unmasked token's count from z_old to z_new
-// in each table that is given (null pointers are skipped).
-__global__ void gibbs_tile_update(int* __restrict__ nwk, int* __restrict__ ndk,
-                                  int* __restrict__ nk, int k_real,
-                                  const int* __restrict__ word,
-                                  const int* __restrict__ doc,
-                                  const int* __restrict__ mask,
-                                  const int* __restrict__ z_old,
-                                  const int* __restrict__ z_new, long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= n) return;
-  const int zo = z_old[i];
-  const int zn = z_new[i];
-  if (mask[i] == 0 || zo == zn) return;
-  if (nwk != nullptr) {
-    int* wrow = nwk + static_cast<long long>(word[i]) * k_real;
-    atomicSub(wrow + zo, 1);
-    atomicAdd(wrow + zn, 1);
+struct MoveArgs {
+  int* nwk;  // each table may be null: it is then not moved
+  int* ndk;
+  int* nk;
+  int k_real;
+  const int* word;
+  const int* doc;
+  const int* mask;
+  const int* z_old;  // may be z_out itself
+  const int* z_new;
+  int* z_out;        // null: no write-back
+  long long n;
+  bool hist;         // nk through the shared histograms
+};
+
+// The count move of token blockIdx.x * kMoveThreads + threadIdx.x.  Every
+// thread of a CTA reaches the cluster barriers (no early exit).
+__global__ void __launch_bounds__(kMoveThreads) gibbs_tile_update(
+    const MoveArgs a) {
+  extern __shared__ int s_hist[];  // [k_real] where a.hist
+  if (a.hist) {
+    for (int k = threadIdx.x; k < a.k_real; k += blockDim.x) s_hist[k] = 0;
+    // every histogram of the cluster is zeroed before any CTA adds to it
+    cooperative_groups::this_cluster().sync();
   }
-  if (ndk != nullptr) {
-    int* drow = ndk + static_cast<long long>(doc[i]) * k_real;
-    atomicSub(drow + zo, 1);
-    atomicAdd(drow + zn, 1);
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kMoveThreads + threadIdx.x;
+  if (i < a.n) {
+    // every id with the token's assignments, none behind the move test
+    const int zo = a.z_old[i];
+    const int zn = a.z_new[i];
+    const int m = a.mask[i];
+    const int w = a.nwk != nullptr ? __ldg(a.word + i) : 0;
+    const int d = a.ndk != nullptr ? __ldg(a.doc + i) : 0;
+    if (a.z_out != nullptr) a.z_out[i] = m != 0 ? zn : zo;
+    if (m != 0 && zo != zn) {
+      if (a.nwk != nullptr) {
+        int* wrow = a.nwk + static_cast<long long>(w) * a.k_real;
+        atomicSub(wrow + zo, 1);
+        atomicAdd(wrow + zn, 1);
+      }
+      if (a.ndk != nullptr) {
+        int* drow = a.ndk + static_cast<long long>(d) * a.k_real;
+        atomicSub(drow + zo, 1);
+        atomicAdd(drow + zn, 1);
+      }
+      if (a.nk != nullptr) {
+        int* t = a.hist ? s_hist : a.nk;
+        atomicSub(t + zo, 1);
+        atomicAdd(t + zn, 1);
+      }
+    }
   }
-  if (nk != nullptr) {
-    atomicSub(nk + zo, 1);
-    atomicAdd(nk + zn, 1);
+  if (a.hist) {
+    cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    __syncthreads();
+    if (cl.block_rank() != 0) {
+      int* root = cl.map_shared_rank(s_hist, 0);
+      for (int k = threadIdx.x; k < a.k_real; k += blockDim.x) {
+        const int v = s_hist[k];
+        if (v != 0) atomicAdd(root + k, v);
+      }
+    }
+    cl.sync();
+    if (cl.block_rank() == 0) {
+      for (int k = threadIdx.x; k < a.k_real; k += blockDim.x) {
+        const int v = s_hist[k];
+        if (v != 0) atomicAdd(a.nk + k, v);
+      }
+    }
   }
 }
 
@@ -922,19 +985,47 @@ extern "C" int lda_gibbs_tiles(
 }
 
 // One launch: move every unmasked token of [0, n_tokens) from z_old to z_new
-// in each of nwk (by word), ndk (by doc) and nk that is not null.
+// in each of nwk (by word), ndk (by doc) and nk that is not null, and where
+// z_out is not null write z_out[i] = mask[i] ? z_new[i] : z_old[i] (z_out
+// may be z_old).
 extern "C" int lda_count_move(void* nwk, void* ndk, void* nk, int k_real,
                               const void* word, const void* doc,
                               const void* mask, const void* z_old,
-                              const void* z_new, long long n_tokens,
-                              void* stream) {
+                              const void* z_new, void* z_out,
+                              long long n_tokens, void* stream) {
+  if (k_real <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tokens <= 0) return static_cast<int>(cudaGetLastError());
-  const long long grid = (n_tokens + kUpdateThreads - 1) / kUpdateThreads;
-  gibbs_tile_update<<<static_cast<unsigned int>(grid), kUpdateThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(nwk), static_cast<int*>(ndk), static_cast<int*>(nk),
-      k_real, static_cast<const int*>(word), static_cast<const int*>(doc),
-      static_cast<const int*>(mask), static_cast<const int*>(z_old),
-      static_cast<const int*>(z_new), n_tokens);
+  MoveArgs a;
+  a.nwk = static_cast<int*>(nwk);
+  a.ndk = static_cast<int*>(ndk);
+  a.nk = static_cast<int*>(nk);
+  a.k_real = k_real;
+  a.word = static_cast<const int*>(word);
+  a.doc = static_cast<const int*>(doc);
+  a.mask = static_cast<const int*>(mask);
+  a.z_old = static_cast<const int*>(z_old);
+  a.z_new = static_cast<const int*>(z_new);
+  a.z_out = static_cast<int*>(z_out);
+  a.n = n_tokens;
+  a.hist = a.nk != nullptr && k_real <= kMaxHistTopics;
+  // clusters only where nk goes through the shared histograms
+  const long long cluster = a.hist ? kMoveCluster : 1;
+  const long long grid =
+      (n_tokens + kMoveThreads * cluster - 1) / (kMoveThreads * cluster) *
+      cluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(grid));
+  cfg.blockDim = dim3(kMoveThreads);
+  cfg.dynamicSmemBytes = a.hist ? static_cast<size_t>(k_real) * sizeof(int) : 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.hist ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gibbs_tile_update, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,6 +4,9 @@ Counterpart of ``ldagibbssampling_tpu/evaluation/tracing.py``:
 
 - :func:`trace` — ``torch.profiler`` capture around a region (CPU and, when
   present, CUDA activity); writes a Chrome trace into the directory;
+- :func:`kernel_device_ms` — a kernel's device time per launch, from
+  ``torch.profiler``'s CUDA activity (what CUDA events around a short
+  kernel's wrapper cannot give: they time the host's launches);
 - :func:`block_on_backend` — ``torch.cuda.synchronize`` on the backend's
   device, so a timed region covers the compute and not the enqueue;
 - :class:`SweepTimer` — per-sweep wall time and tokens-resampled/s;
@@ -34,6 +37,23 @@ def trace(log_dir: str | Path) -> Iterator[Any]:
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def kernel_device_ms(fn, name: str, reps: int = 20) -> Optional[float]:
+    """Mean device ms per launch of the CUDA kernels whose name holds
+    ``name``, over ``reps`` calls of ``fn`` (after one warm-up call) under
+    ``torch.profiler``; ``None`` where the profiler recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
 
 
 def block_on_backend(backend) -> None:

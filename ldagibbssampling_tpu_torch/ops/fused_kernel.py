@@ -33,7 +33,11 @@ float32 chain only, as the reference does.  The CUDA kernels are in
 - ``gibbs_tile_update``: the count move, ``count_move``: -1 at ``z_old``,
   +1 at ``z_new`` with integer atomics in any of ``nwk``/``ndk``/``nk`` for
   a whole block (the fused tier's word-topic moves, the v1 tier's three
-  tables, and ``gibbs_tile_update()``, the walk's count move alone).  The
+  tables, and ``gibbs_tile_update()``, the walk's count move alone), and
+  optionally the block's new assignments ``z_out = mask ? z_new : z_old``
+  (``z_out`` may be ``z_old``: the sweep's own ``z``).  Where ``nk`` is
+  moved, each CTA sums its ``nk`` moves in a shared histogram and a cluster
+  of CTAs flushes one atomic per topic.  The
   reference's dense ``[B, Kp]`` delta (``emit_delta=True``) feeds only the
   word-topic scatter, so on the card it never leaves the kernel;
   ``gibbs_tiles_plain(..., emit_delta=True)`` still returns it.
@@ -207,12 +211,15 @@ def _move_plain(z_old, z_new, token_mask, *, nwk=None, token_word=None,
         table.index_put_((*idx, zn), one, accumulate=True)
 
 
-def count_move_plain(z_old, z_new, token_mask, **tables) -> None:
+def count_move_plain(z_old, z_new, token_mask, *, z_out=None, **tables) -> None:
     """-1 at ``z_old``, +1 at ``z_new`` for every unmasked token, in place,
     in each given table: ``nwk`` by ``token_word``, ``ndk`` by
-    ``token_doc``, ``nk``."""
+    ``token_doc``, ``nk``; then, given ``z_out`` (which may be ``z_old``),
+    ``z_out = mask ? z_new : z_old``."""
     PLAIN_CALLS["count_move"] += 1
     _move_plain(z_old, z_new, token_mask, **tables)
+    if z_out is not None:
+        z_out.copy_(torch.where(token_mask > 0, z_new, z_old))
 
 
 def update_plain(ndk, nk, z_old, z_new, token_doc, token_mask) -> None:
@@ -333,7 +340,8 @@ def _lib():
     lib.lda_walk_config.argtypes = [i32, i32, i32, i32, i64, i32,
                                     *[ctypes.POINTER(i32)] * 4]
     lib.lda_count_move.restype = i32
-    lib.lda_count_move.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, vp]
+    lib.lda_count_move.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, i64,
+                                   vp]
     return _build, lib
 
 
@@ -484,14 +492,18 @@ def gibbs_tile_update(ndk, nk, z_old, z_new, token_doc, token_mask) -> None:
 
 def count_move(z_old: torch.Tensor, z_new: torch.Tensor,
                token_mask: torch.Tensor, *, nwk=None, token_word=None,
-               ndk=None, token_doc=None, nk=None) -> None:
+               ndk=None, token_doc=None, nk=None,
+               z_out: Optional[torch.Tensor] = None) -> None:
     """One launch: -1 at ``z_old``, +1 at ``z_new`` for every unmasked token,
     in place, in each given table (``nwk [V, K]`` by ``token_word``,
     ``ndk [M, K]`` by ``token_doc``, ``nk [K]``).  Integer atomics: exact in
-    any order."""
+    any order.  Given ``z_out [n]`` (which may be ``z_old`` itself), the same
+    launch writes ``z_out = mask ? z_new : z_old``."""
     dev, n = z_old.device, z_old.shape[0]
     expect = [("z_old", z_old, torch.int32, 1), ("z_new", z_new, torch.int32, 1),
               ("token_mask", token_mask, torch.int32, 1)]
+    if z_out is not None:
+        expect.append(("z_out", z_out, torch.int32, 1))
     given = []
     for name, table, ids_name, ids in (("nwk", nwk, "token_word", token_word),
                                        ("ndk", ndk, "token_doc", token_doc),
@@ -516,14 +528,15 @@ def count_move(z_old: torch.Tensor, z_new: torch.Tensor,
     if dev.type == "cpu":
         count_move_plain(z_old, z_new, token_mask, nwk=nwk,
                          token_word=token_word, ndk=ndk, token_doc=token_doc,
-                         nk=nk)
+                         nk=nk, z_out=z_out)
         return
-    _move_launch(z_old, z_new, token_mask, nwk, token_word, ndk, token_doc, nk)
+    _move_launch(z_old, z_new, token_mask, nwk, token_word, ndk, token_doc, nk,
+                 z_out)
     LAUNCHES["count_move"] += 1
 
 
 def _move_launch(z_old, z_new, token_mask, nwk, token_word, ndk, token_doc,
-                 nk) -> None:
+                 nk, z_out=None) -> None:
     """One launch of ``lda_count_move`` on the given (checked) tables."""
     k = next(t for t in (nwk, ndk, nk) if t is not None).shape[-1]
     build, lib = _lib()
@@ -531,5 +544,5 @@ def _move_launch(z_old, z_new, token_mask, nwk, token_word, ndk, token_doc,
         err = lib.lda_count_move(
             _ptr(nwk), _ptr(ndk), _ptr(nk), k, _ptr(token_word),
             _ptr(token_doc), _ptr(token_mask), _ptr(z_old), _ptr(z_new),
-            z_old.shape[0], torch.cuda.current_stream().cuda_stream)
+            _ptr(z_out), z_old.shape[0], torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_count_move")

@@ -12,13 +12,15 @@ after the reference's layout and exactness rules (``sweep_tier``):
 - ``True``, the v1-draw tier: the same blocks, with the gumbel draw in K3
   (``ops/sample_kernel.sample_block``, one launch per block) and the moves of
   ``ndk``, ``nwk`` and ``nk`` in one count-move launch
-  (``ops/fused_kernel.count_move``).  ``inverse_cdf`` runs the XLA draw
+  (``ops/fused_kernel.count_move``), which also writes the block's new
+  ``z`` (two launches per block).  ``inverse_cdf`` runs the XLA draw
   there (kernel tier ``"xla"``; the reference still names it
   ``"pallas-draw"``);
 - ``"fused"`` (``fused_gibbs_sweep``): per block, K1
   (``ops/fused_kernel.gibbs_tiles``) walks the block's tiles in order against
   the block-start word-topic table, moving ``ndk`` and ``nk`` after each
-  tile; then one count-move launch applies the block's word-topic moves;
+  tile; then one count-move launch applies the block's word-topic moves
+  and writes the block's new ``z``;
 - ``"deferred"`` (``deferred_local_counts``): K1 walks every tile against the
   sweep-stale snapshot of ``nwk`` (``mirror_dtype`` bf16 or float32) in the
   chain ``compute_dtype``, and K2 (``ops/count_kernel``) rebuilds ``nwk``,
@@ -297,12 +299,14 @@ def gibbs_sweep(
                 # first k with u < c[k]  ==  number of k with c[k] <= u
                 znew = (c <= (u * c[:, -1])[:, None]).sum(dim=1)
                 znew = znew.clamp(max=k - 1).to(torch.int32)
-        znew = torch.where(msk > 0, znew, zold)
         if kernel:
+            # one launch moves the three tables and writes z[sl] (zold's
+            # memory): mask ? znew : zold
             count_move(zold, znew, msk, nwk=nwk, token_word=w, ndk=ndk,
-                       token_doc=d, nk=nk)
-        else:
-            _scatter_counts(ndk, nwk, nk, w, d, msk, zold, znew)
+                       token_doc=d, nk=nk, z_out=zold)
+            continue
+        znew = torch.where(msk > 0, znew, zold)
+        _scatter_counts(ndk, nwk, nk, w, d, msk, zold, znew)
         z[sl] = znew
     return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk, sweep=state.sweep + 1,
                         seed=state.seed)
@@ -345,8 +349,9 @@ def fused_gibbs_sweep(
             nwk, ndk, nk, zold, w, d, msk, alpha=_f32(alpha), beta=_f32(beta),
             vbeta=vbeta, row_tile=row_tile, noise_mode=noise_mode, seed=seed,
             uniforms=None if uniforms is None else uniforms[sl], slot0=s)
-        count_move(zold, znew, msk, nwk=nwk, token_word=w)
-        z[sl] = znew
+        # the walk keeps masked tokens' z, so z_out = znew: written into
+        # z[sl] (zold's memory) by the move's launch
+        count_move(zold, znew, msk, nwk=nwk, token_word=w, z_out=zold)
     return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk, sweep=state.sweep + 1,
                         seed=state.seed)
 

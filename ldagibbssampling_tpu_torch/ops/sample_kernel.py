@@ -3,7 +3,7 @@
 Counterpart of ``ldagibbssampling_tpu/ops/pallas_gibbs.py`` (``_sample_kernel``
 through ``pallas_sample_block``), which the XLA sweep calls per block when
 ``use_pallas=True``.  The CUDA kernel ``gibbs_block_sample`` is in
-``csrc/sample_kernel.cu``: one warp per token reads the token's ``nwk`` row by
+``csrc/sample_kernel.cu``: a warp per token reads the token's ``nwk`` row by
 word id and its ``ndk`` row by doc id straight from the int32 tables (the
 reference takes pre-gathered ``[B, K]`` float32 copies) and draws
 
@@ -16,6 +16,14 @@ so a block is one launch.  Noise modes: ``deterministic`` (no noise),
 keyed per sweep, counter (token slot, topic group of 4): the bits of
 ``ops/fused_kernel.philox_uniforms``).
 
+On the card the conditional's three logs are table lookups, with the bits
+of the formula: each CTA of a persistent grid (``block_sample_config``)
+first computes ``log(nk - e + Vβ)`` for every topic and e in {0, 1}, and
+``log(j + β)``, ``log(j + α)`` for the counts ``j = c - e`` in
+``[-1, LOG_TABLE - 1)`` (``float(c) - e`` is ``float(c - e)`` exactly below
+2^24); a count past the table computes its log.  The tables come from each
+launch's α, β, Vβ and ``nk``: nothing is kept between launches.
+
 ``sample_block`` takes a CUDA tensor to the kernel and a CPU tensor to the
 plain PyTorch version ``sample_block_plain``; any other device raises, and so
 does a failed launch.  ``LAUNCHES`` counts launches, ``PLAIN_CALLS`` calls of
@@ -25,6 +33,7 @@ the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -32,6 +41,9 @@ import torch
 from ldagibbssampling_tpu_torch.ops.fused_kernel import (
     NOISE_MODES, _check_tensors, philox_uniforms)
 
+# entries of the kernel's log(j + β) and log(j + α) tables, j from -1
+# (csrc/sample_kernel.cu, kLogTable)
+LOG_TABLE = 2048
 LAUNCHES = {"gibbs_block_sample": 0}
 PLAIN_CALLS = {"gibbs_block_sample": 0}
 
@@ -63,11 +75,39 @@ def _lib():
 
     lib = _build.load("sample_kernel")
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.lda_block_sample_config.restype = i32
+    lib.lda_block_sample_config.argtypes = [i32, i32, i64,
+                                            *[ctypes.POINTER(i32)] * 4]
     lib.lda_block_sample.restype = i32
     lib.lda_block_sample.argtypes = [
         vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, f32, f32, f32, i32,
-        ctypes.c_ulonglong, i64, vp]
+        ctypes.c_ulonglong, i64, i32, i32, i32, vp]
     return _build, lib
+
+
+def block_sample_config(noise_mode: str, num_topics: int, n_tokens: int,
+                        device=None) -> dict:
+    """How ``sample_block`` launches on the card: ``grid`` CTAs (as many as
+    the occupancy query fits at once, at most one warp per token) of
+    ``threads``, ``smem`` bytes of tables per CTA, and ``nk_table`` (the
+    ``nk`` logs in shared memory; above ~27,000 topics they are computed
+    per element).  Queried once per device, mode, K and block length."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return dict(_config(NOISE_MODES.index(noise_mode), num_topics, n_tokens,
+                        index))
+
+
+@functools.lru_cache(maxsize=None)
+def _config(mode: int, num_topics: int, n_tokens: int, device: int) -> dict:
+    build, lib = _lib()
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        err = lib.lda_block_sample_config(mode, num_topics, n_tokens,
+                                          *(ctypes.byref(x) for x in out))
+    build.check(lib, err, "lda_block_sample_config")
+    grid, threads, smem, nk_table = (x.value for x in out)
+    return dict(grid=grid, threads=threads, smem=smem, nk_table=bool(nk_table))
 
 
 def sample_block(
@@ -116,15 +156,19 @@ def sample_block(
             nwk, ndk, nk, z_old, token_word, token_doc, alpha=alpha, beta=beta,
             vbeta=vbeta, noise_mode=noise_mode, seed=seed, uniforms=uniforms,
             slot0=slot0)
-    build, lib = _lib()
     z_new = torch.empty_like(z_old)
+    if n == 0:  # nothing to launch
+        return z_new
+    cfg = _config(NOISE_MODES.index(noise_mode), k, n, nwk.device.index)
+    build, lib = _lib()
     with torch.cuda.device(nwk.device):
         err = lib.lda_block_sample(
             nwk.data_ptr(), ndk.data_ptr(), nk.data_ptr(), k, z_old.data_ptr(),
             z_new.data_ptr(), token_word.data_ptr(), token_doc.data_ptr(),
             uniforms.data_ptr() if noise_mode == "external" else None, n,
             alpha, beta, vbeta, NOISE_MODES.index(noise_mode),
-            seed & (2**64 - 1), slot0, torch.cuda.current_stream().cuda_stream)
+            seed & (2**64 - 1), slot0, cfg["grid"], cfg["smem"],
+            int(cfg["nk_table"]), torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_block_sample")
     LAUNCHES["gibbs_block_sample"] += 1
     return z_new

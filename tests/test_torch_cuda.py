@@ -371,3 +371,199 @@ def test_k1_walk_is_one_launch(cuda, rows):
     cfg = fk.walk_config(snap.dtype, "float32", "internal", 128, 8 * 256, 256)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert cfg["grid"] >= sms and cfg["grid"] % sms == 0 and cfg["pipelined"]
+
+
+# --- K3 with its log tables: every lookup against the logf it replaces,
+# at the table's edges, the NaN path and shapes that leave the vector loads
+
+
+def _k3_tables(device, *, k, n, v=40, m=12, seed=0, hot=None, one_word=False,
+               offset=0):
+    """Random int32 tables and tokens for a K3 draw (the draw needs no
+    consistency between them).  ``hot``: counts around it in word 0's row
+    and doc 0's row, and every third token on word 0 / doc 0; ``offset``
+    shifts the tables by that many int32 in their storage (an unaligned
+    row start)."""
+    rng = np.random.default_rng(seed)
+
+    def table(rows, hi):
+        flat = torch.empty(rows * k + offset, dtype=torch.int32, device=device)
+        flat = flat[offset:]
+        flat.copy_(torch.from_numpy(rng.integers(0, hi, rows * k).astype(np.int32)))
+        return flat.view(rows, k)
+
+    nwk, ndk = table(v, 30), table(m, 12)
+    nk = torch.from_numpy((rng.integers(0, 400, k) + 50).astype(np.int32))
+    w = rng.integers(0, v, n).astype(np.int32)
+    d = np.sort(rng.integers(0, m, n)).astype(np.int32)
+    if one_word:
+        w[:] = 3
+    if hot is not None:
+        span = torch.from_numpy(rng.integers(hot - 3, hot + 4, k).astype(np.int32)
+                                ).to(device)
+        nwk[0] = span
+        nwk[0, ::5] = 5 * hot  # far past the table
+        ndk[0] = span
+        w[::3], d[::3] = 0, 0
+    z = rng.integers(0, k, n).astype(np.int32)
+    toks = [torch.from_numpy(a).to(device) for a in (z, w, d)]
+    return [nwk, ndk, nk.to(device)], toks
+
+
+def _both_k3(tables, toks, mode, seed=91, **hyper):
+    hyper = {**HYPER, **hyper}
+    n, k = toks[0].shape[0], tables[2].shape[0]
+    uniforms = (torch.rand((n, k), device=tables[0].device) * 0.999 + 5e-4
+                if mode == "external" else None)
+    out = [f(*tables, *toks, noise_mode=mode, seed=seed, uniforms=uniforms,
+             slot0=3, **hyper) for f in (sk.sample_block, sk.sample_block_plain)]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "external", "internal"])
+@pytest.mark.parametrize("hot", [sk.LOG_TABLE - 2, sk.LOG_TABLE, 3 * sk.LOG_TABLE])
+def test_k3_counts_at_and_past_the_table_end_equal_plain(cuda, mode, hot):
+    # word 0's and doc 0's counts straddle the table's last entry (c - e =
+    # LOG_TABLE - 2) or lie past it, where the kernel computes the logf
+    tables, toks = _k3_tables(cuda, k=K, n=3000, hot=hot, seed=hot)
+    z, zp = _both_k3(tables, toks, mode)
+    assert torch.equal(z, zp)
+
+
+def test_k3_nan_path_equals_plain(cuda):
+    # a masked token whose own topic's cells are 0: e = 1 drives them to -1,
+    # log(-1 + beta) is NaN for beta < 1, and NaN wins at its first index,
+    # as jnp.argmax has it (the sweep discards such a draw)
+    tables, (z_old, w, d) = _k3_tables(cuda, k=K, n=2000, seed=5)
+    nwk, ndk, _ = tables
+    nan = torch.arange(0, 2000, 7, device=cuda)
+    nwk[w[nan].long(), z_old[nan].long()] = 0
+    ndk[d[nan].long(), z_old[nan].long()] = 0
+    for mode in ("deterministic", "internal"):
+        z, zp = _both_k3(tables, (z_old, w, d), mode)
+        assert torch.equal(z, zp)
+        assert torch.equal(z[nan], z_old[nan])
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "external", "internal"])
+@pytest.mark.parametrize("k,n,offset,nk_table", [
+    (1, 300, 0, True),       # one topic: a lane's group of 4 holds one
+    (64, 700, 1, True),      # K % 4 == 0 but rows not 16-byte aligned: scalar
+    (2100, 400, 0, True),    # K over 2,048: many groups per lane
+    (5000, 150, 0, True),    # tables over 48 KB of shared memory
+    (30000, 40, 0, False),   # L_nk past a CTA's shared memory: logf per element
+])
+def test_k3_shapes_equal_plain(cuda, mode, k, n, offset, nk_table):
+    assert sk.block_sample_config(mode, k, n)["nk_table"] == nk_table
+    tables, toks = _k3_tables(cuda, k=k, n=n, v=20, m=6, seed=k, offset=offset)
+    assert (tables[0].data_ptr() % 16 == 0) == (offset == 0)
+    z, zp = _both_k3(tables, toks, mode)
+    assert torch.equal(z, zp)
+
+
+def test_k3_ties_take_the_lowest_topic(cuda):
+    # equal counts everywhere: every topic but z_old scores the same, so the
+    # lowest of them wins
+    n, k = 1000, 45
+    tables = [torch.full((20, k), 4, dtype=torch.int32, device=cuda),
+              torch.full((6, k), 2, dtype=torch.int32, device=cuda),
+              torch.full((k,), 300, dtype=torch.int32, device=cuda)]
+    rng = np.random.default_rng(2)
+    toks = [torch.from_numpy(rng.integers(0, hi, n).astype(np.int32)).to(cuda)
+            for hi in (k, 20, 6)]
+    z, zp = _both_k3(tables, toks, "deterministic")
+    assert torch.equal(z, zp)
+    assert torch.equal(z, (toks[0] == 0).to(torch.int32))
+
+
+def test_k3_empty_block_and_one_word(cuda):
+    tables, (z_old, w, d) = _k3_tables(cuda, k=K, n=1500, one_word=True, seed=8)
+    launched = sk.LAUNCHES["gibbs_block_sample"]
+    empty = sk.sample_block(*tables, z_old[:0], w[:0], d[:0], seed=1, **HYPER)
+    assert empty.shape == (0,) and sk.LAUNCHES["gibbs_block_sample"] == launched
+    for mode in ("deterministic", "internal"):
+        z, zp = _both_k3(tables, (z_old, w, d), mode)
+        assert torch.equal(z, zp)
+
+
+def test_k3_tables_follow_each_launchs_hyperparameters(cuda):
+    # a Minka update between sweeps: the next launch must build its tables
+    # from its own alpha and beta
+    tables, toks = _k3_tables(cuda, k=K, n=4000, seed=13)
+    first, first_p = _both_k3(tables, toks, "deterministic")
+    second, second_p = _both_k3(tables, toks, "deterministic", alpha=0.013,
+                                beta=0.71, vbeta=float(np.float32(V) * np.float32(0.71)))
+    assert torch.equal(first, first_p) and torch.equal(second, second_p)
+    assert not torch.equal(first, second)
+
+
+# --- the count move: shared nk histograms flushed per cluster, the optional
+# write-back of z
+
+
+def _move_case(device, *, k=K, n=6000, v=60, m=25, seed=0, sort_words=False,
+               one_topic=False):
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, v, n).astype(np.int32)
+    if sort_words:
+        w = np.sort(rng.zipf(1.3, n) % v).astype(np.int32)
+    toks = dict(token_word=w, token_doc=rng.integers(0, m, n).astype(np.int32))
+    z_old = rng.integers(0, k, n).astype(np.int32)
+    z_new = (np.full(n, k - 1) if one_topic else rng.integers(0, k, n)).astype(np.int32)
+    mask = (rng.random(n) < 0.93).astype(np.int32)
+    tables = dict(nwk=rng.integers(0, 50, (v, k)), ndk=rng.integers(0, 50, (m, k)),
+                  nk=rng.integers(0, 5000, k))
+    on = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)  # noqa: E731
+    return ({n_: on(a) for n_, a in tables.items()},
+            {n_: on(a) for n_, a in toks.items()}, on(z_old), on(z_new), on(mask))
+
+
+def _both_moves(tables, toks, z_old, z_new, mask, names, write_back=None):
+    out = []
+    for move in (fk.count_move, fk.count_move_plain):
+        t = {n: tables[n].clone() for n in names}
+        ids = {i: toks[i] for n, i in (("nwk", "token_word"), ("ndk", "token_doc"))
+               if n in names}
+        zo = z_old.clone()
+        z_out = {"alias": zo, "separate": torch.full_like(zo, -7), None: None}[write_back]
+        move(zo, z_new, mask, z_out=z_out, **ids, **t)
+        out.append((t, zo if z_out is None else z_out))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("names", [("nwk",), ("ndk",), ("nk",), ("nwk", "ndk", "nk")])
+@pytest.mark.parametrize("case", ["random", "word_sorted", "one_topic"])
+def test_count_move_tables_equal_plain(cuda, names, case):
+    tables, toks, z_old, z_new, mask = _move_case(
+        cuda, seed=len(names), sort_words=case == "word_sorted",
+        one_topic=case == "one_topic")
+    (t, _), (tp, _) = _both_moves(tables, toks, z_old, z_new, mask, names)
+    for name in names:
+        assert torch.equal(t[name], tp[name]), name
+        assert not torch.equal(t[name], tables[name]), name
+
+
+@pytest.mark.parametrize("write_back", ["alias", "separate"])
+def test_count_move_writes_back_z(cuda, write_back):
+    tables, toks, z_old, z_new, mask = _move_case(cuda, seed=4, sort_words=True)
+    launched = fk.LAUNCHES["count_move"]
+    (t, z), (tp, zp) = _both_moves(tables, toks, z_old, z_new, mask,
+                                   ("nwk", "ndk", "nk"), write_back)
+    assert fk.LAUNCHES["count_move"] == launched + 1
+    assert all(torch.equal(t[n], tp[n]) for n in t)
+    assert torch.equal(z, zp)
+    assert torch.equal(z, torch.where(mask > 0, z_new, z_old))
+
+
+@pytest.mark.parametrize("k,n", [(13000, 3000), (K, 1), (K, 100_003)])
+def test_count_move_shapes_equal_plain(cuda, k, n):
+    # K past the shared histogram (nk by global atomics, no clusters), one
+    # token, and a run that leaves the last cluster partly empty
+    tables, toks, z_old, z_new, mask = _move_case(cuda, k=k, n=n, v=30, m=9,
+                                                  seed=k + n, sort_words=True)
+    (t, z), (tp, zp) = _both_moves(tables, toks, z_old, z_new, mask,
+                                   ("nwk", "ndk", "nk"), "alias")
+    assert all(torch.equal(t[name], tp[name]) for name in t)
+    assert torch.equal(z, zp)

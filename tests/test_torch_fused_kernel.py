@@ -400,3 +400,28 @@ def test_count_move_all_tables_and_inert_masked_tokens():
         fk.count_move(z_old, z_new, mask, nwk=nwk)
     with pytest.raises(ValueError, match="at least one table"):
         fk.count_move(z_old, z_new, mask)
+
+
+@pytest.mark.parametrize("alias", [True, False])
+def test_count_move_writes_back_z(alias):
+    # the v1-draw and fused tiers' write-back: z_out = mask ? z_new : z_old
+    # in the move's launch, z_out possibly z_old itself
+    rng = np.random.default_rng(17)
+    n, v, m = 300, 20, 7
+    w = torch.from_numpy(np.sort(rng.integers(0, v, n)).astype(np.int32))
+    d = torch.from_numpy(rng.integers(0, m, n).astype(np.int32))
+    z_old = torch.from_numpy(rng.integers(0, K, n).astype(np.int32))
+    z_new = torch.from_numpy(rng.integers(0, K, n).astype(np.int32))
+    mask = torch.from_numpy((rng.random(n) < 0.9).astype(np.int32))
+    want = dict(nwk=torch.zeros((v, K), dtype=torch.int32),
+                ndk=torch.zeros((m, K), dtype=torch.int32),
+                nk=torch.zeros(K, dtype=torch.int32))
+    got = {k: t.clone() for k, t in want.items()}
+    fk.count_move(z_old, z_new, mask, token_word=w, token_doc=d, **want)
+    zo = z_old.clone()
+    z_out = zo if alias else torch.empty_like(zo)
+    fk.count_move(zo, z_new, mask, token_word=w, token_doc=d, z_out=z_out, **got)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert torch.equal(z_out, torch.where(mask > 0, z_new, z_old))
+    with pytest.raises(ValueError, match="z_out"):
+        fk.count_move(zo, z_new, mask, nk=got["nk"], z_out=z_out[:-1])

@@ -15,6 +15,8 @@ to the analytic conditional by a chi-square test."""
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -134,3 +136,28 @@ def test_wrapper_rejects_bad_inputs():
         sk.sample_block(nwk, ndk, nk, zold, ids, ids, noise_mode="gumbel", **kw)
     with pytest.raises(ValueError, match="topics"):
         sk.sample_block(nwk[:, :5].contiguous(), ndk, nk, zold, ids, ids, **kw)
+
+
+@pytest.mark.parametrize("alpha,beta", [(0.5, 0.1), (0.1, 0.05)])
+def test_log_table_identity(alpha, beta):
+    """What the kernel's log tables rely on: for an integer count c and
+    e in {0, 1}, float(c) - e is float(c - e) exactly, so log(float(c) - e
+    + shift) is the table's log(float(j) + shift) at j = c - e, to the bit
+    (chip_smoke's and the planted corpus's α and β, j over the table and
+    past it)."""
+    j = torch.arange(-1, 4096, dtype=torch.int32)
+    for shift in (alpha, beta):
+        s = torch.tensor(shift, dtype=torch.float32)
+        for e in (0, 1):
+            c = j + e
+            lhs = torch.log(c.float() - torch.tensor(float(e)) + s)
+            rhs = torch.log((c - e).float() + s)
+            assert torch.equal(lhs.view(torch.int32)[~lhs.isnan()],
+                               rhs.view(torch.int32)[~rhs.isnan()])
+            assert torch.equal(lhs.isnan(), rhs.isnan())
+            assert torch.equal(lhs.isnan(), (j.float() + s) < 0)
+
+
+def test_log_table_size_is_the_kernels():
+    src = (Path(sk.__file__).resolve().parents[1] / "csrc" / "sample_kernel.cu").read_text()
+    assert f"constexpr int kLogTable = {sk.LOG_TABLE};" in src
