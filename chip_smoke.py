@@ -25,7 +25,8 @@ success:
    ``torch.profiler``, the ``ms`` of the kernels line, beside CUDA events
    around its wrapper, which for a kernel of microseconds time the host's
    launch), its plain version and, where one exists, a single PyTorch
-   library call.  K1's other chains on the
+   library call (CUDA events, and its device time per call from the
+   profiler, ``library_device_ms``).  K1's other chains on the
    same block: bf16 and bf16p on the bf16 snapshot, and f32, bf16 and bf16p
    on the float32 snapshot, each in the three noise modes (deterministic
    bitwise, z equal on >= 99.99% with noise), timed; K1's whole walk
@@ -58,10 +59,32 @@ success:
    sweeps with ``optimize_hyper_every=5`` at bench.py's shape (α and β move
    and stay finite), with the time of one device LL and one Minka update;
    the K4 probe's entry point (ms and Gops/s);
+   then the held-out perplexity: 5% of the planted corpus's documents split
+   off (``FlatCorpus.split_docs``), each of the six settings trained on the
+   rest for 20 sweeps, ``heldout_perplexity_device`` on the card for each,
+   and the host ``heldout_perplexity`` on the first 32 held-out documents
+   for the default setting (beside the device's on the same documents);
 5. CLI: the port's CLI on the generated minicorpus, as it is, with
    ``--pallas fused``, with ``--sampler serial`` and with ``--ll-every 5
    --optimize-hyper-every 5``, must write the five reference artifacts each
-   time (and, the last, metrics rows with ``log_likelihood`` and ``alpha``).
+   time (and, the last, metrics rows with ``log_likelihood`` and ``alpha``);
+   ``[resume]``: in the fused tier (the minicorpus's) and the deferred tier
+   (block 256 through ``--config-json``), one uninterrupted run of 60 sweeps
+   (artifacts at 50 and 60) and one run to sweep 30 with
+   ``--checkpoint-every 10`` then ``--resume`` to 60: the resumed run's ten
+   artifacts must be byte-identical to the uninterrupted run's;
+   ``[infer]``: a CLI run with ``--infer-docs`` must write
+   ``inferred.theta``, ``.tassign`` and ``.docs``;
+6. parity: ``evaluation/parity.oracle_vs_blocked`` per tier (deferred,
+   fused, v1 draw, XLA; ``use_pallas`` forced, each model's ``kernel_tier``
+   checked) against the serial oracle, four seeds and 30 sweeps each at
+   K = 5, block 256, on the minicorpus, or where the minicorpus resolves to
+   another tier on a seeded planted corpus (``data/synthetic``); |z| >= 4 on
+   the LL or the topic entropy fails;
+7. bench: the port's bench script (``scripts/bench.py``) as a subprocess at
+   bench.py's full shape in each ``LDA_BENCH_PALLAS`` tier (100 timed
+   sweeps, 20 for the XLA tier), its one JSON line printed and its
+   ``metric`` checked against bench.py's name.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -78,6 +101,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -136,6 +160,12 @@ TIER_KERNELS = {
 }
 TIER_NAMES = {"deferred": "deferred", "fused": "fused", True: "pallas-draw",
               False: "xla"}
+HELDOUT_FRAC, HELDOUT_HOST_DOCS = 0.05, 32
+PARITY_K, PARITY_SWEEPS, PARITY_SEEDS, PARITY_BLOCK = 5, 30, (0, 1, 2, 3), 256
+PARITY_MAX_Z = 4.0
+# the bench script's tiers (LDA_BENCH_PALLAS) and timed sweeps: the XLA
+# sweep takes ~96 ms at bench.py's shape
+BENCH_RUNS = (("deferred", 100), ("fused", 100), ("1", 100), ("0", 20))
 
 
 def log(msg: str) -> None:
@@ -199,6 +229,28 @@ def device_ms(fn, counter: str, reps: int = 5):
             return ms
     raise RuntimeError(f"the profiler recorded no device time of {kernel!r} "
                        f"({counter}) in three tries")
+
+
+def call_device_ms(fn, reps: int = 20):
+    """The device ms per call of ``fn`` (every kernel, memset and copy it
+    launches) from ``torch.profiler``, for a library call beside a kernel's
+    ``device_ms``; ``None`` (not measured) where three sessions recorded no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if us:
+            return sum(us) / reps / 1e3
+    return None
 
 
 def bound(nbytes: float, ops: float, bf16_ops: float = 0) -> tuple[float, str]:
@@ -475,6 +527,13 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         "cast_mirror": f"one [{v_pad}, {k_pad}] table",
     }
     report(out, times, bounds, units)
+    # the library calls' device time per call, beside their event times
+    for name, lib in (
+            ("rebuild_counts", lambda: torch.bincount(key, minlength=v_pad * k_pad)),
+            ("cast_mirror", lambda: nwk_pad.to(torch.bfloat16))):
+        out[name]["library_device_ms"] = ms = call_device_ms(lib)
+        log(f"[kernels] {name}'s library call: device {ms} ms per call "
+            f"(events {out[name]['library_ms']:.4f} ms)")
     walk_hyper = dict(alpha=ALPHA, beta=BETA, vbeta=vbeta)
     for name, (chain, rows) in settings.items():
         walk_report(out[name], name, snaps[rows], st.ndk, st.nk, z, w, d, m,
@@ -744,6 +803,10 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         "count_move": f"one block of {BLOCK} tokens: its nwk moves (one launch)",
     }
     report(out, times, bounds, units)
+    out["count_move"]["library_device_ms"] = lib_ms = call_device_ms(
+        lambda: nwk_c.view(-1).index_put_((flat,), vals, accumulate=True))
+    log(f"[kernels] count_move's library call (index_put_, accumulate): device "
+        f"{lib_ms} ms per call (events {out['count_move']['library_ms']:.4f} ms)")
     walk_report(out["gibbs_tile_sample_live"], "gibbs_tile_sample_live", st.nwk,
                 st.ndk, st.nk, z, w, d, m, chain="float32", row_tile=row_tile,
                 hyper=hyper, draw_cost=live_cost)
@@ -918,6 +981,19 @@ def profile_sweep(model, label: str) -> None:
         log(f"  {key}: {n} launches, {us / 1e3:.3f} ms ({us / n:.2f} us each)")
 
 
+def planted_corpus(seed: int, label: str):
+    """The quality runs' corpus with planted topics (2,048 documents, V =
+    5,000, K = 500, mean length 256)."""
+    from ldagibbssampling_tpu_torch.data.synthetic import planted_topic_corpus
+
+    t0 = time.perf_counter()
+    corpus, _ = planted_topic_corpus(num_docs=2048, vocab_size=5000,
+                                     num_topics=K, mean_doc_len=256, seed=seed)
+    log(f"[{label}] planted corpus {corpus.num_tokens} tokens, V 5000, M 2048, "
+        f"K {K} in {time.perf_counter() - t0:.1f}s")
+    return corpus
+
+
 def quality_phase(seed: int, device: str = "cuda") -> dict:
     """Phase 4c: the six deferred (chain, snapshot) settings on a corpus with
     planted topics, from the same seed and init, with the training LL every
@@ -926,15 +1002,10 @@ def quality_phase(seed: int, device: str = "cuda") -> dict:
 
     from ldagibbssampling_tpu_torch import make_backend, run_inference
     from ldagibbssampling_tpu_torch.config import LdaConfig
-    from ldagibbssampling_tpu_torch.data.synthetic import planted_topic_corpus
     from ldagibbssampling_tpu_torch.evaluation.tracing import (
         MetricsLog, read_metrics)
 
-    t0 = time.perf_counter()
-    corpus, _ = planted_topic_corpus(num_docs=2048, vocab_size=5000,
-                                     num_topics=K, mean_doc_len=256, seed=seed)
-    log(f"[quality] planted corpus {corpus.num_tokens} tokens, V 5000, M 2048, "
-        f"K {K} in {time.perf_counter() - t0:.1f}s")
+    corpus = planted_corpus(seed, "quality")
     out = {}
     for chain, mirror in (("float32", "bfloat16"), *CHAIN_SETTINGS):
         cfg = LdaConfig(alpha=QUALITY_ALPHA, beta=QUALITY_BETA, topic_num=K,
@@ -1089,6 +1160,216 @@ def cli_phase(flags: tuple[str, ...] = ()) -> None:
             f"artifacts; {' | '.join(tail)}")
 
 
+def heldout_phase(seed: int, device: str = "cuda") -> dict:
+    """Phase 4e: held-out perplexity of each deferred (chain, snapshot)
+    setting trained on 95% of the planted corpus's documents, by the batched
+    fold-in on the card; the host estimator on the first documents for the
+    default setting."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch import make_backend, run_inference
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation.device_metrics import (
+        heldout_perplexity_device)
+    from ldagibbssampling_tpu_torch.evaluation.metrics import heldout_perplexity
+
+    train, held = planted_corpus(seed, "heldout").split_docs(HELDOUT_FRAC, seed=seed)
+    log(f"[heldout] {held.num_docs} held-out documents ({held.num_tokens} tokens), "
+        f"{train.num_docs} trained on ({train.num_tokens} tokens)")
+    out: dict = {}
+    for chain, mirror in (("float32", "bfloat16"), *CHAIN_SETTINGS):
+        cfg = LdaConfig(alpha=QUALITY_ALPHA, beta=QUALITY_BETA, topic_num=K,
+                        iteration=QUALITY_SWEEPS, block_size=BLOCK, seed=seed,
+                        kernel_compute_dtype=chain, mirror_dtype=mirror)
+        model = make_backend(cfg, train, device=device)
+        if model.kernel_tier != "deferred":
+            raise AssertionError(f"held-out run in {model.kernel_tier}")
+        run_inference(model, cfg, train)
+        phi = model.phi()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppl = heldout_perplexity_device(phi, held, model.alpha, seed=seed,
+                                        device=device)
+        dt = time.perf_counter() - t0
+        if not (np.isfinite(ppl) and ppl > 1.0):
+            raise AssertionError(f"{chain}/{mirror}: held-out perplexity {ppl}")
+        key = f"{chain}/{mirror}"
+        out[key] = dict(perplexity=ppl, seconds=dt)
+        log(f"[heldout] {key}: {QUALITY_SWEEPS} sweeps, held-out perplexity "
+            f"{ppl:.3f} on the card ({dt:.2f}s, 20 fold-in sweeps)")
+        if (chain, mirror) == ("float32", "bfloat16"):
+            few = held.select_docs(np.arange(min(HELDOUT_HOST_DOCS, held.num_docs)))
+            t0 = time.perf_counter()
+            host = heldout_perplexity(phi, few, model.alpha, seed=seed)
+            host_s = time.perf_counter() - t0
+            dev_few = heldout_perplexity_device(phi, few, model.alpha, seed=seed,
+                                                device=device)
+            if not np.isfinite(host):
+                raise AssertionError(f"host held-out perplexity {host}")
+            out[key].update(host_perplexity_first_docs=host,
+                            device_perplexity_first_docs=dev_few,
+                            host_seconds=host_s)
+            log(f"[heldout] {key}, first {few.num_docs} held-out documents: host "
+                f"{host:.3f} ({host_s:.1f}s), card {dev_few:.3f}")
+        del model
+    return out
+
+
+def parity_corpus(use_pallas, seed: int):
+    """The minicorpus where it resolves to the tier ``use_pallas`` names,
+    else the first seeded planted corpus that does."""
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.corpus.documents import Documents
+    from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+    from ldagibbssampling_tpu_torch.data import write_minicorpus
+    from ldagibbssampling_tpu_torch.data.synthetic import planted_topic_corpus
+    from ldagibbssampling_tpu_torch.models.lda import resolve_tier
+
+    cfg = LdaConfig(topic_num=PARITY_K, block_size=PARITY_BLOCK,
+                    use_pallas=use_pallas)
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = FlatCorpus.from_documents(
+            Documents().read_docs(write_minicorpus(Path(tmp) / "docs")))
+    if resolve_tier(cfg, corpus).kernel_tier == TIER_NAMES[use_pallas]:
+        return corpus, "minicorpus"
+    for s in range(seed, seed + 64):
+        corpus, _ = planted_topic_corpus(num_docs=24, vocab_size=120,
+                                         num_topics=PARITY_K, mean_doc_len=56,
+                                         seed=s)
+        if resolve_tier(cfg, corpus).kernel_tier == TIER_NAMES[use_pallas]:
+            return corpus, f"planted corpus (seed {s})"
+    raise AssertionError(f"no parity corpus resolves to {TIER_NAMES[use_pallas]}")
+
+
+def parity_phase(use_pallas, seed: int, device: str = "cuda") -> dict:
+    """Phase 6: the tier's blocked chain against the serial oracle
+    (``oracle_vs_blocked``); |z| >= PARITY_MAX_Z on either functional fails."""
+    from ldagibbssampling_tpu_torch.evaluation.parity import oracle_vs_blocked
+
+    tier = TIER_NAMES[use_pallas]
+    corpus, name = parity_corpus(use_pallas, seed)
+    t0 = time.perf_counter()
+    rep = oracle_vs_blocked(corpus, PARITY_K, sweeps=PARITY_SWEEPS,
+                            seeds=PARITY_SEEDS, block_size=PARITY_BLOCK,
+                            use_pallas=use_pallas, device=device,
+                            expect_tier=tier)
+    log(f"[parity {tier}] {name}, {corpus.num_tokens} tokens, K={PARITY_K}, "
+        f"{len(PARITY_SEEDS)} seeds x {PARITY_SWEEPS} sweeps: z_ll "
+        f"{rep['z_ll']:+.3f}, z_entropy {rep['z_entropy']:+.3f} (LL/token oracle "
+        f"{rep['oracle']['ll_per_token_mean']:.4f}, blocked "
+        f"{rep['blocked']['ll_per_token_mean']:.4f}; entropy oracle "
+        f"{rep['oracle']['topic_entropy_mean']:.4f}, blocked "
+        f"{rep['blocked']['topic_entropy_mean']:.4f}) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    if not (abs(rep["z_ll"]) < PARITY_MAX_Z and abs(rep["z_entropy"]) < PARITY_MAX_Z):
+        raise AssertionError(f"parity {tier}: |z| >= {PARITY_MAX_Z}: {rep}")
+    return dict(corpus=name, tokens=corpus.num_tokens, z_ll=rep["z_ll"],
+                z_entropy=rep["z_entropy"])
+
+
+def run_cli(args, cwd: str) -> str:
+    """The port's CLI on the card in a subprocess; its stdout."""
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli", *args], cwd=cwd,
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {args} exit {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def resume_phase() -> None:
+    """Phase 5b: a killed and resumed CLI run writes the uninterrupted run's
+    artifacts byte for byte, in the fused and the deferred tier."""
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "deferred.json").write_text('{"block_size": 256}')
+        common = ["--docs", "docs", "-k", "10", "--save-step", "10",
+                  "--begin-save-iters", "50", "--seed", "3"]
+        run_cli(["--generate-minicorpus", *common, "--no-save", "--iterations",
+                 "1"], tmp)
+        for tier, extra in (("fused", []),
+                            ("deferred", ["--config-json", "deferred.json"])):
+            t0 = time.perf_counter()
+            run_cli([*common, *extra, "--results", f"{tier}_full", "--iterations",
+                     "60", "--metrics-file", f"{tier}.jsonl",
+                     "--metrics-every", "0"], tmp)
+            header = json.loads(Path(tmp, f"{tier}.jsonl").read_text().splitlines()[0])
+            if header["kernel_tier"] != tier:
+                raise AssertionError(f"resume {tier}: ran {header['kernel_tier']}")
+            run_cli([*common, *extra, "--no-save", "--iterations", "30",
+                     "--checkpoint-dir", f"{tier}_ck", "--checkpoint-every", "10"],
+                    tmp)
+            out = run_cli([*common, *extra, "--results", f"{tier}_resumed",
+                           "--iterations", "60", "--checkpoint-dir", f"{tier}_ck",
+                           "--checkpoint-every", "10", "--resume"], tmp)
+            if "Resumed from sweep 30" not in out:
+                raise AssertionError(f"resume {tier}: {out[-2000:]}")
+            full = sorted(p.name for p in Path(tmp, f"{tier}_full").iterdir())
+            want = sorted(f"lda_{i}.{e}" for i in (50, 60)
+                          for e in ("params", "phi", "theta", "tassign", "twords"))
+            resumed = sorted(p.name for p in Path(tmp, f"{tier}_resumed").iterdir())
+            if not full == resumed == want:
+                raise AssertionError(f"resume {tier}: {full} / {resumed}")
+            differ = [n for n in want if Path(tmp, f"{tier}_full", n).read_bytes()
+                      != Path(tmp, f"{tier}_resumed", n).read_bytes()]
+            if differ:
+                raise AssertionError(f"resume {tier}: artifacts differ: {differ}")
+            kept = sorted(int(p.name) for p in Path(tmp, f"{tier}_ck").iterdir())
+            log(f"[resume {tier}] 60 sweeps straight, and 30 + resume from sweep 30 "
+                f"to 60: the ten artifacts byte-identical (checkpoints kept "
+                f"{kept}; {time.perf_counter() - t0:.1f}s)")
+
+
+def infer_phase() -> None:
+    """Phase 5c: train with the CLI, then fold unseen documents in."""
+    with tempfile.TemporaryDirectory() as tmp:
+        from ldagibbssampling_tpu_torch.data import write_minicorpus
+
+        docs = write_minicorpus(Path(tmp) / "docs")
+        new = Path(tmp) / "new"
+        new.mkdir()
+        for p in sorted(docs.iterdir())[:3]:
+            (new / p.name).write_text(p.read_text() + "\nquokka zyzzyva\n")
+        out = run_cli(["--docs", "docs", "--results", "res", "-k", "10",
+                       "--iterations", "60", "--save-step", "10",
+                       "--begin-save-iters", "50", "--infer-docs", "new"], tmp)
+        line = [ln for ln in out.splitlines() if ln.startswith("Inferred")]
+        names = ("inferred.theta", "inferred.tassign", "inferred.docs")
+        if not line or not all(Path(tmp, "res", n).stat().st_size for n in names):
+            raise AssertionError(f"infer: {out[-2000:]}")
+        rows = [[float(x) for x in ln.split("\t")]
+                for ln in Path(tmp, "res", "inferred.theta").read_text().splitlines()]
+        if len(rows) != 3 or any(abs(sum(r) - 1) > 1e-4 or len(r) != 10 for r in rows):
+            raise AssertionError(f"infer: theta rows {rows}")
+        log(f"[infer] {line[0]}; wrote {', '.join(names)}")
+
+
+def bench_phase(tier: str, sweeps: int) -> dict:
+    """Phase 7: the port's bench script at bench.py's full shape; its one
+    JSON line."""
+    env = {**os.environ, "LDA_BENCH_PALLAS": tier, "LDA_BENCH_SWEEPS": str(sweeps),
+           "PYTHONPATH": str(REPO)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.scripts.bench"], cwd=REPO,
+                          capture_output=True, text=True, timeout=600, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {tier} exit {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench {tier}: {len(lines)} lines on stdout: {lines}")
+    row = json.loads(lines[0])
+    if row.get("metric") != f"tokens_resampled_per_s_chip_K{K}" or list(row) != [
+            "metric", "value", "unit", "vs_baseline"]:
+        raise AssertionError(f"bench {tier}: {row}")
+    device_line = [ln for ln in proc.stderr.splitlines() if ln.startswith("# device=")]
+    log(f"[bench {tier}] {lines[0]}")
+    log(f"[bench {tier}] {device_line[-1] if device_line else 'no # device line'} "
+        f"({time.perf_counter() - t0:.1f}s with start-up)")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1158,10 +1439,16 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
     quality = quality_phase(args.seed)                     # 4c.
+    heldout = heldout_phase(args.seed)                     # 4e.
     hyper = hyper_phase(corpus, args.seed)                 # 4d.
     for flags in ((), ("--pallas", "fused"), ("--sampler", "serial"),
                   ("--ll-every", "5", "--optimize-hyper-every", "5")):  # 5.
         cli_phase(flags)
+    resume_phase()                                         # 5b.
+    infer_phase()                                          # 5c.
+    parity = {TIER_NAMES[up]: parity_phase(up, args.seed)  # 6.
+              for up in ("deferred", "fused", True, False)}
+    bench = {tier: bench_phase(tier, sweeps) for tier, sweeps in BENCH_RUNS}  # 7.
 
     src = f"{PKG}/csrc"
     k1 = "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"
@@ -1197,14 +1484,16 @@ def main() -> int:
                    "ms_three_tables", "no_mirror_max_abs_err", "gops",
                    "ms_64_reps", "walk_ms", "walk_device_ms", "walk_bound_ms",
                    "fixed_us_per_tile", "event_ms", "device_ms",
-                   "event_ms_three_tables", "bound_three_tables_ms")},
+                   "event_ms_three_tables", "bound_three_tables_ms",
+                   "library_device_ms")},
         })
     print(json.dumps({"kernels": rows, "main_path_tokens_per_s": {
         tier: tok_s for tier, (tok_s, _) in paths.items()},
         "sweeps": {tier: SWEEPS if tier != "xla" else 2 for tier in paths},
         "quality": {key: [{n: r[n] for n in ("sweep", "log_likelihood", "perplexity")}
                           for r in rows_] for key, rows_ in quality.items()},
-        "hyper": hyper}), flush=True)
+        "hyper": hyper, "heldout": heldout, "parity": parity,
+        "bench": bench}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -5,9 +5,15 @@ Counterpart of ``ldagibbssampling_tpu/cli.py`` (reference:
 initialize, run the sweep loop with periodic saves, dump the final model.
 It takes the reference CLI's flags, plus ``--device {cuda,cpu}`` (default
 ``cuda``; without CUDA the run fails rather than carry on on the CPU).  Flags
-of paths this port does not have yet exit with code 2, naming them.  K1's
-chain and the deferred snapshot's type come in through ``--config-json``
-(``kernel_compute_dtype``, ``mirror_dtype``), as in the reference.
+of paths this port does not have yet exit with code 2, naming them:
+``--backend`` other than gibbs, and ``--chains``/``--mesh`` with the blocked
+sampler (the serial oracle ignores both, as in the reference).
+``--checkpoint-dir``/``--checkpoint-every``/``--resume`` save and restore the
+whole run (``lda_io/checkpoint.py``), and ``--infer-docs`` folds unseen
+documents into the trained model (``lda_io/infer.py``), with the reference's
+messages and exit codes.  K1's chain and the deferred snapshot's type come in
+through ``--config-json`` (``kernel_compute_dtype``, ``mirror_dtype``), as in
+the reference.
 
 Usage:
     python -m ldagibbssampling_tpu_torch.cli --docs data/LdaOriginalDocs \\
@@ -78,45 +84,54 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--optimize-hyper-every", type=int, default=0,
                     help="Minka fixed-point (alpha, beta) update every N "
                          "sweeps (0 = off)")
-    # the reference CLI's flags for paths not ported yet: accepted so the
-    # error can name them, and refused in main()
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint directory (state, live alpha/beta and "
+                         "the sweep seeds' generator)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="checkpoint every N sweeps into --checkpoint-dir")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --checkpoint-dir")
+    ap.add_argument("--infer-docs", default=None,
+                    help="after training, fold-in unseen documents from this "
+                         "directory (trained vocabulary; new words dropped) and "
+                         "write inferred.theta/.tassign to --results")
+    # the reference CLI's flags for paths not ported yet (the blocked
+    # sampler's --chains and --mesh, backends other than gibbs): accepted so
+    # the error can name them, and refused in main()
     ap.add_argument("--chains", type=int, default=None)
     ap.add_argument("--backend", choices=["gibbs", "cvb0", "svi", "smc", "warp"], default=None)
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--infer-docs", default=None)
     return ap
 
 
 _OVERRIDE_FIELDS = (
     "alpha", "beta", "topic_num", "iteration", "save_step", "begin_save_iters",
-    "seed", "sampler", "block_size", "draw_method",
+    "seed", "chains", "sampler", "block_size", "draw_method",
 )
 
 
-def unsupported_flags(args: argparse.Namespace) -> list[str]:
-    """The given flags whose paths the port does not have yet."""
+def unsupported_flags(args: argparse.Namespace, sampler: str = "blocked") -> list[str]:
+    """The given flags whose paths the port does not have yet, for the
+    ``sampler`` that runs (the serial oracle ignores chains and meshes)."""
+    blocked = sampler == "blocked"
     checks = [
-        ("--chains", args.chains not in (None, 1)),
+        ("--chains", blocked and args.chains not in (None, 1)),
         ("--backend", args.backend not in (None, "gibbs")),
-        ("--mesh", bool(args.mesh)),
-        ("--checkpoint-dir", args.checkpoint_dir is not None),
-        ("--checkpoint-every", args.checkpoint_every != 0),
-        ("--resume", args.resume),
-        ("--infer-docs", args.infer_docs is not None),
+        ("--mesh", blocked and bool(args.mesh)),
     ]
     return [flag for flag, given in checks if given]
 
 
-def config_from_args(args: argparse.Namespace) -> LdaConfig:
+def _file_config(args: argparse.Namespace) -> LdaConfig:
     if args.config_json:
-        cfg = LdaConfig.from_json(args.config_json)
-    elif args.params:
-        cfg = LdaConfig.from_reference_parameter_file(args.params)
-    else:
-        cfg = LdaConfig()
+        return LdaConfig.from_json(args.config_json)
+    if args.params:
+        return LdaConfig.from_reference_parameter_file(args.params)
+    return LdaConfig()
+
+
+def config_from_args(args: argparse.Namespace) -> LdaConfig:
+    cfg = _file_config(args)
     overrides = {
         f: getattr(args, f) for f in _OVERRIDE_FIELDS if getattr(args, f) is not None
     }
@@ -124,17 +139,22 @@ def config_from_args(args: argparse.Namespace) -> LdaConfig:
         overrides["use_pallas"] = {
             "0": False, "1": True, "fused": "fused", "deferred": "deferred",
         }[args.use_pallas]
+    if args.mesh:
+        overrides["mesh"] = {
+            k.strip(): int(v)
+            for k, v in (kv.split("=") for kv in args.mesh.split(","))
+        }
     return cfg.replace(**overrides) if overrides else cfg
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    missing = unsupported_flags(args)
-    if missing:
-        print(f"error: not ported yet: {', '.join(missing)} (see ROADMAP.md "
-              "Queue 1)", file=sys.stderr)
-        return 2
     try:
+        missing = unsupported_flags(args, args.sampler or _file_config(args).sampler)
+        if missing:
+            print(f"error: not ported yet: {', '.join(missing)} (see ROADMAP.md "
+                  "Queue 1)", file=sys.stderr)
+            return 2
         cfg = config_from_args(args)
     except NotImplementedError as e:  # a config file naming an unported path
         print(f"error: {e}", file=sys.stderr)
@@ -178,6 +198,16 @@ def main(argv=None) -> int:
     print("1 Initialize the model ...")
     model = make_backend(cfg, corpus, device=args.device)
 
+    if args.resume:
+        if not args.checkpoint_dir:
+            print("error: --resume requires --checkpoint-dir", file=sys.stderr)
+            return 2
+        from ldagibbssampling_tpu_torch.lda_io.checkpoint import latest_step
+
+        if latest_step(args.checkpoint_dir) is not None:
+            step = model.restore_checkpoint(args.checkpoint_dir)
+            print(f"Resumed from sweep {step}")
+
     print("2 Learning and Saving the model ...")
     t0 = time.perf_counter()
 
@@ -196,6 +226,8 @@ def main(argv=None) -> int:
                 metrics=metrics, metrics_every=args.metrics_every,
                 ll_every=args.ll_every,
                 optimize_hyper_every=args.optimize_hyper_every,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
             )
         except ReferenceGuardError as e:
             print(f"error: {e}", file=sys.stderr)
@@ -211,6 +243,24 @@ def main(argv=None) -> int:
     if result_dir is not None:
         save_backend_model(model, cfg.iteration, result_dir, corpus, cfg)
 
+    if args.infer_docs:
+        infer_dir = Path(args.infer_docs)
+        if not infer_dir.is_dir():
+            print(f"error: --infer-docs directory {infer_dir} does not exist",
+                  file=sys.stderr)
+            return 2
+        out_dir = result_dir if result_dir is not None else Path(".")
+        from ldagibbssampling_tpu_torch.lda_io.infer import infer_new_docs
+
+        term_to_index = {t: i for i, t in enumerate(corpus.vocab)}
+        summary = infer_new_docs(
+            model.phi(), infer_dir, term_to_index, float(model.alpha), out_dir,
+            seed=cfg.seed,
+        )
+        print(f"Inferred {summary['num_docs']} new docs "
+              f"({summary['num_tokens']} tokens, "
+              f"{summary['dropped_unknown_terms']} unknown terms dropped) "
+              f"-> {summary['theta']}")
     tokens = corpus.num_tokens * cfg.iteration
     print(f"Done: {cfg.iteration} sweeps over {corpus.num_tokens} tokens in "
           f"{dt:.2f}s ({tokens / max(dt, 1e-9):,.0f} tokens resampled/s)")

@@ -85,7 +85,8 @@ class LdaConfig:
         """Raise for settings whose code paths the port does not have yet.
 
         The port runs single-chain collapsed Gibbs: blocked in the four
-        kernel tiers, or serial through the host oracle.  Every other
+        kernel tiers, or serial through the host oracle, which ignores
+        ``chains`` and ``mesh`` as the reference's does.  Every other
         setting raises, naming the ROADMAP.md item that ports it; nothing
         falls back to another path.
         """
@@ -93,9 +94,9 @@ class LdaConfig:
         if self.backend != "gibbs":
             missing.append(
                 f"backend={self.backend!r} (ROADMAP Queue 1 item 13)")
-        if self.chains > 1:
+        if self.sampler == "blocked" and self.chains > 1:
             missing.append(f"chains={self.chains} (ROADMAP Queue 1 item 12)")
-        if self.mesh:
+        if self.sampler == "blocked" and self.mesh:
             missing.append(f"mesh={self.mesh!r} (ROADMAP Queue 1 item 14)")
         if self.pallas_interpret:
             missing.append(

@@ -19,7 +19,10 @@ falls back to another tier.  ``sampler="serial"`` runs the host oracle
 ``mirror_dtype``.  ``optimize_hyperparameters`` (Minka's updates,
 ``models/hyper.py``) moves α and β between sweeps; the next sweep reads
 them.  ``device_log_likelihood`` is the chunked training LL of
-``evaluation/device_metrics.py``.  Checkpoints are not ported yet and raise.
+``evaluation/device_metrics.py``.  ``save_checkpoint``/``restore_checkpoint``
+keep the whole run (``lda_io/checkpoint.py``): the state, the live α and β
+and the generator that seeds each sweep, so a resumed chain is the
+uninterrupted one, bit for bit.
 """
 
 from __future__ import annotations
@@ -282,12 +285,27 @@ class LdaModel:
             self.alpha, self.beta)
 
     def save_checkpoint(self, directory: str | Path) -> int:
-        raise NotImplementedError(
-            "checkpoints are not ported (ROADMAP Queue 1 item 11)")
+        """Checkpoint of the full run (state, live α/β, the sweep seeds'
+        generator) at step ``sweeps_done``; returns the step."""
+        if self.state is None:
+            raise NotImplementedError("serial-oracle mode has no device state")
+        from ldagibbssampling_tpu_torch.lda_io.checkpoint import save_run
+
+        return save_run(directory, self.state, self.alpha, self.beta,
+                        generator=self.generator)
 
     def restore_checkpoint(self, directory: str | Path) -> int:
-        raise NotImplementedError(
-            "checkpoints are not ported (ROADMAP Queue 1 item 11)")
+        """Resume from the latest checkpoint; returns the restored sweep index."""
+        if self.state is None:
+            raise NotImplementedError("serial-oracle mode has no device state")
+        from ldagibbssampling_tpu_torch.lda_io.checkpoint import restore_run
+
+        self.state, self.alpha, self.beta, gen_state = restore_run(
+            directory, self.state)
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+        self._mirror = None  # the deferred snapshot is cast anew from nwk
+        return int(self.state.sweep)
 
     # ------------------------------------------------------------------
     def save_iterated_model(self, iteration: int, result_dir: str | Path):

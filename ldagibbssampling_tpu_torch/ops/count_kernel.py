@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -267,7 +268,9 @@ def stack_plans(plans: list["DeferredPlan"]) -> dict:
     }
 
 
+@functools.cache
 def _lib():
+    """The library with its entry points' types, set once per process."""
     from ldagibbssampling_tpu_torch.ops import _build
 
     lib = _build.load("count_kernel")

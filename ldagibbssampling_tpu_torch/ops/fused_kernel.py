@@ -327,7 +327,9 @@ def _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
         raise ValueError(f"k_pad {k_pad} must be a multiple of 128 holding K={k}")
 
 
+@functools.cache
 def _lib():
+    """The library with its entry points' types, set once per process."""
     from ldagibbssampling_tpu_torch.ops import _build
 
     lib = _build.load("fused_kernel")

@@ -70,7 +70,9 @@ def sample_block_plain(nwk, ndk, nk, z_old, token_word, token_doc, *, alpha,
     return score.argmax(dim=1).to(torch.int32)  # first index of the maximum
 
 
+@functools.cache
 def _lib():
+    """The library with its entry points' types, set once per process."""
     from ldagibbssampling_tpu_torch.ops import _build
 
     lib = _build.load("sample_kernel")

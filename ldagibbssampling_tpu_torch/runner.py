@@ -4,9 +4,8 @@ Counterpart of ``ldagibbssampling_tpu/runner.py``: the reference's
 ``inferenceModel`` loop (save schedule + guard) over any
 :class:`InferenceBackend`, batching the sweeps between schedule boundaries
 into one ``backend.sweep(chunk)`` call, with the reference's Minka (α, β)
-updates (``optimize_hyper_every``) and training log-likelihood rows
-(``ll_every``).  The checkpoint branch is not ported yet and raises when
-asked for.
+updates (``optimize_hyper_every``), training log-likelihood rows
+(``ll_every``) and checkpoints (``checkpoint_every``).
 """
 
 from __future__ import annotations
@@ -59,12 +58,11 @@ def run_inference(
     after every N-th sweep.  ``ll_every`` adds ``log_likelihood`` and
     ``perplexity`` to the metrics row after every N-th sweep (the backend's
     ``device_log_likelihood``, else the host ``evaluation/metrics``); rows
-    carry the live ``alpha`` and ``beta``.  ``checkpoint_*`` raise
-    ``NotImplementedError`` when set (ROADMAP Queue 1 item 11).
+    carry the live ``alpha`` and ``beta``.  ``checkpoint_dir`` +
+    ``checkpoint_every`` save the backend's checkpoint after every N-th
+    sweep (after that sweep's hyperparameter update); the loop starts at the
+    backend's ``sweeps_done``, so a restored backend resumes mid-schedule.
     """
-    if checkpoint_dir is not None or checkpoint_every > 0:
-        raise NotImplementedError(
-            "not ported yet: checkpoints (ROADMAP Queue 1 item 11)")
     if result_dir is not None:
         config.validate_reference_guard()
     timer = SweepTimer(corpus.num_tokens)
@@ -85,6 +83,9 @@ def run_inference(
         if _save_due(n):
             return True
         if optimize_hyper_every > 0 and n % optimize_hyper_every == 0:
+            return True
+        if checkpoint_dir is not None and checkpoint_every > 0 and (
+                n % checkpoint_every == 0):
             return True
         if metrics is not None and metrics_every > 0 and n % metrics_every == 0:
             return True
@@ -107,6 +108,10 @@ def run_inference(
                 and (i_last + 1) % optimize_hyper_every == 0
                 and hasattr(backend, "optimize_hyperparameters")):
             backend.optimize_hyperparameters()
+        if (checkpoint_dir is not None and checkpoint_every > 0
+                and (i_last + 1) % checkpoint_every == 0
+                and hasattr(backend, "save_checkpoint")):
+            backend.save_checkpoint(checkpoint_dir)
         if metrics is not None:
             scalars = {
                 "tokens_per_s": chunk * corpus.num_tokens

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import sys
 import time
 
@@ -55,7 +56,9 @@ def probe_plain(a: torch.Tensor, b: torch.Tensor, *, reps: int = REPS,
     return acc.to(torch.float32)
 
 
+@functools.cache
 def _lib():
+    """The library with its entry point's types, set once per process."""
     from ldagibbssampling_tpu_torch.ops import _build
 
     lib = _build.load("dtype_probe")

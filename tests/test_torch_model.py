@@ -131,10 +131,45 @@ def test_cli_runs_end_to_end_on_cpu(tmp_path, capsys):
     (["--infer-docs", "x"], "--infer-docs"),
     (["--resume"], "--resume"),
 ])
-def test_cli_refuses_unported_flags(tmp_path, capsys, flags, name):
-    rc = cli.main(["--docs", str(tmp_path), "--device", "cpu", *flags])
-    assert rc == 2
-    assert name in capsys.readouterr().err
+def test_cli_refuses_unported_flags(tmp_path, monkeypatch, capsys, flags, name):
+    """``--backend`` and the blocked sampler's ``--chains``/``--mesh`` are
+    refused (exit 2, naming the flag); the checkpoint, resume and fold-in
+    flags run, and ``--resume`` without ``--checkpoint-dir`` exits 2 with
+    the reference's message."""
+    monkeypatch.chdir(tmp_path)  # --no-save writes inferred.* here
+    docs = write_minicorpus(tmp_path / "docs", num_docs=6)
+    if name == "--infer-docs":
+        flags = ["--infer-docs", str(docs)]
+    base = ["--docs", str(docs), "--no-save", "-k", "3", "--iterations", "5",
+            "--device", "cpu"]
+    if name == "--checkpoint-every":
+        base += ["--checkpoint-dir", str(tmp_path / "ck")]
+    rc = cli.main([*base, *flags])
+    out, err = capsys.readouterr()
+    if name in ("--backend", "--chains", "--mesh"):
+        assert rc == 2
+        assert name in err
+    elif name == "--resume":
+        assert rc == 2
+        assert "error: --resume requires --checkpoint-dir" in err
+    else:
+        assert rc == 0, err
+        if name == "--checkpoint-every":
+            assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["5"]
+        else:
+            assert "Inferred 6 new docs" in out
+            assert (tmp_path / "inferred.theta").stat().st_size > 0
+
+
+@pytest.mark.parametrize("flags", [["--chains", "4"], ["--mesh", "data=2"]])
+def test_cli_serial_sampler_ignores_chains_and_mesh(tmp_path, capsys, flags):
+    # as the reference: the oracle runs, chains and mesh unused
+    rc = cli.main(["--generate-minicorpus", "--docs", str(tmp_path / "d"),
+                   "--no-save", "-k", "3", "--iterations", "2", "--device",
+                   "cpu", "--sampler", "serial", "--check-counts",
+                   "--metrics-file", str(tmp_path / "m.jsonl"), *flags])
+    assert rc == 0, capsys.readouterr().err
+    assert read_metrics(tmp_path / "m.jsonl")[0]["kernel_tier"] == "serial-oracle"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -154,6 +189,18 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_config_rejects_unported_paths(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LdaConfig(**{field: value})
+    if field in ("chains", "mesh"):
+        # the blocked sampler names its item; the serial oracle ignores
+        # both, as the reference's make_backend does, and trains its chain
+        item = {"chains": "item 12", "mesh": "item 14"}[field]
+        with pytest.raises(NotImplementedError, match=item):
+            LdaConfig(sampler="blocked", **{field: value})
+        cfg = LdaConfig(sampler="serial", topic_num=4, **{field: value})
+        model = make_backend(cfg, _corpus(docs=3), device="cpu")
+        assert model.kernel_tier == "serial-oracle"
+        model.sweep(2)
+        assert model.sweeps_done == 2
+        model.check_counts_consistent()
 
 
 @pytest.mark.parametrize("field,value,tier", [
@@ -184,15 +231,18 @@ def test_blocks_below_128_raise(block, docs):
     model.check_counts_consistent()
 
 
-def test_runner_refuses_unported_branches():
+def test_runner_refuses_unported_branches(tmp_path):
+    """The checkpoint branch: a save after every ``checkpoint_every``-th
+    sweep, none without a directory or a cadence."""
     fc = _corpus()
-    cfg = LdaConfig(topic_num=6, block_size=128, iteration=2)
+    cfg = LdaConfig(topic_num=6, block_size=128, iteration=7)
     model = LdaModel(cfg, fc, device="cpu")
-    for kw in (dict(checkpoint_every=1), dict(checkpoint_dir="ckpt")):
-        with pytest.raises(NotImplementedError, match="checkpoints"):
-            run_inference(model, cfg, fc, **kw)
-    with pytest.raises(NotImplementedError):
-        model.save_checkpoint("ckpt")
+    run_inference(model, cfg, fc, checkpoint_dir=tmp_path / "ck",
+                  checkpoint_every=3)
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["3", "6"]
+    for kw in (dict(checkpoint_every=1), dict(checkpoint_dir=tmp_path / "no")):
+        run_inference(LdaModel(cfg, fc, device="cpu"), cfg, fc, **kw)
+    assert not (tmp_path / "no").exists()
 
 
 def test_runner_runs_ll_and_hyper_branches(tmp_path):
