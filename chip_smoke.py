@@ -86,6 +86,34 @@ success:
    sweeps, 20 for the XLA tier), its one JSON line printed and its
    ``metric`` checked against bench.py's name.
 
+8. multichain: rung 4's configuration of ``benchmarks/ladder.py`` (planted
+   corpus, K = 10, block 8,192, 4 chains, mean length 80) at scale 0.2:
+   8,000 documents, V = 20,000, ~640k tokens, through ``make_backend``
+   (``chains=4``) and ``run_inference`` for 20 sweeps with the LL every 5:
+   every chain's counts equal a recount of its z, the chains differ
+   pairwise, the rows carry finite ``r_hat`` and ``r_hat_phi_p99``, no
+   kernel launches (the chains run the XLA tier, as the reference's), and
+   two unrecorded sweeps run under CUDA's sync debug mode set to error (no
+   host sync); prints tokens/s over chain-sweeps and the time of one LL
+   recording of the four chains;
+9. backends: rung 5's configuration (planted corpus, K = 15, block 8,192,
+   5% of the documents held out) at scale 0.2: 16,400 documents, V =
+   20,000, ~1.67M training tokens: gibbs (5 sweeps, the deferred tier, its
+   kernels counted), cvb0 (5), warp (5), each the first untimed, svi (2
+   epochs, batch 64); smc one pass at scale 0.01 (820 documents, V = 1,000, ~78k tokens: its absorb is
+   one token at a time); tokens/s, training and held-out perplexity each,
+   training perplexity below V; CVB0's invariants and a second run from
+   the seed bitwise equal; Warp's counts a recount of z; SMC's weights sum
+   to 1 and z in range; SVI's lambda finite and positive;
+10. backends resume: the CLI on the card (in this process), cvb0 and svi
+   20 sweeps straight against 10 then ``--resume`` to 20 (the ten
+   artifacts byte-identical); ``--backend smc|warp --checkpoint-every 5``
+   and ``--backend cvb0 --check-counts`` exit 2 with the reference's words;
+   ``--chains 4 --metrics-file`` writes rows with ``r_hat``;
+11. ladder: ``python -m ldagibbssampling_tpu_torch.benchmarks.ladder
+   --rungs 1,2,4,5 --scale 0.01`` as a subprocess: exit 0, no gate
+   failure, each rung's dict printed.
+
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +194,15 @@ PARITY_MAX_Z = 4.0
 # the bench script's tiers (LDA_BENCH_PALLAS) and timed sweeps: the XLA
 # sweep takes ~96 ms at bench.py's shape
 BENCH_RUNS = (("deferred", 100), ("fused", 100), ("1", 100), ("0", 20))
+# the ladder's rung 4 (chains) and rung 5 (backends) configurations at a
+# scale whose vocabulary is the rung's full V = 20,000; SMC at rung 5's
+# scale 0.01 (820 documents, V = 1,000): its absorb is one token at a time.
+# (backend, untimed warm-up sweeps, timed sweeps, scale): the warm-up takes
+# the first sweep's allocations out of the timed ones
+MULTICHAIN_SCALE, MULTICHAIN_SWEEPS = 0.2, 20
+BACKEND_RUNS = (("gibbs", 1, 4, 0.2), ("cvb0", 1, 4, 0.2), ("svi", 0, 2, 0.2),
+                ("warp", 1, 4, 0.2), ("smc", 0, 1, 0.01))
+LADDER_SCALE = 0.01
 
 
 def log(msg: str) -> None:
@@ -1370,6 +1407,324 @@ def bench_phase(tier: str, sweeps: int) -> dict:
     return row
 
 
+def multichain_phase(seed: int, device: str = "cuda") -> dict:
+    """Phase 8: four chains (``models/chains``) at rung 4's configuration,
+    scale 0.2, through ``make_backend`` and ``run_inference`` with the LL
+    every LL_EVERY sweeps: counts equal recounts, the chains differ
+    pairwise, the rows carry finite R-hat; no host sync in unrecorded
+    sweeps (CUDA's sync debug mode set to error around two of them)."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch import make_backend, run_inference
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation.tracing import MetricsLog, read_metrics
+
+    corpus, _ = rung_corpus(4, MULTICHAIN_SCALE)
+    cfg = LdaConfig(topic_num=10, seed=seed, block_size=8_192, chains=4,
+                    iteration=MULTICHAIN_SWEEPS)
+    model = make_backend(cfg, corpus, device=device)
+    if type(model).__name__ != "MultiChainModel" or model.kernel_tier != "xla":
+        raise AssertionError(f"chains=4 built {type(model).__name__} "
+                             f"({model.kernel_tier})")
+    chains = model.chains
+    zero_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with MetricsLog(Path(tmp) / "m.jsonl") as mlog:
+            run_inference(model, cfg, corpus, metrics=mlog, ll_every=LL_EVERY)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rows = read_metrics(Path(tmp) / "m.jsonl")
+    launches, plain = read_counters()
+    if any(launches.values()) or any(plain.values()):
+        raise AssertionError(f"the chains' XLA tier launched kernels {launches} "
+                             f"or plain versions {plain}")
+    chains.check_counts_consistent()
+    zs = [s.z.cpu().numpy() for s in chains.states]
+    same = [(a, b) for a in range(4) for b in range(a + 1, 4)
+            if np.array_equal(zs[a], zs[b])]
+    if same:
+        raise AssertionError(f"chains equal: {same}")
+    last = rows[-1]
+    if not (np.isfinite(last.get("r_hat", np.nan))
+            and np.isfinite(last.get("r_hat_phi_p99", np.nan))):
+        raise AssertionError(f"rows lack finite r_hat / r_hat_phi_p99: {last}")
+    # unrecorded sweeps enqueue without a host sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chains.sweep(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # unrecorded sweeps, then the LL recording alone (all four chains)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chains.sweep(LL_EVERY)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(LL_EVERY):
+        chains.record_ll()
+    t2 = time.perf_counter()
+    sweep_s = (t1 - t0) / LL_EVERY
+    ll_s = (t2 - t1) / LL_EVERY
+    tok_s = corpus.num_tokens * LL_EVERY * 4 / (t1 - t0)
+    out = dict(tokens=corpus.num_tokens, docs=corpus.num_docs,
+               vocab=corpus.vocab_size, run_seconds=run_s,
+               tokens_per_s_chain_sweeps=tok_s, seconds_per_sweep_4_chains=sweep_s,
+               ll_record_seconds_per_sweep_4_chains=ll_s, r_hat=last["r_hat"],
+               r_hat_phi_p99=last["r_hat_phi_p99"],
+               log_likelihood=last["log_likelihood"])
+    log(f"[multichain] {corpus.num_tokens} tokens, M {corpus.num_docs}, V "
+        f"{corpus.vocab_size}, K 10, 4 chains x {MULTICHAIN_SWEEPS} sweeps in "
+        f"{run_s:.2f}s (LL every sweep, R-hat rows); counts = recounts, chains "
+        f"differ pairwise; R-hat(LL) {last['r_hat']:.4f}, R-hat(phi) p99 "
+        f"{last['r_hat_phi_p99']:.4f}; unrecorded: {tok_s:,.0f} tokens/s over "
+        f"chain-sweeps ({sweep_s * 1e3:.1f} ms per sweep of 4 chains), LL "
+        f"recording {ll_s * 1e3:.2f} ms per sweep of 4 chains; no host sync in "
+        f"2 unrecorded sweeps")
+    return out
+
+
+def cvb0_sweep_ms(model, atomic: bool = False, sweeps: int = 3) -> float:
+    """Host ms per CVB0 sweep of ``model`` (synchronised), with its
+    fixed-order scatter or an atomic ``index_add_`` in its place."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.backends import cvb0
+
+    fixed = cvb0.scatter_rows
+    if atomic:
+        cvb0.scatter_rows = lambda table, index, rows: table.index_add_(0, index, rows)
+    try:
+        model.sweep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sweep(sweeps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / sweeps * 1e3
+    finally:
+        cvb0.scatter_rows = fixed
+
+
+def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 9: the five backends at rung 5's configuration (scale 0.2; SMC
+    at scale 0.01): tokens/s, training and held-out perplexity, and each
+    backend's checks; returns the report and the Gibbs run's launches."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch.backends import (
+        Cvb0Model, SmcModel, SviModel, WarpModel)
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation.device_metrics import (
+        heldout_perplexity_device)
+    from ldagibbssampling_tpu_torch.evaluation.metrics import perplexity
+    from ldagibbssampling_tpu_torch.models.lda import LdaModel, _assert_recount
+
+    cfg = LdaConfig(topic_num=15, seed=seed, block_size=8_192)
+    out: dict = {}
+    gibbs_launches: dict = {}
+    for name, warm, n, scale in BACKEND_RUNS:
+        corpus, held = rung_corpus(5, scale)
+        build = {"gibbs": lambda: LdaModel(cfg, corpus, device=device),
+                 "cvb0": lambda: Cvb0Model(cfg, corpus, device=device),
+                 "svi": lambda: SviModel(cfg, corpus, batch_size=64, device=device),
+                 "warp": lambda: WarpModel(cfg, corpus, device=device),
+                 "smc": lambda: SmcModel(cfg, corpus, device=device)}[name]
+        model = build()
+        if warm:
+            model.sweep(warm)
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        model.sweep(n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counters()
+        if any(plain.values()):
+            raise AssertionError(f"{name}: plain versions ran: {plain}")
+        if name == "gibbs":
+            gibbs_launches = {k: v for k, v in launches.items() if v}
+            want = ("gibbs_tile_sample", "rebuild_counts", "cast_mirror")
+            if model.kernel_tier != "deferred" or any(
+                    launches[k] <= 0 for k in want):
+                raise AssertionError(f"gibbs ran {model.kernel_tier}: {launches}")
+        elif any(launches.values()):
+            raise AssertionError(f"{name} launched kernels {launches}")
+        v = corpus.vocab_size
+        phi, theta = model.phi(), model.theta()
+        ppl = perplexity(phi, theta, corpus)
+        held_ppl = float(heldout_perplexity_device(phi, held, cfg.alpha,
+                                                   device=device))
+        if not (1.0 < ppl < v and np.isfinite(held_ppl)):
+            raise AssertionError(f"{name}: perplexity {ppl} (V {v}), held-out "
+                                 f"{held_ppl}")
+        checks = []
+        if name == "cvb0":
+            model.check_invariants()
+            twin = Cvb0Model(cfg, corpus, device=device)
+            twin.sweep(warm + n)
+            for t in ("gamma", "ndk", "nwk", "nk"):
+                if not torch.equal(getattr(twin, t), getattr(model, t)):
+                    raise AssertionError(f"two CVB0 runs differ in {t}")
+            # the fixed-order scatter's cost: the same sweeps with an
+            # atomic index_add_ scatter (order of additions not fixed)
+            fixed_ms = cvb0_sweep_ms(twin)
+            atomic_ms = cvb0_sweep_ms(twin, atomic=True)
+            out["cvb0_scatter"] = dict(fixed_order_ms_per_sweep=fixed_ms,
+                                       atomic_index_add_ms_per_sweep=atomic_ms)
+            checks.append(f"invariants hold; a second run from the seed bitwise "
+                          f"equal; {fixed_ms:.2f} ms per sweep with the "
+                          f"fixed-order scatter, {atomic_ms:.2f} ms with an "
+                          f"atomic index_add_")
+        elif name == "warp":
+            pc = model._padded
+            real = pc.token_mask.astype(bool)
+            st = model.state
+            _assert_recount(pc.token_word[real], pc.token_doc[real],
+                            st.z.cpu().numpy()[real], st.ndk.cpu().numpy(),
+                            st.nwk.cpu().numpy(), st.nk.cpu().numpy())
+            checks.append("counts = recount of z")
+        elif name == "smc":
+            w = model._weights()
+            z = model.z.cpu().numpy()
+            if abs(w.sum() - 1.0) > 1e-6 or z.min() < 0 or z.max() >= cfg.topic_num:
+                raise AssertionError(f"smc weights sum {w.sum()}, z in "
+                                     f"[{z.min()}, {z.max()}]")
+            if not (model.nk.sum(dim=1) == corpus.num_tokens).all():
+                raise AssertionError("smc particle counts do not cover the corpus")
+            checks.append(f"weights sum to 1 ({w.sum():.8f}), z in range; "
+                          f"{dt / corpus.num_tokens * 1e6:.1f} us per token")
+        elif name == "svi":
+            if not (torch.isfinite(model.lam).all() and float(model.lam.min()) > 0):
+                raise AssertionError("svi lambda not finite and positive")
+            checks.append("lambda finite and positive")
+        elif name == "gibbs":
+            model.check_counts_consistent()
+            checks.append(f"counts consistent; launches {gibbs_launches}")
+        tok_s = n * corpus.num_tokens / dt
+        out[name] = dict(warm_up=warm, passes=n, tokens=corpus.num_tokens,
+                         docs=corpus.num_docs,
+                         vocab=v, seconds=dt, tokens_per_s=tok_s, perplexity=ppl,
+                         held_out_ppl=held_ppl, held_out_docs=held.num_docs)
+        if name == "smc":
+            out[name]["us_per_token"] = dt / corpus.num_tokens * 1e6
+        log(f"[backends] {name}: {warm} + {n} timed "
+            f"{'passes' if name in ('svi', 'smc') else 'sweeps'}"
+            f" of {corpus.num_tokens} tokens (M {corpus.num_docs}, V {v}, K 15) "
+            f"in {dt:.3f}s = {tok_s:,.0f} tokens/s; perplexity {ppl:.3f}, "
+            f"held-out {held_ppl:.3f} ({held.num_docs} documents); "
+            f"{'; '.join(checks)}")
+        del model
+        torch.cuda.empty_cache()
+    return out, gibbs_launches
+
+
+def run_cli_inproc(args) -> tuple[int, str, str]:
+    """The port's CLI ``main`` in this process (no start-up per call);
+    ``(exit code, stdout, stderr)``."""
+    import contextlib
+    import io
+
+    from ldagibbssampling_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([str(a) for a in args])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def backends_resume_phase() -> None:
+    """Phase 10: through the CLI on the card, cvb0 and svi 20 sweeps
+    straight against 10 then ``--resume`` to 20 (artifacts byte-identical);
+    the reference's refusals exit 2; ``--chains 4`` writes R-hat rows."""
+    from ldagibbssampling_tpu_torch.data import write_minicorpus
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = Path(tmp)
+        docs = write_minicorpus(t / "docs")
+        common = ["--docs", docs, "-k", "10", "--save-step", "5",
+                  "--begin-save-iters", "15", "--seed", "3"]
+        want = sorted(f"lda_{i}.{e}" for i in (15, 20)
+                      for e in ("params", "phi", "theta", "tassign", "twords"))
+        for backend in ("cvb0", "svi"):
+            t0 = time.perf_counter()
+            b = ["--backend", backend]
+            runs = [[*common, *b, "--results", t / f"{backend}_full",
+                     "--iterations", "20"],
+                    [*common, *b, "--no-save", "--iterations", "10",
+                     "--checkpoint-dir", t / f"{backend}_ck",
+                     "--checkpoint-every", "5"],
+                    [*common, *b, "--results", t / f"{backend}_resumed",
+                     "--iterations", "20", "--checkpoint-dir", t / f"{backend}_ck",
+                     "--checkpoint-every", "5", "--resume"]]
+            for args in runs:
+                rc, out, err = run_cli_inproc(args)
+                if rc != 0:
+                    raise AssertionError(f"CLI {backend} exit {rc}: {err[-2000:]}")
+            if "Resumed from sweep 10" not in out:
+                raise AssertionError(f"resume {backend}: {out[-2000:]}")
+            full = sorted(p.name for p in (t / f"{backend}_full").iterdir())
+            resumed = sorted(p.name for p in (t / f"{backend}_resumed").iterdir())
+            if not full == resumed == want:
+                raise AssertionError(f"resume {backend}: {full} / {resumed}")
+            differ = [n for n in want if (t / f"{backend}_full" / n).read_bytes()
+                      != (t / f"{backend}_resumed" / n).read_bytes()]
+            if differ:
+                raise AssertionError(f"resume {backend}: artifacts differ: {differ}")
+            log(f"[backends resume] {backend}: 20 sweeps straight, and 10 + "
+                f"resume to 20: the ten artifacts byte-identical "
+                f"({time.perf_counter() - t0:.1f}s)")
+        base = ["--docs", docs, "--no-save", "-k", "10", "--iterations", "5",
+                "--checkpoint-dir", t / "refused_ck"]
+        for flags, words in (
+                (["--backend", "smc", "--checkpoint-every", "5"],
+                 "does not support checkpointing"),
+                (["--backend", "warp", "--checkpoint-every", "5"],
+                 "does not support checkpointing"),
+                (["--backend", "cvb0", "--check-counts"],
+                 "has no count tables to check")):
+            rc, _, err = run_cli_inproc([*base, *flags])
+            if rc != 2 or words not in err:
+                raise AssertionError(f"CLI {flags}: exit {rc}, {err[-500:]}")
+            log(f"[backends resume] {' '.join(flags)}: exit 2, "
+                f"\"{err.strip().splitlines()[-1]}\"")
+        rc, out, err = run_cli_inproc(
+            [*common, "--no-save", "--iterations", "10", "--chains", "4",
+             "--metrics-file", t / "chains.jsonl", "--ll-every", "5"])
+        rows = [json.loads(x) for x in (t / "chains.jsonl").read_text().splitlines()]
+        if rc != 0 or not any("r_hat" in r for r in rows):
+            raise AssertionError(f"--chains 4: exit {rc}, rows {rows[-2:]}: "
+                                 f"{err[-1000:]}")
+        log(f"[backends resume] --chains 4 --metrics-file: {len(rows)} rows, the "
+            f"last {json.dumps({k: rows[-1][k] for k in ('sweep', 'r_hat', 'r_hat_phi_p99') if k in rows[-1]})}")
+
+
+def ladder_phase(tmp_root: str) -> list:
+    """Phase 11: the ladder (rungs 1, 2, 4, 5 at scale 0.01) as a
+    subprocess; exit 0 and no gate failure; returns the rungs' dicts."""
+    out = Path(tmp_root) / "ladder.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.benchmarks.ladder", "--rungs", "1,2,4,5",
+         "--scale", str(LADDER_SCALE), "--out", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    if proc.returncode != 0:
+        raise AssertionError(f"ladder exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    report = json.loads(out.read_text())
+    if report["gate_failures"] or [r["rung"] for r in report["rungs"]] != [1, 2, 4, 5]:
+        raise AssertionError(f"ladder: {report['gate_failures']}")
+    for r in report["rungs"]:
+        log(f"[ladder] {json.dumps(r)}")
+    log(f"[ladder] rungs 1, 2, 4, 5 at scale {LADDER_SCALE}: no gate failure "
+        f"({time.perf_counter() - t0:.1f}s with start-up)")
+    return report["rungs"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1449,6 +1804,11 @@ def main() -> int:
     parity = {TIER_NAMES[up]: parity_phase(up, args.seed)  # 6.
               for up in ("deferred", "fused", True, False)}
     bench = {tier: bench_phase(tier, sweeps) for tier, sweeps in BENCH_RUNS}  # 7.
+    multichain = multichain_phase(args.seed)                # 8.
+    backends, gibbs_launches = backends_phase(args.seed)    # 9.
+    backends_resume_phase()                                 # 10.
+    with tempfile.TemporaryDirectory() as tmp:
+        ladder = ladder_phase(tmp)                          # 11.
 
     src = f"{PKG}/csrc"
     k1 = "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"
@@ -1470,6 +1830,8 @@ def main() -> int:
     for kname, (source, replaces) in meta.items():
         k = kernels[kname]
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
+        if kname in gibbs_launches:  # phase 9's Gibbs row (deferred tier)
+            by_path["backends gibbs"] = gibbs_launches[kname]
         if kname.startswith("dtype_probe"):  # launched by the probe's entry point
             by_path = {"vpu_dtype_probe": k["launches"]}
         rows.append({
@@ -1493,7 +1855,8 @@ def main() -> int:
         "quality": {key: [{n: r[n] for n in ("sweep", "log_likelihood", "perplexity")}
                           for r in rows_] for key, rows_ in quality.items()},
         "hyper": hyper, "heldout": heldout, "parity": parity,
-        "bench": bench}), flush=True)
+        "bench": bench, "multichain": multichain, "backends": backends,
+        "ladder": ladder}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,8 +1,12 @@
 """Backend protocol + factory.
 
-Every backend exposes the same surface as the Gibbs ``LdaModel`` (sweep /
-phi / theta / sweeps_done), so the driver and artifact writers are
-backend-agnostic.  The port has one backend: Gibbs on a single device.
+Counterpart of ``ldagibbssampling_tpu/backends/base.py``.  Every backend
+exposes the same surface as the Gibbs ``LdaModel`` (sweep / phi / theta /
+sweeps_done), so the runner and artifact writers are backend-agnostic.
+The port has every backend on a single device: Gibbs (one chain, or
+several through ``models/chains.MultiChainModel``), CVB0, SVI, SMC and
+WarpLDA.  The mesh runtimes wait for ROADMAP Queue 1 item 14, and
+``LdaConfig`` rejects a mesh.
 """
 
 from __future__ import annotations
@@ -28,12 +32,31 @@ class InferenceBackend(Protocol):
 
 def make_backend(config: "LdaConfig", corpus: "FlatCorpus",
                  device: Any = "cuda") -> InferenceBackend:
-    """Construct the backend selected by ``config`` on ``device`` (``cuda``
-    by default; raises when CUDA is unavailable).  ``LdaConfig`` itself
-    rejects the backends, meshes and chain counts the port does not have."""
-    if config.backend != "gibbs":
-        raise NotImplementedError(
-            f"backend {config.backend!r} is not ported (ROADMAP Queue 1 item 13)")
-    from ldagibbssampling_tpu_torch.models.lda import LdaModel
+    """Construct the backend selected by ``config.backend`` on ``device``
+    (``cuda`` by default; raises when CUDA is unavailable): for the blocked
+    Gibbs sampler with ``chains > 1``, the multi-chain model."""
+    if config.backend == "gibbs":
+        if config.chains > 1 and config.sampler == "blocked":
+            from ldagibbssampling_tpu_torch.models.chains import MultiChainModel
 
-    return LdaModel(config, corpus, device=device)
+            return MultiChainModel(config, corpus, device=device)
+        from ldagibbssampling_tpu_torch.models.lda import LdaModel
+
+        return LdaModel(config, corpus, device=device)
+    if config.backend == "cvb0":
+        from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model
+
+        return Cvb0Model(config, corpus, device=device)
+    if config.backend == "svi":
+        from ldagibbssampling_tpu_torch.backends.svi import SviModel
+
+        return SviModel(config, corpus, device=device)
+    if config.backend == "smc":
+        from ldagibbssampling_tpu_torch.backends.smc import SmcModel
+
+        return SmcModel(config, corpus, device=device)
+    if config.backend == "warp":
+        from ldagibbssampling_tpu_torch.backends.warp import WarpModel
+
+        return WarpModel(config, corpus, device=device)
+    raise ValueError(f"unknown backend {config.backend!r}")

@@ -4,16 +4,19 @@ Counterpart of ``ldagibbssampling_tpu/cli.py`` (reference:
 ``LdaGibbsSampling.main``): load parameters, ingest the docs directory,
 initialize, run the sweep loop with periodic saves, dump the final model.
 It takes the reference CLI's flags, plus ``--device {cuda,cpu}`` (default
-``cuda``; without CUDA the run fails rather than carry on on the CPU).  Flags
-of paths this port does not have yet exit with code 2, naming them:
-``--backend`` other than gibbs, and ``--chains``/``--mesh`` with the blocked
-sampler (the serial oracle ignores both, as in the reference).
-``--checkpoint-dir``/``--checkpoint-every``/``--resume`` save and restore the
-whole run (``lda_io/checkpoint.py``), and ``--infer-docs`` folds unseen
-documents into the trained model (``lda_io/infer.py``), with the reference's
-messages and exit codes.  K1's chain and the deferred snapshot's type come in
-through ``--config-json`` (``kernel_compute_dtype``, ``mirror_dtype``), as in
-the reference.
+``cuda``; without CUDA the run fails rather than carry on on the CPU).
+``--backend`` picks gibbs, cvb0, svi, smc or warp, and ``--chains N`` runs N
+blocked Gibbs chains with R̂ in the metrics rows.  ``--mesh`` with the
+blocked sampler exits with code 2, naming it: the parallel runtimes are not
+ported (the serial oracle ignores ``--chains`` and ``--mesh``, as in the
+reference).  ``--checkpoint-dir``/``--checkpoint-every``/``--resume`` save
+and restore the whole run (``lda_io/checkpoint.py``), and ``--infer-docs``
+folds unseen documents into the trained model (``lda_io/infer.py``), with
+the reference's messages and exit codes, including its refusals:
+checkpoints and resume for a backend without them (smc, warp, several
+chains) and ``--check-counts`` for one without integer count tables.  K1's
+chain and the deferred snapshot's type come in through ``--config-json``
+(``kernel_compute_dtype``, ``mirror_dtype``), as in the reference.
 
 Usage:
     python -m ldagibbssampling_tpu_torch.cli --docs data/LdaOriginalDocs \\
@@ -95,31 +98,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="after training, fold-in unseen documents from this "
                          "directory (trained vocabulary; new words dropped) and "
                          "write inferred.theta/.tassign to --results")
-    # the reference CLI's flags for paths not ported yet (the blocked
-    # sampler's --chains and --mesh, backends other than gibbs): accepted so
-    # the error can name them, and refused in main()
-    ap.add_argument("--chains", type=int, default=None)
-    ap.add_argument("--backend", choices=["gibbs", "cvb0", "svi", "smc", "warp"], default=None)
+    ap.add_argument("--chains", type=int, default=None,
+                    help="independent blocked-Gibbs chains (R-hat in the "
+                         "metrics rows; artifacts from chain 0)")
+    ap.add_argument("--backend", choices=["gibbs", "cvb0", "svi", "smc", "warp"],
+                    default=None, help="inference backend (default gibbs)")
+    # the blocked sampler's --mesh is not ported: accepted so the error can
+    # name it, and refused in main()
     ap.add_argument("--mesh", default=None)
     return ap
 
 
 _OVERRIDE_FIELDS = (
     "alpha", "beta", "topic_num", "iteration", "save_step", "begin_save_iters",
-    "seed", "chains", "sampler", "block_size", "draw_method",
+    "seed", "chains", "sampler", "backend", "block_size", "draw_method",
 )
 
 
 def unsupported_flags(args: argparse.Namespace, sampler: str = "blocked") -> list[str]:
     """The given flags whose paths the port does not have yet, for the
-    ``sampler`` that runs (the serial oracle ignores chains and meshes)."""
-    blocked = sampler == "blocked"
-    checks = [
-        ("--chains", blocked and args.chains not in (None, 1)),
-        ("--backend", args.backend not in (None, "gibbs")),
-        ("--mesh", blocked and bool(args.mesh)),
-    ]
-    return [flag for flag, given in checks if given]
+    ``sampler`` that runs (the serial oracle ignores meshes)."""
+    return ["--mesh"] if sampler == "blocked" and args.mesh else []
 
 
 def _file_config(args: argparse.Namespace) -> LdaConfig:
@@ -198,9 +197,19 @@ def main(argv=None) -> int:
     print("1 Initialize the model ...")
     model = make_backend(cfg, corpus, device=args.device)
 
+    if args.checkpoint_every > 0 and not hasattr(model, "save_checkpoint"):
+        print(f"error: backend {cfg.backend!r} does not support "
+              "checkpointing (smc/warp are documented non-goals)",
+              file=sys.stderr)
+        return 2
+
     if args.resume:
         if not args.checkpoint_dir:
             print("error: --resume requires --checkpoint-dir", file=sys.stderr)
+            return 2
+        if not hasattr(model, "restore_checkpoint"):
+            print(f"error: backend {cfg.backend!r} does not support resume",
+                  file=sys.stderr)
             return 2
         from ldagibbssampling_tpu_torch.lda_io.checkpoint import latest_step
 
@@ -236,7 +245,13 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
 
     if args.check_counts:
-        model.check_counts_consistent()
+        checker = getattr(model, "check_counts_consistent", None)
+        if checker is None:
+            print(f"error: backend {cfg.backend!r} has no count tables to "
+                  "check (--check-counts is for the gibbs runtimes)",
+                  file=sys.stderr)
+            return 2
+        checker()
         print("count tables bitwise-consistent with a serial recount of z")
 
     print("3 Output the final model ...")
@@ -253,8 +268,9 @@ def main(argv=None) -> int:
         from ldagibbssampling_tpu_torch.lda_io.infer import infer_new_docs
 
         term_to_index = {t: i for i, t in enumerate(corpus.vocab)}
+        alpha_live = float(getattr(model, "alpha", cfg.alpha))
         summary = infer_new_docs(
-            model.phi(), infer_dir, term_to_index, float(model.alpha), out_dir,
+            model.phi(), infer_dir, term_to_index, alpha_live, out_dir,
             seed=cfg.seed,
         )
         print(f"Inferred {summary['num_docs']} new docs "

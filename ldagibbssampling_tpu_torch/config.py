@@ -84,18 +84,13 @@ class LdaConfig:
     def _check_ported(self) -> None:
         """Raise for settings whose code paths the port does not have yet.
 
-        The port runs single-chain collapsed Gibbs: blocked in the four
-        kernel tiers, or serial through the host oracle, which ignores
-        ``chains`` and ``mesh`` as the reference's does.  Every other
-        setting raises, naming the ROADMAP.md item that ports it; nothing
-        falls back to another path.
+        The port runs every backend on a single device: the Gibbs tiers,
+        several chains (``chains > 1``), CVB0, SVI, SMC and WarpLDA; the
+        serial oracle ignores ``chains`` and ``mesh`` as the reference's
+        does.  A mesh with the blocked sampler raises, naming the ROADMAP.md
+        item that ports it; nothing falls back to another path.
         """
         missing = []
-        if self.backend != "gibbs":
-            missing.append(
-                f"backend={self.backend!r} (ROADMAP Queue 1 item 13)")
-        if self.sampler == "blocked" and self.chains > 1:
-            missing.append(f"chains={self.chains} (ROADMAP Queue 1 item 12)")
         if self.sampler == "blocked" and self.mesh:
             missing.append(f"mesh={self.mesh!r} (ROADMAP Queue 1 item 14)")
         if self.pallas_interpret:

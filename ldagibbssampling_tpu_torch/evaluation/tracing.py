@@ -58,10 +58,11 @@ def kernel_device_ms(fn, name: str, reps: int = 20) -> Optional[float]:
 
 def block_on_backend(backend) -> None:
     """Wait until the backend's device work is done (CUDA runs async: a timed
-    ``sweep(chunk)`` without this measures the enqueue, not the compute)."""
-    state = getattr(backend, "state", None)
-    if state is not None and state.z.device.type == "cuda":
-        torch.cuda.synchronize(state.z.device)
+    ``sweep(chunk)`` without this measures the enqueue, not the compute).
+    Every backend of the port names its ``device``."""
+    dev = getattr(backend, "device", None)
+    if dev is not None and torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 class SweepTimer:

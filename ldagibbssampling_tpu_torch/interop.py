@@ -1,7 +1,10 @@
-"""Carry sampler state between the JAX package and the port, as numpy arrays.
+"""Carry state between the JAX package and the port, as numpy arrays.
 
-Tests use it so that both packages start from the same chain state: the
-port cannot reproduce the reference's threefry initial draw.
+Tests use it so that both packages start from the same state: the port
+cannot reproduce the reference's threefry draws.  Forms: one Gibbs chain
+(``from_jax_state``), the stacked states of several chains, CVB0's
+``(gamma, ndk, nwk, nk)``, SVI's λ and γ cache, and SMC's
+``(ndk, nwk, nk, z, logw)``.
 """
 
 from __future__ import annotations
@@ -30,4 +33,44 @@ def to_numpy(state: SamplerState) -> dict[str, np.ndarray]:
     out = {name: getattr(state, name).cpu().numpy()
            for name in ("z", "ndk", "nwk", "nk")}
     out["sweep"] = np.int32(state.sweep)
+    return out
+
+
+def _tensor(x: Any, dtype: torch.dtype, device: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+
+
+def from_jax_chain_states(arrays: Mapping[str, Any], device: Any = "cpu",
+                          seeds: Any = None) -> list[SamplerState]:
+    """Per-chain ``SamplerState``s from the reference ``ChainSet``'s stacked
+    states (``z/ndk/nwk/nk/sweep`` with a leading chain axis); ``seeds[c]``
+    is chain ``c``'s seed (default ``c``)."""
+    num_chains = np.asarray(arrays["z"]).shape[0]
+    sweeps = np.broadcast_to(np.asarray(arrays["sweep"]), (num_chains,))
+    seeds = range(num_chains) if seeds is None else seeds
+    return [from_jax_state({**{n: np.asarray(arrays[n])[c]
+                               for n in ("z", "ndk", "nwk", "nk")},
+                            "sweep": sweeps[c]}, device, seed)
+            for c, seed in zip(range(num_chains), seeds)]
+
+
+def from_jax_cvb0(arrays: Mapping[str, Any], device: Any = "cpu") -> dict:
+    """CVB0's ``gamma/ndk/nwk/nk`` (float32) from the reference's."""
+    return {n: _tensor(arrays[n], torch.float32, device)
+            for n in ("gamma", "ndk", "nwk", "nk")}
+
+
+def from_jax_svi(arrays: Mapping[str, Any], device: Any = "cpu"
+                 ) -> tuple[torch.Tensor, np.ndarray]:
+    """SVI's ``(lam, gamma_full)``: λ as a float32 tensor on ``device``,
+    the per-document γ cache as a float32 host array (where SVI keeps it)."""
+    return (_tensor(arrays["lam"], torch.float32, device),
+            np.array(arrays["gamma_full"], np.float32))
+
+
+def from_jax_smc(arrays: Mapping[str, Any], device: Any = "cpu") -> dict:
+    """SMC's ``ndk/nwk/nk/z`` (int32) and ``logw`` (float32)."""
+    out = {n: _tensor(arrays[n], torch.int32, device)
+           for n in ("ndk", "nwk", "nk", "z")}
+    out["logw"] = _tensor(arrays["logw"], torch.float32, device)
     return out

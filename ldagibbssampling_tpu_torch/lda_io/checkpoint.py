@@ -15,10 +15,15 @@ written under a temporary name and renamed into place, so a run killed
 mid-save never leaves a half-written checkpoint as the latest.  As with
 orbax, a save at a step not above the latest is skipped, and only the
 newest ``max_to_keep`` steps are kept.  Files are read back with
-``torch.load(weights_only=True)``: tensors, numbers and ``None`` only.
+``torch.load(weights_only=True)``: tensors, numbers, strings, ``None`` and
+lists and dicts of them only.
 
-The mesh and backend forms (reference ``:135-249``) come with the port's
-parallel runtimes and other backends (ROADMAP Queue 1 items 13, 14).
+The backend form (reference ``:200-249``), :func:`save_backend_run` and
+:func:`restore_backend_run`, keeps the CVB0 and SVI runs in the same
+layout: a dict of tensors (or numpy arrays) and a ``meta`` dict of plain
+Python values, such as SVI's numpy ``bit_generator.state``.  The mesh form
+(reference ``:135-197``) comes with the port's parallel runtimes (ROADMAP
+Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import shutil
 from pathlib import Path
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ldagibbssampling_tpu_torch.models.state import SamplerState
@@ -151,3 +157,45 @@ def restore_run(
     hyper = saved["hyper"]
     return (_state_like(saved["state"], like), float(hyper["alpha"]),
             float(hyper["beta"]), saved["generator"])
+
+
+def save_backend_run(
+    directory: str | Path,
+    arrays: dict,
+    meta: dict,
+    step: int,
+    *,
+    max_to_keep: int = 3,
+) -> int:
+    """Save a dict of tensors or numpy arrays plus a ``meta`` dict of plain
+    Python values (numbers, strings, lists, dicts, ``None``) at ``step``;
+    returns the step."""
+    payload = {
+        "arrays": {n: torch.as_tensor(a).detach().cpu().clone()
+                   for n, a in arrays.items()},
+        "meta": dict(meta),
+    }
+    return _save(directory, int(step), payload, max_to_keep)
+
+
+def restore_backend_run(
+    directory: str | Path,
+    like: dict,
+    step: Optional[int] = None,
+) -> tuple[dict, dict]:
+    """Restore ``(arrays, meta)`` saved by :func:`save_backend_run` (the
+    latest step unless ``step`` is given).  ``like`` gives each array's
+    shape and dtype: a tensor entry comes back as a tensor on that tensor's
+    device, a numpy entry as a numpy array."""
+    saved = _load(directory, step)
+    out = {}
+    for name, ref in like.items():
+        got = saved["arrays"][name]
+        ref_t = torch.as_tensor(ref)
+        if tuple(got.shape) != tuple(ref_t.shape) or got.dtype != ref_t.dtype:
+            raise ValueError(
+                f"checkpoint {name} is {got.dtype} {tuple(got.shape)}, the "
+                f"model's {ref_t.dtype} {tuple(ref_t.shape)}")
+        out[name] = (got.to(ref.device) if torch.is_tensor(ref)
+                     else np.asarray(got.numpy()))
+    return out, dict(saved["meta"])

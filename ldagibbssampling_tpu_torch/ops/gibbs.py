@@ -185,14 +185,19 @@ def _clone(state: SamplerState):
 
 def _scatter_counts(ndk, nwk, nk, w, d, msk, zold, znew) -> None:
     """The XLA tier's per-block scatter-adds (reference ops/gibbs.py:233-238),
-    as PyTorch ops: -1 at ``zold``, +1 at ``znew`` for the unmasked tokens."""
-    real = msk > 0
-    zo, zn = zold[real].long(), znew[real].long()
-    wr, dr = w[real].long(), d[real].long()
-    one = torch.ones_like(zo, dtype=ndk.dtype)
-    for table, idx in ((ndk, (dr,)), (nwk, (wr,)), (nk, ())):
-        table.index_put_((*idx, zo), -one, accumulate=True)
-        table.index_put_((*idx, zn), one, accumulate=True)
+    as PyTorch ops: -1 at ``zold``, +1 at ``znew`` for the unmasked tokens.
+    ``index_add_`` into the flat integer tables: integer sums are exact in
+    any order, so the atomic adds on CUDA give the same tables every time,
+    with no sort of the indices.  A masked token adds 0 rather than being
+    indexed out, so the scatter needs no host sync (a boolean index waits
+    for the device)."""
+    one = (msk > 0).to(ndk.dtype)
+    k = nk.shape[0]
+    zo, zn = zold.long(), znew.long()
+    for table, rows in ((ndk, d.long() * k), (nwk, w.long() * k), (nk, 0)):
+        flat = table.view(-1)
+        flat.index_add_(0, rows + zo, -one)
+        flat.index_add_(0, rows + zn, one)
 
 
 def gibbs_sweep(
@@ -249,7 +254,9 @@ def gibbs_sweep(
         gen = torch.Generator(device=dev).manual_seed(seed)
 
     def scalar(x):
-        return torch.tensor(float(x), dtype=prob_dtype, device=dev)
+        # a 0-d host tensor: a CUDA op reads it as a scalar, where a device
+        # tensor made from a host value would cost a blocking copy
+        return torch.tensor(float(x), dtype=prob_dtype)
 
     alpha_c, beta_c, vbeta_c, kalpha_c = map(
         scalar, (alpha32, beta32, vbeta32, kalpha32))

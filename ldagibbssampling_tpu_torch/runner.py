@@ -5,7 +5,9 @@ Counterpart of ``ldagibbssampling_tpu/runner.py``: the reference's
 :class:`InferenceBackend`, batching the sweeps between schedule boundaries
 into one ``backend.sweep(chunk)`` call, with the reference's Minka (α, β)
 updates (``optimize_hyper_every``), training log-likelihood rows
-(``ll_every``) and checkpoints (``checkpoint_every``).
+(``ll_every``), the multi-chain R̂ rows and checkpoints
+(``checkpoint_every``).  Backends without per-token assignments (SVI) get
+MAP assignments from (φ, θ) for the ``.tassign`` artifact.
 """
 
 from __future__ import annotations
@@ -23,6 +25,19 @@ from ldagibbssampling_tpu_torch.evaluation.tracing import (
 from ldagibbssampling_tpu_torch.lda_io.artifacts import save_iterated_model
 
 
+def map_assignments(phi: np.ndarray, theta: np.ndarray, corpus: FlatCorpus) -> np.ndarray:
+    """MAP topic per token: argmax_k φ[k, w_t]·θ[d_t, k]."""
+    scores = theta[corpus.token_doc] * phi[:, corpus.token_word].T  # [T, K]
+    return scores.argmax(axis=1).astype(np.int32)
+
+
+def _assignments(backend: InferenceBackend, corpus: FlatCorpus) -> np.ndarray:
+    z_fn = getattr(backend, "z", None)
+    if callable(z_fn):
+        return np.asarray(z_fn())
+    return map_assignments(backend.phi(), backend.theta(), corpus)
+
+
 def save_backend_model(
     backend: InferenceBackend,
     iteration: int,
@@ -31,8 +46,8 @@ def save_backend_model(
     config: LdaConfig,
 ):
     return save_iterated_model(
-        result_dir, iteration, backend.phi(), backend.theta(), backend.z(),
-        corpus, config,
+        result_dir, iteration, backend.phi(), backend.theta(),
+        _assignments(backend, corpus), corpus, config,
     )
 
 
@@ -58,7 +73,10 @@ def run_inference(
     after every N-th sweep.  ``ll_every`` adds ``log_likelihood`` and
     ``perplexity`` to the metrics row after every N-th sweep (the backend's
     ``device_log_likelihood``, else the host ``evaluation/metrics``); rows
-    carry the live ``alpha`` and ``beta``.  ``checkpoint_dir`` +
+    carry the live ``alpha`` and ``beta``, and for a multi-chain backend
+    ``r_hat`` (the split-R̂ of the chains' LL traces, left out while NaN)
+    and, on the LL cadence, ``r_hat_phi_p99`` (the topic-aligned R̂ on φ).
+    ``checkpoint_dir`` +
     ``checkpoint_every`` save the backend's checkpoint after every N-th
     sweep (after that sweep's hyperparameter update); the loop starts at the
     backend's ``sweeps_done``, so a restored backend resumes mid-schedule.
@@ -135,6 +153,18 @@ def run_inference(
                 value = getattr(backend, name, None)
                 if value is not None:
                     scalars[name] = value
+            r_hat_fn = getattr(backend, "r_hat", None)
+            if callable(r_hat_fn):
+                rh = r_hat_fn()
+                if rh == rh:  # NaN until 4 sweeps are recorded
+                    scalars["r_hat"] = rh
+            if ll_every > 0 and (i_last + 1) % ll_every == 0:
+                # the O(C·K·V) φ summary, on the LL cadence only
+                rhp_fn = getattr(backend, "r_hat_phi", None)
+                if callable(rhp_fn):
+                    p99 = rhp_fn().get("p99", float("nan"))
+                    if p99 == p99:
+                        scalars["r_hat_phi_p99"] = p99
             metrics.log(i_last, **scalars)
         if progress is not None:
             for j in range(i, i_last + 1):  # keep per-iteration stdout parity

@@ -567,3 +567,75 @@ def test_count_move_shapes_equal_plain(cuda, k, n):
                                    ("nwk", "ndk", "nk"), "alias")
     assert all(torch.equal(t[name], tp[name]) for name in t)
     assert torch.equal(z, zp)
+
+
+# --- the modules of the chains, the other backends and the stream on the card
+
+
+def _small_corpus(seed=0, docs=40, vocab=60):
+    rng = np.random.default_rng(seed)
+    ragged = [[int(x) for x in rng.integers(0, vocab, size=int(rng.integers(10, 60)))]
+              for _ in range(docs)]
+    return FlatCorpus.from_ragged(ragged, vocab_size=vocab)
+
+
+def test_prefetch_on_card_keeps_order_and_values(cuda):
+    from ldagibbssampling_tpu_torch.data.stream import prefetch_to_device
+
+    batches = [np.full((4, 1000), i, np.float32) for i in range(9)]
+    out = [x.clone() for x in prefetch_to_device(iter(batches), depth=3,
+                                                 device=cuda)]
+    assert [x.device.type for x in out] == ["cuda"] * 9
+    for i, x in enumerate(out):
+        assert torch.equal(x.cpu(), torch.from_numpy(batches[i]))
+
+
+def test_chains_unrecorded_sweeps_make_no_host_sync(cuda):
+    from ldagibbssampling_tpu_torch.models.chains import ChainSet
+
+    cs = ChainSet(LdaConfig(topic_num=5, block_size=256, chains=3), _small_corpus(),
+                  device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cs.sweep(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cs.check_counts_consistent()
+
+
+def test_cvb0_on_card_repeats_bitwise(cuda):
+    from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model
+
+    cfg = LdaConfig(topic_num=6, backend="cvb0", block_size=128, seed=2)
+    a, b = (Cvb0Model(cfg, _small_corpus(), device=cuda) for _ in range(2))
+    a.sweep(3)
+    b.sweep(1)
+    b.sweep(2)
+    for name in ("gamma", "ndk", "nwk", "nk"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    a.check_invariants()
+
+
+@pytest.mark.parametrize("backend", ["cvb0", "svi", "smc", "warp"])
+def test_backends_on_card_sweep_and_resume_where_they_checkpoint(cuda, backend,
+                                                                  tmp_path):
+    from ldagibbssampling_tpu_torch.backends import make_backend
+
+    fc = _small_corpus(seed=3)
+    cfg = LdaConfig(topic_num=4, backend=backend, block_size=128, seed=1)
+    ref = make_backend(cfg, fc, device=cuda)
+    ref.sweep(3)
+    phi = ref.phi()
+    assert phi.shape == (4, 60) and np.isfinite(phi).all()
+    np.testing.assert_allclose(phi.sum(axis=1), 1.0, rtol=1e-4)
+    if not hasattr(ref, "save_checkpoint"):
+        return
+    a = make_backend(cfg, fc, device=cuda)
+    a.sweep(1)
+    a.save_checkpoint(tmp_path)
+    b = make_backend(cfg, fc, device=cuda)
+    assert b.restore_checkpoint(tmp_path) == 1
+    b.sweep(2)
+    np.testing.assert_array_equal(b.phi(), phi)
+    np.testing.assert_array_equal(b.theta(), ref.theta())

@@ -132,10 +132,10 @@ def test_cli_runs_end_to_end_on_cpu(tmp_path, capsys):
     (["--resume"], "--resume"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, monkeypatch, capsys, flags, name):
-    """``--backend`` and the blocked sampler's ``--chains``/``--mesh`` are
-    refused (exit 2, naming the flag); the checkpoint, resume and fold-in
-    flags run, and ``--resume`` without ``--checkpoint-dir`` exits 2 with
-    the reference's message."""
+    """The blocked sampler's ``--mesh`` is refused (exit 2, naming the
+    flag); ``--backend``, ``--chains``, the checkpoint and fold-in flags
+    run, and ``--resume`` without ``--checkpoint-dir`` exits 2 with the
+    reference's message."""
     monkeypatch.chdir(tmp_path)  # --no-save writes inferred.* here
     docs = write_minicorpus(tmp_path / "docs", num_docs=6)
     if name == "--infer-docs":
@@ -146,7 +146,7 @@ def test_cli_refuses_unported_flags(tmp_path, monkeypatch, capsys, flags, name):
         base += ["--checkpoint-dir", str(tmp_path / "ck")]
     rc = cli.main([*base, *flags])
     out, err = capsys.readouterr()
-    if name in ("--backend", "--chains", "--mesh"):
+    if name == "--mesh":
         assert rc == 2
         assert name in err
     elif name == "--resume":
@@ -156,6 +156,8 @@ def test_cli_refuses_unported_flags(tmp_path, monkeypatch, capsys, flags, name):
         assert rc == 0, err
         if name == "--checkpoint-every":
             assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["5"]
+        elif name in ("--backend", "--chains"):
+            assert "Done: 5 sweeps" in out
         else:
             assert "Inferred 6 new docs" in out
             assert (tmp_path / "inferred.theta").stat().st_size > 0
@@ -184,17 +186,26 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("backend", "svi"), ("chains", 2), ("mesh", {"data": 2}),
-    ("backend", "cvb0"), ("backend", "warp"),
+    ("backend", "cvb0"), ("backend", "warp"), ("backend", "smc"),
 ])
 def test_config_rejects_unported_paths(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LdaConfig(**{field: value})
-    if field in ("chains", "mesh"):
-        # the blocked sampler names its item; the serial oracle ignores
-        # both, as the reference's make_backend does, and trains its chain
-        item = {"chains": "item 12", "mesh": "item 14"}[field]
-        with pytest.raises(NotImplementedError, match=item):
+    """The config accepts the paths the port has and rejects the one it
+    does not: a blocked sampler's mesh names its item.  Each accepted path
+    builds through ``make_backend`` on the CPU and sweeps twice; the serial
+    oracle ignores a mesh or chains, as the reference's ``make_backend``."""
+    if field == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+            LdaConfig(**{field: value})
+        with pytest.raises(NotImplementedError, match="item 14"):
             LdaConfig(sampler="blocked", **{field: value})
+    else:
+        cfg = LdaConfig(topic_num=4, block_size=128, **{field: value})
+        model = make_backend(cfg, _corpus(docs=6), device="cpu")
+        model.sweep(2)
+        assert model.sweeps_done == 2
+        phi = model.phi()
+        assert phi.shape == (4, 50) and np.isfinite(phi).all()
+    if field in ("chains", "mesh"):
         cfg = LdaConfig(sampler="serial", topic_num=4, **{field: value})
         model = make_backend(cfg, _corpus(docs=3), device="cpu")
         assert model.kernel_tier == "serial-oracle"
