@@ -111,8 +111,22 @@ success:
    and ``--backend cvb0 --check-counts`` exit 2 with the reference's words;
    ``--chains 4 --metrics-file`` writes rows with ``r_hat``;
 11. ladder: ``python -m ldagibbssampling_tpu_torch.benchmarks.ladder
-   --rungs 1,2,4,5 --scale 0.01`` as a subprocess: exit 0, no gate
-   failure, each rung's dict printed.
+   --rungs 1,2,3,4,5 --scale 0.01`` as a subprocess (rung 3 floored at 2^24
+   training tokens on the card): exit 0, no gate failure, each rung's dict
+   printed;
+12. mesh: the parallel runtimes (``parallel/``), each in the deferred tier
+   with its kernels' launches counted exactly, every table an exact
+   recount: rung 3 through ``ladder.rung3`` at scale 0.2 (V = 100,000,
+   K = 100, 60,000 NYT-shaped documents, ~17.1M training tokens, block
+   65,536, on every position: one here; two warm-up sweeps and 10 timed;
+   tokens/s, set-up seconds); the same corpus as four shards on the one
+   card (5 timed sweeps, ``psum``'s time per sweep by CUDA events, one
+   sweep under CUDA's sync debug mode set to error); the four shards saved,
+   run 3 sweeps on, restored and run the same 3 (bitwise); the 2x2 grid,
+   token=4 and chain=2,data=2 at rung 3's 0.02 on four positions of the
+   card (3 sweeps each, one sharded Minka update, one LL); the CLI with
+   ``--mesh data=-1`` killed at 30 and resumed to 60 (the ten artifacts
+   byte-identical).  The NCCL path (several processes) is not run here.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -199,6 +213,11 @@ BENCH_RUNS = (("deferred", 100), ("fused", 100), ("1", 100), ("0", 20))
 # scale 0.01 (820 documents, V = 1,000): its absorb is one token at a time.
 # (backend, untimed warm-up sweeps, timed sweeps, scale): the warm-up takes
 # the first sweep's allocations out of the timed ones
+# the mesh phase: rung 3 at a scale whose vocabulary is the rung's full
+# V = 100,000 (60,000 documents, ~17.1M training tokens), the four-shard run
+# on its corpus, and the grid, token and chain meshes at rung 3's 0.02
+MESH_SCALE, MESH_SMALL_SCALE = 0.2, 0.02
+MESH_SWEEPS, MESH_FOUR_SWEEPS, MESH_SMALL_SWEEPS = 10, 5, 3
 MULTICHAIN_SCALE, MULTICHAIN_SWEEPS = 0.2, 20
 BACKEND_RUNS = (("gibbs", 1, 4, 0.2), ("cvb0", 1, 4, 0.2), ("svi", 0, 2, 0.2),
                 ("warp", 1, 4, 0.2), ("smc", 0, 1, 0.01))
@@ -1704,25 +1723,272 @@ def backends_resume_phase() -> None:
 
 
 def ladder_phase(tmp_root: str) -> list:
-    """Phase 11: the ladder (rungs 1, 2, 4, 5 at scale 0.01) as a
-    subprocess; exit 0 and no gate failure; returns the rungs' dicts."""
+    """Phase 11: the ladder (rungs 1 to 5 at scale 0.01; rung 3 floored at
+    2^24 training tokens on the card) as a subprocess; exit 0 and no gate
+    failure; returns the rungs' dicts."""
     out = Path(tmp_root) / "ladder.json"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", f"{PKG}.benchmarks.ladder", "--rungs", "1,2,4,5",
+        [sys.executable, "-m", f"{PKG}.benchmarks.ladder", "--rungs", "1,2,3,4,5",
          "--scale", str(LADDER_SCALE), "--out", str(out)],
         cwd=REPO, capture_output=True, text=True, timeout=900,
         env={**os.environ, "PYTHONPATH": str(REPO)})
     if proc.returncode != 0:
         raise AssertionError(f"ladder exit {proc.returncode}:\n{proc.stderr[-3000:]}")
     report = json.loads(out.read_text())
-    if report["gate_failures"] or [r["rung"] for r in report["rungs"]] != [1, 2, 4, 5]:
+    if report["gate_failures"] or [r["rung"] for r in report["rungs"]] != [1, 2, 3, 4, 5]:
         raise AssertionError(f"ladder: {report['gate_failures']}")
     for r in report["rungs"]:
         log(f"[ladder] {json.dumps(r)}")
-    log(f"[ladder] rungs 1, 2, 4, 5 at scale {LADDER_SCALE}: no gate failure "
+    log(f"[ladder] rungs 1-5 at scale {LADDER_SCALE}: no gate failure "
         f"({time.perf_counter() - t0:.1f}s with start-up)")
     return report["rungs"]
+
+
+def _psum_timer():
+    """Wrap ``multihost.psum`` with CUDA events; returns the list of each
+    call's milliseconds and a function that restores the plain ``psum``."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    plain, times = multihost.psum, []
+
+    def timed(parts, mesh, axis):
+        if not torch.cuda.is_available():  # a rehearsal on the CPU
+            t0 = time.perf_counter()
+            out = plain(parts, mesh, axis)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = plain(parts, mesh, axis)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        return out
+
+    multihost.psum = timed
+
+    def restore():
+        multihost.psum = plain
+    return times, restore
+
+
+def _mesh_launches(label: str, expect: dict) -> dict:
+    """The run's kernel launches: each of ``expect`` exactly, no other
+    kernel, no plain version."""
+    launches, plain = read_counters()
+    got = {n: c for n, c in launches.items() if c}
+    if got != expect or any(plain.values()):
+        raise AssertionError(f"[mesh {label}] launches {got}, want {expect}; "
+                             f"plain {plain}")
+    return got
+
+
+def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 12: the parallel runtimes (``parallel/``) on the card.
+
+    Rung 3 through ``ladder.rung3`` at scale 0.2 on every position (one
+    here); the same corpus as four shards on the one card; the 2x2 grid,
+    four-way token sharding and the 2x2 chains x data mesh at rung 3's 0.02;
+    every run in the deferred tier with exact counts and its launches
+    counted; a four-shard checkpoint restored bitwise; the CLI with
+    ``--mesh data=-1`` killed and resumed byte-identical.  Returns the
+    results and each path's launches by kernel."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch.benchmarks import ladder
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation.tracing import block_on_backend
+    from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
+    from ldagibbssampling_tpu_torch.parallel import multihost
+    from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda
+    from ldagibbssampling_tpu_torch.parallel.chaingrid import ShardedChainSet
+    from ldagibbssampling_tpu_torch.parallel.grid import GridLda
+    from ldagibbssampling_tpu_torch.parallel.tokenshard import TokenShardedLda
+
+    walk = sample_name(torch.bfloat16, "float32")
+    out, by_path = {}, {}
+    pos0 = multihost.local_devices(device)[0]
+    n_dev = len(multihost.local_devices(device))
+    zero_counters()
+    t0 = time.perf_counter()
+    r3 = ladder.rung3(MESH_SCALE, sweeps=MESH_SWEEPS, device=device)
+    wall = time.perf_counter() - t0
+    runs = MESH_SWEEPS + 2
+    by_path["mesh rung3"] = _mesh_launches("rung3", {
+        walk: runs * r3["shards"], "rebuild_counts": runs * r3["shards"],
+        "cast_mirror": runs})
+    if r3["kernel_tier"] != "deferred" or (pos0.type == "cuda"
+                                           and r3["tokens"] < (1 << 24)):
+        raise AssertionError(f"[mesh rung3] {r3}")
+    out["rung3"] = r3
+    log(f"[mesh rung3] scale {MESH_SCALE}: {r3['corpus']}, K 100, "
+        f"{r3['tokens']} training tokens (>= 2^24), {r3['shards']} shard(s) on "
+        f"{n_dev} device(s), tier {r3['kernel_tier']}: {r3['tokens_per_s']:,.0f} "
+        f"tokens/s over {MESH_SWEEPS} sweeps; set-up: corpus {r3['corpus_s']:.1f}s, "
+        f"sharding + layout + state {r3['setup_s']:.1f}s, two warm-up sweeps "
+        f"{r3['warmup_s']:.2f}s; check_counts_consistent passed; held-out "
+        f"perplexity {r3['held_out_ppl']:.1f}; launches {by_path['mesh rung3']} "
+        f"({wall:.1f}s)")
+
+    # the same corpus as four shards on one card, in turn
+    corpus, _, _, _ = ladder.rung3_corpus(MESH_SCALE, floor=pos0.type == "cuda")
+    cfg = LdaConfig(topic_num=100, seed=seed, block_size=65_536)
+    mesh4 = multihost.make_mesh({"data": 4}, [pos0] * 4)
+    t0 = time.perf_counter()
+    four = ShardedLda(cfg, corpus, mesh=mesh4, device=device)
+    block_on_backend(four)
+    setup_s = time.perf_counter() - t0
+    four.sweep(1)
+    block_on_backend(four)
+    if pos0.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")  # a sweep makes no host sync
+    try:
+        four.sweep(1)
+    finally:
+        if pos0.type == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+    block_on_backend(four)
+    zero_counters()
+    times, restore = _psum_timer()
+    try:
+        t0 = time.perf_counter()
+        four.sweep(MESH_FOUR_SWEEPS)
+        block_on_backend(four)
+        dt = time.perf_counter() - t0
+    finally:
+        restore()
+    by_path["mesh four shards"] = _mesh_launches("four shards", {
+        walk: 4 * MESH_FOUR_SWEEPS, "rebuild_counts": 4 * MESH_FOUR_SWEEPS,
+        "cast_mirror": MESH_FOUR_SWEEPS})
+    four.check_counts_consistent()
+    psum_ms = sum(times) / MESH_FOUR_SWEEPS
+    tok_s = MESH_FOUR_SWEEPS * corpus.num_tokens / dt
+    out["four_shards"] = dict(tokens=corpus.num_tokens, tokens_per_s=tok_s,
+                              ms_per_sweep=dt / MESH_FOUR_SWEEPS * 1e3,
+                              psum_ms_per_sweep=psum_ms, setup_s=setup_s,
+                              kernel_tier=four.kernel_tier)
+    log(f"[mesh four shards] the rung-3 corpus as 4 shards on {pos0} "
+        f"({four.kernel_tier}): {tok_s:,.0f} tokens/s ({dt / MESH_FOUR_SWEEPS * 1e3:.2f}"
+        f" ms per sweep), psum {psum_ms:.3f} ms per sweep (CUDA events, "
+        f"{len(times) // MESH_FOUR_SWEEPS} call(s) per sweep); set-up "
+        f"{setup_s:.1f}s; counts exact; no host sync in a sweep; launches "
+        f"{by_path['mesh four shards']}")
+
+    # the four shards saved, run 3 sweeps on; restored, run the same 3
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        step = four.save_checkpoint(tmp)
+        four.sweep(3)
+        b = ShardedLda(cfg, corpus, mesh=mesh4, device=device)
+        if b.restore_checkpoint(tmp) != step:
+            raise AssertionError("[mesh checkpoint] restored another step")
+        b.sweep(3)
+        xa, xb = four.arrays(), b.arrays()
+        differ = [n for n in ("z", "ndk", "nwk", "nk")
+                  if not np.array_equal(xa[n], xb[n])]
+        if differ:
+            raise AssertionError(f"[mesh checkpoint] restored run differs: {differ}")
+        log(f"[mesh checkpoint] four shards saved at sweep {step} and run to "
+            f"{step + 3}, restored and run to {step + 3}: z and every table "
+            f"bitwise equal ({time.perf_counter() - t0:.1f}s)")
+    del four, b, corpus
+    if pos0.type == "cuda":
+        torch.cuda.empty_cache()
+
+    small, _, _, _ = ladder.rung3_corpus(MESH_SMALL_SCALE)
+    for label, build, per_sweep in (
+            ("grid 2x2", lambda: GridLda(cfg, small, mesh=multihost.make_mesh(
+                {"data": 2, "vocab": 2}, [pos0] * 4), device=device), 2),
+            ("token=4", lambda: TokenShardedLda(cfg, small, mesh=multihost.make_mesh(
+                {"data": 4}, [pos0] * 4), device=device), 1),
+            ("chain=2,data=2", lambda: ShardedChainSet(
+                cfg, small, num_chains=2, mesh=multihost.make_mesh(
+                    {"chain": 2, "data": 2}, [pos0] * 4), device=device), 2)):
+        model = build()
+        if model.kernel_tier != "deferred":
+            raise AssertionError(f"[mesh {label}] tier {model.kernel_tier}")
+        zero_counters()
+        t0 = time.perf_counter()
+        model.sweep(MESH_SMALL_SWEEPS)
+        block_on_backend(model)
+        dt = time.perf_counter() - t0
+        by_path[f"mesh {label}"] = _mesh_launches(label, {
+            walk: 4 * MESH_SMALL_SWEEPS, "rebuild_counts": 4 * MESH_SMALL_SWEEPS,
+            "cast_mirror": per_sweep * MESH_SMALL_SWEEPS})
+        model.check_counts_consistent()
+        t1 = time.perf_counter()
+        alpha, beta = model.optimize_hyperparameters()
+        minka_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if label.startswith("chain"):
+            model.record(ll=True)  # no device LL on the chain mesh
+            ll = float(np.mean(model.ll_trace[-1]) * small.num_tokens)
+        else:
+            ll = model.device_log_likelihood()
+        ll_s = time.perf_counter() - t1
+        if not (np.isfinite(ll) and np.isfinite(alpha) and np.isfinite(beta)):
+            raise AssertionError(f"[mesh {label}] LL {ll}, alpha {alpha}, beta {beta}")
+        chains = getattr(model, "num_chains", 1)
+        tok_s = MESH_SMALL_SWEEPS * chains * small.num_tokens / dt
+        out[label] = dict(tokens=small.num_tokens, tokens_per_s=tok_s, ll=ll,
+                          ll_s=ll_s, alpha=alpha, beta=beta, minka_s=minka_s)
+        log(f"[mesh {label}] scale {MESH_SMALL_SCALE} ({small.num_tokens} tokens, "
+            f"V {small.vocab_size}, K 100) on 4 positions of {pos0}, deferred: "
+            f"{tok_s:,.0f} tokens/s over {MESH_SMALL_SWEEPS} sweeps "
+            f"(chain-sweeps for the chains); counts exact"
+            f"{' per chain' if label.startswith('chain') else ''}; Minka alpha "
+            f"{alpha:.4f} beta {beta:.5f} ({minka_s * 1e3:.1f} ms); LL {ll:.1f} "
+            f"({ll_s * 1e3:.1f} ms{', host, both chains' if label.startswith('chain') else ', device'}); "
+            f"launches {by_path[f'mesh {label}']}")
+        del model
+        if pos0.type == "cuda":
+            torch.cuda.empty_cache()
+
+    mesh_resume_phase(["--device", device])
+    return out, by_path
+
+
+def mesh_resume_phase(device_flags=()) -> None:
+    """The CLI with ``--mesh data=-1`` (every position: one shard per card)
+    killed at sweep 30 and resumed to 60 writes the uninterrupted run's
+    artifacts byte for byte."""
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--docs", "docs", "-k", "10", "--save-step", "10",
+                  "--begin-save-iters", "50", "--seed", "3", "--mesh", "data=-1",
+                  "--block-size", "256", "--check-counts", *device_flags]
+        run_cli(["--generate-minicorpus", *common, "--no-save", "--iterations",
+                 "1"], tmp)
+        t0 = time.perf_counter()
+        run_cli([*common, "--results", "full", "--iterations", "60",
+                 "--metrics-file", "m.jsonl", "--metrics-every", "0"], tmp)
+        header = json.loads(Path(tmp, "m.jsonl").read_text().splitlines()[0])
+        if header["kernel_tier"] != "deferred":
+            raise AssertionError(f"[mesh resume] ran {header['kernel_tier']}")
+        run_cli([*common, "--no-save", "--iterations", "30", "--checkpoint-dir",
+                 "ck", "--checkpoint-every", "10"], tmp)
+        out = run_cli([*common, "--results", "resumed", "--iterations", "60",
+                       "--checkpoint-dir", "ck", "--checkpoint-every", "10",
+                       "--resume"], tmp)
+        if "Resumed from sweep 30" not in out:
+            raise AssertionError(f"[mesh resume] {out[-2000:]}")
+        want = sorted(f"lda_{i}.{e}" for i in (50, 60)
+                      for e in ("params", "phi", "theta", "tassign", "twords"))
+        full = sorted(p.name for p in Path(tmp, "full").iterdir())
+        resumed = sorted(p.name for p in Path(tmp, "resumed").iterdir())
+        if not full == resumed == want:
+            raise AssertionError(f"[mesh resume] {full} / {resumed}")
+        differ = [n for n in want if Path(tmp, "full", n).read_bytes()
+                  != Path(tmp, "resumed", n).read_bytes()]
+        if differ:
+            raise AssertionError(f"[mesh resume] artifacts differ: {differ}")
+        log(f"[mesh resume] CLI --mesh data=-1 (deferred, block 256, "
+            f"--check-counts): 60 sweeps straight, and 30 + resume from sweep 30 "
+            f"to 60: the ten artifacts byte-identical "
+            f"({time.perf_counter() - t0:.1f}s)")
 
 
 def main() -> int:
@@ -1809,6 +2075,7 @@ def main() -> int:
     backends_resume_phase()                                 # 10.
     with tempfile.TemporaryDirectory() as tmp:
         ladder = ladder_phase(tmp)                          # 11.
+    mesh, mesh_launches = mesh_phase(args.seed)             # 12.
 
     src = f"{PKG}/csrc"
     k1 = "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"
@@ -1832,6 +2099,9 @@ def main() -> int:
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
         if kname in gibbs_launches:  # phase 9's Gibbs row (deferred tier)
             by_path["backends gibbs"] = gibbs_launches[kname]
+        for path, counts in mesh_launches.items():  # phase 12
+            if kname in counts:
+                by_path[path] = counts[kname]
         if kname.startswith("dtype_probe"):  # launched by the probe's entry point
             by_path = {"vpu_dtype_probe": k["launches"]}
         rows.append({
@@ -1856,7 +2126,7 @@ def main() -> int:
                           for r in rows_] for key, rows_ in quality.items()},
         "hyper": hyper, "heldout": heldout, "parity": parity,
         "bench": bench, "multichain": multichain, "backends": backends,
-        "ladder": ladder}), flush=True)
+        "ladder": ladder, "mesh": mesh}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

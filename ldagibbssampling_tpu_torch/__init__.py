@@ -9,7 +9,10 @@ the serial Java-fidelity oracle (``models/oracle.py``).  The kernels are
 hand-written CUDA (``csrc/``) built on first use: K1, the per-tile draw and
 count update (``ops/fused_kernel.py``), K2, the count rebuild
 (``ops/count_kernel.py``), and K3, the per-block draw
-(``ops/sample_kernel.py``).  Entry points run on ``cuda`` unless given
+(``ops/sample_kernel.py``).  The parallel runtimes (``parallel/``: AD-LDA,
+the document × vocabulary grid, token sharding, chains × data) run the
+same kernels per shard over a mesh of device positions, with
+``torch.distributed`` across processes.  Entry points run on ``cuda`` unless given
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 
 Public symbols are re-exported lazily (importing the root pulls in nothing).

@@ -11,17 +11,20 @@ real corpus size, and the report says so (``corpus: synthetic``).
   ``inverse_cdf``, float64, the oracle's own uniforms), which runs on the
   CPU as the reference's does: the contract is about semantics;
 - rung 2: 20NG-shaped Gibbs, tokens/s and held-out perplexity;
+- rung 3: NYT-shaped document-sharded AD-LDA (``parallel/adlda.ShardedLda``)
+  over every position of ``parallel/multihost.local_devices``, in the
+  deferred tier; on the card the trained corpus keeps at least 2^24 tokens,
+  as the reference's does on its accelerator;
 - rung 4: four chains (``models/chains.ChainSet``), split-R̂ on φ in
   doubling windows with a gate (p99 < 1.2), Minka's α and β;
 - rung 5: PubMed-shaped, the five backends side by side.
 
-Rung 3 (doc-sharded AD-LDA) waits for the port's ``parallel/`` (ROADMAP
-Queue 1 item 14): ``--rungs 3`` exits 2.  Each rung returns a JSON-able
-dict; ``main`` writes them to ``--out`` as they finish.
+Each rung returns a JSON-able dict; ``main`` writes them to ``--out`` as
+they finish.
 
 Usage::
 
-    python -m ldagibbssampling_tpu_torch.benchmarks.ladder --rungs 1,2,4,5 \\
+    python -m ldagibbssampling_tpu_torch.benchmarks.ladder --rungs 1,2,3,4,5 \\
         --scale 0.01 [--device cpu] [--out ladder_report_torch.json]
 """
 
@@ -40,10 +43,6 @@ from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.data.synthetic import planted_topic_corpus
 from ldagibbssampling_tpu_torch.evaluation.metrics import perplexity
 from ldagibbssampling_tpu_torch.evaluation.tracing import block_on_backend
-
-RUNG3_ERROR = ("rung 3 needs the doc-sharded runtime (parallel/adlda.py), "
-               "not ported yet (ROADMAP Queue 1 item 14)")
-
 
 def _timed_sweeps(model, n: int) -> float:
     """Run n sweeps, return steady-state tokens/s.
@@ -181,6 +180,69 @@ def rung2(scale: float, sweeps: int = 20, device: Any = "cuda") -> dict:
     }
 
 
+def rung3_corpus(scale: float, floor: bool = False):
+    """``(corpus, heldout, m, v)`` of rung 3 at ``scale``: NYT-shaped
+    (``zipf_corpus``, 300 tokens per document), 5% of the documents held
+    out; with ``floor`` (rung 3 on the card) at least 2^24 training tokens,
+    the floor inflated by 1/0.95 for the split (reference
+    ``ladder.py:185-192``)."""
+    from ldagibbssampling_tpu_torch.data.synthetic import zipf_corpus
+
+    m = max(40, int(300_000 * scale))
+    if floor:
+        m = max(m, int(((1 << 24) // 300 + 1) / 0.95) + 1)
+    v = max(500, int(100_000 * min(1.0, scale * 5)))
+    corpus, heldout = zipf_corpus(m, v, mean_doc_len=300, seed=2).split_docs(
+        0.05, seed=2)
+    if floor and corpus.num_tokens < (1 << 24):
+        raise AssertionError(f"rung 3 trains {corpus.num_tokens} < 2^24 tokens")
+    return corpus, heldout, m, v
+
+
+def rung3(scale: float, sweeps: int = 10, device: Any = "cuda") -> dict:
+    """NYT-shaped document-sharded AD-LDA over every position (one shard
+    per CUDA device; on the CPU one), K = 100, block 65,536, in the tier the
+    config resolves to (deferred).  Two warm-up calls, then ``sweeps``
+    timed; the counts are checked against a recount after."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.parallel import multihost
+    from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda
+
+    t0 = time.perf_counter()
+    corpus, heldout, m, v = rung3_corpus(
+        scale, floor=torch.device(device).type == "cuda")
+    corpus_s = time.perf_counter() - t0
+    n_dev = len(multihost.global_devices(device)[0])
+    cfg = LdaConfig(topic_num=100, seed=0, block_size=65_536)
+    t0 = time.perf_counter()
+    model = ShardedLda(cfg, corpus, num_shards=n_dev, device=device)
+    block_on_backend(model)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.sweep(1)
+    block_on_backend(model)
+    model.sweep(1)
+    block_on_backend(model)
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.sweep(sweeps)
+    block_on_backend(model)
+    dt = time.perf_counter() - t0
+    model.check_counts_consistent()
+    return {
+        "rung": 3, "corpus": f"synthetic NYT-shaped ({m} docs, V={v})",
+        "K": 100, "tokens": corpus.num_tokens, "devices": n_dev,
+        "shards": model.mesh.size, "sweeps": sweeps,
+        "kernel_tier": model.kernel_tier,
+        "tokens_per_s": sweeps * corpus.num_tokens / max(dt, 1e-9),
+        "corpus_s": corpus_s, "setup_s": setup_s, "warmup_s": warmup_s,
+        "counts_consistent": True,
+        "held_out_docs": heldout.num_docs,
+        "held_out_ppl": _heldout_ppl(model.phi(), heldout, cfg.alpha, device),
+    }
+
+
 def rung4(scale: float, sweeps: int = 240, sweep_cap_factor: int = 8,
           device: Any = "cuda") -> dict:
     """Multi-chain R̂ on φ + Minka hyperparameter adaptation (Wikipedia rung).
@@ -300,13 +362,13 @@ def rung5(scale: float, sweeps: int = 15, device: Any = "cuda") -> dict:
     return out
 
 
-RUNGS = {1: rung1, 2: rung2, 4: rung4, 5: rung5}
+RUNGS = {1: rung1, 2: rung2, 3: rung3, 4: rung4, 5: rung5}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the benchmark ladder on the port")
-    ap.add_argument("--rungs", default="1,2,4,5",
-                    help="comma-separated rung numbers (1, 2, 4, 5)")
+    ap.add_argument("--rungs", default="1,2,3,4,5",
+                    help="comma-separated rung numbers (1-5)")
     ap.add_argument("--scale", type=float, default=0.01,
                     help="fraction of the real corpus size for synthetic rungs")
     ap.add_argument("--out", default="ladder_report_torch.json")
@@ -314,9 +376,6 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu (the kernels' plain versions)")
     args = ap.parse_args(argv)
     rungs = [int(x) for x in args.rungs.split(",") if x.strip()]
-    if 3 in rungs:
-        print(f"error: {RUNG3_ERROR}", file=sys.stderr)
-        return 2
     unknown = [r for r in rungs if r not in RUNGS]
     if unknown:
         print(f"error: unknown rungs {unknown}", file=sys.stderr)

@@ -5,11 +5,12 @@ Counterpart of ``ldagibbssampling_tpu/cli.py`` (reference:
 initialize, run the sweep loop with periodic saves, dump the final model.
 It takes the reference CLI's flags, plus ``--device {cuda,cpu}`` (default
 ``cuda``; without CUDA the run fails rather than carry on on the CPU).
-``--backend`` picks gibbs, cvb0, svi, smc or warp, and ``--chains N`` runs N
-blocked Gibbs chains with R̂ in the metrics rows.  ``--mesh`` with the
-blocked sampler exits with code 2, naming it: the parallel runtimes are not
-ported (the serial oracle ignores ``--chains`` and ``--mesh``, as in the
-reference).  ``--checkpoint-dir``/``--checkpoint-every``/``--resume`` save
+``--backend`` picks gibbs, cvb0, svi, smc or warp, ``--chains N`` runs N
+blocked Gibbs chains with R̂ in the metrics rows, and ``--mesh`` (e.g.
+``data=4``, ``data=2,vocab=2``, ``token=8``, ``chain=2,data=2``; -1 = every
+position) runs a parallel runtime of ``parallel/`` over the positions of
+``parallel/multihost.local_devices`` (the serial oracle ignores
+``--chains`` and ``--mesh``, as in the reference).  ``--checkpoint-dir``/``--checkpoint-every``/``--resume`` save
 and restore the whole run (``lda_io/checkpoint.py``), and ``--infer-docs``
 folds unseen documents into the trained model (``lda_io/infer.py``), with
 the reference's messages and exit codes, including its refusals:
@@ -103,9 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "metrics rows; artifacts from chain 0)")
     ap.add_argument("--backend", choices=["gibbs", "cvb0", "svi", "smc", "warp"],
                     default=None, help="inference backend (default gibbs)")
-    # the blocked sampler's --mesh is not ported: accepted so the error can
-    # name it, and refused in main()
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="parallel runtime mesh, e.g. 'data=4', 'data=2,vocab=2', "
+                         "'token=8', 'chain=2,data=2' (-1 = all devices); "
+                         "gibbs backend only")
     return ap
 
 
@@ -113,12 +115,6 @@ _OVERRIDE_FIELDS = (
     "alpha", "beta", "topic_num", "iteration", "save_step", "begin_save_iters",
     "seed", "chains", "sampler", "backend", "block_size", "draw_method",
 )
-
-
-def unsupported_flags(args: argparse.Namespace, sampler: str = "blocked") -> list[str]:
-    """The given flags whose paths the port does not have yet, for the
-    ``sampler`` that runs (the serial oracle ignores meshes)."""
-    return ["--mesh"] if sampler == "blocked" and args.mesh else []
 
 
 def _file_config(args: argparse.Namespace) -> LdaConfig:
@@ -149,11 +145,6 @@ def config_from_args(args: argparse.Namespace) -> LdaConfig:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        missing = unsupported_flags(args, args.sampler or _file_config(args).sampler)
-        if missing:
-            print(f"error: not ported yet: {', '.join(missing)} (see ROADMAP.md "
-                  "Queue 1)", file=sys.stderr)
-            return 2
         cfg = config_from_args(args)
     except NotImplementedError as e:  # a config file naming an unported path
         print(f"error: {e}", file=sys.stderr)

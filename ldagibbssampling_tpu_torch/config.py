@@ -82,17 +82,15 @@ class LdaConfig:
         self._check_ported()
 
     def _check_ported(self) -> None:
-        """Raise for settings whose code paths the port does not have yet.
+        """Raise for settings whose code paths the port does not have.
 
-        The port runs every backend on a single device: the Gibbs tiers,
-        several chains (``chains > 1``), CVB0, SVI, SMC and WarpLDA; the
-        serial oracle ignores ``chains`` and ``mesh`` as the reference's
-        does.  A mesh with the blocked sampler raises, naming the ROADMAP.md
-        item that ports it; nothing falls back to another path.
+        The port runs every backend, the Gibbs tiers, several chains
+        (``chains > 1``) and the mesh runtimes (``mesh``); the serial
+        oracle ignores ``chains`` and ``mesh`` as the reference's does.
+        The reference's Pallas interpreter has no counterpart; nothing falls
+        back to another path.
         """
         missing = []
-        if self.sampler == "blocked" and self.mesh:
-            missing.append(f"mesh={self.mesh!r} (ROADMAP Queue 1 item 14)")
         if self.pallas_interpret:
             missing.append(
                 "pallas_interpret=True (no interpreter: device='cpu' runs "

@@ -87,6 +87,27 @@ def device_log_likelihood(
     return float(chunks.cpu().numpy().astype(np.float64).sum())
 
 
+def shard_ll_chunks(ndk, nwk, nk, tw, td, tm, dl, alpha, beta,
+                    chunk_size: int = 1 << 19, vocab_size=None) -> torch.Tensor:
+    """One shard's ``[n_chunks]`` float32 LL partials (reference
+    ``:95-117``): its own token stream against its ``ndk`` rows and its
+    (replicated or slab) ``nwk``, on the tables' device.  ``vocab_size``
+    is the global V of ``V·β`` for a vocabulary slab."""
+    chunk = int(min(chunk_size, max(tw.shape[0], 1)))
+    return _ll_chunks(ndk, nwk, nk, tw, td, tm, dl, alpha, beta,
+                      chunk_size=chunk, vocab_size=vocab_size)
+
+
+def sum_ll_chunks(parts, mesh) -> float:
+    """The mesh runtimes' LL: every position's partials (gathered from
+    every process) summed on the host in float64, in position order."""
+    from ldagibbssampling_tpu_torch.parallel.multihost import gather
+
+    host = gather(parts, mesh)
+    return float(np.concatenate(
+        [host[p].astype(np.float64) for p in sorted(host)]).sum())
+
+
 def _fold_in_batch(phi: torch.Tensor, tokens: torch.Tensor, mask: torch.Tensor,
                    alpha: float, *, n_sweeps: int,
                    generator: Optional[torch.Generator] = None,

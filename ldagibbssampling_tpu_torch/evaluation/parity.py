@@ -13,9 +13,9 @@ two-sample z-score on the across-seed Monte-Carlo spread:
 A |z| ≲ 3-4 on each functional means the blocked chain's stationary bias is
 within MC error of the serial chain.  The blocked family runs through the
 port's ``LdaModel`` in the tier ``use_pallas`` names, on ``device``; the
-oracle family through the port's ``OracleSampler`` on the host.  The
-single-device against multi-device form (reference ``:115-188``) comes with
-the port's parallel runtimes (ROADMAP Queue 1 item 14).
+oracle family through the port's ``OracleSampler`` on the host.
+``serial_vs_parallel`` (reference ``:115-188``) holds a mesh runtime of
+``parallel/`` against the single-device blocked family the same way.
 """
 
 from __future__ import annotations
@@ -128,6 +128,72 @@ def oracle_vs_blocked(
         "oracle": fa.summary(),
         "blocked": fb.summary(),
         "kernel_tier": ",".join(sorted(tiers)),
+        "z_ll": z_score(fa.ll_per_token, fb.ll_per_token),
+        "z_entropy": z_score(fa.topic_entropy, fb.topic_entropy),
+    }
+
+
+def serial_vs_parallel(
+    corpus: FlatCorpus,
+    k: int,
+    runtime: str,
+    *,
+    alpha: float = 0.5,
+    beta: float = 0.1,
+    sweeps: int = 40,
+    seeds: Sequence[int] = (0, 1, 2, 3),
+    block_size: int = 64,
+    num_shards: int = 4,
+    device: Any = "cuda",
+) -> dict:
+    """Parity report: the single-device blocked family against a mesh
+    runtime's, ``runtime`` one of ``"adlda"``, ``"grid"`` (``num_shards //
+    2`` × 2) and ``"tokenshard"``, over the positions of
+    ``parallel/multihost.local_devices`` (as in the reference, fewer
+    positions than ``num_shards`` give fewer shards).  Stale
+    parallel updates mix more slowly: assert parity after burn-in, not at
+    short matched budgets (the reference's docstring)."""
+    from ldagibbssampling_tpu_torch.models.lda import LdaModel
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    if runtime not in ("adlda", "grid", "tokenshard"):
+        raise ValueError(f"unknown runtime {runtime!r}")
+    devices, ranks = multihost.global_devices(device)
+
+    def config(seed: int) -> LdaConfig:
+        return LdaConfig(topic_num=k, alpha=alpha, beta=beta, seed=seed,
+                         block_size=block_size)
+
+    def run_single(seed: int):
+        m = LdaModel(config(seed), corpus, device=device)
+        m.sweep(sweeps)
+        return m.phi(), m.theta()
+
+    def run_parallel(seed: int):
+        if runtime == "grid":
+            from ldagibbssampling_tpu_torch.parallel.grid import GridLda
+
+            pd = max(1, num_shards // 2)
+            mesh = multihost.Mesh(("data", "vocab"), (pd, 2),
+                                  tuple(devices[:pd * 2]), tuple(ranks[:pd * 2]))
+            m = GridLda(config(seed), corpus, mesh=mesh, device=device)
+        else:
+            from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda
+            from ldagibbssampling_tpu_torch.parallel.tokenshard import TokenShardedLda
+
+            n = len(devices[:num_shards])
+            mesh = multihost.Mesh(("data",), (n,), tuple(devices[:n]),
+                                  tuple(ranks[:n]))
+            cls = ShardedLda if runtime == "adlda" else TokenShardedLda
+            m = cls(config(seed), corpus, mesh=mesh, device=device)
+        m.sweep(sweeps)
+        return m.phi(), m.theta()
+
+    fa = run_family("single", corpus, run_single, seeds)
+    fb = run_family(runtime, corpus, run_parallel, seeds)
+    return {
+        "single": fa.summary(),
+        runtime: fb.summary(),
         "z_ll": z_score(fa.ll_per_token, fb.ll_per_token),
         "z_entropy": z_score(fa.topic_entropy, fb.topic_entropy),
     }

@@ -59,10 +59,11 @@ def kernel_device_ms(fn, name: str, reps: int = 20) -> Optional[float]:
 def block_on_backend(backend) -> None:
     """Wait until the backend's device work is done (CUDA runs async: a timed
     ``sweep(chunk)`` without this measures the enqueue, not the compute).
-    Every backend of the port names its ``device``."""
-    dev = getattr(backend, "device", None)
-    if dev is not None and torch.device(dev).type == "cuda":
-        torch.cuda.synchronize(dev)
+    Every backend of the port names its ``device``; a mesh runtime also
+    its ``devices``, each of which is waited for."""
+    for dev in getattr(backend, "devices", None) or [getattr(backend, "device", None)]:
+        if dev is not None and torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 class SweepTimer:

@@ -3,8 +3,9 @@
 Tests use it so that both packages start from the same state: the port
 cannot reproduce the reference's threefry draws.  Forms: one Gibbs chain
 (``from_jax_state``), the stacked states of several chains, CVB0's
-``(gamma, ndk, nwk, nk)``, SVI's λ and γ cache, and SMC's
-``(ndk, nwk, nk, z, logw)``.
+``(gamma, ndk, nwk, nk)``, SVI's λ and γ cache, SMC's
+``(ndk, nwk, nk, z, logw)``, and the mesh runtimes' stacked tables
+(``from_jax_mesh_state``).
 """
 
 from __future__ import annotations
@@ -74,3 +75,16 @@ def from_jax_smc(arrays: Mapping[str, Any], device: Any = "cpu") -> dict:
            for n in ("ndk", "nwk", "nk", "z")}
     out["logw"] = _tensor(arrays["logw"], torch.float32, device)
     return out
+
+
+def from_jax_mesh_state(runtime, arrays: Mapping[str, Any]) -> None:
+    """Load a reference mesh runtime's state into the port's runtime of the
+    same mesh and layout: ``z/ndk/nwk/nk`` as the reference's stacked
+    arrays (``ShardedLda``: ``z [P, T_s]``, ``ndk [P, M_s, K]``, ``nwk
+    [V, K]``, ``nk [K]``; ``GridLda``: ``z [Pd, Pv, T_c]``, ``ndk
+    [Pd, M_s, K]``, ``nwk [Pv, V_s, K]``; ``TokenShardedLda``: ``ndk
+    [M, K]``; ``ShardedChainSet``: a leading chain axis on each) and
+    ``sweep``, e.g. ``{n: np.asarray(getattr(ref, n)) ...}``."""
+    runtime.load_arrays({n: np.array(arrays[n], np.int32)
+                         for n in ("z", "ndk", "nwk", "nk")},
+                        sweep=int(np.asarray(arrays.get("sweep", 0))))

@@ -22,8 +22,12 @@ The backend form (reference ``:200-249``), :func:`save_backend_run` and
 :func:`restore_backend_run`, keeps the CVB0 and SVI runs in the same
 layout: a dict of tensors (or numpy arrays) and a ``meta`` dict of plain
 Python values, such as SVI's numpy ``bit_generator.state``.  The mesh form
-(reference ``:135-197``) comes with the port's parallel runtimes (ROADMAP
-Queue 1 item 14).
+(reference ``:135-197``), :func:`save_mesh_run` and
+:func:`restore_mesh_run`, keeps a mesh runtime's run (``parallel/``): its
+tables in the reference's stacked host view, the live (α, β), the state of
+the generator that seeds the sweeps and the mesh's axes and shape.  As the
+reference (``:128-133``), a run resumes only on a mesh of the same shape;
+another raises.
 """
 
 from __future__ import annotations
@@ -157,6 +161,58 @@ def restore_run(
     hyper = saved["hyper"]
     return (_state_like(saved["state"], like), float(hyper["alpha"]),
             float(hyper["beta"]), saved["generator"])
+
+
+def save_mesh_run(
+    directory: str | Path,
+    arrays: dict,
+    alpha: float,
+    beta: float,
+    step: int,
+    *,
+    mesh: dict,
+    generator: Optional[torch.Generator] = None,
+    max_to_keep: int = 3,
+) -> int:
+    """Save a mesh run at ``step``: ``arrays`` (name -> stacked numpy array
+    or tensor), the live (α, β), the sweeps' generator state and ``mesh``
+    (``{"axes": [...], "shape": [...]}``); returns the step."""
+    payload = {
+        "arrays": {n: torch.as_tensor(np.asarray(a)).clone() for n, a in arrays.items()},
+        "hyper": {"alpha": float(alpha), "beta": float(beta)},
+        "generator": None if generator is None else generator.get_state(),
+        "mesh": {"axes": list(mesh["axes"]), "shape": [int(x) for x in mesh["shape"]]},
+        "step": int(step),
+    }
+    return _save(directory, int(step), payload, max_to_keep)
+
+
+def restore_mesh_run(
+    directory: str | Path,
+    like: dict,
+    *,
+    mesh: dict,
+    step: Optional[int] = None,
+) -> tuple[dict, float, float, Optional[torch.Tensor], int]:
+    """Restore ``(arrays, alpha, beta, generator_state, step)`` saved by
+    :func:`save_mesh_run`.  ``like`` gives each array's shape; a checkpoint
+    of another mesh shape, or of other shapes, raises ``ValueError``."""
+    saved = _load(directory, step)
+    want = {"axes": list(mesh["axes"]), "shape": [int(x) for x in mesh["shape"]]}
+    if saved["mesh"] != want:
+        raise ValueError(
+            f"checkpoint of mesh {saved['mesh']}, the runtime's is {want}: a "
+            "mesh run resumes only on a mesh of the same shape")
+    out = {}
+    for name, shape in like.items():
+        got = saved["arrays"][name]
+        if tuple(got.shape) != tuple(shape):
+            raise ValueError(f"checkpoint {name} is {tuple(got.shape)}, the "
+                             f"runtime's {tuple(shape)}")
+        out[name] = got.numpy()
+    hyper = saved["hyper"]
+    return (out, float(hyper["alpha"]), float(hyper["beta"]), saved["generator"],
+            int(saved["step"]))
 
 
 def save_backend_run(

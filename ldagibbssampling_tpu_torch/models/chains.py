@@ -20,6 +20,11 @@ Noise: ``noise_mode="internal"`` (each sweep's seed drawn from the chain's
 generator), or ``"external"`` with ``sweep(..., noise=noise)`` where
 ``noise(c, sweep)`` gives chain ``c``'s array for that sweep (see
 ``ops/gibbs.py``).
+
+Given a ``mesh`` (``parallel/multihost.Mesh``) with a ``chain`` axis, the
+chains are spread over that axis's positions, as the reference shards its
+stacked chains with ``PartitionSpec("chain")``: chain ``c`` runs on the
+device of chain coordinate ``c * size // num_chains``.
 """
 
 from __future__ import annotations
@@ -36,9 +41,6 @@ from ldagibbssampling_tpu_torch.models import state as state_lib
 from ldagibbssampling_tpu_torch.models.state import SamplerState
 from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
 
-_MESH_ERROR = "a chain mesh is not ported (ROADMAP Queue 1 item 14)"
-
-
 def _ll_per_token(phi: torch.Tensor, theta: torch.Tensor, tw: torch.Tensor,
                   td: torch.Tensor, num_tokens: int,
                   chunk: int = 1 << 18) -> torch.Tensor:
@@ -51,6 +53,18 @@ def _ll_per_token(phi: torch.Tensor, theta: torch.Tensor, tw: torch.Tensor,
         p = (theta64[td[s:s + chunk]] * phi_t[tw[s:s + chunk]]).sum(dim=1)
         total = total + torch.log(torch.clamp(p, min=1e-300)).sum()
     return total / max(num_tokens, 1)
+
+
+def _chain_devices(mesh, num_chains: int) -> list[torch.device]:
+    """Each chain's device on ``mesh``'s ``chain`` axis (the chains split
+    evenly over it)."""
+    if "chain" not in mesh.axis_names:
+        raise ValueError(f"a chain mesh needs a 'chain' axis, got {mesh.axis_names}")
+    size = mesh.axis_size("chain")
+    if num_chains % size:
+        raise ValueError(f"{num_chains} chains do not split over chain={size}")
+    first = {mesh.coord(p, "chain"): p for p in reversed(range(mesh.size))}
+    return [mesh.devices[first[c * size // num_chains]] for c in range(num_chains)]
 
 
 class ChainSet:
@@ -69,12 +83,13 @@ class ChainSet:
     ) -> None:
         from ldagibbssampling_tpu_torch.models.lda import resolve_device
 
-        if mesh is not None:
-            raise NotImplementedError(_MESH_ERROR)
         self.device = resolve_device(device)
         self.config = config
         self.corpus = corpus
         self.num_chains = num_chains or max(1, config.chains)
+        self.chain_devices = [self.device] * self.num_chains
+        if mesh is not None:
+            self.chain_devices = _chain_devices(mesh, self.num_chains)
         block = max(1, min(config.block_size, max(1, corpus.num_tokens)))
         self.block_size = block
         pc = corpus.pad_to(block)
@@ -87,7 +102,7 @@ class ChainSet:
                     pc.token_word, pc.token_doc, pc.token_mask,
                     num_docs=pc.num_docs, vocab_size=pc.vocab_size,
                     num_topics=config.topic_num, seed=config.seed + c,
-                    device=self.device,
+                    device=self.chain_devices[c],
                 )
                 for c in range(self.num_chains)
             ]
@@ -96,17 +111,19 @@ class ChainSet:
         self.states: list[SamplerState] = list(states)
         self.generators = [torch.Generator().manual_seed(s.seed)
                            for s in self.states]
-        self._run = make_sweep_fn(
-            pc.token_word, pc.token_doc, pc.token_mask, self.doc_lengths,
-            alpha=config.alpha, beta=config.beta, block_size=block,
-            draw_method=config.draw_method, use_pallas=False,
-            num_topics=config.topic_num, device=self.device,
-            noise_mode=noise_mode,
-        )
-        # the real tokens, for the LL (the padded tail is masked off)
+        # one sweep function and one copy of the real tokens (for the LL;
+        # the padded tail is masked off) per device
         t = corpus.num_tokens
-        self._tw = torch.from_numpy(pc.token_word[:t].astype(np.int64)).to(self.device)
-        self._td = torch.from_numpy(pc.token_doc[:t].astype(np.int64)).to(self.device)
+        self._runs, self._ll_tokens = {}, {}
+        for dev in dict.fromkeys(self.chain_devices):
+            self._runs[dev] = make_sweep_fn(
+                pc.token_word, pc.token_doc, pc.token_mask, self.doc_lengths,
+                alpha=config.alpha, beta=config.beta, block_size=block,
+                draw_method=config.draw_method, use_pallas=False,
+                num_topics=config.topic_num, device=dev, noise_mode=noise_mode)
+            self._ll_tokens[dev] = tuple(
+                torch.from_numpy(a[:t].astype(np.int64)).to(dev)
+                for a in (pc.token_word, pc.token_doc))
         self.ll_trace: list[np.ndarray] = []   # per sweep: [num_chains]
         self.phi_trace: list[np.ndarray] = []  # per recorded draw: [num_chains, K, V]
         self.phi_accum = None   # O(C·K·V) alternative to phi_trace (record_phi)
@@ -115,7 +132,7 @@ class ChainSet:
     # ------------------------------------------------------------------
     def _advance(self, n: int, noise: Optional[Callable]) -> None:
         for c in range(self.num_chains):
-            self.states[c] = self._run(
+            self.states[c] = self._runs[self.chain_devices[c]](
                 self.states[c], n_sweeps=n, generator=self.generators[c],
                 noise=None if noise is None else (lambda s, c=c: noise(c, s)))
 
@@ -141,9 +158,10 @@ class ChainSet:
         lls = []
         for c in range(self.num_chains):
             phi, theta = self._phi_theta(c)
-            lls.append(_ll_per_token(phi, theta, self._tw, self._td,
-                                     self.corpus.num_tokens))
-        self.ll_trace.append(torch.stack(lls).cpu().numpy())
+            tw, td = self._ll_tokens[self.chain_devices[c]]
+            lls.append(_ll_per_token(phi, theta, tw, td,
+                                     self.corpus.num_tokens).cpu())
+        self.ll_trace.append(torch.stack(lls).numpy())
 
     def _phi_theta(self, c: int) -> tuple[torch.Tensor, torch.Tensor]:
         return state_lib.phi_theta(self.states[c], self.doc_lengths,
@@ -151,8 +169,8 @@ class ChainSet:
 
     def _phis(self) -> np.ndarray:
         """``[C, K, V]`` float32: every chain's current φ, on the host."""
-        return torch.stack([self._phi_theta(c)[0]
-                            for c in range(self.num_chains)]).cpu().numpy()
+        return torch.stack([self._phi_theta(c)[0].cpu()
+                            for c in range(self.num_chains)]).numpy()
 
     def record_phi(self, half: int) -> None:
         """Fold the current φ of every chain into the running split-R̂
@@ -247,13 +265,12 @@ class MultiChainModel:
 
     def __init__(self, config: LdaConfig, corpus: FlatCorpus,
                  device: Any = "cuda", mesh: Any = None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(_MESH_ERROR)
         self.config = config
         self.corpus = corpus
         self.chains = ChainSet(config, corpus, num_chains=max(2, config.chains),
-                               device=device)
+                               mesh=mesh, device=device)
         self.device = self.chains.device
+        self.devices = list(dict.fromkeys(self.chains.chain_devices))
         self._sweeps = 0
 
     def sweep(self, n: int = 1) -> None:

@@ -120,6 +120,8 @@ def deferred_local_counts(
     uniforms: Optional[torch.Tensor] = None,
     compute_dtype: str = "float32",
     mirror_dtype: str = "bfloat16",
+    vocab_size: Optional[int] = None,
+    emit_mirror: bool = True,
 ):
     """Deferred-mode sweep core: returns ``(z, ndk, nwk, nk, mirror_out)``.
 
@@ -133,8 +135,15 @@ def deferred_local_counts(
     next sweep's snapshot: K2's ride-along cast for the bf16 snapshot, a
     PyTorch cast of the rebuilt padded table for the float32 one (the
     reference's ``ops/gibbs.py:469-472`` and :491-501).
+
+    The mesh runtimes (``parallel/``) pass ``emit_mirror=False``: ``nwk``
+    is then this token stream's local count table, K2's rebuild alone, and
+    ``mirror_out`` is ``None`` (a shard's table is not the global one: the
+    runtime casts the snapshot after the reconciliation).  ``vocab_size``
+    overrides the V of ``V·β`` (a vocabulary slab's height is not V).
     """
-    v, k = state.nwk.shape
+    v_rows, k = state.nwk.shape
+    v = v_rows if vocab_size is None else int(vocab_size)
     k_pad = _round_up(k, 128)
     if mirror is None:
         mirror = snapshot(state.nwk, v_pad, k_pad, mirror_dtype)
@@ -148,7 +157,11 @@ def deferred_local_counts(
         noise_mode=noise_mode, seed=seed, uniforms=uniforms,
         compute_dtype=compute_dtype,
     )
-    rebuild = dict(vocab_size=v, num_topics=k, v_pad=v_pad, k_pad=k_pad)
+    rebuild = dict(vocab_size=v_rows, num_topics=k, v_pad=v_pad, k_pad=k_pad)
+    if not emit_mirror:
+        nwk, nk_rebuilt = build_nwk(z, token_word, token_mask,
+                                    emit_mirror=False, **rebuild)
+        return z, ndk, nwk, nk_rebuilt, None
     if mirror_dtype == "bfloat16":
         nwk, nk_rebuilt, mirror_out = build_nwk(z, token_word, token_mask,
                                                 **rebuild)
@@ -157,7 +170,7 @@ def deferred_local_counts(
         # float32 snapshot cast straight from its padded table
         nwk_p, nk_p = rebuild_counts(z, token_word, token_mask,
                                      v_pad=v_pad, k_pad=k_pad)
-        nwk, nk_rebuilt, mirror_out = nwk_p[:v, :k], nk_p[:k], nwk_p.float()
+        nwk, nk_rebuilt, mirror_out = nwk_p[:v_rows, :k], nk_p[:k], nwk_p.float()
     return z, ndk, nwk, nk_rebuilt, mirror_out
 
 
@@ -332,6 +345,7 @@ def fused_gibbs_sweep(
     noise_mode: str = "internal",
     seed: int = 0,
     uniforms: Optional[torch.Tensor] = None,
+    vocab_size: Optional[int] = None,
 ) -> SamplerState:
     """One sweep of the fused tier; returns the new state.
 
@@ -341,12 +355,13 @@ def fused_gibbs_sweep(
     word-topic moves, as the reference's ``nwk.at[w].add(delta)`` does.
     ``nk`` carries across blocks.  External ``uniforms`` are the sweep's
     ``[T_pad, k_pad]`` array (the reference's ``uniform(sweep_key, ...)``).
+    ``vocab_size`` overrides the V of ``V·β``.
     """
     t_pad = token_word.shape[0]
     if t_pad % block_size or block_size % row_tile:
         raise ValueError(
             f"token count {t_pad} / block {block_size} / row_tile {row_tile} misaligned")
-    v = state.nwk.shape[0]
+    v = state.nwk.shape[0] if vocab_size is None else int(vocab_size)
     vbeta = float(np.float32(v) * np.float32(beta))
     z, ndk, nwk, nk = _clone(state)
     for s in range(0, t_pad, block_size):

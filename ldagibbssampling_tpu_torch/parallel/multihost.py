@@ -1,0 +1,280 @@
+"""Device positions, named meshes and the one reduction of the mesh runtimes.
+
+Counterpart of ``ldagibbssampling_tpu/parallel/multihost.py`` and of
+``jax.sharding.Mesh``.  The reference's runtimes are single-controller SPMD
+(``shard_map`` over a ``Mesh``); the port holds the shards itself:
+
+- a :class:`Mesh` names its axes and gives each position (row-major over the
+  axes) a ``torch.device`` and the rank of the process that holds it.
+  Positions may repeat a device: ``[cuda:0] * 4`` places four shards on one
+  card, ``[cpu] * 8`` gives the tests the eight positions that the JAX
+  tests get from eight virtual CPU devices;
+- :func:`local_devices` is where every entry point takes its positions
+  from: every CUDA device, or one ``cpu``, as the reference takes them from
+  ``jax.devices()``;
+- :func:`initialize_distributed` brings up ``torch.distributed``
+  (``tcp://`` init; NCCL for CUDA devices, gloo for the CPU) and returns the
+  :class:`HostTopology`; with one process it is a no-op;
+- :func:`psum` sums the shards' tensors over a named axis, in shard order,
+  and is the only collective the runtimes call.  With several processes
+  each holds only its own positions' shards, and ``psum`` adds one
+  ``all_reduce(SUM)`` over the processes that span the group.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HostTopology:
+    """This process's place in the cluster after bring-up."""
+
+    process_index: int
+    process_count: int
+    local_device_count: int
+    global_device_count: int
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def world() -> tuple[int, int]:
+    """``(rank, world size)`` of this process (``(0, 1)`` without a group)."""
+    dist = _dist()
+    return (dist.get_rank(), dist.get_world_size()) if dist else (0, 1)
+
+
+def local_devices(device: Any = "cuda") -> list[torch.device]:
+    """This process's device positions: every CUDA device for ``cuda``
+    (raising without CUDA), one ``cpu`` for ``cpu``."""
+    from ldagibbssampling_tpu_torch.models.lda import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def global_devices(device: Any = "cuda") -> tuple[list[torch.device], list[int]]:
+    """Every process's positions in rank order, and the rank holding each."""
+    local = local_devices(device)
+    rank, size = world()
+    if size == 1:
+        return local, [rank] * len(local)
+    gathered: list = [None] * size
+    _dist().all_gather_object(gathered, [str(d) for d in local])
+    devices, ranks = [], []
+    for r, devs in enumerate(gathered):
+        devices += [torch.device(d) for d in devs]
+        ranks += [r] * len(devs)
+    return devices, ranks
+
+
+def initialize_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    device: Any = "cuda",
+) -> HostTopology:
+    """Bring up ``torch.distributed`` (idempotent; a no-op for one process).
+
+    ``coordinator_address`` is ``host:port`` or ``tcp://host:port``; the
+    group uses NCCL for ``cuda`` and gloo for ``cpu``.
+    """
+    import torch.distributed as dist
+
+    multi = (num_processes or 1) > 1 or coordinator_address
+    if multi and not dist.is_initialized():
+        if not coordinator_address or num_processes is None or process_id is None:
+            raise ValueError("several processes need coordinator_address, "
+                             "num_processes and process_id")
+        addr = coordinator_address
+        if "://" not in addr:
+            addr = f"tcp://{addr}"
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=addr,
+                                world_size=int(num_processes), rank=int(process_id))
+    rank, size = world()
+    devices, _ = global_devices(device)
+    return HostTopology(process_index=rank, process_count=size,
+                        local_device_count=len(local_devices(device)),
+                        global_device_count=len(devices))
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Named axes over device positions (row-major), as ``jax.sharding.Mesh``."""
+
+    axis_names: tuple[str, ...]
+    shape: tuple[int, ...]
+    devices: tuple[torch.device, ...]  # one per position
+    ranks: tuple[int, ...]             # the process that holds each position
+
+    def __post_init__(self) -> None:
+        if len(self.axis_names) != len(self.shape):
+            raise ValueError(f"axes {self.axis_names} vs shape {self.shape}")
+        if len(self.devices) != self.size or len(self.ranks) != self.size:
+            raise ValueError(f"mesh {self.shape} needs {self.size} positions, "
+                             f"have {len(self.devices)}")
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    def coords(self, pos: int) -> tuple[int, ...]:
+        return tuple(int(c) for c in np.unravel_index(pos, self.shape))
+
+    def coord(self, pos: int, name: str) -> int:
+        return self.coords(pos)[self.axis_names.index(name)]
+
+    @property
+    def local_positions(self) -> list[int]:
+        """The positions this process holds, ascending."""
+        rank = world()[0]
+        return [p for p in range(self.size) if self.ranks[p] == rank]
+
+    def group(self, pos: int, axes: Sequence[str]) -> list[int]:
+        """The positions that differ from ``pos`` only along ``axes``."""
+        c = self.coords(pos)
+        fixed = [i for i, n in enumerate(self.axis_names) if n not in axes]
+        return [p for p in range(self.size)
+                if all(self.coords(p)[i] == c[i] for i in fixed)]
+
+
+def line_mesh(n: Optional[int], axis: str = "data", device: Any = "cuda") -> Mesh:
+    """The runtimes' default mesh: the first ``n`` global positions (all of
+    them when ``n`` is ``None``) on one axis.  As the reference's
+    ``Mesh(devs[:n])``, a list shorter than ``n`` gives fewer shards."""
+    devices, ranks = global_devices(device)
+    n = len(devices) if n is None else n
+    return Mesh((axis,), (len(devices[:n]),), tuple(devices[:n]), tuple(ranks[:n]))
+
+
+def make_mesh(axis_sizes: Mapping[str, int],
+              devices: Optional[Sequence[Any]] = None,
+              ranks: Optional[Sequence[int]] = None, *,
+              device: Any = "cuda") -> Mesh:
+    """A named mesh over the (global) positions.
+
+    ``axis_sizes`` maps axis name to size in declaration order, e.g.
+    ``{"data": 4, "vocab": 2}``; a size of ``-1`` on at most one axis means
+    "whatever is left".  The product must equal the number of positions.
+    ``devices`` defaults to every process's positions (``global_devices``);
+    given ones belong to this process unless ``ranks`` says otherwise.
+    """
+    if devices is None:
+        devs, rks = global_devices(device)
+    else:
+        devs = [torch.device(d) for d in devices]
+        rks = list(ranks) if ranks is not None else [world()[0]] * len(devs)
+    names = list(axis_sizes)
+    sizes = [int(axis_sizes[n]) for n in names]
+    wild = [i for i, s in enumerate(sizes) if s == -1]
+    if len(wild) > 1:
+        raise ValueError("at most one axis may be -1")
+    if wild:
+        known = int(np.prod([s for s in sizes if s != -1])) or 1
+        if len(devs) % known:
+            raise ValueError(f"device count {len(devs)} not divisible by {known}")
+        sizes[wild[0]] = len(devs) // known
+    total = int(np.prod(sizes)) if sizes else 1
+    if total != len(devs):
+        raise ValueError(
+            f"mesh {dict(zip(names, sizes))} needs {total} devices, have {len(devs)}")
+    return Mesh(tuple(names), tuple(sizes), tuple(devs[:total]), tuple(rks[:total]))
+
+
+def mesh_from_config(config, devices: Optional[Sequence[Any]] = None, *,
+                     device: Any = "cuda") -> Mesh:
+    """The mesh described by ``LdaConfig.mesh`` (empty: one ``data`` axis
+    over every position)."""
+    axes = dict(config.mesh) if config.mesh else {}
+    if not axes:
+        n = len(devices) if devices is not None else len(global_devices(device)[0])
+        axes = {"data": n}
+    return make_mesh(axes, devices, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _process_group(procs: tuple[int, ...]):
+    """The process group of ``procs`` (the default group for the world)."""
+    dist = _dist()
+    if len(procs) == dist.get_world_size():
+        return None
+    return dist.new_group(list(procs))
+
+
+def _groups(mesh: Mesh, axes: tuple[str, ...]) -> list[list[int]]:
+    """Every group of ``axes`` in ``mesh``, ordered by its first position.
+    With several processes the groups that span more than one process get
+    their process group here, in this order in every process (``new_group``
+    is collective)."""
+    groups, seen = [], set()
+    for p in range(mesh.size):
+        g = tuple(mesh.group(p, axes))
+        if g not in seen:
+            seen.add(g)
+            groups.append(list(g))
+    if world()[1] > 1:
+        for g in groups:
+            procs = tuple(sorted({mesh.ranks[p] for p in g}))
+            if len(procs) > 1:
+                _process_group(procs)
+    return groups
+
+
+def psum(parts: Mapping[int, torch.Tensor], mesh: Mesh, axis) -> dict[int, torch.Tensor]:
+    """Sum ``parts`` (this process's positions -> tensor) over ``axis`` (a
+    name or a tuple of names): each position gets the sum over its group,
+    added in shard order on the device of the group's first local position
+    and placed on the position's device.  Positions of a group on one device
+    share the result tensor: callers never write into it.  A group that
+    spans several processes adds one ``all_reduce(SUM)`` over them."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    out: dict[int, torch.Tensor] = {}
+    for group in _groups(mesh, axes):
+        local = [p for p in group if p in parts]
+        if not local:
+            continue
+        total = parts[local[0]]
+        for p in local[1:]:
+            total = total + parts[p].to(total.device)
+        procs = tuple(sorted({mesh.ranks[p] for p in group}))
+        if len(procs) > 1:
+            if len(local) == 1:
+                total = total.clone()  # all_reduce writes in place
+            _dist().all_reduce(total, group=_process_group(procs))
+        placed: dict[torch.device, torch.Tensor] = {}
+        for p in local:
+            dev = mesh.devices[p]
+            if dev not in placed:
+                placed[dev] = total if total.device == dev else total.to(dev)
+            out[p] = placed[dev]
+    return out
+
+
+def gather(parts: Mapping[int, Any], mesh: Mesh) -> dict[int, np.ndarray]:
+    """Host copies of every position's value (this process's ``parts`` and,
+    with several processes, everyone else's), keyed by position."""
+    mine = {p: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+            for p, v in parts.items()}
+    if world()[1] == 1:
+        return mine
+    gathered: list = [None] * world()[1]
+    _dist().all_gather_object(gathered, mine)
+    out: dict[int, np.ndarray] = {}
+    for d in gathered:
+        out.update(d)
+    return out

@@ -1,7 +1,8 @@
 """The port's benchmark ladder (``benchmarks/ladder.py``) on the CPU at a
-tiny scale: rungs 1, 2, 4 and 5 run through the port's own models and
-report at least the keys the JAX package's ladder reports (its tracked
-``ladder_report.json``); ``--rungs 3`` exits 2 naming ROADMAP item 14."""
+tiny scale: rungs 1 to 5 run through the port's own models and report at
+least the keys the JAX package's ladder reports (its tracked
+``ladder_report.json``); rung 3 runs the document-sharded runtime in the
+deferred tier with exact counts."""
 
 from __future__ import annotations
 
@@ -58,14 +59,32 @@ def test_rung5_five_backends():
 
 
 def test_main_writes_report_and_refuses_rung3(tmp_path, capsys):
+    """Named for the refusal it held before rung 3 was ported: ``--rungs 3``
+    now runs (exit 0, its dict in the report), and an unknown rung exits
+    2."""
     out = tmp_path / "r.json"
-    assert ladder.main(["--rungs", "3", "--out", str(out), "--device", "cpu"]) == 2
-    assert "item 14" in capsys.readouterr().err and not out.exists()
-    assert ladder.main(["--rungs", "2", "--scale", "0.001", "--out", str(out),
+    assert ladder.main(["--rungs", "6", "--out", str(out), "--device", "cpu"]) == 2
+    assert "unknown rungs" in capsys.readouterr().err and not out.exists()
+    assert ladder.main(["--rungs", "2,3", "--scale", "0.0002", "--out", str(out),
                         "--device", "cpu"]) == 0
     rep = json.loads(out.read_text())
-    assert rep["gate_failures"] == [] and rep["rungs"][0]["rung"] == 2
+    assert rep["gate_failures"] == [] and [r["rung"] for r in rep["rungs"]] == [2, 3]
     assert "wall_s" in rep["rungs"][0]
+    assert rep["rungs"][1]["kernel_tier"] == "deferred"
+
+
+def test_rung3_sharded_deferred_counts_exact(monkeypatch):
+    """Rung 3 over two CPU positions: every position a shard, the deferred
+    tier, exact counts (``check_counts_consistent`` inside the rung)."""
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(multihost, "local_devices",
+                        lambda device="cuda": [torch.device("cpu")] * 2)
+    res = ladder.rung3(scale=0.0002, sweeps=1, device="cpu")
+    assert _reference_keys(3) <= set(res)
+    assert res["kernel_tier"] == "deferred" and res["counts_consistent"] is True
+    assert res["devices"] == res["shards"] == 2 and res["K"] == 100
+    assert res["tokens"] > 0 and np.isfinite(res["held_out_ppl"])
 
 
 def test_default_out_is_not_a_tracked_report(tmp_path, monkeypatch):

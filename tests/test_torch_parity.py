@@ -9,6 +9,13 @@ above the uniform model's LL per token.  On the CPU the reference's tests
 run its XLA tier (its platform rule), so their ports name that tier; the
 port has no platform rule, and one more test holds its default tier, the
 deferred one, on the 20-document minicorpus.
+
+``serial_vs_parallel`` runs each mesh runtime (AD-LDA, the 2×2 grid,
+token sharding) on eight ``cpu`` positions against the single-device
+family at a small budget; its report has the reference's keys (the
+reference's own report on the same corpus) and finite z-scores.  The
+statistical gate needs a burn-in (the reference's docstring), so the short
+budget checks the harness, not the chains.
 """
 
 from __future__ import annotations
@@ -17,11 +24,16 @@ import numpy as np
 import pytest
 import torch
 
+from ldagibbssampling_tpu.corpus.documents import Documents as JaxDocuments
+from ldagibbssampling_tpu.corpus.flat import FlatCorpus as JaxFlatCorpus
+from ldagibbssampling_tpu.evaluation.parity import (
+    serial_vs_parallel as jax_serial_vs_parallel)
 from ldagibbssampling_tpu.evaluation.parity import z_score as jax_z_score
 from ldagibbssampling_tpu_torch.corpus.documents import Documents
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.data import write_minicorpus
-from ldagibbssampling_tpu_torch.evaluation.parity import oracle_vs_blocked, z_score
+from ldagibbssampling_tpu_torch.evaluation.parity import (
+    oracle_vs_blocked, serial_vs_parallel, z_score)
 
 # one intra-op thread: the suite runs in several worker processes at once,
 # and torch's default of one thread per core in each oversubscribes the CPU
@@ -82,3 +94,23 @@ def test_z_score_helper():
     assert z_score(a, b) == jax_z_score(a, b)
     assert z_score(np.ones(3), np.ones(3)) == 0.0
     assert z_score(np.ones(3), np.zeros(3)) == float("inf")
+
+
+@pytest.mark.parametrize("runtime", ["adlda", "grid", "tokenshard"])
+def test_serial_vs_parallel_report(minicorpus, tmp_path, monkeypatch, runtime):
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(multihost, "local_devices",
+                        lambda device="cuda": [torch.device("cpu")] * 8)
+    report = serial_vs_parallel(
+        minicorpus, k=4, runtime=runtime, sweeps=3, seeds=(0, 1),
+        block_size=64, num_shards=4, device="cpu")
+    docs = write_minicorpus(tmp_path / "docs", num_docs=12)
+    jc = JaxFlatCorpus.from_documents(JaxDocuments().read_docs(docs))
+    ref = jax_serial_vs_parallel(jc, k=4, runtime=runtime, sweeps=1,
+                                 seeds=(0, 1), block_size=64, num_shards=4)
+    assert set(report) == set(ref)
+    for family in ("single", runtime):
+        assert set(report[family]) == set(ref[family])
+        assert report[family]["name"] == family
+    assert np.isfinite(report["z_ll"]) and np.isfinite(report["z_entropy"])
