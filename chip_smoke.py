@@ -127,6 +127,23 @@ success:
    card (3 sweeps each, one sharded Minka update, one LL); the CLI with
    ``--mesh data=-1`` killed at 30 and resumed to 60 (the ten artifacts
    byte-identical).  The NCCL path (several processes) is not run here.
+13. ingest: the CLI's corpus ingest (``corpus/native.py``, the host C++
+   library of ``csrc/ldacorpus.cc``, built by ``g++`` here) and the CLI end
+   to end at rung 3's corpus size: rung 3's whole corpus at scale 0.2
+   (60,000 NYT-shaped Zipf documents, V = 100,000, ~20M tokens; reduced
+   from the reference's 300,000 documents) written as one ASCII text file
+   per document, each word id a fixed term of 5-9 letters; read in this
+   process by ``read_docs_routed``, which must take the native route and
+   give the generator's documents and ids (one bijection, first-seen
+   order); at 0.02 (6,000 documents) a corpus with capitals, tabs, form
+   feeds, CRLF line ends, stopwords, URLs and digit-only tokens read by
+   both routes, token ids, documents, vocabulary and term counts bitwise
+   equal; then the port's CLI as a subprocess on the 0.2 directory
+   (``--topics 100 --block-size 65536 --iterations 10 --check-counts``):
+   exit 0, ``ingest: native`` in its log, the deferred tier in its metrics
+   header, the counts consistent, its launches counted exactly; prints the
+   write seconds, each route's tokens/s and the CLI's ingest, set-up and
+   sweep seconds, with the host CPU's model name.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -222,6 +239,17 @@ MULTICHAIN_SCALE, MULTICHAIN_SWEEPS = 0.2, 20
 BACKEND_RUNS = (("gibbs", 1, 4, 0.2), ("cvb0", 1, 4, 0.2), ("svi", 0, 2, 0.2),
                 ("warp", 1, 4, 0.2), ("smc", 0, 1, 0.01))
 LADDER_SCALE = 0.01
+# the ingest phase: rung 3's whole corpus (before its held-out split) at
+# scale 0.2, reduced from the reference's 1 as the mesh phase's (60,000
+# documents, V = 100,000, ~20M tokens), written as text and read by the
+# CLI's ingest; the native and Python routes held bitwise at rung 3's 0.02
+INGEST_SCALE, INGEST_SMALL_SCALE, INGEST_SWEEPS = 0.2, 0.02, 10
+# what the messy 0.02 corpus puts between the generator's words: separators
+# with CRLF line ends, and stopwords, URLs and digit-only tokens, which
+# the ingest drops
+INGEST_SEPS = (b" ", b"\t", b"\r\n", b" \t ", b"\f", b"  \r\n")
+INGEST_DROPPED = (b"the", b"And", b"OF", b"http://example.org/a", b"www.news.net",
+                  b"shop.com", b"SHOP.COM", b"2024", b"42", b"1.5", b"...")
 
 
 def log(msg: str) -> None:
@@ -1991,6 +2019,244 @@ def mesh_resume_phase(device_flags=()) -> None:
             f"({time.perf_counter() - t0:.1f}s)")
 
 
+def write_docs(root: Path, corpus, render) -> float:
+    """One file per document, ``doc<m>.txt`` (name order is document
+    order), its bytes ``render(word ids)``; returns the seconds taken."""
+    t0 = time.perf_counter()
+    root.mkdir(parents=True)
+    tw, ptr = corpus.token_word.tolist(), corpus.doc_ptr.tolist()
+    for m in range(corpus.num_docs):
+        (root / f"doc{m:06d}.txt").write_bytes(render(tw[ptr[m]:ptr[m + 1]]))
+    return time.perf_counter() - t0
+
+
+def messy_render(terms: list[bytes], seed: int):
+    """A renderer of the generator's words with capitals, tabs, form feeds,
+    CRLF line ends, and stopwords, URLs and digit-only tokens between them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cased = (terms, [t.upper() for t in terms], [t.capitalize() for t in terms])
+
+    def render(ids):
+        n = len(ids)
+        case = rng.integers(0, len(cased), size=n).tolist()
+        sep = rng.integers(0, len(INGEST_SEPS), size=n).tolist()
+        extra = rng.integers(0, 4 * len(INGEST_DROPPED), size=n).tolist()
+        parts = []
+        for j, i in enumerate(ids):
+            if extra[j] < len(INGEST_DROPPED):
+                parts += (INGEST_DROPPED[extra[j]], b" ")
+            parts += (cased[case[j]][i], INGEST_SEPS[sep[j]])
+        return b"".join(parts)
+    return render
+
+
+def match_generator(fc, corpus, terms: list[bytes], label: str) -> None:
+    """The ingested corpus is the generator's: the same documents and
+    token positions, its word ids under one bijection in first-seen order,
+    V the number of distinct ids, each term the id's."""
+    import numpy as np
+
+    uniq, first = np.unique(corpus.token_word, return_index=True)
+    order = uniq[np.argsort(first)]  # ingested id -> generator id
+    bad = [n for n, ok in (
+        ("doc_ptr", np.array_equal(fc.doc_ptr, corpus.doc_ptr)),
+        ("token_doc", np.array_equal(fc.token_doc, corpus.token_doc)),
+        ("vocab_size", fc.vocab_size == len(uniq)),
+        ("token_word", fc.num_tokens == corpus.num_tokens
+         and np.array_equal(order[fc.token_word], corpus.token_word)),
+        ("vocab", list(fc.vocab) == [terms[g].decode() for g in order.tolist()]))
+        if not ok]
+    if bad:
+        raise AssertionError(f"[ingest {label}] differs from the generator: {bad}")
+
+
+_COUNTED_CLI = (
+    "import json, sys\n"
+    "import chip_smoke\n"
+    "from ldagibbssampling_tpu_torch import cli\n"
+    "chip_smoke.zero_counters()\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print('[launches] ' + json.dumps(chip_smoke.read_counters()), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def host_cpu() -> str:
+    """The host CPU as ``lscpu`` gives it: model name, family and model
+    numbers, and the cores."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    fields = {k.strip(): v.strip() for k, v in (
+        ln.split(":", 1) for ln in out.splitlines() if ":" in ln)}
+    name, vendor, family, model = (fields.get(k, "?") for k in (
+        "Model name", "Vendor ID", "CPU family", "Model"))
+    return (f"lscpu model name {name} (vendor {vendor}, family {family}, "
+            f"model {model}), {os.cpu_count()} cores")
+
+
+def ingest_phase(seed: int, device: str = "cuda", scale: float = INGEST_SCALE,
+                 small_scale: float = INGEST_SMALL_SCALE) -> tuple[dict, dict]:
+    """Phase 13: the CLI's ingest on the card's host and the CLI end to end.
+
+    a. rung 3's whole corpus at ``scale`` written as ASCII text, one file
+       per document; b. read in this process by ``read_docs_routed``, which
+       must take the native route and give the generator's corpus; c. a
+       messy corpus at ``small_scale`` read by both routes, bitwise equal;
+       d. the port's CLI (a subprocess) on the ``scale`` directory in the
+       deferred tier, K = 100, with ``--check-counts``, its launches
+       counted.  Returns the results and the CLI's launches by kernel."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch.benchmarks.ingest import rung3_terms
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung3_shape
+    from ldagibbssampling_tpu_torch.corpus.documents import Documents
+    from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+    from ldagibbssampling_tpu_torch.corpus.native import (
+        ingest_texts, load_library, read_docs_routed, read_texts)
+    from ldagibbssampling_tpu_torch.data.synthetic import zipf_corpus
+    from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
+
+    cpu = host_cpu()
+    t0 = time.perf_counter()
+    if load_library() is None:  # built here, so that no ingest below times g++
+        raise AssertionError("[ingest] the native library did not build")
+    out = {"host_cpu": cpu, "library_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. write
+        m, v = rung3_shape(scale)
+        t0 = time.perf_counter()
+        corpus = zipf_corpus(m, v, mean_doc_len=300, seed=2)
+        terms = rung3_terms(v)
+        gen_s = time.perf_counter() - t0
+        big = Path(tmp, "big")
+        write_s = write_docs(big, corpus, lambda ids: b" ".join([terms[i] for i in ids]) + b"\n")
+        nbytes = sum(f.stat().st_size for f in big.iterdir())
+        log(f"[ingest] host {cpu}; library ready in {out['library_s']:.2f}s; "
+            f"rung 3 at scale {scale}: {m} documents, "
+            f"{corpus.num_tokens} tokens, V {v} (generated in {gen_s:.2f}s) "
+            f"written as {nbytes} bytes of text in {write_s:.2f}s")
+
+        # b. in-process ingest: the native route, the generator's corpus
+        t0 = time.perf_counter()
+        fc, route = read_docs_routed(big)
+        native_s = time.perf_counter() - t0
+        if route != "native":
+            raise AssertionError(f"[ingest] read_docs_routed took {route!r}, not native")
+        match_generator(fc, corpus, terms, f"scale {scale}")
+        out.update(documents=m, tokens=fc.num_tokens, vocab=fc.vocab_size,
+                   text_bytes=nbytes, write_s=write_s, native_s=native_s,
+                   native_tokens_per_s=fc.num_tokens / native_s)
+        log(f"[ingest native] {fc.num_tokens} tokens of {m} documents (V "
+            f"{fc.vocab_size} distinct ids) in {native_s:.3f}s = "
+            f"{fc.num_tokens / native_s:,.0f} tokens/s, "
+            f"{nbytes / native_s / 1e6:.1f} MB/s; the generator's corpus "
+            f"(doc_ptr, token_doc, ids under one first-seen bijection)")
+        del fc
+
+        # c. both routes on a messy corpus, bitwise
+        sm, sv = rung3_shape(small_scale)
+        small = zipf_corpus(sm, sv, mean_doc_len=300, seed=2)
+        sterms = rung3_terms(sv)
+        messy = Path(tmp, "messy")
+        swrite_s = write_docs(messy, small, messy_render(sterms, seed))
+        t0 = time.perf_counter()
+        nat, route = read_docs_routed(messy)
+        snative_s = time.perf_counter() - t0
+        if route != "native":
+            raise AssertionError(f"[ingest messy] took {route!r}, not native")
+        t0 = time.perf_counter()
+        docs = Documents().read_docs(messy)
+        py = FlatCorpus.from_documents(docs)
+        python_s = time.perf_counter() - t0
+        # the library's own term counts
+        _, _, vocab, counts = ingest_texts(read_texts(messy))
+        py_counts = np.array([docs.term_count[t] for t in docs.index_to_term], np.int64)
+        bad = [n for n, ok in (
+            *((n, np.array_equal(getattr(nat, n), getattr(py, n))
+               and getattr(nat, n).dtype == getattr(py, n).dtype)
+              for n in ("token_word", "token_doc", "doc_ptr")),
+            ("vocab", nat.vocab == py.vocab == vocab),
+            ("term counts", np.array_equal(counts, py_counts)))
+            if not ok]
+        if bad:
+            raise AssertionError(f"[ingest messy] the routes differ: {bad}")
+        match_generator(nat, small, sterms, f"messy {small_scale}")
+        out["messy"] = dict(documents=sm, tokens=nat.num_tokens, vocab=nat.vocab_size,
+                            write_s=swrite_s, native_s=snative_s, python_s=python_s,
+                            native_tokens_per_s=nat.num_tokens / snative_s,
+                            python_tokens_per_s=nat.num_tokens / python_s)
+        log(f"[ingest messy] scale {small_scale}: {sm} documents with capitals, "
+            f"tabs, form feeds, CRLF, stopwords, URLs and digit-only tokens "
+            f"(written in {swrite_s:.2f}s), {nat.num_tokens} tokens kept, V "
+            f"{nat.vocab_size}: native {snative_s:.3f}s = "
+            f"{nat.num_tokens / snative_s:,.0f} tokens/s, Python "
+            f"{python_s:.3f}s = {nat.num_tokens / python_s:,.0f} tokens/s "
+            f"({python_s / snative_s:.1f}x); token_word, token_doc, doc_ptr, "
+            f"vocab and term counts bitwise equal")
+        del nat, py, docs
+
+        # d. the CLI end to end on the big directory, its launches counted
+        metrics = Path(tmp, "m.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _COUNTED_CLI, "--docs", str(big), "--device",
+             device, "--topics", "100", "--block-size", "65536", "--iterations",
+             str(INGEST_SWEEPS), "--no-save", "--check-counts", "--metrics-file",
+             str(metrics), "--seed", str(seed)],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(REPO)})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[ingest cli] exit {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        ingest_line = next((ln for ln in lines if ln.startswith("ingest: ")), "")
+        if not ingest_line.startswith("ingest: native"):
+            raise AssertionError(f"[ingest cli] no native ingest: {ingest_line!r}")
+        if "count tables bitwise-consistent" not in proc.stdout:
+            raise AssertionError("[ingest cli] --check-counts did not pass")
+        rows = [json.loads(x) for x in metrics.read_text().splitlines()]
+        header = rows[0]
+        if header["kernel_tier"] != "deferred" or header["ingest"] != "native":
+            raise AssertionError(f"[ingest cli] header {header}")
+        counted_lines = [ln for ln in lines if ln.startswith("[launches] ")]
+        launches, plain = json.loads(counted_lines[-1].split(" ", 1)[1])
+        # in the process: the state's first snapshot, then per sweep one walk,
+        # one rebuild and one snapshot
+        walk = sample_name(torch.bfloat16, "float32")
+        want = {walk: INGEST_SWEEPS, "rebuild_counts": INGEST_SWEEPS,
+                "cast_mirror": INGEST_SWEEPS + 1}
+        if device == "cuda":
+            got = {n: c for n, c in launches.items() if c}
+            ok = got == want and not any(plain.values())
+        else:  # a rehearsal: the plain walk runs tile by tile
+            got = {n: plain[n] for n in want}
+            ok = all(got.values()) and not any(launches.values())
+        if not ok:
+            raise AssertionError(f"[ingest cli] launches {launches}, plain {plain}; "
+                                 f"want {want}")
+        tokens = corpus.num_tokens
+        sweep_times = [tokens / r["tokens_per_s"] for r in rows[1:]]
+        sweep_s = sum(sweep_times)
+        out["cli"] = dict(wall_s=wall, ingest_s=header["ingest_s"],
+                          setup_s=header["setup_s"], sweep_s=sweep_s,
+                          first_sweep_s=sweep_times[0],
+                          tokens_per_s=INGEST_SWEEPS * tokens / sweep_s,
+                          kernel_tier=header["kernel_tier"], launches=got)
+        log(f"[ingest cli] {' '.join(proc.args[3:])}: exit 0 in {wall:.1f}s "
+            f"wall; {ingest_line}; set-up (layout and state) "
+            f"{header['setup_s']:.2f}s; {INGEST_SWEEPS} sweeps {sweep_s:.3f}s "
+            f"(first {sweep_times[0]:.3f}s) = "
+            f"{INGEST_SWEEPS * tokens / sweep_s:,.0f} tokens/s, tier "
+            f"{header['kernel_tier']}; counts bitwise-consistent; launches {got}")
+    return out, {"ingest cli": got}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2076,6 +2342,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ladder = ladder_phase(tmp)                          # 11.
     mesh, mesh_launches = mesh_phase(args.seed)             # 12.
+    ingest, ingest_launches = ingest_phase(args.seed)       # 13.
 
     src = f"{PKG}/csrc"
     k1 = "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"
@@ -2099,7 +2366,8 @@ def main() -> int:
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
         if kname in gibbs_launches:  # phase 9's Gibbs row (deferred tier)
             by_path["backends gibbs"] = gibbs_launches[kname]
-        for path, counts in mesh_launches.items():  # phase 12
+        for path, counts in (*mesh_launches.items(),  # phases 12, 13
+                             *ingest_launches.items()):
             if kname in counts:
                 by_path[path] = counts[kname]
         if kname.startswith("dtype_probe"):  # launched by the probe's entry point
@@ -2126,7 +2394,7 @@ def main() -> int:
                           for r in rows_] for key, rows_ in quality.items()},
         "hyper": hyper, "heldout": heldout, "parity": parity,
         "bench": bench, "multichain": multichain, "backends": backends,
-        "ladder": ladder, "mesh": mesh}), flush=True)
+        "ladder": ladder, "mesh": mesh, "ingest": ingest}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -12,7 +12,9 @@ count update (``ops/fused_kernel.py``), K2, the count rebuild
 (``ops/sample_kernel.py``).  The parallel runtimes (``parallel/``: AD-LDA,
 the document × vocabulary grid, token sharding, chains × data) run the
 same kernels per shard over a mesh of device positions, with
-``torch.distributed`` across processes.  Entry points run on ``cuda`` unless given
+``torch.distributed`` across processes.  Corpora are read by a native C++
+ingest (``corpus/native.py``, ``csrc/ldacorpus.cc``, built by ``g++`` at
+first use) where they are ASCII, by the Python pipeline otherwise.  Entry points run on ``cuda`` unless given
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 
 Public symbols are re-exported lazily (importing the root pulls in nothing).
@@ -33,9 +35,18 @@ _EXPORTS = {
     "FlatCorpus": "ldagibbssampling_tpu_torch.corpus.flat",
     "SamplerState": "ldagibbssampling_tpu_torch.models.state",
     "LdaModel": "ldagibbssampling_tpu_torch.models.lda",
+    "OracleSampler": "ldagibbssampling_tpu_torch.models.oracle",
+    "JavaRandom": "ldagibbssampling_tpu_torch.utils.javarandom",
+    "ChainSet": "ldagibbssampling_tpu_torch.models.chains",
+    "MultiChainModel": "ldagibbssampling_tpu_torch.models.chains",
+    "ShardedLda": "ldagibbssampling_tpu_torch.parallel.adlda",
+    "GridLda": "ldagibbssampling_tpu_torch.parallel.grid",
+    "TokenShardedLda": "ldagibbssampling_tpu_torch.parallel.tokenshard",
     "make_backend": "ldagibbssampling_tpu_torch.backends.base",
     "InferenceBackend": "ldagibbssampling_tpu_torch.backends.base",
     "run_inference": "ldagibbssampling_tpu_torch.runner",
+    "WarpModel": "ldagibbssampling_tpu_torch.backends.warp",
+    "read_docs_flat": "ldagibbssampling_tpu_torch.corpus.native",
     "write_minicorpus": "ldagibbssampling_tpu_torch.data",
 }
 

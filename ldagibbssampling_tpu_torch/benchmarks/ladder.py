@@ -180,18 +180,23 @@ def rung2(scale: float, sweeps: int = 20, device: Any = "cuda") -> dict:
     }
 
 
-def rung3_corpus(scale: float, floor: bool = False):
-    """``(corpus, heldout, m, v)`` of rung 3 at ``scale``: NYT-shaped
-    (``zipf_corpus``, 300 tokens per document), 5% of the documents held
-    out; with ``floor`` (rung 3 on the card) at least 2^24 training tokens,
-    the floor inflated by 1/0.95 for the split (reference
-    ``ladder.py:185-192``)."""
-    from ldagibbssampling_tpu_torch.data.synthetic import zipf_corpus
-
+def rung3_shape(scale: float, floor: bool = False) -> tuple[int, int]:
+    """``(documents, V)`` of rung 3 at ``scale``; with ``floor`` (rung 3 on
+    the card) enough documents for 2^24 training tokens, the floor inflated
+    by 1/0.95 for the held-out split (reference ``ladder.py:185-192``)."""
     m = max(40, int(300_000 * scale))
     if floor:
         m = max(m, int(((1 << 24) // 300 + 1) / 0.95) + 1)
-    v = max(500, int(100_000 * min(1.0, scale * 5)))
+    return m, max(500, int(100_000 * min(1.0, scale * 5)))
+
+
+def rung3_corpus(scale: float, floor: bool = False):
+    """``(corpus, heldout, m, v)`` of rung 3 at ``scale``: NYT-shaped
+    (``zipf_corpus``, 300 tokens per document), 5% of the documents held
+    out; ``floor`` as in :func:`rung3_shape`."""
+    from ldagibbssampling_tpu_torch.data.synthetic import zipf_corpus
+
+    m, v = rung3_shape(scale, floor)
     corpus, heldout = zipf_corpus(m, v, mean_doc_len=300, seed=2).split_docs(
         0.05, seed=2)
     if floor and corpus.num_tokens < (1 << 24):

@@ -160,11 +160,15 @@ def main(argv=None) -> int:
               "(use --generate-minicorpus for the stand-in corpus)", file=sys.stderr)
         return 2
 
-    # the Python ingest pipeline (the native C++ tier is not ported yet)
-    from ldagibbssampling_tpu_torch.corpus.documents import Documents
-    from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+    # the native C++ ingest where the corpus is ASCII and the library builds
+    # (the same output; see corpus/native.py), the Python pipeline otherwise
+    from ldagibbssampling_tpu_torch.corpus.native import read_docs_routed
 
-    corpus = FlatCorpus.from_documents(Documents().read_docs(docs_dir))
+    t0 = time.perf_counter()
+    corpus, route = read_docs_routed(docs_dir)
+    ingest_s = time.perf_counter() - t0
+    print(f"ingest: {route}; {corpus.num_tokens} tokens of {corpus.num_docs} "
+          f"documents in {ingest_s:.3f}s")
     print(f"wordMap size {corpus.vocab_size}")
     if corpus.num_tokens == 0:
         print("error: corpus has no tokens after preprocessing", file=sys.stderr)
@@ -186,7 +190,10 @@ def main(argv=None) -> int:
     from ldagibbssampling_tpu_torch.runner import run_inference, save_backend_model
 
     print("1 Initialize the model ...")
+    t0 = time.perf_counter()
     model = make_backend(cfg, corpus, device=args.device)
+    block_on_backend(model)
+    setup_s = time.perf_counter() - t0
 
     if args.checkpoint_every > 0 and not hasattr(model, "save_checkpoint"):
         print(f"error: backend {cfg.backend!r} does not support "
@@ -228,6 +235,8 @@ def main(argv=None) -> int:
                 optimize_hyper_every=args.optimize_hyper_every,
                 checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every,
+                header={"ingest": route, "ingest_s": ingest_s,
+                        "setup_s": setup_s},
             )
         except ReferenceGuardError as e:
             print(f"error: {e}", file=sys.stderr)

@@ -8,6 +8,12 @@ source or to a header it shares builds anew and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them.  A failed build raises; nothing falls back.
 
+``build_host`` is the same for a host library, ``csrc/<name>.cc`` compiled
+by ``$CXX`` (default ``g++``): the corpus ingest's (``corpus/native.py``),
+which is not a kernel and not in ``SOURCES``.  Every build compiles to a
+temporary name of its own and renames it into place, so threads and
+processes that build one library at once all end with the whole file.
+
 No ``--use_fast_math``: it would swap ``logf`` for ``__logf`` and ``1/x``
 for an approximation, which changes the draws against the plain versions.
 """
@@ -18,6 +24,7 @@ import ctypes
 import hashlib
 import os
 import re
+import shlex
 import shutil
 import subprocess
 import threading
@@ -32,6 +39,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -54,10 +62,10 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def _inputs(name: str) -> list[Path]:
-    """``csrc/<name>.cu`` and every ``csrc`` header it includes, in the
+def _inputs(name: str, ext: str = ".cu") -> list[Path]:
+    """``csrc/<name><ext>`` and every ``csrc`` header it includes, in the
     order first reached."""
-    files = [CSRC / f"{name}.cu"]
+    files = [CSRC / f"{name}{ext}"]
     for path in files:  # grows while it is walked
         for inc in _INCLUDE.findall(path.read_bytes()):
             dep = CSRC / inc.decode()
@@ -66,35 +74,47 @@ def _inputs(name: str) -> list[Path]:
     return files
 
 
-def _lib_path(name: str) -> tuple[Path, Path]:
+def _lib_path(name: str, ext: str = ".cu",
+              flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, Path]:
+    """``(source, library)``: the library's name carries a digest of the
+    source, the headers it includes and the flags."""
     h = hashlib.sha256()
-    for path in _inputs(name):
+    for path in _inputs(name, ext):
         h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return CSRC / f"{name}{ext}", BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    src, out = _lib_path(name)
+def _start(src: Path, out: Path, compiler: list[str]):
+    """Start compiling ``src`` to a temporary name beside ``out``; None when
+    ``out`` is built already."""
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")  # one build per process: _lock
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [*compiler, "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     return proc, tmp, out
 
 
 def _finish(name: str, job) -> None:
+    """Wait for a build; rename its output into place, or remove it and
+    raise."""
     proc, tmp, out = job
     stdout, stderr = proc.communicate()
     build_log[name] = stdout + stderr
     if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{stderr}")
+            f"{Path(proc.args[0]).name} failed on {Path(proc.args[-1]).name} "
+            f"(exit {proc.returncode}):\n{stderr}")
     os.replace(tmp, out)
+
+
+def _start_cuda(name: str):
+    return _start(*_lib_path(name), [_nvcc(), *NVCC_FLAGS])
 
 
 def build_all(names: tuple[str, ...] = SOURCES) -> float:
@@ -103,7 +123,7 @@ def build_all(names: tuple[str, ...] = SOURCES) -> float:
     before the first failure is raised."""
     t0 = time.perf_counter()
     with _lock:
-        jobs = {n: _start(n) for n in names}
+        jobs = {n: _start_cuda(n) for n in names}
         errors = []
         for n, job in jobs.items():
             if job is None:
@@ -122,7 +142,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            job = _start(name)
+            job = _start_cuda(name)
             if job is not None:
                 _finish(name, job)
             lib = ctypes.CDLL(str(_lib_path(name)[1]))
@@ -130,6 +150,23 @@ def load(name: str) -> ctypes.CDLL:
             lib.lda_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib
     return lib
+
+
+def build_host(name: str) -> Path:
+    """The host library of ``csrc/<name>.cc`` built by ``$CXX`` (default
+    ``g++``) with ``HOST_FLAGS``, building it if needed; raises
+    ``RuntimeError`` when the source or the compiler is missing or the
+    compiler fails."""
+    cxx = os.environ.get("CXX") or "g++"
+    with _lock:
+        try:
+            src, out = _lib_path(name, ".cc", HOST_FLAGS)
+            job = _start(src, out, [*shlex.split(cxx), *HOST_FLAGS])
+        except OSError as e:
+            raise RuntimeError(f"cannot build {name}.cc with {cxx!r}: {e}") from e
+        if job is not None:
+            _finish(f"{name}.cc", job)
+    return out
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

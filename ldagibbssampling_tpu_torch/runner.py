@@ -63,10 +63,12 @@ def run_inference(
     optimize_hyper_every: int = 0,
     checkpoint_dir: Optional[str | Path] = None,
     checkpoint_every: int = 0,
+    header: Optional[dict] = None,
 ) -> None:
     """The reference inference loop: sweep with the periodic save schedule.
 
-    ``metrics`` gets one header row and then a throughput row every
+    ``metrics`` gets one header row (the tier, the backend and ``header``'s
+    keys) and then a throughput row every
     ``metrics_every`` sweeps (0: rows only at the other boundaries); a row
     forces a device synchronise so its time covers the compute.
     ``optimize_hyper_every`` runs the backend's ``optimize_hyperparameters``
@@ -89,6 +91,7 @@ def run_inference(
         metrics.log(
             start, kernel_tier=getattr(backend, "kernel_tier", "n/a"),
             requested_tier=str(config.use_pallas), backend=config.backend,
+            **(header or {}),
         )
 
     def _save_due(i: int) -> bool:

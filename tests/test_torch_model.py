@@ -322,3 +322,19 @@ def test_package_imports_and_runs_with_jax_blocked(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_public_api_covers_the_jax_package():
+    """Every symbol the JAX package exports, the port exports from a module
+    of its own."""
+    import ldagibbssampling_tpu as reference
+    import ldagibbssampling_tpu_torch as port
+
+    missing = sorted(set(reference._EXPORTS) - set(port._EXPORTS))
+    assert not missing, missing
+    assert sorted(port.__all__) == sorted([*port._EXPORTS, "__version__"])
+    for name, module in port._EXPORTS.items():
+        assert module.startswith("ldagibbssampling_tpu_torch."), (name, module)
+        obj = getattr(port, name)
+        assert obj.__module__.startswith("ldagibbssampling_tpu_torch."), (
+            name, obj.__module__)
