@@ -126,7 +126,19 @@ success:
    token=4 and chain=2,data=2 at rung 3's 0.02 on four positions of the
    card (3 sweeps each, one sharded Minka update, one LL); the CLI with
    ``--mesh data=-1`` killed at 30 and resumed to 60 (the ten artifacts
-   byte-identical).  The NCCL path (several processes) is not run here.
+   byte-identical).  12b, ``[mesh two processes]``: the multi-process
+   branch (``psum``'s ``all_reduce`` across processes, ``gather``,
+   ``global_devices``) with the real kernels: two fresh processes, each
+   bringing up gloo itself (NCCL refuses two ranks on one card) and then
+   ``initialize_distributed``, one position each on the card, train
+   ``ShardedLda`` over ``{"data": 2}`` on rung 3's corpus at 0.2 and
+   ``GridLda`` over ``{"data": 1, "vocab": 2}`` at 0.02, 10 sweeps each
+   in the deferred tier: counts exact, launches counted exactly (per
+   process and sweep one walk, one rebuild, one snapshot), z and every
+   table bitwise the one-process run's on two positions of the card, both
+   processes exit 0; tokens/s, ``psum`` ms per sweep (CUDA events) and
+   set-up seconds beside the card's name and power limit.  NCCL itself
+   is not run here (one card).
 13. ingest: the CLI's corpus ingest (``corpus/native.py``, the host C++
    library of ``csrc/ldacorpus.cc``, built by ``g++`` here) and the CLI end
    to end at rung 3's corpus size: rung 3's whole corpus at scale 0.2
@@ -235,6 +247,13 @@ BENCH_RUNS = (("deferred", 100), ("fused", 100), ("1", 100), ("0", 20))
 # on its corpus, and the grid, token and chain meshes at rung 3's 0.02
 MESH_SCALE, MESH_SMALL_SCALE = 0.2, 0.02
 MESH_SWEEPS, MESH_FOUR_SWEEPS, MESH_SMALL_SWEEPS = 10, 5, 3
+# [mesh two processes]: two processes on the one card (gloo), each run's
+# sweeps; the worker's entry point, run by a fresh interpreter
+MESH2_SWEEPS, MESH2_TIMEOUT_S = 10, 300
+_MESH2_WORKER = (
+    "import sys\n"
+    "import chip_smoke\n"
+    "sys.exit(chip_smoke.mesh2_worker(*sys.argv[1:]))\n")
 MULTICHAIN_SCALE, MULTICHAIN_SWEEPS = 0.2, 20
 BACKEND_RUNS = (("gibbs", 1, 4, 0.2), ("cvb0", 1, 4, 0.2), ("svi", 0, 2, 0.2),
                 ("warp", 1, 4, 0.2), ("smc", 0, 1, 0.01))
@@ -2019,6 +2038,212 @@ def mesh_resume_phase(device_flags=()) -> None:
             f"({time.perf_counter() - t0:.1f}s)")
 
 
+def mesh2_runs(seed: int, device: str, scale: float, small_scale: float) -> list:
+    """The runs of ``[mesh two processes]``, each ``(label, axes, build,
+    tokens)`` with ``build(mesh)`` its runtime: ``ShardedLda`` over
+    ``{"data": 2}`` on rung 3's corpus at ``scale`` (as ``[mesh]`` builds
+    it) and ``GridLda`` over ``{"data": 1, "vocab": 2}`` at
+    ``small_scale``, K = 100, block 65,536, the deferred tier."""
+    from ldagibbssampling_tpu_torch.benchmarks import ladder
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda
+    from ldagibbssampling_tpu_torch.parallel.grid import GridLda
+
+    cfg = LdaConfig(topic_num=100, seed=seed, block_size=65_536)
+    big, _, _, _ = ladder.rung3_corpus(scale, floor=device == "cuda")
+    small, _, _, _ = ladder.rung3_corpus(small_scale)
+    return [
+        ("ShardedLda data=2", {"data": 2},
+         lambda mesh: ShardedLda(cfg, big, mesh=mesh, device=device), big.num_tokens),
+        ("GridLda data=1,vocab=2", {"data": 1, "vocab": 2},
+         lambda mesh: GridLda(cfg, small, mesh=mesh, device=device), small.num_tokens),
+    ]
+
+
+def state_digests(arrays: dict) -> dict:
+    """sha256 of each table (its dtype, shape and bytes)."""
+    import hashlib
+
+    return {n: hashlib.sha256(f"{a.dtype}{a.shape}".encode() + a.tobytes()).hexdigest()
+            for n, a in sorted(arrays.items())}
+
+
+def _launches_match(label: str, want: dict, device: str) -> dict:
+    """The run's launches (on the CPU, a rehearsal: its plain calls, the
+    plain walk tile by tile)."""
+    if device == "cuda":
+        return _mesh_launches(label, want)
+    launches, plain = read_counters()
+    got = {n: plain[n] for n in want}
+    if not all(got.values()) or any(launches.values()):
+        raise AssertionError(f"[mesh {label}] plain {plain}, launches {launches}")
+    return got
+
+
+def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
+                 small_scale: str, sweeps: str, want_path: str) -> int:
+    """One of the two processes of ``[mesh two processes]``: brings up gloo
+    itself (NCCL refuses two ranks on one card), then the port's topology
+    through ``initialize_distributed``, which finds the group up and leaves
+    it to this function; trains each run of :func:`mesh2_runs` for
+    ``sweeps`` sweeps on its one position, with its launches counted and
+    ``psum`` timed, its counts checked and its gathered state held bitwise
+    against the one-process run's digests; prints one ``[mesh2 worker]``
+    JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from ldagibbssampling_tpu_torch.evaluation.tracing import block_on_backend
+    from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    rank, n_sweeps = int(pid), int(sweeps)
+    if device == "cpu":  # a rehearsal: two processes' thread pools on one host
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=addr, world_size=2, rank=rank)
+    try:
+        topo = multihost.initialize_distributed(addr, 2, rank, device=device)
+        if (topo.process_index, topo.process_count, topo.local_device_count,
+                topo.global_device_count) != (rank, 2, 1, 2):
+            raise AssertionError(f"[mesh2 worker {rank}] topology {topo}")
+        want = json.loads(Path(want_path).read_text())
+        walk = sample_name(torch.bfloat16, "float32")
+        out = {"pid": rank, "bringup_s": time.perf_counter() - t0, "runs": {}}
+        for label, axes, build, tokens in mesh2_runs(int(seed), device, float(scale),
+                                                     float(small_scale)):
+            mesh = multihost.make_mesh(axes, device=device)
+            if mesh.ranks != (0, 1) or len(set(mesh.devices)) != 1:
+                raise AssertionError(f"[mesh2 worker {rank}] {label}: mesh {mesh}")
+            t1 = time.perf_counter()
+            model = build(mesh)
+            block_on_backend(model)
+            setup_s = time.perf_counter() - t1
+            if model.kernel_tier != "deferred" or model.positions != [rank]:
+                raise AssertionError(f"[mesh2 worker {rank}] {label}: tier "
+                                     f"{model.kernel_tier}, positions {model.positions}")
+            zero_counters()
+            times, restore = _psum_timer()
+            try:
+                t1 = time.perf_counter()
+                model.sweep(n_sweeps)
+                block_on_backend(model)
+                dt = time.perf_counter() - t1
+            finally:
+                restore()
+            # this process's one shard: per sweep one walk, one rebuild and
+            # the snapshot of its table
+            launches = _launches_match(f"two processes {label}", {
+                walk: n_sweeps, "rebuild_counts": n_sweeps, "cast_mirror": n_sweeps},
+                device)
+            model.check_counts_consistent()
+            got = state_digests(model.arrays())
+            differ = [n for n in got if got[n] != want[label][n]]
+            if differ:
+                raise AssertionError(f"[mesh2 worker {rank}] {label}: {differ} differ "
+                                     "from the one-process run")
+            out["runs"][label] = dict(
+                tokens=tokens, sweep_s=dt, setup_s=setup_s,
+                psum_ms_per_sweep=sum(times) / n_sweeps,
+                psum_calls_per_sweep=len(times) / n_sweeps, launches=launches)
+            del model
+        print("[mesh2 worker] " + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_two_process_phase(seed: int, smi: str, device: str = "cuda",
+                           scale: float = MESH_SCALE,
+                           small_scale: float = MESH_SMALL_SCALE,
+                           sweeps: int = MESH2_SWEEPS) -> tuple[dict, dict]:
+    """Phase 12b: the multi-process branch of ``parallel/`` (``psum``'s
+    ``all_reduce`` across processes, ``gather``, ``global_devices``) on the
+    card: two fresh processes over gloo, one position each on the one card,
+    train :func:`mesh2_runs`; each must match the one-process run of the
+    same mesh (two positions on the card, run here first) bitwise and exit
+    0.  Returns the results and each run's launches, summed over the two
+    processes."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    pos0 = multihost.local_devices(device)[0]
+    want, ref_s = {}, {}
+    for label, axes, build, _ in mesh2_runs(seed, device, scale, small_scale):
+        t0 = time.perf_counter()
+        model = build(multihost.make_mesh(axes, [pos0] * 2))
+        model.sweep(sweeps)
+        want[label] = state_digests(model.arrays())
+        ref_s[label] = time.perf_counter() - t0
+        del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        want_path = Path(tmp, "want.json")
+        want_path.write_text(json.dumps(want))
+        addr = Path(tmp, "rendezvous").as_uri()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MESH2_WORKER, str(pid), addr, device, str(seed),
+             str(scale), str(small_scale), str(sweeps), str(want_path)],
+            cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in (0, 1)]
+        outs, timed_out = [], False
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(
+                    1.0, MESH2_TIMEOUT_S - (time.perf_counter() - t0)))[0])
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                for q in procs:
+                    q.kill()
+                outs = [q.communicate()[0] for q in procs]
+                break
+        wall = time.perf_counter() - t0
+    text = "\n".join(f"--- process {pid}, exit {p.returncode}:\n{o[-3000:]}"
+                     for pid, (p, o) in enumerate(zip(procs, outs)))
+    if timed_out or any(p.returncode != 0 for p in procs) or any(
+            "terminate called" in o for o in outs):
+        raise AssertionError(f"[mesh two processes] "
+                             f"{'timed out' if timed_out else 'a worker failed'}:\n{text}")
+    reports = [json.loads(next(ln for ln in o.splitlines()
+                               if ln.startswith("[mesh2 worker] ")).split(" ", 2)[2])
+               for o in outs]
+    out, by_path = {}, {}
+    for label, run in reports[0]["runs"].items():
+        runs = [r["runs"][label] for r in reports]
+        sweep_s = max(r["sweep_s"] for r in runs)
+        launches = {n: sum(r["launches"][n] for r in runs) for n in runs[0]["launches"]}
+        by_path[f"mesh two processes {label}"] = launches
+        out[label] = dict(
+            tokens=run["tokens"], tokens_per_s=sweeps * run["tokens"] / sweep_s,
+            ms_per_sweep=sweep_s / sweeps * 1e3,
+            psum_ms_per_sweep=[r["psum_ms_per_sweep"] for r in runs],
+            psum_calls_per_sweep=run["psum_calls_per_sweep"],
+            setup_s=[r["setup_s"] for r in runs], one_process_s=ref_s[label],
+            launches=launches)
+        log(f"[mesh two processes] {label}: {run['tokens']} tokens, 2 processes "
+            f"(gloo) x 1 position on {pos0}, deferred, {sweeps} sweeps: "
+            f"{out[label]['tokens_per_s']:,.0f} tokens/s ({sweep_s / sweeps * 1e3:.2f} ms "
+            f"per sweep, the slower process); psum "
+            f"{', '.join(f'{x:.3f}' for x in out[label]['psum_ms_per_sweep'])} ms per "
+            f"sweep (CUDA events, processes 0 and 1, {run['psum_calls_per_sweep']:g} "
+            f"call(s) per sweep); set-up "
+            f"{', '.join(f'{x:.1f}' for x in out[label]['setup_s'])} s; counts exact; z "
+            f"and every table bitwise the one-process run's (2 positions on {pos0}, "
+            f"{ref_s[label]:.1f} s); launches {launches}; nvidia-smi: {smi}")
+    out["bringup_s"] = [r["bringup_s"] for r in reports]
+    out["workers_wall_s"] = wall
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh two processes] both processes exit 0 (no abort); their wall "
+        f"{wall:.1f} s (bring-up {', '.join(f'{x:.1f}' for x in out['bringup_s'])} s); "
+        f"the phase {out['phase_s']:.1f} s with the one-process runs")
+    return out, by_path
+
+
 def write_docs(root: Path, corpus, render) -> float:
     """One file per document, ``doc<m>.txt`` (name order is document
     order), its bytes ``render(word ids)``; returns the seconds taken."""
@@ -2342,6 +2567,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ladder = ladder_phase(tmp)                          # 11.
     mesh, mesh_launches = mesh_phase(args.seed)             # 12.
+    mesh2, mesh2_launches = mesh_two_process_phase(args.seed, smi)  # 12b.
+    mesh_launches.update(mesh2_launches)
+    mesh["two_processes"] = mesh2
     ingest, ingest_launches = ingest_phase(args.seed)       # 13.
 
     src = f"{PKG}/csrc"

@@ -4,6 +4,8 @@ Counterpart of ``ldagibbssampling_tpu/evaluation/tracing.py``:
 
 - :func:`trace` — ``torch.profiler`` capture around a region (CPU and, when
   present, CUDA activity); writes a Chrome trace into the directory;
+- :func:`annotate` — a named region in that trace
+  (``torch.profiler.record_function``);
 - :func:`kernel_device_ms` — a kernel's device time per launch, from
   ``torch.profiler``'s CUDA activity (what CUDA events around a short
   kernel's wrapper cannot give: they time the host's launches);
@@ -37,6 +39,13 @@ def trace(log_dir: str | Path) -> Iterator[Any]:
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named trace region (shows up in the profiler timeline)."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 def kernel_device_ms(fn, name: str, reps: int = 20) -> Optional[float]:

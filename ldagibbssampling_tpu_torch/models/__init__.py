@@ -1,9 +1,10 @@
 """Model layer: sampler state, the LDA model and the multi-chain set
 (reference: ``main/LdaModel.java``)."""
 
+from ldagibbssampling_tpu_torch.models.oracle import OracleSampler
 from ldagibbssampling_tpu_torch.models.state import SamplerState, init_state
 
-__all__ = ["SamplerState", "init_state"]
+__all__ = ["OracleSampler", "SamplerState", "init_state"]
 
 _LAZY = {
     "LdaModel": "ldagibbssampling_tpu_torch.models.lda",

@@ -7,3 +7,8 @@ one reduction of ``multihost`` (``torch.distributed`` across processes).
 Each shard's sweep runs the port's kernels (``ops/``) on its position's
 device; the reconciliation is a ``psum`` over a named axis.
 """
+
+from ldagibbssampling_tpu_torch.parallel.sharding import CorpusShards, shard_corpus
+from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda, make_sharded_sweep_fn
+
+__all__ = ["CorpusShards", "shard_corpus", "ShardedLda", "make_sharded_sweep_fn"]

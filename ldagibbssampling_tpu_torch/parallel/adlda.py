@@ -40,7 +40,8 @@ from ldagibbssampling_tpu_torch.ops.count_kernel import plan_deferred, stack_pla
 from ldagibbssampling_tpu_torch.ops.gibbs import _pick_row_tile
 from ldagibbssampling_tpu_torch.parallel import multihost
 from ldagibbssampling_tpu_torch.parallel.runtime import (
-    MeshRuntime, bincount_table, column_sum, per_tensor, resolve_mesh_tier)
+    MeshRuntime, bincount_table, column_sum, per_tensor, resolve_mesh_tier,
+    sweep_fn_tier)
 from ldagibbssampling_tpu_torch.parallel.sharding import (
     CorpusShards, shard_corpus, sort_blocks_inplace)
 
@@ -120,18 +121,64 @@ def resolve_shard_tier(config, shards: CorpusShards, block: int):
         _log.warning("kernel tier: requested 'deferred' -> running 'fused' (%s)", reason)
         use_pallas = "fused"
     if use_pallas == "fused":
-        freq = np.zeros(max(shards.vocab_size, 1), np.int64)
-        for s in range(shards.num_shards):
-            real = shards.token_mask[s] > 0
-            freq += np.bincount(shards.token_word[s][real],
-                                minlength=shards.vocab_size)
-        max_len = int(shards.doc_lengths.max()) if shards.doc_lengths.size else 0
-        row_tile = fused_row_tile(freq, max_len, block, config.topic_num)
+        row_tile = shard_fused_row_tile(shards, block, config.topic_num)
         if row_tile is not None:
             return "fused", shards, None, row_tile
         _log.warning("kernel tier: requested 'fused' -> running 'xla' "
                      "(no fused shard plan)")
     return "xla", shards, None, 0
+
+
+def shard_fused_row_tile(shards: CorpusShards, block: int,
+                         num_topics: int) -> Optional[int]:
+    """:func:`fused_row_tile` of the shards' global word frequencies and
+    longest document."""
+    freq = np.zeros(max(shards.vocab_size, 1), np.int64)
+    for s in range(shards.num_shards):
+        real = shards.token_mask[s] > 0
+        freq += np.bincount(shards.token_word[s][real], minlength=shards.vocab_size)
+    max_len = int(shards.doc_lengths.max()) if shards.doc_lengths.size else 0
+    return fused_row_tile(freq, max_len, block, num_topics)
+
+
+def make_sharded_sweep_fn(
+    shards: CorpusShards,
+    mesh: multihost.Mesh,
+    *,
+    alpha: float,
+    beta: float,
+    block_size: int,
+    draw_method: str = "gumbel",
+    num_sweeps: int = 1,
+    axis: str = "data",
+    sorted_words: bool = False,
+    use_pallas: Any = False,
+    num_topics: int = 512,
+    deferred_layout: Optional[dict] = None,
+    noise_mode: str = "internal",
+):
+    """The AD-LDA sweep over ``mesh``, as the reference's
+    ``make_sharded_sweep_fn`` (``:174``): ``run(z, ndk, nwk, nk, seed,
+    sweep) -> (z, ndk, nwk, nk)`` over this process's positions' tensors
+    (``MeshRuntime.sweep_fn``), ``num_sweeps`` sweeps per call, the tables
+    reconciled after each.  The tier (``run.kernel_tier``) by the
+    reference's rules (``runtime.sweep_fn_tier``): ``deferred_layout`` from
+    :func:`deferred_shard_layout`, whose stripe-aligned shards ``shards``
+    must be, runs the deferred tier.  ``sorted_words`` is the reference's
+    scatter hint, which the port's sweeps do not need (the same result
+    either way); ``noise_mode`` the port's noise (``runtime``), in place of
+    the reference's ``pallas_interpret``."""
+    del sorted_words
+    tier, row_tile = sweep_fn_tier(
+        deferred_layout, use_pallas, draw_method, block_size,
+        lambda: shard_fused_row_tile(shards, block_size, num_topics),
+        "deferred_shard_layout")
+    config = LdaConfig(alpha=alpha, beta=beta, topic_num=num_topics,
+                       block_size=block_size, draw_method=draw_method)
+    runtime = ShardedLda.__new__(ShardedLda)
+    runtime._start(config, None, mesh, axis, noise_mode)
+    runtime._place(shards, block_size, tier, deferred_layout, row_tile)
+    return runtime.sweep_fn(num_sweeps)
 
 
 class ShardedLda(MeshRuntime):
@@ -146,22 +193,17 @@ class ShardedLda(MeshRuntime):
         resolve_device(device)
         if mesh is None:
             mesh = multihost.line_mesh(num_shards, axis, device)
-        self.axis = axis
-        self.SPEC = {"z": (axis,), "ndk": (axis,), "nwk": (), "nk": ()}
-        self._setup(config, corpus, mesh, noise_mode)
-        p = mesh.size
+        self._start(config, corpus, mesh, axis, noise_mode)
         block = max(1, config.block_size)
-        self.shards = shard_corpus(corpus, p, block_size=block)
-        block = min(block, self.shards.tokens_per_shard)
-        self.block_size = block
+        shards = shard_corpus(corpus, mesh.size, block_size=block)
+        block = min(block, shards.tokens_per_shard)
         # the tier before the state: the deferred tier re-lays out the tokens
-        self.kernel_tier, self.shards, self._layout, self._row_tile = \
-            resolve_shard_tier(config, self.shards, block)
-        if config.sort_blocks and block > 1 and self._layout is None:
-            sort_blocks_inplace(self.shards.token_word, self.shards.token_doc,
-                                self.shards.token_mask, block_size=block)
-        sh = self.shards
-        k = config.topic_num
+        tier, shards, layout, row_tile = resolve_shard_tier(config, shards, block)
+        if config.sort_blocks and block > 1 and layout is None:
+            sort_blocks_inplace(shards.token_word, shards.token_doc,
+                                shards.token_mask, block_size=block)
+        self._place(shards, block, tier, layout, row_tile)
+        sh, p, k = self.shards, mesh.size, config.topic_num
         z = self._init_generators(sh.token_word.shape, k)
         mask = sh.token_mask > 0
         ndk = np.stack([bincount_table(sh.token_doc[s][mask[s]], z[s][mask[s]],
@@ -170,10 +212,21 @@ class ShardedLda(MeshRuntime):
         self.load_arrays({"z": z, "ndk": ndk.astype(np.int32),
                           "nwk": nwk.astype(np.int32),
                           "nk": nwk.sum(axis=0).astype(np.int32)})
-        tw, td, tm = (self._put(a, (axis,))
-                      for a in (sh.token_word, sh.token_doc, sh.token_mask))
+
+    def _start(self, config, corpus, mesh, axis: str, noise_mode: str) -> None:
+        self.axis = axis
+        self.SPEC = {"z": (axis,), "ndk": (axis,), "nwk": (), "nk": ()}
+        self._setup(config, corpus, mesh, noise_mode)
+
+    def _place(self, shards: CorpusShards, block: int, tier: str,
+               layout: Optional[dict], row_tile: int) -> None:
+        """The tier and each held position's token stream on its device."""
+        self.shards, self.block_size = shards, block
+        self.kernel_tier, self._layout, self._row_tile = tier, layout, row_tile
+        tw, td, tm = (self._put(a, (self.axis,))
+                      for a in (shards.token_word, shards.token_doc, shards.token_mask))
         self._tokens = {p: (tw[p], td[p], tm[p]) for p in self.positions}
-        self._dl = self._put(sh.doc_lengths, (axis,))
+        self._dl = self._put(shards.doc_lengths, (self.axis,))
 
     def _sweep_once(self, seeds: dict, noise: dict) -> None:
         tier = self.kernel_tier

@@ -113,6 +113,7 @@ class ShardedChainSet(MeshRuntime):
         self.ll_trace: list[np.ndarray] = []
         self.phi_trace: list[np.ndarray] = []
         self.phi_window = None
+        self.phi_accum = None
 
     def _sweep_once(self, seeds: dict, noise: dict) -> None:
         tier = self.kernel_tier
@@ -215,6 +216,16 @@ class ShardedChainSet(MeshRuntime):
         a = self.arrays()
         return np.stack([self.chain_phi(ci, a) for ci in range(self.num_chains)])
 
+    def record_phi(self, half: int) -> None:
+        """Fold the chains' φ into the running split-R̂ accumulator
+        (``diagnostics.PhiRhatAccumulator``; see
+        ``models/chains.ChainSet.record_phi``): ``half`` routes the draw to
+        split-half 0 or 1."""
+        if self.phi_accum is None:
+            self.phi_accum = diagnostics.PhiRhatAccumulator(
+                self.num_chains, self.config.topic_num, self.corpus.vocab_size)
+        self.phi_accum.add(self._phis(), half)
+
     def record_phi_auto(self) -> None:
         """Fold the chains' φ into the pair-safe doubling-window accumulator."""
         if self.phi_window is None:
@@ -227,6 +238,8 @@ class ShardedChainSet(MeshRuntime):
             return diagnostics.r_hat_phi(np.stack(self.phi_trace, axis=1))
         if self.phi_window is not None:
             return self.phi_window.result()
+        if self.phi_accum is not None:
+            return self.phi_accum.result()
         return {"max": float("nan"), "p99": float("nan"),
                 "frac_gt_1_1": float("nan"), "n_cells": 0, "perms": []}
 

@@ -35,7 +35,8 @@ from ldagibbssampling_tpu_torch.ops.gibbs import _pick_row_tile
 from ldagibbssampling_tpu_torch.parallel import multihost
 from ldagibbssampling_tpu_torch.parallel.adlda import _theta, fused_row_tile
 from ldagibbssampling_tpu_torch.parallel.runtime import (
-    MeshRuntime, bincount_table, column_sum, per_tensor, resolve_mesh_tier)
+    MeshRuntime, bincount_table, column_sum, per_tensor, resolve_mesh_tier,
+    sweep_fn_tier)
 from ldagibbssampling_tpu_torch.parallel.sharding import (
     assign_docs, sort_blocks_inplace)
 
@@ -186,6 +187,52 @@ def deferred_grid_layout(shards: GridShards, block_size: int,
     return (new_shards, layout), None
 
 
+def grid_fused_row_tile(shards: GridShards, block: int,
+                        num_topics: int) -> Optional[int]:
+    """:func:`adlda.fused_row_tile` of the grid's global word frequencies
+    and longest document."""
+    max_len = int(shards.doc_lengths.max()) if shards.doc_lengths.size else 0
+    return fused_row_tile(_grid_word_freq(shards, shards.vocab_per_shard),
+                          max_len, block, num_topics)
+
+
+def make_grid_sweep_fn(
+    shards: GridShards,
+    mesh: multihost.Mesh,
+    *,
+    alpha: float,
+    beta: float,
+    block_size: int,
+    draw_method: str = "gumbel",
+    num_sweeps: int = 1,
+    sorted_words: bool = False,
+    use_pallas: Any = False,
+    num_topics: int = 512,
+    deferred_layout: Optional[dict] = None,
+    noise_mode: str = "internal",
+):
+    """The grid sweep over a ``('data', 'vocab')`` mesh, as the reference's
+    ``make_grid_sweep_fn`` (``:332``): ``run(z, ndk, nwk, nk, seed, sweep)
+    -> (z, ndk, nwk, nk)`` over this process's positions' tensors (the
+    cells' ``z``, their rows' ``ndk``, their columns' slabs of ``nwk``,
+    ``nk``; ``MeshRuntime.sweep_fn``), ``V·β`` with the global vocabulary
+    size.  The tier by the reference's rules, as
+    ``adlda.make_sharded_sweep_fn`` (``deferred_layout`` from
+    :func:`deferred_grid_layout`); ``sorted_words`` and ``noise_mode`` as
+    there."""
+    del sorted_words
+    tier, row_tile = sweep_fn_tier(
+        deferred_layout, use_pallas, draw_method, block_size,
+        lambda: grid_fused_row_tile(shards, block_size, num_topics),
+        "deferred_grid_layout")
+    config = LdaConfig(alpha=alpha, beta=beta, topic_num=num_topics,
+                       block_size=block_size, draw_method=draw_method)
+    runtime = GridLda.__new__(GridLda)
+    runtime._setup(config, None, mesh, noise_mode)
+    runtime._place(shards, block_size, tier, deferred_layout, row_tile)
+    return runtime.sweep_fn(num_sweeps)
+
+
 class GridLda(MeshRuntime):
     """Document × vocabulary collapsed-Gibbs LDA over a ``('data',
     'vocab')`` mesh."""
@@ -211,39 +258,36 @@ class GridLda(MeshRuntime):
         self._setup(config, corpus, mesh, noise_mode)
         pd, pv = mesh.shape
         block = max(1, config.block_size)
-        self.shards = shard_corpus_grid(corpus, pd, pv, block_size=block)
-        block = min(block, self.shards.tokens_per_cell)
-        self.block_size = block
+        shards = shard_corpus_grid(corpus, pd, pv, block_size=block)
+        block = min(block, shards.tokens_per_cell)
         k = config.topic_num
-        v_s = max(1, -(-self.shards.vocab_per_shard // 128) * 128)  # lane-aligned
+        v_s = max(1, -(-shards.vocab_per_shard // 128) * 128)  # lane-aligned
         self._v_s = v_s
 
         use_pallas = resolve_mesh_tier(config.use_pallas, config.draw_method, block)
-        self._layout, self._row_tile = None, 0
+        tier, layout, row_tile = "xla", None, 0
         if use_pallas == "deferred":
-            layout, reason = deferred_grid_layout(self.shards, block, k, v_slab=v_s)
-            if layout is None:
+            made, reason = deferred_grid_layout(shards, block, k, v_slab=v_s)
+            if made is None:
                 _log.warning("kernel tier: requested 'deferred' -> running "
                              "'fused' (%s)", reason)
                 use_pallas = "fused"
             else:
-                self.shards, self._layout = layout
-                self._row_tile = self._layout["row_tile"]
-        self.kernel_tier = "deferred" if self._layout is not None else "xla"
+                (shards, layout), tier = made, "deferred"
+                row_tile = layout["row_tile"]
         if use_pallas == "fused":
-            sh = self.shards
-            max_len = int(sh.doc_lengths.max()) if sh.doc_lengths.size else 0
-            row_tile = fused_row_tile(_grid_word_freq(sh, sh.vocab_per_shard),
-                                      max_len, block, k)
+            row_tile = grid_fused_row_tile(shards, block, k)
             if row_tile is None:
                 _log.warning("kernel tier: requested 'fused' -> running 'xla' "
                              "(no fused grid plan)")
+                row_tile = 0
             else:
-                self.kernel_tier, self._row_tile = "fused", row_tile
+                tier = "fused"
+        if config.sort_blocks and block > 1 and layout is None:
+            sort_blocks_inplace(shards.token_word, shards.token_doc,
+                                shards.token_mask, block_size=block)
+        self._place(shards, block, tier, layout, row_tile)
         sh = self.shards
-        if config.sort_blocks and block > 1 and self._layout is None:
-            sort_blocks_inplace(sh.token_word, sh.token_doc, sh.token_mask,
-                                block_size=block)
         z = self._init_generators(sh.token_word.shape, k)
         mask = sh.token_mask > 0
         ndk = np.zeros((pd, sh.docs_per_shard, k), np.int64)
@@ -258,16 +302,21 @@ class GridLda(MeshRuntime):
         self.load_arrays({"z": z, "ndk": ndk.astype(np.int32),
                           "nwk": nwk.astype(np.int32),
                           "nk": nwk.sum(axis=(0, 1)).astype(np.int32)})
-        grid = ("data", "vocab")
-        tw, td, tm = (self._put(a, grid)
-                      for a in (sh.token_word, sh.token_doc, sh.token_mask))
+
+    def _place(self, shards: GridShards, block: int, tier: str,
+               layout: Optional[dict], row_tile: int) -> None:
+        """The tier and each held cell's token stream on its device."""
+        self.shards, self.block_size = shards, block
+        self.kernel_tier, self._layout, self._row_tile = tier, layout, row_tile
+        tw, td, tm = (self._put(a, ("data", "vocab"))
+                      for a in (shards.token_word, shards.token_doc, shards.token_mask))
         self._tokens = {p: (tw[p], td[p], tm[p]) for p in self.positions}
-        self._dl = self._put(sh.doc_lengths, ("data",))
+        self._dl = self._put(shards.doc_lengths, ("data",))
 
     def _sweep_once(self, seeds: dict, noise: dict) -> None:
         tier = self.kernel_tier
         # V·β with the global vocabulary size, not the slab's height
-        new = self._local_sweeps(seeds, noise, vocab_size=self.corpus.vocab_size)
+        new = self._local_sweeps(seeds, noise, vocab_size=self.shards.vocab_size)
         psum, mesh = multihost.psum, self.mesh
         if tier == "deferred":
             z = {p: new[p][0] for p in new}

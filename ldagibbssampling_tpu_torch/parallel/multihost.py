@@ -14,17 +14,23 @@ Counterpart of ``ldagibbssampling_tpu/parallel/multihost.py`` and of
   ``jax.devices()``;
 - :func:`initialize_distributed` brings up ``torch.distributed``
   (``tcp://`` init; NCCL for CUDA devices, gloo for the CPU) and returns the
-  :class:`HostTopology`; with one process it is a no-op;
+  :class:`HostTopology`; with one process it is a no-op.  A group it brings
+  up itself is torn down at interpreter exit, as ``jax.distributed`` shuts
+  its client down: a process that leaves gloo's threads running when the
+  interpreter exits can abort after its work is done.  A group the caller
+  brought up is the caller's to tear down;
 - :func:`psum` sums the shards' tensors over a named axis, in shard order,
   and is the only collective the runtimes call.  With several processes
   each holds only its own positions' shards, and ``psum`` adds one
-  ``all_reduce(SUM)`` over the processes that span the group.
+  ``all_reduce(SUM)`` over the processes that span the group.  Each such
+  process group is made once per process (``_groups``, in the same order in
+  every process, as ``new_group`` is collective) and looked up afterwards.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
-import functools
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
@@ -87,8 +93,12 @@ def initialize_distributed(
 ) -> HostTopology:
     """Bring up ``torch.distributed`` (idempotent; a no-op for one process).
 
-    ``coordinator_address`` is ``host:port`` or ``tcp://host:port``; the
-    group uses NCCL for ``cuda`` and gloo for ``cpu``.
+    ``coordinator_address`` is ``host:port`` or any ``init_method`` URL
+    (``tcp://host:port``, ``file:///path``); the group uses NCCL for
+    ``cuda`` and gloo for ``cpu``, and is destroyed at interpreter exit.
+    Where a group is up already (the caller's own, e.g. gloo for several
+    processes on one card, which NCCL refuses), it is used as it is and
+    left to the caller.
     """
     import torch.distributed as dist
 
@@ -103,6 +113,7 @@ def initialize_distributed(
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
         dist.init_process_group(backend, init_method=addr,
                                 world_size=int(num_processes), rank=int(process_id))
+        atexit.register(_teardown)
     rank, size = world()
     devices, _ = global_devices(device)
     return HostTopology(process_index=rank, process_count=size,
@@ -207,31 +218,37 @@ def mesh_from_config(config, devices: Optional[Sequence[Any]] = None, *,
     return make_mesh(axes, devices, device=device)
 
 
-@functools.lru_cache(maxsize=None)
-def _process_group(procs: tuple[int, ...]):
-    """The process group of ``procs`` (the default group for the world)."""
+# this process's groups by process tuple (cleared with the group at teardown)
+_GROUPS: dict = {}
+
+
+def _teardown() -> None:
+    """Destroy the process group (registered at exit by
+    :func:`initialize_distributed` for a group it brought up)."""
+    _GROUPS.clear()
     dist = _dist()
-    if len(procs) == dist.get_world_size():
-        return None
-    return dist.new_group(list(procs))
+    if dist:
+        dist.destroy_process_group()
 
 
 def _groups(mesh: Mesh, axes: tuple[str, ...]) -> list[list[int]]:
     """Every group of ``axes`` in ``mesh``, ordered by its first position.
-    With several processes the groups that span more than one process get
-    their process group here, in this order in every process (``new_group``
-    is collective)."""
+    With several processes a group that spans more than one process, and
+    not all of them, gets its process group here the first time it is seen:
+    every process walks the groups in this order and calls ``new_group``
+    for each (it is collective, members or not)."""
     groups, seen = [], set()
     for p in range(mesh.size):
         g = tuple(mesh.group(p, axes))
         if g not in seen:
             seen.add(g)
             groups.append(list(g))
-    if world()[1] > 1:
+    size = world()[1]
+    if size > 1:
         for g in groups:
             procs = tuple(sorted({mesh.ranks[p] for p in g}))
-            if len(procs) > 1:
-                _process_group(procs)
+            if 1 < len(procs) < size and procs not in _GROUPS:
+                _GROUPS[procs] = _dist().new_group(list(procs))
     return groups
 
 
@@ -255,7 +272,8 @@ def psum(parts: Mapping[int, torch.Tensor], mesh: Mesh, axis) -> dict[int, torch
         if len(procs) > 1:
             if len(local) == 1:
                 total = total.clone()  # all_reduce writes in place
-            _dist().all_reduce(total, group=_process_group(procs))
+            group = None if len(procs) == world()[1] else _GROUPS[procs]
+            _dist().all_reduce(total, group=group)
         placed: dict[torch.device, torch.Tensor] = {}
         for p in local:
             dev = mesh.devices[p]

@@ -29,6 +29,7 @@ argmax.
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -41,6 +42,7 @@ from ldagibbssampling_tpu_torch.ops.gibbs import (
 from ldagibbssampling_tpu_torch.parallel import multihost
 
 _GOLDEN = 0x9E3779B97F4A7C15
+_log = logging.getLogger("ldagibbssampling_tpu_torch")
 
 
 def bincount_table(rows: np.ndarray, cols: np.ndarray, shape) -> np.ndarray:
@@ -57,6 +59,30 @@ def resolve_mesh_tier(use_pallas, draw_method: str, block: int) -> Any:
     if use_pallas in ("fused", "deferred") and (draw_method != "gumbel" or block < 128):
         return False
     return use_pallas
+
+
+def sweep_fn_tier(deferred_layout: Optional[dict], use_pallas, draw_method: str,
+                  block: int, fused_row_tile: Callable[[], Optional[int]],
+                  layout_fn: str) -> tuple[str, int]:
+    """``(tier, row_tile)`` of the reference's ``make_sharded_sweep_fn`` and
+    ``make_grid_sweep_fn`` (its platform rule aside): ``deferred_layout``
+    runs the deferred tier; ``use_pallas="deferred"`` without it runs the
+    fused tier, which needs the gumbel draw, a block of 128 or more and a
+    row tile (``fused_row_tile()``); otherwise the XLA tier."""
+    if deferred_layout is not None:
+        return "deferred", deferred_layout["row_tile"]
+    if use_pallas == "deferred":
+        _log.warning("kernel tier: requested 'deferred' -> running 'fused' "
+                     "(no deferred_layout supplied; see %s)", layout_fn)
+        use_pallas = "fused"
+    if use_pallas == "fused":
+        row_tile = (fused_row_tile() if draw_method == "gumbel" and block >= 128
+                    else None)
+        if row_tile is not None:
+            return "fused", row_tile
+        _log.warning("kernel tier: requested 'fused' -> running 'xla' "
+                     "(no fused plan)")
+    return "xla", 0
 
 
 class MeshRuntime:
@@ -129,10 +155,17 @@ class MeshRuntime:
             self.sweep_idx = int(sweep)
 
     # ------------------------------------------------------------------
-    def _sweep_noise(self, noise: Optional[Callable]) -> tuple[dict, dict]:
-        """Per position: the sweep's seed and its external noise array."""
+    def _sweep_noise(self, noise: Optional[Callable],
+                     seed: Optional[int] = None) -> tuple[dict, dict]:
+        """Per position: the sweep's seed and its external noise array.
+        Internal noise draws the sweep's seed from the runtime's generator,
+        or, given ``seed``, derives it from ``(seed, sweep)``."""
         if self.noise_mode == "internal":
-            base = int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
+            if seed is None:
+                base = int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
+            else:
+                base = int(np.random.SeedSequence([seed, self.sweep_idx])
+                           .generate_state(1, np.uint64)[0] >> np.uint64(1))
             return {p: (base + p * _GOLDEN) % (1 << 63) for p in self.positions}, {}
         seeds = dict.fromkeys(self.positions, 0)
         if self.noise_mode == "deterministic":
@@ -144,10 +177,37 @@ class MeshRuntime:
 
     def sweep(self, n: int = 1, noise: Optional[Callable] = None) -> None:
         """``n`` sweeps with the current α and β: no host read in between."""
+        self._sweeps(n, noise)
+
+    def _sweeps(self, n: int, noise: Optional[Callable],
+                seed: Optional[int] = None) -> None:
         for _ in range(n):
-            seeds, arrays = self._sweep_noise(noise)
+            seeds, arrays = self._sweep_noise(noise, seed)
             self._sweep_once(seeds, arrays)
             self.sweep_idx += 1
+
+    def sweep_fn(self, num_sweeps: int) -> Callable:
+        """This runtime's sweep as the reference's ``make_*_sweep_fn``
+        callable: ``run(z, ndk, nwk, nk, seed, sweep, n_sweeps=None,
+        alpha_v=None, beta_v=None, noise=None) -> (z, ndk, nwk, nk)``, each
+        table a dict of this process's positions' tensors.  ``n_sweeps``
+        (default ``num_sweeps``) sweeps from sweep index ``sweep``, with
+        ``alpha_v`` and ``beta_v`` (default the runtime's α and β); internal
+        noise from ``(seed, sweep index)``, external from ``noise(position,
+        sweep)``.  ``run.kernel_tier`` names the tier."""
+        alpha, beta = self.alpha, self.beta
+
+        def run(z, ndk, nwk, nk, seed, sweep, n_sweeps=None, alpha_v=None,
+                beta_v=None, noise=None):
+            self.z, self.ndk, self.nwk, self.nk = dict(z), dict(ndk), dict(nwk), dict(nk)
+            self.alpha = float(alpha if alpha_v is None else alpha_v)
+            self.beta = float(beta if beta_v is None else beta_v)
+            self.sweep_idx = int(sweep)
+            self._sweeps(num_sweeps if n_sweeps is None else n_sweeps, noise, int(seed))
+            return self.z, self.ndk, self.nwk, self.nk
+
+        run.kernel_tier = self.kernel_tier
+        return run
 
     @property
     def sweeps_done(self) -> int:

@@ -90,3 +90,21 @@ def test_chain_set_on_a_chain_mesh():
     with pytest.raises(ValueError, match="'chain' axis"):
         ChainSet(cfg, pc, mesh=multihost.make_mesh({"data": 2}, [torch.device("cpu")] * 2),
                  device="cpu")
+
+
+def test_record_phi_matches_reference_from_the_same_states():
+    """``ShardedChainSet.record_phi(half)``, the running split-R̂ on φ, as
+    the reference's (``parallel/chaingrid.py:422``), from the same states."""
+    jc, pc = mesh_corpora(36)
+    cfg = dict(topic_num=K, block_size=128, seed=6)
+    ref = reference("chain", jc, **cfg)
+    model = port("chain", pc, noise_mode="internal", **cfg)
+    for i in range(4):
+        ref.sweep(1)
+        load_reference(model, ref)
+        ref.record_phi(i // 2)
+        model.record_phi(i // 2)
+    got, want = model.r_hat_phi(), ref.r_hat_phi()
+    assert got["n_cells"] == want["n_cells"] > 0
+    for key in ("max", "p99", "frac_gt_1_1"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6, err_msg=key)

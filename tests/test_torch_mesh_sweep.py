@@ -22,6 +22,8 @@ the tier is downgraded (``tests/test_deferred_mesh.py:101-120``).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -32,18 +34,21 @@ from jax.sharding import Mesh as JaxMesh
 from ldagibbssampling_tpu.config import LdaConfig as JaxConfig
 from ldagibbssampling_tpu.corpus.flat import FlatCorpus as JaxFlatCorpus
 from ldagibbssampling_tpu.parallel.adlda import ShardedLda as JaxShardedLda
+from ldagibbssampling_tpu.parallel.adlda import (
+    make_sharded_sweep_fn as jax_make_sharded_sweep_fn)
 from ldagibbssampling_tpu.parallel.chaingrid import ShardedChainSet as JaxChainSet
 from ldagibbssampling_tpu.parallel.grid import GridLda as JaxGridLda
+from ldagibbssampling_tpu.parallel.grid import make_grid_sweep_fn as jax_make_grid_sweep_fn
 from ldagibbssampling_tpu.parallel.tokenshard import TokenShardedLda as JaxTokenLda
 from ldagibbssampling_tpu_torch import interop
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.ops import count_kernel as ck
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
-from ldagibbssampling_tpu_torch.parallel import multihost
+from ldagibbssampling_tpu_torch.parallel import make_sharded_sweep_fn, multihost
 from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda
 from ldagibbssampling_tpu_torch.parallel.chaingrid import ShardedChainSet
-from ldagibbssampling_tpu_torch.parallel.grid import GridLda
+from ldagibbssampling_tpu_torch.parallel.grid import GridLda, make_grid_sweep_fn
 from ldagibbssampling_tpu_torch.parallel.tokenshard import TokenShardedLda
 
 # one intra-op thread: the suite runs in several worker processes at once
@@ -256,3 +261,57 @@ def test_one_position_and_shard_padding():
     assert theta.shape == (7, K)
     np.testing.assert_allclose(theta.sum(axis=1), 1.0, rtol=1e-6)
     np.testing.assert_allclose(three.phi().sum(axis=1), 1.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind,tier,block,seed", [
+    ("adlda", False, 256, 13), ("adlda", "fused", 256, 14),
+    ("adlda", "deferred", 256, 15),
+    ("grid", False, 128, 16), ("grid", "deferred", 256, 17),
+])
+def test_sweep_fns_match_reference(kind, tier, block, seed):
+    """``parallel.make_sharded_sweep_fn`` and ``grid.make_grid_sweep_fn``
+    against the JAX functions, called as ``tests/test_grid.py:124-150``
+    calls them: built from the runtimes' shards, mesh and layout, run for two
+    sweeps from the reference's initial state with the reference's noise;
+    the tolerance of ``assert_matches``."""
+    jc, pc = mesh_corpora(seed)
+    cfg = dict(topic_num=K, block_size=block, seed=seed, use_pallas=tier)
+    ref = reference(kind, jc, **cfg)
+    model = port(kind, pc, **cfg)
+    make = {"adlda": (jax_make_sharded_sweep_fn, make_sharded_sweep_fn),
+            "grid": (jax_make_grid_sweep_fn, make_grid_sweep_fn)}[kind]
+    args = dict(alpha=0.5, beta=0.1, block_size=model.block_size, num_sweeps=2,
+                use_pallas=tier, num_topics=K)
+    jax_run = make[0](ref.shards, ref.mesh, pallas_interpret=True,
+                      deferred_layout=ref._dlayout, **args)
+    run = make[1](model.shards, model.mesh, noise_mode="external",
+                  deferred_layout=model._layout, **args)
+    assert run.kernel_tier == jax_run.kernel_tier == (tier or "xla")
+    load_reference(model, ref)
+    z, ndk, nwk, nk, _ = jax_run(ref.z, ref.ndk, ref.nwk, ref.nk, ref._key,
+                                 jnp.int32(0))
+    model.z, model.ndk, model.nwk, model.nk = run(
+        model.z, model.ndk, model.nwk, model.nk, 0, 0,
+        noise=reference_noise(kind, ref, model))
+    assert_matches(kind, model, SimpleNamespace(z=z, ndk=ndk, nwk=nwk, nk=nk))
+
+
+def test_sweep_fn_internal_noise_is_seeded_by_seed_and_sweep():
+    """Internal noise from ``(seed, sweep)``: one call of two sweeps is two
+    calls of one; another seed draws another chain; the inputs stay."""
+    _, pc = mesh_corpora(18)
+    model = port("adlda", pc, noise_mode="internal", topic_num=K, block_size=256,
+                 seed=1, use_pallas="deferred")
+    run = make_sharded_sweep_fn(model.shards, model.mesh, alpha=0.5, beta=0.1,
+                                block_size=256, num_topics=K,
+                                deferred_layout=model._layout)
+    state = (model.z, model.ndk, model.nwk, model.nk)
+    z0 = {p: t.clone() for p, t in model.z.items()}
+    two = run(*state, 5, 0, n_sweeps=2)
+    once = run(*run(*state, 5, 0), 5, 1)
+    other = run(*state, 6, 0, n_sweeps=2)
+    for p in z0:
+        assert torch.equal(state[0][p], z0[p])
+        assert torch.equal(two[0][p], once[0][p])
+        assert torch.equal(two[2][p], once[2][p])
+    assert any(not torch.equal(two[0][p], other[0][p]) for p in z0)

@@ -215,3 +215,40 @@ def test_cli_ll_and_hyper_rows(tmp_path):
                for r in ll_rows)
     assert all({"alpha", "beta"} <= set(r) for r in rows[1:])
     assert ll_rows[-1]["alpha"] != 0.5
+
+
+def test_evaluation_exports_equal_reference():
+    """``evaluation``'s four exports, as the JAX package's
+    (``ldagibbssampling_tpu/evaluation/__init__.py:8-15``), on one input."""
+    import ldagibbssampling_tpu.evaluation as jax_evaluation
+
+    import ldagibbssampling_tpu_torch.evaluation as evaluation
+
+    assert evaluation.__all__ == jax_evaluation.__all__
+    rng = np.random.default_rng(9)
+    ragged = [[int(x) for x in rng.integers(0, 30, size=24)] for _ in range(8)]
+    fc = FlatCorpus.from_ragged(ragged, vocab_size=30)
+    jfc = JaxFlatCorpus(fc.token_word, fc.token_doc, fc.doc_ptr, fc.vocab_size)
+    phi = rng.dirichlet(np.ones(30), size=4)
+    theta = rng.dirichlet(np.ones(4), size=8)
+    for name in ("log_likelihood", "perplexity"):
+        assert getattr(evaluation, name)(phi, theta, fc) == getattr(
+            jax_evaluation, name)(phi, theta, jfc), name
+    assert evaluation.heldout_perplexity(phi, fc, 0.5, n_sweeps=5, seed=3) == \
+        pytest.approx(jax_evaluation.heldout_perplexity(phi, jfc, 0.5, n_sweeps=5,
+                                                        seed=3), rel=1e-12)
+    traces = rng.normal(size=(4, 40))
+    assert evaluation.r_hat(traces) == jax_evaluation.r_hat(traces)
+
+
+def test_annotate_names_a_profiler_region():
+    """``tracing.annotate`` (the reference's ``jax.profiler.TraceAnnotation``
+    region) is a ``torch.profiler`` region of that name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldagibbssampling_tpu_torch.evaluation.tracing import annotate
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with annotate("lda_sweep_region"):
+            torch.ones(8).sum()
+    assert "lda_sweep_region" in {e.key for e in prof.key_averages()}

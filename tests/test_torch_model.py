@@ -338,3 +338,65 @@ def test_public_api_covers_the_jax_package():
         obj = getattr(port, name)
         assert obj.__module__.startswith("ldagibbssampling_tpu_torch."), (
             name, obj.__module__)
+
+
+# JAX-package names the port deliberately has no counterpart of (ROADMAP.md's
+# module map says why), by module
+NO_COUNTERPART = {
+    "ldagibbssampling_tpu.models.state": {"host_randint"},  # takes a JAX key
+    "ldagibbssampling_tpu.ops.count_kernel": {"replicate_rows"},  # TPU sublanes
+    "ldagibbssampling_tpu.ops.gibbs": {"warn_tier_downgrade"},  # platform rule
+    "ldagibbssampling_tpu.utils.jaxcache": {"enable_compilation_cache"},  # ops/_build
+}
+JAX_PACKAGE = REPO / "ldagibbssampling_tpu"
+
+
+def _lazy_names(init: Path) -> set[str]:
+    """The names a package's ``__getattr__`` resolves lazily (the strings
+    it compares ``name`` with)."""
+    out = set()
+    for node in ast.walk(ast.parse(init.read_text())):
+        if isinstance(node, ast.FunctionDef) and node.name == "__getattr__":
+            for cmp in (c for c in ast.walk(node) if isinstance(c, ast.Compare)):
+                out |= {c.value for c in ast.walk(cmp)
+                        if isinstance(c, ast.Constant) and isinstance(c.value, str)}
+    return out
+
+
+@pytest.mark.parametrize("subpackage", sorted(
+    [p.name for p in JAX_PACKAGE.iterdir() if (p / "__init__.py").is_file()]
+    + ["(top-level modules)"]))
+def test_subpackage_names_resolve_in_the_port(subpackage):
+    """Each module of a JAX subpackage: its exports (``__all__`` and the
+    names its package resolves lazily) and the functions and classes it
+    defines resolve in the port's module of the same path, each to an
+    object of the port's own, apart from ``NO_COUNTERPART``."""
+    import importlib
+    import inspect
+
+    paths = (sorted(JAX_PACKAGE.glob("*.py")) if subpackage.startswith("(")
+             else sorted((JAX_PACKAGE / subpackage).rglob("*.py")))
+    checked, missing = 0, []
+    for path in paths:
+        name = ".".join(path.relative_to(REPO).with_suffix("").parts)
+        name = name.removesuffix(".__init__")
+        if name == "ldagibbssampling_tpu":
+            continue  # the root's exports: test_public_api_covers_the_jax_package
+        ref = importlib.import_module(name)
+        names = set(getattr(ref, "__all__", ())) | _lazy_names(path)
+        names |= {n for n, v in vars(ref).items() if not n.startswith("_")
+                  and (inspect.isfunction(v) or inspect.isclass(v))
+                  and v.__module__ == name}
+        names -= NO_COUNTERPART.get(name, set())
+        if not names:
+            continue
+        port = importlib.import_module(name.replace(
+            "ldagibbssampling_tpu", "ldagibbssampling_tpu_torch", 1))
+        for n in sorted(names):
+            obj = getattr(port, n, None)
+            if obj is None or not getattr(obj, "__module__", port.__name__).startswith(
+                    "ldagibbssampling_tpu_torch"):
+                missing.append(f"{name}.{n}")
+            checked += 1
+    assert not missing, missing
+    assert checked or subpackage == "benchmarks"
