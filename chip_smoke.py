@@ -119,7 +119,8 @@ success:
    recount: rung 3 through ``ladder.rung3`` at scale 0.2 (V = 100,000,
    K = 100, 60,000 NYT-shaped documents, ~17.1M training tokens, block
    65,536, on every position: one here; two warm-up sweeps and 10 timed;
-   tokens/s, set-up seconds); the same corpus as four shards on the one
+   tokens/s, set-up seconds and, of those, ``plan_s``: the seconds of the
+   deferred layouts, ``plan_timer``); the same corpus as four shards on the one
    card (5 timed sweeps, ``psum``'s time per sweep by CUDA events, one
    sweep under CUDA's sync debug mode set to error); the four shards saved,
    run 3 sweeps on, restored and run the same 3 (bitwise); the 2x2 grid,
@@ -137,8 +138,21 @@ success:
    process and sweep one walk, one rebuild, one snapshot), z and every
    table bitwise the one-process run's on two positions of the card, both
    processes exit 0; tokens/s, ``psum`` ms per sweep (CUDA events) and
-   set-up seconds beside the card's name and power limit.  NCCL itself
-   is not run here (one card).
+   set-up seconds (and ``plan_s``) beside the card's name and power limit.
+   NCCL itself is not run here (one card).  12c, ``[rung3 full]``: the
+   main path at rung 3's full size, the reference ladder's NYT-shaped corpus
+   at scale 1.0 (300,000 documents, V = 100,000, 5% held out, 96,728,858
+   training tokens; generated once): ``make_backend`` -> ``LdaModel`` ->
+   ``run_inference``, K = 100, block 65,536, the deferred tier (f32 chain,
+   bf16 snapshot), 2 untimed and 10 timed sweeps, then
+   ``check_counts_consistent``; exactly 12 walks (the K = 100 two-barrier
+   form), 12 rebuilds and 13 snapshots, no other kernel and no plain
+   version; prints ``corpus_s``, ``plan_s``, ``setup_s`` (plan + state init
+   + transfer), tokens/s, peak device memory (``max_memory_allocated``),
+   the host's peak RSS and the held-out perplexity on the 15,000 held-out
+   documents; one checkpoint saved (seconds, bytes) and restored bitwise
+   (the state, and the next sweep from it); then ``ladder.rung3(1.0)`` on
+   the same corpus (one shard), its report and launches.
 13. ingest: the CLI's corpus ingest (``corpus/native.py``, the host C++
    library of ``csrc/ldacorpus.cc``, built by ``g++`` here) and the CLI end
    to end at rung 3's corpus size: rung 3's whole corpus at scale 0.2
@@ -155,8 +169,9 @@ success:
    exit 0, ``ingest: native`` in its log, the deferred tier in its metrics
    header, the counts consistent, its launches counted exactly; prints the
    write seconds, each route's tokens/s and the CLI's ingest, set-up and
-   sweep seconds, with the host CPU's model name.
+   sweep seconds and ``plan_s``, with the host CPU's model name.
 
+Each phase group ends with a ``[wall]`` line, the script's seconds so far.
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -171,6 +186,7 @@ and integer operations of the count moves of that very walk.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -247,6 +263,12 @@ BENCH_RUNS = (("deferred", 100), ("fused", 100), ("1", 100), ("0", 20))
 # on its corpus, and the grid, token and chain meshes at rung 3's 0.02
 MESH_SCALE, MESH_SMALL_SCALE = 0.2, 0.02
 MESH_SWEEPS, MESH_FOUR_SWEEPS, MESH_SMALL_SWEEPS = 10, 5, 3
+# [rung3 full]: rung 3 at the reference's own size (300,000 documents,
+# V = 100,000, 96,728,858 training tokens), two untimed sweeps and 10 timed
+FULL_SCALE, FULL_WARMUP, FULL_SWEEPS = 1.0, 2, 10
+# the modules that call the deferred planner, each under its own name for
+# it (plan_timer wraps them)
+PLAN_USERS = ("models.lda", "parallel.adlda", "parallel.grid", "parallel.tokenshard")
 # [mesh two processes]: two processes on the one card (gloo), each run's
 # sweeps; the worker's entry point, run by a fresh interpreter
 MESH2_SWEEPS, MESH2_TIMEOUT_S = 10, 300
@@ -1822,6 +1844,34 @@ def _psum_timer():
     return times, restore
 
 
+@contextlib.contextmanager
+def plan_timer():
+    """Time every deferred layout that the model and the mesh runtimes plan
+    (``plan_deferred`` under each of ``PLAN_USERS``' names, wrapped while
+    the block runs); yields the list of each call's seconds."""
+    import importlib
+
+    mods = [importlib.import_module(f"{PKG}.{m}") for m in PLAN_USERS]
+    plain, times = [m.plan_deferred for m in mods], []
+
+    def timed(fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                times.append(time.perf_counter() - t0)
+        return call
+
+    for m, fn in zip(mods, plain):
+        m.plan_deferred = timed(fn)
+    try:
+        yield times
+    finally:
+        for m, fn in zip(mods, plain):
+            m.plan_deferred = fn
+
+
 def _mesh_launches(label: str, expect: dict) -> dict:
     """The run's kernel launches: each of ``expect`` exactly, no other
     kernel, no plain version."""
@@ -1862,7 +1912,9 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
     n_dev = len(multihost.local_devices(device))
     zero_counters()
     t0 = time.perf_counter()
-    r3 = ladder.rung3(MESH_SCALE, sweeps=MESH_SWEEPS, device=device)
+    with plan_timer() as plans:
+        r3 = ladder.rung3(MESH_SCALE, sweeps=MESH_SWEEPS, device=device)
+    r3["plan_s"] = sum(plans)
     wall = time.perf_counter() - t0
     runs = MESH_SWEEPS + 2
     by_path["mesh rung3"] = _mesh_launches("rung3", {
@@ -1876,7 +1928,8 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
         f"{r3['tokens']} training tokens (>= 2^24), {r3['shards']} shard(s) on "
         f"{n_dev} device(s), tier {r3['kernel_tier']}: {r3['tokens_per_s']:,.0f} "
         f"tokens/s over {MESH_SWEEPS} sweeps; set-up: corpus {r3['corpus_s']:.1f}s, "
-        f"sharding + layout + state {r3['setup_s']:.1f}s, two warm-up sweeps "
+        f"sharding + layout + state {r3['setup_s']:.2f}s (plan_s {r3['plan_s']:.3f}, "
+        f"{len(plans)} plan(s)), two warm-up sweeps "
         f"{r3['warmup_s']:.2f}s; check_counts_consistent passed; held-out "
         f"perplexity {r3['held_out_ppl']:.1f}; launches {by_path['mesh rung3']} "
         f"({wall:.1f}s)")
@@ -1886,9 +1939,10 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
     cfg = LdaConfig(topic_num=100, seed=seed, block_size=65_536)
     mesh4 = multihost.make_mesh({"data": 4}, [pos0] * 4)
     t0 = time.perf_counter()
-    four = ShardedLda(cfg, corpus, mesh=mesh4, device=device)
+    with plan_timer() as plans:
+        four = ShardedLda(cfg, corpus, mesh=mesh4, device=device)
     block_on_backend(four)
-    setup_s = time.perf_counter() - t0
+    setup_s, plan_s = time.perf_counter() - t0, sum(plans)
     four.sweep(1)
     block_on_backend(four)
     if pos0.type == "cuda":
@@ -1917,12 +1971,13 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
     out["four_shards"] = dict(tokens=corpus.num_tokens, tokens_per_s=tok_s,
                               ms_per_sweep=dt / MESH_FOUR_SWEEPS * 1e3,
                               psum_ms_per_sweep=psum_ms, setup_s=setup_s,
-                              kernel_tier=four.kernel_tier)
+                              plan_s=plan_s, kernel_tier=four.kernel_tier)
     log(f"[mesh four shards] the rung-3 corpus as 4 shards on {pos0} "
         f"({four.kernel_tier}): {tok_s:,.0f} tokens/s ({dt / MESH_FOUR_SWEEPS * 1e3:.2f}"
         f" ms per sweep), psum {psum_ms:.3f} ms per sweep (CUDA events, "
         f"{len(times) // MESH_FOUR_SWEEPS} call(s) per sweep); set-up "
-        f"{setup_s:.1f}s; counts exact; no host sync in a sweep; launches "
+        f"{setup_s:.2f}s (plan_s {plan_s:.3f}, {len(plans)} plans); counts exact; "
+        f"no host sync in a sweep; launches "
         f"{by_path['mesh four shards']}")
 
     # the four shards saved, run 3 sweeps on; restored, run the same 3
@@ -2116,7 +2171,8 @@ def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
             if mesh.ranks != (0, 1) or len(set(mesh.devices)) != 1:
                 raise AssertionError(f"[mesh2 worker {rank}] {label}: mesh {mesh}")
             t1 = time.perf_counter()
-            model = build(mesh)
+            with plan_timer() as plans:
+                model = build(mesh)
             block_on_backend(model)
             setup_s = time.perf_counter() - t1
             if model.kernel_tier != "deferred" or model.positions != [rank]:
@@ -2143,7 +2199,7 @@ def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
                 raise AssertionError(f"[mesh2 worker {rank}] {label}: {differ} differ "
                                      "from the one-process run")
             out["runs"][label] = dict(
-                tokens=tokens, sweep_s=dt, setup_s=setup_s,
+                tokens=tokens, sweep_s=dt, setup_s=setup_s, plan_s=sum(plans),
                 psum_ms_per_sweep=sum(times) / n_sweeps,
                 psum_calls_per_sweep=len(times) / n_sweeps, launches=launches)
             del model
@@ -2223,7 +2279,8 @@ def mesh_two_process_phase(seed: int, smi: str, device: str = "cuda",
             ms_per_sweep=sweep_s / sweeps * 1e3,
             psum_ms_per_sweep=[r["psum_ms_per_sweep"] for r in runs],
             psum_calls_per_sweep=run["psum_calls_per_sweep"],
-            setup_s=[r["setup_s"] for r in runs], one_process_s=ref_s[label],
+            setup_s=[r["setup_s"] for r in runs],
+            plan_s=[r["plan_s"] for r in runs], one_process_s=ref_s[label],
             launches=launches)
         log(f"[mesh two processes] {label}: {run['tokens']} tokens, 2 processes "
             f"(gloo) x 1 position on {pos0}, deferred, {sweeps} sweeps: "
@@ -2232,7 +2289,8 @@ def mesh_two_process_phase(seed: int, smi: str, device: str = "cuda",
             f"{', '.join(f'{x:.3f}' for x in out[label]['psum_ms_per_sweep'])} ms per "
             f"sweep (CUDA events, processes 0 and 1, {run['psum_calls_per_sweep']:g} "
             f"call(s) per sweep); set-up "
-            f"{', '.join(f'{x:.1f}' for x in out[label]['setup_s'])} s; counts exact; z "
+            f"{', '.join(f'{x:.2f}' for x in out[label]['setup_s'])} s (plan_s "
+            f"{', '.join(f'{x:.3f}' for x in out[label]['plan_s'])} s); counts exact; z "
             f"and every table bitwise the one-process run's (2 positions on {pos0}, "
             f"{ref_s[label]:.1f} s); launches {launches}; nvidia-smi: {smi}")
     out["bringup_s"] = [r["bringup_s"] for r in reports]
@@ -2242,6 +2300,153 @@ def mesh_two_process_phase(seed: int, smi: str, device: str = "cuda",
         f"{wall:.1f} s (bring-up {', '.join(f'{x:.1f}' for x in out['bringup_s'])} s); "
         f"the phase {out['phase_s']:.1f} s with the one-process runs")
     return out, by_path
+
+
+def host_peak_rss_gb() -> float:
+    """This process's peak resident memory so far (``getrusage``), GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
+                     scale: float = FULL_SCALE, warmup: int = FULL_WARMUP,
+                     sweeps: int = FULL_SWEEPS) -> tuple[dict, dict]:
+    """Phase 12c: the main path at rung 3's full size (the reference
+    ladder's NYT-shaped corpus at ``scale``, generated once): ``make_backend``
+    -> ``LdaModel`` -> ``run_inference``, K = 100, block 65,536, the
+    deferred tier (f32 chain, bf16 snapshot), ``warmup`` untimed and
+    ``sweeps`` timed sweeps, its launches counted exactly, the counts a
+    recount of z, held-out perplexity; one checkpoint saved and restored
+    bitwise (the state, and the next sweep from it); then
+    ``ladder.rung3(scale)`` on the same corpus.  Returns the results and
+    each run's launches by kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch import make_backend, run_inference
+    from ldagibbssampling_tpu_torch.benchmarks import ladder
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation.device_metrics import (
+        heldout_perplexity_device)
+    from ldagibbssampling_tpu_torch.evaluation.tracing import block_on_backend
+    from ldagibbssampling_tpu_torch.interop import to_numpy
+    from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    built = ladder.rung3_corpus(scale, floor=on_card)
+    corpus, heldout, m, v = built
+    out = {"scale": scale, "documents": m, "vocab": v, "tokens": corpus.num_tokens,
+           "heldout_docs": heldout.num_docs, "corpus_s": time.perf_counter() - t0}
+    log(f"[rung3 full] scale {scale}: {m} documents, V {v}, {corpus.num_tokens} "
+        f"training tokens, {heldout.num_docs} held out (generated in "
+        f"{out['corpus_s']:.1f}s)")
+
+    # 1. the main path, its launches counted from make_backend on
+    cfg = LdaConfig(topic_num=100, seed=seed, block_size=65_536, iteration=warmup)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    with plan_timer() as plans:
+        model = make_backend(cfg, corpus, device=device)
+    block_on_backend(model)
+    out.update(setup_s=time.perf_counter() - t0, plan_s=sum(plans),
+               kernel_tier=model.kernel_tier, slots=int(model.state.z.shape[0]))
+    if model.kernel_tier != "deferred" or len(plans) != 1:
+        raise AssertionError(f"[rung3 full] tier {model.kernel_tier}, {len(plans)} plans")
+    run_inference(model, cfg, corpus)
+    block_on_backend(model)
+    t0 = time.perf_counter()
+    run_inference(model, dataclasses.replace(cfg, iteration=warmup + sweeps), corpus)
+    block_on_backend(model)
+    dt = time.perf_counter() - t0
+    runs = warmup + sweeps
+    if model.sweeps_done != runs:
+        raise AssertionError(f"[rung3 full] ran {model.sweeps_done} sweeps, not {runs}")
+    # the first snapshot, then per sweep one walk (the K = 100 two-barrier
+    # form), one rebuild and one snapshot
+    launches = _launches_match("rung3 full", {
+        sample_name(torch.bfloat16, "float32"): runs, "rebuild_counts": runs,
+        "cast_mirror": runs + 1}, device)
+    out.update(sweep_s=dt, tokens_per_s=sweeps * corpus.num_tokens / dt,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card
+               else None, launches=launches)
+    t0 = time.perf_counter()
+    model.check_counts_consistent()
+    out["check_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["heldout_ppl"] = float(heldout_perplexity_device(
+        model.phi(), heldout, cfg.alpha, device=device))
+    out["heldout_s"] = time.perf_counter() - t0
+    if not np.isfinite(out["heldout_ppl"]):
+        raise AssertionError(f"[rung3 full] held-out perplexity {out['heldout_ppl']}")
+    out["host_peak_rss_gb"] = host_peak_rss_gb()
+    log(f"[rung3 full] make_backend -> LdaModel -> run_inference, K 100, block "
+        f"65,536, tier {model.kernel_tier} ({out['slots']} slots): corpus_s "
+        f"{out['corpus_s']:.2f}, plan_s {out['plan_s']:.3f}, setup_s (plan + state "
+        f"init + transfer) {out['setup_s']:.2f}; {sweeps} sweeps {dt:.3f}s = "
+        f"{out['tokens_per_s']:,.0f} tokens/s after {warmup} untimed; "
+        f"check_counts_consistent passed ({out['check_s']:.2f}s); held-out "
+        f"perplexity {out['heldout_ppl']:.1f} on {heldout.num_docs} documents "
+        f"({out['heldout_s']:.2f}s); peak device memory "
+        f"{out['peak_device_gb'] or 0:.3f} GB (max_memory_allocated), host peak RSS "
+        f"{out['host_peak_rss_gb']:.2f} GB; launches {launches}; nvidia-smi: {smi}")
+
+    # 2. one checkpoint: saved, one sweep on; restored, the same sweep
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = state_digests(to_numpy(model.state))
+        t0 = time.perf_counter()
+        step = model.save_checkpoint(tmp)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        model.sweep(1)
+        after = state_digests(to_numpy(model.state))
+        t0 = time.perf_counter()
+        if model.restore_checkpoint(tmp) != step:
+            raise AssertionError("[rung3 full] restored another step")
+        block_on_backend(model)
+        restore_s = time.perf_counter() - t0
+        if state_digests(to_numpy(model.state)) != saved:
+            raise AssertionError("[rung3 full] the restored state differs from the saved")
+        model.sweep(1)
+        if state_digests(to_numpy(model.state)) != after:
+            raise AssertionError("[rung3 full] the sweep after the restore differs")
+    out["checkpoint"] = dict(step=step, save_s=save_s, restore_s=restore_s,
+                             bytes=nbytes)
+    log(f"[rung3 full checkpoint] saved at sweep {step} in {save_s:.2f}s "
+        f"({nbytes} bytes, {nbytes / save_s / 1e6:.0f} MB/s), restored in "
+        f"{restore_s:.2f}s: z, ndk, nwk and nk bitwise the saved state, and the "
+        f"next sweep bitwise the one after the save; nvidia-smi: {smi}")
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 3. the ladder's rung 3 on the same corpus
+    zero_counters()
+    with plan_timer() as plans:
+        r3 = ladder.rung3(scale, sweeps=sweeps, device=device, corpus=built)
+    r3["plan_s"] = sum(plans)
+    shards, runs = r3["shards"], 2 + sweeps  # the ladder's two warm-up sweeps
+    r3["launches"] = _launches_match("rung3 full ladder", {
+        sample_name(torch.bfloat16, "float32"): runs * shards,
+        "rebuild_counts": runs * shards, "cast_mirror": runs}, device)
+    if r3["kernel_tier"] != "deferred" or r3["tokens"] != corpus.num_tokens \
+            or not r3["counts_consistent"] or not np.isfinite(r3["held_out_ppl"]):
+        raise AssertionError(f"[rung3 full ladder] {r3}")
+    out["ladder"] = r3
+    out["host_peak_rss_gb"] = host_peak_rss_gb()
+    log(f"[rung3 full ladder] ladder.rung3({scale}): {r3['corpus']}, "
+        f"{r3['tokens']} training tokens, {shards} shard(s), tier "
+        f"{r3['kernel_tier']}: {r3['tokens_per_s']:,.0f} tokens/s over {sweeps} "
+        f"sweeps; setup_s {r3['setup_s']:.2f} (plan_s {r3['plan_s']:.3f}); "
+        f"counts consistent; held-out perplexity {r3['held_out_ppl']:.1f}; "
+        f"launches {r3['launches']}; host peak RSS {out['host_peak_rss_gb']:.2f} GB; "
+        f"nvidia-smi: {smi}")
+    return out, {"rung3 full": launches, "rung3 full ladder": r3["launches"]}
 
 
 def write_docs(root: Path, corpus, render) -> float:
@@ -2302,8 +2507,10 @@ _COUNTED_CLI = (
     "import chip_smoke\n"
     "from ldagibbssampling_tpu_torch import cli\n"
     "chip_smoke.zero_counters()\n"
-    "rc = cli.main(sys.argv[1:])\n"
+    "with chip_smoke.plan_timer() as plans:\n"
+    "    rc = cli.main(sys.argv[1:])\n"
     "print('[launches] ' + json.dumps(chip_smoke.read_counters()), flush=True)\n"
+    "print('[plan] ' + json.dumps(plans), flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -2451,6 +2658,8 @@ def ingest_phase(seed: int, device: str = "cuda", scale: float = INGEST_SCALE,
             raise AssertionError(f"[ingest cli] header {header}")
         counted_lines = [ln for ln in lines if ln.startswith("[launches] ")]
         launches, plain = json.loads(counted_lines[-1].split(" ", 1)[1])
+        plans = json.loads(next(ln for ln in lines if ln.startswith("[plan] "))
+                           .split(" ", 1)[1])
         # in the process: the state's first snapshot, then per sweep one walk,
         # one rebuild and one snapshot
         walk = sample_name(torch.bfloat16, "float32")
@@ -2469,13 +2678,15 @@ def ingest_phase(seed: int, device: str = "cuda", scale: float = INGEST_SCALE,
         sweep_times = [tokens / r["tokens_per_s"] for r in rows[1:]]
         sweep_s = sum(sweep_times)
         out["cli"] = dict(wall_s=wall, ingest_s=header["ingest_s"],
-                          setup_s=header["setup_s"], sweep_s=sweep_s,
+                          setup_s=header["setup_s"], plan_s=sum(plans),
+                          sweep_s=sweep_s,
                           first_sweep_s=sweep_times[0],
                           tokens_per_s=INGEST_SWEEPS * tokens / sweep_s,
                           kernel_tier=header["kernel_tier"], launches=got)
         log(f"[ingest cli] {' '.join(proc.args[3:])}: exit 0 in {wall:.1f}s "
             f"wall; {ingest_line}; set-up (layout and state) "
-            f"{header['setup_s']:.2f}s; {INGEST_SWEEPS} sweeps {sweep_s:.3f}s "
+            f"{header['setup_s']:.2f}s (plan_s {sum(plans):.3f}); "
+            f"{INGEST_SWEEPS} sweeps {sweep_s:.3f}s "
             f"(first {sweep_times[0]:.3f}s) = "
             f"{INGEST_SWEEPS * tokens / sweep_s:,.0f} tokens/s, tier "
             f"{header['kernel_tier']}; counts bitwise-consistent; launches {got}")
@@ -2486,6 +2697,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_main = time.perf_counter()
+
+    def wall(phase: str) -> None:  # where the script's time goes, phase by phase
+        log(f"[wall] {phase} done at {time.perf_counter() - t_main:.1f}s")
+
     if not (REPO / PKG / "csrc").is_dir():
         return fail(f"{PKG}/ not found beside {Path(__file__).name}: run it "
                     "from a checkout of the repository")
@@ -2536,6 +2752,7 @@ def main() -> int:
     kernels.update(check_live_kernels(corpus, args.seed))  # 3b.
     kernels.update(check_probe(args.seed))                 # 3c.
     kernels["gibbs_tile_sample"].update(check_general_walk(corpus, args.seed))  # 3d.
+    wall("kernels")
     paths = {}
     runs = [(use_pallas, sweeps, "float32", "bfloat16", K)
             for use_pallas, sweeps in (("deferred", SWEEPS), ("fused", SWEEPS),
@@ -2550,27 +2767,41 @@ def main() -> int:
         paths[label] = (tok_s, launches)
         del model
         torch.cuda.empty_cache()
+    wall("main paths")
     quality = quality_phase(args.seed)                     # 4c.
     heldout = heldout_phase(args.seed)                     # 4e.
     hyper = hyper_phase(corpus, args.seed)                 # 4d.
+    wall("quality, heldout, hyper")
     for flags in ((), ("--pallas", "fused"), ("--sampler", "serial"),
                   ("--ll-every", "5", "--optimize-hyper-every", "5")):  # 5.
         cli_phase(flags)
     resume_phase()                                         # 5b.
     infer_phase()                                          # 5c.
+    wall("cli")
     parity = {TIER_NAMES[up]: parity_phase(up, args.seed)  # 6.
               for up in ("deferred", "fused", True, False)}
+    wall("parity")
     bench = {tier: bench_phase(tier, sweeps) for tier, sweeps in BENCH_RUNS}  # 7.
+    wall("bench")
     multichain = multichain_phase(args.seed)                # 8.
+    wall("multichain")
     backends, gibbs_launches = backends_phase(args.seed)    # 9.
     backends_resume_phase()                                 # 10.
+    wall("backends")
     with tempfile.TemporaryDirectory() as tmp:
         ladder = ladder_phase(tmp)                          # 11.
+    wall("ladder")
     mesh, mesh_launches = mesh_phase(args.seed)             # 12.
+    wall("mesh")
     mesh2, mesh2_launches = mesh_two_process_phase(args.seed, smi)  # 12b.
     mesh_launches.update(mesh2_launches)
     mesh["two_processes"] = mesh2
+    wall("mesh two processes")
+    full, full_launches = rung3_full_phase(args.seed, smi)  # 12c.
+    mesh_launches.update(full_launches)
+    wall("rung3 full")
     ingest, ingest_launches = ingest_phase(args.seed)       # 13.
+    wall("ingest")
 
     src = f"{PKG}/csrc"
     k1 = "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"
@@ -2594,7 +2825,7 @@ def main() -> int:
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
         if kname in gibbs_launches:  # phase 9's Gibbs row (deferred tier)
             by_path["backends gibbs"] = gibbs_launches[kname]
-        for path, counts in (*mesh_launches.items(),  # phases 12, 13
+        for path, counts in (*mesh_launches.items(),  # phases 12, 12c, 13
                              *ingest_launches.items()):
             if kname in counts:
                 by_path[path] = counts[kname]
@@ -2622,7 +2853,8 @@ def main() -> int:
                           for r in rows_] for key, rows_ in quality.items()},
         "hyper": hyper, "heldout": heldout, "parity": parity,
         "bench": bench, "multichain": multichain, "backends": backends,
-        "ladder": ladder, "mesh": mesh, "ingest": ingest}), flush=True)
+        "ladder": ladder, "mesh": mesh, "rung3_full": full, "ingest": ingest}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -35,7 +35,7 @@ import json
 import sys
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -204,20 +204,27 @@ def rung3_corpus(scale: float, floor: bool = False):
     return corpus, heldout, m, v
 
 
-def rung3(scale: float, sweeps: int = 10, device: Any = "cuda") -> dict:
+def rung3(scale: float, sweeps: int = 10, device: Any = "cuda", *,
+          corpus: Optional[tuple] = None) -> dict:
     """NYT-shaped document-sharded AD-LDA over every position (one shard
     per CUDA device; on the CPU one), K = 100, block 65,536, in the tier the
     config resolves to (deferred).  Two warm-up calls, then ``sweeps``
-    timed; the counts are checked against a recount after."""
+    timed; the counts are checked against a recount after.  ``corpus``, if
+    given, is :func:`rung3_corpus`'s result for the same ``scale`` and
+    device, made once by a caller that also uses it (``corpus_s`` is then
+    0)."""
     import torch
 
     from ldagibbssampling_tpu_torch.parallel import multihost
     from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda
 
     t0 = time.perf_counter()
-    corpus, heldout, m, v = rung3_corpus(
-        scale, floor=torch.device(device).type == "cuda")
-    corpus_s = time.perf_counter() - t0
+    if corpus is None:
+        corpus = rung3_corpus(scale, floor=torch.device(device).type == "cuda")
+        corpus_s = time.perf_counter() - t0
+    else:
+        corpus_s = 0.0
+    corpus, heldout, m, v = corpus
     n_dev = len(multihost.global_devices(device)[0])
     cfg = LdaConfig(topic_num=100, seed=0, block_size=65_536)
     t0 = time.perf_counter()

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -31,10 +30,6 @@ import numpy as np
 
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.ops import _build
-
-_LOCK = threading.Lock()
-_LIBS: dict[Path, ctypes.CDLL] = {}  # library path -> the loaded library
-
 
 def _declare(lib: ctypes.CDLL) -> None:
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -63,19 +58,9 @@ def _load() -> tuple[Optional[ctypes.CDLL], str]:
     """``(library, "")``, building it if needed, or ``(None, why not)``.
     A failure is not remembered: the next call tries again."""
     try:
-        path = _build.build_host("ldacorpus")
+        return _build.load_host("ldacorpus", _declare), ""
     except RuntimeError as e:
         return None, str(e).splitlines()[0]
-    with _LOCK:
-        lib = _LIBS.get(path)
-        if lib is None:
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                return None, f"cannot load {path.name}: {e}"
-            _declare(lib)
-            _LIBS[path] = lib
-    return lib, ""
 
 
 def load_library() -> Optional[ctypes.CDLL]:

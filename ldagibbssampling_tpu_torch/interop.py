@@ -18,7 +18,7 @@ import torch
 from ldagibbssampling_tpu_torch.models.state import SamplerState
 
 
-def from_jax_state(arrays: Mapping[str, Any], device: Any = "cpu",
+def from_jax_state(arrays: Mapping[str, Any], device: Any = "cuda",
                    seed: int = 0) -> SamplerState:
     """``SamplerState`` from ``z/ndk/nwk/nk/sweep`` numpy arrays, e.g.
     ``{"z": np.asarray(jax_state.z), ...}``; ``seed`` is the chain seed."""
@@ -41,7 +41,7 @@ def _tensor(x: Any, dtype: torch.dtype, device: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
 
 
-def from_jax_chain_states(arrays: Mapping[str, Any], device: Any = "cpu",
+def from_jax_chain_states(arrays: Mapping[str, Any], device: Any = "cuda",
                           seeds: Any = None) -> list[SamplerState]:
     """Per-chain ``SamplerState``s from the reference ``ChainSet``'s stacked
     states (``z/ndk/nwk/nk/sweep`` with a leading chain axis); ``seeds[c]``
@@ -55,13 +55,13 @@ def from_jax_chain_states(arrays: Mapping[str, Any], device: Any = "cpu",
             for c, seed in zip(range(num_chains), seeds)]
 
 
-def from_jax_cvb0(arrays: Mapping[str, Any], device: Any = "cpu") -> dict:
+def from_jax_cvb0(arrays: Mapping[str, Any], device: Any = "cuda") -> dict:
     """CVB0's ``gamma/ndk/nwk/nk`` (float32) from the reference's."""
     return {n: _tensor(arrays[n], torch.float32, device)
             for n in ("gamma", "ndk", "nwk", "nk")}
 
 
-def from_jax_svi(arrays: Mapping[str, Any], device: Any = "cpu"
+def from_jax_svi(arrays: Mapping[str, Any], device: Any = "cuda"
                  ) -> tuple[torch.Tensor, np.ndarray]:
     """SVI's ``(lam, gamma_full)``: λ as a float32 tensor on ``device``,
     the per-document γ cache as a float32 host array (where SVI keeps it)."""
@@ -69,7 +69,7 @@ def from_jax_svi(arrays: Mapping[str, Any], device: Any = "cpu"
             np.array(arrays["gamma_full"], np.float32))
 
 
-def from_jax_smc(arrays: Mapping[str, Any], device: Any = "cpu") -> dict:
+def from_jax_smc(arrays: Mapping[str, Any], device: Any = "cuda") -> dict:
     """SMC's ``ndk/nwk/nk/z`` (int32) and ``logw`` (float32)."""
     out = {n: _tensor(arrays[n], torch.int32, device)
            for n in ("ndk", "nwk", "nk", "z")}

@@ -110,11 +110,20 @@ def resolve_tier(config: LdaConfig, corpus: FlatCorpus) -> TierChoice:
 
 
 def _assert_recount(token_word, token_doc, z, ndk, nwk, nk) -> None:
-    """The count tables equal a serial recount of ``z`` (real tokens only)."""
-    ndk_ref = np.zeros(ndk.shape, np.int64)
-    nwk_ref = np.zeros(nwk.shape, np.int64)
-    np.add.at(ndk_ref, (token_doc, z), 1)
-    np.add.at(nwk_ref, (token_word, z), 1)
+    """The count tables equal a serial recount of ``z`` (real tokens only):
+    each table's cells counted exactly by one ``np.bincount`` over the flat
+    cell index ``row * K + z``, linear in the tokens."""
+    k = nwk.shape[1]
+    z = np.asarray(z, np.int64)
+    if z.size and (z.min() < 0 or z.max() >= k):
+        raise AssertionError(f"z outside [0, {k}): {z.min()}..{z.max()}")
+
+    def recount(rows, shape):
+        flat = np.asarray(rows, np.int64) * k + z
+        return np.bincount(flat, minlength=shape[0] * k).reshape(shape)
+
+    ndk_ref = recount(token_doc, ndk.shape)
+    nwk_ref = recount(token_word, nwk.shape)
     np.testing.assert_array_equal(ndk, ndk_ref)
     np.testing.assert_array_equal(nwk, nwk_ref)
     np.testing.assert_array_equal(nk, nwk_ref.sum(axis=0))

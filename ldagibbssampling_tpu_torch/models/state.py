@@ -48,7 +48,7 @@ def init_state(
     vocab_size: int,
     num_topics: int,
     seed: int = 0,
-    device: Any = "cpu",
+    device: Any = "cuda",
     z: Optional[Any] = None,
 ) -> SamplerState:
     """Random topic init + count-table construction

@@ -9,8 +9,9 @@ source or to a header it shares builds anew and an unchanged one is reused.
 them.  A failed build raises; nothing falls back.
 
 ``build_host`` is the same for a host library, ``csrc/<name>.cc`` compiled
-by ``$CXX`` (default ``g++``): the corpus ingest's (``corpus/native.py``),
-which is not a kernel and not in ``SOURCES``.  Every build compiles to a
+by ``$CXX`` (default ``g++``): the corpus ingest's (``corpus/native.py``)
+and the deferred layout's planner (``ops/count_kernel.plan_deferred``),
+which are not kernels and not in ``SOURCES``.  Every build compiles to a
 temporary name of its own and renames it into place, so threads and
 processes that build one library at once all end with the whole file.
 
@@ -39,10 +40,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_host_libs: dict[Path, ctypes.CDLL] = {}  # library path -> the loaded library
 # nvcc's output per source from this process's builds (ptxas prints each
 # kernel's registers, shared memory and spills there)
 build_log: dict[str, str] = {}
@@ -167,6 +169,24 @@ def build_host(name: str) -> Path:
         if job is not None:
             _finish(f"{name}.cc", job)
     return out
+
+
+def load_host(name: str, declare) -> ctypes.CDLL:
+    """The loaded host library of ``csrc/<name>.cc`` (:func:`build_host`),
+    ``declare(lib)`` typing its entry points once; raises ``RuntimeError``
+    naming the compiler's or the loader's error.  A failure is not
+    remembered: the next call tries again."""
+    path = build_host(name)
+    with _lock:
+        lib = _host_libs.get(path)
+        if lib is None:
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise RuntimeError(f"cannot load {path.name}: {e}") from e
+            declare(lib)
+            _host_libs[path] = lib
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -4,11 +4,18 @@ Counterpart of ``ldagibbssampling_tpu/ops/count_kernel.py``.  In the
 deferred tier, blocks sample against a sweep-stale snapshot of ``nwk`` and
 the table is rebuilt once per sweep from the final assignments.
 
-- ``DeferredPlan``, ``plan_deferred`` and ``stack_plans`` are copied verbatim
-  (numpy; the reference module imports jax, so the port keeps its own copy).
-  The plan's rebuild-stream arrays (``row_gather_idx``, ``w_local``,
-  ``tile_stripe``) exist for the TPU's matrix unit; the GPU rebuild does not
-  read them, but they stay so the plan equals the reference's field by field.
+- ``DeferredPlan`` and ``stack_plans`` are copied verbatim (numpy; the
+  reference module imports jax, so the port keeps its own copy), and so is
+  the reference's planner, as ``plan_deferred_plain``.  ``plan_deferred``
+  makes the same plan, every field and dtype, in host C++
+  (``csrc/deferred_plan.cc``, built by ``ops/_build.build_host`` at first
+  use and bound with ``ctypes``) in time linear in the tokens: the numpy
+  planner's per-block sorts and per-run loops take about a minute at rung
+  3's full size on an 8-core host (``benchmarks/plan.py``).  A library that does not build or load raises; nothing falls back
+  to the numpy planner, which only the tests call.  The plan's
+  rebuild-stream arrays (``row_gather_idx``, ``w_local``, ``tile_stripe``)
+  exist for the TPU's matrix unit; the GPU rebuild does not read them, but
+  they stay so the plan equals the reference's field by field.
 - K2 (``csrc/count_kernel.cu``): ``rebuild_counts`` recounts
   ``nwk [v_pad, k_pad]`` and ``nk [k_pad]`` from ``z`` with integer atomics,
   and ``cast_mirror`` writes the bf16 snapshot for the next sweep.
@@ -28,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -85,7 +93,7 @@ class DeferredPlan:
         return int(self.token_word.shape[0])
 
 
-def plan_deferred(
+def plan_deferred_plain(
     token_word: np.ndarray,
     token_doc: np.ndarray,
     vocab_size: int,
@@ -94,7 +102,9 @@ def plan_deferred(
     v_loc: int = 128,
     tile: int = 2048,
 ) -> DeferredPlan:
-    """Host-side, one-off layout for the deferred sweep (see ``DeferredPlan``).
+    """Host-side, one-off layout for the deferred sweep (see ``DeferredPlan``):
+    the reference's numpy planner, verbatim; the tests' reference for
+    ``plan_deferred``.
 
     ``token_word/doc`` are the REAL (unpadded) doc-major token stream; blocks
     are filled greedily so that, after per-stripe 8-slot alignment padding,
@@ -208,6 +218,107 @@ def plan_deferred(
         row_gather_idx=row_gather_idx, w_local=w_local,
         tile_stripe=tile_stripe, v_loc=v_loc, v_pad=v_pad, tile=tile,
         max_word_freq=max_word_freq,
+    )
+
+
+def _declare_plan(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.lda_plan_create.restype = vp
+    lib.lda_plan_create.argtypes = [vp, i64, i64, i64, i64, i64, ctypes.POINTER(i32)]
+    for name in ("lda_plan_num_blocks", "lda_plan_rebuild_len",
+                 "lda_plan_max_word_freq"):
+        getattr(lib, name).restype = i64
+        getattr(lib, name).argtypes = [vp]
+    lib.lda_plan_fill.restype = i32
+    lib.lda_plan_fill.argtypes = [vp] * 10 + [i32]
+    lib.lda_plan_destroy.restype = None
+    lib.lda_plan_destroy.argtypes = [vp]
+
+
+def _plan_lib() -> ctypes.CDLL:
+    """The planner library, built if needed; raises ``RuntimeError`` naming
+    the compiler's or the loader's error (no fallback)."""
+    from ldagibbssampling_tpu_torch.ops import _build
+
+    return _build.load_host("deferred_plan", _declare_plan)
+
+
+def _plan_threads() -> int:
+    return len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else (os.cpu_count() or 1)
+
+
+def _plan_error(code: int, v_pad: int) -> Exception:
+    if code == 1:
+        return ValueError("block_size too small for stripe alignment")
+    if code == 2:
+        return ValueError("token_word holds a negative word id")
+    if code == 3:
+        return IndexError(f"token_word holds a word id >= v_pad {v_pad}")
+    return MemoryError("the deferred plan does not fit in host memory")
+
+
+def plan_deferred(
+    token_word: np.ndarray,
+    token_doc: np.ndarray,
+    vocab_size: int,
+    block_size: int,
+    *,
+    v_loc: int = 128,
+    tile: int = 2048,
+) -> DeferredPlan:
+    """``plan_deferred_plain``'s plan (the reference's, every field and
+    dtype), made by ``csrc/deferred_plan.cc``; the same ``ValueError``s."""
+    return _plan_native(token_word, token_doc, vocab_size, block_size,
+                        v_loc=v_loc, tile=tile, threads=_plan_threads())
+
+
+def _plan_native(token_word, token_doc, vocab_size: int, block_size: int, *,
+                 v_loc: int, tile: int, threads: int) -> DeferredPlan:
+    """``plan_deferred`` on ``threads`` threads (the plan does not depend on
+    their number)."""
+    token_word = np.ascontiguousarray(token_word, np.int32)
+    token_doc = np.ascontiguousarray(token_doc, np.int32)
+    if token_word.ndim != 1 or token_doc.ndim != 1:
+        raise ValueError("token_word and token_doc must be 1-d")
+    t_real = int(token_word.shape[0])
+    if token_doc.shape[0] < t_real:
+        raise IndexError(f"token_doc has {token_doc.shape[0]} tokens, "
+                         f"token_word {t_real}")
+    # largest multiple-of-8 divisor of block_size within the requested tile
+    tile = min(tile, block_size)
+    while tile >= _ALIGN and block_size % tile:
+        tile -= _ALIGN
+    if tile < _ALIGN or block_size % tile or tile % _ALIGN:
+        raise ValueError(f"block_size {block_size} has no multiple-of-8 tile <= requested")
+    v_pad = max(_round_up(max(vocab_size, 1), v_loc), v_loc)
+
+    lib = _plan_lib()
+    err = ctypes.c_int32(0)
+    h = lib.lda_plan_create(token_word.ctypes.data, t_real, v_loc, v_pad,
+                            block_size, tile, ctypes.byref(err))
+    if not h:
+        raise _plan_error(err.value, v_pad)
+    try:
+        t_pad = lib.lda_plan_num_blocks(h) * block_size
+        t2 = lib.lda_plan_rebuild_len(h)
+        sweep = [np.empty(t_pad, np.int32) for _ in range(3)]
+        perm = np.empty(t_pad, np.int64)
+        rebuild = (np.empty(t2 // _ALIGN, np.int32), np.empty(t2, np.int32),
+                   np.empty(t2 // tile, np.int32))
+        code = lib.lda_plan_fill(
+            h, token_word.ctypes.data, token_doc.ctypes.data,
+            *(a.ctypes.data for a in (*sweep, perm, *rebuild)), threads)
+        if code:
+            raise _plan_error(code, v_pad)
+        max_word_freq = int(lib.lda_plan_max_word_freq(h))
+    finally:
+        lib.lda_plan_destroy(h)
+    return DeferredPlan(
+        token_word=sweep[0], token_doc=sweep[1], token_mask=sweep[2],
+        perm=perm, block_size=block_size, row_gather_idx=rebuild[0],
+        w_local=rebuild[1], tile_stripe=rebuild[2], v_loc=v_loc, v_pad=v_pad,
+        tile=tile, max_word_freq=max_word_freq,
     )
 
 

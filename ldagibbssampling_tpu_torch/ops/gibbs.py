@@ -436,7 +436,7 @@ def make_sweep_fn(
     use_pallas: Any = "deferred",
     num_topics: int = 512,
     deferred_plan=None,
-    device: Any = "cpu",
+    device: Any = "cuda",
     noise_mode: str = "internal",
     kernel_compute_dtype: str = "float32",
     mirror_dtype: str = "bfloat16",

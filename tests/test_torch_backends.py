@@ -91,7 +91,7 @@ def test_cvb0_continues_the_reference_state():
     ref.sweep(2)
     port = Cvb0Model(LdaConfig(**kw), fc, device="cpu")
     for name, value in interop.from_jax_cvb0(
-            {n: np.asarray(getattr(ref, n)) for n in ("gamma", "ndk", "nwk", "nk")}
+            {n: np.asarray(getattr(ref, n)) for n in ("gamma", "ndk", "nwk", "nk")}, device="cpu"
     ).items():
         setattr(port, name, value)
     ref.sweep(1)
@@ -158,7 +158,7 @@ def test_svi_continues_the_reference_run():
     port = SviModel(LdaConfig(topic_num=4, backend="svi", seed=5), fc, batch_size=8,
                     device="cpu")
     port.lam, port._gamma_full = interop.from_jax_svi(
-        {"lam": np.asarray(ref.lam), "gamma_full": ref._gamma_full})
+        {"lam": np.asarray(ref.lam), "gamma_full": ref._gamma_full}, device="cpu")
     port._step_idx, port._sweeps = ref._step_idx, ref._sweeps
     port._rng.bit_generator.state = ref._rng.bit_generator.state
     ref.sweep(1)
@@ -184,7 +184,8 @@ def test_warp_matches_reference_under_its_uniforms(seed, sweeps):
     kw = dict(backend="warp", topic_num=7, block_size=128, seed=seed)
     ref = JaxWarpModel(JaxLdaConfig(**kw), jfc)
     state = interop.from_jax_state(
-        {n: np.asarray(getattr(ref.state, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(ref.state, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")},
+        device="cpu")
     port = WarpModel(LdaConfig(**kw), fc, device="cpu", noise_mode="external",
                      state=state)
     key, t_pad = ref.state.key, int(ref.state.z.shape[0])
@@ -245,7 +246,7 @@ def _ref_state(st):
 
 
 def _port_state(st):
-    ps = interop.from_jax_smc(st)
+    ps = interop.from_jax_smc(st, device="cpu")
     return tuple(ps[n] for n in ("ndk", "nwk", "nk", "z", "logw"))
 
 

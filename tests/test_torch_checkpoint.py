@@ -72,9 +72,9 @@ def test_save_restore_run_equals_reference(tmp_path):
         tmp_path / "ref", JaxLdaModel(jcfg, jfc).state)
 
     arrays = {n: np.asarray(getattr(ref.state, n)) for n in (*ARRAYS, "sweep")}
-    state = interop.from_jax_state(arrays, seed=11)
+    state = interop.from_jax_state(arrays, seed=11, device="cpu")
     assert ckpt.save_run(tmp_path / "port", state, ref.alpha, ref.beta) == 5
-    like = interop.from_jax_state({**arrays, "sweep": 0})
+    like = interop.from_jax_state({**arrays, "sweep": 0}, device="cpu")
     got, alpha, beta, gen_state = ckpt.restore_run(tmp_path / "port", like)
     for name in ARRAYS:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
@@ -93,7 +93,7 @@ def test_latest_step_and_kept_steps_equal_orbax(tmp_path):
     ref = JaxLdaModel(JaxLdaConfig(topic_num=4, seed=0, block_size=32),
                       JaxFlatCorpus.from_ragged(ragged, vocab_size=v))
     state = interop.from_jax_state(
-        {n: np.asarray(getattr(ref.state, n)) for n in (*ARRAYS, "sweep")})
+        {n: np.asarray(getattr(ref.state, n)) for n in (*ARRAYS, "sweep")}, device="cpu")
     for step in (1, 2, 3, 4, 5, 3):  # the last: not above the latest, skipped
         ref.state = dataclasses.replace(ref.state, sweep=np.int32(step))
         state.sweep = step
@@ -115,7 +115,7 @@ def test_latest_step_none_as_orbax(tmp_path, kind):
     assert jax_ckpt.latest_step(d) is None
     with pytest.raises(FileNotFoundError):
         ckpt.restore_checkpoint(d, interop.from_jax_state(
-            {"z": [0], "ndk": [[1]], "nwk": [[1]], "nk": [1], "sweep": 0}))
+            {"z": [0], "ndk": [[1]], "nwk": [[1]], "nk": [1], "sweep": 0}, device="cpu"))
 
 
 def test_kill_and_resume_reproduces_chain(tmp_path):
@@ -126,10 +126,10 @@ def test_kill_and_resume_reproduces_chain(tmp_path):
     pc = fc.pad_to(4)
     state = init_state(pc.token_word, pc.token_doc, pc.token_mask,
                        num_docs=pc.num_docs, vocab_size=pc.vocab_size,
-                       num_topics=3, seed=9)
+                       num_topics=3, seed=9, device="cpu")
     run = make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask,
                         fc.doc_lengths(), alpha=0.5, beta=0.1, block_size=4,
-                        use_pallas=False, num_topics=3)
+                        use_pallas=False, num_topics=3, device="cpu")
     gen = torch.Generator().manual_seed(state.seed)
     straight = run(state, n_sweeps=6, generator=gen)
 

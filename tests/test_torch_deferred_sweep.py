@@ -102,7 +102,7 @@ def test_sweeps_match_reference(seed, block, t_target, sweeps):
             key, (t_pad, k_pad), jnp.float32, minval=1e-7, maxval=1.0 - 1e-7)))
 
     st = interop.from_jax_state(
-        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")}, device="cpu")
     out = _port_run(plan, "external", sweeps)(st, noise=uniforms)
     assert out.sweep == sweeps == int(ref.sweep)
     z = out.z.numpy()
@@ -123,7 +123,7 @@ def test_sweeps_match_reference(seed, block, t_target, sweeps):
 def test_internal_sweep_counts_consistent_and_padding_fixed():
     plan, dl, jst = _setup(3, 512)
     st = interop.from_jax_state(
-        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")}, device="cpu")
     out = _port_run(plan, num_sweeps=2)(st, generator=torch.Generator().manual_seed(1))
     z = out.z.numpy()
     ndk, nwk = _recount(plan, z, dl.shape[0])
@@ -142,7 +142,7 @@ def test_mirror_carry_matches_fresh_cast():
     # it afresh from the int32 table: both round the same integers
     plan, dl, jst = _setup(4, 512)
     st = interop.from_jax_state(
-        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")}, device="cpu")
     run = _port_run(plan)
     a, _ = run.with_mirror(st, mirror=None, n_sweeps=2,
                            generator=torch.Generator().manual_seed(8))
@@ -155,7 +155,7 @@ def test_mirror_carry_matches_fresh_cast():
 def test_seeded_determinism():
     plan, dl, jst = _setup(5, 512)
     st = interop.from_jax_state(
-        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")}, device="cpu")
     run = _port_run(plan)
     a = run(st, generator=torch.Generator().manual_seed(3))
     b = run(st, generator=torch.Generator().manual_seed(3))
@@ -168,16 +168,16 @@ def test_guards_and_unported_tiers_raise():
     with pytest.raises(ValueError, match="unknown kernel tier"):
         make_sweep_fn(plan.token_word, plan.token_doc, plan.token_mask,
                       alpha=0.5, beta=0.1, block_size=512, use_pallas="v4",
-                      deferred_plan=plan)
+                      deferred_plan=plan, device="cpu")
     with pytest.raises(ValueError, match="deferred_plan"):
         make_sweep_fn(plan.token_word, plan.token_doc, plan.token_mask,
-                      alpha=0.5, beta=0.1, block_size=512)
+                      alpha=0.5, beta=0.1, block_size=512, device="cpu")
     object.__setattr__(plan, "max_word_freq", 1 << 24)
     with pytest.raises(ValueError, match="word frequency"):
         _port_run(plan)
     plan, dl, jst = _setup(6, 512)
     st = interop.from_jax_state(
-        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")}, device="cpu")
     with pytest.raises(ValueError, match="Generator"):
         _port_run(plan)(st)
 
@@ -210,7 +210,7 @@ def _port_sweeps(ref, chain, mirror):
         deferred_plan=plan, device="cpu", noise_mode="external",
         kernel_compute_dtype=chain, mirror_dtype=mirror)
     st = interop.from_jax_state(
-        {**{n: ref[f"init/{n}"] for n in ("z", "ndk", "nwk", "nk")}, "sweep": 0})
+        {**{n: ref[f"init/{n}"] for n in ("z", "ndk", "nwk", "nk")}, "sweep": 0}, device="cpu")
     zs = []
     for _ in range(MODEL_SWEEPS):
         st = run(st, noise=lambda s: torch.from_numpy(ref[f"init/u{s}"].copy()))

@@ -48,7 +48,7 @@ def _setup(seed, block, t_target, num_docs=60):
 
 def _port_state(jst):
     return interop.from_jax_state(
-        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")}, device="cpu")
 
 
 @pytest.mark.parametrize("seed,block,t_target,tiles", [
@@ -64,7 +64,7 @@ def test_fused_sweeps_match_reference(seed, block, t_target, tiles):
     run = make_sweep_fn(
         pc.token_word, pc.token_doc, pc.token_mask, dl, alpha=0.5, beta=0.1,
         block_size=block, num_sweeps=2, use_pallas="fused", num_topics=K,
-        noise_mode="external")
+        noise_mode="external", device="cpu")
     assert run.kernel_tier == "fused" and block // run.row_tile == tiles
     t_pad = pc.num_tokens
 
@@ -106,7 +106,7 @@ def test_block_reads_the_block_start_table():
     run = make_sweep_fn(
         pc.token_word, pc.token_doc, pc.token_mask, dl, alpha=0.5, beta=0.1,
         block_size=4096, use_pallas="fused", num_topics=K,
-        noise_mode="internal")
+        noise_mode="internal", device="cpu")
     st = _port_state(jst)
     a = run(st, generator=torch.Generator().manual_seed(5))
     b = run(st, generator=torch.Generator().manual_seed(5))

@@ -164,7 +164,7 @@ def test_runner_ll_and_hyper_rows_match_reference(tmp_path):
     states = iter(jmodel.states)
 
     def replay(n=1):  # the port's model takes the JAX chain's next state
-        model.state = interop.from_jax_state(next(states))
+        model.state = interop.from_jax_state(next(states), device="cpu")
 
     model.sweep = replay
     with MetricsLog(tmp_path / "port.jsonl") as log:

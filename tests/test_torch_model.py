@@ -64,6 +64,31 @@ def test_model_sweeps_and_counts_consistent():
     np.testing.assert_allclose(theta.sum(axis=1), 1.0, rtol=1e-4)
 
 
+@pytest.mark.parametrize("sampler", ["blocked", "serial"])
+@pytest.mark.parametrize("table", ["ndk", "nwk", "nk", "z"])
+def test_check_counts_fails_on_one_moved_count(sampler, table):
+    """The recount check is exact: one count moved from one cell to another
+    (the table's totals kept), or one token's topic changed without its
+    counts, fails it."""
+    fc = _corpus()
+    model = LdaModel(LdaConfig(topic_num=6, seed=4, block_size=128,
+                               sampler=sampler), fc, device="cpu")
+    model.sweep(2)
+    model.check_counts_consistent()
+    st = model._oracle if sampler == "serial" else model.state
+    x = getattr(st, table)
+    if table == "z":  # the first real token's topic, moved to the next one
+        i = 0 if sampler == "serial" else int(np.flatnonzero(model._padded.token_mask)[0])
+        x[i] = (int(x[i]) + 1) % 6
+    else:
+        cell = tuple(int(c) for c in np.argwhere(np.asarray(x) > 0)[0])
+        other = (*cell[:-1], (cell[-1] + 1) % 6)
+        x[cell] -= 1
+        x[other] += 1
+    with pytest.raises(AssertionError):
+        model.check_counts_consistent()
+
+
 def test_batched_sweeps_match_looped():
     # sweep(5) carries the snapshot and draws five seeds from the model's
     # generator; five sweep(1) calls must give the same chain
@@ -179,6 +204,51 @@ def test_default_device_raises_without_cuda(monkeypatch):
         LdaModel(cfg, fc)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_backend(cfg, fc)
+
+
+def _public_callables():
+    """``(where, callable)`` for the 19 top-level names, every subpackage's
+    ``__all__``, and every public function and class (and each class's
+    public methods) that a module of the port defines."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import ldagibbssampling_tpu_torch as port
+
+    found = [(f"ldagibbssampling_tpu_torch.{n}", getattr(port, n)) for n in port._EXPORTS]
+    for info in pkgutil.walk_packages(port.__path__, "ldagibbssampling_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        names = set(getattr(mod, "__all__", ())) if info.ispkg else set()
+        names |= {n for n, v in vars(mod).items() if not n.startswith("_")
+                  and (inspect.isfunction(v) or inspect.isclass(v))
+                  and v.__module__ == info.name}
+        found += [(f"{info.name}.{n}", getattr(mod, n)) for n in sorted(names)]
+    for where, obj in list(found):
+        if inspect.isclass(obj):
+            found += [(f"{where}.{n}", v) for n, v in vars(obj).items()
+                      if not n.startswith("_") and inspect.isfunction(v)]
+    return [(w, o) for w, o in found if callable(o)]
+
+
+def test_no_public_callable_defaults_to_the_cpu():
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: no public callable's ``device`` parameter defaults to ``"cpu"``."""
+    import inspect
+
+    checked, on_cpu = 0, []
+    for where, obj in _public_callables():
+        try:
+            param = inspect.signature(obj).parameters.get("device")
+        except (TypeError, ValueError):  # no signature to read
+            continue
+        if param is None:
+            continue
+        checked += 1
+        if param.default is not inspect.Parameter.empty and str(param.default) == "cpu":
+            on_cpu.append(where)
+    assert not on_cpu, on_cpu
+    assert checked >= 40, checked
 
 
 @pytest.mark.parametrize("field,value", [

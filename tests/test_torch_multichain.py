@@ -66,7 +66,8 @@ def _pair(seed, chains, draw="gumbel"):
     ref = JaxChainSet(JaxLdaConfig(**kw), JaxFlatCorpus.from_ragged(ragged, vocab_size=V))
     arrays = {n: np.asarray(getattr(ref.states, n))
               for n in ("z", "ndk", "nwk", "nk", "sweep")}
-    states = interop.from_jax_chain_states(arrays, seeds=[seed + c for c in range(chains)])
+    states = interop.from_jax_chain_states(
+        arrays, seeds=[seed + c for c in range(chains)], device="cpu")
     port = ChainSet(LdaConfig(**kw), FlatCorpus.from_ragged(ragged, vocab_size=V),
                     device="cpu", noise_mode="external", states=states)
     keys = [ref.states.key[c] for c in range(chains)]

@@ -42,7 +42,7 @@ def _jax_state(seed=0):
 def test_counts_exact_for_same_z(seed):
     (tw, td, tm), ref = _jax_state(seed)
     st = state_lib.init_state(tw, td, tm, num_docs=M, vocab_size=V,
-                              num_topics=K, seed=seed, z=np.asarray(ref.z))
+                              num_topics=K, seed=seed, z=np.asarray(ref.z), device="cpu")
     for name in ("z", "ndk", "nwk", "nk"):
         got = getattr(st, name)
         assert got.dtype == torch.int32, name
@@ -54,7 +54,7 @@ def test_counts_exact_for_same_z(seed):
 def test_phi_theta_match_reference():
     (tw, td, tm), ref = _jax_state(2)
     st = interop.from_jax_state(
-        {n: np.asarray(getattr(ref, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(ref, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")}, device="cpu")
     dl = np.bincount(td[tm > 0], minlength=M)
     phi, theta = state_lib.phi_theta(st, dl, 0.5, 0.1)
     phi_ref, theta_ref = jax_state_lib.phi_theta(ref, dl, 0.5, 0.1)
@@ -77,7 +77,7 @@ def test_interop_round_trip():
 
 def test_init_state_draw_is_seeded_and_in_range():
     tw, td, tm = _stream(4)
-    kw = dict(num_docs=M, vocab_size=V, num_topics=K)
+    kw = dict(num_docs=M, vocab_size=V, num_topics=K, device="cpu")
     a = state_lib.init_state(tw, td, tm, seed=9, **kw)
     b = state_lib.init_state(tw, td, tm, seed=9, **kw)
     c = state_lib.init_state(tw, td, tm, seed=10, **kw)
@@ -90,7 +90,7 @@ def test_init_state_draw_is_seeded_and_in_range():
 def test_check_invariants_catches_corruption():
     tw, td, tm = _stream(5)
     st = state_lib.init_state(tw, td, tm, num_docs=M, vocab_size=V,
-                              num_topics=K, seed=0)
+                              num_topics=K, seed=0, device="cpu")
     dl = np.bincount(td[tm > 0], minlength=M)
     st.nk[0] += 1
     with pytest.raises(AssertionError):

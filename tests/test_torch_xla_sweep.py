@@ -87,7 +87,7 @@ def _jax_noise(jst, block, nb, draw):
 
 def _port_state(jst):
     return interop.from_jax_state(
-        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")})
+        {n: np.asarray(getattr(jst, n)) for n in ("z", "ndk", "nwk", "nk", "sweep")}, device="cpu")
 
 
 @pytest.mark.parametrize("use_pallas,draw,seed,block,sweeps", [
@@ -106,7 +106,7 @@ def test_sweeps_match_reference(use_pallas, draw, seed, block, sweeps):
     run = make_sweep_fn(
         pc.token_word, pc.token_doc, pc.token_mask, dl, alpha=0.5, beta=0.1,
         block_size=block, draw_method=draw, num_sweeps=sweeps,
-        use_pallas=use_pallas, num_topics=K, noise_mode="external")
+        use_pallas=use_pallas, num_topics=K, noise_mode="external", device="cpu")
     assert run.kernel_tier == ("pallas-draw" if use_pallas else "xla")
     nb = pc.num_tokens // block
     noise = _jax_noise(jst, block, nb, "v1" if use_pallas else draw)
@@ -136,7 +136,7 @@ def test_internal_noise_counts_consistent_and_seeded(use_pallas, draw):
     run = make_sweep_fn(
         pc.token_word, pc.token_doc, pc.token_mask, dl, alpha=0.5, beta=0.1,
         block_size=256, draw_method=draw, num_sweeps=2, use_pallas=use_pallas,
-        num_topics=K)
+        num_topics=K, device="cpu")
     a = run(st, generator=torch.Generator().manual_seed(3))
     b = run(st, generator=torch.Generator().manual_seed(3))
     c = run(st, generator=torch.Generator().manual_seed(4))
@@ -155,13 +155,13 @@ def test_deterministic_gumbel_is_the_argmax_of_the_conditional():
     outs = [make_sweep_fn(
         pc.token_word, pc.token_doc, pc.token_mask, dl, alpha=0.5, beta=0.1,
         block_size=512, use_pallas=up, num_topics=K,
-        noise_mode="deterministic")(_port_state(jst)) for up in (False, True)]
+        noise_mode="deterministic", device="cpu")(_port_state(jst)) for up in (False, True)]
     assert torch.equal(outs[0].z, outs[1].z)
     with pytest.raises(ValueError, match="deterministic"):
         make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask, dl,
                       alpha=0.5, beta=0.1, block_size=512, use_pallas=False,
                       draw_method="inverse_cdf", num_topics=K,
-                      noise_mode="deterministic")(_port_state(jst))
+                      noise_mode="deterministic", device="cpu")(_port_state(jst))
 
 
 def test_vocab_size_override_matches_reference():
