@@ -87,15 +87,26 @@ success:
    ``metric`` checked against bench.py's name.
 
 8. multichain: rung 4's configuration of ``benchmarks/ladder.py`` (planted
-   corpus, K = 10, block 8,192, 4 chains, mean length 80) at scale 0.2:
-   8,000 documents, V = 20,000, ~640k tokens, through ``make_backend``
-   (``chains=4``) and ``run_inference`` for 20 sweeps with the LL every 5:
-   every chain's counts equal a recount of its z, the chains differ
-   pairwise, the rows carry finite ``r_hat`` and ``r_hat_phi_p99``, no
-   kernel launches (the chains run the XLA tier, as the reference's), and
-   two unrecorded sweeps run under CUDA's sync debug mode set to error (no
-   host sync); prints tokens/s over chain-sweeps and the time of one LL
-   recording of the four chains;
+   corpus, K = 10, block 8,192, 4 chains, mean length 80) at its full size,
+   scale 1.0: 40,000 documents, V = 20,000, 3,437,212 tokens, through
+   ``make_backend`` (``chains=4``) and ``run_inference`` for 20 sweeps with
+   the LL every 5: every chain's counts equal a recount of its z, the
+   chains differ pairwise, the rows carry finite ``r_hat`` and
+   ``r_hat_phi_p99`` (printed), no kernel launches (the chains run the XLA
+   tier, as the reference's), peak device memory, and two unrecorded sweeps
+   run under CUDA's sync debug mode set to error (no host sync); prints
+   tokens/s over chain-sweeps and the time of one LL recording of the four
+   chains.  Then the batched chains (one ``gibbs_sweep_chains`` per sweep)
+   against the same chains run in turn (one single-chain
+   ``make_sweep_fn(use_pallas=False)`` each) from the same states and
+   generators, in turn, batched, batched, in turn, 2 sweeps each: z and
+   every table bitwise per chain, both forms' tokens/s, and their CUDA
+   launches per sweep of the four chains from one profiled sweep each (the
+   batched at most one chain's plus 5 per block).  8b, ``[multichain
+   wide]``: the same at K = 500 and 4 chains on bench.py's shape (2^20
+   Zipf(1.1) tokens, V = 50,000, M = 4,096, block 65,536; BASELINE's
+   configuration 4's topic count and chains, its Wikipedia corpus not being
+   in the repository), 10 sweeps;
 9. backends: rung 5's configuration (planted corpus, K = 15, block 8,192,
    5% of the documents held out) at scale 0.2: 16,400 documents, V =
    20,000, ~1.67M training tokens: gibbs (5 sweeps, the deferred tier, its
@@ -276,7 +287,15 @@ _MESH2_WORKER = (
     "import sys\n"
     "import chip_smoke\n"
     "sys.exit(chip_smoke.mesh2_worker(*sys.argv[1:]))\n")
-MULTICHAIN_SCALE, MULTICHAIN_SWEEPS = 0.2, 20
+# [multichain]: the ladder's rung 4 at its full size (40,000 documents,
+# V = 20,000, 3,437,212 tokens); [multichain wide]: K = 500 and 4 chains on
+# bench.py's shape (BASELINE's configuration 4's topic count and chains; its
+# Wikipedia corpus is not in the repository).  Sweeps of the main run, and
+# of each form per round of the batched-against-in-turn check
+MULTICHAIN_SCALE, MULTICHAIN_SWEEPS, MULTICHAIN_COMPARE = 1.0, 20, 2
+WIDE_SWEEPS, WIDE_COMPARE = 10, 2
+# the CUDA runtime calls that enqueue device work, by name prefix
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 BACKEND_RUNS = (("gibbs", 1, 4, 0.2), ("cvb0", 1, 4, 0.2), ("svi", 0, 2, 0.2),
                 ("warp", 1, 4, 0.2), ("smc", 0, 1, 0.01))
 LADDER_SCALE = 0.01
@@ -1495,84 +1514,236 @@ def bench_phase(tier: str, sweeps: int) -> dict:
     return row
 
 
-def multichain_phase(seed: int, device: str = "cuda") -> dict:
-    """Phase 8: four chains (``models/chains``) at rung 4's configuration,
-    scale 0.2, through ``make_backend`` and ``run_inference`` with the LL
-    every LL_EVERY sweeps: counts equal recounts, the chains differ
-    pairwise, the rows carry finite R-hat; no host sync in unrecorded
-    sweeps (CUDA's sync debug mode set to error around two of them)."""
+def count_launches(fn, tries: int = 3) -> int:
+    """The device operations that ``fn()`` enqueues (kernel launches,
+    copies, fills), counted as the CUDA runtime calls ``torch.profiler``
+    records; raises where ``tries`` sessions record none.  The CUDA activity
+    alone records the runtime calls, in less host time than recording the
+    host's ops as well."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.name.startswith(LAUNCH_CALLS))
+        if n:
+            return n
+    raise AssertionError(f"the profiler recorded no CUDA runtime call in {tries} sessions")
+
+
+def chains_vs_in_turn(chains, sweeps: int, label: str) -> dict:
+    """The batched chains of ``chains`` (``models/chains.ChainSet``) against
+    the same chains run in turn, the path before the batched sweep: one
+    single-chain ``make_sweep_fn(use_pallas=False)`` per chain, from the
+    same states and generators, in internal noise.  Two rounds in the order
+    in turn, batched, batched, in turn, ``sweeps`` sweeps each: every
+    chain's z and tables bitwise after each pair; both forms' tokens/s over
+    chain-sweeps; on the card each form's launches per sweep of every chain
+    from one profiled sweep, the batched form's held to one chain's plus
+    C + 1 per block."""
+    import dataclasses
+
+    import torch
+
+    from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
+
+    dev = chains.device
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    c_n, pc, cfg = chains.num_chains, chains._padded, chains.config
+    run = make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask,
+                        chains.doc_lengths, alpha=cfg.alpha, beta=cfg.beta,
+                        block_size=chains.block_size, draw_method=cfg.draw_method,
+                        use_pallas=False, num_topics=cfg.topic_num, device=dev)
+    turn = [dataclasses.replace(s, z=s.z.clone(), ndk=s.ndk.clone(),
+                                nwk=s.nwk.clone(), nk=s.nk.clone())
+            for s in chains.states]
+    gens = [torch.Generator().set_state(g.get_state()) for g in chains.generators]
+    secs = {"in turn": [], "batched": []}
+
+    def timed(form, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[form].append(time.perf_counter() - t0)
+        return out
+
+    def in_turn(states, n):
+        return [run(s, n_sweeps=n, generator=g) for s, g in zip(states, gens)]
+
+    def check():
+        for c, want in enumerate(turn):
+            got = chains.chain_state(c)
+            for name in ("z", "ndk", "nwk", "nk"):
+                if not torch.equal(getattr(got, name), getattr(want, name)):
+                    raise AssertionError(f"[{label}] chain {c}: the batched sweep's "
+                                         f"{name} differs from the chain run in turn")
+
+    turn = timed("in turn", lambda: in_turn(turn, sweeps))
+    timed("batched", lambda: chains.sweep(sweeps))
+    check()
+    timed("batched", lambda: chains.sweep(sweeps))
+    turn = timed("in turn", lambda: in_turn(turn, sweeps))
+    check()
+    tokens = chains.corpus.num_tokens * c_n * sweeps
+    blocks = pc.num_tokens // chains.block_size
+    rates = {form: [tokens / x for x in xs] for form, xs in secs.items()}
+    out = dict(compare_sweeps=sweeps, blocks_per_sweep=blocks,
+               batched_tokens_per_s=rates["batched"],
+               in_turn_tokens_per_s=rates["in turn"])
+    launches = "launches not counted off the card"
+    if on_card:
+        batched_n = count_launches(lambda: chains.sweep(1))
+        turn_n = count_launches(lambda: in_turn(turn, 1))
+        bound = turn_n / c_n + (c_n + 1) * blocks
+        out.update(batched_launches_per_sweep=batched_n,
+                   in_turn_launches_per_sweep=turn_n, launch_bound=bound)
+        if batched_n > bound:
+            raise AssertionError(
+                f"[{label}] {batched_n} launches per batched sweep of {c_n} chains "
+                f"> one chain's {turn_n / c_n:.0f} + {c_n + 1} per block x {blocks}")
+        launches = (f"launches per sweep of {c_n} chains: batched {batched_n:,}, in "
+                    f"turn {turn_n:,} (bound {bound:,.0f}: one chain's + "
+                    f"{c_n + 1} x {blocks} blocks)")
+    log(f"[{label} vs in turn] {c_n} chains x {sweeps} sweeps, twice each "
+        f"(in turn, batched, batched, in turn): z, ndk, nwk, nk bitwise per chain; "
+        f"tokens/s over chain-sweeps batched "
+        f"{', '.join(f'{r:,.0f}' for r in rates['batched'])}, in turn "
+        f"{', '.join(f'{r:,.0f}' for r in rates['in turn'])}; {launches}")
+    return out
+
+
+def multichain_phase(label: str, corpus, cfg, ll_every: int, compare_sweeps: int,
+                     device: str = "cuda") -> dict:
+    """Phases 8 and 8b: ``cfg.chains`` chains (``models/chains``) through
+    ``make_backend`` and ``run_inference`` with the LL every ``ll_every``
+    sweeps: counts equal recounts, the chains differ pairwise, the rows
+    carry finite R-hat, no kernel launches (the XLA tier, as the
+    reference's), peak device memory; no host sync in unrecorded sweeps
+    (CUDA's sync debug mode set to error around two of them); the
+    unrecorded rate and the LL recording's time; then
+    :func:`chains_vs_in_turn`."""
     import numpy as np
     import torch
 
     from ldagibbssampling_tpu_torch import make_backend, run_inference
-    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
-    from ldagibbssampling_tpu_torch.config import LdaConfig
     from ldagibbssampling_tpu_torch.evaluation.tracing import MetricsLog, read_metrics
 
-    corpus, _ = rung_corpus(4, MULTICHAIN_SCALE)
-    cfg = LdaConfig(topic_num=10, seed=seed, block_size=8_192, chains=4,
-                    iteration=MULTICHAIN_SWEEPS)
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    c_n = cfg.chains
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     model = make_backend(cfg, corpus, device=device)
     if type(model).__name__ != "MultiChainModel" or model.kernel_tier != "xla":
-        raise AssertionError(f"chains=4 built {type(model).__name__} "
+        raise AssertionError(f"chains={c_n} built {type(model).__name__} "
                              f"({model.kernel_tier})")
     chains = model.chains
     zero_counters()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         with MetricsLog(Path(tmp) / "m.jsonl") as mlog:
-            run_inference(model, cfg, corpus, metrics=mlog, ll_every=LL_EVERY)
-        torch.cuda.synchronize()
+            run_inference(model, cfg, corpus, metrics=mlog, ll_every=ll_every)
+        sync()
         run_s = time.perf_counter() - t0
         rows = read_metrics(Path(tmp) / "m.jsonl")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     launches, plain = read_counters()
     if any(launches.values()) or any(plain.values()):
         raise AssertionError(f"the chains' XLA tier launched kernels {launches} "
                              f"or plain versions {plain}")
     chains.check_counts_consistent()
     zs = [s.z.cpu().numpy() for s in chains.states]
-    same = [(a, b) for a in range(4) for b in range(a + 1, 4)
+    same = [(a, b) for a in range(c_n) for b in range(a + 1, c_n)
             if np.array_equal(zs[a], zs[b])]
     if same:
         raise AssertionError(f"chains equal: {same}")
+    r_rows = [(r["sweep"], r["r_hat"], r["r_hat_phi_p99"]) for r in rows
+              if "r_hat_phi_p99" in r]
     last = rows[-1]
-    if not (np.isfinite(last.get("r_hat", np.nan))
+    if not (r_rows and np.isfinite(last.get("r_hat", np.nan))
             and np.isfinite(last.get("r_hat_phi_p99", np.nan))):
         raise AssertionError(f"rows lack finite r_hat / r_hat_phi_p99: {last}")
-    # unrecorded sweeps enqueue without a host sync
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        chains.sweep(2)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    # unrecorded sweeps, then the LL recording alone (all four chains)
-    torch.cuda.synchronize()
+    if on_card:  # unrecorded sweeps enqueue without a host sync
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            chains.sweep(2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # unrecorded sweeps, then the LL recording alone (every chain)
+    sync()
     t0 = time.perf_counter()
-    chains.sweep(LL_EVERY)
-    torch.cuda.synchronize()
+    chains.sweep(ll_every)
+    sync()
     t1 = time.perf_counter()
-    for _ in range(LL_EVERY):
+    for _ in range(ll_every):
         chains.record_ll()
     t2 = time.perf_counter()
-    sweep_s = (t1 - t0) / LL_EVERY
-    ll_s = (t2 - t1) / LL_EVERY
-    tok_s = corpus.num_tokens * LL_EVERY * 4 / (t1 - t0)
+    sweep_s, ll_s = (t1 - t0) / ll_every, (t2 - t1) / ll_every
+    tok_s = corpus.num_tokens * ll_every * c_n / (t1 - t0)
     out = dict(tokens=corpus.num_tokens, docs=corpus.num_docs,
-               vocab=corpus.vocab_size, run_seconds=run_s,
-               tokens_per_s_chain_sweeps=tok_s, seconds_per_sweep_4_chains=sweep_s,
-               ll_record_seconds_per_sweep_4_chains=ll_s, r_hat=last["r_hat"],
+               vocab=corpus.vocab_size, topics=cfg.topic_num, chains=c_n,
+               block=chains.block_size, sweeps=cfg.iteration, run_seconds=run_s,
+               peak_device_gb=peak_gb, tokens_per_s_chain_sweeps=tok_s,
+               seconds_per_sweep_all_chains=sweep_s,
+               ll_record_seconds_per_sweep_all_chains=ll_s,
+               r_hat_rows=r_rows, r_hat=last["r_hat"],
                r_hat_phi_p99=last["r_hat_phi_p99"],
                log_likelihood=last["log_likelihood"])
-    log(f"[multichain] {corpus.num_tokens} tokens, M {corpus.num_docs}, V "
-        f"{corpus.vocab_size}, K 10, 4 chains x {MULTICHAIN_SWEEPS} sweeps in "
-        f"{run_s:.2f}s (LL every sweep, R-hat rows); counts = recounts, chains "
-        f"differ pairwise; R-hat(LL) {last['r_hat']:.4f}, R-hat(phi) p99 "
-        f"{last['r_hat_phi_p99']:.4f}; unrecorded: {tok_s:,.0f} tokens/s over "
-        f"chain-sweeps ({sweep_s * 1e3:.1f} ms per sweep of 4 chains), LL "
-        f"recording {ll_s * 1e3:.2f} ms per sweep of 4 chains; no host sync in "
-        f"2 unrecorded sweeps")
+    log(f"[{label}] {corpus.num_tokens} tokens, M {corpus.num_docs}, V "
+        f"{corpus.vocab_size}, K {cfg.topic_num}, block {chains.block_size}, "
+        f"{c_n} chains x {cfg.iteration} sweeps in {run_s:.2f}s (LL every sweep, "
+        f"R-hat rows); counts = recounts, chains differ pairwise; R-hat rows "
+        f"(sweep, LL, phi p99): "
+        f"{', '.join(f'({s}, {a:.4f}, {b:.4f})' for s, a, b in r_rows)}; peak "
+        f"device memory {'not measured' if peak_gb is None else f'{peak_gb:.3f} GB'}"
+        f" (max_memory_allocated); unrecorded: {tok_s:,.0f} tokens/s over "
+        f"chain-sweeps ({sweep_s * 1e3:.1f} ms per sweep of {c_n} chains), LL "
+        f"recording {ll_s * 1e3:.2f} ms per sweep of {c_n} chains"
+        + ("; no host sync in 2 unrecorded sweeps" if on_card else ""))
+    out.update(chains_vs_in_turn(chains, compare_sweeps, label))
     return out
+
+
+def multichain_phases(seed: int, device: str = "cuda",
+                      scale: float = MULTICHAIN_SCALE, wide_corpus=None) -> dict:
+    """Phase 8, ``[multichain]``: the ladder's rung 4 (planted corpus, K = 10,
+    block 8,192, 4 chains, mean length 80) at ``scale``, 20 sweeps; 8b,
+    ``[multichain wide]``: K = 500 and 4 chains on ``wide_corpus`` (bench.py's
+    shape, block 65,536), 10 sweeps."""
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+
+    t0 = time.perf_counter()
+    corpus, _ = rung_corpus(4, scale)
+    log(f"[multichain] rung 4's corpus at scale {scale} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    narrow = multichain_phase(
+        "multichain", corpus,
+        LdaConfig(topic_num=10, seed=seed, block_size=8_192, chains=4,
+                  iteration=MULTICHAIN_SWEEPS),
+        LL_EVERY, MULTICHAIN_COMPARE, device)
+    del corpus
+    wide = multichain_phase(
+        "multichain wide", wide_corpus if wide_corpus is not None else synth_corpus(seed),
+        LdaConfig(topic_num=K, seed=seed, block_size=BLOCK, alpha=ALPHA,
+                  beta=BETA, chains=4, iteration=WIDE_SWEEPS),
+        LL_EVERY, WIDE_COMPARE, device)
+    return {"rung4": narrow, "wide": wide}
 
 
 def cvb0_sweep_ms(model, atomic: bool = False, sweeps: int = 3) -> float:
@@ -2783,7 +2954,7 @@ def main() -> int:
     wall("parity")
     bench = {tier: bench_phase(tier, sweeps) for tier, sweeps in BENCH_RUNS}  # 7.
     wall("bench")
-    multichain = multichain_phase(args.seed)                # 8.
+    multichain = multichain_phases(args.seed, wide_corpus=corpus)  # 8, 8b.
     wall("multichain")
     backends, gibbs_launches = backends_phase(args.seed)    # 9.
     backends_resume_phase()                                 # 10.

@@ -134,7 +134,8 @@ def _warp_sweep(
 
     # ---- delayed count reconciliation: exact int32 scatter-adds ----
     ndk, nwk, nk = ndk.clone(), nwk.clone(), nk.clone()
-    _scatter_counts(ndk, nwk, nk, w, d, token_mask, z, znew)
+    _scatter_counts(ndk[None], nwk[None], nk[None], d.long() * k, w.long() * k,
+                    msk.to(torch.int32), z[None], znew[None])
     return SamplerState(z=znew.to(torch.int32), ndk=ndk, nwk=nwk, nk=nk,
                         sweep=state.sweep + 1, seed=state.seed)
 

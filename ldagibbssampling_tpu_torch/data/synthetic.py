@@ -58,6 +58,11 @@ def planted_topic_corpus(
     lengths = np.maximum(
         1, rng.lognormal(np.log(mean_doc_len), 0.4, size=num_docs).astype(np.int64)
     )
+    # each topic's word CDF once: ``rng.choice(V, size, p=phi[k])`` is
+    # ``cdf.searchsorted(rng.random(size), side="right")`` with this very
+    # CDF, so the draws are the reference's, without its O(V) work per call
+    cdfs = phi.cumsum(axis=1)
+    cdfs /= cdfs[:, -1:]
     words = []
     for m in range(num_docs):
         zs = rng.choice(num_topics, size=lengths[m], p=thetas[m])
@@ -65,7 +70,7 @@ def planted_topic_corpus(
         w = np.empty(lengths[m], dtype=np.int32)
         for k in np.unique(zs):
             sel = zs == k
-            w[sel] = rng.choice(vocab_size, size=int(sel.sum()), p=phi[k])
+            w[sel] = cdfs[k].searchsorted(rng.random(int(sel.sum())), side="right")
         words.append(w)
     doc_ptr = np.zeros(num_docs + 1, dtype=np.int32)
     np.cumsum(lengths, out=doc_ptr[1:])

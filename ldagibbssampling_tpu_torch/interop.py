@@ -2,14 +2,15 @@
 
 Tests use it so that both packages start from the same state: the port
 cannot reproduce the reference's threefry draws.  Forms: one Gibbs chain
-(``from_jax_state``), the stacked states of several chains, CVB0's
-``(gamma, ndk, nwk, nk)``, SVI's λ and γ cache, SMC's
-``(ndk, nwk, nk, z, logw)``, and the mesh runtimes' stacked tables
+(``from_jax_state``), the stacked states of several chains (per chain or
+kept stacked), CVB0's ``(gamma, ndk, nwk, nk)``, SVI's λ and γ cache,
+SMC's ``(ndk, nwk, nk, z, logw)``, and the mesh runtimes' stacked tables
 (``from_jax_mesh_state``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -42,13 +43,22 @@ def _tensor(x: Any, dtype: torch.dtype, device: Any) -> torch.Tensor:
 
 
 def from_jax_chain_states(arrays: Mapping[str, Any], device: Any = "cuda",
-                          seeds: Any = None) -> list[SamplerState]:
-    """Per-chain ``SamplerState``s from the reference ``ChainSet``'s stacked
-    states (``z/ndk/nwk/nk/sweep`` with a leading chain axis); ``seeds[c]``
-    is chain ``c``'s seed (default ``c``)."""
+                          seeds: Any = None, stacked: bool = False):
+    """The reference ``ChainSet``'s stacked states (``z/ndk/nwk/nk/sweep``
+    with a leading chain axis) as per-chain ``SamplerState``s or, with
+    ``stacked=True``, as one stacked ``SamplerState`` (the chain axis kept,
+    ``seed`` the tuple of chain seeds: ``models/state.stack_states``'s
+    form, which ``ChainSet(states=...)`` takes as it is); ``seeds[c]`` is
+    chain ``c``'s seed (default ``c``)."""
     num_chains = np.asarray(arrays["z"]).shape[0]
     sweeps = np.broadcast_to(np.asarray(arrays["sweep"]), (num_chains,))
     seeds = range(num_chains) if seeds is None else seeds
+    if stacked:
+        if len(set(sweeps.tolist())) != 1:
+            raise ValueError(f"chains at sweeps {sorted(set(sweeps.tolist()))}: "
+                             "a stacked state advances its chains in lockstep")
+        state = from_jax_state({**arrays, "sweep": sweeps[0]}, device)
+        return dataclasses.replace(state, seed=tuple(int(s) for s in seeds))
     return [from_jax_state({**{n: np.asarray(arrays[n])[c]
                                for n in ("z", "ndk", "nwk", "nk")},
                             "sweep": sweeps[c]}, device, seed)

@@ -2,18 +2,21 @@
 
 Counterpart of ``ldagibbssampling_tpu/models/chains.py``.  Chain ``c``
 starts from ``init_state(..., seed=config.seed + c)`` and runs the XLA
-tier's sweep (``ops/gibbs.gibbs_sweep``, ``use_pallas=False``, the
-config's ``draw_method``) with its own ``torch.Generator``, as the
-reference runs its vmapped XLA sweep (``kernel_tier="xla"``).  The chains
-share the token arrays and are advanced one after another: each chain is
-exactly the single-chain XLA sweep.  A batched ``[C, ...]`` form is left to
-a later speed change (ROADMAP Queue 3).
+tier's sweep (the config's ``draw_method``) with its own
+``torch.Generator``, as the reference runs its vmapped XLA sweep
+(``kernel_tier="xla"``).  As in the reference, the chains on one device
+are one stacked state (``models/state.stack_states``: a leading chain axis
+on every table, the token arrays shared) advanced in lockstep: each sweep
+is one ``ops/gibbs.gibbs_sweep_chains`` per device, every op of a block
+run once for all its chains, and chain ``c`` is bitwise the single-chain
+XLA sweep of chain ``c``.  ``states`` gives each chain's views.
 
 ``sweep(n)`` without recording enqueues the ``n`` sweeps of every chain
 and makes no host sync.  With ``record_ll`` each sweep adds the per-chain
 training log-likelihood per token: the reference's host
 ``log_likelihood(phi, theta) / T`` of the float32 point estimates,
-computed here in float64 on the chains' device.  φ draws feed the split-R̂
+computed here in float64 on the chains' device, for every chain of a
+device in one pass and one host read.  φ draws feed the split-R̂
 accumulators of ``evaluation/diagnostics.py``.
 
 Noise: ``noise_mode="internal"`` (each sweep's seed drawn from the chain's
@@ -24,12 +27,13 @@ generator), or ``"external"`` with ``sweep(..., noise=noise)`` where
 Given a ``mesh`` (``parallel/multihost.Mesh``) with a ``chain`` axis, the
 chains are spread over that axis's positions, as the reference shards its
 stacked chains with ``PartitionSpec("chain")``: chain ``c`` runs on the
-device of chain coordinate ``c * size // num_chains``.
+device of chain coordinate ``c * size // num_chains``, and the chains of
+one device (positions that repeat a device included) are one batch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,19 +43,25 @@ from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.evaluation.diagnostics import r_hat
 from ldagibbssampling_tpu_torch.models import state as state_lib
 from ldagibbssampling_tpu_torch.models.state import SamplerState
-from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
+from ldagibbssampling_tpu_torch.ops.fused_kernel import NOISE_MODES
+from ldagibbssampling_tpu_torch.ops.gibbs import gibbs_sweep_chains, sweep_seed
+
 
 def _ll_per_token(phi: torch.Tensor, theta: torch.Tensor, tw: torch.Tensor,
                   td: torch.Tensor, num_tokens: int,
-                  chunk: int = 1 << 18) -> torch.Tensor:
-    """``Σ_t log Σ_k θ[d_t, k] φ[k, w_t] / T`` in float64 on the tensors'
-    device (a 0-d tensor): ``evaluation/metrics.log_likelihood`` / T."""
-    phi_t = phi.T.to(torch.float64)
+                  budget: int = 1 << 26) -> torch.Tensor:
+    """``Σ_t log Σ_k θ[d_t, k] φ[k, w_t] / T`` of each chain, in float64 on
+    the tensors' device: ``phi [C, K, V]`` and ``theta [C, M, K]`` give a
+    ``[C]`` tensor (``evaluation/metrics.log_likelihood`` / T).  Tokens go
+    in chunks of at most ``budget`` float64 values per gathered operand."""
+    num_chains, k = phi.shape[:2]
+    phi_t = phi.transpose(1, 2).to(torch.float64)
     theta64 = theta.to(torch.float64)
-    total = torch.zeros((), dtype=torch.float64, device=phi.device)
+    chunk = max(1, budget // (num_chains * k))
+    total = torch.zeros(num_chains, dtype=torch.float64, device=phi.device)
     for s in range(0, tw.shape[0], chunk):
-        p = (theta64[td[s:s + chunk]] * phi_t[tw[s:s + chunk]]).sum(dim=1)
-        total = total + torch.log(torch.clamp(p, min=1e-300)).sum()
+        p = (theta64[:, td[s:s + chunk]] * phi_t[:, tw[s:s + chunk]]).sum(dim=2)
+        total = total + torch.log(torch.clamp(p, min=1e-300)).sum(dim=1)
     return total / max(num_tokens, 1)
 
 
@@ -68,7 +78,8 @@ def _chain_devices(mesh, num_chains: int) -> list[torch.device]:
 
 
 class ChainSet:
-    """``num_chains`` independent XLA-tier chains on one device."""
+    """``num_chains`` independent XLA-tier chains, stacked and advanced in
+    lockstep per device."""
 
     def __init__(
         self,
@@ -79,17 +90,24 @@ class ChainSet:
         *,
         device: Any = "cuda",
         noise_mode: str = "internal",
-        states: Optional[Sequence[SamplerState]] = None,
+        states: Union[SamplerState, Sequence[SamplerState], None] = None,
     ) -> None:
         from ldagibbssampling_tpu_torch.models.lda import resolve_device
 
+        if noise_mode not in NOISE_MODES:
+            raise ValueError(f"unknown noise_mode {noise_mode!r}")
         self.device = resolve_device(device)
         self.config = config
         self.corpus = corpus
+        self.noise_mode = noise_mode
         self.num_chains = num_chains or max(1, config.chains)
         self.chain_devices = [self.device] * self.num_chains
         if mesh is not None:
             self.chain_devices = _chain_devices(mesh, self.num_chains)
+        # the chains of each device, in chain order: one stacked batch each
+        self._batches: dict[torch.device, list[int]] = {}
+        for c, dev in enumerate(self.chain_devices):
+            self._batches.setdefault(dev, []).append(c)
         block = max(1, min(config.block_size, max(1, corpus.num_tokens)))
         self.block_size = block
         pc = corpus.pad_to(block)
@@ -106,35 +124,72 @@ class ChainSet:
                 )
                 for c in range(self.num_chains)
             ]
-        elif len(states) != self.num_chains:
+        elif isinstance(states, SamplerState):  # already stacked
+            states = state_lib.unstack_states(states)
+        if len(states) != self.num_chains:
             raise ValueError(f"{len(states)} states for {self.num_chains} chains")
-        self.states: list[SamplerState] = list(states)
-        self.generators = [torch.Generator().manual_seed(s.seed)
-                           for s in self.states]
-        # one sweep function and one copy of the real tokens (for the LL;
-        # the padded tail is masked off) per device
+        self.generators = [torch.Generator().manual_seed(int(s.seed))
+                           for s in states]
+        self._stacks = {dev: state_lib.stack_states([states[c] for c in ids], dev)
+                        for dev, ids in self._batches.items()}
+        # the sweep's token arrays (padded) and the real tokens for the LL
+        # (the padded tail is masked off), once per device
         t = corpus.num_tokens
-        self._runs, self._ll_tokens = {}, {}
-        for dev in dict.fromkeys(self.chain_devices):
-            self._runs[dev] = make_sweep_fn(
-                pc.token_word, pc.token_doc, pc.token_mask, self.doc_lengths,
-                alpha=config.alpha, beta=config.beta, block_size=block,
-                draw_method=config.draw_method, use_pallas=False,
-                num_topics=config.topic_num, device=dev, noise_mode=noise_mode)
-            self._ll_tokens[dev] = tuple(
-                torch.from_numpy(a[:t].astype(np.int64)).to(dev)
-                for a in (pc.token_word, pc.token_doc))
+
+        def on(dev, a, dtype=np.int32):
+            return torch.from_numpy(np.asarray(a).astype(dtype)).to(dev)
+
+        self._tokens, self._ll_tokens = {}, {}
+        for dev in self._batches:
+            self._tokens[dev] = (on(dev, pc.token_word), on(dev, pc.token_doc),
+                                 on(dev, pc.token_mask), on(dev, self.doc_lengths))
+            self._ll_tokens[dev] = (on(dev, pc.token_word[:t], np.int64),
+                                    on(dev, pc.token_doc[:t], np.int64))
         self.ll_trace: list[np.ndarray] = []   # per sweep: [num_chains]
         self.phi_trace: list[np.ndarray] = []  # per recorded draw: [num_chains, K, V]
         self.phi_accum = None   # O(C·K·V) alternative to phi_trace (record_phi)
         self.phi_window = None  # pair-safe doubling-window variant (record_phi_auto)
 
     # ------------------------------------------------------------------
+    @property
+    def states(self) -> list[SamplerState]:
+        """Each chain's ``SamplerState``: views of its device's stacked
+        state, with the chain's ``sweep`` and ``seed``."""
+        out: list = [None] * self.num_chains
+        for dev, ids in self._batches.items():
+            for c, view in zip(ids, state_lib.unstack_states(self._stacks[dev])):
+                out[c] = view
+        return out
+
     def _advance(self, n: int, noise: Optional[Callable]) -> None:
-        for c in range(self.num_chains):
-            self.states[c] = self._runs[self.chain_devices[c]](
-                self.states[c], n_sweeps=n, generator=self.generators[c],
-                noise=None if noise is None else (lambda s, c=c: noise(c, s)))
+        cfg = self.config
+        for _ in range(n):
+            for dev, ids in self._batches.items():
+                st = self._stacks[dev]
+                seeds, u = (), None
+                if self.noise_mode == "internal":
+                    seeds = [sweep_seed(self.generators[c]) for c in ids]
+                elif self.noise_mode == "external":
+                    if noise is None:
+                        raise ValueError("external noise needs noise(chain, sweep)")
+                    u = torch.stack([torch.as_tensor(noise(c, st.sweep))
+                                     for c in ids]).to(dev)
+                try:
+                    z, ndk, nwk, nk = gibbs_sweep_chains(
+                        st.z, st.ndk, st.nwk, st.nk, *self._tokens[dev],
+                        alpha=cfg.alpha, beta=cfg.beta, block_size=self.block_size,
+                        draw_method=cfg.draw_method, noise_mode=self.noise_mode,
+                        seeds=seeds, noise=u)
+                except torch.cuda.OutOfMemoryError as e:
+                    shape = (len(ids), self.block_size, cfg.topic_num)
+                    raise torch.cuda.OutOfMemoryError(
+                        f"the batched sweep of {len(ids)} chains on {dev} does "
+                        f"not fit: its [C, B, K] = {list(shape)} working tensors "
+                        f"take {np.prod(shape) * 4 / 2**30:.2f} GiB each in "
+                        f"float32 beside the stacked tables; use fewer chains "
+                        f"per device or a smaller block_size ({e})") from e
+                self._stacks[dev] = SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk,
+                                                 sweep=st.sweep + 1, seed=st.seed)
 
     def sweep(
         self, n: int = 1, record_ll: bool = False, record_phi: bool = False,
@@ -152,25 +207,29 @@ class ChainSet:
             if record_phi:
                 self.phi_trace.append(self._phis())
 
-    def record_ll(self) -> None:
-        """Append every chain's current LL per token to ``ll_trace`` (one
-        host read for all chains)."""
-        lls = []
-        for c in range(self.num_chains):
-            phi, theta = self._phi_theta(c)
-            tw, td = self._ll_tokens[self.chain_devices[c]]
-            lls.append(_ll_per_token(phi, theta, tw, td,
-                                     self.corpus.num_tokens).cpu())
-        self.ll_trace.append(torch.stack(lls).numpy())
-
-    def _phi_theta(self, c: int) -> tuple[torch.Tensor, torch.Tensor]:
-        return state_lib.phi_theta(self.states[c], self.doc_lengths,
+    def _phi_theta(self, dev) -> tuple[torch.Tensor, torch.Tensor]:
+        """``[C, K, V]`` φ and ``[C, M, K]`` θ of the chains on ``dev``."""
+        return state_lib.phi_theta(self._stacks[dev], self.doc_lengths,
                                    self.config.alpha, self.config.beta)
 
+    def record_ll(self) -> None:
+        """Append every chain's current LL per token to ``ll_trace``: one
+        batched float64 pass and one host read per device."""
+        lls = np.empty(self.num_chains, np.float64)
+        for dev, ids in self._batches.items():
+            phi, theta = self._phi_theta(dev)
+            lls[ids] = _ll_per_token(phi, theta, *self._ll_tokens[dev],
+                                     self.corpus.num_tokens).cpu().numpy()
+        self.ll_trace.append(lls)
+
     def _phis(self) -> np.ndarray:
-        """``[C, K, V]`` float32: every chain's current φ, on the host."""
-        return torch.stack([self._phi_theta(c)[0].cpu()
-                            for c in range(self.num_chains)]).numpy()
+        """``[C, K, V]`` float32: every chain's current φ, on the host (one
+        copy per device)."""
+        out = np.empty((self.num_chains, self.config.topic_num,
+                        self.corpus.vocab_size), np.float32)
+        for dev, ids in self._batches.items():
+            out[ids] = self._phi_theta(dev)[0].cpu().numpy()
+        return out
 
     def record_phi(self, half: int) -> None:
         """Fold the current φ of every chain into the running split-R̂
@@ -206,22 +265,26 @@ class ChainSet:
         self.phi_accum = None
 
     def chain_state(self, c: int) -> SamplerState:
+        """Chain ``c``'s ``SamplerState`` (views of its stacked state)."""
         return self.states[c]
 
     def chain_phi_theta(self, c: int) -> tuple[np.ndarray, np.ndarray]:
-        phi, theta = self._phi_theta(c)
+        phi, theta = state_lib.phi_theta(self.chain_state(c), self.doc_lengths,
+                                         self.config.alpha, self.config.beta)
         return phi.cpu().numpy(), theta.cpu().numpy()
 
     def check_counts_consistent(self) -> None:
-        """Every chain's count tables equal a serial recount of its ``z``."""
+        """Every chain's count tables equal a serial recount of its ``z``
+        (the stacked tables read to the host once per device)."""
         from ldagibbssampling_tpu_torch.models.lda import _assert_recount
 
         pc = self._padded
         mask = pc.token_mask.astype(bool)
-        for s in self.states:
-            _assert_recount(pc.token_word[mask], pc.token_doc[mask],
-                            s.z.cpu().numpy()[mask], s.ndk.cpu().numpy(),
-                            s.nwk.cpu().numpy(), s.nk.cpu().numpy())
+        for st in self._stacks.values():
+            z, ndk, nwk, nk = (t.cpu().numpy() for t in (st.z, st.ndk, st.nwk, st.nk))
+            for i in range(z.shape[0]):
+                _assert_recount(pc.token_word[mask], pc.token_doc[mask],
+                                z[i][mask], ndk[i], nwk[i], nk[i])
 
     # ------------------------------------------------------------------
     def r_hat_ll(self) -> float:
@@ -249,8 +312,7 @@ class ChainSet:
     def mean_phi(self) -> np.ndarray:
         """Posterior-averaged φ across chains (label switching caveat: chains
         are averaged in the permutation-invariant predictive sense only)."""
-        phis = [self.chain_phi_theta(c)[0] for c in range(self.num_chains)]
-        return np.mean(phis, axis=0)
+        return np.mean(self._phis(), axis=0)
 
 
 class MultiChainModel:

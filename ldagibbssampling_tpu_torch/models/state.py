@@ -12,12 +12,17 @@ seeds are drawn from that generator).  ``init_state`` draws the initial ``z``
 from a ``torch.Generator``, which cannot reproduce the reference's threefry
 draw, so it also accepts a given ``z`` (``interop.from_jax_state`` carries a
 whole JAX state across).
+
+Several chains advanced in lockstep (``models/chains.py``) are one stacked
+state, as the reference stacks its chains' states: each tensor gains a
+leading chain axis and ``seed`` is the tuple of the chains' seeds
+(``stack_states``; ``unstack_states`` gives each chain's views).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,7 +37,8 @@ class SamplerState:
     nwk: torch.Tensor   # int32 [V, K]  — word-topic counts  (reference nkt, transposed)
     nk: torch.Tensor    # int32 [K]     — topic totals       (reference nktSum)
     sweep: int = 0      # completed sweeps
-    seed: int = 0       # chain seed (seeds the owner's torch.Generator)
+    seed: Any = 0       # chain seed (seeds the owner's torch.Generator); a
+                        # stacked state: the tuple of its chains' seeds
 
     @property
     def device(self) -> torch.device:
@@ -78,6 +84,31 @@ def init_state(
     return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk, sweep=0, seed=chain_seed)
 
 
+def stack_states(states: Sequence[SamplerState], device: Any) -> SamplerState:
+    """Several chains' states as one stacked state on ``device``: each
+    tensor gains a leading chain axis, ``seed`` is the tuple of the chain
+    seeds.  The chains advance in lockstep, so their sweeps must agree."""
+    sweeps = sorted({s.sweep for s in states})
+    if len(sweeps) != 1:
+        raise ValueError(f"chains at sweeps {sweeps}: a stacked state "
+                         "advances its chains in lockstep")
+
+    def stack(name):
+        return torch.stack([getattr(s, name).to(device) for s in states])
+
+    return SamplerState(z=stack("z"), ndk=stack("ndk"), nwk=stack("nwk"),
+                        nk=stack("nk"), sweep=sweeps[0],
+                        seed=tuple(int(s.seed) for s in states))
+
+
+def unstack_states(state: SamplerState) -> list[SamplerState]:
+    """Each chain's ``SamplerState`` of a stacked state, as views of its
+    tensors (the reverse of ``stack_states``)."""
+    return [SamplerState(z=state.z[c], ndk=state.ndk[c], nwk=state.nwk[c],
+                         nk=state.nk[c], sweep=state.sweep, seed=seed)
+            for c, seed in enumerate(state.seed)]
+
+
 def phi_theta(
     state: SamplerState,
     doc_lengths: Any,
@@ -89,16 +120,18 @@ def phi_theta(
     phi[k, t] = (nwk[t, k] + β) / (nk[k] + V·β)
     theta[m, k] = (ndk[m, k] + α) / (N_m + K·α)
 
-    Returned in the reference's orientation: phi ``[K, V]``, theta ``[M, K]``.
+    Returned in the reference's orientation: phi ``[K, V]``, theta ``[M, K]``;
+    a stacked state gives ``[C, K, V]`` and ``[C, M, K]``, each chain's
+    values those of its own state.
     """
-    v, k = state.nwk.shape
+    v, k = state.nwk.shape[-2:]
     f32 = torch.float32
     lengths = torch.as_tensor(np.asarray(doc_lengths), dtype=f32).to(state.device)
     beta_t = torch.tensor(beta, dtype=f32, device=state.device)
     alpha_t = torch.tensor(alpha, dtype=f32, device=state.device)
-    phi = (state.nwk.T.to(f32) + beta_t) / (
-        state.nk[:, None].to(f32) + torch.tensor(v * beta, dtype=f32,
-                                                 device=state.device))
+    phi = (state.nwk.transpose(-1, -2).to(f32) + beta_t) / (
+        state.nk[..., None].to(f32) + torch.tensor(v * beta, dtype=f32,
+                                                   device=state.device))
     theta = (state.ndk.to(f32) + alpha_t) / (
         lengths[:, None] + torch.tensor(k * alpha, dtype=f32,
                                         device=state.device))

@@ -8,7 +8,10 @@ after the reference's layout and exactness rules (``sweep_tier``):
   tokens, PyTorch ops gather the block's count rows, draw (``gumbel``: argmax
   of the log conditional plus Gumbel noise; ``inverse_cdf``: the reference's
   prefix-sum inversion, bitwise the serial oracle's chain at block 1 with
-  float64 and the oracle's uniforms) and scatter the block's moves;
+  float64 and the oracle's uniforms) and scatter the block's moves.  It is
+  one chain of ``gibbs_sweep_chains``, which advances several chains'
+  stacked tables in lockstep, each op once per block for all of them (the
+  reference's ``vmap`` over chains, ``models/chains.py``);
 - ``True``, the v1-draw tier: the same blocks, with the gumbel draw in K3
   (``ops/sample_kernel.sample_block``, one launch per block) and the moves of
   ``ndk``, ``nwk`` and ``nk`` in one count-move launch
@@ -46,7 +49,7 @@ kernels and ``inverse_cdf``, Gumbel values for the XLA gumbel draw) and
 from __future__ import annotations
 
 import logging
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -196,21 +199,173 @@ def _clone(state: SamplerState):
             state.nk.clone())
 
 
-def _scatter_counts(ndk, nwk, nk, w, d, msk, zold, znew) -> None:
-    """The XLA tier's per-block scatter-adds (reference ops/gibbs.py:233-238),
-    as PyTorch ops: -1 at ``zold``, +1 at ``znew`` for the unmasked tokens.
-    ``index_add_`` into the flat integer tables: integer sums are exact in
-    any order, so the atomic adds on CUDA give the same tables every time,
-    with no sort of the indices.  A masked token adds 0 rather than being
-    indexed out, so the scatter needs no host sync (a boolean index waits
-    for the device)."""
-    one = (msk > 0).to(ndk.dtype)
-    k = nk.shape[0]
+def _scatter_counts(ndk, nwk, nk, dk, wk, one, zold, znew) -> None:
+    """The XLA tier's per-block scatter-adds (reference ops/gibbs.py:233-238)
+    for ``C`` chains at once: -1 at ``zold``, +1 at ``znew`` for the real
+    tokens.  ``ndk [C, M, K]``, ``nwk [C, V, K]`` and ``nk [C, K]`` are
+    moved in place; ``dk`` and ``wk`` are the block's row offsets ``d·K``
+    and ``w·K`` (int64 ``[B]``, shared by the chains), ``one`` is 1 for a
+    real token and 0 for a masked one (int32 ``[B]``), ``zold`` and
+    ``znew`` are ``[C, B]``.  One ``scatter_add_`` per table and sign into
+    each chain's flat row of its table: integer sums are exact in any
+    order, so the atomic adds on CUDA give the same tables every time, with
+    no sort of the indices.  A masked token adds 0 rather than being indexed
+    out, so the scatter needs no host sync (a boolean index waits for the
+    device)."""
     zo, zn = zold.long(), znew.long()
-    for table, rows in ((ndk, d.long() * k), (nwk, w.long() * k), (nk, 0)):
-        flat = table.view(-1)
-        flat.index_add_(0, rows + zo, -one)
-        flat.index_add_(0, rows + zn, one)
+    minus, plus = (-one).expand_as(zo), one.expand_as(zo)
+    for table, rows in ((ndk, dk), (nwk, wk), (nk, None)):
+        flat = table.view(table.shape[0], -1)
+        flat.scatter_add_(1, zo if rows is None else rows + zo, minus)
+        flat.scatter_add_(1, zn if rows is None else rows + zn, plus)
+
+
+def _check_sweep_args(draw_method: str, noise_mode: str, noise, t_pad: int,
+                      block_size: int) -> None:
+    if draw_method not in ("gumbel", "inverse_cdf"):
+        raise ValueError(f"unknown draw_method {draw_method!r}")
+    if noise_mode not in NOISE_MODES:
+        raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    if draw_method == "inverse_cdf" and noise_mode == "deterministic":
+        raise ValueError("inverse_cdf draws need uniforms: no deterministic mode")
+    if noise_mode == "external" and noise is None:
+        raise ValueError("noise_mode='external' needs the sweep's noise")
+    if t_pad % block_size != 0:
+        raise ValueError(
+            f"padded token count {t_pad} not a multiple of block_size {block_size}")
+
+
+def sweep_seed(generator: torch.Generator) -> int:
+    """The next sweep's seed from a chain's host ``torch.Generator``
+    (``internal`` noise)."""
+    return int(torch.randint(0, 2**63 - 1, (), generator=generator))
+
+
+def gibbs_sweep_chains(
+    z: torch.Tensor,
+    ndk: torch.Tensor,
+    nwk: torch.Tensor,
+    nk: torch.Tensor,
+    token_word: torch.Tensor,
+    token_doc: torch.Tensor,
+    token_mask: torch.Tensor,
+    doc_lengths: Optional[torch.Tensor] = None,
+    *,
+    alpha: float,
+    beta: float,
+    block_size: int,
+    draw_method: str = "gumbel",
+    prob_dtype: torch.dtype = torch.float32,
+    vocab_size: Optional[int] = None,
+    noise_mode: str = "internal",
+    seeds: Sequence[int] = (),
+    noise: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One XLA-tier sweep of ``C`` chains in lockstep, the counterpart of
+    the reference's ``jax.vmap(gibbs_sweep)`` (``models/chains.py:71-88``);
+    returns the new ``(z, ndk, nwk, nk)`` (the inputs are not modified).
+
+    ``z [C, T_pad]``, ``ndk [C, M, K]``, ``nwk [C, V, K]`` and ``nk [C, K]``
+    are the chains' stacked tables; the token arrays (``[T_pad]``, padded
+    to a multiple of ``block_size``) and ``doc_lengths`` (``[M]``, for
+    ``inverse_cdf``) are shared, never repeated per chain.  Per block each
+    op runs once for every chain: the gathers index ``[C, B]`` rows, the
+    draw scores ``[C, B, K]``, the scatter adds into each chain's flat
+    table.  Chain ``c`` is bitwise the single-chain sweep of chain ``c``
+    (``gibbs_sweep`` is the ``C = 1`` case): the scalars are formed as
+    there, every op is elementwise or works row by row (``inverse_cdf``'s
+    prefix sum runs over a ``[C·B, K]`` view, each row as in the ``[B, K]``
+    case), and the noise is per chain.  ``internal`` noise: chain ``c``'s
+    sweep seed is ``seeds[c]``, which seeds its own generator on the
+    tensors' device; each block draws its ``torch.rand`` per chain, in the
+    single-chain order, and the draws are stacked.  ``external`` noise is
+    the chains' stacked arrays: ``[C, T_pad, K]`` Gumbel values (gumbel)
+    or ``[C, T_pad]`` uniforms (``inverse_cdf``).  ``vocab_size``
+    overrides the V of ``V·β``.
+    """
+    t_pad = token_word.shape[0]
+    _check_sweep_args(draw_method, noise_mode, noise, t_pad, block_size)
+    num_chains, v_rows, k = nwk.shape
+    if z.shape != (num_chains, t_pad) or nk.shape != (num_chains, k) or (
+            ndk.shape[0], ndk.shape[2]) != (num_chains, k):
+        raise ValueError(
+            f"stacked tables z {tuple(z.shape)}, ndk {tuple(ndk.shape)}, nwk "
+            f"{tuple(nwk.shape)}, nk {tuple(nk.shape)} do not share [C, ..., K] "
+            f"with {t_pad} tokens")
+    dev = z.device
+    v = v_rows if vocab_size is None else int(vocab_size)
+    z, ndk, nwk, nk = z.clone(), ndk.clone(), nwk.clone(), nk.clone()
+    alpha32, beta32 = np.float32(alpha), np.float32(beta)
+    vbeta32 = np.float32(v) * beta32
+    kalpha32 = np.float32(k) * alpha32
+    gens = []
+    if noise_mode == "internal":
+        if len(seeds) != num_chains:
+            raise ValueError(f"{len(seeds)} sweep seeds for {num_chains} chains")
+        gens = [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
+
+    def scalar(x):
+        # a 0-d host tensor: a CUDA op reads it as a scalar, where a device
+        # tensor made from a host value would cost a blocking copy
+        return torch.tensor(float(x), dtype=prob_dtype)
+
+    alpha_c, beta_c, vbeta_c, kalpha_c = map(
+        scalar, (alpha32, beta32, vbeta32, kalpha32))
+    if draw_method == "inverse_cdf":
+        if doc_lengths is None:
+            raise ValueError("inverse_cdf needs doc_lengths")
+        dl = doc_lengths.to(device=dev, dtype=prob_dtype)
+    topics = torch.arange(k, device=dev)
+    chain = torch.arange(num_chains, device=dev)[:, None]
+    # per-sweep forms of the shared token arrays, sliced per block: each
+    # chain's rows of its tokens in the flattened tables ([C, T_pad]) and
+    # the tokens' offsets of a row within one chain's table ([T_pad])
+    real = token_mask > 0
+    one = real.to(torch.int32)
+    tw, td = token_word.long(), token_doc.long()
+    w_rows, d_rows = tw + chain * v_rows, td + chain * ndk.shape[1]
+    wk, dk = tw * k, td * k
+    nwk_rows, ndk_rows = nwk.view(-1, k), ndk.view(-1, k)
+
+    def draws(shape):
+        # one draw per chain from its own generator, stacked
+        us = [torch.rand(shape, generator=g, dtype=prob_dtype, device=dev)
+              for g in gens]
+        return us[0][None] if num_chains == 1 else torch.stack(us)
+
+    for s in range(0, t_pad, block_size):
+        sl = slice(s, s + block_size)
+        zold = z[:, sl]
+        # self-exclusion of the unmasked tokens (decrement step)
+        old = ((topics == zold[..., None]) & real[sl, None]).to(nwk.dtype)
+        nwk_ex = (nwk_rows[w_rows[:, sl]] - old).to(prob_dtype)
+        ndk_ex = (ndk_rows[d_rows[:, sl]] - old).to(prob_dtype)
+        nk_ex = (nk[:, None, :] - old).to(prob_dtype)
+        if draw_method == "gumbel":
+            score = (torch.log(nwk_ex + beta_c) + torch.log(ndk_ex + alpha_c)
+                     - torch.log(nk_ex + vbeta_c))
+            if noise_mode == "external":
+                score = score + noise[:, sl].to(prob_dtype)
+            elif noise_mode == "internal":
+                u = draws(score.shape[1:]).clamp_(min=torch.finfo(prob_dtype).tiny)
+                score = score + (-torch.log(-torch.log(u)))
+            znew = score.argmax(dim=-1).to(torch.int32)
+        else:
+            # the reference's op order: ((nwk+β)/(nk+Vβ) · (ndk+α)) / (N_m-1+Kα)
+            den = (dl[td[sl]] - 1.0 + kalpha_c)[:, None]
+            p = (nwk_ex + beta_c) / (nk_ex + vbeta_c) * (ndk_ex + alpha_c) / den
+            c = torch.cumsum(p.view(-1, k), dim=1).view(p.shape)
+            if noise_mode == "external":
+                u = noise[:, sl].to(prob_dtype)
+            else:
+                u = draws((block_size,))
+            # first k with u < c[k]  ==  number of k with c[k] <= u
+            znew = (c <= (u * c[..., -1])[..., None]).sum(dim=-1)
+            znew = znew.clamp(max=k - 1).to(torch.int32)
+        znew = torch.where(real[sl], znew, zold)
+        _scatter_counts(ndk, nwk, nk, dk[sl], wk[sl], one[sl], zold, znew)
+        z[:, sl] = znew
+    return z, ndk, nwk, nk
 
 
 def gibbs_sweep(
@@ -231,8 +386,9 @@ def gibbs_sweep(
     seed: int = 0,
     noise: Optional[torch.Tensor] = None,
 ) -> SamplerState:
-    """One sweep of the XLA tier (``use_pallas=False``) or the v1-draw tier
-    (``use_pallas=True``: K3 draws the gumbel blocks); returns the new state.
+    """One sweep of the XLA tier (``use_pallas=False``: ``gibbs_sweep_chains``
+    with one chain) or the v1-draw tier (``use_pallas=True``: K3 draws the
+    gumbel blocks); returns the new state.
 
     ``token_*`` are padded to a multiple of ``block_size``; ``doc_lengths``
     (``[M]``) is needed by ``inverse_cdf``.  External ``noise`` is the
@@ -242,92 +398,31 @@ def gibbs_sweep(
     formed as the reference forms them: α and β rounded to float32, ``V·β``
     and ``K·α`` float32 products, all then cast to ``prob_dtype``.
     """
-    if draw_method not in ("gumbel", "inverse_cdf"):
-        raise ValueError(f"unknown draw_method {draw_method!r}")
-    if noise_mode not in NOISE_MODES:
-        raise ValueError(f"unknown noise_mode {noise_mode!r}")
-    if draw_method == "inverse_cdf" and noise_mode == "deterministic":
-        raise ValueError("inverse_cdf draws need uniforms: no deterministic mode")
-    if noise_mode == "external" and noise is None:
-        raise ValueError("noise_mode='external' needs the sweep's noise")
+    if not (use_pallas and draw_method == "gumbel"):
+        z, ndk, nwk, nk = gibbs_sweep_chains(
+            state.z[None], state.ndk[None], state.nwk[None], state.nk[None],
+            token_word, token_doc, token_mask, doc_lengths, alpha=alpha,
+            beta=beta, block_size=block_size, draw_method=draw_method,
+            prob_dtype=prob_dtype, vocab_size=vocab_size, noise_mode=noise_mode,
+            seeds=(seed,), noise=None if noise is None else noise[None])
+        return SamplerState(z=z[0], ndk=ndk[0], nwk=nwk[0], nk=nk[0],
+                            sweep=state.sweep + 1, seed=state.seed)
     t_pad = token_word.shape[0]
-    if t_pad % block_size != 0:
-        raise ValueError(
-            f"padded token count {t_pad} not a multiple of block_size {block_size}")
-    dev = state.z.device
-    v, k = state.nwk.shape
-    v = v if vocab_size is None else int(vocab_size)
+    _check_sweep_args(draw_method, noise_mode, noise, t_pad, block_size)
+    v = state.nwk.shape[0] if vocab_size is None else int(vocab_size)
+    vbeta = float(np.float32(v) * np.float32(beta))
     z, ndk, nwk, nk = _clone(state)
-    alpha32, beta32 = np.float32(alpha), np.float32(beta)
-    vbeta32 = np.float32(v) * beta32
-    kalpha32 = np.float32(k) * alpha32
-    kernel = bool(use_pallas) and draw_method == "gumbel"
-    gen = None
-    if noise_mode == "internal" and not kernel:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def scalar(x):
-        # a 0-d host tensor: a CUDA op reads it as a scalar, where a device
-        # tensor made from a host value would cost a blocking copy
-        return torch.tensor(float(x), dtype=prob_dtype)
-
-    alpha_c, beta_c, vbeta_c, kalpha_c = map(
-        scalar, (alpha32, beta32, vbeta32, kalpha32))
-    if draw_method == "inverse_cdf":
-        if doc_lengths is None:
-            raise ValueError("inverse_cdf needs doc_lengths")
-        dl = doc_lengths.to(device=dev, dtype=prob_dtype)
-    topics = torch.arange(k, device=dev)
-
     for s in range(0, t_pad, block_size):
         sl = slice(s, s + block_size)
         w, d, msk, zold = token_word[sl], token_doc[sl], token_mask[sl], z[sl]
-        if kernel:
-            znew = sample_block(
-                nwk, ndk, nk, zold, w, d, alpha=float(alpha32),
-                beta=float(beta32), vbeta=float(vbeta32),
-                noise_mode=noise_mode, seed=seed,
-                uniforms=noise[sl] if noise_mode == "external" else None,
-                slot0=s)
-        else:
-            # self-exclusion of the unmasked tokens (decrement step)
-            old = ((topics[None, :] == zold[:, None]) & (msk > 0)[:, None]
-                   ).to(nwk.dtype)
-            nwk_ex = (nwk[w.long()] - old).to(prob_dtype)
-            ndk_ex = (ndk[d.long()] - old).to(prob_dtype)
-            nk_ex = (nk[None, :] - old).to(prob_dtype)
-            if draw_method == "gumbel":
-                score = (torch.log(nwk_ex + beta_c) + torch.log(ndk_ex + alpha_c)
-                         - torch.log(nk_ex + vbeta_c))
-                if noise_mode == "external":
-                    score = score + noise[sl].to(prob_dtype)
-                elif noise_mode == "internal":
-                    u = torch.rand(score.shape, generator=gen, dtype=prob_dtype,
-                                   device=dev).clamp_(min=torch.finfo(prob_dtype).tiny)
-                    score = score + (-torch.log(-torch.log(u)))
-                znew = score.argmax(dim=1).to(torch.int32)
-            else:
-                # the reference's op order: ((nwk+β)/(nk+Vβ) · (ndk+α)) / (N_m-1+Kα)
-                den = (dl[d.long()] - 1.0 + kalpha_c)[:, None]
-                p = (nwk_ex + beta_c) / (nk_ex + vbeta_c) * (ndk_ex + alpha_c) / den
-                c = torch.cumsum(p, dim=1)
-                if noise_mode == "external":
-                    u = noise[sl].to(prob_dtype)
-                else:
-                    u = torch.rand(block_size, generator=gen, dtype=prob_dtype,
-                                   device=dev)
-                # first k with u < c[k]  ==  number of k with c[k] <= u
-                znew = (c <= (u * c[:, -1])[:, None]).sum(dim=1)
-                znew = znew.clamp(max=k - 1).to(torch.int32)
-        if kernel:
-            # one launch moves the three tables and writes z[sl] (zold's
-            # memory): mask ? znew : zold
-            count_move(zold, znew, msk, nwk=nwk, token_word=w, ndk=ndk,
-                       token_doc=d, nk=nk, z_out=zold)
-            continue
-        znew = torch.where(msk > 0, znew, zold)
-        _scatter_counts(ndk, nwk, nk, w, d, msk, zold, znew)
-        z[sl] = znew
+        znew = sample_block(
+            nwk, ndk, nk, zold, w, d, alpha=_f32(alpha), beta=_f32(beta),
+            vbeta=vbeta, noise_mode=noise_mode, seed=seed,
+            uniforms=noise[sl] if noise_mode == "external" else None, slot0=s)
+        # one launch moves the three tables and writes z[sl] (zold's
+        # memory): mask ? znew : zold
+        count_move(zold, znew, msk, nwk=nwk, token_word=w, ndk=ndk,
+                   token_doc=d, nk=nk, z_out=zold)
     return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk, sweep=state.sweep + 1,
                         seed=state.seed)
 
@@ -487,7 +582,7 @@ def make_sweep_fn(
         if noise_mode == "internal":
             if generator is None:
                 raise ValueError("internal noise needs a torch.Generator")
-            return int(torch.randint(0, 2**63 - 1, (), generator=generator)), None
+            return sweep_seed(generator), None
         if noise_mode == "external":
             if noise is None:
                 raise ValueError("external noise needs noise(sweep)")

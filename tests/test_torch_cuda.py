@@ -604,6 +604,35 @@ def test_chains_unrecorded_sweeps_make_no_host_sync(cuda):
     cs.check_counts_consistent()
 
 
+@pytest.mark.parametrize("draw", ["gumbel", "inverse_cdf"])
+def test_batched_chains_equal_chains_in_turn_on_card(cuda, draw):
+    """The batched sweep of four chains against the same chains run one
+    after another (one single-chain XLA-tier sweep function each, the same
+    states and generators): z and every table bitwise on the card."""
+    import dataclasses
+
+    from ldagibbssampling_tpu_torch.models.chains import ChainSet
+    from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
+
+    cfg = LdaConfig(topic_num=K, block_size=256, chains=4, seed=3, draw_method=draw)
+    cs = ChainSet(cfg, _small_corpus(seed=4), device=cuda)
+    init = [dataclasses.replace(s, z=s.z.clone(), ndk=s.ndk.clone(),
+                                nwk=s.nwk.clone(), nk=s.nk.clone())
+            for s in cs.states]
+    cs.sweep(3)
+    pc = cs._padded
+    run = make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask, cs.doc_lengths,
+                        alpha=cfg.alpha, beta=cfg.beta, block_size=cs.block_size,
+                        draw_method=draw, use_pallas=False, num_topics=K,
+                        device=cuda)
+    for c, s in enumerate(init):
+        want = run(s, n_sweeps=3, generator=torch.Generator().manual_seed(s.seed))
+        got = cs.chain_state(c)
+        for name in ("z", "ndk", "nwk", "nk"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (c, name)
+    cs.check_counts_consistent()
+
+
 def test_cvb0_on_card_repeats_bitwise(cuda):
     from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model
 

@@ -92,3 +92,20 @@ def test_default_out_is_not_a_tracked_report(tmp_path, monkeypatch):
     assert ladder.main(["--rungs", "2", "--scale", "0.001", "--device", "cpu"]) == 0
     assert [p.name for p in tmp_path.iterdir()] == ["ladder_report_torch.json"]
     assert "ladder_report_torch.json" in (REPO / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("docs,vocab,topics,length,seed", [
+    (60, 300, 10, 80, 3), (40, 5000, 15, 100, 4), (7, 50, 3, 5, 0)])
+def test_planted_corpus_equals_reference(docs, vocab, topics, length, seed):
+    """The port's planted-topic generator (each topic's word CDF computed
+    once) draws the JAX package's corpus and φ bit for bit."""
+    from ldagibbssampling_tpu.data.synthetic import planted_topic_corpus as jax_planted
+
+    from ldagibbssampling_tpu_torch.data.synthetic import planted_topic_corpus
+
+    got, phi = planted_topic_corpus(docs, vocab, topics, mean_doc_len=length, seed=seed)
+    want, phi_ref = jax_planted(docs, vocab, topics, mean_doc_len=length, seed=seed)
+    np.testing.assert_array_equal(phi, phi_ref)
+    for name in ("token_word", "token_doc", "doc_ptr"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert got.vocab_size == want.vocab_size

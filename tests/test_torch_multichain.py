@@ -14,6 +14,8 @@ the LL on the host in float64, the port on the chains' device in float64).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.evaluation.tracing import MetricsLog, read_metrics
 from ldagibbssampling_tpu_torch.models.chains import ChainSet, MultiChainModel
+from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
 from ldagibbssampling_tpu_torch.runner import run_inference
 
 # one intra-op thread: the suite runs in several worker processes at once
@@ -193,3 +196,131 @@ def test_mesh_raises_naming_item_14():
     model.sweep(2)
     model.chains.check_counts_consistent()
     assert LdaConfig(chains=2, mesh={"chain": 2, "data": 1}).mesh == {"chain": 2, "data": 1}
+
+
+# --- the batched sweep against the same chains run in turn -------------------
+
+def _in_turn(cs, init, n, draw, noise_mode, noise=None):
+    """The chains of ``cs`` run one after another from ``init``: one
+    single-chain ``make_sweep_fn(use_pallas=False)`` per chain, each with a
+    generator seeded from its chain seed, as ``ChainSet`` seeds its own."""
+    pc = cs._padded
+    run = make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask,
+                        cs.doc_lengths, alpha=cs.config.alpha, beta=cs.config.beta,
+                        block_size=cs.block_size, draw_method=draw,
+                        use_pallas=False, num_topics=cs.config.topic_num,
+                        device="cpu", noise_mode=noise_mode)
+    return [run(s, n_sweeps=n, generator=torch.Generator().manual_seed(s.seed),
+                noise=None if noise is None else (lambda sw, c=c: noise(c, sw)))
+            for c, s in enumerate(init)]
+
+
+def _numpy_noise(seed, t_pad, draw):
+    """``noise(c, sweep)``: seeded numpy Gumbel values ``[T_pad, K]`` or
+    uniforms ``[T_pad]``."""
+    def noise(c, sweep):
+        rng = np.random.default_rng([seed, c, sweep])
+        if draw == "gumbel":
+            return torch.from_numpy(rng.gumbel(size=(t_pad, K)).astype(np.float32))
+        return torch.from_numpy(rng.random(t_pad, dtype=np.float32))
+    return noise
+
+
+def _assert_bitwise(got, want):
+    for c, (g, w) in enumerate(zip(got, want)):
+        assert g.sweep == w.sweep and g.seed == w.seed, c
+        for name in ("z", "ndk", "nwk", "nk"):
+            assert torch.equal(getattr(g, name), getattr(w, name)), (c, name)
+
+
+@pytest.mark.parametrize("chains", [1, 3])
+@pytest.mark.parametrize("noise_mode,draw", [
+    ("internal", "gumbel"), ("internal", "inverse_cdf"), ("external", "gumbel"),
+    ("external", "inverse_cdf"), ("deterministic", "gumbel")])
+def test_batched_chains_equal_chains_in_turn(noise_mode, draw, chains):
+    """Every chain of the batched sweep is bitwise the single-chain XLA
+    sweep of that chain, from the same state and generator (recorded and
+    unrecorded sweeps)."""
+    fc = FlatCorpus.from_ragged(_ragged(8), vocab_size=V)
+    cfg = LdaConfig(topic_num=K, block_size=BLOCK, chains=chains, seed=8,
+                    draw_method=draw)
+    cs = ChainSet(cfg, fc, device="cpu", noise_mode=noise_mode)
+    assert cs._padded.num_tokens // BLOCK >= 4 and fc.num_tokens % BLOCK
+    init = [dataclasses.replace(s, z=s.z.clone(), ndk=s.ndk.clone(),
+                                nwk=s.nwk.clone(), nk=s.nk.clone())
+            for s in cs.states]
+    noise = (_numpy_noise(8, cs._padded.num_tokens, draw)
+             if noise_mode == "external" else None)
+    cs.sweep(2, noise=noise)
+    cs.sweep(1, record_ll=True, noise=noise)
+    _assert_bitwise(cs.states, _in_turn(cs, init, 3, draw, noise_mode, noise))
+    cs.check_counts_consistent()
+
+
+@pytest.mark.parametrize("devices", [
+    [torch.device("cpu")] * 2,                        # one batch of four
+    [torch.device("cpu"), torch.device("cpu", 0)]])   # two batches of two
+def test_chain_mesh_equals_no_mesh(devices):
+    """Four chains on a chain mesh of CPU positions against the same chains
+    without a mesh: z, tables and the recorded LL bitwise; positions that
+    repeat a device make one batch, distinct devices one batch each."""
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    fc = FlatCorpus.from_ragged(_ragged(9), vocab_size=V)
+    cfg = LdaConfig(topic_num=K, block_size=BLOCK, chains=4, seed=9)
+    plain = ChainSet(cfg, fc, device="cpu")
+    meshed = ChainSet(cfg, fc, device="cpu",
+                      mesh=multihost.make_mesh({"chain": 2}, devices))
+    assert len(meshed._batches) == len(set(devices))
+    for cs in (plain, meshed):
+        cs.sweep(2)
+        cs.sweep(2, record_ll=True)
+    _assert_bitwise(meshed.states, plain.states)
+    np.testing.assert_array_equal(np.stack(meshed.ll_trace), np.stack(plain.ll_trace))
+    np.testing.assert_array_equal(meshed._phis(), plain._phis())
+    meshed.check_counts_consistent()
+
+
+def test_batched_ll_and_phi_equal_per_chain():
+    """``record_ll``'s one batched float64 pass against each chain's LL
+    computed alone (rel 1e-12), and ``_phis`` against each chain's φ
+    (equal)."""
+    from ldagibbssampling_tpu_torch.models import state as state_lib
+
+    fc = FlatCorpus.from_ragged(_ragged(10), vocab_size=V)
+    cfg = LdaConfig(topic_num=K, block_size=BLOCK, chains=3, seed=10)
+    cs = ChainSet(cfg, fc, device="cpu")
+    cs.sweep(3, record_ll=True)
+    phis = cs._phis()
+    tw, td = fc.token_word.astype(np.int64), fc.token_doc.astype(np.int64)
+    for c in range(3):
+        phi, theta = state_lib.phi_theta(cs.chain_state(c), cs.doc_lengths,
+                                         cfg.alpha, cfg.beta)
+        np.testing.assert_array_equal(phis[c], phi.numpy())
+        p = (theta.numpy().astype(np.float64)[td]
+             * phi.numpy().T.astype(np.float64)[tw]).sum(axis=1)
+        want = np.log(np.maximum(p, 1e-300)).sum() / fc.num_tokens
+        np.testing.assert_allclose(cs.ll_trace[-1][c], want, rtol=1e-12)
+    np.testing.assert_array_equal(cs.mean_phi(), phis.mean(axis=0))
+
+
+def test_chains_match_reference_from_its_stacked_state():
+    """The reference's stacked state carried across as it is
+    (``from_jax_chain_states(stacked=True)``) gives the chains of the
+    per-chain carry, which match the reference."""
+    ref, port, noise = _pair(11, 2)
+    arrays = {n: np.asarray(getattr(ref.states, n))
+              for n in ("z", "ndk", "nwk", "nk", "sweep")}
+    stacked = interop.from_jax_chain_states(arrays, seeds=[11, 12], device="cpu",
+                                            stacked=True)
+    assert stacked.z.shape[0] == 2 and stacked.seed == (11, 12)
+    port2 = ChainSet(port.config, port.corpus, device="cpu",
+                     noise_mode="external", states=stacked)
+    ref.sweep(2)
+    for cs in (port, port2):
+        cs.sweep(2, noise=noise)
+    _assert_chains_equal(ref, port)
+    _assert_bitwise(port2.states, port.states)
+    with pytest.raises(ValueError, match="lockstep"):
+        interop.from_jax_chain_states({**arrays, "sweep": np.array([0, 1])},
+                                      device="cpu", stacked=True)
