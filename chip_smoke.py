@@ -93,10 +93,16 @@ success:
    the LL every 5: every chain's counts equal a recount of its z, the
    chains differ pairwise, the rows carry finite ``r_hat`` and
    ``r_hat_phi_p99`` (printed), no kernel launches (the chains run the XLA
-   tier, as the reference's), peak device memory, and two unrecorded sweeps
-   run under CUDA's sync debug mode set to error (no host sync); prints
-   tokens/s over chain-sweeps and the time of one LL recording of the four
-   chains.  Then the batched chains (one ``gibbs_sweep_chains`` per sweep)
+   tier, as the reference's), peak device memory, per sweep the time of the
+   sweep, the chains' LL, the phi fold and the window summary, the runner's
+   LL rows (``device_log_likelihood``, within relative 1e-9 of the host LL
+   of chain 0), where the phi moments live (the card, and their bytes), and
+   two unrecorded sweeps and a mid-window ``record_phi_auto`` run under
+   CUDA's sync debug mode set to error (no host sync); prints tokens/s over
+   chain-sweeps and the time of one LL recording of the four chains; one
+   window of 4 phi draws folded on the card and on the CPU (moments
+   bitwise, summary within relative 1e-9, perms and cell count equal).
+   Then the batched chains (one ``gibbs_sweep_chains`` per sweep)
    against the same chains run in turn (one single-chain
    ``make_sweep_fn(use_pallas=False)`` each) from the same states and
    generators, in turn, batched, batched, in turn, 2 sweeps each: z and
@@ -136,7 +142,9 @@ success:
    sweep under CUDA's sync debug mode set to error); the four shards saved,
    run 3 sweeps on, restored and run the same 3 (bitwise); the 2x2 grid,
    token=4 and chain=2,data=2 at rung 3's 0.02 on four positions of the
-   card (3 sweeps each, one sharded Minka update, one LL); the CLI with
+   card (3 sweeps each, one sharded Minka update, one LL on the card: the
+   chain mesh records both chains' and holds chain 0's to the host formula
+   within relative 1e-9); the CLI with
    ``--mesh data=-1`` killed at 30 and resumed to 60 (the ten artifacts
    byte-identical).  12b, ``[mesh two processes]``: the multi-process
    branch (``psum``'s ``all_reduce`` across processes, ``gather``,
@@ -294,6 +302,9 @@ _MESH2_WORKER = (
 # of each form per round of the batched-against-in-turn check
 MULTICHAIN_SCALE, MULTICHAIN_SWEEPS, MULTICHAIN_COMPARE = 1.0, 20, 2
 WIDE_SWEEPS, WIDE_COMPARE = 10, 2
+# each phase's run with LL rows when the chains' phi R-hat and the runner's
+# LL row ran on the host (numpy), in seconds, on an H100 80GB HBM3 at 700 W
+HOST_DIAGNOSTICS_RUN_S = {"multichain": "6.68-7.38", "multichain wide": "44.17-48.13"}
 # the CUDA runtime calls that enqueue device work, by name prefix
 LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 BACKEND_RUNS = (("gibbs", 1, 4, 0.2), ("cvb0", 1, 4, 0.2), ("svi", 0, 2, 0.2),
@@ -1621,20 +1632,135 @@ def chains_vs_in_turn(chains, sweeps: int, label: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def chain_part_timer(model, sync):
+    """Times every call of the chains' parts while the block runs, each
+    synchronised before and after: the sweep (``ChainSet._advance``), the
+    chains' LL recording (``record_ll``), the φ draw (``record_phi_auto``),
+    the window summary (``PhiRhatAccumulator.result``) and the runner's LL
+    row (``device_log_likelihood``).  Yields the ``(part, seconds)`` list
+    in call order."""
+    from ldagibbssampling_tpu_torch.evaluation import diagnostics
+
+    calls: list = []
+
+    def timed(part, fn):
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            calls.append((part, time.perf_counter() - t0))
+            return out
+        return run
+
+    chains = model.chains
+    patched = [(chains, "_advance", "sweep"), (chains, "record_ll", "ll"),
+               (chains, "record_phi_auto", "phi"),
+               (model, "device_log_likelihood", "ll_row")]
+    for obj, name, part in patched:
+        setattr(obj, name, timed(part, getattr(obj, name)))
+    result = diagnostics.PhiRhatAccumulator.result
+    diagnostics.PhiRhatAccumulator.result = timed("summary", result)
+    try:
+        yield calls
+    finally:
+        diagnostics.PhiRhatAccumulator.result = result
+        for obj, name, _ in patched:
+            delattr(obj, name)
+
+
+def per_sweep_parts(calls: list) -> dict:
+    """The timer's calls as per-sweep lists (a sweep starts at each
+    ``sweep`` call): seconds of the sweep, the chains' LL and the φ fold
+    (the draw less its summary), and the summaries and LL rows by sweep."""
+    out = {"sweep_s": [], "ll_s": [], "phi_fold_s": [], "summary_s": {},
+           "ll_row_s": {}}
+    for part, secs in calls:
+        i = len(out["sweep_s"])
+        if part == "sweep":
+            out["sweep_s"].append(secs)
+            out["ll_s"].append(0.0)
+            out["phi_fold_s"].append(0.0)
+        elif part == "ll":
+            out["ll_s"][-1] += secs
+        elif part == "phi":
+            out["phi_fold_s"][-1] += secs - out["summary_s"].get(i, 0.0)
+        else:
+            out[f"{part}_s"][i] = out[f"{part}_s"].get(i, 0.0) + secs
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    if a == b or (a != a and b != b):
+        return 0.0
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def phi_rhat_card_vs_cpu(chains, label: str) -> dict:
+    """One full window of 4 φ draws (a sweep before each, halves 0, 0, 1,
+    1) into ``PhiRhatAccumulator`` on the chains' device and into the same
+    class on CPU copies of the same draws: the moments bitwise equal, the
+    summaries' ``perms`` and ``n_cells`` equal and their floats within
+    relative 1e-9; the card's fold and summary times."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.evaluation.diagnostics import PhiRhatAccumulator
+
+    shape = (chains.num_chains, chains.config.topic_num, chains.corpus.vocab_size)
+    card, cpu = PhiRhatAccumulator(*shape), PhiRhatAccumulator(*shape)
+    fold_s = []
+    for i in range(4):
+        chains.sweep(1)
+        draw = chains._phi_draw()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.add(draw, i // 2)
+        torch.cuda.synchronize()
+        fold_s.append(time.perf_counter() - t0)
+        cpu.add([(ids, x.cpu()) for ids, x in draw], i // 2)
+    for name in ("mean", "m2"):
+        got = getattr(card, name)
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), getattr(cpu, name)):
+            raise AssertionError(f"[{label} phi R-hat] the card's {name} on "
+                                 f"{got.device} differs from the CPU run's")
+    t0 = time.perf_counter()
+    got = card.result()
+    summary_s = time.perf_counter() - t0
+    want = cpu.result()
+    errs = {k: _rel(got[k], want[k]) for k in ("max", "p99", "frac_gt_1_1")}
+    if (got["perms"] != want["perms"] or got["n_cells"] != want["n_cells"]
+            or max(errs.values()) > 1e-9):
+        raise AssertionError(f"[{label} phi R-hat] card {got} vs CPU {want}")
+    log(f"[{label} phi R-hat] 4 draws of {list(shape)} phi folded on "
+        f"{card.mean.device} and on the CPU: mean and m2 bitwise equal; "
+        f"summary perms and n_cells ({got['n_cells']:,}) equal, max/p99/frac "
+        f"{got['max']:.6f}/{got['p99']:.6f}/{got['frac_gt_1_1']:.6f}, relative "
+        f"differences {', '.join(f'{k} {v:.1e}' for k, v in errs.items())}; "
+        f"card fold {', '.join(f'{x * 1e3:.2f}' for x in fold_s)} ms, summary "
+        f"{summary_s * 1e3:.1f} ms")
+    return dict(fold_ms=[x * 1e3 for x in fold_s], summary_ms=summary_s * 1e3,
+                rel_err=errs, n_cells=got["n_cells"])
+
+
 def multichain_phase(label: str, corpus, cfg, ll_every: int, compare_sweeps: int,
                      device: str = "cuda") -> dict:
     """Phases 8 and 8b: ``cfg.chains`` chains (``models/chains``) through
     ``make_backend`` and ``run_inference`` with the LL every ``ll_every``
     sweeps: counts equal recounts, the chains differ pairwise, the rows
     carry finite R-hat, no kernel launches (the XLA tier, as the
-    reference's), peak device memory; no host sync in unrecorded sweeps
-    (CUDA's sync debug mode set to error around two of them); the
-    unrecorded rate and the LL recording's time; then
-    :func:`chains_vs_in_turn`."""
+    reference's), peak device memory; per sweep of the run the time of the
+    sweep, the chains' LL, the phi fold and the window summary, and the
+    runner's LL row (``device_log_likelihood``, held to the host LL of
+    chain 0 within relative 1e-9); the phi moments on the card; no host
+    sync in unrecorded sweeps and a mid-window phi draw (CUDA's sync debug
+    mode set to error); the unrecorded rate and the LL recording's time;
+    then :func:`phi_rhat_card_vs_cpu` and :func:`chains_vs_in_turn`."""
     import numpy as np
     import torch
 
     from ldagibbssampling_tpu_torch import make_backend, run_inference
+    from ldagibbssampling_tpu_torch.evaluation import metrics
     from ldagibbssampling_tpu_torch.evaluation.tracing import MetricsLog, read_metrics
 
     on_card = torch.device(device).type == "cuda"
@@ -1654,12 +1780,14 @@ def multichain_phase(label: str, corpus, cfg, ll_every: int, compare_sweeps: int
     chains = model.chains
     zero_counters()
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        with MetricsLog(Path(tmp) / "m.jsonl") as mlog:
-            run_inference(model, cfg, corpus, metrics=mlog, ll_every=ll_every)
-        sync()
-        run_s = time.perf_counter() - t0
+        with chain_part_timer(model, sync) as calls:
+            t0 = time.perf_counter()
+            with MetricsLog(Path(tmp) / "m.jsonl") as mlog:
+                run_inference(model, cfg, corpus, metrics=mlog, ll_every=ll_every)
+            sync()
+            run_s = time.perf_counter() - t0
         rows = read_metrics(Path(tmp) / "m.jsonl")
+    parts = per_sweep_parts(calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     launches, plain = read_counters()
     if any(launches.values()) or any(plain.values()):
@@ -1677,11 +1805,20 @@ def multichain_phase(label: str, corpus, cfg, ll_every: int, compare_sweeps: int
     if not (r_rows and np.isfinite(last.get("r_hat", np.nan))
             and np.isfinite(last.get("r_hat_phi_p99", np.nan))):
         raise AssertionError(f"rows lack finite r_hat / r_hat_phi_p99: {last}")
-    if on_card:  # unrecorded sweeps enqueue without a host sync
+    # the windowed phi moments live on the chains' device
+    window = chains.phi_window
+    moments = [(m.device, 2 * m.numel() * m.element_size()) for _, m, _ in window.cur._moments]
+    if on_card and any(d.type != "cuda" for d, _ in moments):
+        raise AssertionError(f"[{label}] the phi moments are on {moments}")
+    if window.pos + 1 >= window.window:
+        raise AssertionError(f"[{label}] no draw left mid-window ({window.pos} of "
+                             f"{window.window})")
+    if on_card:  # unrecorded sweeps and a mid-window phi draw: no host sync
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             chains.sweep(2)
+            chains.record_phi_auto()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     # unrecorded sweeps, then the LL recording alone (every chain)
@@ -1703,18 +1840,38 @@ def multichain_phase(label: str, corpus, cfg, ll_every: int, compare_sweeps: int
                ll_record_seconds_per_sweep_all_chains=ll_s,
                r_hat_rows=r_rows, r_hat=last["r_hat"],
                r_hat_phi_p99=last["r_hat_phi_p99"],
-               log_likelihood=last["log_likelihood"])
+               log_likelihood=last["log_likelihood"], parts=parts,
+               phi_moments=[(str(d), n) for d, n in moments])
+    host_ll = metrics.log_likelihood(model.phi(), model.theta(), corpus)
+    if _rel(model.device_log_likelihood(), host_ll) > 1e-9:
+        raise AssertionError(f"[{label}] device LL {model.device_log_likelihood()} "
+                             f"vs host {host_ll}")
+
+    def ms(xs):
+        return ", ".join(f"{x * 1e3:.1f}" for x in xs)
     log(f"[{label}] {corpus.num_tokens} tokens, M {corpus.num_docs}, V "
         f"{corpus.vocab_size}, K {cfg.topic_num}, block {chains.block_size}, "
         f"{c_n} chains x {cfg.iteration} sweeps in {run_s:.2f}s (LL every sweep, "
-        f"R-hat rows); counts = recounts, chains differ pairwise; R-hat rows "
+        f"R-hat rows; with the diagnostics on the host "
+        f"{HOST_DIAGNOSTICS_RUN_S[label]} s); counts = recounts, chains differ pairwise; R-hat rows "
         f"(sweep, LL, phi p99): "
         f"{', '.join(f'({s}, {a:.4f}, {b:.4f})' for s, a, b in r_rows)}; peak "
         f"device memory {'not measured' if peak_gb is None else f'{peak_gb:.3f} GB'}"
         f" (max_memory_allocated); unrecorded: {tok_s:,.0f} tokens/s over "
         f"chain-sweeps ({sweep_s * 1e3:.1f} ms per sweep of {c_n} chains), LL "
         f"recording {ll_s * 1e3:.2f} ms per sweep of {c_n} chains"
-        + ("; no host sync in 2 unrecorded sweeps" if on_card else ""))
+        + ("; no host sync in 2 unrecorded sweeps and a mid-window phi draw"
+           if on_card else ""))
+    log(f"[{label} parts] per sweep of the run, ms (synchronised): sweep "
+        f"[{ms(parts['sweep_s'])}]; chains' LL [{ms(parts['ll_s'])}]; phi fold "
+        f"[{ms(parts['phi_fold_s'])}]; window summary at sweep "
+        f"{', '.join(f'{i}: {x * 1e3:.1f}' for i, x in parts['summary_s'].items())}; "
+        f"runner's LL row (device_log_likelihood) at sweep "
+        f"{', '.join(f'{i}: {x * 1e3:.1f}' for i, x in parts['ll_row_s'].items())}, "
+        f"equal to the host LL of chain 0 within 1e-9; phi moments on "
+        f"{', '.join(f'{d} ({n / 1e9:.3f} GB)' for d, n in moments)}")
+    if on_card:
+        out["phi_rhat_card_vs_cpu"] = phi_rhat_card_vs_cpu(chains, label)
     out.update(chains_vs_in_turn(chains, compare_sweeps, label))
     return out
 
@@ -2197,12 +2354,19 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
         alpha, beta = model.optimize_hyperparameters()
         minka_s = time.perf_counter() - t1
         t1 = time.perf_counter()
-        if label.startswith("chain"):
-            model.record(ll=True)  # no device LL on the chain mesh
-            ll = float(np.mean(model.ll_trace[-1]) * small.num_tokens)
+        if label.startswith("chain"):  # every chain's LL, recorded
+            model.record(ll=True)
+            ll = float(model.ll_trace[-1][0] * small.num_tokens)
         else:
             ll = model.device_log_likelihood()
         ll_s = time.perf_counter() - t1
+        if label.startswith("chain"):  # once against the host formula
+            from ldagibbssampling_tpu_torch.evaluation.metrics import log_likelihood
+
+            a = model.arrays()
+            host = log_likelihood(model.chain_phi(0, a), model.chain_theta(0, a), small)
+            if _rel(ll, host) > 1e-9 or _rel(model.device_log_likelihood(), host) > 1e-9:
+                raise AssertionError(f"[mesh {label}] device LL {ll} vs host {host}")
         if not (np.isfinite(ll) and np.isfinite(alpha) and np.isfinite(beta)):
             raise AssertionError(f"[mesh {label}] LL {ll}, alpha {alpha}, beta {beta}")
         chains = getattr(model, "num_chains", 1)
@@ -2215,7 +2379,8 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
             f"(chain-sweeps for the chains); counts exact"
             f"{' per chain' if label.startswith('chain') else ''}; Minka alpha "
             f"{alpha:.4f} beta {beta:.5f} ({minka_s * 1e3:.1f} ms); LL {ll:.1f} "
-            f"({ll_s * 1e3:.1f} ms{', host, both chains' if label.startswith('chain') else ', device'}); "
+            f"({ll_s * 1e3:.1f} ms, device"
+            f"{', both chains recorded, within 1e-9 of the host' if label.startswith('chain') else ''}); "
             f"launches {by_path[f'mesh {label}']}")
         del model
         if pos0.type == "cuda":

@@ -17,7 +17,9 @@ training log-likelihood per token: the reference's host
 ``log_likelihood(phi, theta) / T`` of the float32 point estimates,
 computed here in float64 on the chains' device, for every chain of a
 device in one pass and one host read.  φ draws feed the split-R̂
-accumulators of ``evaluation/diagnostics.py``.
+accumulators of ``evaluation/diagnostics.py`` straight from each device's
+chains: their float64 moments stay on that device and a draw makes no host
+sync, where the reference folds host copies with numpy.
 
 Noise: ``noise_mode="internal"`` (each sweep's seed drawn from the chain's
 generator), or ``"external"`` with ``sweep(..., noise=noise)`` where
@@ -47,13 +49,14 @@ from ldagibbssampling_tpu_torch.ops.fused_kernel import NOISE_MODES
 from ldagibbssampling_tpu_torch.ops.gibbs import gibbs_sweep_chains, sweep_seed
 
 
-def _ll_per_token(phi: torch.Tensor, theta: torch.Tensor, tw: torch.Tensor,
-                  td: torch.Tensor, num_tokens: int,
-                  budget: int = 1 << 26) -> torch.Tensor:
-    """``Σ_t log Σ_k θ[d_t, k] φ[k, w_t] / T`` of each chain, in float64 on
-    the tensors' device: ``phi [C, K, V]`` and ``theta [C, M, K]`` give a
-    ``[C]`` tensor (``evaluation/metrics.log_likelihood`` / T).  Tokens go
-    in chunks of at most ``budget`` float64 values per gathered operand."""
+def ll_sum(phi: torch.Tensor, theta: torch.Tensor, tw: torch.Tensor,
+           td: torch.Tensor, mask: Optional[torch.Tensor] = None,
+           budget: int = 1 << 26) -> torch.Tensor:
+    """``Σ_t log Σ_k θ[d_t, k] φ[k, w_t]`` of each chain, in float64 on the
+    tensors' device: ``phi [C, K, V]`` and ``theta [C, M, K]`` give a
+    ``[C]`` tensor (``evaluation/metrics.log_likelihood``); where ``mask``
+    is given, only its tokens (> 0) count.  Tokens go in chunks of at most
+    ``budget`` float64 values per gathered operand."""
     num_chains, k = phi.shape[:2]
     phi_t = phi.transpose(1, 2).to(torch.float64)
     theta64 = theta.to(torch.float64)
@@ -61,8 +64,17 @@ def _ll_per_token(phi: torch.Tensor, theta: torch.Tensor, tw: torch.Tensor,
     total = torch.zeros(num_chains, dtype=torch.float64, device=phi.device)
     for s in range(0, tw.shape[0], chunk):
         p = (theta64[:, td[s:s + chunk]] * phi_t[:, tw[s:s + chunk]]).sum(dim=2)
-        total = total + torch.log(torch.clamp(p, min=1e-300)).sum(dim=1)
-    return total / max(num_tokens, 1)
+        logs = torch.log(torch.clamp(p, min=1e-300))
+        if mask is not None:
+            logs = torch.where(mask[s:s + chunk] > 0, logs, 0.0)
+        total = total + logs.sum(dim=1)
+    return total
+
+
+def _ll_per_token(phi: torch.Tensor, theta: torch.Tensor, tw: torch.Tensor,
+                  td: torch.Tensor, num_tokens: int) -> torch.Tensor:
+    """:func:`ll_sum` over the real tokens, per token."""
+    return ll_sum(phi, theta, tw, td) / max(num_tokens, 1)
 
 
 def _chain_devices(mesh, num_chains: int) -> list[torch.device]:
@@ -208,9 +220,23 @@ class ChainSet:
                 self.phi_trace.append(self._phis())
 
     def _phi_theta(self, dev) -> tuple[torch.Tensor, torch.Tensor]:
-        """``[C, K, V]`` φ and ``[C, M, K]`` θ of the chains on ``dev``."""
-        return state_lib.phi_theta(self._stacks[dev], self.doc_lengths,
+        """``[C, K, V]`` φ and ``[C, M, K]`` θ of the chains on ``dev``
+        (float32, as ``state_lib.phi_theta``; no host sync)."""
+        return state_lib.phi_theta(self._stacks[dev], self._tokens[dev][3],
                                    self.config.alpha, self.config.beta)
+
+    def _phi_draw(self) -> list[tuple[list[int], torch.Tensor]]:
+        """Every chain's current φ as the accumulators take it: the chains
+        of each device and their ``[C_dev, K, V]`` φ, left on the device."""
+        return [(ids, self._phi_theta(dev)[0]) for dev, ids in self._batches.items()]
+
+    def chain_ll(self, c: int) -> float:
+        """Chain ``c``'s training log-likelihood (not per token), in float64
+        on its device: ``metrics.log_likelihood`` of its point estimates."""
+        dev = self.chain_devices[c]
+        i = self._batches[dev].index(c)
+        phi, theta = self._phi_theta(dev)
+        return float(ll_sum(phi[i:i + 1], theta[i:i + 1], *self._ll_tokens[dev])[0])
 
     def record_ll(self) -> None:
         """Append every chain's current LL per token to ``ll_trace``: one
@@ -243,7 +269,7 @@ class ChainSet:
         if self.phi_accum is None:
             self.phi_accum = PhiRhatAccumulator(
                 self.num_chains, self.config.topic_num, self.corpus.vocab_size)
-        self.phi_accum.add(self._phis(), half)
+        self.phi_accum.add(self._phi_draw(), half)
 
     def record_phi_auto(self) -> None:
         """Fold the current φ of every chain into the pair-safe doubling-window
@@ -258,7 +284,7 @@ class ChainSet:
         if self.phi_window is None:
             self.phi_window = PhiRhatWindowedAccumulator(
                 self.num_chains, self.config.topic_num, self.corpus.vocab_size)
-        self.phi_window.add(self._phis())
+        self.phi_window.add(self._phi_draw())
 
     def reset_phi_accumulator(self) -> None:
         """Drop accumulated φ moments (e.g. to re-window after more burn-in)."""
@@ -360,6 +386,10 @@ class MultiChainModel:
 
     def r_hat_phi(self) -> dict:
         return self.chains.r_hat_phi()
+
+    def device_log_likelihood(self) -> float:
+        """Chain 0's training LL (the runner's rows), on its device."""
+        return self.chains.chain_ll(0)
 
     def mean_phi(self) -> np.ndarray:
         return self.chains.mean_phi()

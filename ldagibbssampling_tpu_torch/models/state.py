@@ -122,19 +122,22 @@ def phi_theta(
 
     Returned in the reference's orientation: phi ``[K, V]``, theta ``[M, K]``;
     a stacked state gives ``[C, K, V]`` and ``[C, M, K]``, each chain's
-    values those of its own state.
+    values those of its own state.  ``doc_lengths`` may be a tensor on the
+    state's device; the scalars are host tensors, so with such lengths
+    nothing here syncs the host.
     """
     v, k = state.nwk.shape[-2:]
     f32 = torch.float32
-    lengths = torch.as_tensor(np.asarray(doc_lengths), dtype=f32).to(state.device)
-    beta_t = torch.tensor(beta, dtype=f32, device=state.device)
-    alpha_t = torch.tensor(alpha, dtype=f32, device=state.device)
+    if torch.is_tensor(doc_lengths):
+        lengths = doc_lengths.to(device=state.device, dtype=f32)
+    else:
+        lengths = torch.as_tensor(np.asarray(doc_lengths), dtype=f32).to(state.device)
+    beta_t = torch.tensor(beta, dtype=f32)
+    alpha_t = torch.tensor(alpha, dtype=f32)
     phi = (state.nwk.transpose(-1, -2).to(f32) + beta_t) / (
-        state.nk[..., None].to(f32) + torch.tensor(v * beta, dtype=f32,
-                                                   device=state.device))
+        state.nk[..., None].to(f32) + torch.tensor(v * beta, dtype=f32))
     theta = (state.ndk.to(f32) + alpha_t) / (
-        lengths[:, None] + torch.tensor(k * alpha, dtype=f32,
-                                        device=state.device))
+        lengths[:, None] + torch.tensor(k * alpha, dtype=f32))
     return phi, theta
 
 

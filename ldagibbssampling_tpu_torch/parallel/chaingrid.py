@@ -14,7 +14,14 @@ The chain runtime has no fused tier (``fused`` runs the deferred tier) and
 no v1-draw tier (``use_pallas=True`` runs XLA), as the reference's
 (``:74-108``).  The convergence diagnostics (split-R̂ on the chains' LL
 traces and on φ) come from ``evaluation/diagnostics.py``, as in
-``models/chains.py``.
+``models/chains.py``, computed on the devices in float64 where the
+reference computes them with numpy on the host: each position's LL
+partial from its own ``ndk`` rows, document lengths and its chain's
+``nwk``/``nk`` (the host formulas' φ and θ), summed per chain on the host
+in position order; each chain's φ from its tables, folded into moments on
+its device.  With several processes, each receives the other processes'
+chains' ``nwk``/``nk`` only (``multihost.gather``), so every process
+reports the R̂ of one process.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.evaluation import diagnostics
-from ldagibbssampling_tpu_torch.evaluation.metrics import log_likelihood
+from ldagibbssampling_tpu_torch.models.chains import ll_sum
 from ldagibbssampling_tpu_torch.models.hyper import optimize_beta, sharded_alpha_update
 from ldagibbssampling_tpu_torch.models.lda import resolve_device
 from ldagibbssampling_tpu_torch.parallel import multihost
@@ -136,8 +143,9 @@ class ShardedChainSet(MeshRuntime):
     def sweep(self, n: int = 1, record_ll: bool = False, record_phi: bool = False,
               noise=None) -> None:
         """``n`` sweeps of every chain; with ``record_ll``/``record_phi`` the
-        chains' LL per token (the host ``log_likelihood`` of the float64
-        point estimates, as the reference) / φ is recorded after each."""
+        chains' LL per token (the reference's host ``log_likelihood`` of
+        the float64 point estimates, on the devices) / φ is recorded after
+        each."""
         if not (record_ll or record_phi):
             super().sweep(n, noise=noise)
             return
@@ -147,14 +155,76 @@ class ShardedChainSet(MeshRuntime):
 
     def record(self, ll: bool = True, phi: bool = False) -> None:
         """Append the current per-chain LL per token and/or φ to the traces."""
-        a = self.arrays()
-        phis = [self.chain_phi(ci, a) for ci in range(self.num_chains)]
         if phi:
-            self.phi_trace.append(np.stack(phis))
+            self.phi_trace.append(self._phis())
         if ll:
-            self.ll_trace.append(np.asarray([
-                log_likelihood(phis[ci], self.chain_theta(ci, a), self.corpus)
-                / max(self.corpus.num_tokens, 1) for ci in range(self.num_chains)]))
+            self.ll_trace.append(self.chain_lls() / max(self.corpus.num_tokens, 1))
+
+    def chain_lls(self, chains: Optional[set] = None) -> np.ndarray:
+        """``[C]`` float64: each chain's training LL (not per token), or
+        only those of ``chains`` (the others 0).  Each held position adds
+        ``log Σ_k θ[d, k] φ[k, w]`` over its real tokens in float64 on its
+        device, θ from its ``ndk`` rows and document lengths, φ from its
+        chain's ``nwk``/``nk`` (as ``chain_theta``/``chain_phi``); the
+        positions' partials, gathered from every process, are summed per
+        chain in position order."""
+        f64 = torch.float64
+        k = self.config.topic_num
+        phis, parts = {}, {}
+        for q in self.positions:
+            c = self.mesh.coord(q, "chain")
+            if chains is not None and c not in chains:
+                continue
+            if id(self.nwk[q]) not in phis:
+                phis[id(self.nwk[q])] = self._phi64(self.nwk[q], self.nk[q])
+            theta = (self.ndk[q].to(f64) + self.alpha) / (
+                self._dl[q].to(f64)[:, None] + k * self.alpha)
+            tw, td, tm = self._tokens[q]
+            parts[q] = ll_sum(phis[id(self.nwk[q])][None], theta[None],
+                              tw.long(), td.long(), tm)[0]
+        out = np.zeros(self.num_chains, np.float64)
+        for q, partial in sorted(multihost.gather(parts, self.mesh).items()):
+            out[self.mesh.coord(q, "chain")] += float(partial)
+        return out
+
+    def device_log_likelihood(self) -> float:
+        """Chain 0's training LL (the runner's rows), on the devices."""
+        return float(self.chain_lls({0})[0])
+
+    def _phi64(self, nwk: torch.Tensor, nk: torch.Tensor) -> torch.Tensor:
+        """``[K, V]`` float64 φ of one chain's tables, on their device
+        (``chain_phi``'s arithmetic)."""
+        f64 = torch.float64
+        return ((nwk.to(f64) + self.beta) / (nk.to(f64) + nwk.shape[0] * self.beta)).T
+
+    def _chain_tables(self) -> dict[int, tuple[torch.Tensor, torch.Tensor]]:
+        """Each chain's ``(nwk, nk)``: its first held position's tensors;
+        with several processes, the chains another process holds come from
+        it (``multihost.gather`` of the tables of each process's first
+        position per chain, and nothing else) onto this process's first
+        device."""
+        first: dict[int, int] = {}
+        for q in self.positions:
+            first.setdefault(self.mesh.coord(q, "chain"), q)
+        out = {c: (self.nwk[q], self.nk[q]) for c, q in first.items()}
+        if multihost.world()[1] > 1:
+            nwk = multihost.gather({q: self.nwk[q] for q in first.values()}, self.mesh)
+            nk = multihost.gather({q: self.nk[q] for q in first.values()}, self.mesh)
+            for q in sorted(nwk):
+                c = self.mesh.coord(q, "chain")
+                if c not in out:
+                    out[c] = (torch.from_numpy(nwk[q]).to(self.device),
+                              torch.from_numpy(nk[q]).to(self.device))
+        return out
+
+    def _phi_draw(self) -> list[tuple[list[int], torch.Tensor]]:
+        """Every chain's float64 φ as the accumulators take it: the chains
+        on each device and their stacked ``[C_dev, K, V]`` φ."""
+        by_dev: dict = {}
+        for c, (nwk, nk) in sorted(self._chain_tables().items()):
+            by_dev.setdefault(nwk.device, []).append((c, self._phi64(nwk, nk)))
+        return [([c for c, _ in chains], torch.stack([p for _, p in chains]))
+                for chains in by_dev.values()]
 
     def optimize_hyperparameters(self, iters: int = 5) -> tuple[float, float]:
         """Minka (α, β) per chain (α's ``ndk`` sums ``psum``'d over
@@ -213,8 +283,10 @@ class ShardedChainSet(MeshRuntime):
         return diagnostics.r_hat(np.stack(self.ll_trace, axis=1))
 
     def _phis(self) -> np.ndarray:
-        a = self.arrays()
-        return np.stack([self.chain_phi(ci, a) for ci in range(self.num_chains)])
+        """``[C, K, V]`` float64: every chain's φ on the host."""
+        tables = self._chain_tables()
+        return np.stack([self._phi64(*tables[c]).cpu().numpy()
+                         for c in range(self.num_chains)])
 
     def record_phi(self, half: int) -> None:
         """Fold the chains' φ into the running split-R̂ accumulator
@@ -224,14 +296,14 @@ class ShardedChainSet(MeshRuntime):
         if self.phi_accum is None:
             self.phi_accum = diagnostics.PhiRhatAccumulator(
                 self.num_chains, self.config.topic_num, self.corpus.vocab_size)
-        self.phi_accum.add(self._phis(), half)
+        self.phi_accum.add(self._phi_draw(), half)
 
     def record_phi_auto(self) -> None:
         """Fold the chains' φ into the pair-safe doubling-window accumulator."""
         if self.phi_window is None:
             self.phi_window = diagnostics.PhiRhatWindowedAccumulator(
                 self.num_chains, self.config.topic_num, self.corpus.vocab_size)
-        self.phi_window.add(self._phis())
+        self.phi_window.add(self._phi_draw())
 
     def r_hat_phi(self) -> dict:
         if len(self.phi_trace) >= 4:
@@ -325,6 +397,9 @@ class ShardedChainModel:
 
     def r_hat_phi(self) -> dict:
         return self.chains.r_hat_phi()
+
+    def device_log_likelihood(self) -> float:
+        return self.chains.device_log_likelihood()
 
     def check_counts_consistent(self) -> None:
         self.chains.check_counts_consistent()

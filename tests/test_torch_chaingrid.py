@@ -9,7 +9,9 @@ package's ``ShardedChainSet`` on a 2×2 ``('chain', 'data')`` mesh.
 - R̂: from the same states after each sweep (the reference's state loaded
   into the port's runtime), the LL traces and split-R̂ on the LL and on φ
   equal the reference's to relative 1e-6 (float64 host sums in other
-  orders).
+  orders).  The LL, computed on the devices, equals the reference's host
+  LL per chain to relative 1e-9, and ``device_log_likelihood()`` chain 0's;
+  recording never reads the whole state (``arrays()``).
 - Internal noise: the chains differ pairwise.
 - ``ChainSet`` and ``MultiChainModel`` place their chains on a chain mesh.
 """
@@ -108,3 +110,49 @@ def test_record_phi_matches_reference_from_the_same_states():
     assert got["n_cells"] == want["n_cells"] > 0
     for key in ("max", "p99", "frac_gt_1_1"):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("tier,block,seed", [(False, 128, 37), ("deferred", 256, 38)])
+def test_record_ll_matches_reference_per_chain(tier, block, seed):
+    """``record(ll=True)`` on the devices against the reference's host LL
+    per chain (``parallel/chaingrid.py:286-307``), from the same states."""
+    jc, pc = mesh_corpora(seed)
+    cfg = dict(topic_num=K, block_size=block, seed=seed, use_pallas=tier)
+    ref = reference("chain", jc, **cfg)
+    model = port("chain", pc, noise_mode="internal", **cfg)
+    assert model.kernel_tier == (tier or "xla")
+    for _ in range(2):
+        ref.sweep(1, record_ll=True)
+        load_reference(model, ref)
+        model.record(ll=True)
+    np.testing.assert_allclose(np.stack(model.ll_trace), np.stack(ref.ll_trace),
+                               rtol=1e-9, atol=0)
+    np.testing.assert_allclose(model.device_log_likelihood(),
+                               ref.ll_trace[-1][0] * pc.num_tokens, rtol=1e-9, atol=0)
+
+
+def test_record_reads_no_whole_state(monkeypatch):
+    """Recording the LL and φ (stored, running and windowed) and the
+    runner's LL never call ``arrays()`` (which copies ``z`` and ``ndk`` to
+    the host); the stored φ equals ``chain_phi``'s host formula bitwise."""
+    _, pc = mesh_corpora(39)
+    model = ShardedChainModel(LdaConfig(topic_num=K, block_size=256, seed=2), pc,
+                              num_chains=2, mesh=port("chain", pc, topic_num=K).mesh,
+                              device="cpu")
+    cs = model.chains
+    model.sweep(1)
+    whole = cs.arrays()
+    want_phi = np.stack([cs.chain_phi(c, whole) for c in range(2)])
+
+    def no_arrays():
+        raise AssertionError("arrays() called")
+
+    monkeypatch.setattr(cs, "arrays", no_arrays)
+    cs.record(ll=True, phi=True)
+    np.testing.assert_array_equal(cs.phi_trace[-1], want_phi)
+    for i in range(4):
+        cs.record_phi(i // 2)
+        model.sweep(1)
+    assert np.isfinite(model.device_log_likelihood())
+    assert cs.phi_accum.mean.dtype == torch.float64
+    assert cs.r_hat_phi()["window_draws"] == 4

@@ -604,6 +604,49 @@ def test_chains_unrecorded_sweeps_make_no_host_sync(cuda):
     cs.check_counts_consistent()
 
 
+def test_phi_moments_on_card_equal_cpu_and_make_no_host_sync(cuda):
+    """The chains' φ R̂ moments stay on the card, a mid-window draw makes
+    no host sync, and they are bitwise the same class's fed CPU copies of
+    the same draws; the summaries agree within relative 1e-9."""
+    from ldagibbssampling_tpu_torch.evaluation.diagnostics import PhiRhatAccumulator
+    from ldagibbssampling_tpu_torch.models.chains import ChainSet
+
+    cs = ChainSet(LdaConfig(topic_num=5, block_size=256, chains=3, seed=5),
+                  _small_corpus(), device=cuda)
+    cpu = PhiRhatAccumulator(3, 5, cs.corpus.vocab_size)
+    for i in range(4):
+        cs.sweep(1)
+        draw = cs._phi_draw()
+        cpu.add([(ids, x.cpu()) for ids, x in draw], i // 2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cs.record_phi(i // 2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert cs.phi_accum.mean.device.type == "cuda"
+    assert torch.equal(cs.phi_accum.mean.cpu(), cpu.mean)
+    assert torch.equal(cs.phi_accum.m2.cpu(), cpu.m2)
+    got, want = cs.r_hat_phi(), cpu.result()
+    assert got["perms"] == want["perms"] and got["n_cells"] == want["n_cells"]
+    for key in ("max", "p99", "frac_gt_1_1"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-9, atol=0)
+
+
+def test_phi_moments_that_do_not_fit_raise(cuda):
+    """No host fallback: moments larger than the card's free memory raise
+    an error that names their shape and size, before allocating."""
+    from ldagibbssampling_tpu_torch.evaluation.diagnostics import PhiRhatAccumulator
+
+    c, k, v = 64, 500, 1_000_000
+    acc = PhiRhatAccumulator(c, k, v)
+    draw = torch.zeros((1, 1, 1), device=cuda).expand(c, k, v)
+    with pytest.raises(torch.cuda.OutOfMemoryError,
+                       match=r"\[2, 64, 500, 1000000\].*GiB"):
+        acc.add(draw, 0)
+    assert acc.mean is None and acc.draws == 0
+
+
 @pytest.mark.parametrize("draw", ["gumbel", "inverse_cdf"])
 def test_batched_chains_equal_chains_in_turn_on_card(cuda, draw):
     """The batched sweep of four chains against the same chains run one

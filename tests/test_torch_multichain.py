@@ -9,7 +9,9 @@ Tolerances: every chain's ``z`` equal on at least 99.9% of the tokens and
 exact for the seeds below (XLA's and PyTorch's float32 ``log`` may differ by
 one ulp and flip a near-tie); the recorded LL traces, ``r_hat_ll`` and
 ``r_hat_phi`` of identical chains agree to rel 1e-6 (the reference takes
-the LL on the host in float64, the port on the chains' device in float64).
+the LL on the host in float64, the port on the chains' device in float64);
+``MultiChainModel.device_log_likelihood()``, the runner's LL rows, agrees
+with the reference's host ``log_likelihood`` of chain 0 to rel 1e-9.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import jax
 import jax.numpy as jnp
 from ldagibbssampling_tpu.config import LdaConfig as JaxLdaConfig
 from ldagibbssampling_tpu.corpus.flat import FlatCorpus as JaxFlatCorpus
+from ldagibbssampling_tpu.evaluation.metrics import log_likelihood as jax_log_likelihood
 from ldagibbssampling_tpu.models.chains import ChainSet as JaxChainSet
 from ldagibbssampling_tpu_torch import interop
 from ldagibbssampling_tpu_torch.backends import make_backend
@@ -324,3 +327,89 @@ def test_chains_match_reference_from_its_stacked_state():
     with pytest.raises(ValueError, match="lockstep"):
         interop.from_jax_chain_states({**arrays, "sweep": np.array([0, 1])},
                                       device="cpu", stacked=True)
+
+
+# --- the diagnostics on the chains' device -----------------------------------
+
+def test_device_log_likelihood_matches_reference():
+    """Chain 0's training LL on its device (float64) against the JAX
+    package's host ``log_likelihood`` of the reference's chain 0, from the
+    same states, before and after sweeps."""
+    ref, port, noise = _pair(12, 3)
+    model = MultiChainModel(port.config, port.corpus, device="cpu")
+    model.chains = port
+    jc = JaxFlatCorpus.from_ragged(_ragged(12), vocab_size=V)
+    for sweeps in (0, 3):
+        ref.sweep(sweeps)
+        port.sweep(sweeps, noise=noise)
+        want = jax_log_likelihood(*ref.chain_phi_theta(0), jc)
+        got = model.device_log_likelihood()
+        assert isinstance(got, float)
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=0)
+        np.testing.assert_allclose(port.chain_ll(2),
+                                   jax_log_likelihood(*ref.chain_phi_theta(2), jc),
+                                   rtol=1e-9, atol=0)
+
+
+def test_runner_ll_rows_come_from_the_device(tmp_path, monkeypatch):
+    """``run_inference`` takes the device branch for the chains: the rows'
+    ``log_likelihood`` is ``device_log_likelihood()`` (the host
+    ``metrics.log_likelihood`` made to raise), and equals the host LL of
+    chain 0's φ and θ to rel 1e-9."""
+    from ldagibbssampling_tpu_torch.evaluation import metrics
+
+    host_ll = metrics.log_likelihood
+    fc = FlatCorpus.from_ragged(_ragged(13), vocab_size=V)
+    cfg = LdaConfig(topic_num=K, block_size=BLOCK, chains=2, seed=13, iteration=10)
+    model = make_backend(cfg, fc, device="cpu")
+
+    def no_host_ll(*args, **kwargs):
+        raise AssertionError("the runner took the host LL")
+
+    monkeypatch.setattr(metrics, "log_likelihood", no_host_ll)
+    with MetricsLog(tmp_path / "m.jsonl") as log:
+        run_inference(model, cfg, fc, metrics=log, ll_every=5)
+    rows = read_metrics(tmp_path / "m.jsonl")
+    lls = [r["log_likelihood"] for r in rows if "log_likelihood" in r]
+    assert len(lls) == 2
+    assert lls[-1] == model.device_log_likelihood()
+    np.testing.assert_allclose(lls[-1], host_ll(model.phi(), model.theta(), fc),
+                               rtol=1e-9, atol=0)
+
+
+def test_phi_draws_stay_on_the_chains_device(monkeypatch):
+    """``record_phi_auto`` and ``record_phi`` fold each device's φ as it is:
+    ``_phis()`` (the host copy) is never called, the moments are float64
+    on the chains' device, and R̂ on φ equals the reference's numpy
+    accumulator fed the host copies of the same draws."""
+    from ldagibbssampling_tpu.evaluation import diagnostics as ref_diag
+
+    fc = FlatCorpus.from_ragged(_ragged(14), vocab_size=V)
+    cfg = LdaConfig(topic_num=K, block_size=BLOCK, chains=3, seed=14)
+    model = MultiChainModel(cfg, fc, device="cpu")
+    cs = model.chains
+    want = ref_diag.PhiRhatWindowedAccumulator(3, K, V)
+    want_run = ref_diag.PhiRhatAccumulator(3, K, V)
+    draws = []
+    real_phis = cs._phis
+
+    def no_phis():
+        raise AssertionError("a φ draw was copied to the host")
+
+    monkeypatch.setattr(cs, "_phis", no_phis)
+    for i in range(5):
+        model.sweep(1)
+        draws.append(real_phis())
+        want.add(draws[-1])
+        cs.record_phi(i // 2 if i < 4 else 1)
+        want_run.add(draws[-1], i // 2 if i < 4 else 1)
+    got, ref_got = model.r_hat_phi(), want.result()
+    assert got["window_draws"] == 4 and np.isfinite(got["p99"])
+    assert {k: got[k] for k in ("perms", "n_cells", "burn_in_draws")} == {
+        k: ref_got[k] for k in ("perms", "n_cells", "burn_in_draws")}
+    for key in ("max", "p99", "frac_gt_1_1"):
+        np.testing.assert_allclose(got[key], ref_got[key], rtol=1e-9, atol=0)
+    assert cs.phi_window.cur.mean.dtype == torch.float64
+    assert cs.phi_window.cur.mean.device == cs.device
+    np.testing.assert_array_equal(cs.phi_window.cur.mean.numpy(), want.cur.mean)
+    np.testing.assert_array_equal(cs.phi_accum.m2.numpy(), want_run.m2)

@@ -17,7 +17,11 @@ package's across two ``jax.distributed`` processes (its tests at ``:125``,
 - four processes, one position each: the 2×2 grid and the 2×2 chains ×
   data mesh, whose ``psum`` groups span two of the four processes; the
   same bitwise comparison with the one-process four-position run, and each
-  of those groups made exactly once per process (``new_group`` counted).
+  of those groups made exactly once per process (``new_group`` counted);
+- two processes holding one chain each of a 2×1 chains × data mesh: each
+  receives the other's chain tables for φ, and both report the LL traces,
+  R̂ on the LL and the summary of R̂ on φ of the one-process run, exactly
+  (the same float64 operations on the same values).
 
 Each test spawns fresh interpreters (never ``dist.init`` in the pytest
 worker itself) that run this file as a script; every worker's output is
@@ -28,6 +32,7 @@ and, where a worker finds it taken meanwhile, tries again at another.
 
 from __future__ import annotations
 
+import json
 import os
 import socket
 import subprocess
@@ -57,6 +62,7 @@ CASES = {
     "grid": ({"data": 2, "vocab": 1}, ("data", "vocab")),
     "grid4": ({"data": 2, "vocab": 2}, ("data", "vocab")),
     "chain4": ({"chain": 2, "data": 2}, ("data",)),
+    "chain_rhat": ({"chain": 2, "data": 1}, ("data",)),
 }
 
 
@@ -72,7 +78,7 @@ def build(case: str, mesh):
     """The runtime of ``case`` on ``mesh`` (every process builds the same)."""
     tier = False if case == "xla" else "deferred"
     cfg = LdaConfig(topic_num=K, block_size=256, seed=7, use_pallas=tier)
-    if case == "chain4":
+    if case.startswith("chain"):
         return ShardedChainSet(cfg, corpus(), num_chains=2, mesh=mesh, device="cpu")
     cls = GridLda if case.startswith("grid") else ShardedLda
     return cls(cfg, corpus(), mesh=mesh, device="cpu")
@@ -112,7 +118,11 @@ def worker(case: str, pid: int, n: int, addr: str, out: str) -> None:
     topo = multihost.initialize_distributed(addr, n, pid, device="cpu")
     assert (topo.process_index, topo.process_count) == (pid, n), topo
     assert (topo.local_device_count, topo.global_device_count) == (1, n), topo
-    if case == "bringup":
+    if case == "chain_rhat":
+        model = build(case, multihost.make_mesh(CASES[case][0], device="cpu"))
+        assert model.positions == [pid]
+        Path(f"{out}.{pid}.json").write_text(json.dumps(chain_diagnostics(model)))
+    elif case == "bringup":
         mesh = multihost.make_mesh({"data": n}, device="cpu")
         for i in range(3):
             got = multihost.psum({pid: torch.full((64,), pid + i, dtype=torch.int32)},
@@ -131,6 +141,16 @@ def worker(case: str, pid: int, n: int, addr: str, out: str) -> None:
         print(f"proc {pid} new_group calls {first} after one sweep, "
               f"{len(made)} after {SWEEPS}: {made}", flush=True)
     print(f"proc {pid} ok", flush=True)
+
+
+def chain_diagnostics(model) -> dict:
+    """Four sweeps of a chain mesh, each recorded (LL, and φ into the
+    doubling window), then the LL traces and both R̂."""
+    for _ in range(4):
+        model.sweep(1, record_ll=True)
+        model.record_phi_auto()
+    return {"ll_trace": np.stack(model.ll_trace).tolist(),
+            "r_hat_ll": model.r_hat_ll(), "r_hat_phi": model.r_hat_phi()}
 
 
 def teardown_worker(addr: str, out: str) -> None:
@@ -256,6 +276,18 @@ def _equal_one_process(case: str, n: int, tmp_path) -> None:
 @pytest.mark.parametrize("case", ["xla", "deferred", "grid"])
 def test_two_processes_equal_one_process_two_positions(tmp_path, case):
     _equal_one_process(case, 2, tmp_path)
+
+
+def test_two_processes_report_the_one_process_r_hat(tmp_path):
+    out = tmp_path / "rhat"
+    _run("chain_rhat", 2, (tmp_path / "rendezvous").as_uri(), out)
+    one = build("chain_rhat", multihost.make_mesh(
+        CASES["chain_rhat"][0], [torch.device("cpu")] * 2))
+    want = json.loads(json.dumps(chain_diagnostics(one)))
+    assert want["r_hat_phi"]["window_draws"] == 4 and want["r_hat_phi"]["n_cells"] > 0
+    for pid in range(2):
+        got = json.loads(Path(f"{out}.{pid}.json").read_text())
+        assert got == want, pid
 
 
 @pytest.mark.parametrize("case", ["grid4", "chain4"])
