@@ -19,7 +19,8 @@ success:
    (must be equal), external and internal noise modes (z equal on >= 99.99%
    of tokens, differences printed); K3 in the same three modes, and again
    with the block's hottest word's and first document's counts at and past
-   the end of its log tables; the count move of all three tables with its
+   the end of its log tables (the kernel reading alpha, beta, V*beta and its
+   seed from device tensors, the plain version taking them by value); the count move of all three tables with its
    write-back of z (bitwise); K2 (rebuild + bf16 snapshot) over the whole
    stream (bitwise).  Times each kernel (its device time per launch from
    ``torch.profiler``, the ``ms`` of the kernels line, beside CUDA events
@@ -44,9 +45,13 @@ success:
    then ``check_counts_consistent``; each run must report the tier asked
    for, launch every kernel of its tier (and the exact number of launches
    its layout implies: one K1 walk per sweep and no count move in the
-   deferred tier, one walk and one count move per block in the fused tier),
-   no other kernel and no plain version; prints
-   tokens/s; then profiles one more sweep of each tier with the port's
+   deferred tier, one walk and one count move per block in the fused tier,
+   in the v1-draw tier one K3 and one count move per block and sweep, the
+   graph's warm-up sweep included: the XLA and v1-draw tiers replay one
+   CUDA graph per sweep), no other kernel and no plain version; prints
+   tokens/s (on the graph paths also the graph's set-up, the first call's
+   wall before its first replay, the rate less it, and a second call's
+   rate); then profiles one more sweep of each tier with the port's
    ``trace`` (device time by kernel, busy share).  Then the deferred tier in
    its five other (chain, snapshot) settings, 10 sweeps each, the same
    checks (``cast_mirror`` only on the bf16 snapshot), and once more at
@@ -68,8 +73,9 @@ success:
    ``--pallas fused``, with ``--sampler serial`` and with ``--ll-every 5
    --optimize-hyper-every 5``, must write the five reference artifacts each
    time (and, the last, metrics rows with ``log_likelihood`` and ``alpha``);
-   ``[resume]``: in the fused tier (the minicorpus's) and the deferred tier
-   (block 256 through ``--config-json``), one uninterrupted run of 60 sweeps
+   ``[resume]``: in the fused tier (the minicorpus's), the deferred tier
+   (block 256 through ``--config-json``) and the v1-draw tier with
+   ``--optimize-hyper-every 5``, one uninterrupted run of 60 sweeps
    (artifacts at 50 and 60) and one run to sweep 30 with
    ``--checkpoint-every 10`` then ``--resume`` to 60: the resumed run's ten
    artifacts must be byte-identical to the uninterrupted run's;
@@ -106,9 +112,24 @@ success:
    against the same chains run in turn (one single-chain
    ``make_sweep_fn(use_pallas=False)`` each) from the same states and
    generators, in turn, batched, batched, in turn, 2 sweeps each: z and
-   every table bitwise per chain, both forms' tokens/s, and their CUDA
-   launches per sweep of the four chains from one profiled sweep each (the
-   batched at most one chain's plus 5 per block).  8b, ``[multichain
+   every table bitwise per chain, both forms' tokens/s, and their device
+   operations per sweep of the four chains, counted from their graphs'
+   nodes (the batched at most one chain's plus 5 per block; both forms
+   replay CUDA graphs), and their host calls from one profiled sweep.  8c, ``[graphs]``:
+   each captured path (``ops/graphs.SweepGraph``, one CUDA graph replayed
+   per sweep) against its eager sweep from the same state, seeds and noise:
+   the XLA tier and the v1-draw tier at bench.py's shape through
+   ``make_sweep_fn`` on ``make_backend``'s layout, the chains at rung 4's
+   full size and at K = 500 on bench.py's shape through ``ChainSet``; in
+   internal and external noise, two sweeps in one call then one at other
+   alpha and beta: z and every table bitwise; tokens/s eager (the
+   comparison's 3 sweeps) and captured (one call); per sweep the host's
+   calls and graph launches (one; ``torch.profiler``) and the card's
+   operations (eager one per host call; captured the graph's nodes,
+   counted by ``SweepGraph`` when it captured them, and the
+   generators' fills), the set-up seconds (the first call before its first
+   replay) and, of them, capture and instantiation, peak device memory allocated
+   and reserved (the graph pools included).  8b, ``[multichain
    wide]``: the same at K = 500 and 4 chains on bench.py's shape (2^20
    Zipf(1.1) tokens, V = 50,000, M = 4,096, block 65,536; BASELINE's
    configuration 4's topic count and chains, its Wikipedia corpus not being
@@ -769,6 +790,8 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
     from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
     from ldagibbssampling_tpu_torch.ops.gibbs import _pick_row_tile
+    from ldagibbssampling_tpu_torch.ops._device import (
+        device_values, seed_word, sweep_scalars)
 
     dev = torch.device(device)
     pc, _ = corpus.pad_to(BLOCK).sort_within_blocks(BLOCK)
@@ -778,6 +801,12 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     row_tile = _pick_row_tile(BLOCK, K)
     vbeta = float(np.float32(V) * np.float32(BETA))
     hyper = dict(alpha=ALPHA, beta=BETA, vbeta=vbeta)
+    # K3 and its plain version read alpha, beta, V*beta and the seed from
+    # the same device tensors
+    k3_scalars = device_values(sweep_scalars(ALPHA, BETA, V, K), dev)
+
+    def k3_key(s: int):
+        return device_values(np.array([seed_word(s)], np.int64), dev)
 
     def on_dev(a):
         return torch.from_numpy(np.array(a[:BLOCK], np.int32)).to(dev)
@@ -831,9 +860,12 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     # --- K3, all three noise modes
     draws = {}
     for mode in MODES:
-        zk, zp = (f(st.nwk, st.ndk, st.nk, z, w, d, noise_mode=mode,
-                    seed=seed + 4321, uniforms=u_k3, **hyper)
-                  for f in (sk.sample_block, sk.sample_block_plain))
+        zk = sk.sample_block(st.nwk, st.ndk, st.nk, z, w, d, noise_mode=mode,
+                             scalars=k3_scalars, key=k3_key(seed + 4321),
+                             uniforms=u_k3)
+        zp = sk.sample_block_plain(st.nwk, st.ndk, st.nk, z, w, d, noise_mode=mode,
+                                   scalars=k3_scalars, key=k3_key(seed + 4321),
+                                   uniforms=u_k3)
         torch.cuda.synchronize()
         n_diff, match = compare(f"K3 {mode}", zk, zp)
         draws[mode] = torch.where(real, zk, z)
@@ -858,9 +890,12 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
                                    generator=g_hot, device=dev, dtype=torch.int32)
         table[row, ::5] = 5 * sk.LOG_TABLE
     for mode in MODES:
-        zk, zp = (f(nwk_hot, ndk_hot, st.nk, z, w, d, noise_mode=mode,
-                    seed=seed + 4321, uniforms=u_k3, **hyper)
-                  for f in (sk.sample_block, sk.sample_block_plain))
+        zk = sk.sample_block(nwk_hot, ndk_hot, st.nk, z, w, d, noise_mode=mode,
+                             scalars=k3_scalars, key=k3_key(seed + 4321),
+                             uniforms=u_k3)
+        zp = sk.sample_block_plain(nwk_hot, ndk_hot, st.nk, z, w, d,
+                                   noise_mode=mode, scalars=k3_scalars,
+                                   key=k3_key(seed + 4321), uniforms=u_k3)
         torch.cuda.synchronize()
         n_diff, match = compare(f"K3 {mode}, counts past the log tables", zk, zp)
         if (n_diff and mode == "deterministic") or match < MIN_MATCH:
@@ -900,6 +935,7 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
             fk.sample_plain(st.nwk, st.ndk, st.nk, z[sl], w[sl], d[sl], m[sl],
                             noise_mode="internal", seed=7, slot0=s, **hyper)
 
+    key7 = k3_key(7)
     nwk_c = st.nwk.clone()
     moved = (z_new != z) & real
     flat = torch.cat([(w.long() * K + z.long())[moved],
@@ -916,10 +952,11 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         "gibbs_tile_sample_live": (live_kernel, cuda_ms(live_plain), None),
         "gibbs_block_sample": (
             lambda: sk.sample_block(st.nwk, st.ndk, st.nk, z, w, d,
-                                    noise_mode="internal", seed=7, **hyper),
+                                    noise_mode="internal", scalars=k3_scalars,
+                                    key=key7),
             cuda_ms(lambda: sk.sample_block_plain(st.nwk, st.ndk, st.nk, z, w, d,
-                                                  noise_mode="internal", seed=7,
-                                                  **hyper)),
+                                                  noise_mode="internal",
+                                                  scalars=k3_scalars, key=key7)),
             None),
         # the fused tier's form: the block's word-topic moves
         "count_move": (
@@ -1045,12 +1082,21 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
         f"(T_pad={t_pad}, row tile {row_tile})")
     if model.kernel_tier != tier:
         raise AssertionError(f"asked for {tier}, the model runs {model.kernel_tier}")
+    graphs = getattr(model._run_sweeps, "graphs", {})
     zero_counters()
     t0 = time.perf_counter()
     run_inference(model, cfg, corpus)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, plain = read_counters()
+    # a graph's first call runs one warm-up sweep, then replays per sweep
+    warmups = sum(g.graph is not None for g in graphs.values())
+    setup_s = sum(g.setup_s for g in graphs.values() if g.graph is not None)
+    for g in graphs.values():
+        log(f"[main {label}] graph: set-up {g.setup_s:.4f}s (copies, warm-up "
+            f"sweep, capture and instantiation {g.capture_s:.4f}s), {g.replays} "
+            f"replays, kernel launches per replay "
+            f"{ {n: c for (_, n), c in g.per_replay.items()} }, {g.nodes:,} nodes")
     log(f"[main {label}] launches { {k: v for k, v in launches.items() if v} }, "
         f"plain calls { {k: v for k, v in plain.items() if v} }")
     if model.sweeps_done != sweeps:
@@ -1080,8 +1126,8 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
                      "cast_mirror": sweeps + 1 if mirror == "bfloat16" else 0},
         "fused": {"gibbs_tile_sample_live": sweeps * blocks,
                   "gibbs_tile_update": 0, "count_move": sweeps * blocks},
-        "pallas-draw": {"gibbs_block_sample": sweeps * blocks,
-                        "count_move": sweeps * blocks},
+        "pallas-draw": {"gibbs_block_sample": (sweeps + warmups) * blocks,
+                        "count_move": (sweeps + warmups) * blocks},
         "xla": {},
     }[tier]
     got = {n: launches[n] for n in want}
@@ -1095,10 +1141,18 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
     if phi.shape != (k, V) or theta.shape != (M, k):
         raise AssertionError(f"phi {phi.shape} theta {theta.shape}")
     np.testing.assert_allclose(phi.sum(axis=1, dtype=np.float64), 1.0, rtol=1e-3)
+    check_s = time.perf_counter() - t1
     tok_s = sweeps * corpus.num_tokens / dt
+    rest = ""
+    if graphs:  # the first call against a second one, its graph made
+        t2 = time.perf_counter()
+        model.sweep(sweeps)
+        torch.cuda.synchronize()
+        rest = (f"; less the graph's set-up {(dt - setup_s) / sweeps * 1e3:.2f} ms/sweep,"
+                f" a second call {(time.perf_counter() - t2) / sweeps * 1e3:.2f} ms/sweep")
     log(f"[main {label}] {sweeps} sweeps of {corpus.num_tokens} tokens in "
-        f"{dt:.3f}s = {tok_s:,.0f} tokens/s ({dt / sweeps * 1e3:.2f} ms/sweep) "
-        f"on {smi}; counts consistent (check {time.perf_counter() - t1:.2f}s)")
+        f"{dt:.3f}s = {tok_s:,.0f} tokens/s ({dt / sweeps * 1e3:.2f} ms/sweep{rest}) "
+        f"on {smi}; counts consistent (check {check_s:.2f}s)")
     return tok_s, {n: launches[n] for n in expected}, model
 
 
@@ -1436,7 +1490,9 @@ def run_cli(args, cwd: str) -> str:
 
 def resume_phase() -> None:
     """Phase 5b: a killed and resumed CLI run writes the uninterrupted run's
-    artifacts byte for byte, in the fused and the deferred tier."""
+    artifacts byte for byte, in the fused and the deferred tier, and in the
+    v1-draw tier with a Minka update every 5 sweeps (its graph reads the
+    moved alpha and beta, and the restored state is copied in)."""
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "deferred.json").write_text('{"block_size": 256}')
         common = ["--docs", "docs", "-k", "10", "--save-step", "10",
@@ -1444,7 +1500,9 @@ def resume_phase() -> None:
         run_cli(["--generate-minicorpus", *common, "--no-save", "--iterations",
                  "1"], tmp)
         for tier, extra in (("fused", []),
-                            ("deferred", ["--config-json", "deferred.json"])):
+                            ("deferred", ["--config-json", "deferred.json"]),
+                            ("pallas-draw", ["--pallas", "1",
+                                             "--optimize-hyper-every", "5"])):
             t0 = time.perf_counter()
             run_cli([*common, *extra, "--results", f"{tier}_full", "--iterations",
                      "60", "--metrics-file", f"{tier}.jsonl",
@@ -1525,12 +1583,16 @@ def bench_phase(tier: str, sweeps: int) -> dict:
     return row
 
 
-def count_launches(fn, tries: int = 3) -> int:
-    """The device operations that ``fn()`` enqueues (kernel launches,
-    copies, fills), counted as the CUDA runtime calls ``torch.profiler``
-    records; raises where ``tries`` sessions record none.  The CUDA activity
-    alone records the runtime calls, in less host time than recording the
-    host's ops as well."""
+def launch_profile(fn, tries: int = 3) -> dict:
+    """What ``fn()`` makes the host do, from ``torch.profiler``:
+    ``host_calls`` the CUDA runtime calls that enqueue work on the card
+    (kernel and graph launches, copies, fills; each eager one enqueues one
+    device operation) and ``graph_launches`` the graph launches among them.
+    Raises where ``tries`` profiled runs record no device operation.  The CUDA
+    activity alone records the runtime calls, in less host time than
+    recording the host's ops as well.  (The card's own events are not
+    counted: the profiler misses some of them in some runs; a graph's
+    operations are counted from its nodes, ``graph_ops``.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1539,10 +1601,15 @@ def count_launches(fn, tries: int = 3) -> int:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        n = sum(1 for e in prof.events() if e.name.startswith(LAUNCH_CALLS))
-        if n:
-            return n
-    raise AssertionError(f"the profiler recorded no CUDA runtime call in {tries} sessions")
+        events = list(prof.events())
+        calls = [e.name for e in events
+                 if e.name.startswith((*LAUNCH_CALLS, "cudaGraphLaunch"))]
+        device = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)
+        if device:
+            return dict(host_calls=len(calls),
+                        graph_launches=sum(n.startswith("cudaGraphLaunch")
+                                           for n in calls))
+    raise AssertionError(f"the profiler recorded no device operation in {tries} runs")
 
 
 def chains_vs_in_turn(chains, sweeps: int, label: str) -> dict:
@@ -1552,9 +1619,11 @@ def chains_vs_in_turn(chains, sweeps: int, label: str) -> dict:
     same states and generators, in internal noise.  Two rounds in the order
     in turn, batched, batched, in turn, ``sweeps`` sweeps each: every
     chain's z and tables bitwise after each pair; both forms' tokens/s over
-    chain-sweeps; on the card each form's launches per sweep of every chain
-    from one profiled sweep, the batched form's held to one chain's plus
-    C + 1 per block."""
+    chain-sweeps; on the card each form's device operations per sweep of
+    every chain, counted from its graphs' nodes (both forms replay CUDA
+    graphs, so the host's launches no longer tell them apart), the batched
+    form's held to one chain's plus C + 1 per block, and each form's host
+    calls from one profiled sweep."""
     import dataclasses
 
     import torch
@@ -1612,18 +1681,26 @@ def chains_vs_in_turn(chains, sweeps: int, label: str) -> dict:
                in_turn_tokens_per_s=rates["in turn"])
     launches = "launches not counted off the card"
     if on_card:
-        batched_n = count_launches(lambda: chains.sweep(1))
-        turn_n = count_launches(lambda: in_turn(turn, 1))
+        batched = launch_profile(lambda: chains.sweep(1))
+        turned = launch_profile(lambda: in_turn(turn, 1))
+        # both forms replay graphs: the card's operations are their nodes
+        (single,) = run.graphs.values()
+        batched_n = sum(graph_ops(g) for g in chains._graphs.values())
+        turn_n = c_n * graph_ops(single)
         bound = turn_n / c_n + (c_n + 1) * blocks
-        out.update(batched_launches_per_sweep=batched_n,
-                   in_turn_launches_per_sweep=turn_n, launch_bound=bound)
+        out.update(batched_device_ops_per_sweep=batched_n,
+                   in_turn_device_ops_per_sweep=turn_n, launch_bound=bound,
+                   batched_host_calls_per_sweep=batched["host_calls"],
+                   in_turn_host_calls_per_sweep=turned["host_calls"])
         if batched_n > bound:
             raise AssertionError(
-                f"[{label}] {batched_n} launches per batched sweep of {c_n} chains "
-                f"> one chain's {turn_n / c_n:.0f} + {c_n + 1} per block x {blocks}")
-        launches = (f"launches per sweep of {c_n} chains: batched {batched_n:,}, in "
-                    f"turn {turn_n:,} (bound {bound:,.0f}: one chain's + "
-                    f"{c_n + 1} x {blocks} blocks)")
+                f"[{label}] {batched_n} device operations per batched sweep of "
+                f"{c_n} chains > one chain's {turn_n / c_n:.0f} + {c_n + 1} per "
+                f"block x {blocks}")
+        launches = (f"device operations per sweep of {c_n} chains: batched "
+                    f"{batched_n:,}, in turn {turn_n:,} (bound {bound:,.0f}: one "
+                    f"chain's + {c_n + 1} x {blocks} blocks); host calls batched "
+                    f"{batched['host_calls']}, in turn {turned['host_calls']}")
     log(f"[{label} vs in turn] {c_n} chains x {sweeps} sweeps, twice each "
         f"(in turn, batched, batched, in turn): z, ndk, nwk, nk bitwise per chain; "
         f"tokens/s over chain-sweeps batched "
@@ -1901,6 +1978,256 @@ def multichain_phases(seed: int, device: str = "cuda",
                   beta=BETA, chains=4, iteration=WIDE_SWEEPS),
         LL_EVERY, WIDE_COMPARE, device)
     return {"rung4": narrow, "wide": wide}
+
+
+# (α, β) of a graph's first call, then of the next: a Minka-like change
+GRAPH_HYPERS = ((ALPHA, BETA), (0.013, 0.71))
+# captured sweeps timed per path (eager: the 3 sweeps of the comparison)
+GRAPH_TIMED = {"xla": 10, "pallas-draw": 100, "multichain": 10, "multichain wide": 3}
+def graph_ops(sweep_graph) -> int:
+    """The card's operations per replay of an ``ops/graphs.SweepGraph``: the
+    graph's nodes (counted when it was captured) and the two fills per
+    generator that PyTorch's replay enqueues to hand it the generator's seed
+    and offset."""
+    return sweep_graph.nodes + 2 * len(sweep_graph.generators)
+
+
+def card_noise(kind: str, shape: tuple, seed: int):
+    """``noise(i, c=0)``: sweep ``i``'s (chain ``c``'s) external noise, made
+    on the card from the seed: uniforms (K3, ``inverse_cdf``) or Gumbel
+    values (the XLA gumbel draw)."""
+    import torch
+
+    def noise(i: int, c: int = 0):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + 1_000 * c + i)
+        u = torch.rand(shape, generator=g, device="cuda").mul_(1 - 2e-7).add_(1e-7)
+        return -torch.log(-torch.log(u)) if kind == "gumbel" else u
+    return noise
+
+
+def _per_sweep(one: dict, five: dict) -> dict:
+    """A profiled call's operations per sweep, less the call's own (copies in
+    and out, the parameters): a call of 5 sweeps against a call of 1."""
+    return {k: (five[k] - one[k]) / 4 for k in one}
+
+
+def _graph_report(label: str, graph, eager_s: float, timed: tuple,
+                  tokens_per_sweep: int, eager_prof: dict, captured: dict,
+                  smi: str) -> dict:
+    import torch
+
+    n_timed, timed_s = timed
+    rates = dict(eager_tokens_per_s=3 * tokens_per_sweep / eager_s,
+                 captured_tokens_per_s=n_timed * tokens_per_sweep / timed_s)
+    captured = dict(captured, device_ops=graph_ops(graph))
+    eager_prof = dict(eager_prof, device_ops=eager_prof["host_calls"])
+    out = dict(**rates, eager_ms_per_sweep=eager_s / 3 * 1e3,
+               captured_ms_per_sweep=timed_s / n_timed * 1e3,
+               setup_s=graph.setup_s, capture_s=graph.capture_s,
+               graph_nodes=graph.nodes, captured_per_sweep=captured,
+               eager_per_sweep=eager_prof,
+               peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    if captured["graph_launches"] != 1:
+        raise AssertionError(f"[graphs {label}] {captured['graph_launches']} graph "
+                             "launches per sweep, not one")
+    log(f"[graphs {label}] captured against eager bitwise (z, ndk, nwk, nk) in "
+        f"internal and external noise across an alpha/beta change "
+        f"{GRAPH_HYPERS[0]} -> {GRAPH_HYPERS[1]}; tokens/s eager "
+        f"{rates['eager_tokens_per_s']:,.0f} ({out['eager_ms_per_sweep']:.2f} ms a "
+        f"sweep), captured {rates['captured_tokens_per_s']:,.0f} "
+        f"({out['captured_ms_per_sweep']:.2f} ms, {n_timed} sweeps in one call); per "
+        f"sweep: host calls eager {eager_prof['host_calls']:,}, captured "
+        f"{captured['host_calls']:g} ({captured['graph_launches']:g} graph launch); "
+        f"device operations eager {eager_prof['device_ops']:,} (one per host call), "
+        f"captured {captured['device_ops']:,} (the graph's {graph.nodes:,} nodes and the "
+        f"generators' fills); set-up (the first call before its first replay: "
+        f"copies, warm-up sweep, capture, instantiation) {graph.setup_s:.4f}s, of "
+        f"it capture and instantiation {graph.capture_s:.4f}s; peak "
+        f"device memory {out['peak_allocated_gb']:.3f} GB allocated, "
+        f"{out['peak_reserved_gb']:.3f} GB reserved (the graph pools included); {smi}")
+    return out
+
+
+def _assert_tables(label: str, got, want) -> None:
+    import torch
+
+    for name, g, w in zip(("z", "ndk", "nwk", "nk"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"[graphs {label}] captured {name} differs from eager")
+
+
+def graph_single_path(corpus, seed: int, use_pallas: bool, smi: str) -> tuple[dict, dict]:
+    """``[graphs xla]`` / ``[graphs pallas-draw]``: ``make_sweep_fn``'s run
+    (one replay a sweep) on ``make_backend``'s layout and state against the
+    eager ``gibbs_sweep``, in internal and external noise; returns the report
+    and the kernel launches of the captured runs."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch import make_backend
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.ops.gibbs import gibbs_sweep, make_sweep_fn, sweep_seed
+
+    dev = torch.device("cuda")
+    label = TIER_NAMES[use_pallas]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_backend(LdaConfig(alpha=ALPHA, beta=BETA, topic_num=K,
+                                   block_size=BLOCK, seed=seed, use_pallas=use_pallas),
+                         corpus, device=dev)
+    pc, st0 = model._padded, model.state
+    tw, td, tm = (torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+                  for a in (pc.token_word, pc.token_doc, pc.token_mask))
+    dl = torch.from_numpy(model.doc_lengths.astype(np.int32)).to(dev)
+    (a0, b0), (a1, b1) = GRAPH_HYPERS
+    launches: dict = {}
+    report = None
+    for mode in ("external", "internal"):
+        run = make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask,
+                            model.doc_lengths, alpha=ALPHA, beta=BETA,
+                            block_size=BLOCK, use_pallas=use_pallas, num_topics=K,
+                            noise_mode=mode, device=dev)
+        noise = (card_noise("uniform" if use_pallas else "gumbel",
+                            (pc.num_tokens, K), seed + 11)
+                 if mode == "external" else None)
+        zero_counters()
+        gen = torch.Generator().manual_seed(seed + 3)
+        got = run(st0, a0, b0, n_sweeps=2, generator=gen, noise=noise)
+        got = run(got, a1, b1, n_sweeps=1, generator=gen, noise=noise)
+        torch.cuda.synchronize()
+        for name, n in read_counters()[0].items():
+            launches[name] = launches.get(name, 0) + n
+        gen = torch.Generator().manual_seed(seed + 3)
+
+        def eager(s=st0, hypers=((a0, b0), (a0, b0), (a1, b1))):
+            for a, b in hypers:
+                s = gibbs_sweep(s, tw, td, tm, dl, alpha=a, beta=b, block_size=BLOCK,
+                                use_pallas=use_pallas, noise_mode=mode,
+                                seed=sweep_seed(gen) if mode == "internal" else 0,
+                                noise=None if noise is None else noise(s.sweep))
+            return s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = eager()
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        _assert_tables(f"{label} {mode}", (got.z, got.ndk, got.nwk, got.nk),
+                       (want.z, want.ndk, want.nwk, want.nk))
+        if mode == "external":
+            continue
+        zero_counters()
+        n_timed = GRAPH_TIMED[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(got, n_sweeps=n_timed, generator=gen)
+        torch.cuda.synchronize()
+        timed = (n_timed, time.perf_counter() - t0)
+        for name, n in read_counters()[0].items():
+            launches[name] = launches.get(name, 0) + n
+        run(got, n_sweeps=1, generator=gen)  # both profiled calls copy got in
+        one = launch_profile(lambda: run(got, n_sweeps=1, generator=gen))
+        five = launch_profile(lambda: run(got, n_sweeps=5, generator=gen))
+        eager_prof = launch_profile(lambda: eager(got, ((a0, b0),)))
+        (graph,) = run.graphs.values()
+        report = _graph_report(label, graph, eager_s, timed, corpus.num_tokens,
+                               eager_prof, _per_sweep(one, five), smi)
+    del model
+    return report, {n: c for n, c in launches.items() if c}
+
+
+def graph_chain_path(label: str, corpus, cfg, seed: int, smi: str) -> dict:
+    """``[graphs multichain]`` / ``[graphs multichain wide]``: ``ChainSet``'s
+    batched sweep (one replay a sweep) against the eager
+    ``gibbs_sweep_chains`` from the same stacked state and seeds, in internal
+    and external noise, with the config's alpha and beta changed between
+    calls."""
+    import dataclasses
+
+    import torch
+
+    from ldagibbssampling_tpu_torch.models.chains import ChainSet
+    from ldagibbssampling_tpu_torch.ops.gibbs import gibbs_sweep_chains, sweep_seed
+
+    dev = torch.device("cuda")
+    (a0, b0), (a1, b1) = GRAPH_HYPERS
+    c_n = cfg.chains
+    report = None
+    for mode in ("external", "internal"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cs = ChainSet(cfg, corpus, device=dev, noise_mode=mode)
+        st0 = cs._stacks[dev]
+        tables0 = (st0.z, st0.ndk, st0.nwk, st0.nk)
+        gens = [torch.Generator().set_state(g.get_state()) for g in cs.generators]
+        made = card_noise("gumbel", (cs._padded.num_tokens, cfg.topic_num), seed + 13)
+
+        def noise(c, sweep):
+            return made(sweep, c)
+        ext = noise if mode == "external" else None
+        cs.config = dataclasses.replace(cfg, alpha=a0, beta=b0)
+        cs.sweep(2, noise=ext)
+        cs.config = dataclasses.replace(cfg, alpha=a1, beta=b1)
+        cs.sweep(1, noise=ext)
+        cs.config = cfg
+
+        def eager(tables=tables0, hypers=((a0, b0), (a0, b0), (a1, b1)), sweep=0):
+            for a, b in hypers:
+                tables = gibbs_sweep_chains(
+                    *tables, *cs._tokens[dev], alpha=a, beta=b,
+                    block_size=cs.block_size, noise_mode=mode,
+                    seeds=[sweep_seed(g) for g in gens] if mode == "internal" else (),
+                    noise=(torch.stack([noise(c, sweep) for c in range(c_n)])
+                           if mode == "external" else None))
+                sweep += 1
+            return tables
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = eager()
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        st = cs._stacks[dev]
+        _assert_tables(f"{label} {mode}", (st.z, st.ndk, st.nwk, st.nk), want)
+        if mode == "internal":
+            n_timed = GRAPH_TIMED[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cs.sweep(n_timed)
+            torch.cuda.synchronize()
+            timed = (n_timed, time.perf_counter() - t0)
+            one = launch_profile(lambda: cs.sweep(1))
+            five = launch_profile(lambda: cs.sweep(5))
+            st = cs._stacks[dev]
+            eager_prof = launch_profile(
+                lambda: eager((st.z, st.ndk, st.nwk, st.nk), ((a0, b0),)))
+            report = _graph_report(label, cs._graphs[dev], eager_s, timed,
+                                   corpus.num_tokens * c_n, eager_prof,
+                                   _per_sweep(one, five), smi)
+        del cs, st0, tables0, want, st
+    return report
+
+
+def graphs_phase(seed: int, smi: str, wide_corpus) -> tuple[dict, dict]:
+    """Phase 8c, ``[graphs]``: each captured path against its eager sweep
+    at full width: the XLA tier and the v1-draw tier at bench.py's shape,
+    the chains at rung 4's full size and at K = 500 on bench.py's shape.
+    Returns the reports and the v1-draw path's captured kernel launches."""
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+
+    out = {}
+    out["xla"], _ = graph_single_path(wide_corpus, seed, False, smi)
+    out["pallas-draw"], launches = graph_single_path(wide_corpus, seed, True, smi)
+    rung4, _ = rung_corpus(4, MULTICHAIN_SCALE)
+    out["multichain"] = graph_chain_path(
+        "multichain", rung4,
+        LdaConfig(topic_num=10, seed=seed, block_size=8_192, chains=4), seed, smi)
+    del rung4
+    out["multichain wide"] = graph_chain_path(
+        "multichain wide", wide_corpus,
+        LdaConfig(topic_num=K, seed=seed, block_size=BLOCK, alpha=ALPHA, beta=BETA,
+                  chains=4), seed, smi)
+    return out, launches
 
 
 def cvb0_sweep_ms(model, atomic: bool = False, sweeps: int = 3) -> float:
@@ -3121,6 +3448,8 @@ def main() -> int:
     wall("bench")
     multichain = multichain_phases(args.seed, wide_corpus=corpus)  # 8, 8b.
     wall("multichain")
+    graphs, graph_launches = graphs_phase(args.seed, smi, corpus)  # 8c.
+    wall("graphs")
     backends, gibbs_launches = backends_phase(args.seed)    # 9.
     backends_resume_phase()                                 # 10.
     wall("backends")
@@ -3161,6 +3490,8 @@ def main() -> int:
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
         if kname in gibbs_launches:  # phase 9's Gibbs row (deferred tier)
             by_path["backends gibbs"] = gibbs_launches[kname]
+        if kname in graph_launches:  # phase 8c's captured v1-draw runs
+            by_path["graphs pallas-draw"] = graph_launches[kname]
         for path, counts in (*mesh_launches.items(),  # phases 12, 12c, 13
                              *ingest_launches.items()):
             if kname in counts:
@@ -3188,7 +3519,8 @@ def main() -> int:
         "quality": {key: [{n: r[n] for n in ("sweep", "log_likelihood", "perplexity")}
                           for r in rows_] for key, rows_ in quality.items()},
         "hyper": hyper, "heldout": heldout, "parity": parity,
-        "bench": bench, "multichain": multichain, "backends": backends,
+        "bench": bench, "multichain": multichain, "graphs": graphs,
+        "backends": backends,
         "ladder": ladder, "mesh": mesh, "rung3_full": full, "ingest": ingest}),
         flush=True)
     print(smi, flush=True)

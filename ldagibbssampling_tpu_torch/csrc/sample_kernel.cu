@@ -30,9 +30,9 @@
 // them out of the per-element loop (no --use_fast_math: every logf below is
 // the accurate libdevice one, so the bits are those of the formula above):
 //
-// - log tables in shared memory, built by each CTA from the launch's alpha,
-//   beta, V*beta and nk (a Minka update between sweeps reaches the next
-//   launch; nothing is kept across launches):
+// - log tables in shared memory, built by each CTA from alpha, beta, V*beta
+//   and nk as the launch finds them on the device (a Minka update between
+//   sweeps reaches the next launch; nothing is kept across launches):
 //     L_nk[e][k] = logf((float)nk[k] - e + V*beta), e in {0, 1}: the nk term
 //       takes 2K values in a launch, as nk is the block-start total;
 //     L_beta[j + 1] = logf((float)j + beta), L_alpha[j + 1] = logf((float)j +
@@ -63,6 +63,13 @@
 // Noise modes: 0 deterministic, 1 external (caller uniforms [n, K]), 2
 // internal (Philox4x32-10 keyed by a per-sweep seed, counter (token slot,
 // topic group of 4), philox.cuh).
+//
+// alpha, beta, V*beta and the seed are device values, read through
+// pointers when the kernel starts (thread 0 of each CTA reads them into
+// shared memory before the tables are built): a CUDA graph of a sweep
+// keeps the pointers, and the values written there before each replay
+// reach the draw (the host forms them as float32, as the reference forms
+// its f32 hyperparameters; the arithmetic on them is unchanged).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,12 +102,18 @@ struct SampleArgs {
   const int* doc;
   const float* uniforms;
   int n;
-  float alpha, beta, vbeta;
-  uint32_t key0, key1;
+  const float* scalars;  // alpha, beta, V*beta (device)
+  const unsigned long long* key;  // the Philox key (device; internal mode)
   long long slot0;
   bool nk_table;  // L_nk in shared memory
   bool vec;       // int4 row loads (K % 4 == 0, 16-byte aligned tables)
   bool vec_noise;  // float4 uniform loads (external mode)
+};
+
+// the launch's hyperparameters and key, read from the device at the start
+struct Hyper {
+  float alpha, beta, vbeta;
+  uint32_t key0, key1;
 };
 
 // is (s, k) ahead of (best, best_k) in jnp.argmax's order: NaN first, then
@@ -148,8 +161,8 @@ __device__ __forceinline__ float4 load4f(const float* row, int k0, int k_real,
 // tables (the warp checked); otherwise a count past them takes logf.
 template <int kMode, bool kTable>
 __device__ __forceinline__ void score_group(
-    const SampleArgs& a, const float* s_beta, const float* s_alpha,
-    const float* s_nk, long long i, unsigned long long slot, int zo, int g,
+    const SampleArgs& a, const Hyper& h, const float* s_beta,
+    const float* s_alpha, const float* s_nk, long long i, unsigned long long slot, int zo, int g,
     const int (&cw)[4], const int (&cd)[4], float& best, int& best_k) {
   const int k0 = 4 * g;
   const int k_real = a.k_real;
@@ -163,7 +176,7 @@ __device__ __forceinline__ void score_group(
   }
   float u[4] = {0.5f, 0.5f, 0.5f, 0.5f};
   if (kMode == 2) {
-    const uint4 b = lda::philox_group(slot, g, a.key0, a.key1);
+    const uint4 b = lda::philox_group(slot, g, h.key0, h.key1);
     u[0] = lda::bits_to_uniform(b.x);
     u[1] = lda::bits_to_uniform(b.y);
     u[2] = lda::bits_to_uniform(b.z);
@@ -185,15 +198,15 @@ __device__ __forceinline__ void score_group(
       nk_term = e ? s_nk[a.k4 + k] : lnk[j];
     } else {
       nk_term = logf(static_cast<float>(__ldg(a.nk + k)) -
-                     static_cast<float>(e) + a.vbeta);
+                     static_cast<float>(e) + h.vbeta);
     }
     float lw, ld;
     if (kTable) {
       lw = s_beta[cw[j] - e + 1];
       ld = s_alpha[cd[j] - e + 1];
     } else {
-      lw = log_count(s_beta, cw[j], e, a.beta);
-      ld = log_count(s_alpha, cd[j], e, a.alpha);
+      lw = log_count(s_beta, cw[j], e, h.beta);
+      ld = log_count(s_alpha, cd[j], e, h.alpha);
     }
     float s = (lw + ld) - nk_term;
     if (kMode != 0) s = s + (-logf(-logf(u[j])));
@@ -212,16 +225,31 @@ __global__ void __launch_bounds__(kSampleThreads, kSampleMinBlocks)
   float* s_beta = reinterpret_cast<float*>(s_tab4);
   float* s_alpha = s_beta + kLogTable;
   float* s_nk = s_alpha + kLogTable;
+  // the launch's values, read once per CTA into shared memory
+  __shared__ Hyper s_h;
+  if (threadIdx.x == 0) {
+    s_h.alpha = __ldg(a.scalars);
+    s_h.beta = __ldg(a.scalars + 1);
+    s_h.vbeta = __ldg(a.scalars + 2);
+    s_h.key0 = s_h.key1 = 0;
+    if (kMode == 2) {
+      const unsigned long long key = __ldg(a.key);
+      s_h.key0 = static_cast<uint32_t>(key);
+      s_h.key1 = static_cast<uint32_t>(key >> 32);
+    }
+  }
+  __syncthreads();
+  const Hyper& h = s_h;
   for (int t = threadIdx.x; t < kLogTable; t += blockDim.x) {
     const float j = static_cast<float>(t - 1);
-    s_beta[t] = logf(j + a.beta);
-    s_alpha[t] = logf(j + a.alpha);
+    s_beta[t] = logf(j + h.beta);
+    s_alpha[t] = logf(j + h.alpha);
   }
   if (a.nk_table) {
     for (int k = threadIdx.x; k < a.k4; k += blockDim.x) {
       const float c = k < a.k_real ? static_cast<float>(__ldg(a.nk + k)) : 0.0f;
-      s_nk[k] = logf(c - 0.0f + a.vbeta);
-      s_nk[a.k4 + k] = logf(c - 1.0f + a.vbeta);
+      s_nk[k] = logf(c - 0.0f + h.vbeta);
+      s_nk[a.k4 + k] = logf(c - 1.0f + h.vbeta);
     }
   }
   __syncthreads();
@@ -275,11 +303,11 @@ __global__ void __launch_bounds__(kSampleThreads, kSampleMinBlocks)
       const bool all_inside = __all_sync(0xffffffffu, inside || !valid);
       if (valid) {
         if (all_inside) {
-          score_group<kMode, true>(a, s_beta, s_alpha, s_nk, i, slot, z_tok, g,
-                                   cw, cd, best, best_k);
+          score_group<kMode, true>(a, h, s_beta, s_alpha, s_nk, i, slot,
+                                   z_tok, g, cw, cd, best, best_k);
         } else {
-          score_group<kMode, false>(a, s_beta, s_alpha, s_nk, i, slot, z_tok, g,
-                                    cw, cd, best, best_k);
+          score_group<kMode, false>(a, h, s_beta, s_alpha, s_nk, i, slot,
+                                    z_tok, g, cw, cd, best, best_k);
         }
       }
     }
@@ -369,17 +397,19 @@ extern "C" int lda_block_sample_config(int noise_mode, int k_real,
 // of grid CTAs with smem bytes of tables (nk_table 1: L_nk among them), as
 // lda_block_sample_config gave them on this device for this noise_mode,
 // k_real and n_tokens (it also lets the kernel take that much shared
-// memory); returns the launch's CUDA error.
+// memory); scalars points to float32 alpha, beta, V*beta and key to the
+// uint64 Philox key (internal mode only), both on the device and read when
+// the kernel starts; returns the launch's CUDA error.
 extern "C" int lda_block_sample(const void* nwk, const void* ndk,
                                 const void* nk, int k_real, const void* z_old,
                                 void* z_new, const void* word, const void* doc,
                                 const void* uniforms, long long n_tokens,
-                                float alpha, float beta, float vbeta,
-                                int noise_mode, unsigned long long seed,
-                                long long slot0, int grid, int smem,
-                                int nk_table, void* stream) {
+                                const void* scalars, const void* key,
+                                int noise_mode, long long slot0, int grid,
+                                int smem, int nk_table, void* stream) {
   if (noise_mode < 0 || noise_mode > 2 || k_real <= 0 ||
-      n_tokens >= (1LL << 31))
+      n_tokens >= (1LL << 31) || scalars == nullptr ||
+      (noise_mode == 2 && key == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tokens <= 0) return static_cast<int>(cudaGetLastError());
   if (grid <= 0 || smem <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -396,11 +426,8 @@ extern "C" int lda_block_sample(const void* nwk, const void* ndk,
   a.doc = static_cast<const int*>(doc);
   a.uniforms = static_cast<const float*>(uniforms);
   a.n = static_cast<int>(n_tokens);
-  a.alpha = alpha;
-  a.beta = beta;
-  a.vbeta = vbeta;
-  a.key0 = static_cast<uint32_t>(seed);
-  a.key1 = static_cast<uint32_t>(seed >> 32);
+  a.scalars = static_cast<const float*>(scalars);
+  a.key = static_cast<const unsigned long long*>(key);
   a.slot0 = slot0;
   a.vec = k_real % 4 == 0 && aligned16(nwk) && aligned16(ndk);
   a.vec_noise = k_real % 4 == 0 && aligned16(uniforms);

@@ -9,7 +9,11 @@ are one stacked state (``models/state.stack_states``: a leading chain axis
 on every table, the token arrays shared) advanced in lockstep: each sweep
 is one ``ops/gibbs.gibbs_sweep_chains`` per device, every op of a block
 run once for all its chains, and chain ``c`` is bitwise the single-chain
-XLA sweep of chain ``c``.  ``states`` gives each chain's views.
+XLA sweep of chain ``c``.  As the reference's ``jit(fori_loop(vmap(...)))``
+makes a batch of sweeps one dispatch, a device's batched sweep is one CUDA
+graph (``ops/gibbs.xla_sweep_graph``), replayed once per sweep; on the CPU
+it runs eagerly.  ``states`` gives each chain's views of a state that no
+later sweep modifies (each call makes new tensors).
 
 ``sweep(n)`` without recording enqueues the ``n`` sweeps of every chain
 and makes no host sync.  With ``record_ll`` each sweep adds the per-chain
@@ -46,7 +50,7 @@ from ldagibbssampling_tpu_torch.evaluation.diagnostics import r_hat
 from ldagibbssampling_tpu_torch.models import state as state_lib
 from ldagibbssampling_tpu_torch.models.state import SamplerState
 from ldagibbssampling_tpu_torch.ops.fused_kernel import NOISE_MODES
-from ldagibbssampling_tpu_torch.ops.gibbs import gibbs_sweep_chains, sweep_seed
+from ldagibbssampling_tpu_torch.ops.gibbs import sweep_seed, xla_sweep_graph
 
 
 def ll_sum(phi: torch.Tensor, theta: torch.Tensor, tw: torch.Tensor,
@@ -144,6 +148,7 @@ class ChainSet:
                            for s in states]
         self._stacks = {dev: state_lib.stack_states([states[c] for c in ids], dev)
                         for dev, ids in self._batches.items()}
+        self._graphs: dict = {}  # the batched sweep of each device's chains
         # the sweep's token arrays (padded) and the real tokens for the LL
         # (the padded tail is masked off), once per device
         t = corpus.num_tokens
@@ -174,34 +179,44 @@ class ChainSet:
         return out
 
     def _advance(self, n: int, noise: Optional[Callable]) -> None:
+        """``n`` sweeps of every chain: per device, ``n`` replays of its
+        batched sweep's graph (``ops/gibbs.xla_sweep_graph``; eager on the
+        CPU) from its stacked state, which it replaces by new tensors (a
+        state or view handed out earlier keeps its values)."""
+        if n <= 0:
+            return
         cfg = self.config
-        for _ in range(n):
-            for dev, ids in self._batches.items():
-                st = self._stacks[dev]
-                seeds, u = (), None
-                if self.noise_mode == "internal":
-                    seeds = [sweep_seed(self.generators[c]) for c in ids]
-                elif self.noise_mode == "external":
-                    if noise is None:
-                        raise ValueError("external noise needs noise(chain, sweep)")
-                    u = torch.stack([torch.as_tensor(noise(c, st.sweep))
-                                     for c in ids]).to(dev)
-                try:
-                    z, ndk, nwk, nk = gibbs_sweep_chains(
-                        st.z, st.ndk, st.nwk, st.nk, *self._tokens[dev],
-                        alpha=cfg.alpha, beta=cfg.beta, block_size=self.block_size,
-                        draw_method=cfg.draw_method, noise_mode=self.noise_mode,
-                        seeds=seeds, noise=u)
-                except torch.cuda.OutOfMemoryError as e:
-                    shape = (len(ids), self.block_size, cfg.topic_num)
-                    raise torch.cuda.OutOfMemoryError(
-                        f"the batched sweep of {len(ids)} chains on {dev} does "
-                        f"not fit: its [C, B, K] = {list(shape)} working tensors "
-                        f"take {np.prod(shape) * 4 / 2**30:.2f} GiB each in "
-                        f"float32 beside the stacked tables; use fewer chains "
-                        f"per device or a smaller block_size ({e})") from e
-                self._stacks[dev] = SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk,
-                                                 sweep=st.sweep + 1, seed=st.seed)
+        for dev, ids in self._batches.items():
+            st = self._stacks[dev]
+            tables = (st.z, st.ndk, st.nwk, st.nk)
+            seeds, u = None, None
+            if self.noise_mode == "internal":
+                seeds = [tuple(sweep_seed(self.generators[c]) for c in ids)
+                         for _ in range(n)]
+            elif self.noise_mode == "external":
+                if noise is None:
+                    raise ValueError("external noise needs noise(chain, sweep)")
+
+                def u(i, ids=ids, sweep=st.sweep, dev=dev):
+                    return torch.stack([torch.as_tensor(noise(c, sweep + i))
+                                        for c in ids]).to(dev)
+            try:
+                if dev not in self._graphs:
+                    self._graphs[dev] = xla_sweep_graph(
+                        tables, *self._tokens[dev], block_size=self.block_size,
+                        draw_method=cfg.draw_method, noise_mode=self.noise_mode)
+                z, ndk, nwk, nk = self._graphs[dev](tables, cfg.alpha, cfg.beta,
+                                                    n, seeds=seeds, noise=u)
+            except torch.cuda.OutOfMemoryError as e:
+                shape = (len(ids), self.block_size, cfg.topic_num)
+                raise torch.cuda.OutOfMemoryError(
+                    f"the batched sweep of {len(ids)} chains on {dev} does "
+                    f"not fit: its [C, B, K] = {list(shape)} working tensors "
+                    f"take {np.prod(shape) * 4 / 2**30:.2f} GiB each in "
+                    f"float32 beside the stacked tables; use fewer chains "
+                    f"per device or a smaller block_size ({e})") from e
+            self._stacks[dev] = SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk,
+                                             sweep=st.sweep + n, seed=st.seed)
 
     def sweep(
         self, n: int = 1, record_ll: bool = False, record_phi: bool = False,

@@ -40,8 +40,11 @@ import os
 import numpy as np
 import torch
 
+from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
+
 LAUNCHES = {"rebuild_counts": 0, "cast_mirror": 0}
 PLAIN_CALLS = {"rebuild_counts": 0, "cast_mirror": 0}
+LAUNCH_COUNTERS[__name__] = LAUNCHES
 # grid cap of the grid-stride kernels: 16 blocks of 256 threads per SM of an H100
 _MAX_BLOCKS = 132 * 16
 # rebuild_counts keeps a k_pad-wide int32 histogram in (static-limit) shared memory

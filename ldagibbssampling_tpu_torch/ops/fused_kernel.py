@@ -70,6 +70,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
+
 NOISE_MODES = ("deterministic", "external", "internal")
 CHAINS = ("float32", "bfloat16", "bf16p")
 _CHAIN_SUFFIX = {"float32": "", "bfloat16": "_bf16", "bf16p": "_bf16p"}
@@ -90,6 +92,7 @@ LAUNCHES = {
        for r in (torch.bfloat16, torch.float32)},
     sample_name(torch.int32): 0, "gibbs_tile_update": 0, "count_move": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+LAUNCH_COUNTERS[__name__] = LAUNCHES
 
 _MASK32 = 0xFFFFFFFF
 

@@ -35,8 +35,14 @@ Counts live as int32 on the caller's device and are updated in place on a
 copy of the input state (the input state is not modified).  The reference
 walks blocks, and inside each block its tiles, carrying ``nk`` across blocks
 and writing each block's doc slab back; here ``ndk`` is indexed by document,
-so the walk over tiles in order IS the walk over blocks in order.  The TPU's
-single-dispatch ``fori_loop`` over sweeps becomes a Python loop.
+so the walk over tiles in order IS the walk over blocks in order.
+
+The reference's single-dispatch ``fori_loop`` over sweeps: in the XLA and
+v1-draw tiers ``run`` replays one captured CUDA graph per sweep
+(``xla_sweep_graph``, ``draw_sweep_graph``; ``ops/graphs.SweepGraph``, α,
+β and the seeds as device values); on the CPU the same sweep body runs
+eagerly.  The fused and deferred tiers loop over sweeps in Python.
+``gibbs_sweep`` and ``gibbs_sweep_chains`` are the eager sweeps.
 
 Noise modes: ``internal`` (each sweep draws one seed from the caller's
 ``torch.Generator``: the kernels key Philox4x32-10 with it, the XLA draws
@@ -56,10 +62,13 @@ import torch
 import torch.nn.functional as F
 
 from ldagibbssampling_tpu_torch.models.state import SamplerState
+from ldagibbssampling_tpu_torch.ops._device import (
+    device_values, seed_word, sweep_scalars)
 from ldagibbssampling_tpu_torch.ops.count_kernel import (
     build_nwk, cast_mirror, rebuild_counts)
 from ldagibbssampling_tpu_torch.ops.fused_kernel import (
     CHAINS, NOISE_MODES, count_move, gibbs_tiles)
+from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
 from ldagibbssampling_tpu_torch.ops.sample_kernel import sample_block
 
 _log = logging.getLogger("ldagibbssampling_tpu_torch")
@@ -241,7 +250,7 @@ def sweep_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**63 - 1, (), generator=generator))
 
 
-def gibbs_sweep_chains(
+def _xla_sweep_(
     z: torch.Tensor,
     ndk: torch.Tensor,
     nwk: torch.Tensor,
@@ -249,71 +258,29 @@ def gibbs_sweep_chains(
     token_word: torch.Tensor,
     token_doc: torch.Tensor,
     token_mask: torch.Tensor,
-    doc_lengths: Optional[torch.Tensor] = None,
+    doc_lengths: Optional[torch.Tensor],
     *,
-    alpha: float,
-    beta: float,
+    scalars: torch.Tensor,
     block_size: int,
-    draw_method: str = "gumbel",
-    prob_dtype: torch.dtype = torch.float32,
-    vocab_size: Optional[int] = None,
-    noise_mode: str = "internal",
-    seeds: Sequence[int] = (),
-    noise: Optional[torch.Tensor] = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One XLA-tier sweep of ``C`` chains in lockstep, the counterpart of
-    the reference's ``jax.vmap(gibbs_sweep)`` (``models/chains.py:71-88``);
-    returns the new ``(z, ndk, nwk, nk)`` (the inputs are not modified).
-
-    ``z [C, T_pad]``, ``ndk [C, M, K]``, ``nwk [C, V, K]`` and ``nk [C, K]``
-    are the chains' stacked tables; the token arrays (``[T_pad]``, padded
-    to a multiple of ``block_size``) and ``doc_lengths`` (``[M]``, for
-    ``inverse_cdf``) are shared, never repeated per chain.  Per block each
-    op runs once for every chain: the gathers index ``[C, B]`` rows, the
-    draw scores ``[C, B, K]``, the scatter adds into each chain's flat
-    table.  Chain ``c`` is bitwise the single-chain sweep of chain ``c``
-    (``gibbs_sweep`` is the ``C = 1`` case): the scalars are formed as
-    there, every op is elementwise or works row by row (``inverse_cdf``'s
-    prefix sum runs over a ``[C·B, K]`` view, each row as in the ``[B, K]``
-    case), and the noise is per chain.  ``internal`` noise: chain ``c``'s
-    sweep seed is ``seeds[c]``, which seeds its own generator on the
-    tensors' device; each block draws its ``torch.rand`` per chain, in the
-    single-chain order, and the draws are stacked.  ``external`` noise is
-    the chains' stacked arrays: ``[C, T_pad, K]`` Gumbel values (gumbel)
-    or ``[C, T_pad]`` uniforms (``inverse_cdf``).  ``vocab_size``
-    overrides the V of ``V·β``.
-    """
-    t_pad = token_word.shape[0]
-    _check_sweep_args(draw_method, noise_mode, noise, t_pad, block_size)
+    draw_method: str,
+    prob_dtype: torch.dtype,
+    noise_mode: str,
+    generators: Sequence[torch.Generator],
+    noise: Optional[torch.Tensor],
+) -> None:
+    """One XLA-tier sweep of ``C`` stacked chains, in place on ``z``,
+    ``ndk``, ``nwk`` and ``nk``: the body of ``gibbs_sweep_chains`` and of
+    its CUDA graph (``xla_sweep_graph``).  ``scalars`` is float32 α, β, V·β
+    and K·α (``_device.sweep_scalars``): a host tensor (read as scalars, no
+    host sync) or one on the tables' device (a graph replays with the values
+    it holds then; an add of a 0-d device tensor gives the bits of the add
+    of the host scalar, and the sweep divides by no scalar).  Internal
+    noise draws from ``generators[c]`` for chain ``c``."""
     num_chains, v_rows, k = nwk.shape
-    if z.shape != (num_chains, t_pad) or nk.shape != (num_chains, k) or (
-            ndk.shape[0], ndk.shape[2]) != (num_chains, k):
-        raise ValueError(
-            f"stacked tables z {tuple(z.shape)}, ndk {tuple(ndk.shape)}, nwk "
-            f"{tuple(nwk.shape)}, nk {tuple(nk.shape)} do not share [C, ..., K] "
-            f"with {t_pad} tokens")
+    t_pad = token_word.shape[0]
     dev = z.device
-    v = v_rows if vocab_size is None else int(vocab_size)
-    z, ndk, nwk, nk = z.clone(), ndk.clone(), nwk.clone(), nk.clone()
-    alpha32, beta32 = np.float32(alpha), np.float32(beta)
-    vbeta32 = np.float32(v) * beta32
-    kalpha32 = np.float32(k) * alpha32
-    gens = []
-    if noise_mode == "internal":
-        if len(seeds) != num_chains:
-            raise ValueError(f"{len(seeds)} sweep seeds for {num_chains} chains")
-        gens = [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
-
-    def scalar(x):
-        # a 0-d host tensor: a CUDA op reads it as a scalar, where a device
-        # tensor made from a host value would cost a blocking copy
-        return torch.tensor(float(x), dtype=prob_dtype)
-
-    alpha_c, beta_c, vbeta_c, kalpha_c = map(
-        scalar, (alpha32, beta32, vbeta32, kalpha32))
+    alpha_c, beta_c, vbeta_c, kalpha_c = scalars.to(prob_dtype).unbind()
     if draw_method == "inverse_cdf":
-        if doc_lengths is None:
-            raise ValueError("inverse_cdf needs doc_lengths")
         dl = doc_lengths.to(device=dev, dtype=prob_dtype)
     topics = torch.arange(k, device=dev)
     chain = torch.arange(num_chains, device=dev)[:, None]
@@ -330,7 +297,7 @@ def gibbs_sweep_chains(
     def draws(shape):
         # one draw per chain from its own generator, stacked
         us = [torch.rand(shape, generator=g, dtype=prob_dtype, device=dev)
-              for g in gens]
+              for g in generators]
         return us[0][None] if num_chains == 1 else torch.stack(us)
 
     for s in range(0, t_pad, block_size):
@@ -365,7 +332,102 @@ def gibbs_sweep_chains(
         znew = torch.where(real[sl], znew, zold)
         _scatter_counts(ndk, nwk, nk, dk[sl], wk[sl], one[sl], zold, znew)
         z[:, sl] = znew
+
+
+def gibbs_sweep_chains(
+    z: torch.Tensor,
+    ndk: torch.Tensor,
+    nwk: torch.Tensor,
+    nk: torch.Tensor,
+    token_word: torch.Tensor,
+    token_doc: torch.Tensor,
+    token_mask: torch.Tensor,
+    doc_lengths: Optional[torch.Tensor] = None,
+    *,
+    alpha: float,
+    beta: float,
+    block_size: int,
+    draw_method: str = "gumbel",
+    prob_dtype: torch.dtype = torch.float32,
+    vocab_size: Optional[int] = None,
+    noise_mode: str = "internal",
+    seeds: Sequence[int] = (),
+    noise: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One XLA-tier sweep of ``C`` chains in lockstep, the counterpart of
+    the reference's ``jax.vmap(gibbs_sweep)`` (``models/chains.py:71-88``),
+    run eagerly; returns the new ``(z, ndk, nwk, nk)`` (the inputs are not
+    modified).  ``xla_sweep_graph`` replays the same sweep as a CUDA graph.
+
+    ``z [C, T_pad]``, ``ndk [C, M, K]``, ``nwk [C, V, K]`` and ``nk [C, K]``
+    are the chains' stacked tables; the token arrays (``[T_pad]``, padded
+    to a multiple of ``block_size``) and ``doc_lengths`` (``[M]``, for
+    ``inverse_cdf``) are shared, never repeated per chain.  Per block each
+    op runs once for every chain: the gathers index ``[C, B]`` rows, the
+    draw scores ``[C, B, K]``, the scatter adds into each chain's flat
+    table.  Chain ``c`` is bitwise the single-chain sweep of chain ``c``
+    (``gibbs_sweep`` is the ``C = 1`` case): the scalars are formed as
+    there, every op is elementwise or works row by row (``inverse_cdf``'s
+    prefix sum runs over a ``[C·B, K]`` view, each row as in the ``[B, K]``
+    case), and the noise is per chain.  ``internal`` noise: chain ``c``'s
+    sweep seed is ``seeds[c]``, which seeds its own generator on the
+    tensors' device; each block draws its ``torch.rand`` per chain, in the
+    single-chain order, and the draws are stacked.  ``external`` noise is
+    the chains' stacked arrays: ``[C, T_pad, K]`` Gumbel values (gumbel)
+    or ``[C, T_pad]`` uniforms (``inverse_cdf``).  ``vocab_size``
+    overrides the V of ``V·β``.
+    """
+    t_pad = token_word.shape[0]
+    _check_sweep_args(draw_method, noise_mode, noise, t_pad, block_size)
+    num_chains, v_rows, k = nwk.shape
+    _check_stacked(z, ndk, nwk, nk, t_pad)
+    dev = z.device
+    v = v_rows if vocab_size is None else int(vocab_size)
+    gens = []
+    if noise_mode == "internal":
+        if len(seeds) != num_chains:
+            raise ValueError(f"{len(seeds)} sweep seeds for {num_chains} chains")
+        gens = [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
+    if draw_method == "inverse_cdf" and doc_lengths is None:
+        raise ValueError("inverse_cdf needs doc_lengths")
+    z, ndk, nwk, nk = z.clone(), ndk.clone(), nwk.clone(), nk.clone()
+    _xla_sweep_(z, ndk, nwk, nk, token_word, token_doc, token_mask, doc_lengths,
+                scalars=torch.from_numpy(sweep_scalars(alpha, beta, v, k)),
+                block_size=block_size, draw_method=draw_method,
+                prob_dtype=prob_dtype, noise_mode=noise_mode, generators=gens,
+                noise=noise)
     return z, ndk, nwk, nk
+
+
+def _check_stacked(z, ndk, nwk, nk, t_pad: int) -> None:
+    num_chains, _, k = nwk.shape
+    if z.shape != (num_chains, t_pad) or nk.shape != (num_chains, k) or (
+            ndk.shape[0], ndk.shape[2]) != (num_chains, k):
+        raise ValueError(
+            f"stacked tables z {tuple(z.shape)}, ndk {tuple(ndk.shape)}, nwk "
+            f"{tuple(nwk.shape)}, nk {tuple(nk.shape)} do not share [C, ..., K] "
+            f"with {t_pad} tokens")
+
+
+def _draw_sweep_(z, ndk, nwk, nk, token_word, token_doc, token_mask, *,
+                 scalars: torch.Tensor, key: Optional[torch.Tensor],
+                 block_size: int, noise_mode: str,
+                 noise: Optional[torch.Tensor]) -> None:
+    """One v1-draw sweep in place: per block K3 draws against the
+    block-start counts (``scalars``: α, β, V·β on the tables' device;
+    ``key``: the internal seed there), then one count-move launch moves the
+    three tables and writes the block's ``z``."""
+    for s in range(0, token_word.shape[0], block_size):
+        sl = slice(s, s + block_size)
+        w, d, msk, zold = token_word[sl], token_doc[sl], token_mask[sl], z[sl]
+        znew = sample_block(
+            nwk, ndk, nk, zold, w, d, scalars=scalars, noise_mode=noise_mode,
+            key=key, uniforms=noise[sl] if noise_mode == "external" else None,
+            slot0=s)
+        # one launch moves the three tables and writes z[sl] (zold's
+        # memory): mask ? znew : zold
+        count_move(zold, znew, msk, nwk=nwk, token_word=w, ndk=ndk,
+                   token_doc=d, nk=nk, z_out=zold)
 
 
 def gibbs_sweep(
@@ -388,7 +450,7 @@ def gibbs_sweep(
 ) -> SamplerState:
     """One sweep of the XLA tier (``use_pallas=False``: ``gibbs_sweep_chains``
     with one chain) or the v1-draw tier (``use_pallas=True``: K3 draws the
-    gumbel blocks); returns the new state.
+    gumbel blocks), run eagerly; returns the new state.
 
     ``token_*`` are padded to a multiple of ``block_size``; ``doc_lengths``
     (``[M]``) is needed by ``inverse_cdf``.  External ``noise`` is the
@@ -409,22 +471,65 @@ def gibbs_sweep(
                             sweep=state.sweep + 1, seed=state.seed)
     t_pad = token_word.shape[0]
     _check_sweep_args(draw_method, noise_mode, noise, t_pad, block_size)
-    v = state.nwk.shape[0] if vocab_size is None else int(vocab_size)
-    vbeta = float(np.float32(v) * np.float32(beta))
+    v, k = state.nwk.shape
+    v = v if vocab_size is None else int(vocab_size)
+    dev = state.z.device
     z, ndk, nwk, nk = _clone(state)
-    for s in range(0, t_pad, block_size):
-        sl = slice(s, s + block_size)
-        w, d, msk, zold = token_word[sl], token_doc[sl], token_mask[sl], z[sl]
-        znew = sample_block(
-            nwk, ndk, nk, zold, w, d, alpha=_f32(alpha), beta=_f32(beta),
-            vbeta=vbeta, noise_mode=noise_mode, seed=seed,
-            uniforms=noise[sl] if noise_mode == "external" else None, slot0=s)
-        # one launch moves the three tables and writes z[sl] (zold's
-        # memory): mask ? znew : zold
-        count_move(zold, znew, msk, nwk=nwk, token_word=w, ndk=ndk,
-                   token_doc=d, nk=nk, z_out=zold)
+    _draw_sweep_(z, ndk, nwk, nk, token_word, token_doc, token_mask,
+                 scalars=device_values(sweep_scalars(alpha, beta, v, k), dev),
+                 key=device_values(np.array([seed_word(seed)], np.int64), dev),
+                 block_size=block_size, noise_mode=noise_mode, noise=noise)
     return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk, sweep=state.sweep + 1,
                         seed=state.seed)
+
+
+def xla_sweep_graph(tables: Sequence[torch.Tensor], token_word: torch.Tensor,
+                    token_doc: torch.Tensor, token_mask: torch.Tensor,
+                    doc_lengths: Optional[torch.Tensor] = None, *,
+                    block_size: int, draw_method: str = "gumbel",
+                    noise_mode: str = "internal",
+                    vocab_size: Optional[int] = None) -> SweepGraph:
+    """``gibbs_sweep_chains`` (float32) as a :class:`graphs.SweepGraph` over
+    stacked tables shaped like ``tables`` (``z, ndk, nwk, nk``, each with a
+    leading chain axis): one generator per chain, reseeded with its sweep
+    seed before each replay; external noise stacked per chain."""
+    z, ndk, nwk, nk = tables
+    t_pad = token_word.shape[0]
+    _check_sweep_args(draw_method, noise_mode, 0, t_pad, block_size)
+    _check_stacked(z, ndk, nwk, nk, t_pad)
+    if draw_method == "inverse_cdf" and doc_lengths is None:
+        raise ValueError("inverse_cdf needs doc_lengths")
+    num_chains, v_rows, k = nwk.shape
+
+    def body(bufs, scalars, key, generators, noise):
+        _xla_sweep_(*bufs, token_word, token_doc, token_mask, doc_lengths,
+                    scalars=scalars, block_size=block_size,
+                    draw_method=draw_method, prob_dtype=torch.float32,
+                    noise_mode=noise_mode, generators=generators, noise=noise)
+
+    return SweepGraph(body, tables, noise_mode=noise_mode,
+                      vocab_size=v_rows if vocab_size is None else int(vocab_size),
+                      num_topics=k, num_generators=num_chains)
+
+
+def draw_sweep_graph(tables: Sequence[torch.Tensor], token_word: torch.Tensor,
+                     token_doc: torch.Tensor, token_mask: torch.Tensor, *,
+                     block_size: int, noise_mode: str = "internal",
+                     vocab_size: Optional[int] = None) -> SweepGraph:
+    """The v1-draw sweep (K3 and the count move per block) as a
+    :class:`graphs.SweepGraph` over one chain's ``z, ndk, nwk, nk``; K3
+    reads α, β, V·β and the sweep's seed from the graph's ``params``."""
+    _check_sweep_args("gumbel", noise_mode, 0, token_word.shape[0], block_size)
+    v_rows, k = tables[2].shape
+
+    def body(bufs, scalars, key, generators, noise):
+        _draw_sweep_(*bufs, token_word, token_doc, token_mask, scalars=scalars,
+                     key=key, block_size=block_size, noise_mode=noise_mode,
+                     noise=noise)
+
+    return SweepGraph(body, tables, noise_mode=noise_mode,
+                      vocab_size=v_rows if vocab_size is None else int(vocab_size),
+                      num_topics=k, device_seeds=True)
 
 
 def fused_gibbs_sweep(
@@ -642,24 +747,57 @@ def make_sweep_fn(
         raise ValueError("inverse_cdf needs doc_lengths")
     dl = None if doc_lengths is None else dev(doc_lengths)
 
+    graphs: dict = {}  # one SweepGraph per table shapes (the XLA and v1-draw tiers)
+    draw_graph = tier is True and draw_method == "gumbel"
+
+    def captured(state: SamplerState, alpha, beta, n, generator, noise):
+        """``n`` sweeps of the XLA or v1-draw tier, one replay each."""
+        if noise_mode == "internal" and generator is None:
+            raise ValueError("internal noise needs a torch.Generator")
+        if noise_mode == "external" and noise is None:
+            raise ValueError("external noise needs noise(sweep)")
+        tables = (state.z, state.ndk, state.nwk, state.nk)
+        if not draw_graph:  # the XLA tier's chain axis
+            tables = tuple(t[None] for t in tables)
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in tables)
+        if key not in graphs:
+            if draw_graph:
+                graphs[key] = draw_sweep_graph(tables, tw, td, tm,
+                                               block_size=block_size,
+                                               noise_mode=noise_mode)
+            else:
+                graphs[key] = xla_sweep_graph(tables, tw, td, tm, dl,
+                                              block_size=block_size,
+                                              draw_method=draw_method,
+                                              noise_mode=noise_mode)
+        seeds = None
+        if noise_mode == "internal":
+            seeds = [(sweep_seed(generator),) for _ in range(n)]
+        u = None
+        if noise_mode == "external":
+            def u(i):
+                arr = noise(state.sweep + i)
+                return arr if draw_graph else arr[None]
+        out = graphs[key](tables, alpha, beta, n, seeds=seeds, noise=u)
+        if not draw_graph:
+            out = tuple(t[0] for t in out)
+        return SamplerState(*out, sweep=state.sweep + n, seed=state.seed)
+
     def run(state: SamplerState, alpha=alpha, beta=beta, n_sweeps=None,
             generator: Optional[torch.Generator] = None,
             noise: Optional[Callable[[int], torch.Tensor]] = None) -> SamplerState:
         n = num_sweeps if n_sweeps is None else n_sweeps
+        if tier != "fused":
+            return state if n <= 0 else captured(state, alpha, beta, n,
+                                                 generator, noise)
         for _ in range(n):
             seed, u = sweep_noise(state, generator, noise)
-            if tier == "fused":
-                state = fused_gibbs_sweep(
-                    state, tw, td, tm, alpha, beta, block_size=block_size,
-                    row_tile=row_tile, noise_mode=noise_mode, seed=seed,
-                    uniforms=u)
-            else:
-                state = gibbs_sweep(
-                    state, tw, td, tm, dl, alpha=alpha, beta=beta,
-                    block_size=block_size, draw_method=draw_method,
-                    use_pallas=tier, noise_mode=noise_mode, seed=seed, noise=u)
+            state = fused_gibbs_sweep(
+                state, tw, td, tm, alpha, beta, block_size=block_size,
+                row_tile=row_tile, noise_mode=noise_mode, seed=seed, uniforms=u)
         return state
 
     run.kernel_tier = tier_name(tier, draw_method)
     run.row_tile = row_tile
+    run.graphs = graphs
     return run

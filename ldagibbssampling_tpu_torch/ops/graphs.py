@@ -1,0 +1,250 @@
+"""One sweep of fixed shapes captured once as a CUDA graph, replayed per sweep.
+
+The port's counterpart of the reference's ``jax.jit`` over ``lax.fori_loop``
+(``ldagibbssampling_tpu/ops/gibbs.py:906-921``, ``models/chains.py:71-86``):
+there a call of ``n`` sweeps is one dispatch, with α, β and ``n`` traced so
+that a Minka update or another count never recompiles.  Here a
+:class:`SweepGraph` owns static buffers for one path's state, captures one
+sweep of them with ``torch.cuda.CUDAGraph`` at its first call on the card,
+and replays that graph once per sweep: the host makes one graph launch a
+sweep where the eager sweep makes one launch per operation.
+
+What may change between replays lives on the device:
+
+- the state tables (``z``, ``ndk``, ``nwk``, ``nk``; one chain or stacked
+  ``[C, ...]``), copied into the buffers at a call unless they are the
+  state that the graph's previous call returned, unmodified since;
+- ``params``, a small int64 tensor: its first two words are the float32
+  α, β, V·β and K·α (``scalars``, formed on the host as the reference forms
+  them, ``_device.sweep_scalars``), then, for a body that draws with a
+  device seed (K3), a cursor and up to ``SEED_CHUNK`` sweep seeds: each
+  replay reads the seed at the cursor and moves it on.  One copy writes
+  them per call (per ``SEED_CHUNK`` sweeps), from pinned memory, without a
+  host sync;
+- one ``torch.Generator`` per chain on the device, registered with the
+  graph, for a body that draws with PyTorch (the XLA tier): reseeded with
+  the sweep's seed before each replay (``manual_seed``), which PyTorch's
+  replay hands to the captured draws, so they are the eager draws;
+- for external noise, the sweep's noise array, copied in before each replay.
+
+A call returns clones of the buffers, so a state passed in or returned by
+an earlier call never changes under a later one (the reference's functional
+semantics; the eager sweeps clone the state they are given too).  The
+wrappers' launch counters (``_device.LAUNCH_COUNTERS``) are Python and do
+not run on a replay: the kernels a sweep launched during the capture are
+counted once per replay instead.  On the card a failed capture or replay
+raises; nothing runs the sweep eagerly instead.  On the CPU the same sweep
+body runs eagerly on the same buffers (what the tests run).
+
+The first call on the card reports its set-up: ``setup_s``, its whole
+wall time before the first replay (the copies in, the warm-up sweep, the
+capture and the instantiation; the call waits for the card before and
+after it, once), ``capture_s``, the capture and instantiation alone, and
+``nodes``, the captured graph's node count (the device operations of one
+replay).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ldagibbssampling_tpu_torch.ops._device import (
+    LAUNCH_COUNTERS, seed_word, staged, sweep_scalars)
+
+# sweeps whose device seeds go to the card in one copy
+SEED_CHUNK = 256
+
+
+def _counts() -> dict:
+    return {(mod, name): n for mod, d in LAUNCH_COUNTERS.items()
+            for name, n in d.items()}
+
+
+def _add_counts(per: dict, times: int) -> None:
+    for (mod, name), n in per.items():
+        LAUNCH_COUNTERS[mod][name] += n * times
+
+
+def _capture_node_count(stream: torch.cuda.Stream) -> int:
+    """The nodes so far of the graph that ``stream`` is capturing into (the
+    driver's ``cuStreamGetCaptureInfo_v2`` and ``cuGraphGetNodes``)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    status, graph = ctypes.c_int(0), ctypes.c_void_p()
+    n = ctypes.c_size_t(0)
+    if cu.cuStreamGetCaptureInfo_v2(
+            ctypes.c_void_p(stream.cuda_stream), ctypes.byref(status), None,
+            ctypes.byref(graph), None, None) or status.value != 1:
+        raise RuntimeError("the side stream is not capturing")
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    return n.value
+
+
+# body(buffers, scalars, key, generators, noise): one sweep, in place
+Body = Callable[[Sequence[torch.Tensor], torch.Tensor, Optional[torch.Tensor],
+                 Sequence[torch.Generator], Optional[torch.Tensor]], None]
+
+
+class SweepGraph:
+    """One sweep of ``body`` over static buffers shaped like ``tables``:
+    captured as a CUDA graph at the first call on the card and replayed
+    once per sweep; run eagerly on the CPU.
+
+    ``body(buffers, scalars, key, generators, noise)`` runs one sweep in
+    place on ``buffers``: ``scalars`` is the float32 ``[4]`` view of α, β,
+    V·β and K·α, ``key`` the sweep's int64 ``[1]`` seed (``device_seeds``;
+    else ``None``), ``generators`` ``num_generators`` generators on the
+    device, reseeded per sweep (``internal`` noise), and ``noise`` the
+    sweep's noise array (``external`` noise; else ``None``).  Everything it
+    reads besides these must outlive the graph.
+    """
+
+    def __init__(self, body: Body, tables: Sequence[torch.Tensor], *,
+                 vocab_size: int, num_topics: int, noise_mode: str,
+                 num_generators: int = 0, device_seeds: bool = False) -> None:
+        self.body = body
+        self.device = tables[0].device
+        self.vocab_size, self.num_topics = vocab_size, num_topics
+        self.noise_mode = noise_mode
+        self.buffers = [torch.empty_like(t) for t in tables]
+        self.device_seeds = device_seeds and noise_mode == "internal"
+        self.params = torch.zeros(2 + (1 + SEED_CHUNK if self.device_seeds else 0),
+                                  dtype=torch.int64, device=self.device)
+        self.scalars = self.params[:2].view(torch.float32)
+        self.generators = ([torch.Generator(device=self.device)
+                            for _ in range(num_generators)]
+                           if noise_mode == "internal" else [])
+        self.noise: Optional[torch.Tensor] = None  # allocated at the first call
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.per_replay: dict = {}   # kernel launches of one replay
+        self.setup_s = self.capture_s = None
+        self.nodes = 0  # the graph's nodes: the card's operations a replay
+        self.replays = 0
+        # the tensors the last call returned and their versions: the same
+        # memory (a view of it too), unmodified, is what the buffers hold
+        self._last: Optional[tuple] = None
+
+    # ------------------------------------------------------------------
+    def _sweep(self) -> None:
+        key = None
+        if self.device_seeds:
+            cursor = self.params[2:3]
+            key = torch.index_select(self.params[3:], 0, cursor)
+            cursor.add_(1)
+        self.body(self.buffers, self.scalars, key, self.generators, self.noise)
+
+    def _write_params(self, alpha: float, beta: float,
+                      seeds: Sequence[int] = ()) -> None:
+        words = sweep_scalars(alpha, beta, self.vocab_size,
+                              self.num_topics).view(np.int64)
+        if self.device_seeds:
+            words = np.concatenate([words, np.array(
+                [0, *(seed_word(s) for s in seeds)], np.int64)])
+        self.params[:words.shape[0]].copy_(staged(words, self.device),
+                                           non_blocking=True)
+
+    def _copy_in(self, tables: Sequence[torch.Tensor]) -> None:
+        last = self._last
+        if last is not None and all(
+                t.data_ptr() == o.data_ptr() and t.shape == o.shape
+                and t.stride() == o.stride() and t._version == v
+                for t, o, v in zip(tables, last[0], last[1])):
+            return  # the buffers already hold this state
+        for buf, t in zip(self.buffers, tables):
+            if t.shape != buf.shape or t.dtype != buf.dtype:
+                raise ValueError(f"a table {t.dtype} {tuple(t.shape)}: this sweep "
+                                 f"was built for {buf.dtype} {tuple(buf.shape)}")
+            buf.copy_(t)
+
+    def _sweep_inputs(self, i: int, seeds, noise) -> None:
+        """The host's part of sweep ``i``: its generators' seeds, its noise."""
+        for g, s in zip(self.generators, seeds[i] if self.generators else ()):
+            g.manual_seed(int(s))
+        if noise is not None:
+            u = noise(i)
+            if self.noise is None:
+                self.noise = torch.empty(u.shape, dtype=u.dtype, device=self.device)
+            self.noise.copy_(u, non_blocking=True)
+
+    def _capture(self) -> None:
+        """A warm-up sweep (it fills every launch configuration the kernel
+        wrappers cache), then one sweep captured into the graph's private
+        memory pool and instantiated, both on a side stream; raises if the
+        capture fails."""
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._sweep()
+            before = _counts()
+            t0 = time.perf_counter()
+            graph.capture_begin()
+            try:
+                self._sweep()
+                nodes = _capture_node_count(side)
+            finally:
+                graph.capture_end()  # instantiates the graph
+            self.capture_s = time.perf_counter() - t0
+        main.wait_stream(side)
+        after = _counts()
+        # the capture launched nothing: its counts are each replay's
+        self.per_replay = {k: n - before.get(k, 0) for k, n in after.items()
+                           if n != before.get(k, 0)}
+        _add_counts(self.per_replay, -1)
+        self.nodes = nodes
+        self.graph = graph
+
+    def __call__(self, tables: Sequence[torch.Tensor], alpha: float, beta: float,
+                 n: int, seeds: Optional[Sequence[Sequence[int]]] = None,
+                 noise: Optional[Callable[[int], torch.Tensor]] = None,
+                 ) -> tuple[torch.Tensor, ...]:
+        """``n`` (> 0) sweeps from ``tables`` at ``alpha`` and ``beta``;
+        returns the new tables (new tensors).  ``seeds[i]`` are sweep
+        ``i``'s seeds (one per generator, or the device seed first);
+        ``noise(i)`` its noise array (``external``)."""
+        if n <= 0:
+            raise ValueError(f"{n} sweeps: a call runs at least one")
+        if self.noise_mode == "internal" and (seeds is None or len(seeds) < n):
+            raise ValueError("internal noise needs every sweep's seeds")
+        if self.noise_mode == "external" and noise is None:
+            raise ValueError("external noise needs noise(sweep)")
+        on_card = self.device.type == "cuda"
+        loaded = False  # sweep 0's noise already in its buffer
+        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+            if on_card and self.graph is None:
+                torch.cuda.synchronize(self.device)
+                t0 = time.perf_counter()
+                self._copy_in(tables)
+                self._write_params(alpha, beta, [s[0] for s in seeds[:1]]
+                                   if self.device_seeds else ())
+                self._sweep_inputs(0, seeds, noise)
+                self._capture()
+                torch.cuda.synchronize(self.device)
+                self.setup_s = time.perf_counter() - t0
+                self._last, loaded = None, True
+            self._copy_in(tables)
+            for c0 in range(0, n, SEED_CHUNK if self.device_seeds else n):
+                c1 = min(n, c0 + SEED_CHUNK) if self.device_seeds else n
+                self._write_params(alpha, beta, [s[0] for s in seeds[c0:c1]]
+                                   if self.device_seeds else ())
+                for i in range(c0, c1):
+                    self._sweep_inputs(i, seeds, None if i == 0 and loaded else noise)
+                    if on_card:
+                        self.graph.replay()
+                    else:
+                        self._sweep()
+            if on_card:
+                _add_counts(self.per_replay, n)
+                self.replays += n
+            out = tuple(b.clone() for b in self.buffers)
+        self._last = (out, tuple(t._version for t in out))
+        return out

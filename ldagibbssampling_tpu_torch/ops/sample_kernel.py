@@ -24,6 +24,13 @@ first computes ``log(nk - e + Vβ)`` for every topic and e in {0, 1}, and
 2^24); a count past the table computes its log.  The tables come from each
 launch's α, β, Vβ and ``nk``: nothing is kept between launches.
 
+α, β, Vβ and the internal seed are device values: ``scalars`` (float32
+α, β, Vβ first, as ``ops/_device.sweep_scalars`` lays them out) and ``key``
+(int64, the seed's 64 bits, ``_device.seed_word``), which the kernel reads
+through pointers when it starts.  A CUDA graph of a sweep
+(``ops/graphs.py``) replays the launch with the values its buffers hold
+then.
+
 ``sample_block`` takes a CUDA tensor to the kernel and a CPU tensor to the
 plain PyTorch version ``sample_block_plain``; any other device raises, and so
 does a failed launch.  ``LAUNCHES`` counts launches, ``PLAIN_CALLS`` calls of
@@ -38,26 +45,29 @@ from typing import Optional
 
 import torch
 
+from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
 from ldagibbssampling_tpu_torch.ops.fused_kernel import (
     NOISE_MODES, _check_tensors, philox_uniforms)
 
 # entries of the kernel's log(j + β) and log(j + α) tables, j from -1
 # (csrc/sample_kernel.cu, kLogTable)
 LOG_TABLE = 2048
+_MASK64 = 2**64 - 1
 LAUNCHES = {"gibbs_block_sample": 0}
 PLAIN_CALLS = {"gibbs_block_sample": 0}
+LAUNCH_COUNTERS[__name__] = LAUNCHES
 
 
-def sample_block_plain(nwk, ndk, nk, z_old, token_word, token_doc, *, alpha,
-                       beta, vbeta, noise_mode, seed=0, uniforms=None,
+def sample_block_plain(nwk, ndk, nk, z_old, token_word, token_doc, *,
+                       scalars, noise_mode, key=None, uniforms=None,
                        slot0=0) -> torch.Tensor:
-    """The plain version of ``sample_block``, in the kernel's operation order."""
+    """The plain version of ``sample_block``, in the kernel's operation
+    order, on the same ``scalars`` and ``key``."""
     PLAIN_CALLS["gibbs_block_sample"] += 1
     f32 = torch.float32
     n, k = z_old.shape[0], nk.shape[0]
     dev = nwk.device
-    alpha, beta, vbeta = (torch.tensor(x, dtype=f32, device=dev)
-                          for x in (alpha, beta, vbeta))
+    alpha, beta, vbeta = scalars[:3].to(device=dev, dtype=f32).unbind()
     e = (torch.arange(k, device=dev)[None, :] == z_old[:, None].long()).to(f32)
     score = (torch.log(nwk[token_word.long()].to(f32) - e + beta)
              + torch.log(ndk[token_doc.long()].to(f32) - e + alpha)) \
@@ -65,6 +75,7 @@ def sample_block_plain(nwk, ndk, nk, z_old, token_word, token_doc, *, alpha,
     if noise_mode != "deterministic":
         if noise_mode == "internal":
             k4 = -(-k // 4) * 4
+            seed = int(key.reshape(-1)[0]) & _MASK64
             uniforms = philox_uniforms(seed, slot0, n, k4, dev)[:, :k]
         score = score + (-torch.log(-torch.log(uniforms)))
     return score.argmax(dim=1).to(torch.int32)  # first index of the maximum
@@ -76,14 +87,14 @@ def _lib():
     from ldagibbssampling_tpu_torch.ops import _build
 
     lib = _build.load("sample_kernel")
-    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lda_block_sample_config.restype = i32
     lib.lda_block_sample_config.argtypes = [i32, i32, i64,
                                             *[ctypes.POINTER(i32)] * 4]
     lib.lda_block_sample.restype = i32
     lib.lda_block_sample.argtypes = [
-        vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, f32, f32, f32, i32,
-        ctypes.c_ulonglong, i64, i32, i32, i32, vp]
+        vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, vp, vp, i32, i64, i32, i32,
+        i32, vp]
     return _build, lib
 
 
@@ -120,21 +131,23 @@ def sample_block(
     token_word: torch.Tensor,   # [n] int32
     token_doc: torch.Tensor,    # [n] int32
     *,
-    alpha: float,
-    beta: float,
-    vbeta: float,
+    scalars: torch.Tensor,                    # f32 [>= 3]: α, β, Vβ, ...
     noise_mode: str = "internal",
-    seed: int = 0,
+    key: Optional[torch.Tensor] = None,       # int64 [1]: the seed (internal)
     uniforms: Optional[torch.Tensor] = None,  # [n, K] f32 (external)
     slot0: int = 0,
 ) -> torch.Tensor:
     """Draw every token against the given counts; returns ``z_new [n]``
     int32 (masked tokens too: the caller keeps their ``z_old``).
 
+    ``scalars`` is a float32 tensor on the tables' device holding α, β and
+    Vβ first; ``key`` an int64 tensor there holding the internal seed.
     ``slot0`` is the stream position of token 0 (the internal noise
     counter)."""
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    if noise_mode == "internal" and key is None:
+        raise ValueError("noise_mode='internal' requires key")
     n, k = z_old.shape[0], nk.shape[0]
     expect = [("nwk", nwk, torch.int32, 2), ("ndk", ndk, torch.int32, 2),
               ("nk", nk, torch.int32, 1), ("z_old", z_old, torch.int32, 1),
@@ -146,6 +159,11 @@ def sample_block(
         expect.append(("uniforms", uniforms, torch.float32, 2))
         if tuple(uniforms.shape) != (n, k):
             raise ValueError(f"uniforms {tuple(uniforms.shape)} != {(n, k)}")
+    expect.append(("scalars", scalars, torch.float32, 1))
+    if scalars.shape[0] < 3:
+        raise ValueError(f"scalars {tuple(scalars.shape)}: α, β, Vβ needed")
+    if key is not None:
+        expect.append(("key", key, torch.int64, 1))
     _check_tensors(nwk.device, expect)
     if nwk.shape[1] != k or ndk.shape[1] != k:
         raise ValueError(
@@ -155,9 +173,8 @@ def sample_block(
                          f" != z_old {n}")
     if nwk.device.type == "cpu":
         return sample_block_plain(
-            nwk, ndk, nk, z_old, token_word, token_doc, alpha=alpha, beta=beta,
-            vbeta=vbeta, noise_mode=noise_mode, seed=seed, uniforms=uniforms,
-            slot0=slot0)
+            nwk, ndk, nk, z_old, token_word, token_doc, scalars=scalars,
+            noise_mode=noise_mode, key=key, uniforms=uniforms, slot0=slot0)
     z_new = torch.empty_like(z_old)
     if n == 0:  # nothing to launch
         return z_new
@@ -168,8 +185,8 @@ def sample_block(
             nwk.data_ptr(), ndk.data_ptr(), nk.data_ptr(), k, z_old.data_ptr(),
             z_new.data_ptr(), token_word.data_ptr(), token_doc.data_ptr(),
             uniforms.data_ptr() if noise_mode == "external" else None, n,
-            alpha, beta, vbeta, NOISE_MODES.index(noise_mode),
-            seed & (2**64 - 1), slot0, cfg["grid"], cfg["smem"],
+            scalars.data_ptr(), None if key is None else key.data_ptr(),
+            NOISE_MODES.index(noise_mode), slot0, cfg["grid"], cfg["smem"],
             int(cfg["nk_table"]), torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_block_sample")
     LAUNCHES["gibbs_block_sample"] += 1

@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -89,6 +90,7 @@ def _this_tracing():
 def run_side(root: Path, inputs: Path, out: Path) -> None:
     """One side: the package of the checkout at ``root``."""
     sys.path.insert(0, str(root))
+    import numpy as np
     import torch
 
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
@@ -105,7 +107,22 @@ def run_side(root: Path, inputs: Path, out: Path) -> None:
     ids = {"nwk": ("token_word", w), "ndk": ("token_doc", d), "nk": (None, None)}
     res = {"package": str(pkg), "hashes": {}, "moved": {}, "ms": {}, "device_ms": {}}
 
+    # a K3 that reads its scalars and seed from the device takes them as
+    # tensors made once; an earlier checkout's takes them by value
+    tensors = "scalars" in inspect.signature(sk.sample_block).parameters
+    if tensors:
+        from ldagibbssampling_tpu_torch.ops._device import (
+            device_values, seed_word, sweep_scalars)
+
+        scalars = device_values(sweep_scalars(ALPHA, BETA, V, K), "cuda")
+        keys = {s: device_values(np.array([seed_word(s)], np.int64), "cuda")
+                for s in (4321, 7)}
+
     def draw(mode, seed=4321):
+        if tensors:
+            return sk.sample_block(inp["nwk"], inp["ndk"], inp["nk"], z, w, d,
+                                   noise_mode=mode, scalars=scalars, key=keys[seed],
+                                   uniforms=inp["uniforms"])
         return sk.sample_block(inp["nwk"], inp["ndk"], inp["nk"], z, w, d,
                                noise_mode=mode, seed=seed, uniforms=inp["uniforms"],
                                **hyper)

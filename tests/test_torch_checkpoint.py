@@ -217,16 +217,20 @@ def _cli(docs, *flags):
                      "--device", "cpu", *flags])
 
 
-@pytest.mark.parametrize("tier", ["fused", "deferred"])
+@pytest.mark.parametrize("tier", ["fused", "deferred", "xla", "pallas-draw"])
 def test_cli_resume_writes_the_uninterrupted_artifacts(tmp_path, capsys, tier):
     # tests/test_resume_cli.py:51, and the resumed run's artifacts byte for
     # byte the uninterrupted run's; a block of 256 gives the minicorpus a
-    # deferred layout
+    # deferred layout; the XLA and v1-draw tiers (their sweeps a graph's
+    # replays on the card) move alpha and beta every 2 sweeps
     docs = write_minicorpus(tmp_path / "docs", num_docs=8)
     flags = ["--save-step", "2", "--begin-save-iters", "4"]
     if tier == "deferred":
         (tmp_path / "c.json").write_text('{"block_size": 256}')
         flags += ["--config-json", str(tmp_path / "c.json")]
+    if tier in ("xla", "pallas-draw"):
+        flags += ["--pallas", "0" if tier == "xla" else "1",
+                  "--optimize-hyper-every", "2"]
     assert _cli(docs, *flags, "--results", str(tmp_path / "full"),
                 "--iterations", "8", "--metrics-file", str(tmp_path / "m.jsonl"),
                 "--metrics-every", "0") == 0

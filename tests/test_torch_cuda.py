@@ -25,6 +25,7 @@ from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.models.lda import LdaModel
 from ldagibbssampling_tpu_torch.models.state import init_state
 from ldagibbssampling_tpu_torch.ops import count_kernel as ck
+from ldagibbssampling_tpu_torch.ops._device import seed_word, sweep_scalars
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
 from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
 from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
@@ -33,6 +34,13 @@ pytestmark = pytest.mark.cuda
 
 K, V, M = 37, 500, 40
 HYPER = dict(alpha=0.5, beta=0.1, vbeta=float(np.float32(V) * np.float32(0.1)))
+
+
+def k3_values(device, seed, alpha=0.5, beta=0.1):
+    """K3's device values: α, β, Vβ (and K·α) as the sweep forms them, and
+    the seed's word."""
+    return dict(scalars=torch.from_numpy(sweep_scalars(alpha, beta, V, K)).to(device),
+                key=torch.tensor([seed_word(seed)], dtype=torch.int64, device=device))
 
 
 @pytest.fixture
@@ -117,8 +125,8 @@ def test_k1_live_table_walk_and_move_equal_plain(cuda, mode):
 def test_k3_equals_plain(cuda, mode):
     plan, st, (tw, td, tm) = _setup(cuda, seed=4)
     uniforms = torch.rand((tw.shape[0], K), device=cuda) * 0.999 + 5e-4
-    z = [f(st.nwk, st.ndk, st.nk, st.z, tw, td, noise_mode=mode, seed=79,
-           uniforms=uniforms, slot0=5, **HYPER)
+    z = [f(st.nwk, st.ndk, st.nk, st.z, tw, td, noise_mode=mode,
+           uniforms=uniforms, slot0=5, **k3_values(cuda, 79))
          for f in (sk.sample_block, sk.sample_block_plain)]
     torch.cuda.synchronize()
     real = tm > 0
@@ -410,13 +418,14 @@ def _k3_tables(device, *, k, n, v=40, m=12, seed=0, hot=None, one_word=False,
     return [nwk, ndk, nk.to(device)], toks
 
 
-def _both_k3(tables, toks, mode, seed=91, **hyper):
-    hyper = {**HYPER, **hyper}
+def _both_k3(tables, toks, mode, seed=91, alpha=0.5, beta=0.1):
     n, k = toks[0].shape[0], tables[2].shape[0]
-    uniforms = (torch.rand((n, k), device=tables[0].device) * 0.999 + 5e-4
+    dev = tables[0].device
+    uniforms = (torch.rand((n, k), device=dev) * 0.999 + 5e-4
                 if mode == "external" else None)
-    out = [f(*tables, *toks, noise_mode=mode, seed=seed, uniforms=uniforms,
-             slot0=3, **hyper) for f in (sk.sample_block, sk.sample_block_plain)]
+    values = k3_values(dev, seed, alpha, beta)
+    out = [f(*tables, *toks, noise_mode=mode, uniforms=uniforms, slot0=3, **values)
+           for f in (sk.sample_block, sk.sample_block_plain)]
     torch.cuda.synchronize()
     return out
 
@@ -480,7 +489,7 @@ def test_k3_ties_take_the_lowest_topic(cuda):
 def test_k3_empty_block_and_one_word(cuda):
     tables, (z_old, w, d) = _k3_tables(cuda, k=K, n=1500, one_word=True, seed=8)
     launched = sk.LAUNCHES["gibbs_block_sample"]
-    empty = sk.sample_block(*tables, z_old[:0], w[:0], d[:0], seed=1, **HYPER)
+    empty = sk.sample_block(*tables, z_old[:0], w[:0], d[:0], **k3_values(cuda, 1))
     assert empty.shape == (0,) and sk.LAUNCHES["gibbs_block_sample"] == launched
     for mode in ("deterministic", "internal"):
         z, zp = _both_k3(tables, (z_old, w, d), mode)
@@ -493,7 +502,7 @@ def test_k3_tables_follow_each_launchs_hyperparameters(cuda):
     tables, toks = _k3_tables(cuda, k=K, n=4000, seed=13)
     first, first_p = _both_k3(tables, toks, "deterministic")
     second, second_p = _both_k3(tables, toks, "deterministic", alpha=0.013,
-                                beta=0.71, vbeta=float(np.float32(V) * np.float32(0.71)))
+                                beta=0.71)
     assert torch.equal(first, first_p) and torch.equal(second, second_p)
     assert not torch.equal(first, second)
 
@@ -711,3 +720,146 @@ def test_backends_on_card_sweep_and_resume_where_they_checkpoint(cuda, backend,
     b.sweep(2)
     np.testing.assert_array_equal(b.phi(), phi)
     np.testing.assert_array_equal(b.theta(), ref.theta())
+
+
+# --- the captured sweeps (ops/graphs.py): each replay against the eager
+# sweep from the same state, seeds and noise, bitwise, across a change of
+# alpha and beta between calls
+
+
+def _graph_setup(device, seed=0, block=256):
+    fc = _small_corpus(seed=seed, docs=60, vocab=200)
+    pc = fc.pad_to(block)
+    st = init_state(pc.token_word, pc.token_doc, pc.token_mask,
+                    num_docs=pc.num_docs, vocab_size=pc.vocab_size, num_topics=K,
+                    seed=seed, device=device)
+    toks = [torch.from_numpy(np.asarray(a, np.int32)).to(device)
+            for a in (pc.token_word, pc.token_doc, pc.token_mask)]
+    dl = torch.from_numpy(fc.doc_lengths().astype(np.int32)).to(device)
+    return pc, st, toks, dl
+
+
+def _card_noise(device, t_pad, draw, k=K, chains=None):
+    def noise(sweep, c=0):
+        g = torch.Generator(device=device).manual_seed(1000 * c + sweep)
+        shape = (t_pad, k) if draw != "inverse_cdf" else (t_pad,)
+        u = torch.rand(shape, generator=g, device=device) * 0.999 + 5e-4
+        return -torch.log(-torch.log(u)) if draw == "gumbel" else u
+    return noise
+
+
+@pytest.mark.parametrize("use_pallas,draw,mode", [
+    (False, "gumbel", "internal"), (False, "gumbel", "external"),
+    (False, "gumbel", "deterministic"), (False, "inverse_cdf", "internal"),
+    (False, "inverse_cdf", "external"), (True, "gumbel", "internal"),
+    (True, "gumbel", "external"), (True, "gumbel", "deterministic")])
+def test_captured_sweeps_equal_eager_on_card(cuda, use_pallas, draw, mode):
+    from ldagibbssampling_tpu_torch.ops.gibbs import gibbs_sweep, make_sweep_fn, sweep_seed
+
+    pc, st, (tw, td, tm), dl = _graph_setup(cuda, seed=5)
+    run = make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask,
+                        dl.cpu().numpy(), alpha=0.5, beta=0.1, block_size=256,
+                        draw_method=draw, use_pallas=use_pallas, num_topics=K,
+                        noise_mode=mode, device=cuda)
+    kind = "v1" if use_pallas else draw
+    noise = _card_noise(cuda, pc.num_tokens, kind) if mode == "external" else None
+    gen, gen_eager = torch.Generator().manual_seed(8), torch.Generator().manual_seed(8)
+    got = want = st
+    for (a, b), n in (((0.5, 0.1), 2), ((0.013, 0.71), 1), ((0.5, 0.1), 3)):
+        got = run(got, a, b, n_sweeps=n, generator=gen, noise=noise)
+        for _ in range(n):
+            want = gibbs_sweep(
+                want, tw, td, tm, dl, alpha=a, beta=b, block_size=256,
+                draw_method=draw, use_pallas=use_pallas, noise_mode=mode,
+                seed=sweep_seed(gen_eager) if mode == "internal" else 0,
+                noise=None if noise is None else noise(want.sweep))
+        torch.cuda.synchronize()
+        for name in ("z", "ndk", "nwk", "nk"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    (graph,) = run.graphs.values()
+    assert graph.graph is not None and graph.replays == 6
+
+
+@pytest.mark.parametrize("draw,mode", [("gumbel", "internal"),
+                                       ("gumbel", "external"),
+                                       ("inverse_cdf", "internal")])
+def test_captured_chains_equal_eager_on_card(cuda, draw, mode):
+    import dataclasses
+
+    from ldagibbssampling_tpu_torch.models.chains import ChainSet
+    from ldagibbssampling_tpu_torch.ops.gibbs import gibbs_sweep_chains, sweep_seed
+
+    cfg = LdaConfig(topic_num=K, block_size=256, chains=3, seed=6, draw_method=draw)
+    cs = ChainSet(cfg, _small_corpus(seed=6, docs=60, vocab=200), device=cuda,
+                  noise_mode=mode)
+    st = cs._stacks[cuda]
+    tables = (st.z, st.ndk, st.nwk, st.nk)
+    gens = [torch.Generator().set_state(g.get_state()) for g in cs.generators]
+    card_noise = _card_noise(cuda, cs._padded.num_tokens, draw)
+
+    def noise(c, sweep):
+        return card_noise(sweep, c)
+    sweep = 0
+    for a, b, n in ((0.5, 0.1, 2), (0.02, 0.6, 1), (0.5, 0.1, 2)):
+        cs.config = dataclasses.replace(cfg, alpha=a, beta=b)
+        cs.sweep(n, noise=noise if mode == "external" else None)
+        for _ in range(n):
+            tables = gibbs_sweep_chains(
+                *tables, *cs._tokens[cuda], alpha=a, beta=b,
+                block_size=cs.block_size, draw_method=draw, noise_mode=mode,
+                seeds=[sweep_seed(g) for g in gens] if mode == "internal" else (),
+                noise=(torch.stack([noise(c, sweep) for c in range(3)])
+                       if mode == "external" else None))
+            sweep += 1
+        got = cs._stacks[cuda]
+        for name, want in zip(("z", "ndk", "nwk", "nk"), tables):
+            assert torch.equal(getattr(got, name), want), name
+    assert cs._graphs[cuda].replays == 5
+    cs.check_counts_consistent()
+
+
+def test_captured_draw_counts_its_kernels_per_replay(cuda):
+    from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
+
+    pc, st, _, dl = _graph_setup(cuda, seed=7)
+    blocks = pc.num_tokens // 256
+    run = make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask,
+                        alpha=0.5, beta=0.1, block_size=256, use_pallas=True,
+                        num_topics=K, device=cuda)
+    before = (sk.LAUNCHES["gibbs_block_sample"], fk.LAUNCHES["count_move"])
+    out = run(st, n_sweeps=3, generator=torch.Generator().manual_seed(1))
+    # the warm-up sweep ran its kernels; the capture ran none; 3 replays
+    assert (sk.LAUNCHES["gibbs_block_sample"] - before[0],
+            fk.LAUNCHES["count_move"] - before[1]) == (4 * blocks, 4 * blocks)
+    run(out, n_sweeps=2, generator=torch.Generator().manual_seed(2))
+    assert (sk.LAUNCHES["gibbs_block_sample"] - before[0],
+            fk.LAUNCHES["count_move"] - before[1]) == (6 * blocks, 6 * blocks)
+    (graph,) = run.graphs.values()
+    assert set(graph.per_replay.values()) == {blocks}
+    # the graph's own count of its kernels, and its set-up timed whole
+    assert graph.nodes >= 2 * blocks
+    assert graph.setup_s > graph.capture_s > 0
+
+
+def test_failed_capture_raises_and_runs_no_sweep_eagerly(cuda):
+    # a sweep body that reads a value on the host cannot be captured: the
+    # call raises, and every later call raises too (no eager fallback)
+    from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
+
+    _, st, _, _ = _graph_setup(cuda, seed=8)
+    ran = []
+
+    def body(bufs, scalars, key, generators, noise):
+        ran.append(float(bufs[3].sum()))  # a host sync
+        bufs[0].add_(1)
+
+    z = st.z.clone()
+    g = SweepGraph(body, (st.z, st.ndk, st.nwk, st.nk), vocab_size=200,
+                   num_topics=K, noise_mode="deterministic")
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            g((st.z, st.ndk, st.nwk, st.nk), 0.5, 0.1, 1)
+        assert g.graph is None and g.replays == 0
+    assert len(ran) == 2  # the two warm-up sweeps; no sweep ran instead
+    torch.cuda.synchronize()
+    assert torch.equal(st.z, z)  # the input is untouched

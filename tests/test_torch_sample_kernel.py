@@ -24,12 +24,20 @@ import torch
 import jax.numpy as jnp
 from ldagibbssampling_tpu.ops.pallas_gibbs import pallas_sample_block
 from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
+from ldagibbssampling_tpu_torch.ops._device import seed_word
 
 # one intra-op thread: the suite runs in several worker processes at once,
 # and torch's default of one thread per core in each oversubscribes the CPU
 torch.set_num_threads(1)
 
 ALPHA, BETA = 0.5, 0.1
+
+
+def _values(vbeta, seed=0):
+    """K3's scalars (α, β, Vβ rounded to float32) and its key (the seed's
+    word), on the CPU."""
+    return dict(scalars=torch.tensor([ALPHA, BETA, vbeta], dtype=torch.float32),
+                key=torch.tensor([seed_word(seed)]))
 
 
 def _rows(b=64, k=7, seed=0, hi=20):
@@ -59,9 +67,9 @@ def _port(nwk, ndk, nk, zold, v, noise_mode, noise=None, seed=0):
     ids = torch.arange(b, dtype=torch.int32)
     return sk.sample_block(
         torch.from_numpy(nwk), torch.from_numpy(ndk), torch.from_numpy(nk),
-        torch.from_numpy(zold), ids, ids, alpha=ALPHA, beta=BETA,
-        vbeta=float(np.float32(v * BETA)), noise_mode=noise_mode, seed=seed,
-        uniforms=None if noise is None else torch.from_numpy(noise)).numpy()
+        torch.from_numpy(zold), ids, ids, noise_mode=noise_mode,
+        uniforms=None if noise is None else torch.from_numpy(noise),
+        **_values(float(np.float32(v * BETA)), seed)).numpy()
 
 
 @pytest.mark.parametrize("b,k,row_tile,seed", [
@@ -98,8 +106,8 @@ def test_internal_draw_matches_analytic_conditional():
     zeros = torch.zeros(b, dtype=torch.int32)
     got = sk.sample_block(
         torch.from_numpy(nwk), torch.from_numpy(ndk), torch.from_numpy(nk),
-        torch.full((b,), 2, dtype=torch.int32), zeros, zeros, alpha=ALPHA,
-        beta=BETA, vbeta=v * BETA, noise_mode="internal", seed=123).numpy()
+        torch.full((b,), 2, dtype=torch.int32), zeros, zeros,
+        noise_mode="internal", **_values(v * BETA, 123)).numpy()
     excl = np.eye(k)[2]
     p = (nwk[0] - excl + BETA) * (ndk[0] - excl + ALPHA) / (nk - excl + v * BETA)
     p /= p.sum()
@@ -115,19 +123,21 @@ def test_internal_noise_is_the_stream_slot():
     nwk, ndk, nk, zold = _rows(128, 11, 5, hi=300)
     t = [torch.from_numpy(a) for a in (nwk, ndk, nk)]
     ids = torch.arange(128, dtype=torch.int32)
-    kw = dict(alpha=ALPHA, beta=BETA, vbeta=30.0, noise_mode="internal")
-    whole = sk.sample_block(*t, torch.from_numpy(zold), ids, ids, seed=9, **kw)
+    nine, ten = _values(30.0, 9), _values(30.0, 10)
+    whole = sk.sample_block(*t, torch.from_numpy(zold), ids, ids, **nine)
     halves = torch.cat([
         sk.sample_block(*t, torch.from_numpy(zold[s:s + 64]), ids[s:s + 64],
-                        ids[s:s + 64], seed=9, slot0=s, **kw) for s in (0, 64)])
-    other = sk.sample_block(*t, torch.from_numpy(zold), ids, ids, seed=10, **kw)
+                        ids[s:s + 64], slot0=s, **nine) for s in (0, 64)])
+    other = sk.sample_block(*t, torch.from_numpy(zold), ids, ids, **ten)
     assert torch.equal(whole, halves) and not torch.equal(whole, other)
 
 
 def test_wrapper_rejects_bad_inputs():
     nwk, ndk, nk, zold = (torch.from_numpy(a) for a in _rows(16, 7, 6))
     ids = torch.arange(16, dtype=torch.int32)
-    kw = dict(alpha=ALPHA, beta=BETA, vbeta=3.0)
+    kw = _values(3.0)
+    with pytest.raises(ValueError, match="key"):
+        sk.sample_block(nwk, ndk, nk, zold, ids, ids, scalars=kw["scalars"])
     with pytest.raises(ValueError, match="float32"):
         sk.sample_block(nwk.float(), ndk, nk, zold, ids, ids, **kw)
     with pytest.raises(ValueError, match="uniforms"):
