@@ -47,8 +47,9 @@ success:
    its layout implies: one K1 walk per sweep and no count move in the
    deferred tier, one walk and one count move per block in the fused tier,
    in the v1-draw tier one K3 and one count move per block and sweep, the
-   graph's warm-up sweep included: the XLA and v1-draw tiers replay one
-   CUDA graph per sweep), no other kernel and no plain version; prints
+   graph's warm-up sweep included: every tier replays one CUDA graph per
+   sweep; the deferred tier's first snapshot is cast outside it), no other
+   kernel and no plain version; prints
    tokens/s (on the graph paths also the graph's set-up, the first call's
    wall before its first replay, the rate less it, and a second call's
    rate); then profiles one more sweep of each tier with the port's
@@ -73,12 +74,14 @@ success:
    ``--pallas fused``, with ``--sampler serial`` and with ``--ll-every 5
    --optimize-hyper-every 5``, must write the five reference artifacts each
    time (and, the last, metrics rows with ``log_likelihood`` and ``alpha``);
-   ``[resume]``: in the fused tier (the minicorpus's), the deferred tier
-   (block 256 through ``--config-json``) and the v1-draw tier with
+   ``[resume]``: in the fused tier (the minicorpus's), and the deferred
+   tier (block 256 through ``--config-json``) and the v1-draw tier with
    ``--optimize-hyper-every 5``, one uninterrupted run of 60 sweeps
    (artifacts at 50 and 60) and one run to sweep 30 with
    ``--checkpoint-every 10`` then ``--resume`` to 60: the resumed run's ten
-   artifacts must be byte-identical to the uninterrupted run's;
+   artifacts must be byte-identical to the uninterrupted run's, and each
+   process's launches exact (per sweep and block, the graph's warm-up
+   sweep once more);
    ``[infer]``: a CLI run with ``--infer-docs`` must write
    ``inferred.theta``, ``.tassign`` and ``.docs``;
 6. parity: ``evaluation/parity.oracle_vs_blocked`` per tier (deferred,
@@ -118,11 +121,14 @@ success:
    replay CUDA graphs), and their host calls from one profiled sweep.  8c, ``[graphs]``:
    each captured path (``ops/graphs.SweepGraph``, one CUDA graph replayed
    per sweep) against its eager sweep from the same state, seeds and noise:
-   the XLA tier and the v1-draw tier at bench.py's shape through
-   ``make_sweep_fn`` on ``make_backend``'s layout, the chains at rung 4's
-   full size and at K = 500 on bench.py's shape through ``ChainSet``; in
-   internal and external noise, two sweeps in one call then one at other
-   alpha and beta: z and every table bitwise; tokens/s eager (the
+   the deferred tier (K = 500, the one-barrier walk, and K = 100, the
+   two-barrier walk; its snapshot carried), the fused tier, the XLA tier
+   and the v1-draw tier at bench.py's shape through ``make_sweep_fn`` on
+   ``make_backend``'s layout, the chains at rung 4's full size and at
+   K = 500 on bench.py's shape through ``ChainSet``; in internal and
+   external noise, two sweeps in one call then one at other alpha and
+   beta: z and every table bitwise (and the deferred snapshot); tokens/s
+   eager (the
    comparison's 3 sweeps) and captured (one call); per sweep the host's
    calls and graph launches (one; ``torch.profiler``) and the card's
    operations (eager one per host call; captured the graph's nodes,
@@ -185,14 +191,15 @@ success:
    training tokens; generated once): ``make_backend`` -> ``LdaModel`` ->
    ``run_inference``, K = 100, block 65,536, the deferred tier (f32 chain,
    bf16 snapshot), 2 untimed and 10 timed sweeps, then
-   ``check_counts_consistent``; exactly 12 walks (the K = 100 two-barrier
-   form), 12 rebuilds and 13 snapshots, no other kernel and no plain
-   version; prints ``corpus_s``, ``plan_s``, ``setup_s`` (plan + state init
-   + transfer), tokens/s, peak device memory (``max_memory_allocated``),
-   the host's peak RSS and the held-out perplexity on the 15,000 held-out
-   documents; one checkpoint saved (seconds, bytes) and restored bitwise
-   (the state, and the next sweep from it); then ``ladder.rung3(1.0)`` on
-   the same corpus (one shard), its report and launches.
+   ``check_counts_consistent``; exactly 13 walks (the K = 100 two-barrier
+   form; 12 sweeps and the graph's warm-up), 13 rebuilds and 14 snapshots,
+   no other kernel and no plain version; prints ``corpus_s``, ``plan_s``,
+   ``setup_s`` (plan + state init + transfer), tokens/s, peak device
+   memory (``max_memory_allocated``), the host's peak RSS and the held-out
+   perplexity on the 15,000 held-out documents; one checkpoint saved
+   (seconds, bytes) and restored bitwise (the state, and the next sweep
+   from it); then ``ladder.rung3(1.0)`` on the same corpus (one shard),
+   its report and launches.
 13. ingest: the CLI's corpus ingest (``corpus/native.py``, the host C++
    library of ``csrc/ldacorpus.cc``, built by ``g++`` here) and the CLI end
    to end at rung 3's corpus size: rung 3's whole corpus at scale 0.2
@@ -482,14 +489,27 @@ def walk_bound(draw_bytes: int, draw_ops: tuple[int, int], z, z_new, d, real,
     return bound(draw_bytes + (cells + topics) * 4, f32 + 4 * moved, bf16)
 
 
+def sweep_values(seed: int, device: str = "cuda", k: int = K) -> dict:
+    """K1's and K3's device values at bench.py's V: alpha, beta, V*beta and
+    K*alpha as the sweep forms them (``scalars``), and the seed's word
+    (``key``)."""
+    import numpy as np
+
+    from ldagibbssampling_tpu_torch.ops._device import (
+        device_values, seed_word, sweep_scalars)
+
+    return dict(scalars=device_values(sweep_scalars(ALPHA, BETA, V, k), device),
+                key=device_values(np.array([seed_word(seed)], np.int64), device))
+
+
 def walk_report(res: dict, name: str, rows, ndk, nk, z, w, d, m, *, chain: str,
-                row_tile: int, hyper: dict, draw_cost: tuple, k: int = K,
+                row_tile: int, values: dict, draw_cost: tuple, k: int = K,
                 prefix: str = "") -> None:
     """K1's whole walk over one block (draw and count move per tile, one
-    launch, internal noise) with its bound from that walk's own moves
-    (``draw_cost``: the draw's bytes and operations), and its fixed cost:
-    the same walk with every token masked (barriers, the reciprocal hoist,
-    index loads), per tile."""
+    launch, internal noise at ``values``' scalars and seed) with its bound
+    from that walk's own moves (``draw_cost``: the draw's bytes and
+    operations), and its fixed cost: the same walk with every token masked
+    (barriers, the reciprocal hoist, index loads), per tile."""
     import torch
 
     from ldagibbssampling_tpu_torch.evaluation.tracing import kernel_device_ms
@@ -503,8 +523,8 @@ def walk_report(res: dict, name: str, rows, ndk, nk, z, w, d, m, *, chain: str,
 
     def walk(mask):
         return fk.gibbs_tiles(rows, ndk_w, nk_w, z, w, d, mask, row_tile=row_tile,
-                              noise_mode="internal", seed=7, compute_dtype=chain,
-                              **hyper)
+                              noise_mode="internal", compute_dtype=chain,
+                              **values)
 
     def whole():
         reset()
@@ -550,8 +570,9 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         f"T_pad={plan.num_tokens} v_pad={plan.v_pad}")
     k_pad, v_pad = -(-K // 128) * 128, plan.v_pad
     row_tile = _pick_row_tile(BLOCK, K)
-    vbeta = float(np.float32(V) * np.float32(BETA))
-    hyper = dict(alpha=ALPHA, beta=BETA, vbeta=vbeta, row_tile=row_tile)
+    # K1 and its plain version read alpha, beta, V*beta and the seed from
+    # the same device tensors
+    v1234, v7 = sweep_values(seed + 1234, device), sweep_values(7, device)
 
     def on_dev(a):
         return torch.from_numpy(np.array(a, np.int32)).to(dev)
@@ -587,8 +608,8 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
             for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
                 ndk, nk = st.ndk.clone(), st.nk.clone()
                 zn = walk(snaps[rows], ndk, nk, z, w, d, m, noise_mode=mode,
-                          seed=seed + 1234, uniforms=uniforms,
-                          compute_dtype=chain, **hyper)
+                          row_tile=row_tile, uniforms=uniforms,
+                          compute_dtype=chain, **v1234)
                 torch.cuda.synchronize()
                 res.append((zn, ndk, nk))
             (zk, ndk_k, nk_k), (zp, ndk_p, nk_p) = res
@@ -640,16 +661,15 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     # --- times (internal noise: the main path's mode)
     def sample_kernel(chain="float32", rows="bfloat16"):
         return fk.gibbs_tile_sample(snaps[rows], st.ndk, st.nk, z, w, d, m,
-                                    noise_mode="internal", seed=7,
-                                    compute_dtype=chain, **hyper)
+                                    noise_mode="internal", row_tile=row_tile,
+                                    compute_dtype=chain, **v7)
 
     def sample_plain(chain="float32", rows="bfloat16"):
         for s in range(0, BLOCK, row_tile):
             sl = slice(s, s + row_tile)
             fk.sample_plain(snaps[rows], st.ndk, st.nk, z[sl], w[sl], d[sl], m[sl],
-                            alpha=ALPHA, beta=BETA, vbeta=vbeta,
-                            noise_mode="internal", seed=7, slot0=s,
-                            compute_dtype=chain)
+                            noise_mode="internal", slot0=s, compute_dtype=chain,
+                            **v7)
 
     z_new = sample_kernel()
     ndk_c, nk_c = st.ndk.clone(), st.nk.clone()
@@ -710,10 +730,9 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         out[name]["library_device_ms"] = ms = call_device_ms(lib)
         log(f"[kernels] {name}'s library call: device {ms} ms per call "
             f"(events {out[name]['library_ms']:.4f} ms)")
-    walk_hyper = dict(alpha=ALPHA, beta=BETA, vbeta=vbeta)
     for name, (chain, rows) in settings.items():
         walk_report(out[name], name, snaps[rows], st.ndk, st.nk, z, w, d, m,
-                    chain=chain, row_tile=row_tile, hyper=walk_hyper,
+                    chain=chain, row_tile=row_tile, values=v7,
                     draw_cost=draw_cost[name])
     return out
 
@@ -747,8 +766,7 @@ def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
     w, d, m = (torch.from_numpy(np.array(a[:BLOCK], np.int32)).to(dev)
                for a in (plan.token_word, plan.token_doc, plan.token_mask))
     z = st.z[:BLOCK].contiguous()
-    hyper = dict(alpha=ALPHA, beta=BETA,
-                 vbeta=float(np.float32(V) * np.float32(BETA)))
+    values = sweep_values(seed + 1234, device, K_GENERAL)
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     uniforms = torch.rand((BLOCK, k_pad), generator=g, device=dev) * (1 - 2e-7) + 1e-7
     for mode in MODES:
@@ -756,7 +774,7 @@ def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
         for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
             ndk, nk = st.ndk.clone(), st.nk.clone()
             zn = walk(mirror, ndk, nk, z, w, d, m, row_tile=row_tile, noise_mode=mode,
-                      seed=seed + 1234, uniforms=uniforms, **hyper)
+                      uniforms=uniforms, **values)
             torch.cuda.synchronize()
             res.append((zn, ndk, nk))
         if not all(torch.equal(a, b) for a, b in zip(*res)):
@@ -772,7 +790,8 @@ def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
               + BLOCK * 4 * 5)
     out: dict = {}
     walk_report(out, "gibbs_tile_sample", mirror, st.ndk, st.nk, z, w, d, m,
-                chain="float32", row_tile=row_tile, hyper=hyper,
+                chain="float32", row_tile=row_tile,
+                values=sweep_values(7, device, K_GENERAL),
                 draw_cost=(nbytes, sample_ops(n_real, BLOCK // row_tile, "float32",
                                               K_GENERAL)),
                 k=K_GENERAL, prefix=f"k{K_GENERAL}_")
@@ -799,11 +818,10 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
                     vocab_size=V, num_topics=K, seed=seed + 1, device=dev)
     k_pad = -(-K // 128) * 128
     row_tile = _pick_row_tile(BLOCK, K)
-    vbeta = float(np.float32(V) * np.float32(BETA))
-    hyper = dict(alpha=ALPHA, beta=BETA, vbeta=vbeta)
-    # K3 and its plain version read alpha, beta, V*beta and the seed from
-    # the same device tensors
+    # K1, K3 and their plain versions read alpha, beta, V*beta and the seed
+    # from the same device tensors
     k3_scalars = device_values(sweep_scalars(ALPHA, BETA, V, K), dev)
+    v1234, v7 = sweep_values(seed + 1234, device), sweep_values(7, device)
 
     def k3_key(s: int):
         return device_values(np.array([seed_word(s)], np.int64), dev)
@@ -837,7 +855,7 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
                            (fk.gibbs_tiles_plain, fk.count_move_plain)):
             nwk, ndk, nk = st.nwk.clone(), st.ndk.clone(), st.nk.clone()
             zn = walk(nwk, ndk, nk, z, w, d, m, row_tile=row_tile,
-                      noise_mode=mode, seed=seed + 1234, uniforms=u_live, **hyper)
+                      noise_mode=mode, uniforms=u_live, **v1234)
             move(z, zn, m, nwk=nwk, token_word=w)
             torch.cuda.synchronize()
             res.append((zn, nwk, ndk, nk))
@@ -927,13 +945,13 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     def live_kernel():
         return fk.gibbs_tile_sample(st.nwk, st.ndk, st.nk, z, w, d, m,
                                     row_tile=row_tile, noise_mode="internal",
-                                    seed=7, **hyper)
+                                    **v7)
 
     def live_plain():
         for s in range(0, BLOCK, row_tile):
             sl = slice(s, s + row_tile)
             fk.sample_plain(st.nwk, st.ndk, st.nk, z[sl], w[sl], d[sl], m[sl],
-                            noise_mode="internal", seed=7, slot0=s, **hyper)
+                            noise_mode="internal", slot0=s, **v7)
 
     key7 = k3_key(7)
     nwk_c = st.nwk.clone()
@@ -1001,7 +1019,7 @@ def check_live_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         f"{lib_ms} ms per call (events {out['count_move']['library_ms']:.4f} ms)")
     walk_report(out["gibbs_tile_sample_live"], "gibbs_tile_sample_live", st.nwk,
                 st.ndk, st.nk, z, w, d, m, chain="float32", row_tile=row_tile,
-                hyper=hyper, draw_cost=live_cost)
+                values=v7, draw_cost=live_cost)
     log(f"[kernels] count_move of nwk, ndk and nk with z written back: device "
         f"{out['count_move']['ms_three_tables']} ms per launch, events "
         f"{out['count_move']['event_ms_three_tables']:.4f} ms (bound "
@@ -1119,15 +1137,17 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
     # K1: one walk launch per sweep (deferred) or per block (fused), its
     # count moves inside the walk: no update-only launch, no count move in
     # the deferred tier, one (the block's word-topic moves) per block in
-    # the fused tier
+    # the fused tier; every tier replays a graph, whose warm-up sweep counts
+    # once more, and the deferred tier casts its first snapshot
+    runs = sweeps + warmups
     want = {
-        "deferred": {draw: sweeps, "gibbs_tile_update": 0, "count_move": 0,
-                     "rebuild_counts": sweeps,
-                     "cast_mirror": sweeps + 1 if mirror == "bfloat16" else 0},
-        "fused": {"gibbs_tile_sample_live": sweeps * blocks,
-                  "gibbs_tile_update": 0, "count_move": sweeps * blocks},
-        "pallas-draw": {"gibbs_block_sample": (sweeps + warmups) * blocks,
-                        "count_move": (sweeps + warmups) * blocks},
+        "deferred": {draw: runs, "gibbs_tile_update": 0, "count_move": 0,
+                     "rebuild_counts": runs,
+                     "cast_mirror": runs + 1 if mirror == "bfloat16" else 0},
+        "fused": {"gibbs_tile_sample_live": runs * blocks,
+                  "gibbs_tile_update": 0, "count_move": runs * blocks},
+        "pallas-draw": {"gibbs_block_sample": runs * blocks,
+                        "count_move": runs * blocks},
         "xla": {},
     }[tier]
     got = {n: launches[n] for n in want}
@@ -1477,9 +1497,12 @@ def parity_phase(use_pallas, seed: int, device: str = "cuda") -> dict:
                 z_entropy=rep["z_entropy"])
 
 
-def run_cli(args, cwd: str) -> str:
-    """The port's CLI on the card in a subprocess; its stdout."""
-    proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli", *args], cwd=cwd,
+def run_cli(args, cwd: str, counted: bool = False) -> str:
+    """The port's CLI on the card in a subprocess; its stdout (``counted``:
+    run by ``_COUNTED_CLI``, which prints the process's kernel launches)."""
+    cmd = ([sys.executable, "-c", _COUNTED_CLI] if counted
+           else [sys.executable, "-m", f"{PKG}.cli"])
+    proc = subprocess.run([*cmd, *args], cwd=cwd,
                           capture_output=True, text=True, timeout=600,
                           env={**os.environ, "PYTHONPATH": str(REPO)})
     if proc.returncode != 0:
@@ -1488,11 +1511,39 @@ def run_cli(args, cwd: str) -> str:
     return proc.stdout
 
 
+# [resume]: each tier's kernels, by the counters' names; the first counts
+# the sweeps (one launch per sweep and block)
+RESUME_KERNELS = {"fused": ("gibbs_tile_sample_live", "count_move"),
+                  "deferred": ("gibbs_tile_sample", "rebuild_counts"),
+                  "pallas-draw": ("gibbs_block_sample", "count_move")}
+
+
+def _resume_launches(tier: str, out: str, sweeps: int, blocks=None) -> int:
+    """The kernel launches a counted CLI process of ``sweeps`` sweeps made:
+    each of its tier's kernels (sweeps + 1) x blocks times, the graph's
+    warm-up sweep the one more, and the deferred tier's snapshots once
+    more than its sweeps (the first is cast from the state).  Returns the
+    blocks (per sweep launches), which the tier's other runs must match."""
+    line = [ln for ln in out.splitlines() if ln.startswith("[launches] ")][-1]
+    launches, plain = json.loads(line.split(" ", 1)[1])
+    got = {n: c for n, c in launches.items() if c}
+    first = RESUME_KERNELS[tier][0]
+    blocks = blocks if blocks is not None else got.get(first, 0) // (sweeps + 1)
+    want = {n: (sweeps + 1) * blocks for n in RESUME_KERNELS[tier]}
+    if tier == "deferred":
+        want["cast_mirror"] = sweeps + 2
+    if blocks < 1 or got != want or any(plain.values()):
+        raise AssertionError(f"[resume {tier}] {sweeps} sweeps launched {got} "
+                             f"(plain {plain}), want {want}")
+    return blocks
+
+
 def resume_phase() -> None:
     """Phase 5b: a killed and resumed CLI run writes the uninterrupted run's
-    artifacts byte for byte, in the fused and the deferred tier, and in the
-    v1-draw tier with a Minka update every 5 sweeps (its graph reads the
-    moved alpha and beta, and the restored state is copied in)."""
+    artifacts byte for byte, in the fused tier, and in the deferred and the
+    v1-draw tiers with a Minka update every 5 sweeps (their graphs read the
+    moved alpha and beta, and the restored state is copied in).  Each
+    process's launches are counted exactly (``_resume_launches``)."""
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "deferred.json").write_text('{"block_size": 256}')
         common = ["--docs", "docs", "-k", "10", "--save-step", "10",
@@ -1500,24 +1551,28 @@ def resume_phase() -> None:
         run_cli(["--generate-minicorpus", *common, "--no-save", "--iterations",
                  "1"], tmp)
         for tier, extra in (("fused", []),
-                            ("deferred", ["--config-json", "deferred.json"]),
+                            ("deferred", ["--config-json", "deferred.json",
+                                          "--optimize-hyper-every", "5"]),
                             ("pallas-draw", ["--pallas", "1",
                                              "--optimize-hyper-every", "5"])):
             t0 = time.perf_counter()
-            run_cli([*common, *extra, "--results", f"{tier}_full", "--iterations",
-                     "60", "--metrics-file", f"{tier}.jsonl",
-                     "--metrics-every", "0"], tmp)
+            out = run_cli([*common, *extra, "--results", f"{tier}_full",
+                           "--iterations", "60", "--metrics-file", f"{tier}.jsonl",
+                           "--metrics-every", "0"], tmp, counted=True)
             header = json.loads(Path(tmp, f"{tier}.jsonl").read_text().splitlines()[0])
             if header["kernel_tier"] != tier:
                 raise AssertionError(f"resume {tier}: ran {header['kernel_tier']}")
-            run_cli([*common, *extra, "--no-save", "--iterations", "30",
-                     "--checkpoint-dir", f"{tier}_ck", "--checkpoint-every", "10"],
-                    tmp)
+            blocks = _resume_launches(tier, out, 60)
+            out = run_cli([*common, *extra, "--no-save", "--iterations", "30",
+                           "--checkpoint-dir", f"{tier}_ck", "--checkpoint-every",
+                           "10"], tmp, counted=True)
+            _resume_launches(tier, out, 30, blocks)
             out = run_cli([*common, *extra, "--results", f"{tier}_resumed",
                            "--iterations", "60", "--checkpoint-dir", f"{tier}_ck",
-                           "--checkpoint-every", "10", "--resume"], tmp)
+                           "--checkpoint-every", "10", "--resume"], tmp, counted=True)
             if "Resumed from sweep 30" not in out:
                 raise AssertionError(f"resume {tier}: {out[-2000:]}")
+            _resume_launches(tier, out, 30, blocks)
             full = sorted(p.name for p in Path(tmp, f"{tier}_full").iterdir())
             want = sorted(f"lda_{i}.{e}" for i in (50, 60)
                           for e in ("params", "phi", "theta", "tassign", "twords"))
@@ -1531,7 +1586,9 @@ def resume_phase() -> None:
             kept = sorted(int(p.name) for p in Path(tmp, f"{tier}_ck").iterdir())
             log(f"[resume {tier}] 60 sweeps straight, and 30 + resume from sweep 30 "
                 f"to 60: the ten artifacts byte-identical (checkpoints kept "
-                f"{kept}; {time.perf_counter() - t0:.1f}s)")
+                f"{kept}; launches per process exact, {blocks} a sweep and "
+                f"kernel, the graph's warm-up once more; "
+                f"{time.perf_counter() - t0:.1f}s)")
 
 
 def infer_phase() -> None:
@@ -1983,7 +2040,9 @@ def multichain_phases(seed: int, device: str = "cuda",
 # (α, β) of a graph's first call, then of the next: a Minka-like change
 GRAPH_HYPERS = ((ALPHA, BETA), (0.013, 0.71))
 # captured sweeps timed per path (eager: the 3 sweeps of the comparison)
-GRAPH_TIMED = {"xla": 10, "pallas-draw": 100, "multichain": 10, "multichain wide": 3}
+GRAPH_TIMED = {"xla": 10, "pallas-draw": 100, "multichain": 10, "multichain wide": 3,
+               "deferred": 50, f"deferred K={K_GENERAL}": 50, "fused": 50}
+
 def graph_ops(sweep_graph) -> int:
     """The card's operations per replay of an ``ops/graphs.SweepGraph``: the
     graph's nodes (counted when it was captured) and the two fills per
@@ -2136,6 +2195,113 @@ def graph_single_path(corpus, seed: int, use_pallas: bool, smi: str) -> tuple[di
     return report, {n: c for n, c in launches.items() if c}
 
 
+def graph_kernel_tier_path(corpus, seed: int, tier: str, k: int,
+                           smi: str) -> tuple[dict, dict]:
+    """``[graphs deferred]`` / ``[graphs deferred K=100]`` / ``[graphs
+    fused]``: ``make_sweep_fn``'s run (one replay a sweep; the deferred
+    tier's ``with_mirror``, its snapshot carried) on ``make_backend``'s
+    layout and state against the eager ``_deferred_sweep_impl`` /
+    ``fused_gibbs_sweep``, in internal and external noise; returns the
+    report and the kernel launches of the captured runs."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch import make_backend
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.ops.gibbs import (
+        _deferred_sweep_impl, fused_gibbs_sweep, make_sweep_fn, sweep_seed)
+
+    dev = torch.device("cuda")
+    label = tier if k == K else f"{tier} K={k}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_backend(LdaConfig(alpha=ALPHA, beta=BETA, topic_num=k,
+                                   block_size=BLOCK, seed=seed, use_pallas=tier),
+                         corpus, device=dev)
+    if model.kernel_tier != tier:
+        raise AssertionError(f"[graphs {label}] the model runs {model.kernel_tier}")
+    plan = model._plan
+    layout, st0 = (plan if tier == "deferred" else model._padded), model.state
+    tw, td, tm = (torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+                  for a in (layout.token_word, layout.token_doc, layout.token_mask))
+    k_pad = -(-k // 128) * 128
+    (a0, b0), (a1, b1) = GRAPH_HYPERS
+    launches: dict = {}
+    report = None
+    for mode in ("external", "internal"):
+        run = make_sweep_fn(layout.token_word, layout.token_doc, layout.token_mask,
+                            alpha=ALPHA, beta=BETA, block_size=BLOCK,
+                            use_pallas=tier, num_topics=k, deferred_plan=plan,
+                            noise_mode=mode, device=dev)
+        noise = (card_noise("uniform", (layout.num_tokens, k_pad), seed + 11)
+                 if mode == "external" else None)
+
+        def call(st, mirror, a=ALPHA, b=BETA, n=1, gen=None):
+            kw = dict(n_sweeps=n, generator=gen, noise=noise)
+            if tier == "deferred":
+                return run.with_mirror(st, a, b, mirror, **kw)
+            return run(st, a, b, **kw), None
+        zero_counters()
+        gen = torch.Generator().manual_seed(seed + 3)
+        got, snap = call(st0, None, a0, b0, 2, gen)
+        got, snap = call(got, snap, a1, b1, 1, gen)
+        torch.cuda.synchronize()
+        for name, n in read_counters()[0].items():
+            launches[name] = launches.get(name, 0) + n
+        gen = torch.Generator().manual_seed(seed + 3)
+
+        def eager(s=st0, mirror=None, hypers=((a0, b0), (a0, b0), (a1, b1))):
+            for a, b in hypers:
+                kw = dict(noise_mode=mode,
+                          seed=sweep_seed(gen) if mode == "internal" else 0,
+                          uniforms=None if noise is None else noise(s.sweep))
+                if tier == "deferred":
+                    s, mirror = _deferred_sweep_impl(
+                        s, tw, td, tm, a, b, row_tile=run.row_tile,
+                        v_pad=plan.v_pad, mirror=mirror, **kw)
+                else:
+                    s = fused_gibbs_sweep(s, tw, td, tm, a, b, block_size=BLOCK,
+                                          row_tile=run.row_tile, **kw)
+            return s, mirror
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_snap = eager()
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        _assert_tables(f"{label} {mode}", (got.z, got.ndk, got.nwk, got.nk),
+                       (want.z, want.ndk, want.nwk, want.nk))
+        if tier == "deferred" and not torch.equal(snap, want_snap):
+            raise AssertionError(f"[graphs {label} {mode}] captured snapshot differs "
+                                 "from eager")
+        if mode == "external":
+            continue
+        zero_counters()
+        n_timed = GRAPH_TIMED[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, snap = call(got, snap, n=n_timed, gen=gen)
+        torch.cuda.synchronize()
+        timed = (n_timed, time.perf_counter() - t0)
+        for name, n in read_counters()[0].items():
+            launches[name] = launches.get(name, 0) + n
+        # each profiled call takes the state the last one returned, as
+        # LdaModel and the bench script pass it back: no copy in
+        held = [got, snap]
+
+        def calls(n):
+            def fn():
+                held[:] = call(*held, n=n, gen=gen)
+            return fn
+        one, five = launch_profile(calls(1)), launch_profile(calls(5))
+        eager_prof = launch_profile(lambda: eager(got, snap, ((a0, b0),)))
+        (graph,) = run.graphs.values()
+        report = _graph_report(label, graph, eager_s, timed, corpus.num_tokens,
+                               eager_prof, _per_sweep(one, five), smi)
+        report["per_replay"] = {n: c for (_, n), c in graph.per_replay.items()}
+    del model
+    return report, {n: c for n, c in launches.items() if c}
+
+
 def graph_chain_path(label: str, corpus, cfg, seed: int, smi: str) -> dict:
     """``[graphs multichain]`` / ``[graphs multichain wide]``: ``ChainSet``'s
     batched sweep (one replay a sweep) against the eager
@@ -2209,15 +2375,21 @@ def graph_chain_path(label: str, corpus, cfg, seed: int, smi: str) -> dict:
 
 def graphs_phase(seed: int, smi: str, wide_corpus) -> tuple[dict, dict]:
     """Phase 8c, ``[graphs]``: each captured path against its eager sweep
-    at full width: the XLA tier and the v1-draw tier at bench.py's shape,
-    the chains at rung 4's full size and at K = 500 on bench.py's shape.
-    Returns the reports and the v1-draw path's captured kernel launches."""
+    at full width: the deferred tier (K = 500 and K = 100), the fused tier,
+    the XLA tier and the v1-draw tier at bench.py's shape, the chains at
+    rung 4's full size and at K = 500 on bench.py's shape.  Returns the
+    reports and the kernel launches of the captured runs, by path."""
     from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
     from ldagibbssampling_tpu_torch.config import LdaConfig
 
-    out = {}
+    out, launches = {}, {}
+    for tier, k in (("deferred", K), ("deferred", K_GENERAL), ("fused", K)):
+        label = tier if k == K else f"{tier} K={k}"
+        out[label], launches[label] = graph_kernel_tier_path(wide_corpus, seed,
+                                                             tier, k, smi)
     out["xla"], _ = graph_single_path(wide_corpus, seed, False, smi)
-    out["pallas-draw"], launches = graph_single_path(wide_corpus, seed, True, smi)
+    out["pallas-draw"], launches["pallas-draw"] = graph_single_path(
+        wide_corpus, seed, True, smi)
     rung4, _ = rung_corpus(4, MULTICHAIN_SCALE)
     out["multichain"] = graph_chain_path(
         "multichain", rung4,
@@ -2290,11 +2462,13 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
         if any(plain.values()):
             raise AssertionError(f"{name}: plain versions ran: {plain}")
         if name == "gibbs":
+            # the graph's warm-up and the first snapshot came with the
+            # untimed sweep: then one replay a sweep
             gibbs_launches = {k: v for k, v in launches.items() if v}
-            want = ("gibbs_tile_sample", "rebuild_counts", "cast_mirror")
-            if model.kernel_tier != "deferred" or any(
-                    launches[k] <= 0 for k in want):
-                raise AssertionError(f"gibbs ran {model.kernel_tier}: {launches}")
+            want = {"gibbs_tile_sample": n, "rebuild_counts": n, "cast_mirror": n}
+            if model.kernel_tier != "deferred" or gibbs_launches != want:
+                raise AssertionError(f"gibbs ran {model.kernel_tier}: {launches}, "
+                                     f"want {want}")
         elif any(launches.values()):
             raise AssertionError(f"{name} launched kernels {launches}")
         v = corpus.vocab_size
@@ -3031,10 +3205,11 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
     if model.sweeps_done != runs:
         raise AssertionError(f"[rung3 full] ran {model.sweeps_done} sweeps, not {runs}")
     # the first snapshot, then per sweep one walk (the K = 100 two-barrier
-    # form), one rebuild and one snapshot
+    # form), one rebuild and one snapshot, and once more in the graph's
+    # warm-up sweep
     launches = _launches_match("rung3 full", {
-        sample_name(torch.bfloat16, "float32"): runs, "rebuild_counts": runs,
-        "cast_mirror": runs + 1}, device)
+        sample_name(torch.bfloat16, "float32"): runs + 1,
+        "rebuild_counts": runs + 1, "cast_mirror": runs + 2}, device)
     out.update(sweep_s=dt, tokens_per_s=sweeps * corpus.num_tokens / dt,
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card
                else None, launches=launches)
@@ -3324,10 +3499,10 @@ def ingest_phase(seed: int, device: str = "cuda", scale: float = INGEST_SCALE,
         plans = json.loads(next(ln for ln in lines if ln.startswith("[plan] "))
                            .split(" ", 1)[1])
         # in the process: the state's first snapshot, then per sweep one walk,
-        # one rebuild and one snapshot
+        # one rebuild and one snapshot, and once more in the graph's warm-up
         walk = sample_name(torch.bfloat16, "float32")
-        want = {walk: INGEST_SWEEPS, "rebuild_counts": INGEST_SWEEPS,
-                "cast_mirror": INGEST_SWEEPS + 1}
+        want = {walk: INGEST_SWEEPS + 1, "rebuild_counts": INGEST_SWEEPS + 1,
+                "cast_mirror": INGEST_SWEEPS + 2}
         if device == "cuda":
             got = {n: c for n, c in launches.items() if c}
             ok = got == want and not any(plain.values())
@@ -3490,8 +3665,9 @@ def main() -> int:
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
         if kname in gibbs_launches:  # phase 9's Gibbs row (deferred tier)
             by_path["backends gibbs"] = gibbs_launches[kname]
-        if kname in graph_launches:  # phase 8c's captured v1-draw runs
-            by_path["graphs pallas-draw"] = graph_launches[kname]
+        for label, counts in graph_launches.items():  # phase 8c's captured runs
+            if kname in counts:
+                by_path[f"graphs {label}"] = counts[kname]
         for path, counts in (*mesh_launches.items(),  # phases 12, 12c, 13
                              *ingest_launches.items()):
             if kname in counts:

@@ -97,8 +97,13 @@
 // Noise modes: 0 deterministic (no noise), 1 external (caller uniforms
 // [n, k_pad]), 2 internal (Philox4x32-10 keyed by a per-sweep seed, counter
 // (token slot, topic group of 4); 24-bit uniforms, philox.cuh).
-// alpha, beta and V*beta arrive as launch arguments, so a hyperparameter
-// update between sweeps reaches the next launch.
+// alpha, beta, V*beta and the internal mode's Philox key are device values
+// (scalars: float32 alpha, beta, V*beta, as ops/_device.sweep_scalars lays
+// them out; key: the seed's 64 bits): thread 0 of each CTA reads them into
+// shared memory before the first tile, and every thread then keeps them in
+// registers.  A CUDA graph of a sweep (ops/graphs.py) replays the launch with
+// the values its buffers hold then, so a hyperparameter update and each
+// sweep's seed reach the next replay.
 //
 // The count move (gibbs_tile_update, launched by lda_count_move): -1 at
 // z_old and +1 at z_new of every unmasked token that moved, in each of nwk
@@ -120,6 +125,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "philox.cuh"
 
@@ -159,11 +168,8 @@ struct WalkArgs {
   const float* uniforms;
   long long n_tokens;
   int row_tile;
-  float alpha;
-  float beta;
-  float vbeta;
-  uint32_t key0;
-  uint32_t key1;
+  const float* scalars;           // alpha, beta, V*beta (device)
+  const unsigned long long* key;  // the Philox key (device; internal mode)
   long long slot0;
   int phases;        // 1 draw only, 3 draw and count move per tile
   int team;          // threads per token: a power of two, 32 .. kWalkThreads
@@ -172,6 +178,12 @@ struct WalkArgs {
   bool vec_noise;    // a group's 4 uniforms in one load
   bool pipelined;    // walk_pipelined: a sweep whose tiles are one pass each
   unsigned int* barrier;
+};
+
+// the launch's hyperparameters and key, read from the device at the start
+struct Hyper {
+  float alpha, beta, vbeta;
+  uint32_t key0, key1;
 };
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -285,11 +297,11 @@ __device__ __forceinline__ float2 bf16_chain_p2(float w0, float w1, float d0,
 // 1 / bf16(E) of topics 4g .. 4g+3 of token i (1 in deterministic mode):
 // the noise half of a draw, which no count move changes
 template <int kMode>
-__device__ __forceinline__ void noise4(const WalkArgs& a, long long i, int g,
-                                       float inv_e[4]) {
+__device__ __forceinline__ void noise4(const WalkArgs& a, const Hyper& h,
+                                       long long i, int g, float inv_e[4]) {
   if (kMode == 2) {
     const uint4 b = lda::philox_group(
-        static_cast<unsigned long long>(a.slot0 + i), g, a.key0, a.key1);
+        static_cast<unsigned long long>(a.slot0 + i), g, h.key0, h.key1);
     inv_e[0] = approx_recip(-logf(lda::bits_to_uniform(b.x)));
     inv_e[1] = approx_recip(-logf(lda::bits_to_uniform(b.y)));
     inv_e[2] = approx_recip(-logf(lda::bits_to_uniform(b.z)));
@@ -320,10 +332,10 @@ __device__ __forceinline__ void noise4(const WalkArgs& a, long long i, int g,
 // (best, best_k): strict >, so a thread keeps the first maximum of the
 // groups it scans in increasing order.
 template <int kMode, int kChain>
-__device__ __forceinline__ void score4(const WalkArgs& a, const float w[4],
-                                       const float d[4], float4 r4,
-                                       const float inv_e[4], int zo, int g,
-                                       float& best, int& best_k) {
+__device__ __forceinline__ void score4(const WalkArgs& a, const Hyper& h,
+                                       const float w[4], const float d[4],
+                                       float4 r4, const float inv_e[4], int zo,
+                                       int g, float& best, int& best_k) {
   const float r[4] = {r4.x, r4.y, r4.z, r4.w};
   float e[4];
 #pragma unroll
@@ -333,13 +345,13 @@ __device__ __forceinline__ void score4(const WalkArgs& a, const float w[4],
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float rr = r[j] * r[j];
-      const float p = ((w[j] - e[j] + a.beta) * (d[j] - e[j] + a.alpha)) *
+      const float p = ((w[j] - e[j] + h.beta) * (d[j] - e[j] + h.alpha)) *
                       (r[j] + e[j] * rr);
       s[j] = (kMode == 0) ? p : p * inv_e[j];
     }
   } else {
-    const __nv_bfloat162 alpha2 = __float2bfloat162_rn(a.alpha);
-    const __nv_bfloat162 beta2 = __float2bfloat162_rn(a.beta);
+    const __nv_bfloat162 alpha2 = __float2bfloat162_rn(h.alpha);
+    const __nv_bfloat162 beta2 = __float2bfloat162_rn(h.beta);
 #pragma unroll
     for (int h = 0; h < 4; h += 2) {
       const float2 p = bf16_chain_p2(w[h], w[h + 1], d[h], d[h + 1], e[h],
@@ -467,10 +479,11 @@ __device__ __forceinline__ void grid_wait(const unsigned int* bar,
 
 // The tile's nk reciprocals, once per CTA (nk through L2: it moves during
 // the walk)
-__device__ __forceinline__ void hoist_recip(const WalkArgs& a, float* s_r) {
+__device__ __forceinline__ void hoist_recip(const WalkArgs& a, const Hyper& h,
+                                            float* s_r) {
   for (int k = threadIdx.x; k < a.k_pad; k += kWalkThreads)
     s_r[k] = k < a.k_real
-                 ? approx_recip(static_cast<float>(__ldcg(a.nk + k)) + a.vbeta)
+                 ? approx_recip(static_cast<float>(__ldcg(a.nk + k)) + h.vbeta)
                  : 0.0f;
 }
 
@@ -544,8 +557,9 @@ __device__ __forceinline__ void fold_move(const Move& mv, int per_cta,
 // CTAs whose teams have no token in any tile only keep the barrier.  At the
 // end X0 takes the moves it lacks and CTA 0 writes nk back.
 template <int kMode, int kChain, typename RowT>
-__device__ __forceinline__ void walk_pipelined(const WalkArgs& a, float4* s_r4,
-                                               int* s_nk, int* s_corr,
+__device__ __forceinline__ void walk_pipelined(const WalkArgs& a, const Hyper& h,
+                                               float4* s_r4, int* s_nk,
+                                               int* s_corr,
                                                int* s_doc, float* s_best,
                                                int* s_k) {
   const int tid = threadIdx.x;
@@ -565,7 +579,7 @@ __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, float4* s_r4,
   if (mine_group && cur.real) {
     load_row4(rows + static_cast<long long>(cur.word) * a.row_stride, tl,
               a.k_real, a.vec_rows, w);
-    noise4<kMode>(a, cur.i, tl, inv_e);
+    noise4<kMode>(a, h, cur.i, tl, inv_e);
   }
   for (int k = tid; k < a.k_pad; k += kWalkThreads)
     s_nk[k] = k < a.k_real ? a.nk[k] : 0;
@@ -590,7 +604,7 @@ __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, float4* s_r4,
       __syncthreads();
       for (int k = tid; k < a.k_pad; k += kWalkThreads)
         s_r[k] = k < a.k_real
-                     ? approx_recip(static_cast<float>(s_nk[k]) + a.vbeta)
+                     ? approx_recip(static_cast<float>(s_nk[k]) + h.vbeta)
                      : 0.0f;
       __syncthreads();
       float best = -INFINITY;
@@ -600,7 +614,7 @@ __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, float4* s_r4,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           d[j] = static_cast<float>(dc[j] + s_corr[q * a.k_pad + 4 * tl + j]);
-        score4<kMode, kChain>(a, w, d, s_r4[tl], inv_e, cur.zo, tl, best,
+        score4<kMode, kChain>(a, h, w, d, s_r4[tl], inv_e, cur.zo, tl, best,
                               best_k);
       }
       team_argmax(best, best_k, a.team, s_best, s_k);
@@ -620,7 +634,7 @@ __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, float4* s_r4,
       if (mine_group && cur.real) {
         load_row4(rows + static_cast<long long>(cur.word) * a.row_stride, tl,
                   a.k_real, a.vec_rows, w);
-        noise4<kMode>(a, cur.i, tl, inv_e);
+        noise4<kMode>(a, h, cur.i, tl, inv_e);
       }
       for (int k = tid; k < per_cta * a.k_pad; k += kWalkThreads) s_corr[k] = 0;
       if (tl == 0) s_doc[q] = cur.real ? cur.doc : -1;
@@ -645,8 +659,9 @@ __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, float4* s_r4,
 // The walk at any shape: a team loops over the tokens of a tile it has
 // (tile_tokens > teams) and a thread over its topic groups (groups > team).
 template <int kMode, int kChain, typename RowT>
-__device__ __forceinline__ void walk_general(const WalkArgs& a, float4* s_r4,
-                                             float* s_best, int* s_k) {
+__device__ __forceinline__ void walk_general(const WalkArgs& a, const Hyper& h,
+                                             float4* s_r4, float* s_best,
+                                             int* s_k) {
   const int tid = threadIdx.x;
   const int per_cta = kWalkThreads / a.team;
   const long long teams = static_cast<long long>(gridDim.x) * per_cta;
@@ -660,7 +675,7 @@ __device__ __forceinline__ void walk_general(const WalkArgs& a, float4* s_r4,
     const long long n =
         a.n_tokens - t0 < a.row_tile ? a.n_tokens - t0 : a.row_tile;
     if (t0 == 0 || move) {
-      hoist_recip(a, reinterpret_cast<float*>(s_r4));
+      hoist_recip(a, h, reinterpret_cast<float*>(s_r4));
       __syncthreads();
     }
     for (long long j0 = 0; j0 < n; j0 += teams) {  // the same trip count in a CTA
@@ -681,12 +696,13 @@ __device__ __forceinline__ void walk_general(const WalkArgs& a, float4* s_r4,
           for (int g = tl; g < ng; g += a.team) {
             float inv_e[4], w[4], d[4];
             int dc[4];
-            noise4<kMode>(a, i, g, inv_e);
+            noise4<kMode>(a, h, i, g, inv_e);
             load_row4(wrow, g, a.k_real, a.vec_rows, w);
             load_ndk4(drow, g, a.k_real, a.vec_ndk, dc);
 #pragma unroll
             for (int j = 0; j < 4; ++j) d[j] = static_cast<float>(dc[j]);
-            score4<kMode, kChain>(a, w, d, s_r4[g], inv_e, zo, g, best, best_k);
+            score4<kMode, kChain>(a, h, w, d, s_r4[g], inv_e, zo, g, best,
+                                  best_k);
           }
         }
       }
@@ -717,12 +733,27 @@ __global__ void __launch_bounds__(kWalkThreads, 1) gibbs_walk(const WalkArgs a) 
   __shared__ float s_best[kWalkWarps];
   __shared__ int s_k[kWalkWarps];
   __shared__ int s_doc[kWalkWarps];
+  // the launch's values, read once per CTA, then held in registers
+  __shared__ Hyper s_h;
+  if (threadIdx.x == 0) {
+    s_h.alpha = __ldg(a.scalars);
+    s_h.beta = __ldg(a.scalars + 1);
+    s_h.vbeta = __ldg(a.scalars + 2);
+    s_h.key0 = s_h.key1 = 0;
+    if (kMode == 2) {
+      const unsigned long long key = __ldg(a.key);
+      s_h.key0 = static_cast<uint32_t>(key);
+      s_h.key1 = static_cast<uint32_t>(key >> 32);
+    }
+  }
+  __syncthreads();
+  const Hyper h = s_h;
   if (a.pipelined) {
     int* s_nk = reinterpret_cast<int*>(s_r4 + a.k_pad / 4);
-    walk_pipelined<kMode, kChain, RowT>(a, s_r4, s_nk, s_nk + a.k_pad, s_doc,
-                                        s_best, s_k);
+    walk_pipelined<kMode, kChain, RowT>(a, h, s_r4, s_nk, s_nk + a.k_pad,
+                                        s_doc, s_best, s_k);
   } else {
-    walk_general<kMode, kChain, RowT>(a, s_r4, s_best, s_k);
+    walk_general<kMode, kChain, RowT>(a, h, s_r4, s_best, s_k);
   }
 }
 
@@ -822,17 +853,33 @@ WalkKernel walk_kernel(int rows_kind, int chain, int noise_mode) {
   return walk_for_chain<__nv_bfloat16>(chain, noise_mode);
 }
 
+// The launch configurations found so far, by (device, kernel, phases, k_pad,
+// n_tokens, row_tile), and each (device, kernel)'s largest dynamic shared
+// memory allowed so far.  A launch takes its configuration from here, so a
+// launch inside a stream capture makes no attribute call and no occupancy
+// query (a graph's warm-up sweep finds them first); the allowance only grows,
+// so no later configuration takes shared memory from an earlier one.
+std::mutex g_config_mu;
+std::map<std::pair<int, uintptr_t>, size_t> g_smem_allowed;
+
+uintptr_t kernel_id(WalkKernel kernel) {
+  return reinterpret_cast<uintptr_t>(kernel);
+}
+
 // as many CTAs of `kernel` as the card holds at once, with `smem` bytes of
-// dynamic shared memory each
+// dynamic shared memory each (called with g_config_mu held)
 cudaError_t walk_grid(WalkKernel kernel, size_t smem, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem > 48 * 1024)
+  size_t& allowed = g_smem_allowed[{dev, kernel_id(kernel)}];
+  if (err == cudaSuccess && smem > 48 * 1024 && smem > allowed) {
     err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
+    if (err == cudaSuccess) allowed = smem;
+  }
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, reinterpret_cast<const void*>(kernel), kWalkThreads, smem);
@@ -889,6 +936,29 @@ cudaError_t walk_config(WalkKernel kernel, int phases, int k_pad,
   return err;
 }
 
+std::map<std::tuple<int, uintptr_t, int, int, long long, int>, WalkConfig>
+    g_configs;
+
+// walk_config on the current device, found once per key
+cudaError_t cached_walk_config(WalkKernel kernel, int phases, int k_pad,
+                               long long n_tokens, int row_tile,
+                               WalkConfig* c) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(dev, kernel_id(kernel), phases, k_pad,
+                                   n_tokens, row_tile);
+  std::lock_guard<std::mutex> lock(g_config_mu);
+  const auto it = g_configs.find(key);
+  if (it != g_configs.end()) {
+    *c = it->second;
+    return cudaSuccess;
+  }
+  err = walk_config(kernel, phases, k_pad, n_tokens, row_tile, c);
+  if (err == cudaSuccess) g_configs.emplace(key, *c);
+  return err;
+}
+
 }  // namespace
 
 extern "C" const char* lda_error_string(int err) {
@@ -905,8 +975,8 @@ extern "C" int lda_walk_config(int rows_kind, int chain, int noise_mode,
                                int* pipelined) {
   WalkConfig c;
   const cudaError_t err =
-      walk_config(walk_kernel(rows_kind, chain, noise_mode), 3, k_pad,
-                  n_tokens, row_tile, &c);
+      cached_walk_config(walk_kernel(rows_kind, chain, noise_mode), 3, k_pad,
+                         n_tokens, row_tile, &c);
   *grid = c.grid;
   *threads = kWalkThreads;
   *team = c.team;
@@ -917,21 +987,26 @@ extern "C" int lda_walk_config(int rows_kind, int chain, int noise_mode,
 // Walk the tiles of [0, n_tokens) in order, in one cooperative launch.
 // rows_kind: 0 = bf16 snapshot, 1 = live int32 table (float32 chain only),
 // 2 = float32 snapshot.  chain: 0 = float32, 1 = bfloat16, 2 = bf16p.
-// phases: 1 = draw only (every token against the given counts), 3 = draw
-// and count move per tile (the sweep; needs `barrier`, one int32 that the
-// caller zeroes, and, where lda_walk_config says pipelined, `ndk_copy`, a
-// copy of ndk that the walk overwrites; walk_general ignores it).
-// Returns the launch's CUDA error: a launch the card refuses (cooperative
-// grid too large, too much shared memory) is reported, never split into
-// smaller launches.  (The count move alone is lda_count_move.)
+// scalars points to float32 alpha, beta, V*beta and key to the uint64
+// Philox key (internal mode only), both on the device and read when the
+// walk starts.  phases: 1 = draw only (every token against the given
+// counts), 3 = draw and count move per tile (the sweep; needs `barrier`, one
+// int32 that the caller zeroes, and, where lda_walk_config says pipelined,
+// `ndk_copy`, a copy of ndk that the walk overwrites; walk_general ignores
+// it).  Returns the launch's CUDA error: a launch the card refuses
+// (cooperative grid too large, too much shared memory, a stream capture that
+// takes no cooperative launch) is reported, never split into smaller
+// launches nor made a launch without the co-residency that the grid barrier
+// needs.  (The count move alone is lda_count_move.)
 extern "C" int lda_gibbs_tiles(
     const void* rows, int rows_kind, long long row_stride, int k_pad,
     void* ndk, int k_real, void* nk, const void* z_old, void* z_new,
     const void* word, const void* doc, const void* mask, const void* uniforms,
-    long long n_tokens, int row_tile, float alpha, float beta, float vbeta,
-    int noise_mode, int chain, unsigned long long seed, long long slot0,
-    int phases, void* barrier, void* ndk_copy, void* stream) {
+    long long n_tokens, int row_tile, const void* scalars, const void* key,
+    int noise_mode, int chain, long long slot0, int phases, void* barrier,
+    void* ndk_copy, void* stream) {
   if (noise_mode < 0 || noise_mode > 2 || row_tile <= 0 ||
+      scalars == nullptr || (noise_mode == 2 && key == nullptr) ||
       (phases != 1 && phases != 3) || (phases == 3 && barrier == nullptr) ||
       (k_pad & 3) || k_pad <= 0 || k_real > k_pad ||
       (rows_kind != kRowsBf16 && rows_kind != kRowsInt32 &&
@@ -942,7 +1017,8 @@ extern "C" int lda_gibbs_tiles(
   if (n_tokens <= 0) return static_cast<int>(cudaGetLastError());
   const WalkKernel kernel = walk_kernel(rows_kind, chain, noise_mode);
   WalkConfig c;  // the same as lda_walk_config's for phases 3
-  cudaError_t err = walk_config(kernel, phases, k_pad, n_tokens, row_tile, &c);
+  cudaError_t err =
+      cached_walk_config(kernel, phases, k_pad, n_tokens, row_tile, &c);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (c.pipelined && ndk_copy == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -963,11 +1039,8 @@ extern "C" int lda_gibbs_tiles(
   a.uniforms = static_cast<const float*>(uniforms);
   a.n_tokens = n_tokens;
   a.row_tile = row_tile;
-  a.alpha = alpha;
-  a.beta = beta;
-  a.vbeta = vbeta;
-  a.key0 = static_cast<uint32_t>(seed);
-  a.key1 = static_cast<uint32_t>(seed >> 32);
+  a.scalars = static_cast<const float*>(scalars);
+  a.key = static_cast<const unsigned long long*>(key);
   a.slot0 = slot0;
   a.phases = phases;
   a.team = c.team;

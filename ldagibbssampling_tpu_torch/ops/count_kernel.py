@@ -22,7 +22,10 @@ the table is rebuilt once per sweep from the final assignments.
   ``build_nwk`` runs both (``emit_mirror=True``) or the rebuild alone
   (``emit_mirror=False``, the float32-snapshot path, whose snapshot the
   caller casts outside any kernel, as the reference does in XLA) and
-  returns the reference's layout.
+  returns the reference's layout.  ``rebuild_counts`` and ``cast_mirror``
+  also write into given tensors (``out=``): a captured deferred sweep
+  (``ops/gibbs.deferred_sweep_graph``) rebuilds straight into its graph's
+  padded tables and snapshot.
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it; any other device raises, and so does a failed
@@ -36,6 +39,7 @@ import ctypes
 import dataclasses
 import functools
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -424,20 +428,39 @@ def rebuild_counts_plain(z, token_word, token_mask, *, v_pad: int, k_pad: int):
     return nwk.view(v_pad, k_pad), nk
 
 
+def _check_out(name: str, t: torch.Tensor, shape: tuple, dtype, dev) -> None:
+    if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+        raise ValueError(f"{name}: want {dtype} {shape} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def rebuild_counts(z: torch.Tensor, token_word: torch.Tensor,
-                   token_mask: torch.Tensor, *, v_pad: int, k_pad: int):
+                   token_mask: torch.Tensor, *, v_pad: int, k_pad: int,
+                   out: Optional[tuple[torch.Tensor, torch.Tensor]] = None):
     """Exact ``(nwk [v_pad, k_pad], nk [k_pad])`` int32 counts of the
-    unmasked tokens' ``(word, z)`` pairs."""
+    unmasked tokens' ``(word, z)`` pairs; written into ``out`` (both
+    tables, contiguous) where it is given, which it returns."""
     _check_tokens(z, token_word, token_mask)
     if k_pad % 128 or k_pad > _MAX_K_PAD or v_pad <= 0:
         raise ValueError(f"k_pad {k_pad} (multiple of 128, <= {_MAX_K_PAD}), "
                          f"v_pad {v_pad}")
+    if out is not None:
+        _check_out("nwk", out[0], (v_pad, k_pad), torch.int32, z.device)
+        _check_out("nk", out[1], (k_pad,), torch.int32, z.device)
     if z.device.type == "cpu":
-        return rebuild_counts_plain(z, token_word, token_mask,
-                                    v_pad=v_pad, k_pad=k_pad)
+        tables = rebuild_counts_plain(z, token_word, token_mask,
+                                      v_pad=v_pad, k_pad=k_pad)
+        if out is None:
+            return tables
+        for o, t in zip(out, tables):
+            o.copy_(t)
+        return out
     build, lib = _lib()
-    nwk = torch.empty((v_pad, k_pad), dtype=torch.int32, device=z.device)
-    nk = torch.empty(k_pad, dtype=torch.int32, device=z.device)
+    nwk, nk = out if out is not None else (
+        torch.empty((v_pad, k_pad), dtype=torch.int32, device=z.device),
+        torch.empty(k_pad, dtype=torch.int32, device=z.device))
     with torch.cuda.device(z.device):
         err = lib.lda_rebuild_counts(
             z.data_ptr(), token_word.data_ptr(), token_mask.data_ptr(),
@@ -453,16 +476,22 @@ def cast_mirror_plain(nwk: torch.Tensor) -> torch.Tensor:
     return nwk.to(torch.bfloat16)
 
 
-def cast_mirror(nwk: torch.Tensor) -> torch.Tensor:
-    """bf16 copy (round-to-nearest-even) of an int32 count table."""
+def cast_mirror(nwk: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bf16 copy (round-to-nearest-even) of an int32 count table, written
+    into ``out`` (contiguous, of the table's shape) where it is given."""
     if nwk.dtype != torch.int32 or not nwk.is_contiguous():
         raise ValueError(f"nwk must be contiguous int32, got {nwk.dtype}")
+    if out is not None:
+        _check_out("out", out, tuple(nwk.shape), torch.bfloat16, nwk.device)
     if nwk.device.type == "cpu":
-        return cast_mirror_plain(nwk)
+        mirror = cast_mirror_plain(nwk)
+        return mirror if out is None else out.copy_(mirror)
     if nwk.device.type != "cuda":
         raise ValueError(f"unsupported device {nwk.device}")
     build, lib = _lib()
-    mirror = torch.empty(nwk.shape, dtype=torch.bfloat16, device=nwk.device)
+    mirror = out if out is not None else torch.empty(
+        nwk.shape, dtype=torch.bfloat16, device=nwk.device)
     with torch.cuda.device(nwk.device):
         err = lib.lda_cast_mirror(
             nwk.data_ptr(), mirror.data_ptr(), nwk.numel(), _MAX_BLOCKS,

@@ -28,8 +28,12 @@ float32 chain only, as the reference does.  The CUDA kernels are in
   (``walk_config`` says which).  The wrapper allocates the barrier's
   counter (one int32, ``torch.zeros``) per walk and, for the one-barrier
   walk only, the second ``ndk`` buffer (a clone: ``ndk``'s memory twice
-  while the walk runs).  A launch the card refuses raises; nothing splits
-  a walk into smaller launches;
+  while the walk runs); inside a stream capture they are a memset and a
+  copy of the graph.  A launch the card refuses raises; nothing splits
+  a walk into smaller launches or launches it without co-residency.  The
+  launch configuration is found once per kernel and shape
+  (``csrc/fused_kernel.cu``'s cache), so a launch inside a capture makes
+  no occupancy query;
 - ``gibbs_tile_update``: the count move, ``count_move``: -1 at ``z_old``,
   +1 at ``z_new`` with integer atomics in any of ``nwk``/``ndk``/``nk`` for
   a whole block (the fused tier's word-topic moves, the v1 tier's three
@@ -41,6 +45,13 @@ float32 chain only, as the reference does.  The CUDA kernels are in
   reference's dense ``[B, Kp]`` delta (``emit_delta=True``) feeds only the
   word-topic scatter, so on the card it never leaves the kernel;
   ``gibbs_tiles_plain(..., emit_delta=True)`` still returns it.
+
+α, β, V·β and the internal seed are device values, kernel and plain
+version alike: ``scalars`` (float32 α, β, V·β first, as
+``ops/_device.sweep_scalars`` lays them out) and ``key`` (int64, the seed's
+64 bits, ``_device.seed_word``), which the walk reads when it starts.  A
+CUDA graph of a sweep (``ops/graphs.py``) replays the walk with the values
+its buffers hold then.
 
 ``ndk [M, K]`` and ``nk [K]`` are int32 and updated IN PLACE, indexed by the
 token's document: the reference's per-block ``[D_LOC, K]`` slab is a VMEM
@@ -95,6 +106,7 @@ PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 LAUNCH_COUNTERS[__name__] = LAUNCHES
 
 _MASK32 = 0xFFFFFFFF
+_MASK64 = 2**64 - 1
 
 
 # ---------------------------------------------------------------------------
@@ -157,17 +169,17 @@ def row_width(rows: torch.Tensor, num_topics: int) -> int:
 
 
 def sample_plain(rows, ndk, nk, z, token_word, token_doc, token_mask, *,
-                 alpha, beta, vbeta, noise_mode, seed=0, uniforms=None,
-                 slot0=0, compute_dtype="float32") -> torch.Tensor:
+                 scalars, noise_mode, key=None, uniforms=None, slot0=0,
+                 compute_dtype="float32") -> torch.Tensor:
     """Draw every token against the given counts (no count update), in the
-    chain ``compute_dtype`` (pallas_gibbs.py:140-177, op for op)."""
+    chain ``compute_dtype`` (pallas_gibbs.py:140-177, op for op), at the α,
+    β, V·β of ``scalars`` and the seed of ``key``."""
     PLAIN_CALLS[sample_name(rows.dtype, compute_dtype)] += 1
     k = ndk.shape[1]
     n, k_pad = z.shape[0], row_width(rows, k)
     f32 = torch.float32
     dev = rows.device
-    alpha, beta, vbeta = (torch.tensor(x, dtype=f32, device=dev)
-                          for x in (alpha, beta, vbeta))
+    alpha, beta, vbeta = scalars[:3].to(device=dev, dtype=f32).unbind()
     cols = torch.arange(k_pad, device=dev)
     e = (cols[None, :] == z[:, None].long()).to(f32)
     wrows = F.pad(rows[token_word.long()], (0, k_pad - rows.shape[1])).to(f32)
@@ -186,7 +198,8 @@ def sample_plain(rows, ndk, nk, z, token_word, token_doc, token_mask, *,
     if noise_mode == "deterministic":
         score = p
     else:
-        u = (philox_uniforms(seed, slot0, n, k_pad, dev)
+        u = (philox_uniforms(int(key.reshape(-1)[0]) & _MASK64, slot0, n,
+                             k_pad, dev)
              if noise_mode == "internal" else uniforms)
         inv_e = approx_recip(-torch.log(u))
         if compute_dtype == "bfloat16":
@@ -241,8 +254,8 @@ def dense_delta(z_old, z_new, token_mask, k_pad: int) -> torch.Tensor:
 
 
 def gibbs_tiles_plain(rows, ndk, nk, z, token_word, token_doc, token_mask,
-                      *, alpha, beta, vbeta, row_tile, noise_mode="internal",
-                      seed=0, uniforms=None, slot0=0, emit_delta=False,
+                      *, scalars, row_tile, noise_mode="internal", key=None,
+                      uniforms=None, slot0=0, emit_delta=False,
                       compute_dtype="float32"):
     """The plain version of ``gibbs_tiles``: per tile, ``sample_plain`` then
     ``update_plain`` (on whatever device the tensors are).  With
@@ -252,8 +265,7 @@ def gibbs_tiles_plain(rows, ndk, nk, z, token_word, token_doc, token_mask,
         sl = slice(s, s + row_tile)
         zt = sample_plain(
             rows, ndk, nk, z[sl], token_word[sl], token_doc[sl],
-            token_mask[sl], alpha=alpha, beta=beta, vbeta=vbeta,
-            noise_mode=noise_mode, seed=seed,
+            token_mask[sl], scalars=scalars, noise_mode=noise_mode, key=key,
             uniforms=None if uniforms is None else uniforms[sl],
             slot0=slot0 + s, compute_dtype=compute_dtype,
         )
@@ -299,9 +311,11 @@ def _check_counts(ndk, nk, z, token_doc, token_mask, extra=()) -> None:
 
 
 def _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
-           uniforms, compute_dtype):
+           uniforms, compute_dtype, scalars, key):
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    if noise_mode == "internal" and key is None:
+        raise ValueError("noise_mode='internal' requires key")
     if compute_dtype not in CHAINS:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     if rows.dtype not in _ROWS_KIND:
@@ -316,6 +330,11 @@ def _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
     k_pad = row_width(rows, k)
     extra = [("rows", rows, rows.dtype, 2),
              ("token_word", token_word, torch.int32, 1)]
+    _check_tensors(ndk.device, [("scalars", scalars, torch.float32, 1),
+                                *([("key", key, torch.int64, 1)] if key is not None
+                                  else [])])
+    if scalars.shape[0] < 3:
+        raise ValueError(f"scalars {tuple(scalars.shape)}: α, β, Vβ needed")
     if noise_mode == "external":
         if uniforms is None:
             raise ValueError("noise_mode='external' requires uniforms")
@@ -336,11 +355,11 @@ def _lib():
     from ldagibbssampling_tpu_torch.ops import _build
 
     lib = _build.load("fused_kernel")
-    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lda_gibbs_tiles.restype = i32
     lib.lda_gibbs_tiles.argtypes = [
         vp, i32, i64, i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32,
-        f32, f32, f32, i32, i32, ctypes.c_ulonglong, i64, i32, vp, vp, vp]
+        vp, vp, i32, i32, i64, i32, vp, vp, vp]
     lib.lda_walk_config.restype = i32
     lib.lda_walk_config.argtypes = [i32, i32, i32, i32, i64, i32,
                                     *[ctypes.POINTER(i32)] * 4]
@@ -381,11 +400,11 @@ def walk_config(rows_dtype: torch.dtype, compute_dtype: str, noise_mode: str,
 
 
 def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
-            uniforms, row_tile, alpha, beta, vbeta, noise_mode, seed, slot0,
+            uniforms, row_tile, scalars, key, noise_mode, slot0,
             compute_dtype, phases) -> None:
     """One cooperative launch that walks every tile (``phases``: 1 draw,
-    3 draw and count move per tile).  α, β and Vβ go to every launch as
-    values: nothing keeps them.  An empty walk launches nothing."""
+    3 draw and count move per tile), reading α, β, Vβ and the seed from
+    ``scalars`` and ``key`` on the card.  An empty walk launches nothing."""
     if z.shape[0] == 0:
         return
     build, lib = _lib()
@@ -404,9 +423,9 @@ def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
             ndk.shape[1], _ptr(nk), _ptr(z), _ptr(z_new), _ptr(token_word),
             _ptr(token_doc), _ptr(token_mask),
             _ptr(uniforms) if noise_mode == "external" else None,
-            z.shape[0], row_tile, alpha, beta, vbeta,
+            z.shape[0], row_tile, _ptr(scalars), _ptr(key),
             NOISE_MODES.index(noise_mode), CHAINS.index(compute_dtype),
-            seed & (2**64 - 1), slot0, phases, _ptr(barrier), _ptr(ndk_copy),
+            slot0, phases, _ptr(barrier), _ptr(ndk_copy),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, err, "lda_gibbs_tiles")
@@ -422,12 +441,10 @@ def gibbs_tiles(
     token_doc: torch.Tensor,    # [n] int32
     token_mask: torch.Tensor,   # [n] int32 — 1 real, 0 padding
     *,
-    alpha: float,
-    beta: float,
-    vbeta: float,
+    scalars: torch.Tensor,      # f32 [>= 3]: α, β, Vβ, ... on rows' device
     row_tile: int,
     noise_mode: str = "internal",
-    seed: int = 0,
+    key: Optional[torch.Tensor] = None,       # int64 [1]: the seed (internal)
     uniforms: Optional[torch.Tensor] = None,  # [n, k_pad] f32 (external)
     slot0: int = 0,
     compute_dtype: str = "float32",  # the chain (CHAINS); float32 on int32 rows
@@ -437,46 +454,47 @@ def gibbs_tiles(
     card: one launch for the whole walk).  Returns ``z_new``; ``rows`` is
     only read.
 
+    ``scalars`` is a float32 tensor on the tables' device holding α, β and
+    Vβ first; ``key`` an int64 tensor there holding the internal seed.
     ``slot0`` is the stream position of token 0 (the internal noise
     counter), so a walk over a slice draws what the whole walk would.
     """
     _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
-           uniforms, compute_dtype)
+           uniforms, compute_dtype, scalars, key)
     if row_tile <= 0:
         raise ValueError(f"row_tile {row_tile} must be positive")
     if rows.device.type == "cuda":
         z_new = torch.empty_like(z)
         _launch(ndk, nk, z, z_new, token_doc, token_mask, rows=rows,
                 token_word=token_word, uniforms=uniforms, row_tile=row_tile,
-                alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
-                seed=seed, slot0=slot0, compute_dtype=compute_dtype, phases=3)
+                scalars=scalars, key=key, noise_mode=noise_mode, slot0=slot0,
+                compute_dtype=compute_dtype, phases=3)
         return z_new
     return gibbs_tiles_plain(
-        rows, ndk, nk, z, token_word, token_doc, token_mask, alpha=alpha,
-        beta=beta, vbeta=vbeta, row_tile=row_tile, noise_mode=noise_mode,
-        seed=seed, uniforms=uniforms, slot0=slot0, compute_dtype=compute_dtype)
+        rows, ndk, nk, z, token_word, token_doc, token_mask, scalars=scalars,
+        row_tile=row_tile, noise_mode=noise_mode, key=key, uniforms=uniforms,
+        slot0=slot0, compute_dtype=compute_dtype)
 
 
 def gibbs_tile_sample(rows, ndk, nk, z, token_word, token_doc, token_mask,
-                      *, alpha, beta, vbeta, row_tile, noise_mode="internal",
-                      seed=0, uniforms=None, slot0=0,
+                      *, scalars, row_tile, noise_mode="internal", key=None,
+                      uniforms=None, slot0=0,
                       compute_dtype="float32") -> torch.Tensor:
     """The draw alone: every token against the given counts, in tiles of
     ``row_tile`` (one launch, the walk with its count move off); returns
     ``z_new`` and moves no count."""
     _check(rows, ndk, nk, z, token_word, token_doc, token_mask, noise_mode,
-           uniforms, compute_dtype)
+           uniforms, compute_dtype, scalars, key)
     if rows.device.type == "cpu":
         return sample_plain(
             rows, ndk, nk, z, token_word, token_doc, token_mask,
-            alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
-            seed=seed, uniforms=uniforms, slot0=slot0,
-            compute_dtype=compute_dtype)
+            scalars=scalars, noise_mode=noise_mode, key=key,
+            uniforms=uniforms, slot0=slot0, compute_dtype=compute_dtype)
     z_new = torch.empty_like(z)
     _launch(ndk, nk, z, z_new, token_doc, token_mask, rows=rows,
             token_word=token_word, uniforms=uniforms, row_tile=row_tile,
-            alpha=alpha, beta=beta, vbeta=vbeta, noise_mode=noise_mode,
-            seed=seed, slot0=slot0, compute_dtype=compute_dtype, phases=1)
+            scalars=scalars, key=key, noise_mode=noise_mode, slot0=slot0,
+            compute_dtype=compute_dtype, phases=1)
     return z_new
 
 

@@ -37,12 +37,15 @@ walks blocks, and inside each block its tiles, carrying ``nk`` across blocks
 and writing each block's doc slab back; here ``ndk`` is indexed by document,
 so the walk over tiles in order IS the walk over blocks in order.
 
-The reference's single-dispatch ``fori_loop`` over sweeps: in the XLA and
-v1-draw tiers ``run`` replays one captured CUDA graph per sweep
-(``xla_sweep_graph``, ``draw_sweep_graph``; ``ops/graphs.SweepGraph``, α,
-β and the seeds as device values); on the CPU the same sweep body runs
-eagerly.  The fused and deferred tiers loop over sweeps in Python.
-``gibbs_sweep`` and ``gibbs_sweep_chains`` are the eager sweeps.
+The reference's single-dispatch ``fori_loop`` over sweeps: in every tier
+``run`` (the deferred tier's ``run.with_mirror`` too) replays one captured
+CUDA graph per sweep (``xla_sweep_graph``, ``draw_sweep_graph``,
+``fused_sweep_graph``, ``deferred_sweep_graph``; ``ops/graphs.SweepGraph``,
+α, β and the seeds as device values, one graph per table shapes in
+``run.graphs``); on the CPU the same sweep body runs eagerly.
+``gibbs_sweep``, ``gibbs_sweep_chains``, ``fused_gibbs_sweep`` and
+``_deferred_sweep_impl`` (``deferred_local_counts``) are the eager sweeps,
+which the mesh runtimes and the tests run.
 
 Noise modes: ``internal`` (each sweep draws one seed from the caller's
 ``torch.Generator``: the kernels key Philox4x32-10 with it, the XLA draws
@@ -99,8 +102,13 @@ def _pick_row_tile(block_size: int, num_topics: int = 512) -> int:
     return 0
 
 
-def _f32(x: float) -> float:
-    return float(np.float32(x))
+def _sweep_values(alpha: float, beta: float, vocab_size: int,
+                  num_topics: int, seed: int, device) -> tuple:
+    """An eager sweep's device values for K1 and K3: α, β, V·β and K·α
+    (``_device.sweep_scalars``) and the seed's word (``key``)."""
+    return (device_values(sweep_scalars(alpha, beta, vocab_size, num_topics),
+                          device),
+            device_values(np.array([seed_word(seed)], np.int64), device))
 
 
 def snapshot(nwk: torch.Tensor, v_pad: int, k_pad: int,
@@ -159,15 +167,14 @@ def deferred_local_counts(
     k_pad = _round_up(k, 128)
     if mirror is None:
         mirror = snapshot(state.nwk, v_pad, k_pad, mirror_dtype)
-    # V·β in float32, as the reference forms it from its f32 β
-    vbeta = float(np.float32(v) * np.float32(beta))
+    # α, β and V·β in float32, as the reference forms them from its f32 β
+    scalars, key = _sweep_values(alpha, beta, v, k, seed, state.z.device)
     ndk = state.ndk.clone()
     nk = state.nk.clone()
     z = gibbs_tiles(
         mirror, ndk, nk, state.z, token_word, token_doc, token_mask,
-        alpha=_f32(alpha), beta=_f32(beta), vbeta=vbeta, row_tile=row_tile,
-        noise_mode=noise_mode, seed=seed, uniforms=uniforms,
-        compute_dtype=compute_dtype,
+        scalars=scalars, key=key, row_tile=row_tile, noise_mode=noise_mode,
+        uniforms=uniforms, compute_dtype=compute_dtype,
     )
     rebuild = dict(vocab_size=v_rows, num_topics=k, v_pad=v_pad, k_pad=k_pad)
     if not emit_mirror:
@@ -201,6 +208,35 @@ def _deferred_sweep_impl(state: SamplerState, token_word, token_doc,
         nk_new = nwk.sum(dim=0, dtype=torch.int32)
     return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk_new,
                         sweep=state.sweep + 1, seed=state.seed), mirror_out
+
+
+def _deferred_sweep_(z, ndk, nwk, nk, mirror, token_word, token_doc,
+                     token_mask, *, scalars: torch.Tensor,
+                     key: Optional[torch.Tensor], row_tile: int,
+                     noise_mode: str, noise: Optional[torch.Tensor],
+                     compute_dtype: str, mirror_dtype: str) -> None:
+    """One deferred sweep in place: the body of ``deferred_sweep_graph``,
+    ``_deferred_sweep_impl``'s kernels in its order.  ``nwk [v_pad, k_pad]``
+    and ``nk [k_pad]`` are K2's padded tables (the state's ``nwk`` and
+    ``nk`` are their ``[:V, :K]`` and ``[:K]`` corners, as the eager sweep
+    hands them out); ``mirror`` is the snapshot that K1's walk reads and that
+    the sweep then overwrites with the next one.  K1 moves ``ndk`` in place
+    and ``nk[:K]`` as its running normaliser; K2 rebuilds ``nwk`` and ``nk``
+    from the new ``z`` (its ``nk`` is the table's column sum exactly, so the
+    eager sweep's sum past 2^24 tokens gives the same integers)."""
+    k = ndk.shape[1]
+    v_pad, k_pad = nwk.shape
+    z_new = gibbs_tiles(mirror, ndk, nk[:k], z, token_word, token_doc,
+                        token_mask, scalars=scalars, key=key, row_tile=row_tile,
+                        noise_mode=noise_mode, uniforms=noise,
+                        compute_dtype=compute_dtype)
+    z.copy_(z_new)
+    rebuild_counts(z, token_word, token_mask, v_pad=v_pad, k_pad=k_pad,
+                   out=(nwk, nk))
+    if mirror_dtype == "bfloat16":
+        cast_mirror(nwk, out=mirror)
+    else:
+        mirror.copy_(nwk)  # the float32 snapshot: the cast of nwk.float()
 
 
 def _clone(state: SamplerState):
@@ -473,12 +509,11 @@ def gibbs_sweep(
     _check_sweep_args(draw_method, noise_mode, noise, t_pad, block_size)
     v, k = state.nwk.shape
     v = v if vocab_size is None else int(vocab_size)
-    dev = state.z.device
+    scalars, key = _sweep_values(alpha, beta, v, k, seed, state.z.device)
     z, ndk, nwk, nk = _clone(state)
     _draw_sweep_(z, ndk, nwk, nk, token_word, token_doc, token_mask,
-                 scalars=device_values(sweep_scalars(alpha, beta, v, k), dev),
-                 key=device_values(np.array([seed_word(seed)], np.int64), dev),
-                 block_size=block_size, noise_mode=noise_mode, noise=noise)
+                 scalars=scalars, key=key, block_size=block_size,
+                 noise_mode=noise_mode, noise=noise)
     return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk, sweep=state.sweep + 1,
                         seed=state.seed)
 
@@ -532,6 +567,32 @@ def draw_sweep_graph(tables: Sequence[torch.Tensor], token_word: torch.Tensor,
                       num_topics=k, device_seeds=True)
 
 
+def _check_fused(t_pad: int, block_size: int, row_tile: int) -> None:
+    if t_pad % block_size or block_size % row_tile:
+        raise ValueError(
+            f"token count {t_pad} / block {block_size} / row_tile {row_tile} misaligned")
+
+
+def _fused_sweep_(z, ndk, nwk, nk, token_word, token_doc, token_mask, *,
+                  scalars: torch.Tensor, key: Optional[torch.Tensor],
+                  block_size: int, row_tile: int, noise_mode: str,
+                  noise: Optional[torch.Tensor]) -> None:
+    """One fused sweep in place: per block, K1 walks the block's tiles
+    against the block-start ``nwk`` (``scalars``: α, β, V·β on the tables'
+    device; ``key``: the internal seed there), then one count-move launch
+    moves ``nwk`` and writes the block's ``z``."""
+    for s in range(0, token_word.shape[0], block_size):
+        sl = slice(s, s + block_size)
+        w, d, msk, zold = token_word[sl], token_doc[sl], token_mask[sl], z[sl]
+        znew = gibbs_tiles(
+            nwk, ndk, nk, zold, w, d, msk, scalars=scalars, key=key,
+            row_tile=row_tile, noise_mode=noise_mode,
+            uniforms=None if noise is None else noise[sl], slot0=s)
+        # the walk keeps masked tokens' z, so z_out = znew: written into
+        # z[sl] (zold's memory) by the move's launch
+        count_move(zold, znew, msk, nwk=nwk, token_word=w, z_out=zold)
+
+
 def fused_gibbs_sweep(
     state: SamplerState,
     token_word: torch.Tensor,
@@ -547,7 +608,8 @@ def fused_gibbs_sweep(
     uniforms: Optional[torch.Tensor] = None,
     vocab_size: Optional[int] = None,
 ) -> SamplerState:
-    """One sweep of the fused tier; returns the new state.
+    """One sweep of the fused tier, run eagerly; returns the new state.
+    ``fused_sweep_graph`` replays the same sweep as a CUDA graph.
 
     Per block, K1 walks the block's tiles in order against the block-start
     ``nwk`` (the live int32 table, only read), moving ``ndk`` and ``nk``
@@ -557,25 +619,68 @@ def fused_gibbs_sweep(
     ``[T_pad, k_pad]`` array (the reference's ``uniform(sweep_key, ...)``).
     ``vocab_size`` overrides the V of ``V·β``.
     """
-    t_pad = token_word.shape[0]
-    if t_pad % block_size or block_size % row_tile:
-        raise ValueError(
-            f"token count {t_pad} / block {block_size} / row_tile {row_tile} misaligned")
-    v = state.nwk.shape[0] if vocab_size is None else int(vocab_size)
-    vbeta = float(np.float32(v) * np.float32(beta))
+    _check_fused(token_word.shape[0], block_size, row_tile)
+    v, k = state.nwk.shape
+    v = v if vocab_size is None else int(vocab_size)
+    scalars, key = _sweep_values(alpha, beta, v, k, seed, state.z.device)
     z, ndk, nwk, nk = _clone(state)
-    for s in range(0, t_pad, block_size):
-        sl = slice(s, s + block_size)
-        w, d, msk, zold = token_word[sl], token_doc[sl], token_mask[sl], z[sl]
-        znew = gibbs_tiles(
-            nwk, ndk, nk, zold, w, d, msk, alpha=_f32(alpha), beta=_f32(beta),
-            vbeta=vbeta, row_tile=row_tile, noise_mode=noise_mode, seed=seed,
-            uniforms=None if uniforms is None else uniforms[sl], slot0=s)
-        # the walk keeps masked tokens' z, so z_out = znew: written into
-        # z[sl] (zold's memory) by the move's launch
-        count_move(zold, znew, msk, nwk=nwk, token_word=w, z_out=zold)
+    _fused_sweep_(z, ndk, nwk, nk, token_word, token_doc, token_mask,
+                  scalars=scalars, key=key, block_size=block_size,
+                  row_tile=row_tile, noise_mode=noise_mode, noise=uniforms)
     return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk, sweep=state.sweep + 1,
                         seed=state.seed)
+
+
+def fused_sweep_graph(tables: Sequence[torch.Tensor], token_word: torch.Tensor,
+                      token_doc: torch.Tensor, token_mask: torch.Tensor, *,
+                      block_size: int, row_tile: int,
+                      noise_mode: str = "internal") -> SweepGraph:
+    """The fused sweep (per block K1's walk and the count move) as a
+    :class:`graphs.SweepGraph` over one chain's ``z, ndk, nwk, nk``; K1 reads
+    α, β, V·β and the sweep's seed from the graph's ``params``."""
+    if noise_mode not in NOISE_MODES:
+        raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    _check_fused(token_word.shape[0], block_size, row_tile)
+    v_rows, k = tables[2].shape
+
+    def body(bufs, scalars, key, generators, noise):
+        _fused_sweep_(*bufs, token_word, token_doc, token_mask, scalars=scalars,
+                      key=key, block_size=block_size, row_tile=row_tile,
+                      noise_mode=noise_mode, noise=noise)
+
+    return SweepGraph(body, tables, noise_mode=noise_mode, vocab_size=v_rows,
+                      num_topics=k, device_seeds=True)
+
+
+def deferred_sweep_graph(tables: Sequence[torch.Tensor],
+                         token_word: torch.Tensor, token_doc: torch.Tensor,
+                         token_mask: torch.Tensor, *, row_tile: int,
+                         noise_mode: str = "internal",
+                         compute_dtype: str = "float32",
+                         mirror_dtype: str = "bfloat16") -> SweepGraph:
+    """The deferred sweep (K1's walk against the snapshot, K2's rebuild and
+    the next snapshot) as a :class:`graphs.SweepGraph` over one chain's
+    ``z, ndk, nwk [V, K], nk [K]`` and the snapshot ``[v_pad, k_pad]`` in
+    ``mirror_dtype``: the graph keeps ``nwk`` and ``nk`` in K2's padded
+    tables and hands out their corners, as ``_deferred_sweep_impl`` does;
+    K1 reads α, β, V·β and the sweep's seed from the graph's ``params``."""
+    if noise_mode not in NOISE_MODES:
+        raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    v_rows, k = tables[2].shape
+    mirror = tables[4]
+    if mirror.dtype != getattr(torch, mirror_dtype):
+        raise ValueError(f"a {mirror.dtype} snapshot for mirror_dtype {mirror_dtype!r}")
+
+    def body(bufs, scalars, key, generators, noise):
+        _deferred_sweep_(*bufs, token_word, token_doc, token_mask,
+                         scalars=scalars, key=key, row_tile=row_tile,
+                         noise_mode=noise_mode, noise=noise,
+                         compute_dtype=compute_dtype, mirror_dtype=mirror_dtype)
+
+    v_pad, k_pad = mirror.shape
+    return SweepGraph(body, tables, noise_mode=noise_mode, vocab_size=v_rows,
+                      num_topics=k, device_seeds=True,
+                      padded=(None, None, (v_pad, k_pad), (k_pad,), None))
 
 
 def tier_name(use_pallas, draw_method: str = "gumbel") -> str:
@@ -653,7 +758,12 @@ def make_sweep_fn(
     tier that runs.  ``run(state, alpha, beta, n_sweeps=None,
     generator=None, noise=None)``: internal noise draws each sweep's seed from
     ``generator``; external noise calls ``noise(sweep)`` for each sweep's
-    array (see the module docstring).
+    array (see the module docstring).  A call replays one CUDA graph per
+    sweep (``run.graphs``, one :class:`graphs.SweepGraph` per table shapes;
+    the first call on the card also runs one warm-up sweep, which takes no
+    seed from ``generator`` and changes no state).  The deferred tier's
+    ``run.with_mirror(state, alpha, beta, mirror, ...)`` carries its
+    snapshot across calls.
     """
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
@@ -681,18 +791,30 @@ def make_sweep_fn(
         return torch.from_numpy(np.array(x, np.int32)).to(device)
 
     tw, td, tm = dev(token_word), dev(token_doc), dev(tm_host)
+    graphs: dict = {}  # one SweepGraph per table shapes
 
-    def sweep_noise(state, generator, noise):
-        """``(seed, noise array)`` of the next sweep."""
+    def replay(make_graph, tables, sweep0: int, alpha, beta, n: int,
+               generator, noise, stacked: bool = False):
+        """``n`` sweeps from ``tables``, one replay each of the graph of
+        their shapes (``make_graph(tables)`` at first): internal noise draws
+        each sweep's seed from ``generator``, external noise is
+        ``noise(sweep0 + i)`` (with a chain axis where ``stacked``)."""
+        if noise_mode == "internal" and generator is None:
+            raise ValueError("internal noise needs a torch.Generator")
+        if noise_mode == "external" and noise is None:
+            raise ValueError("external noise needs noise(sweep)")
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in tables)
+        if key not in graphs:
+            graphs[key] = make_graph(tables)
+        seeds = None
         if noise_mode == "internal":
-            if generator is None:
-                raise ValueError("internal noise needs a torch.Generator")
-            return sweep_seed(generator), None
+            seeds = [(sweep_seed(generator),) for _ in range(n)]
+        u = None
         if noise_mode == "external":
-            if noise is None:
-                raise ValueError("external noise needs noise(sweep)")
-            return 0, noise(state.sweep)
-        return 0, None
+            def u(i):
+                arr = noise(sweep0 + i)
+                return arr[None] if stacked else arr
+        return graphs[key](tables, alpha, beta, n, seeds=seeds, noise=u)
 
     if tier == "deferred":
         if deferred_plan is None:
@@ -709,6 +831,11 @@ def make_sweep_fn(
             )
         v_pad = plan.v_pad
 
+        def deferred_graph(tables):
+            return deferred_sweep_graph(
+                tables, tw, td, tm, row_tile=row_tile, noise_mode=noise_mode,
+                compute_dtype=kernel_compute_dtype, mirror_dtype=mirror_dtype)
+
         def run_with_mirror(
             state: SamplerState, alpha=alpha, beta=beta,
             mirror: Optional[torch.Tensor] = None,
@@ -717,20 +844,23 @@ def make_sweep_fn(
             noise: Optional[Callable[[int], torch.Tensor]] = None,
         ):
             """``n_sweeps`` (default ``num_sweeps``) sweeps carrying the
-            snapshot (in ``mirror_dtype``); returns ``(state, mirror)``.
-            ``mirror=None`` (cold start) casts it from ``state.nwk``;
-            ``noise(sweep)`` gives the sweep's ``[T_pad, k_pad]`` float32
-            uniforms.  ``alpha`` and ``beta`` are read at every call."""
+            snapshot (in ``mirror_dtype``), one graph replay each; returns
+            ``(state, mirror)``.  ``mirror=None`` (cold start) casts it from
+            ``state.nwk`` first, outside the graph (the reference's
+            ``_cast_mirror``); ``noise(sweep)`` gives the sweep's
+            ``[T_pad, k_pad]`` float32 uniforms.  ``alpha`` and ``beta``
+            are read at every call."""
             n = num_sweeps if n_sweeps is None else n_sweeps
-            for _ in range(n):
-                seed, u = sweep_noise(state, generator, noise)
-                state, mirror = _deferred_sweep_impl(
-                    state, tw, td, tm, alpha, beta, row_tile=row_tile,
-                    v_pad=v_pad, mirror=mirror, noise_mode=noise_mode,
-                    seed=seed, uniforms=u, compute_dtype=kernel_compute_dtype,
-                    mirror_dtype=mirror_dtype,
-                )
-            return state, mirror
+            if n <= 0:
+                return state, mirror
+            if mirror is None:
+                mirror = snapshot(state.nwk, v_pad,
+                                  _round_up(state.nwk.shape[1], 128), mirror_dtype)
+            out = replay(deferred_graph,
+                         (state.z, state.ndk, state.nwk, state.nk, mirror),
+                         state.sweep, alpha, beta, n, generator, noise)
+            return SamplerState(*out[:4], sweep=state.sweep + n,
+                                seed=state.seed), out[4]
 
         def run_deferred(state: SamplerState, alpha=alpha, beta=beta,
                          n_sweeps=None, generator=None, noise=None) -> SamplerState:
@@ -741,61 +871,39 @@ def make_sweep_fn(
         run_deferred.kernel_tier = "deferred"
         run_deferred.with_mirror = run_with_mirror
         run_deferred.row_tile = row_tile
+        run_deferred.graphs = graphs
         return run_deferred
 
     if draw_method == "inverse_cdf" and doc_lengths is None:
         raise ValueError("inverse_cdf needs doc_lengths")
     dl = None if doc_lengths is None else dev(doc_lengths)
+    # the XLA tier's graph holds a chain axis
+    stacked = not (tier == "fused" or (tier is True and draw_method == "gumbel"))
 
-    graphs: dict = {}  # one SweepGraph per table shapes (the XLA and v1-draw tiers)
-    draw_graph = tier is True and draw_method == "gumbel"
-
-    def captured(state: SamplerState, alpha, beta, n, generator, noise):
-        """``n`` sweeps of the XLA or v1-draw tier, one replay each."""
-        if noise_mode == "internal" and generator is None:
-            raise ValueError("internal noise needs a torch.Generator")
-        if noise_mode == "external" and noise is None:
-            raise ValueError("external noise needs noise(sweep)")
-        tables = (state.z, state.ndk, state.nwk, state.nk)
-        if not draw_graph:  # the XLA tier's chain axis
-            tables = tuple(t[None] for t in tables)
-        key = tuple((tuple(t.shape), t.dtype, t.device) for t in tables)
-        if key not in graphs:
-            if draw_graph:
-                graphs[key] = draw_sweep_graph(tables, tw, td, tm,
-                                               block_size=block_size,
-                                               noise_mode=noise_mode)
-            else:
-                graphs[key] = xla_sweep_graph(tables, tw, td, tm, dl,
-                                              block_size=block_size,
-                                              draw_method=draw_method,
-                                              noise_mode=noise_mode)
-        seeds = None
-        if noise_mode == "internal":
-            seeds = [(sweep_seed(generator),) for _ in range(n)]
-        u = None
-        if noise_mode == "external":
-            def u(i):
-                arr = noise(state.sweep + i)
-                return arr if draw_graph else arr[None]
-        out = graphs[key](tables, alpha, beta, n, seeds=seeds, noise=u)
-        if not draw_graph:
-            out = tuple(t[0] for t in out)
-        return SamplerState(*out, sweep=state.sweep + n, seed=state.seed)
+    def make_graph(tables):
+        if tier == "fused":
+            return fused_sweep_graph(tables, tw, td, tm, block_size=block_size,
+                                     row_tile=row_tile, noise_mode=noise_mode)
+        if not stacked:
+            return draw_sweep_graph(tables, tw, td, tm, block_size=block_size,
+                                    noise_mode=noise_mode)
+        return xla_sweep_graph(tables, tw, td, tm, dl, block_size=block_size,
+                               draw_method=draw_method, noise_mode=noise_mode)
 
     def run(state: SamplerState, alpha=alpha, beta=beta, n_sweeps=None,
             generator: Optional[torch.Generator] = None,
             noise: Optional[Callable[[int], torch.Tensor]] = None) -> SamplerState:
         n = num_sweeps if n_sweeps is None else n_sweeps
-        if tier != "fused":
-            return state if n <= 0 else captured(state, alpha, beta, n,
-                                                 generator, noise)
-        for _ in range(n):
-            seed, u = sweep_noise(state, generator, noise)
-            state = fused_gibbs_sweep(
-                state, tw, td, tm, alpha, beta, block_size=block_size,
-                row_tile=row_tile, noise_mode=noise_mode, seed=seed, uniforms=u)
-        return state
+        if n <= 0:
+            return state
+        tables = (state.z, state.ndk, state.nwk, state.nk)
+        if stacked:
+            tables = tuple(t[None] for t in tables)
+        out = replay(make_graph, tables, state.sweep, alpha, beta, n, generator,
+                     noise, stacked)
+        if stacked:
+            out = tuple(t[0] for t in out)
+        return SamplerState(*out, sweep=state.sweep + n, seed=state.seed)
 
     run.kernel_tier = tier_name(tier, draw_method)
     run.row_tile = row_tile

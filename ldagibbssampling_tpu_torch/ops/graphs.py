@@ -12,12 +12,16 @@ sweep where the eager sweep makes one launch per operation.
 What may change between replays lives on the device:
 
 - the state tables (``z``, ``ndk``, ``nwk``, ``nk``; one chain or stacked
-  ``[C, ...]``), copied into the buffers at a call unless they are the
-  state that the graph's previous call returned, unmodified since;
+  ``[C, ...]``; the deferred tier's snapshot as a fifth), copied into the
+  buffers at a call unless they are the state that the graph's previous
+  call returned, unmodified since.  A table that the eager sweep hands out
+  as the corner of a padded buffer (the deferred tier's ``nwk [V, K]`` of
+  K2's ``[v_pad, k_pad]``) has such a buffer here, and the graph hands out
+  the same corner;
 - ``params``, a small int64 tensor: its first two words are the float32
   α, β, V·β and K·α (``scalars``, formed on the host as the reference forms
   them, ``_device.sweep_scalars``), then, for a body that draws with a
-  device seed (K3), a cursor and up to ``SEED_CHUNK`` sweep seeds: each
+  device seed (K1, K3), a cursor and up to ``SEED_CHUNK`` sweep seeds: each
   replay reads the seed at the cursor and moves it on.  One copy writes
   them per call (per ``SEED_CHUNK`` sweeps), from pinned memory, without a
   host sync;
@@ -102,17 +106,28 @@ class SweepGraph:
     else ``None``), ``generators`` ``num_generators`` generators on the
     device, reseeded per sweep (``internal`` noise), and ``noise`` the
     sweep's noise array (``external`` noise; else ``None``).  Everything it
-    reads besides these must outlive the graph.
+    reads besides these must outlive the graph.  ``padded[i]``, where given,
+    is table ``i``'s buffer shape: the buffer is that zeroed tensor, the
+    table its leading corner (``buffer[:V, :K]``), and ``body`` gets the
+    whole buffer.
     """
 
     def __init__(self, body: Body, tables: Sequence[torch.Tensor], *,
                  vocab_size: int, num_topics: int, noise_mode: str,
-                 num_generators: int = 0, device_seeds: bool = False) -> None:
+                 num_generators: int = 0, device_seeds: bool = False,
+                 padded: Optional[Sequence[Optional[tuple]]] = None) -> None:
         self.body = body
         self.device = tables[0].device
         self.vocab_size, self.num_topics = vocab_size, num_topics
         self.noise_mode = noise_mode
-        self.buffers = [torch.empty_like(t) for t in tables]
+        padded = padded or (None,) * len(tables)
+        self.buffers = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                        if p is None else
+                        torch.zeros(p, dtype=t.dtype, device=self.device)
+                        for t, p in zip(tables, padded)]
+        # each table's corner of its buffer (the whole buffer where unpadded)
+        self._corners = [None if p is None else tuple(slice(0, n) for n in t.shape)
+                         for t, p in zip(tables, padded)]
         self.device_seeds = device_seeds and noise_mode == "internal"
         self.params = torch.zeros(2 + (1 + SEED_CHUNK if self.device_seeds else 0),
                                   dtype=torch.int64, device=self.device)
@@ -156,11 +171,16 @@ class SweepGraph:
                 and t.stride() == o.stride() and t._version == v
                 for t, o, v in zip(tables, last[0], last[1])):
             return  # the buffers already hold this state
-        for buf, t in zip(self.buffers, tables):
+        for buf, t in zip(self._corners_of(self.buffers), tables):
             if t.shape != buf.shape or t.dtype != buf.dtype:
                 raise ValueError(f"a table {t.dtype} {tuple(t.shape)}: this sweep "
                                  f"was built for {buf.dtype} {tuple(buf.shape)}")
             buf.copy_(t)
+
+    def _corners_of(self, buffers: Sequence[torch.Tensor]) -> list:
+        """The tables that ``buffers`` (the graph's, or clones of them)
+        hold: each one's corner."""
+        return [b if c is None else b[c] for b, c in zip(buffers, self._corners)]
 
     def _sweep_inputs(self, i: int, seeds, noise) -> None:
         """The host's part of sweep ``i``: its generators' seeds, its noise."""
@@ -245,6 +265,6 @@ class SweepGraph:
             if on_card:
                 _add_counts(self.per_replay, n)
                 self.replays += n
-            out = tuple(b.clone() for b in self.buffers)
+            out = tuple(self._corners_of([b.clone() for b in self.buffers]))
         self._last = (out, tuple(t._version for t in out))
         return out

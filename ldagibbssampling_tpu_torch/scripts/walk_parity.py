@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -95,17 +96,33 @@ def run_side(root: Path, inputs: Path, out: Path) -> None:
         raise RuntimeError(f"imported {pkg}, not the package under {root}")
     inp = {k: v.cuda() if torch.is_tensor(v) else v
            for k, v in torch.load(inputs).items()}
-    hyper = dict(alpha=ALPHA, beta=BETA, vbeta=inp["vbeta"], row_tile=inp["row_tile"])
     toks = (inp["w"], inp["d"], inp["m"])
     res = {"package": str(pkg), "hashes": {}, "walk_ms": {}, "moved": {}}
     ndk, nk = inp["ndk"].clone(), inp["nk"].clone()
+    # a K1 that reads its scalars and seed from the device takes them as
+    # tensors made once; an earlier checkout's takes them by value
+    if "scalars" in inspect.signature(fk.gibbs_tiles).parameters:
+        import numpy as np
+
+        from ldagibbssampling_tpu_torch.ops._device import (
+            device_values, seed_word, sweep_scalars)
+
+        scalars = device_values(sweep_scalars(ALPHA, BETA, V, K), "cuda")
+        keys = {s: device_values(np.array([seed_word(s)], np.int64), "cuda")
+                for s in (1234, 7)}
+
+        def values(seed):
+            return dict(scalars=scalars, key=keys[seed])
+    else:
+        def values(seed):
+            return dict(alpha=ALPHA, beta=BETA, vbeta=inp["vbeta"], seed=seed)
 
     def walk(chain, rows, mode, seed):
         ndk.copy_(inp["ndk"])
         nk.copy_(inp["nk"])
         return fk.gibbs_tiles(inp[rows], ndk, nk, inp["z"], *toks, noise_mode=mode,
-                              seed=seed, uniforms=inp["uniforms"],
-                              compute_dtype=chain, **hyper)
+                              uniforms=inp["uniforms"], compute_dtype=chain,
+                              row_tile=inp["row_tile"], **values(seed))
 
     for name, chain, rows in SETTINGS:
         for mode in MODES:

@@ -55,6 +55,9 @@ REPO = Path(__file__).resolve().parent.parent
 K, K_PAD, B, D_LOC, ROW_TILE = 500, 512, 256, 8, 128
 ALPHA, BETA = 0.5, 0.1
 VBETA = float(np.float32(50_000) * np.float32(BETA))
+# K1's α, β and Vβ as the float32 device values it reads (the seed is not
+# read: these cases have no internal noise)
+K1_SCALARS = np.array([ALPHA, BETA, VBETA], np.float32)
 CHAINS = ("float32", "bfloat16", "bf16p")
 ROWS = ("bfloat16", "float32")
 MODES = ("deterministic", "external")
@@ -281,8 +284,8 @@ def _port(case):
     znew = fk.gibbs_tiles(
         torch.from_numpy(rows).to(getattr(torch, rows_dtype)), ndk, nk_t,
         torch.from_numpy(zold), torch.arange(B, dtype=torch.int32),
-        torch.from_numpy(d_local), torch.from_numpy(msk), alpha=ALPHA,
-        beta=BETA, vbeta=VBETA, row_tile=ROW_TILE, noise_mode=mode,
+        torch.from_numpy(d_local), torch.from_numpy(msk),
+        scalars=torch.from_numpy(K1_SCALARS), row_tile=ROW_TILE, noise_mode=mode,
         uniforms=torch.from_numpy(u) if mode == "external" else None,
         compute_dtype=chain)
     return znew.numpy(), ndk.numpy(), nk_t.numpy()
@@ -339,7 +342,7 @@ def test_float32_rows_equal_live_table_in_float32_chain():
               torch.from_numpy(nk[0, :K].astype(np.int32)),
               torch.from_numpy(zold), torch.arange(B, dtype=torch.int32),
               torch.from_numpy(d_local), torch.from_numpy(msk))
-    kw = dict(alpha=ALPHA, beta=BETA, vbeta=VBETA, noise_mode="external",
+    kw = dict(scalars=torch.from_numpy(K1_SCALARS), noise_mode="external",
               uniforms=torch.from_numpy(u))
     z32 = fk.sample_plain(torch.from_numpy(rows), *common, **kw)
     zlive = fk.sample_plain(torch.from_numpy(rows[:, :K].astype(np.int32)),

@@ -134,3 +134,29 @@ def test_wrappers_reject_bad_inputs():
                           v_pad=plan.v_pad, k_pad=100)
     with pytest.raises(ValueError, match="int32"):
         ck.cast_mirror(torch.zeros((8, 128), dtype=torch.float32))
+
+
+def test_rebuild_and_cast_write_into_given_tables():
+    """``out=`` (the captured deferred sweep's padded tables and snapshot):
+    the same values written into the given tensors, which are returned;
+    a table of another shape, type or layout is refused."""
+    plan, z = _plan_and_z(6)
+    zt, word, mask = (torch.from_numpy(a) for a in (z, plan.token_word,
+                                                      plan.token_mask))
+    nwk, nk = ck.rebuild_counts(zt, word, mask, v_pad=plan.v_pad, k_pad=128)
+    out = (torch.full((plan.v_pad, 128), 7, dtype=torch.int32),
+           torch.full((128,), 7, dtype=torch.int32))
+    got = ck.rebuild_counts(zt, word, mask, v_pad=plan.v_pad, k_pad=128, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    assert torch.equal(out[0], nwk) and torch.equal(out[1], nk)
+    mirror = torch.empty((plan.v_pad, 128), dtype=torch.bfloat16)
+    assert ck.cast_mirror(nwk, out=mirror) is mirror
+    assert torch.equal(mirror, ck.cast_mirror(nwk))
+    with pytest.raises(ValueError, match="nk"):
+        ck.rebuild_counts(zt, word, mask, v_pad=plan.v_pad, k_pad=128,
+                          out=(out[0], out[1][:K]))
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.rebuild_counts(zt, word, mask, v_pad=plan.v_pad, k_pad=128,
+                          out=(out[0].t().contiguous().t(), out[1]))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ck.cast_mirror(nwk, out=torch.empty((plan.v_pad, 128)))

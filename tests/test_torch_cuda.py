@@ -33,12 +33,9 @@ from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
 pytestmark = pytest.mark.cuda
 
 K, V, M = 37, 500, 40
-HYPER = dict(alpha=0.5, beta=0.1, vbeta=float(np.float32(V) * np.float32(0.1)))
-
-
-def k3_values(device, seed, alpha=0.5, beta=0.1):
-    """K3's device values: α, β, Vβ (and K·α) as the sweep forms them, and
-    the seed's word."""
+def sweep_values(device, seed, alpha=0.5, beta=0.1):
+    """K1's and K3's device values: α, β, Vβ (and K·α) as the sweep forms
+    them, and the seed's word."""
     return dict(scalars=torch.from_numpy(sweep_scalars(alpha, beta, V, K)).to(device),
                 key=torch.tensor([seed_word(seed)], dtype=torch.int64, device=device))
 
@@ -73,7 +70,7 @@ def test_k1_walk_equals_plain(cuda, mode):
     for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
         ndk, nk = st.ndk.clone(), st.nk.clone()
         z = walk(mirror, ndk, nk, st.z, tw, td, tm, row_tile=256,
-                 noise_mode=mode, seed=77, uniforms=uniforms, **HYPER)
+                 noise_mode=mode, uniforms=uniforms, **sweep_values(cuda, 77))
         out.append((z, ndk, nk))
     torch.cuda.synchronize()
     for a, b in zip(*out):
@@ -96,7 +93,7 @@ def test_k1_chains_walk_equals_plain(cuda, chain, rows, mode):
     for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
         ndk, nk = st.ndk.clone(), st.nk.clone()
         z = walk(snap, ndk, nk, st.z, tw, td, tm, row_tile=256, noise_mode=mode,
-                 seed=80, uniforms=uniforms, compute_dtype=chain, **HYPER)
+                 uniforms=uniforms, compute_dtype=chain, **sweep_values(cuda, 80))
         out.append((z, ndk, nk))
     torch.cuda.synchronize()
     assert fk.LAUNCHES[name] > launched
@@ -113,7 +110,7 @@ def test_k1_live_table_walk_and_move_equal_plain(cuda, mode):
                        (fk.gibbs_tiles_plain, fk.count_move_plain)):
         nwk, ndk, nk = st.nwk.clone(), st.ndk.clone(), st.nk.clone()
         z = walk(nwk, ndk, nk, st.z, tw, td, tm, row_tile=256,
-                 noise_mode=mode, seed=78, uniforms=uniforms, **HYPER)
+                 noise_mode=mode, uniforms=uniforms, **sweep_values(cuda, 78))
         move(st.z, z, tm, nwk=nwk, token_word=tw)
         out.append((z, nwk, ndk, nk))
     torch.cuda.synchronize()
@@ -126,7 +123,7 @@ def test_k3_equals_plain(cuda, mode):
     plan, st, (tw, td, tm) = _setup(cuda, seed=4)
     uniforms = torch.rand((tw.shape[0], K), device=cuda) * 0.999 + 5e-4
     z = [f(st.nwk, st.ndk, st.nk, st.z, tw, td, noise_mode=mode,
-           uniforms=uniforms, slot0=5, **k3_values(cuda, 79))
+           uniforms=uniforms, slot0=5, **sweep_values(cuda, 79))
          for f in (sk.sample_block, sk.sample_block_plain)]
     torch.cuda.synchronize()
     real = tm > 0
@@ -231,9 +228,10 @@ def test_model_on_card_counts_consistent(cuda, use_pallas, tier, kernel):
 def test_failed_launch_raises(cuda):
     # the C entry point refuses an unknown noise mode with cudaErrorInvalidValue
     build, lib = fk._lib()
+    scalars = sweep_values(cuda, 0)["scalars"]
     err = lib.lda_gibbs_tiles(None, 0, 128, 128, None, K, None, None, None,
-                              None, None, None, None, 0, 256, 0.5, 0.1, 1.0, 7,
-                              0, 0, 0, 3, None, None, None)
+                              None, None, None, None, 0, 256, scalars.data_ptr(),
+                              None, 7, 0, 0, 3, None, None, None)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib, err, "lda_gibbs_tiles")
@@ -265,8 +263,8 @@ def _both_walks(rows, st, toks, *, row_tile, mode, chain="float32", seed=81,
     for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
         ndk, nk = st.ndk.clone(), st.nk.clone()
         z = walk(rows, ndk, nk, st.z, *toks, row_tile=row_tile, noise_mode=mode,
-                 seed=seed, uniforms=uniforms, slot0=slot0, compute_dtype=chain,
-                 **HYPER)
+                 uniforms=uniforms, slot0=slot0, compute_dtype=chain,
+                 **sweep_values(rows.device, seed))
         out.append((z, ndk, nk))
     torch.cuda.synchronize()
     return out
@@ -328,7 +326,8 @@ def test_k1_walk_second_ndk_buffer_only_when_pipelined(cuda, k, row_tile,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(cuda)
     base = torch.cuda.memory_allocated(cuda)
-    fk.gibbs_tiles(mirror, ndk, nk, st.z, *toks, row_tile=row_tile, seed=2, **HYPER)
+    fk.gibbs_tiles(mirror, ndk, nk, st.z, *toks, row_tile=row_tile,
+                   **sweep_values(cuda, 2))
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated(cuda) - base
     assert (extra >= ndk.nbytes) == pipelined, (extra, ndk.nbytes)
@@ -340,10 +339,10 @@ def test_k1_walk_empty_and_all_masked(cuda):
     launched = fk.LAUNCHES[name]
     ndk, nk = st.ndk.clone(), st.nk.clone()
     empty = fk.gibbs_tiles(mirror, ndk, nk, st.z[:0], tw[:0], td[:0], tm[:0],
-                           row_tile=256, seed=1, **HYPER)
+                           row_tile=256, **sweep_values(cuda, 1))
     assert empty.shape == (0,) and fk.LAUNCHES[name] == launched  # nothing to launch
     z = fk.gibbs_tiles(mirror, ndk, nk, st.z, tw, td, torch.zeros_like(tm),
-                       row_tile=256, seed=1, **HYPER)
+                       row_tile=256, **sweep_values(cuda, 1))
     torch.cuda.synchronize()
     assert fk.LAUNCHES[name] == launched + 1
     assert torch.equal(z, st.z) and torch.equal(ndk, st.ndk) and torch.equal(nk, st.nk)
@@ -353,11 +352,11 @@ def test_k1_sliced_walk_equals_whole_walk(cuda):
     st, (tw, td, tm), mirror = _walk_setup(cuda, k=K, n=1024, seed=12)
     ndk_all, nk_all = st.ndk.clone(), st.nk.clone()
     z_all = fk.gibbs_tiles(mirror, ndk_all, nk_all, st.z, tw, td, tm,
-                           row_tile=256, seed=33, **HYPER)
+                           row_tile=256, **sweep_values(cuda, 33))
     ndk, nk = st.ndk.clone(), st.nk.clone()
     parts = [fk.gibbs_tiles(mirror, ndk, nk, st.z[s:s + 512], tw[s:s + 512],
-                            td[s:s + 512], tm[s:s + 512], row_tile=256, seed=33,
-                            slot0=s, **HYPER) for s in (0, 512)]
+                            td[s:s + 512], tm[s:s + 512], row_tile=256, slot0=s,
+                            **sweep_values(cuda, 33)) for s in (0, 512)]
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(parts), z_all)
     assert torch.equal(ndk, ndk_all) and torch.equal(nk, nk_all)
@@ -371,7 +370,7 @@ def test_k1_walk_is_one_launch(cuda, rows):
     for calls in range(1, 4):
         before = dict(fk.LAUNCHES)
         fk.gibbs_tiles(snap, st.ndk.clone(), st.nk.clone(), st.z, *toks,
-                       row_tile=256, seed=calls, **HYPER)
+                       row_tile=256, **sweep_values(cuda, calls))
         after = dict(fk.LAUNCHES)
         assert after[name] == before[name] + 1
         assert after["gibbs_tile_update"] == before["gibbs_tile_update"]
@@ -423,7 +422,7 @@ def _both_k3(tables, toks, mode, seed=91, alpha=0.5, beta=0.1):
     dev = tables[0].device
     uniforms = (torch.rand((n, k), device=dev) * 0.999 + 5e-4
                 if mode == "external" else None)
-    values = k3_values(dev, seed, alpha, beta)
+    values = sweep_values(dev, seed, alpha, beta)
     out = [f(*tables, *toks, noise_mode=mode, uniforms=uniforms, slot0=3, **values)
            for f in (sk.sample_block, sk.sample_block_plain)]
     torch.cuda.synchronize()
@@ -489,7 +488,8 @@ def test_k3_ties_take_the_lowest_topic(cuda):
 def test_k3_empty_block_and_one_word(cuda):
     tables, (z_old, w, d) = _k3_tables(cuda, k=K, n=1500, one_word=True, seed=8)
     launched = sk.LAUNCHES["gibbs_block_sample"]
-    empty = sk.sample_block(*tables, z_old[:0], w[:0], d[:0], **k3_values(cuda, 1))
+    empty = sk.sample_block(*tables, z_old[:0], w[:0], d[:0],
+                            **sweep_values(cuda, 1))
     assert empty.shape == (0,) and sk.LAUNCHES["gibbs_block_sample"] == launched
     for mode in ("deterministic", "internal"):
         z, zp = _both_k3(tables, (z_old, w, d), mode)
@@ -863,3 +863,209 @@ def test_failed_capture_raises_and_runs_no_sweep_eagerly(cuda):
     assert len(ran) == 2  # the two warm-up sweeps; no sweep ran instead
     torch.cuda.synchronize()
     assert torch.equal(st.z, z)  # the input is untouched
+
+
+# --- the captured kernel tiers (deferred: K1's cooperative walk, K2's
+# rebuild and the snapshot; fused: K1's walk and the count move per block)
+# against their eager sweeps, bitwise, across a change of alpha and beta
+
+
+def _tier_layout(tier, k, seed=0, t=12_000, block=2048):
+    """A Zipf corpus in ``tier``'s layout at ``k`` topics: the deferred plan
+    (block 2,048: row tiles of 512 at K = 500, the one-barrier walk; one
+    tile of 2,048 at K = 100, the two-barrier walk) or ``pad_to`` +
+    ``sort_within_blocks``; its state on the card."""
+    rng = np.random.default_rng(seed)
+    tw = ((rng.zipf(1.2, size=t) - 1) % V).astype(np.int32)
+    td = (np.arange(t) * M // t).astype(np.int32)
+    if tier == "deferred":
+        layout = ck.plan_deferred(tw, td, V, block)
+    else:
+        ptr = np.zeros(M + 1, np.int32)
+        np.cumsum(np.bincount(td, minlength=M), out=ptr[1:])
+        layout, _ = FlatCorpus(tw, td, ptr, V).pad_to(block).sort_within_blocks(block)
+    st = init_state(layout.token_word, layout.token_doc, layout.token_mask,
+                    num_docs=M, vocab_size=V, num_topics=k, seed=seed,
+                    device="cuda")
+    return layout, st
+
+
+@pytest.mark.parametrize("tier,k,chain,mirror,mode", [
+    ("deferred", 500, "float32", "bfloat16", "internal"),   # one barrier a tile
+    ("deferred", 500, "float32", "bfloat16", "external"),
+    ("deferred", 500, "bf16p", "float32", "internal"),
+    ("deferred", 100, "float32", "bfloat16", "internal"),   # two barriers a tile
+    ("deferred", 100, "bfloat16", "float32", "external"),
+    ("fused", 500, "float32", "bfloat16", "internal"),
+    ("fused", 500, "float32", "bfloat16", "external"),
+])
+def test_captured_kernel_tiers_equal_eager_on_card(cuda, tier, k, chain, mirror, mode):
+    from ldagibbssampling_tpu_torch.ops.gibbs import (
+        _deferred_sweep_impl, fused_gibbs_sweep, make_sweep_fn, sweep_seed)
+
+    layout, st = _tier_layout(tier, k, seed=k)
+    tw, td, tm = (torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+                  for a in (layout.token_word, layout.token_doc, layout.token_mask))
+    run = make_sweep_fn(layout.token_word, layout.token_doc, layout.token_mask,
+                        alpha=0.5, beta=0.1, block_size=2048, use_pallas=tier,
+                        num_topics=k, deferred_plan=layout if tier == "deferred" else None,
+                        device=cuda, noise_mode=mode, kernel_compute_dtype=chain,
+                        mirror_dtype=mirror)
+    k_pad = -(-k // 128) * 128
+    cfg = fk.walk_config(torch.int32 if tier == "fused" else getattr(torch, mirror),
+                         chain, mode, k_pad, 2048, run.row_tile)
+    assert cfg["pipelined"] == (k == 500)
+
+    def noise(sweep):
+        g = torch.Generator(device=cuda).manual_seed(100 + sweep)
+        u = torch.rand((layout.num_tokens, k_pad), generator=g, device=cuda)
+        return u * 0.999 + 5e-4
+    gen, gen_eager = torch.Generator().manual_seed(8), torch.Generator().manual_seed(8)
+    got, want = st, st
+    snap = want_snap = None
+    for (a, b), n in (((0.5, 0.1), 2), ((0.013, 0.71), 1), ((0.5, 0.1), 3)):
+        kw = dict(n_sweeps=n, generator=gen, noise=noise if mode == "external" else None)
+        if tier == "deferred":
+            got, snap = run.with_mirror(got, a, b, snap, **kw)
+        else:
+            got = run(got, a, b, **kw)
+        for _ in range(n):
+            eager = dict(noise_mode=mode,
+                         seed=sweep_seed(gen_eager) if mode == "internal" else 0,
+                         uniforms=noise(want.sweep) if mode == "external" else None)
+            if tier == "deferred":
+                want, want_snap = _deferred_sweep_impl(
+                    want, tw, td, tm, a, b, row_tile=run.row_tile, v_pad=layout.v_pad,
+                    mirror=want_snap, compute_dtype=chain, mirror_dtype=mirror, **eager)
+            else:
+                want = fused_gibbs_sweep(want, tw, td, tm, a, b, block_size=2048,
+                                         row_tile=run.row_tile, **eager)
+        torch.cuda.synchronize()
+        for name in ("z", "ndk", "nwk", "nk"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        if tier == "deferred":
+            assert torch.equal(snap, want_snap)
+    (graph,) = run.graphs.values()
+    assert graph.graph is not None and graph.replays == 6
+    assert (got.z != st.z).any()
+
+
+@pytest.mark.parametrize("tier", ["deferred", "fused"])
+def test_captured_kernel_tier_replay_is_one_graph_launch_and_one_walk(cuda, tier):
+    from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
+
+    layout, st = _tier_layout(tier, K, seed=3)
+    blocks = 1 if tier == "deferred" else layout.num_tokens // 2048
+    run = make_sweep_fn(layout.token_word, layout.token_doc, layout.token_mask,
+                        alpha=0.5, beta=0.1, block_size=2048, use_pallas=tier,
+                        num_topics=K, deferred_plan=layout if tier == "deferred" else None,
+                        device=cuda)
+    name = fk.sample_name(torch.bfloat16 if tier == "deferred" else torch.int32)
+
+    def call(state, mirror, n, seed):
+        gen = torch.Generator().manual_seed(seed)
+        if tier == "deferred":  # the snapshot carried, as LdaModel carries it
+            return run.with_mirror(state, mirror=mirror, n_sweeps=n, generator=gen)
+        return run(state, n_sweeps=n, generator=gen), None
+
+    before = {**fk.LAUNCHES, **ck.LAUNCHES}
+    out, snap = call(st, None, 3, 1)
+    torch.cuda.synchronize()
+    after = {**fk.LAUNCHES, **ck.LAUNCHES}
+    # the warm-up sweep ran its kernels, the capture none, then 3 replays;
+    # the deferred tier's cold start casts one snapshot more
+    want = ({name: 4, "rebuild_counts": 4, "cast_mirror": 5, "count_move": 0}
+            if tier == "deferred" else
+            {name: 4 * blocks, "count_move": 4 * blocks, "rebuild_counts": 0})
+    assert {n: after[n] - before[n] for n in want} == want
+    (graph,) = run.graphs.values()
+    assert {n: c for (_, n), c in graph.per_replay.items()} == {
+        n: c // 4 for n, c in want.items() if c and n != "cast_mirror"} | (
+        {"cast_mirror": 1} if tier == "deferred" else {})
+    # the runtime's calls of a call of two sweeps (the CUDA activity records
+    # them; a run where it recorded nothing on the card is tried again)
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call(out, snap, 2, 2)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        if any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
+            break
+    assert sum(n.startswith("cudaGraphLaunch") for n in names) == 2  # one a sweep
+    assert not [n for n in names if n.startswith(("cudaLaunchCooperativeKernel",
+                                                  "cudaLaunchKernel"))]
+
+
+def test_refused_cooperative_capture_raises_and_runs_no_sweep_eagerly(cuda, monkeypatch):
+    """A stream capture that refuses K1's cooperative launch fails the
+    graph's first call, and every later one, with the launch's error: no
+    sweep runs eagerly instead and the state is untouched.  The refusal is
+    the card's code for a cooperative grid it will not launch
+    (cudaErrorCooperativeLaunchTooLarge), returned by the C entry point for
+    the launches made inside a capture."""
+    from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
+
+    build, lib = fk._lib()
+
+    class Refusing:
+        def __getattr__(self, attr):
+            return getattr(lib, attr)
+
+        def lda_gibbs_tiles(self, *args):
+            if torch.cuda.is_current_stream_capturing():
+                return 82  # cudaErrorCooperativeLaunchTooLarge
+            return lib.lda_gibbs_tiles(*args)
+
+    monkeypatch.setattr(fk, "_lib", lambda: (build, Refusing()))
+    layout, st = _tier_layout("deferred", K, seed=4)
+    run = make_sweep_fn(layout.token_word, layout.token_doc, layout.token_mask,
+                        alpha=0.5, beta=0.1, block_size=2048, num_topics=K,
+                        deferred_plan=layout, device=cuda)
+    keep = [t.clone() for t in (st.z, st.ndk, st.nwk, st.nk)]
+    name = fk.sample_name(torch.bfloat16)
+    walks = fk.LAUNCHES[name]
+    for calls in (1, 2):
+        with pytest.raises(RuntimeError, match="lda_gibbs_tiles failed: CUDA error 82"):
+            run.with_mirror(st, mirror=None, n_sweeps=2,
+                            generator=torch.Generator().manual_seed(1))
+        (graph,) = run.graphs.values()
+        assert graph.graph is None and graph.replays == 0
+        assert fk.LAUNCHES[name] == walks + calls  # the warm-up sweeps alone
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((st.z, st.ndk, st.nwk, st.nk), keep))
+
+
+def test_model_captured_deferred_reads_minka_updates(cuda):
+    """``LdaModel.sweep`` replays the deferred graph; a Minka update between
+    calls reaches the next replay: bitwise the eager sweeps at the same α,
+    β and seeds, the snapshot carried across calls."""
+    from ldagibbssampling_tpu_torch.ops.gibbs import _deferred_sweep_impl, sweep_seed
+
+    rng = np.random.default_rng(5)
+    ragged = [[int(x) for x in rng.integers(0, 200, size=int(rng.integers(40, 90)))]
+              for _ in range(80)]
+    model = LdaModel(LdaConfig(topic_num=K, block_size=512),
+                     FlatCorpus.from_ragged(ragged, vocab_size=200))
+    assert model.kernel_tier == "deferred"
+    plan = model._plan
+    tw, td, tm = (torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+                  for a in (plan.token_word, plan.token_doc, plan.token_mask))
+    gen = torch.Generator().set_state(model.generator.get_state())
+    want, snap = model.state, None
+    for n in (2, 1, 2):
+        a, b = model.alpha, model.beta
+        model.sweep(n)
+        for _ in range(n):
+            want, snap = _deferred_sweep_impl(
+                want, tw, td, tm, a, b, row_tile=model._run_sweeps.row_tile,
+                v_pad=plan.v_pad, mirror=snap, seed=sweep_seed(gen))
+        torch.cuda.synchronize()
+        for name in ("z", "ndk", "nwk", "nk"):
+            assert torch.equal(getattr(model.state, name), getattr(want, name)), name
+        assert torch.equal(model._mirror, snap)
+        model.optimize_hyperparameters()
+        assert (model.alpha, model.beta) != (a, b)
+    model.check_counts_consistent()
+    (graph,) = model._run_sweeps.graphs.values()
+    assert graph.replays == 5

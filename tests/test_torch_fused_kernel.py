@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 from ldagibbssampling_tpu.ops.pallas_gibbs import pallas_fused_block
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+from ldagibbssampling_tpu_torch.ops._device import seed_word
 
 # one intra-op thread: the suite runs in several worker processes at once,
 # and torch's default of one thread per core in each oversubscribes the CPU
@@ -32,6 +33,13 @@ K = 7
 V = 64
 ALPHA, BETA = 0.5, 0.1
 VBETA = V * BETA
+
+
+def _k1(seed=0):
+    """K1's device values: α, β and Vβ as the reference's float32 scalars
+    (the values it is given here), and the internal seed's word."""
+    return dict(scalars=torch.tensor([ALPHA, BETA, VBETA], dtype=torch.float32),
+                key=torch.tensor([seed_word(seed)], dtype=torch.int64))
 
 
 def _inputs(seed=0, b=128, k_pad=128, d_loc=8, big=False, k=K, one_doc=False):
@@ -80,9 +88,8 @@ def _port(rows, slab, nk, zold, d_local, msk, noise_mode, noise=None,
     znew = fk.gibbs_tiles(
         mirror, ndk, nk_t, torch.from_numpy(zold),
         torch.arange(b, dtype=torch.int32), torch.from_numpy(d_local),
-        torch.from_numpy(msk), alpha=ALPHA, beta=BETA, vbeta=VBETA,
-        row_tile=row_tile, noise_mode=noise_mode, seed=seed,
-        uniforms=None if noise is None else torch.from_numpy(noise),
+        torch.from_numpy(msk), row_tile=row_tile, noise_mode=noise_mode,
+        uniforms=None if noise is None else torch.from_numpy(noise), **_k1(seed),
     )
     return znew.numpy(), ndk.numpy(), nk_t.numpy()
 
@@ -190,8 +197,8 @@ def test_internal_draw_distribution():
         torch.from_numpy(rows).to(torch.bfloat16), torch.from_numpy(ndk),
         torch.from_numpy(nk), torch.from_numpy(zold),
         torch.arange(b, dtype=torch.int32), torch.zeros(b, dtype=torch.int32),
-        torch.ones(b, dtype=torch.int32), alpha=ALPHA, beta=BETA, vbeta=VBETA,
-        noise_mode="internal", seed=12345).numpy()
+        torch.ones(b, dtype=torch.int32), noise_mode="internal",
+        **_k1(12345)).numpy()
     counts = np.bincount(z, minlength=K)[:K]
     expected = p * b
     chi2 = float(((counts - expected) ** 2 / expected).sum())
@@ -250,8 +257,7 @@ def test_sliced_walk_equals_whole_walk():
             mirror, ndk, nk_t, torch.from_numpy(zold[sl]),
             torch.arange(s, s + 128, dtype=torch.int32),
             torch.from_numpy(d_local[sl]), torch.from_numpy(msk[sl]),
-            alpha=ALPHA, beta=BETA, vbeta=VBETA, row_tile=64,
-            noise_mode="internal", seed=99, slot0=s))
+            row_tile=64, noise_mode="internal", slot0=s, **_k1(99)))
     np.testing.assert_array_equal(torch.cat(parts).numpy(), z_all)
     np.testing.assert_array_equal(ndk.numpy(), ndk_all)
     np.testing.assert_array_equal(nk_t.numpy(), nk_all)
@@ -267,9 +273,8 @@ def test_sample_then_update_equals_one_tile_walk():
     args = (torch.arange(128, dtype=torch.int32), torch.from_numpy(d_local),
             torch.from_numpy(msk))
     z_old = torch.from_numpy(zold)
-    z_new = fk.gibbs_tile_sample(mirror, ndk, nk_t, z_old, *args, alpha=ALPHA,
-                                 beta=BETA, vbeta=VBETA, row_tile=128,
-                                 noise_mode="internal", seed=5)
+    z_new = fk.gibbs_tile_sample(mirror, ndk, nk_t, z_old, *args, row_tile=128,
+                                 noise_mode="internal", **_k1(5))
     fk.gibbs_tile_update(ndk, nk_t, z_old, z_new, *args[1:])
     np.testing.assert_array_equal(z_new.numpy(), z_walk)
     np.testing.assert_array_equal(ndk.numpy(), ndk_walk)
@@ -281,7 +286,7 @@ def test_wrapper_rejects_bad_inputs():
     mirror = torch.from_numpy(rows).to(torch.bfloat16)
     ndk = torch.from_numpy(slab[:, :K].astype(np.int32))
     nk_t = torch.from_numpy(nk[0, :K].astype(np.int32))
-    good = dict(alpha=ALPHA, beta=BETA, vbeta=VBETA, row_tile=64)
+    good = dict(row_tile=64, **_k1())
     toks = (torch.arange(128, dtype=torch.int32), torch.from_numpy(d_local),
             torch.from_numpy(msk))
     with pytest.raises(ValueError, match="float64"):  # a bf16/f32 snapshot
@@ -298,6 +303,12 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="noise_mode"):
         fk.gibbs_tiles(mirror, ndk, nk_t, torch.from_numpy(zold), *toks,
                        noise_mode="gumbel", **good)
+    with pytest.raises(ValueError, match="requires key"):  # the seed on the device
+        fk.gibbs_tiles(mirror, ndk, nk_t, torch.from_numpy(zold), *toks,
+                       row_tile=64, scalars=good["scalars"])
+    with pytest.raises(ValueError, match="Vβ needed"):
+        fk.gibbs_tiles(mirror, ndk, nk_t, torch.from_numpy(zold), *toks,
+                       row_tile=64, scalars=good["scalars"][:2], key=good["key"])
 
 
 def _live_port(rows, slab, nk, zold, d_local, msk, noise_mode, noise=None,
@@ -312,10 +323,9 @@ def _live_port(rows, slab, nk, zold, d_local, msk, noise_mode, noise=None,
     znew, delta = fk.gibbs_tiles_plain(
         nwk, ndk, nk_t, torch.from_numpy(zold),
         torch.arange(b, dtype=torch.int32), torch.from_numpy(d_local),
-        torch.from_numpy(msk), alpha=ALPHA, beta=BETA, vbeta=VBETA,
-        row_tile=row_tile, noise_mode=noise_mode, seed=seed,
+        torch.from_numpy(msk), row_tile=row_tile, noise_mode=noise_mode,
         uniforms=None if noise is None else torch.from_numpy(noise),
-        emit_delta=True)
+        emit_delta=True, **_k1(seed))
     assert torch.equal(nwk, torch.from_numpy(rows[:, :K].astype(np.int32)))
     return znew.numpy(), delta.numpy(), ndk.numpy(), nk_t.numpy()
 
@@ -360,14 +370,12 @@ def test_live_table_kernel_path_equals_plain_walk():
     words = torch.from_numpy(np.random.default_rng(0).integers(0, 128, 128)
                              .astype(np.int32))
     z_old, d_t, m_t = (torch.from_numpy(a) for a in (zold, d_local, msk))
-    z_new = fk.gibbs_tiles(nwk, ndk, nk_t, z_old, words, d_t, m_t, alpha=ALPHA,
-                           beta=BETA, vbeta=VBETA, row_tile=32,
-                           noise_mode="internal", seed=4)
+    z_new = fk.gibbs_tiles(nwk, ndk, nk_t, z_old, words, d_t, m_t, row_tile=32,
+                           noise_mode="internal", **_k1(4))
     z_p, delta = fk.gibbs_tiles_plain(
         nwk, ndk.clone().copy_(torch.from_numpy(slab[:, :K].astype(np.int32))),
         torch.from_numpy(nk[0, :K].astype(np.int32)), z_old, words, d_t, m_t,
-        alpha=ALPHA, beta=BETA, vbeta=VBETA, row_tile=32,
-        noise_mode="internal", seed=4, emit_delta=True)
+        row_tile=32, noise_mode="internal", emit_delta=True, **_k1(4))
     assert torch.equal(z_new, z_p)
     moved = nwk.clone()
     fk.count_move(z_old, z_new, m_t, nwk=moved, token_word=words)

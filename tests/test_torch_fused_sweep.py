@@ -24,6 +24,7 @@ from ldagibbssampling_tpu.ops.gibbs import make_sweep_fn as jax_make_sweep_fn
 from ldagibbssampling_tpu_torch import interop
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+from ldagibbssampling_tpu_torch.ops._device import seed_word, sweep_scalars
 from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
 
 # one intra-op thread: the suite runs in several worker processes at once,
@@ -121,9 +122,9 @@ def test_block_reads_the_block_start_table():
     for s in range(0, pc.num_tokens, 2048):
         sl = slice(s, s + 2048)
         zn = fk.gibbs_tiles(nwk, ndk, nk, z[sl], tw[sl], td[sl], tm[sl],
-                            alpha=0.5, beta=0.1,
-                            vbeta=float(np.float32(V) * np.float32(0.1)),
-                            row_tile=2048, seed=seed, slot0=s)
+                            scalars=torch.from_numpy(sweep_scalars(0.5, 0.1, V, K)),
+                            key=torch.tensor([seed_word(seed)]),
+                            row_tile=2048, slot0=s)
         fk.count_move(z[sl], zn, tm[sl], nwk=nwk, token_word=tw[sl])
         z[sl] = zn
     assert not torch.equal(z, a.z)

@@ -1,7 +1,8 @@
-"""The captured sweeps (``ops/graphs.SweepGraph``: ``ops/gibbs.xla_sweep_graph``
-and ``draw_sweep_graph``) run eagerly on the CPU, as the CPU runs them: the
-same body over the graph's static buffers, α, β, V·β and K·α read from its
-``params`` tensor, the seeds from its generators or its ``params``.
+"""The captured sweeps (``ops/graphs.SweepGraph``: ``ops/gibbs.xla_sweep_graph``,
+``draw_sweep_graph``, ``fused_sweep_graph`` and ``deferred_sweep_graph``)
+run eagerly on the CPU, as the CPU runs them: the same body over the
+graph's static buffers, α, β, V·β and K·α read from its ``params``
+tensor, the seeds from its generators or its ``params``.
 
 Against the JAX package's ``gibbs_sweep`` and ``make_sweep_fn``'s
 ``run(state, alpha, beta)`` from the same state, the port fed the
@@ -15,6 +16,16 @@ port everything is bitwise: the batched graph against each chain alone,
 the graphs against the eager sweeps, K3's plain version and its wrapper on
 the scalar tensors against the formula on α, β and Vβ given by value.  The card's captured replays against
 eager are ``tests/test_torch_cuda.py``'s ``cuda`` cases.
+
+The kernel tiers: the deferred graph (the six (chain, snapshot) settings)
+and the fused graph through ``make_sweep_fn`` against the eager
+``_deferred_sweep_impl`` / ``fused_gibbs_sweep`` loop, bitwise, the
+snapshot carried across calls; the same runs against the JAX package's
+``make_sweep_fn(use_pallas="deferred"|"fused")`` with its Pallas kernels
+interpreted (external noise; the deterministic mode through the sweep
+functions it loops over), at ``tests/test_torch_deferred_sweep.py``'s
+tolerance; and K1's plain walk and wrapper on the ``scalars``/``key``
+tensors against the walk on α, β, Vβ and the seed by value, bitwise.
 """
 
 from __future__ import annotations
@@ -34,11 +45,12 @@ from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.models.chains import ChainSet
 from ldagibbssampling_tpu_torch.models.state import SamplerState, init_state
 from ldagibbssampling_tpu_torch.ops import _device, graphs
+from ldagibbssampling_tpu_torch.ops import count_kernel as ck
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
 from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
 from ldagibbssampling_tpu_torch.ops.gibbs import (
-    draw_sweep_graph, gibbs_sweep, gibbs_sweep_chains, make_sweep_fn,
-    sweep_seed, xla_sweep_graph)
+    _deferred_sweep_impl, draw_sweep_graph, fused_gibbs_sweep, gibbs_sweep,
+    gibbs_sweep_chains, make_sweep_fn, sweep_seed, xla_sweep_graph)
 
 torch.set_num_threads(1)
 
@@ -401,3 +413,339 @@ def test_graph_refuses_other_shapes_and_missing_inputs():
                            noise_mode="external")
     with pytest.raises(ValueError, match="noise"):
         ext(_tables(st), 0.5, 0.1, 1)
+
+
+# --- the kernel tiers' graphs: the deferred tier (K1's walk against the
+# snapshot, K2's rebuild and the next snapshot; ``deferred_sweep_graph``)
+# and the fused tier (K1's walk and the count move per block;
+# ``fused_sweep_graph``), through ``make_sweep_fn``
+
+
+CHAIN_SNAPSHOTS = [(c, m) for c in ("float32", "bfloat16", "bf16p")
+                   for m in ("bfloat16", "float32")]
+KERNEL_TIER_CASES = (
+    [("deferred", c, m, "internal") for c, m in CHAIN_SNAPSHOTS]
+    + [("deferred", "float32", "bfloat16", mode) for mode in ("external", "deterministic")]
+    + [("fused", "float32", "bfloat16", mode)
+       for mode in ("internal", "external", "deterministic")])
+
+
+def _deferred_setup(seed, block=512, t_target=3000):
+    rng = np.random.default_rng(seed)
+    tw = ((rng.zipf(1.3, size=t_target) - 1) % V).astype(np.int32)
+    td = (np.arange(t_target, dtype=np.int64) * M // t_target).astype(np.int32)
+    plan = ck.plan_deferred(tw, td, V, block)
+    jst = jax_init_state(plan.token_word, plan.token_doc, plan.token_mask,
+                         num_docs=M, vocab_size=V, num_topics=K, seed=seed)
+    return plan, np.bincount(td, minlength=M).astype(np.int32), jst
+
+
+def _tier_setup(tier, seed):
+    """``(layout, doc lengths, JAX start state)``: the deferred plan, or the
+    fused tier's ``pad_to`` + ``sort_within_blocks`` layout."""
+    if tier == "deferred":
+        return _deferred_setup(seed)
+    return _setup(seed, 512)
+
+
+def _tier_run(tier, layout, dl, mode, chain="float32", mirror="bfloat16"):
+    return make_sweep_fn(
+        layout.token_word, layout.token_doc, layout.token_mask, dl, alpha=0.5,
+        beta=0.1, block_size=512, use_pallas=tier, num_topics=K,
+        deferred_plan=layout if tier == "deferred" else None, device="cpu",
+        noise_mode=mode, kernel_compute_dtype=chain, mirror_dtype=mirror)
+
+
+def _k1_uniforms(jst, t_pad):
+    """The reference's external uniforms of a sweep (its kernel tiers'
+    ``uniform(fold_in(key, sweep), (T_pad, k_pad), 1e-7, 1 - 1e-7)``)."""
+    def noise(sweep):
+        key = jax.random.fold_in(jst.key, sweep)
+        return torch.from_numpy(np.array(jax.random.uniform(
+            key, (t_pad, 128), jnp.float32, minval=1e-7, maxval=1.0 - 1e-7)))
+    return noise
+
+
+def _tier_calls(run, st, mode, noise, gen, mirror=None):
+    """Two sweeps at the first α and β in one call, then one at the second;
+    the deferred tier carries its snapshot.  Returns the state and snapshot
+    after each call."""
+    out = []
+    for (a, b), n in zip(HYPERS, (2, 1)):
+        kw = dict(n_sweeps=n, generator=gen if mode == "internal" else None,
+                  noise=noise if mode == "external" else None)
+        if hasattr(run, "with_mirror"):
+            st, mirror = run.with_mirror(st, a, b, mirror, **kw)
+        else:
+            st = run(st, a, b, **kw)
+        out.append((st, mirror))
+    return out
+
+
+@pytest.mark.parametrize("tier,chain,mirror,mode", KERNEL_TIER_CASES,
+                         ids=["-".join(c) for c in KERNEL_TIER_CASES])
+def test_kernel_tier_graphs_equal_eager_sweeps(tier, chain, mirror, mode):
+    """``make_sweep_fn``'s deferred and fused runs (their graphs' bodies on
+    the CPU) against the eager ``_deferred_sweep_impl`` /
+    ``fused_gibbs_sweep`` loop from the same state, seeds and noise:
+    bitwise, every table and the carried snapshot, across a change of α and
+    β between calls."""
+    layout, dl, jst = _tier_setup(tier, 20 + KERNEL_TIER_CASES.index(
+        (tier, chain, mirror, mode)))
+    tw, td, tm = _tokens(layout)
+    run = _tier_run(tier, layout, dl, mode, chain, mirror)
+    rng = np.random.default_rng(3)
+    us = [torch.from_numpy(rng.random((layout.num_tokens, 128), dtype=np.float32)
+                           * 0.999 + 5e-4) for _ in range(3)]
+    st = _port_state(jst)
+    got = _tier_calls(run, st, mode, lambda s: us[s],
+                      torch.Generator().manual_seed(6))
+    assert len(run.graphs) == 1
+    gen = torch.Generator().manual_seed(6)
+    want, snap = st, None
+    for (a, b), n, (g_st, g_snap) in zip(HYPERS, (2, 1), got):
+        for _ in range(n):
+            kw = dict(noise_mode=mode,
+                      uniforms=us[want.sweep] if mode == "external" else None,
+                      seed=sweep_seed(gen) if mode == "internal" else 0)
+            if tier == "deferred":
+                want, snap = _deferred_sweep_impl(
+                    want, tw, td, tm, a, b, row_tile=run.row_tile,
+                    v_pad=layout.v_pad, mirror=snap, compute_dtype=chain,
+                    mirror_dtype=mirror, **kw)
+            else:
+                want = fused_gibbs_sweep(want, tw, td, tm, a, b, block_size=512,
+                                         row_tile=run.row_tile, **kw)
+        assert g_st.sweep == want.sweep
+        _assert_equal(_tables(g_st), _tables(want))
+        if tier == "deferred":
+            assert g_snap.dtype == getattr(torch, mirror)
+            assert torch.equal(g_snap, snap)
+            # the state's nwk and nk are the padded tables' corners, as the
+            # eager sweep hands them out
+            assert g_st.nwk.stride() == want.nwk.stride()
+    assert not torch.equal(got[-1][0].z, st.z)
+
+
+def _jax_deterministic_runner(tier, layout, dl):
+    """The JAX package's sweep of ``tier`` as its ``make_sweep_fn`` runs it,
+    Pallas in interpret mode, in the deterministic mode (``make_sweep_fn``
+    fixes external noise under interpret, so this drives the same sweep
+    functions with the same layout): ``runner(state, alpha, beta, mirror, n)
+    -> (state, mirror)``."""
+    import ldagibbssampling_tpu.ops.gibbs as jg
+    from ldagibbssampling_tpu.corpus.flat import PaddedCorpus
+    from ldagibbssampling_tpu.ops.count_kernel import replicate_rows
+
+    tw, td, tm = (np.asarray(a, np.int32) for a in (
+        layout.token_word, layout.token_doc, layout.token_mask))
+    pc = PaddedCorpus(token_word=tw, token_doc=td, token_mask=tm,
+                      num_real_tokens=int(tm.sum()), vocab_size=0,
+                      num_docs=int(td.max()) + 1)
+    d_local, d0, d_loc = pc.doc_slabs(512, d_loc_multiple=128)
+    row_tile = jg._pick_row_tile(512, K)
+    slab_split = int(np.bincount(td, weights=tm).max()) > 256
+    args = [jnp.asarray(a) for a in (tw, d_local, tm, d0)]
+    if tier == "fused":
+        def runner(st, a, b, mirror, n):
+            for _ in range(n):
+                st = jg.fused_gibbs_sweep(
+                    st, *args, alpha=a, beta=b, block_size=512, d_loc=d_loc,
+                    row_tile=row_tile, sorted_words=True, noise_mode="deterministic",
+                    pallas_interpret=True, slab_split=slab_split)
+            return st, None
+        return runner
+    nt = layout.tile_stripe.shape[0]
+    args += [jnp.asarray(layout.row_gather_idx),
+             jax.jit(replicate_rows)(jnp.asarray(layout.w_local.reshape(nt, layout.tile))),
+             jnp.asarray(layout.tile_stripe)]
+
+    def runner(st, a, b, mirror, n):
+        if mirror is None:
+            mirror = jnp.pad(st.nwk, ((0, layout.v_pad - V), (0, 128 - K))
+                             ).astype(jnp.bfloat16)
+        for _ in range(n):
+            st, mirror = jg._deferred_sweep_impl(
+                st, *args, jnp.float32(a), jnp.float32(b), block_size=512,
+                d_loc=d_loc, row_tile=row_tile, noise_mode="deterministic",
+                pallas_interpret=True, vocab_size=None, v_loc=layout.v_loc,
+                v_pad=layout.v_pad, tile=layout.tile, slab_split=slab_split,
+                mirror=mirror)
+        return st, mirror
+    return runner
+
+
+@pytest.mark.parametrize("tier,mode", [
+    ("deferred", "external"), ("deferred", "deterministic"),
+    ("fused", "external"), ("fused", "deterministic")])
+def test_kernel_tier_graphs_match_reference(tier, mode):
+    """The deferred and fused runs (their graphs' bodies on the CPU) against
+    the JAX package's ``make_sweep_fn(use_pallas=tier)`` with its Pallas
+    kernels interpreted, from the same state: two sweeps in one call, then
+    one at other α and β, the deferred snapshot carried on both sides;
+    external noise is the reference's own uniforms.  Tolerances as in
+    ``tests/test_torch_deferred_sweep.py``."""
+    layout, dl, jst = _tier_setup(tier, {"deferred": 30, "fused": 31}[tier])
+    if mode == "external":
+        ref_run = jax_make_sweep_fn(
+            layout.token_word, layout.token_doc, layout.token_mask, dl,
+            alpha=0.5, beta=0.1, block_size=512, use_pallas=tier,
+            pallas_interpret=True, sorted_words=True, num_topics=K,
+            deferred_plan=layout if tier == "deferred" else None)
+        if tier == "deferred":
+            runner = ref_run.with_mirror
+        else:
+            def runner(st, a, b, mirror, n):
+                return ref_run(st, a, b, n_sweeps=n), None
+    else:
+        runner = _jax_deterministic_runner(tier, layout, dl)
+    run = _tier_run(tier, layout, dl, mode)
+    got = _tier_calls(run, _port_state(jst), mode,
+                      _k1_uniforms(jst, layout.num_tokens), None)
+    ref, ref_mirror = jst, None
+    for (a, b), n, (out, _) in zip(HYPERS, (2, 1), got):
+        ref, ref_mirror = runner(ref, a, b, ref_mirror, n)
+        assert out.sweep == int(ref.sweep)
+        _assert_matches_reference(layout, out, ref)
+
+
+@pytest.mark.parametrize("tier", ["deferred", "fused"])
+def test_kernel_tier_inputs_and_returned_states_never_change(tier):
+    """As ``test_inputs_and_returned_states_never_change`` for the deferred
+    and fused graphs, the snapshot included: a state and snapshot passed in,
+    or returned earlier, keep their values; one modified in place is copied
+    in again; a cold start (``mirror=None``) equals the carried snapshot."""
+    layout, dl, jst = _tier_setup(tier, 40)
+    run = _tier_run(tier, layout, dl, "internal")
+
+    def call(st, mirror, seed, a=0.5, b=0.1, n=1):
+        gen = torch.Generator().manual_seed(seed)
+        if tier == "deferred":
+            return run.with_mirror(st, a, b, mirror, n_sweeps=n, generator=gen)
+        return run(st, a, b, n_sweeps=n, generator=gen), None
+
+    st = _port_state(jst)
+    keep = [t.clone() for t in _tables(st)]
+    first, m1 = call(st, None, 1)
+    first_keep = [t.clone() for t in _tables(first)]
+    m1_keep = None if m1 is None else m1.clone()
+    second, m2 = call(first, m1, 2)        # the buffers' own state
+    third, m3 = call(second, m2, 3, 0.2, 0.3, 2)
+    _assert_equal(_tables(st), keep)
+    _assert_equal(_tables(first), first_keep)
+    assert m1 is None or torch.equal(m1, m1_keep)
+    assert not torch.equal(second.z, first.z) and not torch.equal(third.z, second.z)
+    assert second.sweep == 2 and third.sweep == 4
+    # the last returned state (and snapshot), modified in place to first's
+    # values: the next call reads it, not what the buffers still hold
+    for t, f in zip(_tables(third), first_keep):
+        t.copy_(f)
+    if m3 is not None:
+        m3.copy_(m1_keep)
+    again, m_again = call(third, m3, 4, 0.2, 0.3, 2)
+    want, m_want = call(SamplerState(*first_keep, sweep=4), None, 4, 0.2, 0.3, 2)
+    _assert_equal(_tables(again), _tables(want))
+    assert m_want is None or torch.equal(m_again, m_want)
+    assert len(run.graphs) == 1
+
+
+def test_deferred_cold_start_equals_carried_snapshot():
+    """A call with ``mirror=None`` casts the snapshot from ``nwk`` outside
+    the graph: it is the snapshot the previous call carried out, and the
+    sweeps from either are the same."""
+    layout, dl, jst = _tier_setup("deferred", 41)
+    for mirror_dtype in ("bfloat16", "float32"):
+        run = _tier_run("deferred", layout, dl, "internal", mirror=mirror_dtype)
+        st, carried = run.with_mirror(_port_state(jst), mirror=None, n_sweeps=2,
+                                      generator=torch.Generator().manual_seed(5))
+        cast = ck.cast_mirror_plain(torch.nn.functional.pad(
+            st.nwk, (0, 128 - K, 0, layout.v_pad - V)).contiguous())
+        assert torch.equal(carried.float(), cast.float())
+        a, ma = run.with_mirror(st, 0.3, 0.2, carried, n_sweeps=1,
+                                generator=torch.Generator().manual_seed(6))
+        b, mb = run.with_mirror(SamplerState(*(t.clone() for t in _tables(st)),
+                                             sweep=st.sweep), 0.3, 0.2, None,
+                                n_sweeps=1, generator=torch.Generator().manual_seed(6))
+        _assert_equal(_tables(a), _tables(b))
+        assert torch.equal(ma, mb)
+
+
+def _k1_formula(rows, ndk, nk, z, w, d, m, *, alpha, beta, vbeta, seed, mode,
+                uniforms, slot0, row_tile, chain):
+    """K1's walk with α, β, Vβ and the seed given by value, as the wrapper
+    took them before they became device tensors: per tile the draw (the
+    reference's op order, every operand a float32 made from the value) and
+    the move of ``ndk``/``nk``."""
+    f32, bf = torch.float32, torch.bfloat16
+    k = ndk.shape[1]
+    k_pad = fk.row_width(rows, k)
+    a, b, vb = (torch.tensor(x, dtype=f32) for x in (alpha, beta, vbeta))
+    cols = torch.arange(k_pad)
+    parts = []
+    for s in range(0, z.shape[0], row_tile):
+        sl = slice(s, s + row_tile)
+        zt, n = z[sl], z[sl].shape[0]
+        e = (cols[None, :] == zt[:, None].long()).to(f32)
+        wr = torch.nn.functional.pad(rows[w[sl].long()],
+                                     (0, k_pad - rows.shape[1])).to(f32)
+        dr = torch.nn.functional.pad(ndk[d[sl].long()], (0, k_pad - k)).to(f32)
+        r32 = fk.approx_recip(torch.nn.functional.pad(nk, (0, k_pad - k)).to(f32) + vb)
+        aa, bb, r, rr = a, b, r32, r32 * r32
+        if chain != "float32":
+            r, rr = r32.to(bf), (r32 * r32).to(bf)
+            e, wr, dr, aa, bb = e.to(bf), wr.to(bf), dr.to(bf), a.to(bf), b.to(bf)
+        p = ((wr - e + bb) * (dr - e + aa)) * (r + e * rr)
+        score = p
+        if mode != "deterministic":
+            u = (fk.philox_uniforms(seed, slot0 + s, n, k_pad, "cpu")
+                 if mode == "internal" else uniforms[sl])
+            inv_e = fk.approx_recip(-torch.log(u))
+            score = (p * inv_e.to(bf) if chain == "bfloat16"
+                     else p.to(f32) * inv_e)
+        score = torch.where(cols[None, :] < k, score,
+                            torch.tensor(-1.0, dtype=score.dtype))
+        zn = torch.where(m[sl] > 0, score.to(f32).argmax(dim=1).to(z.dtype), zt)
+        real = m[sl] > 0
+        one = torch.ones(int(real.sum()), dtype=torch.int32)
+        for zz, sign in ((zt[real].long(), -one), (zn[real].long(), one)):
+            ndk.index_put_((d[sl][real].long(), zz), sign, accumulate=True)
+            nk.index_put_((zz,), sign, accumulate=True)
+        parts.append(zn)
+    return torch.cat(parts)
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "external", "internal"])
+@pytest.mark.parametrize("chain,rows", [("float32", "bfloat16"), ("bfloat16", "float32"),
+                                        ("bf16p", "bfloat16"), ("float32", "int32")])
+def test_k1_plain_takes_the_scalar_tensors_as_its_by_value_form(mode, chain, rows):
+    """K1's plain walk and its wrapper on the ``scalars``/``key`` tensors
+    against the walk with α, β, Vβ and the seed by value: bitwise, ``z``,
+    ``ndk`` and ``nk``, several tiles of one block."""
+    rng = np.random.default_rng(7)
+    k, v, m, n = 13, 50, 6, 400
+    nwk = torch.from_numpy(rng.integers(0, 300, (v, k)).astype(np.int32))
+    ndk = torch.from_numpy(rng.integers(0, 40, (m, k)).astype(np.int32))
+    nk = nwk.sum(dim=0, dtype=torch.int32)
+    z = torch.from_numpy(rng.integers(0, k, n).astype(np.int32))
+    w = torch.from_numpy(rng.integers(0, v, n).astype(np.int32))
+    d = torch.from_numpy(np.sort(rng.integers(0, m, n)).astype(np.int32))
+    msk = torch.from_numpy((rng.random(n) < 0.95).astype(np.int32))
+    u = torch.from_numpy(rng.random((n, 128), dtype=np.float32) * 0.99 + 0.005)
+    padded = torch.nn.functional.pad(nwk, (0, 128 - k))
+    table = {"int32": nwk, "bfloat16": padded.to(torch.bfloat16),
+             "float32": padded.float()}[rows]
+    alpha, beta, seed = 0.31, 0.07, 2**63 + 12345
+    scal = _device.sweep_scalars(alpha, beta, v, k)
+    by_ndk, by_nk = ndk.clone(), nk.clone()
+    by_value = _k1_formula(table, by_ndk, by_nk, z, w, d, msk, alpha=float(scal[0]),
+                           beta=float(scal[1]), vbeta=float(scal[2]), seed=seed,
+                           mode=mode, uniforms=u, slot0=9, row_tile=128, chain=chain)
+    values = dict(scalars=torch.from_numpy(scal),
+                  key=torch.tensor([_device.seed_word(seed)]))
+    for walk in (fk.gibbs_tiles_plain, fk.gibbs_tiles):
+        t_ndk, t_nk = ndk.clone(), nk.clone()
+        got = walk(table, t_ndk, t_nk, z, w, d, msk, noise_mode=mode, uniforms=u,
+                   slot0=9, row_tile=128, compute_dtype=chain, **values)
+        assert torch.equal(got, by_value)
+        assert torch.equal(t_ndk, by_ndk) and torch.equal(t_nk, by_nk)
+    assert (by_value != z).any()
