@@ -37,7 +37,11 @@ success:
    the dtype probe, in float32 and bf16 (both bitwise) at [32768, 512]; K1
    at K = 100, where the sweep's row tile is 2,048 and the walk takes its
    two-barrier form: the block against the plain walk in the three modes
-   (bitwise), its whole walk and its fixed cost per tile;
+   (bitwise), its whole walk and its fixed cost per tile; the SMC
+   resample's two gated kernels (``ops/smc_resample.py``) at SMC's shape in
+   phase 9 (16 particles, K = 15, rung 5 at 0.01) against their plain
+   versions with the flag true and false (bitwise, and the resample count),
+   timed with the flag true (one resample) and false (every token's cost);
 4. main paths: ``make_backend`` -> ``LdaModel`` -> ``run_inference`` at
    bench.py's shape (T = 2^20 Zipf(1.1) tokens, V = 50,000, M = 4,096
    documents, K = 500, block 65,536, alpha 0.5, beta 0.1): 10 sweeps each of
@@ -139,13 +143,30 @@ success:
    wide]``: the same at K = 500 and 4 chains on bench.py's shape (2^20
    Zipf(1.1) tokens, V = 50,000, M = 4,096, block 65,536; BASELINE's
    configuration 4's topic count and chains, its Wikipedia corpus not being
-   in the repository), 10 sweeps;
+   in the repository), 10 sweeps.  8d, ``[graphs smc]``: SMC's captured
+   absorb (``backends/smc.SmcGraph``, one replay a 64 tokens) against the
+   eager ``smc_absorb`` on phase 9's SMC corpus: the pass's first noise
+   block of 4,096 tokens eager, then captured from the same state and noise
+   (z, the tables and the log-weights bitwise), then the rest of the pass
+   captured; us a token eager and captured, host calls and graph launches
+   a token (``torch.profiler`` over 1,024 tokens), nodes a replay,
+   resamples in the pass, a resample's device time against its bound,
+   set-up, peak memory; the resample kernels' launches exact (one a token
+   and one for the graph's warm-up step).  8e, ``[graphs svi]``: SVI's
+   captured step (``backends/svi.SviGraph``, one replay a minibatch) at
+   phase 9's SVI shape: 20 steps alone (rho changing, a short batch) eager
+   and captured from the same lambda, bitwise; ms and host calls a step;
+   then one epoch with its host work captured (``SviModel.sweep``) and
+   stepped eagerly, bitwise, seconds and tokens/s;
 9. backends: rung 5's configuration (planted corpus, K = 15, block 8,192,
    5% of the documents held out) at scale 0.2: 16,400 documents, V =
    20,000, ~1.67M training tokens: gibbs (5 sweeps, the deferred tier, its
    kernels counted), cvb0 (5), warp (5), each the first untimed, svi (2
-   epochs, batch 64); smc one pass at scale 0.01 (820 documents, V = 1,000, ~78k tokens: its absorb is
-   one token at a time); tokens/s, training and held-out perplexity each,
+   epochs, batch 64, one graph replay a minibatch); smc one pass at scale
+   0.01 (779 training documents, V = 1,000, 83,653 tokens: its absorb is
+   one token at a time, one graph replay a 64; the resample kernels
+   launched once a token, and once for the warm-up step, exactly); tokens/s,
+   training and held-out perplexity each,
    training perplexity below V; CVB0's invariants and a second run from
    the seed bitwise equal; Warp's counts a recount of z; SMC's weights sum
    to 1 and z in range; SVI's lambda finite and positive;
@@ -335,6 +356,11 @@ WIDE_SWEEPS, WIDE_COMPARE = 10, 2
 HOST_DIAGNOSTICS_RUN_S = {"multichain": "6.68-7.38", "multichain wide": "44.17-48.13"}
 # the CUDA runtime calls that enqueue device work, by name prefix
 LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+# SMC's runs ([kernels] smc_resample, [graphs smc], [backends] smc): rung 5
+# at 0.01, the model's default 16 particles, rung 5's K = 15; [graphs smc]'s
+# eager absorb covers one noise block; [graphs svi] times STEPS steps alone
+SMC_SCALE, SMC_PARTICLES, BACKEND_K, SMC_PROFILED = 0.01, 16, 15, 1_024
+SVI_SCALE, SVI_BATCH, SVI_STEPS = 0.2, 64, 20
 BACKEND_RUNS = (("gibbs", 1, 4, 0.2), ("cvb0", 1, 4, 0.2), ("svi", 0, 2, 0.2),
                 ("warp", 1, 4, 0.2), ("smc", 0, 1, 0.01))
 LADDER_SCALE = 0.01
@@ -1047,10 +1073,12 @@ def counters():
     from ldagibbssampling_tpu_torch.ops import count_kernel as ck
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
     from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
+    from ldagibbssampling_tpu_torch.ops import smc_resample as sr
     from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
 
-    return ((fk.LAUNCHES, ck.LAUNCHES, sk.LAUNCHES, probe.LAUNCHES),
-            (fk.PLAIN_CALLS, ck.PLAIN_CALLS, sk.PLAIN_CALLS, probe.PLAIN_CALLS))
+    return ((fk.LAUNCHES, ck.LAUNCHES, sk.LAUNCHES, probe.LAUNCHES, sr.LAUNCHES),
+            (fk.PLAIN_CALLS, ck.PLAIN_CALLS, sk.PLAIN_CALLS, probe.PLAIN_CALLS,
+             sr.PLAIN_CALLS))
 
 
 def zero_counters() -> None:
@@ -1355,38 +1383,42 @@ def check_probe(seed: int, device: str = "cuda") -> dict:
     return out
 
 
-def cli_phase(flags: tuple[str, ...] = ()) -> None:
-    """Phase 5: the port's CLI writes the five artifacts on the card."""
+def cli_phase(flag_sets: tuple[tuple[str, ...], ...]) -> None:
+    """Phase 5: the port's CLI writes the five artifacts on the card, once
+    per set of flags, the processes run at once."""
     with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, "-m", f"{PKG}.cli", "--generate-minicorpus",
-               "--docs", f"{tmp}/docs", "--results", f"{tmp}/res", "-k", "10",
-               "--iterations", "60", "--save-step", "10",
-               "--begin-save-iters", "50", "--check-counts",
-               "--metrics-file", f"{tmp}/m.jsonl", "--metrics-every", "0",
-               *flags]
+        jobs = []
+        for i, flags in enumerate(flag_sets):
+            run = Path(tmp, str(i))
+            jobs.append(([sys.executable, "-m", f"{PKG}.cli", "--generate-minicorpus",
+                          "--docs", f"{run}/docs", "--results", f"{run}/res", "-k",
+                          "10", "--iterations", "60", "--save-step", "10",
+                          "--begin-save-iters", "50", "--check-counts",
+                          "--metrics-file", f"{run}/m.jsonl", "--metrics-every", "0",
+                          *flags], REPO))
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI {flags} exit {proc.returncode}:\n"
-                                 f"{proc.stderr[-3000:]}")
-        tail = [ln for ln in proc.stdout.splitlines() if ln.startswith(("count", "Done"))]
-        files = sorted(p.name for p in Path(tmp, "res").iterdir())
-        want = sorted(f"lda_{i}.{e}" for i in (50, 60)
-                      for e in ("params", "phi", "theta", "tassign", "twords"))
-        if files != want:
-            raise AssertionError(f"CLI {flags} artifacts {files} != {want}")
-        rows = [json.loads(x) for x in Path(tmp, "m.jsonl").read_text().splitlines()]
-        header = rows[0]
-        if "--ll-every" in flags:
-            ll_rows = [r for r in rows if "log_likelihood" in r]
-            if not ll_rows or not all("alpha" in r for r in ll_rows):
-                raise AssertionError(f"CLI {flags}: no LL/alpha rows: {rows[:3]}")
-            tail.append(f"LL {ll_rows[-1]['log_likelihood']:.1f}, alpha "
-                        f"{ll_rows[-1]['alpha']:.4f}, beta {ll_rows[-1]['beta']:.4f}")
-        log(f"[cli {' '.join(flags) or 'default'}] {time.perf_counter() - t0:.1f}s, "
-            f"kernel tier {header['kernel_tier']}, wrote {len(files)} "
-            f"artifacts; {' | '.join(tail)}")
+        outs = run_processes(jobs)
+        wall_s = time.perf_counter() - t0
+        for i, (flags, out) in enumerate(zip(flag_sets, outs)):
+            run = Path(tmp, str(i))
+            tail = [ln for ln in out.splitlines() if ln.startswith(("count", "Done"))]
+            files = sorted(p.name for p in Path(run, "res").iterdir())
+            want = sorted(f"lda_{i}.{e}" for i in (50, 60)
+                          for e in ("params", "phi", "theta", "tassign", "twords"))
+            if files != want:
+                raise AssertionError(f"CLI {flags} artifacts {files} != {want}")
+            rows = [json.loads(x) for x in Path(run, "m.jsonl").read_text().splitlines()]
+            header = rows[0]
+            if "--ll-every" in flags:
+                ll_rows = [r for r in rows if "log_likelihood" in r]
+                if not ll_rows or not all("alpha" in r for r in ll_rows):
+                    raise AssertionError(f"CLI {flags}: no LL/alpha rows: {rows[:3]}")
+                tail.append(f"LL {ll_rows[-1]['log_likelihood']:.1f}, alpha "
+                            f"{ll_rows[-1]['alpha']:.4f}, beta {ll_rows[-1]['beta']:.4f}")
+            log(f"[cli {' '.join(flags) or 'default'}] kernel tier "
+                f"{header['kernel_tier']}, wrote {len(files)} artifacts; "
+                f"{' | '.join(tail)} ({len(flag_sets)} processes at once, "
+                f"{wall_s:.1f}s)")
 
 
 def heldout_phase(seed: int, device: str = "cuda") -> dict:
@@ -1497,18 +1529,41 @@ def parity_phase(use_pallas, seed: int, device: str = "cuda") -> dict:
                 z_entropy=rep["z_entropy"])
 
 
-def run_cli(args, cwd: str, counted: bool = False) -> str:
-    """The port's CLI on the card in a subprocess; its stdout (``counted``:
-    run by ``_COUNTED_CLI``, which prints the process's kernel launches)."""
+def cli_command(args, counted: bool = False) -> list:
+    """The port's CLI with ``args`` as a command (``counted``: run by
+    ``_COUNTED_CLI``, which prints the process's kernel launches)."""
     cmd = ([sys.executable, "-c", _COUNTED_CLI] if counted
            else [sys.executable, "-m", f"{PKG}.cli"])
-    proc = subprocess.run([*cmd, *args], cwd=cwd,
-                          capture_output=True, text=True, timeout=600,
-                          env={**os.environ, "PYTHONPATH": str(REPO)})
-    if proc.returncode != 0:
-        raise AssertionError(f"CLI {args} exit {proc.returncode}:\n"
-                             f"{proc.stderr[-3000:]}")
-    return proc.stdout
+    return [*cmd, *args]
+
+
+def run_processes(jobs, timeout: int = 600) -> list:
+    """``(command, cwd)`` jobs as subprocesses started at once; their
+    stdouts once all have ended.  One that fails or outlasts ``timeout``
+    raises, and every process still running is killed first."""
+    procs = [subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              env={**os.environ, "PYTHONPATH": str(REPO)})
+             for cmd, cwd in jobs]
+    try:
+        outs = []
+        for (cmd, _), proc in zip(jobs, procs):
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(f"{cmd[3:]} exit {proc.returncode}:\n"
+                                     f"{err[-3000:]}")
+            outs.append(out)
+        return outs
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def run_cli(args, cwd: str, counted: bool = False) -> str:
+    """The port's CLI on the card in a subprocess; its stdout."""
+    return run_processes([(cli_command(args, counted), cwd)])[0]
 
 
 # [resume]: each tier's kernels, by the counters' names; the first counts
@@ -1550,35 +1605,42 @@ def resume_phase() -> None:
                   "--begin-save-iters", "50", "--seed", "3"]
         run_cli(["--generate-minicorpus", *common, "--no-save", "--iterations",
                  "1"], tmp)
-        for tier, extra in (("fused", []),
-                            ("deferred", ["--config-json", "deferred.json",
-                                          "--optimize-hyper-every", "5"]),
-                            ("pallas-draw", ["--pallas", "1",
-                                             "--optimize-hyper-every", "5"])):
-            t0 = time.perf_counter()
-            out = run_cli([*common, *extra, "--results", f"{tier}_full",
-                           "--iterations", "60", "--metrics-file", f"{tier}.jsonl",
-                           "--metrics-every", "0"], tmp, counted=True)
+        tiers = (("fused", []),
+                 ("deferred", ["--config-json", "deferred.json",
+                               "--optimize-hyper-every", "5"]),
+                 ("pallas-draw", ["--pallas", "1", "--optimize-hyper-every", "5"]))
+        # each tier's straight run and its run to sweep 30 at once, then the
+        # resumed runs at once
+        t0 = time.perf_counter()
+        firsts = run_processes([job for tier, extra in tiers for job in (
+            (cli_command([*common, *extra, "--results", f"{tier}_full",
+                          "--iterations", "60", "--metrics-file", f"{tier}.jsonl",
+                          "--metrics-every", "0"], True), tmp),
+            (cli_command([*common, *extra, "--no-save", "--iterations", "30",
+                          "--checkpoint-dir", f"{tier}_ck", "--checkpoint-every",
+                          "10"], True), tmp))])
+        resumed = run_processes([
+            (cli_command([*common, *extra, "--results", f"{tier}_resumed",
+                          "--iterations", "60", "--checkpoint-dir", f"{tier}_ck",
+                          "--checkpoint-every", "10", "--resume"], True), tmp)
+            for tier, extra in tiers])
+        wall_s = time.perf_counter() - t0
+        for i, (tier, _) in enumerate(tiers):
             header = json.loads(Path(tmp, f"{tier}.jsonl").read_text().splitlines()[0])
             if header["kernel_tier"] != tier:
                 raise AssertionError(f"resume {tier}: ran {header['kernel_tier']}")
-            blocks = _resume_launches(tier, out, 60)
-            out = run_cli([*common, *extra, "--no-save", "--iterations", "30",
-                           "--checkpoint-dir", f"{tier}_ck", "--checkpoint-every",
-                           "10"], tmp, counted=True)
-            _resume_launches(tier, out, 30, blocks)
-            out = run_cli([*common, *extra, "--results", f"{tier}_resumed",
-                           "--iterations", "60", "--checkpoint-dir", f"{tier}_ck",
-                           "--checkpoint-every", "10", "--resume"], tmp, counted=True)
+            blocks = _resume_launches(tier, firsts[2 * i], 60)
+            _resume_launches(tier, firsts[2 * i + 1], 30, blocks)
+            out = resumed[i]
             if "Resumed from sweep 30" not in out:
                 raise AssertionError(f"resume {tier}: {out[-2000:]}")
             _resume_launches(tier, out, 30, blocks)
             full = sorted(p.name for p in Path(tmp, f"{tier}_full").iterdir())
             want = sorted(f"lda_{i}.{e}" for i in (50, 60)
                           for e in ("params", "phi", "theta", "tassign", "twords"))
-            resumed = sorted(p.name for p in Path(tmp, f"{tier}_resumed").iterdir())
-            if not full == resumed == want:
-                raise AssertionError(f"resume {tier}: {full} / {resumed}")
+            got = sorted(p.name for p in Path(tmp, f"{tier}_resumed").iterdir())
+            if not full == got == want:
+                raise AssertionError(f"resume {tier}: {full} / {got}")
             differ = [n for n in want if Path(tmp, f"{tier}_full", n).read_bytes()
                       != Path(tmp, f"{tier}_resumed", n).read_bytes()]
             if differ:
@@ -1587,8 +1649,8 @@ def resume_phase() -> None:
             log(f"[resume {tier}] 60 sweeps straight, and 30 + resume from sweep 30 "
                 f"to 60: the ten artifacts byte-identical (checkpoints kept "
                 f"{kept}; launches per process exact, {blocks} a sweep and "
-                f"kernel, the graph's warm-up once more; "
-                f"{time.perf_counter() - t0:.1f}s)")
+                f"kernel, the graph's warm-up once more; the three tiers' nine "
+                f"processes, six then three at once, {wall_s:.1f}s)")
 
 
 def infer_phase() -> None:
@@ -2373,6 +2435,322 @@ def graph_chain_path(label: str, corpus, cfg, seed: int, smi: str) -> dict:
     return report
 
 
+def resample_tables(seed: int, corpus, device: str = "cuda") -> list:
+    """SMC's four per-particle tables at the shape of its run on ``corpus``
+    (``SMC_PARTICLES``, ``BACKEND_K``), random counts from the seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    p, k = SMC_PARTICLES, BACKEND_K
+    return [torch.randint(0, 1 << 20, shape, generator=g, device=device,
+                          dtype=torch.int32)
+            for shape in ((p, corpus.num_docs, k), (p, corpus.vocab_size, k),
+                          (p, k), (p, corpus.num_tokens))]
+
+
+def check_resample_kernels(seed: int, device: str = "cuda") -> dict:
+    """Phase 3e: the resample's two gated kernels (``ops/smc_resample.py``)
+    against their plain versions at SMC's shape in ``[graphs smc]`` and
+    ``[backends]`` (rung 5 at 0.01, P = 16, K = 15), with the flag true (a
+    gather by drawn indices, then the write-back: bitwise, and the count)
+    and false (nothing moves); each kernel's device time with the flag true
+    (``ms``, a resample) and false (``ms_flag_false``, every token's cost),
+    the plain versions' (events, the flag read on the host) and the bound:
+    the tables' bytes read once and written once."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
+    from ldagibbssampling_tpu_torch.ops import smc_resample as sr
+
+    corpus, _ = rung_corpus(5, SMC_SCALE)
+    tables = resample_tables(seed, corpus, device)
+    p = SMC_PARTICLES
+    idx = torch.randint(0, p, (p,), device=device,
+                        generator=torch.Generator(device=device).manual_seed(seed + 1))
+    flags = {f: torch.tensor(f, device=device) for f in (True, False)}
+    err = 0.0
+    for flag, f in flags.items():
+        out = []
+        for gather, write in ((sr.resample_gather, sr.resample_write),
+                              (sr.resample_gather_plain, sr.resample_write_plain)):
+            tabs = [t.clone() for t in tables]
+            scratch = [torch.zeros_like(t) for t in tables]
+            count = torch.zeros(1, dtype=torch.int64, device=device)
+            gather(f, idx, tabs, scratch, count)
+            write(f, scratch, tabs)
+            out.append([*tabs, count])
+        torch.cuda.synchronize()
+        for a, b in zip(*out):
+            err = max(err, float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"[kernels] smc_resample, flag {flag}: the "
+                                     "kernels differ from the plain versions")
+        if int(out[0][-1]) != flag or (not flag and not all(
+                torch.equal(a, b) for a, b in zip(out[0], tables))):
+            raise AssertionError(f"[kernels] smc_resample, flag {flag}: count "
+                                 f"{int(out[0][-1])}, or the tables moved")
+    log(f"[kernels] smc_resample: gather and write-back equal the plain versions "
+        f"with the flag true and false, bitwise, at P {p}, M {corpus.num_docs}, V "
+        f"{corpus.vocab_size}, K {BACKEND_K}, T {corpus.num_tokens}")
+    scratch = [torch.empty_like(t) for t in tables]
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    fns = {"resample_gather": lambda f, plain=False: (
+               sr.resample_gather_plain if plain else sr.resample_gather)(
+                   f, idx, tables, scratch, count),
+           "resample_write": lambda f, plain=False: (
+               sr.resample_write_plain if plain else sr.resample_write)(
+                   f, scratch, tables)}
+    nbytes = 2 * sum(t.numel() * 4 for t in tables)
+    out = {name: dict(max_abs_err=err) for name in fns}
+    report(out, {name: (lambda fn=fn: fn(flags[True]),
+                        cuda_ms(lambda fn=fn: fn(flags[True], plain=True)), None)
+                 for name, fn in fns.items()},
+           {name: bound(nbytes, 0) for name in fns},
+           {name: f"one resample of the four tables ({nbytes / 2 / 1e6:.2f} MB, "
+                  "flag true)" for name in fns})
+    for name, fn in fns.items():
+        out[name].update(ms_flag_false=device_ms(lambda fn=fn: fn(flags[False]), name),
+                         event_ms_flag_false=cuda_ms(lambda fn=fn: fn(flags[False])))
+        log(f"[kernels] {name} with the flag false (a token without a resample): "
+            f"device {out[name]['ms_flag_false']} ms, events "
+            f"{out[name]['event_ms_flag_false']:.4f} ms")
+    return out
+
+
+def graph_smc_phase(seed: int, smi: str, resample: dict,
+                    device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 8d, ``[graphs smc]``: SMC's captured absorb (``SmcGraph``, one
+    replay a ``GRAPH_STEPS`` tokens) against the eager ``smc_absorb`` on rung
+    5 at 0.01 (P = 16, K = 15): the eager absorb of the pass's first noise
+    block of 4,096 tokens, then the captured one of the same tokens from the
+    same state and noise (bitwise), then the rest of the pass captured: µs
+    a token eager and captured, host calls a token eager (the profiler, over
+    ``GRAPH_STEPS`` tokens) and captured (and graph launches, over
+    ``SMC_PROFILED`` tokens), nodes a replay, resamples in the pass,
+    the resample's device time against its bound, set-up, peak memory, the
+    resample kernels' launches exact (one a token, and the warm-up step's).
+    Returns the report and the launches."""
+    import functools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldagibbssampling_tpu_torch.backends.smc import (
+        GRAPH_STEPS, NOISE_BLOCK, SmcModel, smc_absorb)
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+
+    corpus, _ = rung_corpus(5, SMC_SCALE)
+    cfg = LdaConfig(topic_num=BACKEND_K, seed=seed, block_size=8_192)
+    t_total = corpus.num_tokens
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = SmcModel(cfg, corpus, num_particles=SMC_PARTICLES, device=device)
+    ref = SmcModel(cfg, corpus, num_particles=SMC_PARTICLES, device=device)
+    pass_seed = int(torch.randint(0, 2**63 - 1, (), generator=ref.generator))
+    n0 = min(NOISE_BLOCK, t_total)
+    g, rg = ref._noise(pass_seed, 0, n0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = smc_absorb(*ref._tables(), ref._tw, ref._td, True, 0, alpha=cfg.alpha,
+                      beta=cfg.beta, ess_threshold=ref.ess_threshold, num_steps=n0,
+                      gumbels=g, resample_gumbels=rg)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    # the eager absorb's host calls a token, over GRAPH_STEPS tokens on a copy
+    g, rg = ref._noise(pass_seed, n0, GRAPH_STEPS)
+    eager_prof = launch_profile(lambda: smc_absorb(
+        *[x.clone() for x in want], ref._tw, ref._td, True, n0, alpha=cfg.alpha,
+        beta=cfg.beta, ess_threshold=ref.ess_threshold, num_steps=GRAPH_STEPS,
+        gumbels=g, resample_gumbels=rg))
+    del g, rg, ref
+
+    # the model's own absorb, as its sweep runs it: the pass's noise blocks
+    # filled once, chunks of its chunk size
+    if int(torch.randint(0, 2**63 - 1, (), generator=model.generator)) != pass_seed:
+        raise AssertionError("[graphs smc] the two models' pass seeds differ")
+    fill = functools.partial(model._fill_block, set(), pass_seed)
+    sg = model.graph
+
+    def absorb(tables, pos, c):
+        for p0 in range(pos, pos + c, model.chunk_size):
+            tables = sg.absorb(tables, True, p0, min(model.chunk_size, pos + c - p0),
+                               fill, alpha=cfg.alpha, beta=cfg.beta)
+        return tables
+    zero_counters()
+    sg.resamples.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = absorb(model._tables(), 0, n0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for name, a, b in zip(("ndk", "nwk", "nk", "z", "logw"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[graphs smc] captured {name} differs from eager "
+                                 f"after {n0} tokens")
+    del want
+    # host calls a token over SMC_PROFILED tokens of one absorb call (the
+    # profiler records each replay's every node: a short window)
+    n1 = min(SMC_PROFILED, t_total - n0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = absorb(got, n0, n1)
+        torch.cuda.synchronize()
+    calls = [e.name for e in prof.events()
+             if e.name.startswith((*LAUNCH_CALLS, "cudaGraphLaunch"))]
+    graph_launches = sum(n.startswith("cudaGraphLaunch") for n in calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = absorb(got, n0 + n1, t_total - n0 - n1)
+    torch.cuda.synchronize()
+    rest_s = time.perf_counter() - t0
+    resamples = int(sg.resamples)
+    launches, plain = read_counters()
+    want_launches = {"resample_gather": t_total + 1, "resample_write": t_total + 1}
+    got_launches = {n: c for n, c in launches.items() if c}
+    if got_launches != want_launches or any(plain.values()):
+        raise AssertionError(f"[graphs smc] launches {got_launches}, want "
+                             f"{want_launches} (one a token and the warm-up step's); "
+                             f"plain {plain}")
+    if graph_launches != -(-n1 // GRAPH_STEPS):
+        raise AssertionError(f"[graphs smc] {graph_launches} graph launches for "
+                             f"{n1} tokens, not one per {GRAPH_STEPS}")
+    nk = got[2]
+    if not (nk.sum(dim=1) == t_total).all():
+        raise AssertionError("[graphs smc] the particles' counts do not cover the pass")
+    steps = sg.graph
+    pair_ms = resample["resample_gather"]["ms"] + resample["resample_write"]["ms"]
+    out = dict(
+        tokens=t_total, eager_tokens=n0,
+        eager_us_per_token=eager_s / n0 * 1e6,
+        captured_first_block_us_per_token=first_s / n0 * 1e6,
+        captured_us_per_token=rest_s / (t_total - n0 - n1) * 1e6,
+        host_calls_per_token=len(calls) / n1, graph_launches_per_token=graph_launches / n1,
+        eager_host_calls_per_token=eager_prof["host_calls"] / GRAPH_STEPS,
+        nodes={str(n): c for n, c in steps.nodes.items()},
+        nodes_per_token=steps.nodes[GRAPH_STEPS] / GRAPH_STEPS,
+        resamples_per_pass=resamples, setup_s=steps.setup_s,
+        capture_s={str(n): c for n, c in steps.capture_s.items()},
+        resample_pair_ms=pair_ms, resample_bound_ms=resample["resample_gather"]["bound_ms"],
+        resample_flag_false_ms=(resample["resample_gather"]["ms_flag_false"]
+                                + resample["resample_write"]["ms_flag_false"]),
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    log(f"[graphs smc] rung 5 at {SMC_SCALE} ({t_total} tokens, M {corpus.num_docs}, "
+        f"V {corpus.vocab_size}, K {BACKEND_K}, P {SMC_PARTICLES}): captured against "
+        f"eager bitwise (z, ndk, nwk, nk, logw) after the first {n0} tokens; us a "
+        f"token eager {out['eager_us_per_token']:.1f}, captured "
+        f"{out['captured_us_per_token']:.1f} (tokens {n0 + n1}-{t_total}; the first "
+        f"block with the set-up {out['captured_first_block_us_per_token']:.1f}); host "
+        f"calls a token eager {out['eager_host_calls_per_token']:.2f}, captured "
+        f"{out['host_calls_per_token']:.4f} ({graph_launches} graph launches for {n1} "
+        f"tokens); nodes {out['nodes']} "
+        f"({out['nodes_per_token']:.2f} a token); resamples in the pass {resamples} "
+        f"({resamples / t_total:.4f} a token); a resample's two kernels "
+        f"{pair_ms:.4f} ms of device time against a {out['resample_bound_ms']:.4f} ms "
+        f"bound (flag false: {out['resample_flag_false_ms']:.4f} ms a token); "
+        f"set-up (warm-up step, capture, instantiation) {steps.setup_s:.4f}s, "
+        f"captures {out['capture_s']}; peak device memory "
+        f"{out['peak_allocated_gb']:.3f} GB allocated, {out['peak_reserved_gb']:.3f} GB "
+        f"reserved; {smi}")
+    del model, got
+    return out, got_launches
+
+
+def graph_svi_phase(seed: int, smi: str, device: str = "cuda") -> dict:
+    """Phase 8e, ``[graphs svi]``: SVI's step (``SviGraph``, one replay a
+    minibatch) at rung 5 at 0.2 (K = 15, V = 20,000, batch 64): ``SVI_STEPS``
+    steps alone on batches already on the card (a changing rho, every
+    fourth batch short), eager ``svi_step`` then captured from the same
+    lambda, bitwise (lambda and each gamma); ms and host calls a step
+    (``torch.profiler``); then one epoch with its host work (densify,
+    copies, gamma to the host) captured (``SviModel.sweep``) and eager (the
+    same model stepping ``svi_step``), bitwise."""
+    import numpy as np
+    import torch
+
+    from ldagibbssampling_tpu_torch.backends.svi import SviModel, svi_step
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.data.stream import minibatch_indices
+
+    corpus, _ = rung_corpus(5, SVI_SCALE)
+    cfg = LdaConfig(topic_num=BACKEND_K, seed=seed, block_size=8_192)
+    model = SviModel(cfg, corpus, batch_size=SVI_BATCH, device=device)
+    kw = dict(alpha=cfg.alpha, eta=model.eta, e_steps=model.e_steps,
+              total_docs=corpus.num_docs)
+    batches = []
+    for i, (idx, real) in zip(range(4), minibatch_indices(
+            corpus.num_docs, SVI_BATCH, np.random.default_rng(seed))):
+        real = real if i < 3 else SVI_BATCH // 2 + 7  # a short batch
+        batches.append((torch.from_numpy(model._batch_bow(idx, real)).to(device), real))
+    rhos = [(1.0 + i) ** -0.7 for i in range(SVI_STEPS)]
+
+    def run(step, lam, gammas):
+        t0 = 0.0
+        for i, rho in enumerate(rhos):
+            if i == 1:  # the first step (the graph's set-up) untimed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            bow, real = batches[i % 4]
+            lam, gamma = step(lam, bow, rho, real)
+            gammas.append(gamma)
+        torch.cuda.synchronize()
+        return lam, (time.perf_counter() - t0) / (len(rhos) - 1) * 1e3
+
+    def eager(lam, bow, rho, real):
+        return svi_step(lam, bow, rho, real, **kw)
+    want_g, got_g = [], []
+    want, eager_ms = run(eager, model.lam, want_g)
+    got, captured_ms = run(model.graph, model.lam, got_g)
+    if not (torch.equal(got, want) and all(map(torch.equal, got_g, want_g))):
+        raise AssertionError("[graphs svi] the captured steps differ from eager")
+    bow, real = batches[0]
+    eager_prof = launch_profile(lambda: eager(want, bow, 0.3, real))
+    captured = launch_profile(lambda: model.graph(got, bow, 0.3, real))
+    if captured["graph_launches"] != 1:
+        raise AssertionError(f"[graphs svi] {captured['graph_launches']} graph "
+                             "launches a step, not one")
+    twin = SviModel(cfg, corpus, batch_size=SVI_BATCH, device=device)
+    twin.graph = eager  # the same epoch, stepped eagerly
+    epoch = {}
+    for label, m in (("captured", model), ("eager", twin)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.sweep(1)
+        torch.cuda.synchronize()
+        epoch[label] = time.perf_counter() - t0
+    if not (torch.equal(model.lam, twin.lam)
+            and np.array_equal(model._gamma_full, twin._gamma_full)):
+        raise AssertionError("[graphs svi] the captured epoch differs from eager")
+    steps = model._step_idx
+    sg = model.graph.graph
+    out = dict(eager_ms_per_step=eager_ms, captured_ms_per_step=captured_ms,
+               eager_host_calls_per_step=eager_prof["host_calls"],
+               captured_host_calls_per_step=captured["host_calls"],
+               captured_graph_launches_per_step=captured["graph_launches"],
+               nodes=sg.nodes[1], setup_s=sg.setup_s, capture_s=sg.capture_s[1],
+               epoch_steps=steps, tokens=corpus.num_tokens,
+               epoch_captured_s=epoch["captured"], epoch_eager_s=epoch["eager"],
+               epoch_captured_ms_per_step=epoch["captured"] / steps * 1e3,
+               epoch_eager_ms_per_step=epoch["eager"] / steps * 1e3,
+               epoch_captured_tokens_per_s=corpus.num_tokens / epoch["captured"],
+               epoch_eager_tokens_per_s=corpus.num_tokens / epoch["eager"])
+    log(f"[graphs svi] rung 5 at {SVI_SCALE} (K {BACKEND_K}, V {corpus.vocab_size}, "
+        f"batch {SVI_BATCH}, {model.e_steps} E-steps): {SVI_STEPS} steps alone "
+        f"captured against eager bitwise (lambda, each gamma; rho changing, a short "
+        f"batch); ms a step eager {eager_ms:.3f}, captured {captured_ms:.3f}; host "
+        f"calls a step eager {eager_prof['host_calls']}, captured "
+        f"{captured['host_calls']} ({captured['graph_launches']} graph launch; the "
+        f"graph's {sg.nodes[1]} nodes); set-up {sg.setup_s:.4f}s (capture "
+        f"{sg.capture_s[1]:.4f}s); an epoch with its host work ({steps} steps, "
+        f"{corpus.num_tokens} tokens; bitwise eager) captured {epoch['captured']:.3f}s "
+        f"({out['epoch_captured_ms_per_step']:.3f} ms a step, "
+        f"{out['epoch_captured_tokens_per_s']:,.0f} tokens/s), eager "
+        f"{epoch['eager']:.3f}s ({out['epoch_eager_ms_per_step']:.3f} ms a step, "
+        f"{out['epoch_eager_tokens_per_s']:,.0f} tokens/s); {smi}")
+    return out
+
+
 def graphs_phase(seed: int, smi: str, wide_corpus) -> tuple[dict, dict]:
     """Phase 8c, ``[graphs]``: each captured path against its eager sweep
     at full width: the deferred tier (K = 500 and K = 100), the fused tier,
@@ -2426,7 +2804,8 @@ def cvb0_sweep_ms(model, atomic: bool = False, sweeps: int = 3) -> float:
 def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
     """Phase 9: the five backends at rung 5's configuration (scale 0.2; SMC
     at scale 0.01): tokens/s, training and held-out perplexity, and each
-    backend's checks; returns the report and the Gibbs run's launches."""
+    backend's checks; returns the report and the Gibbs and SMC runs'
+    kernel launches."""
     import numpy as np
     import torch
 
@@ -2439,16 +2818,18 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
     from ldagibbssampling_tpu_torch.evaluation.metrics import perplexity
     from ldagibbssampling_tpu_torch.models.lda import LdaModel, _assert_recount
 
-    cfg = LdaConfig(topic_num=15, seed=seed, block_size=8_192)
+    cfg = LdaConfig(topic_num=BACKEND_K, seed=seed, block_size=8_192)
     out: dict = {}
     gibbs_launches: dict = {}
+    smc_launches: dict = {}
     for name, warm, n, scale in BACKEND_RUNS:
         corpus, held = rung_corpus(5, scale)
         build = {"gibbs": lambda: LdaModel(cfg, corpus, device=device),
                  "cvb0": lambda: Cvb0Model(cfg, corpus, device=device),
                  "svi": lambda: SviModel(cfg, corpus, batch_size=64, device=device),
                  "warp": lambda: WarpModel(cfg, corpus, device=device),
-                 "smc": lambda: SmcModel(cfg, corpus, device=device)}[name]
+                 "smc": lambda: SmcModel(cfg, corpus, num_particles=SMC_PARTICLES,
+                                         device=device)}[name]
         model = build()
         if warm:
             model.sweep(warm)
@@ -2469,6 +2850,14 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
             if model.kernel_tier != "deferred" or gibbs_launches != want:
                 raise AssertionError(f"gibbs ran {model.kernel_tier}: {launches}, "
                                      f"want {want}")
+        elif name == "smc":
+            # the resample's two kernels once a token, and once more for the
+            # graph's warm-up step
+            smc_launches = {k: v for k, v in launches.items() if v}
+            want = {"resample_gather": n * corpus.num_tokens + 1,
+                    "resample_write": n * corpus.num_tokens + 1}
+            if smc_launches != want:
+                raise AssertionError(f"smc launched {launches}, want {want}")
         elif any(launches.values()):
             raise AssertionError(f"{name} launched kernels {launches}")
         v = corpus.vocab_size
@@ -2513,8 +2902,12 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
                                      f"[{z.min()}, {z.max()}]")
             if not (model.nk.sum(dim=1) == corpus.num_tokens).all():
                 raise AssertionError("smc particle counts do not cover the corpus")
+            sg = model.graph.graph
             checks.append(f"weights sum to 1 ({w.sum():.8f}), z in range; "
-                          f"{dt / corpus.num_tokens * 1e6:.1f} us per token")
+                          f"{dt / corpus.num_tokens * 1e6:.1f} us per token captured "
+                          f"(less the set-up {(dt - sg.setup_s) / corpus.num_tokens * 1e6:.1f}; "
+                          f"set-up {sg.setup_s:.4f}s, {sg.replays} replays); "
+                          f"{model.resamples} resamples; launches {smc_launches}")
         elif name == "svi":
             if not (torch.isfinite(model.lam).all() and float(model.lam.min()) > 0):
                 raise AssertionError("svi lambda not finite and positive")
@@ -2528,7 +2921,9 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
                          vocab=v, seconds=dt, tokens_per_s=tok_s, perplexity=ppl,
                          held_out_ppl=held_ppl, held_out_docs=held.num_docs)
         if name == "smc":
-            out[name]["us_per_token"] = dt / corpus.num_tokens * 1e6
+            out[name].update(us_per_token=dt / corpus.num_tokens * 1e6,
+                             setup_s=model.graph.graph.setup_s,
+                             resamples=model.resamples, launches=smc_launches)
         log(f"[backends] {name}: {warm} + {n} timed "
             f"{'passes' if name in ('svi', 'smc') else 'sweeps'}"
             f" of {corpus.num_tokens} tokens (M {corpus.num_docs}, V {v}, K 15) "
@@ -2537,7 +2932,7 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
             f"{'; '.join(checks)}")
         del model
         torch.cuda.empty_cache()
-    return out, gibbs_launches
+    return out, {"backends gibbs": gibbs_launches, "backends smc": smc_launches}
 
 
 def run_cli_inproc(args) -> tuple[int, str, str]:
@@ -2902,13 +3297,14 @@ def mesh_resume_phase(device_flags=()) -> None:
         run_cli(["--generate-minicorpus", *common, "--no-save", "--iterations",
                  "1"], tmp)
         t0 = time.perf_counter()
-        run_cli([*common, "--results", "full", "--iterations", "60",
-                 "--metrics-file", "m.jsonl", "--metrics-every", "0"], tmp)
+        run_processes([  # the straight run and the run to sweep 30 at once
+            (cli_command([*common, "--results", "full", "--iterations", "60",
+                          "--metrics-file", "m.jsonl", "--metrics-every", "0"]), tmp),
+            (cli_command([*common, "--no-save", "--iterations", "30",
+                          "--checkpoint-dir", "ck", "--checkpoint-every", "10"]), tmp)])
         header = json.loads(Path(tmp, "m.jsonl").read_text().splitlines()[0])
         if header["kernel_tier"] != "deferred":
             raise AssertionError(f"[mesh resume] ran {header['kernel_tier']}")
-        run_cli([*common, "--no-save", "--iterations", "30", "--checkpoint-dir",
-                 "ck", "--checkpoint-every", "10"], tmp)
         out = run_cli([*common, "--results", "resumed", "--iterations", "60",
                        "--checkpoint-dir", "ck", "--checkpoint-every", "10",
                        "--resume"], tmp)
@@ -3590,6 +3986,7 @@ def main() -> int:
     kernels.update(check_live_kernels(corpus, args.seed))  # 3b.
     kernels.update(check_probe(args.seed))                 # 3c.
     kernels["gibbs_tile_sample"].update(check_general_walk(corpus, args.seed))  # 3d.
+    kernels.update(check_resample_kernels(args.seed))      # 3e.
     wall("kernels")
     paths = {}
     runs = [(use_pallas, sweeps, "float32", "bfloat16", K)
@@ -3610,9 +4007,8 @@ def main() -> int:
     heldout = heldout_phase(args.seed)                     # 4e.
     hyper = hyper_phase(corpus, args.seed)                 # 4d.
     wall("quality, heldout, hyper")
-    for flags in ((), ("--pallas", "fused"), ("--sampler", "serial"),
-                  ("--ll-every", "5", "--optimize-hyper-every", "5")):  # 5.
-        cli_phase(flags)
+    cli_phase(((), ("--pallas", "fused"), ("--sampler", "serial"),  # 5.
+               ("--ll-every", "5", "--optimize-hyper-every", "5")))
     resume_phase()                                         # 5b.
     infer_phase()                                          # 5c.
     wall("cli")
@@ -3624,8 +4020,11 @@ def main() -> int:
     multichain = multichain_phases(args.seed, wide_corpus=corpus)  # 8, 8b.
     wall("multichain")
     graphs, graph_launches = graphs_phase(args.seed, smi, corpus)  # 8c.
+    graphs["smc"], graph_launches["smc"] = graph_smc_phase(  # 8d.
+        args.seed, smi, {n: kernels[n] for n in ("resample_gather", "resample_write")})
+    graphs["svi"] = graph_svi_phase(args.seed, smi)         # 8e.
     wall("graphs")
-    backends, gibbs_launches = backends_phase(args.seed)    # 9.
+    backends, backend_launches = backends_phase(args.seed)  # 9.
     backends_resume_phase()                                 # 10.
     wall("backends")
     with tempfile.TemporaryDirectory() as tmp:
@@ -3646,6 +4045,7 @@ def main() -> int:
     src = f"{PKG}/csrc"
     k1 = "ldagibbssampling_tpu/ops/pallas_gibbs.py:58"
     k4 = "scripts/vpu_dtype_probe.py:24"
+    smc_cond = "ldagibbssampling_tpu/backends/smc.py:119 (lax.cond; not a TPU kernel)"
     meta = {
         "gibbs_tile_sample": (f"{src}/fused_kernel.cu", k1),
         **{name: (f"{src}/fused_kernel.cu", k1) for name in kernels
@@ -3658,13 +4058,17 @@ def main() -> int:
         "gibbs_block_sample": (f"{src}/sample_kernel.cu", "ldagibbssampling_tpu/ops/pallas_gibbs.py:311"),
         "dtype_probe_f32": (f"{src}/dtype_probe.cu", k4),
         "dtype_probe_bf16": (f"{src}/dtype_probe.cu", k4),
+        # no TPU kernel: the reference's lax.cond resample inside its scan
+        "resample_gather": (f"{src}/smc_resample.cu", smc_cond),
+        "resample_write": (f"{src}/smc_resample.cu", smc_cond),
     }
     rows = []
     for kname, (source, replaces) in meta.items():
         k = kernels[kname]
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
-        if kname in gibbs_launches:  # phase 9's Gibbs row (deferred tier)
-            by_path["backends gibbs"] = gibbs_launches[kname]
+        for path, counts in backend_launches.items():  # phase 9's Gibbs and SMC
+            if kname in counts:
+                by_path[path] = counts[kname]
         for label, counts in graph_launches.items():  # phase 8c's captured runs
             if kname in counts:
                 by_path[f"graphs {label}"] = counts[kname]
@@ -3687,7 +4091,7 @@ def main() -> int:
                    "ms_64_reps", "walk_ms", "walk_device_ms", "walk_bound_ms",
                    "fixed_us_per_tile", "event_ms", "device_ms",
                    "event_ms_three_tables", "bound_three_tables_ms",
-                   "library_device_ms")},
+                   "library_device_ms", "ms_flag_false", "event_ms_flag_false")},
         })
     print(json.dumps({"kernels": rows, "main_path_tokens_per_s": {
         tier: tok_s for tier, (tok_s, _) in paths.items()},

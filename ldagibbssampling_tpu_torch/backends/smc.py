@@ -10,24 +10,34 @@ falls below ``ess_threshold·P``.  ``sweep()`` is one full absorb pass over
 the corpus; passes after the first remove each token's previous topic
 first (a rejuvenation pass).
 
-**The ESS branch.**  The reference takes the resample branch with
-``lax.cond`` inside its scan.  Eager PyTorch has no device-side branch: a
-branch-free ``torch.where`` over an index vector would gather every table
-for every token, O(P·(M+V)·K) bytes per token.  Here each token's step is a
-few dozen small PyTorch ops on ``[P, K]`` views of the tables (the document's
-and the word's rows, so no table is copied), and one host read of the
-ESS test decides the branch: one device-to-host sync per token, and the
-resample copies the tables only when it happens.  The chain is the
-reference's: resample exactly when ``ess < ess_threshold·P``.  The per-token
-sequential absorb is the algorithm (each token's conditional depends on
-every earlier token's assignment), so its cost is the per-token latency of
-that step; tokens/s and µs per token on the H100 are in ``PERF.md``.
+**One dispatch per ``GRAPH_STEPS`` tokens.**  The reference runs a chunk
+as one ``jit`` of a ``lax.scan`` over tokens and takes the resample branch
+with ``lax.cond`` inside it.  ``SmcModel.sweep`` runs the same chain as
+replays of a CUDA graph of ``GRAPH_STEPS`` token steps
+(``ops/graphs.StepGraph``; a chunk's remainder is a graph of its own
+length, captured once per length), with no host read inside a chunk.  Its
+step (``SmcGraph``) reads the token from device arrays at a device cursor,
+its noise from a device ring of two noise blocks, and α, β, V·β and K·α
+from a device tensor (``smc_scalars``), and does the eager step's
+arithmetic op for op, so its chain is bitwise the eager ``smc_absorb``'s.
+The ESS test stays on the device as a bool; the resample indices are drawn
+every token (``[P, P]`` of work), and the gather runs only when the bool is
+true, in two hand-written kernels that read it (``ops/smc_resample.py``):
+a branch-free ``torch.where`` would move O(P·(M+V)·K) bytes every token.
+The eager ``smc_absorb`` keeps host ints and one host read of the test per
+token; it is the tests' reference.  The per-token sequential absorb is the
+algorithm (each token's conditional depends on every earlier token's
+assignment), so its cost is the per-token latency of the step; µs per token
+on the H100, eager and captured, are in ``PERF.md``.
 
 Memory against one 80 GB H100: the per-particle count tables are int32
 ``[P, M, K] + [P, V, K]``; at P = 16 that is 2.6 GB at M = 300k, V = 100k,
-K = 100 (fits); 35 GB at M = 1M, V = 100k, K = 500 (fits, and a resample's
-gathered copy doubles it to 70 GB); 534 GB at M = 8.2M, V = 140k, K = 1,000
-(does not fit).  ``z[P, T]`` adds 64 bytes per token at P = 16.
+K = 100 (fits); 35 GB at M = 1M, V = 100k, K = 500; 534 GB at M = 8.2M, V = 140k,
+K = 1,000 (does not fit).  ``z[P, T]`` adds 64 bytes per token at P = 16.
+The captured absorb holds the state three times: the model's tensors, the
+graph's buffers and the resample's scratch (7.8 GB at the first shape; the
+second does not fit), where the eager absorb makes its gathered copy on
+each resample.
 
 Noise: each token takes ``[P, K]`` Gumbels for its draw and ``[P, P]``
 Gumbels for a resample (``jax.random.categorical`` is the argmax of Gumbels
@@ -36,7 +46,9 @@ plus the logits).  Internally both are drawn in fixed blocks of
 ``torch.Generator`` seeded with the pass's seed (drawn from the model's host
 generator) plus ``b``, so the chain does not depend on ``chunk_size``;
 externally ``smc_absorb`` takes them as arrays (the reference splits its key
-once per token and once more inside a resample).
+once per token and once more inside a resample).  The captured absorb fills
+each block once, outside the graph, into one slot of its ring; a replay
+that needs the next block waits for its fill in stream order.
 
 Checkpoint and resume are a documented non-goal, as in the reference: a
 faithful resume would snapshot every particle's tables and the weights
@@ -46,6 +58,7 @@ for this backend.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -53,6 +66,10 @@ import torch
 
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.ops._device import staged
+from ldagibbssampling_tpu_torch.ops.graphs import StepGraph
+from ldagibbssampling_tpu_torch.ops.smc_resample import (
+    resample_gather, resample_write)
 
 
 def smc_absorb(
@@ -117,6 +134,7 @@ def smc_absorb(
 
 
 NOISE_BLOCK = 4096  # tokens per block of internal noise
+GRAPH_STEPS = 64    # token steps a replay of the captured absorb (<= NOISE_BLOCK)
 
 
 def gumbel_noise(shape: tuple, generator: torch.Generator,
@@ -125,6 +143,131 @@ def gumbel_noise(shape: tuple, generator: torch.Generator,
     u = torch.rand(shape, generator=generator, device=device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def smc_scalars(alpha: float, beta: float, vocab_size: int,
+                num_topics: int) -> np.ndarray:
+    """α, β, V·β and K·α as float32, as ``smc_absorb``'s ops round them:
+    each a Python double (the products taken in doubles) rounded once.
+    (``ops/_device.sweep_scalars`` multiplies float32 values instead, which
+    can be one ulp away.)"""
+    return np.array([alpha, beta, vocab_size * beta, num_topics * alpha],
+                    np.float32)
+
+
+class SmcGraph:
+    """The absorb as replays of a captured step over static buffers.
+
+    One step absorbs the token at the device cursor, as ``smc_absorb``'s
+    loop body does, op for op, with device indices: the token's flat
+    offsets into ``ndk``, ``nwk`` and ``nk``, the ±1 moves by
+    ``scatter_add_`` at computed offsets (the decrement multiplied by the
+    pass's ``dec`` ∈ {0, 1}, as the reference does), the noise rows at the
+    cursor's place in the ring, the ESS test a device bool that gates the
+    resample kernels.  :meth:`absorb` runs ``num_steps`` tokens as replays
+    of ``GRAPH_STEPS`` steps and one of the remainder (``ops/graphs.
+    StepGraph``), filling the noise blocks they reach first (``fill(b)``,
+    which writes :meth:`noise_block`), and makes no host read.
+    """
+
+    def __init__(self, tables, token_word: np.ndarray, token_doc: np.ndarray,
+                 ess_threshold: float) -> None:
+        ndk, nwk, nk, z, logw = tables
+        p, m, k = ndk.shape
+        v, t = nwk.shape[1], z.shape[1]
+        dev = ndk.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.state = [torch.empty_like(x) for x in tables]
+        self.scratch = [torch.empty_like(x) for x in tables[:4]]
+        self.flats = [x.view(-1) for x in self.state[:3]]
+        self.zflat = self.state[3].view(-1)
+        # per token: its document's and its word's row offsets (·K), and
+        # nk's 0; per table and particle: the particle's first cell
+        self.tok = torch.from_numpy(np.stack(
+            [np.asarray(token_doc, np.int64) * k, np.asarray(token_word, np.int64) * k,
+             np.zeros(t, np.int64)], axis=1)).to(dev)
+        pid = torch.arange(p, **i64)
+        self.cellbase = torch.stack([pid * (m * k), pid * (v * k), pid * k])
+        self.rowbase = self.cellbase[:2, :, None] + torch.arange(k, **i64)
+        self.zbase = pid * t
+        self.threshold = ess_threshold * p
+        # two noise blocks (one where the pass has one): a replay of at most
+        # GRAPH_STEPS <= NOISE_BLOCK tokens reaches at most two
+        self.ring = NOISE_BLOCK * (2 if t > NOISE_BLOCK else 1)
+        self.gumbels = torch.zeros((self.ring, p, k), dtype=torch.float32, device=dev)
+        self.resample_gumbels = torch.zeros((self.ring, p, p), dtype=torch.float32,
+                                            device=dev)
+        # the cursor and the float32 α, β, V·β, K·α (two words), one copy in
+        self.params = torch.zeros(3, **i64)
+        self.cursor = self.params[:1]
+        self.scalars = self.params[1:].view(torch.float32)
+        self.negdec = torch.zeros(p, dtype=torch.int32, device=dev)
+        self.one = torch.ones(p, dtype=torch.int32, device=dev)
+        self.resamples = torch.zeros(1, **i64)  # the gather counts them
+        self.graph = StepGraph(self._step, self.state,
+                               mutable=(self.cursor, self.resamples))
+
+    def noise_block(self, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The ring's rows of noise block ``b`` (``[NOISE_BLOCK, P, K]`` and
+        ``[NOISE_BLOCK, P, P]``): token ``b·NOISE_BLOCK + i`` reads row i."""
+        lo = b * NOISE_BLOCK % self.ring
+        return (self.gumbels[lo:lo + NOISE_BLOCK],
+                self.resample_gumbels[lo:lo + NOISE_BLOCK])
+
+    def _step(self) -> None:
+        logw = self.state[4]
+        t = self.cursor
+        tk = self.tok.index_select(0, t).view(3, 1)
+        zi = self.zbase + t
+        old = self.zflat.index_select(0, zi)
+        base = self.cellbase + tk                         # [3, P]
+        for flat, cell in zip(self.flats, base + old):
+            flat.scatter_add_(0, cell, self.negdec)
+        rows = self.rowbase + tk[:2].view(2, 1, 1)        # [2, P, K]
+        ndk_d = self.flats[0].take(rows[0])
+        nwk_w = self.flats[1].take(rows[1])
+        alpha, beta, vbeta, kalpha = self.scalars.unbind()
+
+        cond = (nwk_w + beta) / (self.state[2] + vbeta) * (ndk_d + alpha)
+        total = cond.sum(dim=1)
+        nd_tot = ndk_d.sum(dim=1)
+        row = torch.remainder(t, self.ring)
+        g = self.gumbels.index_select(0, row)[0]
+        znew = torch.argmax(torch.log(torch.clamp(cond, min=1e-30)) + g, dim=1)
+        for flat, cell in zip(self.flats, base + znew):
+            flat.scatter_add_(0, cell, self.one)
+        self.zflat.index_copy_(0, zi, znew.to(torch.int32))
+        logw.add_(torch.log(torch.clamp(total / (nd_tot + kalpha), min=1e-300)))
+
+        wnorm = torch.softmax(logw, dim=0)
+        ess = 1.0 / torch.clamp(torch.sum(wnorm * wnorm), min=1e-30)
+        flag = ess < self.threshold
+        rg = self.resample_gumbels.index_select(0, row)[0]
+        idx = torch.argmax(rg + logw[None, :], dim=1)
+        logw.masked_fill_(flag, 0.0)
+        resample_gather(flag, idx, self.state[:4], self.scratch, self.resamples)
+        resample_write(flag, self.scratch, self.state[:4])
+        t.add_(1)
+
+    def absorb(self, tables, first_pass: bool, t_offset: int, num_steps: int,
+               fill: Callable[[int], None], *, alpha: float, beta: float) -> tuple:
+        """Absorb ``num_steps`` tokens from ``t_offset``, as ``smc_absorb``;
+        returns new ``(ndk, nwk, nk, z, logw)``.  ``fill(b)`` is called
+        before the first replay that reaches noise block ``b``."""
+        self.graph.load(tables)
+        _, v, k = self.state[1].shape
+        words = smc_scalars(alpha, beta, v, k).view(np.int64)
+        params = np.concatenate([[t_offset], words]).astype(np.int64)
+        self.params.copy_(staged(params, self.params.device), non_blocking=True)
+        self.negdec.fill_(0 if first_pass else -1)
+        pos, end = t_offset, t_offset + num_steps
+        while pos < end:
+            n = min(GRAPH_STEPS, end - pos)
+            for b in range(pos // NOISE_BLOCK, (pos + n - 1) // NOISE_BLOCK + 1):
+                fill(b)
+            self.graph.run(n)
+            pos += n
+        return self.graph.result()
 
 
 class SmcModel:
@@ -155,21 +298,33 @@ class SmcModel:
         self._tw = np.asarray(corpus.token_word)
         self._td = np.asarray(corpus.token_doc)
         self._sweeps = 0
+        self.graph = SmcGraph(self._tables(), self._tw, self._td, ess_threshold)
+
+    def _tables(self) -> tuple:
+        return self.ndk, self.nwk, self.nk, self.z, self.logw
+
+    @property
+    def resamples(self) -> int:
+        """Resamples in the last (or the running) pass: a host read."""
+        return int(self.graph.resamples)
+
+    def _block(self, pass_seed: int, b: int) -> tuple:
+        """Internal noise block ``b`` of a pass: ``(gumbels [NOISE_BLOCK, P,
+        K], resample_gumbels [NOISE_BLOCK, P, P])`` from its own generator."""
+        gen = torch.Generator(device=self.device).manual_seed((pass_seed + b) % (2**63))
+        p, k = self.num_particles, self.config.topic_num
+        return (gumbel_noise((NOISE_BLOCK, p, k), gen, self.device),
+                gumbel_noise((NOISE_BLOCK, p, p), gen, self.device))
 
     def _noise(self, pass_seed: int, pos: int, c: int) -> tuple:
         """Internal ``(gumbels [c, P, K], resample_gumbels [c, P, P])`` of
-        tokens ``pos .. pos + c`` of a pass, from the pass's noise blocks."""
-        p, k = self.num_particles, self.config.topic_num
+        tokens ``pos .. pos + c`` of a pass, from the pass's noise blocks:
+        what the eager ``smc_absorb`` takes."""
         parts = []
         for b in range(pos // NOISE_BLOCK, (pos + c - 1) // NOISE_BLOCK + 1):
-            gen = torch.Generator(device=self.device).manual_seed(
-                (pass_seed + b) % (2**63))
-            n = NOISE_BLOCK
-            g = gumbel_noise((n, p, k), gen, self.device)
-            rg = gumbel_noise((n, p, p), gen, self.device)
-            lo = max(pos - b * n, 0)
-            hi = min(pos + c - b * n, n)
-            parts.append((g[lo:hi], rg[lo:hi]))
+            lo = max(pos - b * NOISE_BLOCK, 0)
+            hi = min(pos + c - b * NOISE_BLOCK, NOISE_BLOCK)
+            parts.append([x[lo:hi] for x in self._block(pass_seed, b)])
         return (torch.cat([g for g, _ in parts]),
                 torch.cat([rg for _, rg in parts]))
 
@@ -183,21 +338,41 @@ class SmcModel:
         for _ in range(n):
             first = self._sweeps == 0
             pass_seed = int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
+            self.graph.resamples.zero_()
+            filled: set = set()  # the noise blocks in the ring
             pos = 0
             while pos < t_total:
                 c = min(self.chunk_size, t_total - pos)
                 if noise is None:
-                    g, rg = self._noise(pass_seed, pos, c)
+                    fill = functools.partial(self._fill_block, filled, pass_seed)
                 else:
-                    g, rg = (x.to(self.device, torch.float32) for x in noise(pos, c))
-                (self.ndk, self.nwk, self.nk, self.z, self.logw) = smc_absorb(
-                    self.ndk, self.nwk, self.nk, self.z, self.logw,
-                    self._tw, self._td, first, pos,
-                    alpha=self.config.alpha, beta=self.config.beta,
-                    ess_threshold=self.ess_threshold, num_steps=c,
-                    gumbels=g, resample_gumbels=rg)
+                    filled = set()  # the chunk's own noise
+                    fill = functools.partial(self._fill_chunk, filled, pos, tuple(
+                        x.to(self.device, torch.float32) for x in noise(pos, c)))
+                (self.ndk, self.nwk, self.nk, self.z, self.logw) = self.graph.absorb(
+                    self._tables(), first, pos, c, fill,
+                    alpha=self.config.alpha, beta=self.config.beta)
                 pos += c
             self._sweeps += 1
+
+    def _fill_block(self, filled: set, pass_seed: int, b: int) -> None:
+        """Internal noise block ``b`` of a pass into the ring, once."""
+        if b in filled:
+            return
+        for dst, src in zip(self.graph.noise_block(b), self._block(pass_seed, b)):
+            dst.copy_(src)
+        filled.add(b)
+
+    def _fill_chunk(self, filled: set, pos: int, chunk: tuple, b: int) -> None:
+        """The rows of noise block ``b`` that the chunk from ``pos`` covers,
+        from its external ``(gumbels, resample_gumbels)``, once."""
+        if b in filled:
+            return
+        lo = max(pos, b * NOISE_BLOCK)
+        hi = min(pos + chunk[0].shape[0], (b + 1) * NOISE_BLOCK)
+        for dst, src in zip(self.graph.noise_block(b), chunk):
+            dst[lo - b * NOISE_BLOCK:hi - b * NOISE_BLOCK].copy_(src[lo - pos:hi - pos])
+        filled.add(b)
 
     @property
     def sweeps_done(self) -> int:

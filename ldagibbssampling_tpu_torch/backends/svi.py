@@ -22,6 +22,18 @@ stays on the host.
 ``lam0`` injects a start instead.  The reference's ``+ 1e-100`` guards are
 kept as they are: in float32 they round to 0, in both packages.
 
+One dispatch per minibatch: the reference makes one ``jit`` per minibatch,
+its ``e_steps`` loop a ``fori_loop``.  ``SviModel.sweep`` replays one CUDA
+graph of the whole step per minibatch (``SviGraph`` on
+``ops/graphs.StepGraph``), over static buffers λ ``[K, V]``, the batch
+``[B, V]`` and γ ``[B, K]``: the batch is copied into its buffer on the
+step's stream, and ρ and the float32 ``N / real`` are device values written
+per step (``step_factors``), so a short last batch goes through the same
+graph.  Its arithmetic is the eager ``svi_step``'s op for op, which the
+tests hold it to bitwise; ``svi_step`` stays as their reference.  The
+per-step host copy of γ and the host's densify of each batch are the
+reference's too.
+
 Design premise, from the reference: SVI carries O(K·V) device state, where
 Gibbs carries a few bytes per token, and suits documents that arrive as a
 stream and are seen once.  Its speed on the H100 is in ``PERF.md``.
@@ -38,11 +50,21 @@ from torch.special import digamma
 
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.ops._device import staged
+from ldagibbssampling_tpu_torch.ops.graphs import StepGraph
 
 
 def _exp_e_log_dirichlet(x: torch.Tensor) -> torch.Tensor:
     """exp(E[log θ]) for rows of a Dirichlet variational parameter."""
     return torch.exp(digamma(x) - digamma(x.sum(dim=-1, keepdim=True)))
+
+
+def step_factors(rho: float, real: int, total_docs: int) -> np.ndarray:
+    """The reference's float32 scalars of a step: ``1 − ρ``, ``ρ`` and
+    ``N / real``."""
+    rho32 = np.float32(rho)
+    return np.array([np.float32(1.0) - rho32, rho32,
+                     np.float32(total_docs) / np.float32(real)], np.float32)
 
 
 def svi_step(
@@ -57,6 +79,16 @@ def svi_step(
     total_docs: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One online-LDA step; returns ``(lam_new, gamma [B, K])``."""
+    keep, rho32, scale = (float(x) for x in step_factors(rho, real, total_docs))
+    return _update(lam, bow, keep, rho32, scale, alpha=alpha, eta=eta,
+                   e_steps=e_steps)
+
+
+def _update(lam, bow, keep, rho, scale, *, alpha: float, eta: float,
+            e_steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The step's arithmetic; ``keep`` (1 − ρ), ``rho`` and ``scale``
+    (N / real) are Python floats or 0-d float32 tensors of the same values,
+    which give the same bits."""
     b = bow.shape[0]
     k = lam.shape[0]
     e_log_beta = _exp_e_log_dirichlet(lam)                 # [K, V]
@@ -72,12 +104,45 @@ def svi_step(
     # all-zero padding rows add nothing to sstats; the scale uses the REAL
     # batch size so the natural-gradient estimate stays unbiased
     sstats = e_log_beta * (e_log_theta.T @ (bow / phinorm))   # [K, V]
-    # the reference's float32 scalars: N / real, ρ and 1 − ρ
-    scale = float(np.float32(total_docs) / np.float32(real))
-    rho32 = np.float32(rho)
     lam_hat = eta + scale * sstats
-    lam_new = float(np.float32(1.0) - rho32) * lam + float(rho32) * lam_hat
+    lam_new = keep * lam + rho * lam_hat
     return lam_new, gamma
+
+
+class SviGraph:
+    """``svi_step`` over static buffers: λ ``[K, V]`` (copied in unless it
+    is the λ the last call handed out), the batch ``[B, V]``, γ ``[B, K]``
+    and the step's factors; one graph replay per call on the card, the same
+    arithmetic eagerly on the CPU (``ops/graphs.StepGraph``)."""
+
+    def __init__(self, lam: torch.Tensor, batch_size: int, *, alpha: float,
+                 eta: float, e_steps: int, total_docs: int) -> None:
+        k, v = lam.shape
+        dev = lam.device
+        self.lam = torch.empty_like(lam)
+        self.bow = torch.zeros((batch_size, v), dtype=torch.float32, device=dev)
+        self.gamma = torch.empty((batch_size, k), dtype=torch.float32, device=dev)
+        self.factors = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.alpha, self.eta, self.e_steps = alpha, eta, e_steps
+        self.total_docs = total_docs
+        self.graph = StepGraph(self._step, [self.lam])
+
+    def _step(self) -> None:
+        lam, gamma = _update(self.lam, self.bow, *self.factors.unbind(),
+                             alpha=self.alpha, eta=self.eta, e_steps=self.e_steps)
+        self.lam.copy_(lam)
+        self.gamma.copy_(gamma)
+
+    def __call__(self, lam: torch.Tensor, bow: torch.Tensor, rho: float,
+                 real: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """``svi_step(lam, bow, rho, real)``: new ``(lam, gamma)``."""
+        self.graph.load([lam])
+        self.bow.copy_(bow)
+        self.factors.copy_(staged(step_factors(rho, real, self.total_docs),
+                                  self.factors.device), non_blocking=True)
+        self.graph.run(1)
+        (lam_new,) = self.graph.result()
+        return lam_new, self.gamma.clone()
 
 
 class SviModel:
@@ -141,6 +206,8 @@ class SviModel:
         self._sweeps = 0
         self._gamma_full = np.ones((m, k), np.float32)
         self._rng = np.random.default_rng(config.seed)
+        self.graph = SviGraph(self.lam, self.batch_size, alpha=config.alpha,
+                              eta=self.eta, e_steps=e_steps, total_docs=m)
 
     def _batch_bow(self, idx: np.ndarray, real: int) -> np.ndarray:
         """Densify one minibatch from the CSR store: ``[B, V]`` float32."""
@@ -185,10 +252,7 @@ class SviModel:
             for bow_dev in prefetch_to_device(batches(), device=self.device):
                 idx, real = metas.pop(0)
                 rho = (self.tau0 + self._step_idx) ** (-self.kappa)
-                self.lam, gamma = svi_step(
-                    self.lam, bow_dev, rho, real, alpha=self.config.alpha,
-                    eta=self.eta, e_steps=self.e_steps,
-                    total_docs=self.corpus.num_docs)
+                self.lam, gamma = self.graph(self.lam, bow_dev, rho, real)
                 self._gamma_full[idx[:real]] = gamma[:real].cpu().numpy()
                 self._step_idx += 1
             self._sweeps += 1

@@ -35,7 +35,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_kernel", "count_kernel", "sample_kernel", "dtype_probe")
+SOURCES = ("fused_kernel", "count_kernel", "sample_kernel", "dtype_probe",
+           "smc_resample")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

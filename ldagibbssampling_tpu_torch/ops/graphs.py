@@ -46,12 +46,21 @@ capture and the instantiation; the call waits for the card before and
 after it, once), ``capture_s``, the capture and instantiation alone, and
 ``nodes``, the captured graph's node count (the device operations of one
 replay).
+
+:class:`StepGraph` is the same contract for a body that is not one sweep of
+Gibbs tables: ``n`` steps of it in a row as one replay (a graph per distinct
+``n``), its state copied in unless it is what the last call handed out,
+clones out, the counters added per replay, the set-up timed.  SMC's absorb
+(``backends/smc.py``, ``GRAPH_STEPS`` tokens a replay, the counterpart of
+the reference's ``lax.scan`` over tokens) and SVI's minibatch step
+(``backends/svi.py``, the reference's one ``jit`` a minibatch) replay one.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import time
 from typing import Callable, Optional, Sequence
 
@@ -88,6 +97,70 @@ def _capture_node_count(stream: torch.cuda.Stream) -> int:
     if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
         raise RuntimeError("cuGraphGetNodes failed")
     return n.value
+
+
+def capture_graph(fn: Callable[[], None], device: torch.device, *,
+                  warm_up: Optional[Callable[[], None]] = None,
+                  generators: Sequence[torch.Generator] = (),
+                  pool=None) -> tuple:
+    """``fn()`` captured into a new CUDA graph on a side stream, after
+    ``warm_up()`` on that stream (it fills every launch configuration the
+    kernel wrappers cache; outside the capture), into ``pool`` where given
+    (else the graph's own private pool); raises if the capture fails.
+    Returns ``(graph, nodes, per_replay, capture_s)``: the instantiated
+    graph, its node count, the kernel launches the capture counted (now
+    taken back: the capture launched nothing; they are each replay's) and
+    the seconds of the capture and instantiation."""
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        if warm_up is not None:
+            warm_up()
+        # a graph that only a reference cycle holds is freed now: freed by
+        # the collector during the capture, it would invalidate the capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        before = _counts()
+        t0 = time.perf_counter()
+        graph.capture_begin(pool=pool)
+        try:
+            fn()
+            nodes = _capture_node_count(side)
+        finally:
+            try:
+                graph.capture_end()  # instantiates the graph
+            finally:
+                if collecting:
+                    gc.enable()
+        capture_s = time.perf_counter() - t0
+    main.wait_stream(side)
+    after = _counts()
+    per_replay = {k: n - before.get(k, 0) for k, n in after.items()
+                  if n != before.get(k, 0)}
+    _add_counts(per_replay, -1)
+    return graph, nodes, per_replay, capture_s
+
+
+def _holds(last: Optional[tuple], tables: Sequence[torch.Tensor]) -> bool:
+    """Whether ``tables`` are the tensors ``last`` recorded (the same memory,
+    or a view of it with the same shape and strides), unmodified since."""
+    return last is not None and all(
+        t.data_ptr() == o.data_ptr() and t.shape == o.shape
+        and t.stride() == o.stride() and t._version == v
+        for t, o, v in zip(tables, last[0], last[1]))
+
+
+def _copy_into(buffers: Sequence[torch.Tensor], tables: Sequence[torch.Tensor]) -> None:
+    for buf, t in zip(buffers, tables):
+        if t.shape != buf.shape or t.dtype != buf.dtype:
+            raise ValueError(f"a table {t.dtype} {tuple(t.shape)}: this graph "
+                             f"was built for {buf.dtype} {tuple(buf.shape)}")
+        buf.copy_(t)
 
 
 # body(buffers, scalars, key, generators, noise): one sweep, in place
@@ -165,17 +238,8 @@ class SweepGraph:
                                            non_blocking=True)
 
     def _copy_in(self, tables: Sequence[torch.Tensor]) -> None:
-        last = self._last
-        if last is not None and all(
-                t.data_ptr() == o.data_ptr() and t.shape == o.shape
-                and t.stride() == o.stride() and t._version == v
-                for t, o, v in zip(tables, last[0], last[1])):
-            return  # the buffers already hold this state
-        for buf, t in zip(self._corners_of(self.buffers), tables):
-            if t.shape != buf.shape or t.dtype != buf.dtype:
-                raise ValueError(f"a table {t.dtype} {tuple(t.shape)}: this sweep "
-                                 f"was built for {buf.dtype} {tuple(buf.shape)}")
-            buf.copy_(t)
+        if not _holds(self._last, tables):  # else the buffers hold this state
+            _copy_into(self._corners_of(self.buffers), tables)
 
     def _corners_of(self, buffers: Sequence[torch.Tensor]) -> list:
         """The tables that ``buffers`` (the graph's, or clones of them)
@@ -193,35 +257,11 @@ class SweepGraph:
             self.noise.copy_(u, non_blocking=True)
 
     def _capture(self) -> None:
-        """A warm-up sweep (it fills every launch configuration the kernel
-        wrappers cache), then one sweep captured into the graph's private
-        memory pool and instantiated, both on a side stream; raises if the
-        capture fails."""
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._sweep()
-            before = _counts()
-            t0 = time.perf_counter()
-            graph.capture_begin()
-            try:
-                self._sweep()
-                nodes = _capture_node_count(side)
-            finally:
-                graph.capture_end()  # instantiates the graph
-            self.capture_s = time.perf_counter() - t0
-        main.wait_stream(side)
-        after = _counts()
-        # the capture launched nothing: its counts are each replay's
-        self.per_replay = {k: n - before.get(k, 0) for k, n in after.items()
-                           if n != before.get(k, 0)}
-        _add_counts(self.per_replay, -1)
-        self.nodes = nodes
-        self.graph = graph
+        """A warm-up sweep, then one sweep captured into the graph's private
+        memory pool and instantiated (``capture_graph``)."""
+        self.graph, self.nodes, self.per_replay, self.capture_s = capture_graph(
+            self._sweep, self.device, warm_up=self._sweep,
+            generators=self.generators)
 
     def __call__(self, tables: Sequence[torch.Tensor], alpha: float, beta: float,
                  n: int, seeds: Optional[Sequence[Sequence[int]]] = None,
@@ -268,3 +308,96 @@ class SweepGraph:
             out = tuple(self._corners_of([b.clone() for b in self.buffers]))
         self._last = (out, tuple(t._version for t in out))
         return out
+
+
+class StepGraph:
+    """``step()`` run ``n`` times in a row as one replay of a CUDA graph (one
+    graph per distinct ``n``, captured at its first use on the card, all in
+    one memory pool), over static buffers; run eagerly on the CPU.
+
+    ``step`` works in place on ``state``, tensors that the caller allocated
+    and the step closes over, and may read other tensors it closes over:
+    inputs the host writes between replays (in place, so that they keep
+    their addresses) and ``mutable`` ones that a step moves on (a cursor, a
+    counter).  The first capture's warm-up step (``capture_graph``) is
+    undone on ``state`` and ``mutable``.  :meth:`load` copies a state into
+    the buffers unless it is what :meth:`result` last handed out,
+    unmodified; :meth:`result` hands out clones.  A replay adds the kernel
+    launches its capture counted; a failed capture or replay raises, and
+    nothing runs the steps eagerly instead.
+
+    ``setup_s`` is the first capture's wall time (the warm-up, the capture
+    and the instantiation; the card waited for before and after),
+    ``capture_s[n]`` and ``nodes[n]`` each graph's capture and instantiation
+    seconds and node count.
+    """
+
+    def __init__(self, step: Callable[[], None], state: Sequence[torch.Tensor],
+                 mutable: Sequence[torch.Tensor] = ()) -> None:
+        self.step = step
+        self.state = list(state)
+        self.mutable = list(mutable)
+        self.device = self.state[0].device
+        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.nodes: dict[int, int] = {}
+        self.per_replay: dict[int, dict] = {}
+        self.capture_s: dict[int, float] = {}
+        self.setup_s: Optional[float] = None
+        self.replays = 0
+        self._pool = None
+        self._last: Optional[tuple] = None
+
+    def load(self, tables: Sequence[torch.Tensor]) -> None:
+        """Copy ``tables`` into the state's buffers, unless they hold them."""
+        if not _holds(self._last, tables):
+            _copy_into(self.state, tables)
+            self._last = None
+
+    def result(self) -> tuple[torch.Tensor, ...]:
+        """Clones of the state's buffers (what :meth:`load` may skip)."""
+        out = tuple(b.clone() for b in self.state)
+        self._last = (out, tuple(t._version for t in out))
+        return out
+
+    def run(self, n: int) -> None:
+        """``n`` (> 0) steps: one replay on the card."""
+        if n <= 0:
+            raise ValueError(f"{n} steps: a run takes at least one")
+        self._last = None  # the buffers move on from what was handed out
+        if self.device.type != "cuda":
+            self._steps(n)
+            return
+        graph = self.graphs.get(n)
+        if graph is None:
+            graph = self._capture(n)
+        graph.replay()
+        _add_counts(self.per_replay[n], 1)
+        self.replays += 1
+
+    def _steps(self, n: int) -> None:
+        for _ in range(n):
+            self.step()
+
+    def _warm_up(self) -> None:
+        held = (*self.state, *self.mutable)
+        saved = [t.clone() for t in held]
+        self.step()
+        for t, s in zip(held, saved):
+            t.copy_(s)
+
+    def _capture(self, n: int) -> torch.cuda.CUDAGraph:
+        first = not self.graphs
+        with torch.cuda.device(self.device):
+            if first:
+                torch.cuda.synchronize(self.device)
+                t0 = time.perf_counter()
+                self._pool = torch.cuda.graph_pool_handle()
+            graph, nodes, per_replay, secs = capture_graph(
+                lambda: self._steps(n), self.device,
+                warm_up=self._warm_up if first else None, pool=self._pool)
+            if first:
+                torch.cuda.synchronize(self.device)
+                self.setup_s = time.perf_counter() - t0
+        self.graphs[n], self.nodes[n] = graph, nodes
+        self.per_replay[n], self.capture_s[n] = per_replay, secs
+        return graph

@@ -1069,3 +1069,190 @@ def test_model_captured_deferred_reads_minka_updates(cuda):
     model.check_counts_consistent()
     (graph,) = model._run_sweeps.graphs.values()
     assert graph.replays == 5
+
+
+# --- SMC's absorb and SVI's step captured (backends/smc.SmcGraph,
+# backends/svi.SviGraph on ops/graphs.StepGraph) against their eager forms
+# on the card, bitwise; the resample's gated kernels against their plain
+# versions
+
+
+def _smc_models(monkeypatch, threshold, chunk, seed=4):
+    from ldagibbssampling_tpu_torch.backends import smc
+
+    monkeypatch.setattr(smc, "NOISE_BLOCK", 128)  # replays cross blocks
+    fc = _small_corpus(seed=seed, docs=30, vocab=50)
+    cfg = LdaConfig(topic_num=5, alpha=0.3, beta=0.07, seed=seed, backend="smc")
+    kw = dict(num_particles=8, ess_threshold=threshold, chunk_size=chunk)
+    return fc, smc.SmcModel(cfg, fc, **kw), smc.SmcModel(cfg, fc, **kw)
+
+
+def _smc_eager_pass(model, first: bool, chunk: int, noise) -> tuple:
+    from ldagibbssampling_tpu_torch.backends.smc import smc_absorb
+
+    t = model._tw.shape[0]
+    st = model._tables()
+    pass_seed = int(torch.randint(0, 2**63 - 1, (), generator=model.generator))
+    for pos in range(0, t, chunk):
+        c = min(chunk, t - pos)
+        g, rg = (model._noise(pass_seed, pos, c) if noise is None else
+                 (x.to("cuda") for x in noise(pos, c)))
+        st = smc_absorb(*st, model._tw, model._td, first, pos,
+                        alpha=model.config.alpha, beta=model.config.beta,
+                        ess_threshold=model.ess_threshold, num_steps=c,
+                        gumbels=g, resample_gumbels=rg)
+    (model.ndk, model.nwk, model.nk, model.z, model.logw) = st
+    return tuple(x.clone() for x in st)
+
+
+@pytest.mark.parametrize("mode", ["internal", "external"])
+@pytest.mark.parametrize("threshold", [0.0, 0.9])
+def test_captured_smc_equals_eager_on_card(cuda, monkeypatch, mode, threshold):
+    fc, got, ref = _smc_models(monkeypatch, threshold, chunk=100)
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.gumbel(size=(fc.num_tokens, 8, 5)).astype(np.float32))
+    rg = torch.from_numpy(rng.gumbel(size=(fc.num_tokens, 8, 8)).astype(np.float32))
+
+    def noise(pos, c):
+        return g[pos:pos + c], rg[pos:pos + c]
+    ext = noise if mode == "external" else None
+    resamples = 0
+    for first in (True, False):  # the first pass, then a rejuvenation pass
+        want = _smc_eager_pass(ref, first, 100, ext)
+        got.sweep(1, noise=ext)
+        torch.cuda.synchronize()
+        for name, w in zip(("ndk", "nwk", "nk", "z", "logw"), want):
+            assert torch.equal(getattr(got, name), w), name
+        resamples += got.resamples
+    assert (resamples > 0) == (threshold > 0), resamples
+    sg = got.graph.graph
+    assert set(sg.graphs) == {64, 36, fc.num_tokens % 100 % 64} - {0}
+    assert sg.replays == 2 * sum(-(-min(100, fc.num_tokens - p) // 64)
+                                 for p in range(0, fc.num_tokens, 100))
+
+
+def test_captured_smc_is_one_graph_launch_per_graph_steps_tokens(cuda, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldagibbssampling_tpu_torch.backends.smc import GRAPH_STEPS
+
+    fc, model, _ = _smc_models(monkeypatch, 0.9, chunk=10**9)
+    model.sweep(1)  # captures
+    replays = model.graph.graph.replays
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # no host read inside the pass
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.sweep(1)
+            resamples = model.graph.resamples.clone()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = sum(e.name.startswith("cudaGraphLaunch") for e in prof.events())
+    want = -(-fc.num_tokens // GRAPH_STEPS)
+    assert launches == want == model.graph.graph.replays - replays
+    assert int(resamples) == model.resamples > 0
+
+
+@pytest.mark.parametrize("flag", [True, False])
+@pytest.mark.parametrize("p,t", [(16, 4_099), (5, 4_096), (1, 7)])
+def test_resample_kernels_equal_plain(cuda, flag, p, t):
+    from ldagibbssampling_tpu_torch.ops import smc_resample as sr
+
+    rng = np.random.default_rng(p + t)
+    host = [torch.from_numpy(rng.integers(-9, 1 << 20, size=s).astype(np.int32))
+            for s in ((p, 33, 13), (p, 51, 13), (p, 13), (p, t))]
+    idx = torch.from_numpy(rng.integers(0, p, size=p))
+    out = []
+    for dev in ("cuda", "cpu"):
+        tables = [x.to(dev) for x in host]
+        scratch = [torch.full_like(x, -1) for x in tables]
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        f = torch.tensor(flag, device=dev)
+        sr.resample_gather(f, idx.to(dev), tables, scratch, count)
+        sr.resample_write(f, scratch, tables)
+        out.append([x.cpu() for x in (*tables, *scratch, count)])
+    torch.cuda.synchronize()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert int(out[0][-1]) == int(flag)
+
+
+def test_refused_smc_capture_raises_and_runs_no_step_eagerly(cuda, monkeypatch):
+    """A capture that fails (here: the resample's launch refused inside it)
+    fails the pass, and the next one, with the launch's error; the model's
+    state is untouched and no token was absorbed eagerly instead."""
+    from ldagibbssampling_tpu_torch.ops import smc_resample as sr
+
+    build, lib = sr._lib()
+
+    class Refusing:
+        def __getattr__(self, attr):
+            return getattr(lib, attr)
+
+        def lda_smc_resample(self, *args):
+            if torch.cuda.is_current_stream_capturing():
+                return 1  # cudaErrorInvalidValue
+            return lib.lda_smc_resample(*args)
+
+    monkeypatch.setattr(sr, "_lib", lambda: (build, Refusing()))
+    _, model, _ = _smc_models(monkeypatch, 0.9, chunk=100)
+    keep = [t.clone() for t in model._tables()]
+    before = dict(sr.LAUNCHES)
+    for calls in (1, 2):
+        with pytest.raises(RuntimeError, match="lda_smc_resample failed: CUDA error 1"):
+            model.sweep(1)
+        assert model.graph.graph.graphs == {} and model.graph.graph.replays == 0
+        # the warm-up steps alone launched the kernels
+        assert sr.LAUNCHES == {n: c + calls for n, c in before.items()}
+    torch.cuda.synchronize()
+    assert model.sweeps_done == 0
+    assert all(torch.equal(a, b) for a, b in zip(model._tables(), keep))
+
+
+def test_captured_svi_equals_eager_on_card(cuda):
+    """``SviGraph`` against ``svi_step`` (a changing ρ, a short batch), then
+    a whole ``SviModel`` epoch against the same epoch stepped eagerly; one
+    graph launch a minibatch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldagibbssampling_tpu_torch.backends.svi import SviGraph, SviModel, svi_step
+    from ldagibbssampling_tpu_torch.data.stream import minibatch_indices
+
+    rng = np.random.default_rng(6)
+    k, v, b = 7, 300, 16
+    lam0 = torch.from_numpy(rng.gamma(100.0, 0.01, size=(k, v)).astype(np.float32)).to(cuda)
+    kw = dict(alpha=0.3, eta=0.05, e_steps=20)
+    graph = SviGraph(lam0, b, total_docs=90, **kw)
+    got = want = lam0
+    for t, real in enumerate((16, 16, 9, 16)):
+        bow = torch.from_numpy(rng.poisson(0.4, size=(b, v)).astype(np.float32))
+        bow[real:] = 0
+        bow = bow.to(cuda)
+        rho = (1.0 + t) ** -0.7
+        got, g_got = graph(got, bow, rho, real)
+        want, g_want = svi_step(want, bow, rho, real, total_docs=90, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(g_got, g_want), t
+    assert graph.graph.replays == 4 and set(graph.graph.graphs) == {1}
+
+    fc = _small_corpus(seed=9, docs=70, vocab=200)
+    cfg = LdaConfig(topic_num=6, backend="svi", seed=2)
+    model = SviModel(cfg, fc, batch_size=16, device=cuda)
+    lam = model.lam.clone()
+    gamma_full = np.ones((fc.num_docs, 6), np.float32)
+    order = np.random.default_rng(cfg.seed)
+    for step, (idx, real) in enumerate(minibatch_indices(fc.num_docs, 16, order)):
+        bow = torch.from_numpy(model._batch_bow(idx, real)).to(cuda)
+        lam, gamma = svi_step(lam, bow, (model.tau0 + step) ** (-model.kappa), real,
+                              alpha=cfg.alpha, eta=model.eta, e_steps=model.e_steps,
+                              total_docs=fc.num_docs)
+        gamma_full[idx[:real]] = gamma[:real].cpu().numpy()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.sweep(1)
+        torch.cuda.synchronize()
+    assert torch.equal(model.lam, lam)
+    np.testing.assert_array_equal(model._gamma_full, gamma_full)
+    steps = -(-fc.num_docs // 16)
+    assert model.graph.graph.replays == steps
+    assert sum(e.name.startswith("cudaGraphLaunch") for e in prof.events()) == steps
