@@ -42,6 +42,14 @@ success:
    phase 9 (16 particles, K = 15, rung 5 at 0.01) against their plain
    versions with the flag true and false (bitwise, and the resample count),
    timed with the flag true (one resample) and false (every token's cost);
+   CVB0's fixed-order scatter (``ops/cvb0_scatter.py``) along its plans at
+   ``[graphs cvb0]``'s two shapes (rung 5 at 0.2, K = 15, block 8,192; and
+   bench.py's, K = 500, block 65,536, where a frequent word's run holds
+   thousands of a block's tokens), both tables (``ndk`` by document,
+   ``nwk`` by word), the first and the last (padded) block, against its
+   plain version (the CPU's ``index_add_`` in token order) on copies of the
+   same inputs (bitwise), timed beside ``index_put_(accumulate=True)`` and
+   the atomic ``index_add_`` on the card;
 4. main paths: ``make_backend`` -> ``LdaModel`` -> ``run_inference`` at
    bench.py's shape (T = 2^20 Zipf(1.1) tokens, V = 50,000, M = 4,096
    documents, K = 500, block 65,536, alpha 0.5, beta 0.1): 10 sweeps each of
@@ -157,7 +165,18 @@ success:
    phase 9's SVI shape: 20 steps alone (rho changing, a short batch) eager
    and captured from the same lambda, bitwise; ms and host calls a step;
    then one epoch with its host work captured (``SviModel.sweep``) and
-   stepped eagerly, bitwise, seconds and tokens/s;
+   stepped eagerly, bitwise, seconds and tokens/s.  8f, ``[graphs cvb0]``:
+   CVB0's sweep (``Cvb0Model.sweep``, one replay a sweep) against the eager
+   ``cvb0_sweeps`` from the model's start at rung 5's 0.2 (K = 15, block
+   8,192), 3 sweeps each (captured as a call of 2 and one of 1): gamma and
+   the tables bitwise, the scatter's launches exact (two a block and sweep,
+   the warm-up sweep's included), no plain call; ms a sweep and tokens/s,
+   host calls a sweep, nodes, set-up and capture seconds, peak memory; then
+   ``[graphs cvb0 wide]``, the same at bench.py's shape (K = 500, block
+   65,536) from a start made on the card, 3 timed sweeps.  8g, ``[graphs
+   warp]``: WarpLDA's sweep (``WarpModel.sweep``) against the eager
+   ``_warp_sweep`` at rung 5's 0.2, external and internal noise, z and the
+   tables bitwise, no kernel launched; the same numbers;
 9. backends: rung 5's configuration (planted corpus, K = 15, block 8,192,
    5% of the documents held out) at scale 0.2: 16,400 documents, V =
    20,000, ~1.67M training tokens: gibbs (5 sweeps, the deferred tier, its
@@ -169,7 +188,8 @@ success:
    training and held-out perplexity each,
    training perplexity below V; CVB0's invariants and a second run from
    the seed bitwise equal; Warp's counts a recount of z; SMC's weights sum
-   to 1 and z in range; SVI's lambda finite and positive;
+   to 1 and z in range; SVI's lambda finite and positive; CVB0's scatter
+   launched exactly twice a block and sweep (one replay a sweep);
 10. backends resume: the CLI on the card (in this process), cvb0 and svi
    20 sweeps straight against 10 then ``--resume`` to 20 (the ten
    artifacts byte-identical); ``--backend smc|warp --checkpoint-every 5``
@@ -361,6 +381,9 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 # eager absorb covers one noise block; [graphs svi] times STEPS steps alone
 SMC_SCALE, SMC_PARTICLES, BACKEND_K, SMC_PROFILED = 0.01, 16, 15, 1_024
 SVI_SCALE, SVI_BATCH, SVI_STEPS = 0.2, 64, 20
+# [backends], [graphs cvb0], [graphs warp] and [kernels] cvb0_scatter: rung 5
+# at 0.2 (V = 20,000, ~1.67M training tokens, K = 15, block 8,192)
+BACKEND_SCALE = 0.2
 BACKEND_RUNS = (("gibbs", 1, 4, 0.2), ("cvb0", 1, 4, 0.2), ("svi", 0, 2, 0.2),
                 ("warp", 1, 4, 0.2), ("smc", 0, 1, 0.01))
 LADDER_SCALE = 0.01
@@ -1071,14 +1094,16 @@ def report(out: dict, times: dict, bounds: dict, units: dict) -> None:
 
 def counters():
     from ldagibbssampling_tpu_torch.ops import count_kernel as ck
+    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
     from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
     from ldagibbssampling_tpu_torch.ops import smc_resample as sr
     from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
 
-    return ((fk.LAUNCHES, ck.LAUNCHES, sk.LAUNCHES, probe.LAUNCHES, sr.LAUNCHES),
+    return ((fk.LAUNCHES, ck.LAUNCHES, sk.LAUNCHES, probe.LAUNCHES, sr.LAUNCHES,
+             cs.LAUNCHES),
             (fk.PLAIN_CALLS, ck.PLAIN_CALLS, sk.PLAIN_CALLS, probe.PLAIN_CALLS,
-             sr.PLAIN_CALLS))
+             sr.PLAIN_CALLS, cs.PLAIN_CALLS))
 
 
 def zero_counters() -> None:
@@ -2103,6 +2128,7 @@ def multichain_phases(seed: int, device: str = "cuda",
 GRAPH_HYPERS = ((ALPHA, BETA), (0.013, 0.71))
 # captured sweeps timed per path (eager: the 3 sweeps of the comparison)
 GRAPH_TIMED = {"xla": 10, "pallas-draw": 100, "multichain": 10, "multichain wide": 3,
+               "cvb0": 20, "cvb0 wide": 3, "warp": 50,
                "deferred": 50, f"deferred K={K_GENERAL}": 50, "fused": 50}
 
 def graph_ops(sweep_graph) -> int:
@@ -2134,7 +2160,10 @@ def _per_sweep(one: dict, five: dict) -> dict:
 
 def _graph_report(label: str, graph, eager_s: float, timed: tuple,
                   tokens_per_sweep: int, eager_prof: dict, captured: dict,
-                  smi: str) -> dict:
+                  smi: str, checked: str = (
+                      "(z, ndk, nwk, nk) in internal and external noise across "
+                      f"an alpha/beta change {GRAPH_HYPERS[0]} -> {GRAPH_HYPERS[1]}")
+                  ) -> dict:
     import torch
 
     n_timed, timed_s = timed
@@ -2152,9 +2181,7 @@ def _graph_report(label: str, graph, eager_s: float, timed: tuple,
     if captured["graph_launches"] != 1:
         raise AssertionError(f"[graphs {label}] {captured['graph_launches']} graph "
                              "launches per sweep, not one")
-    log(f"[graphs {label}] captured against eager bitwise (z, ndk, nwk, nk) in "
-        f"internal and external noise across an alpha/beta change "
-        f"{GRAPH_HYPERS[0]} -> {GRAPH_HYPERS[1]}; tokens/s eager "
+    log(f"[graphs {label}] captured against eager bitwise {checked}; tokens/s eager "
         f"{rates['eager_tokens_per_s']:,.0f} ({out['eager_ms_per_sweep']:.2f} ms a "
         f"sweep), captured {rates['captured_tokens_per_s']:,.0f} "
         f"({out['captured_ms_per_sweep']:.2f} ms, {n_timed} sweeps in one call); per "
@@ -2517,6 +2544,102 @@ def check_resample_kernels(seed: int, device: str = "cuda") -> dict:
     return out
 
 
+def scatter_bound(plan, block: int, k: int) -> tuple[float, str]:
+    """The least time of one block's scatter along ``plan``: the block's
+    rows, its plan entries and the table rows it touches read once, those
+    rows written once; one float32 add per row element."""
+    runs = plan.block_runs[block + 1] - plan.block_runs[block]
+    b = plan.block_size
+    return bound(4 * (b * k + b + 2 * runs + 1 + 2 * runs * k), b * k)
+
+
+def check_cvb0_scatter(seed: int, rung5, wide_corpus, device: str = "cuda") -> dict:
+    """Phase 3f: CVB0's fixed-order scatter (``ops/cvb0_scatter.py``) along
+    the plans of ``[graphs cvb0]``'s two shapes, rung 5 at 0.2 (``rung5``,
+    K = 15, block 8,192) and bench.py's (Zipf(1.1), K = 500, block 65,536; a frequent
+    word's run holds thousands of a block's tokens): each table (``ndk`` by
+    document, ``nwk`` by word), a random table and block of rows from the
+    seed, the first and the last (padded) block, against the plain version
+    (the CPU's ``index_add_`` in token order) on copies of the same inputs,
+    bitwise.  Each scatter's device time per launch (``torch.profiler``),
+    events, the plain version's host ms on the copies (the least of five
+    calls: the host's clock varies), and the library's
+    calls on the card: ``index_put_(accumulate=True)`` (sort-based: a fixed
+    order) and the atomic ``index_add_`` (no fixed order), events and
+    device time per call; the bound per block (``scatter_bound``).  The
+    kernels line's ``ms`` is ``nwk``'s at rung 5's shape."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
+
+    shapes, err = {}, 0.0
+    for label, corpus, k, block in (("rung5", rung5, BACKEND_K, 8_192),
+                                    ("bench", wide_corpus, K, BLOCK)):
+        pc = corpus.pad_to(block)
+        g = torch.Generator(device=device).manual_seed(seed)
+        rows = torch.rand((block, k), generator=g, device=device).sub_(0.5)
+        for table_name, ids, n_rows in (("ndk", pc.token_doc, pc.num_docs),
+                                        ("nwk", pc.token_word, pc.vocab_size)):
+            plan = cs.scatter_plan(ids, block, device)
+            host_plan = cs.scatter_plan(ids, block, "cpu")
+            table = torch.rand((n_rows, k), generator=g, device=device)
+            for b in (0, plan.num_blocks - 1):
+                got, want = table.clone(), table.cpu()
+                cs.cvb0_scatter(got, rows, plan, b)
+                cs.cvb0_scatter(want, rows.cpu(), host_plan, b)
+                got = got.cpu()
+                err = max(err, float((got - want).abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"[kernels] cvb0_scatter {label} {table_name} "
+                                         f"block {b}: differs from the plain version")
+            runs = plan.block_runs[1] - plan.block_runs[0]
+            longest = int((plan.bounds[1:runs + 1] - plan.bounds[:runs]).max())
+            index = plan.index[:block]
+            host = (table.cpu(), index.cpu(), rows.cpu())
+
+            def fn(plan=plan, table=table):
+                cs.cvb0_scatter(table, rows, plan, 0)
+
+            def plain(host=host):
+                cs.cvb0_scatter_plain(*host)
+
+            def put(table=table, index=index):
+                table.index_put_((index,), rows, accumulate=True)
+
+            def add(table=table, index=index):
+                table.index_add_(0, index, rows)
+            plain()
+            plain_ms = min(_timed(plain) for _ in range(5)) * 1e3
+            b_ms, b_by = scatter_bound(plan, 0, k)
+            row = dict(ms=device_ms(fn, "cvb0_scatter"), event_ms=cuda_ms(fn),
+                       plain_host_ms=plain_ms,
+                       index_put_ms=cuda_ms(put), index_put_device_ms=call_device_ms(put),
+                       index_add_ms=cuda_ms(add), index_add_device_ms=call_device_ms(add),
+                       bound_ms=b_ms, bound_by=b_by, runs=runs, longest_run=longest,
+                       k=k, block=block, rows=n_rows)
+            shapes[f"{label} {table_name}"] = row
+            log(f"[kernels] cvb0_scatter {label} {table_name} (K {k}, block {block}, "
+                f"{runs} runs, the longest {longest}): device {row['ms']} ms per "
+                f"launch, events {row['event_ms']:.4f} ms; plain (CPU index_add_, least of "
+                f"5) {row['plain_host_ms']:.4f} ms; index_put_ accumulate events "
+                f"{row['index_put_ms']:.4f} ms, device {row['index_put_device_ms']}; "
+                f"atomic index_add_ events {row['index_add_ms']:.4f} ms, device "
+                f"{row['index_add_device_ms']}; bound {b_ms:.5f} ms by {b_by}")
+    torch.cuda.synchronize()
+    log(f"[kernels] cvb0_scatter: both tables at both shapes, the first and the last "
+        f"block, bitwise the plain version on copies of the same inputs")
+    main = shapes["rung5 nwk"]
+    return {"cvb0_scatter": dict(
+        max_abs_err=err, ms=main["ms"], event_ms=main["event_ms"],
+        device_ms=main["ms"], plain_ms=main["plain_host_ms"],
+        library_ms=main["index_put_ms"], library_device_ms=main["index_put_device_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        unit=(f"one block's nwk scatter at rung 5's 0.2 (K {BACKEND_K}, block 8,192); "
+              "plain_ms: the CPU's index_add_ on the host, least of 5; library_ms: "
+              "index_put_(accumulate=True) on the card"),
+        scatter_shapes=shapes)}
+
+
 def graph_smc_phase(seed: int, smi: str, resample: dict,
                     device: str = "cuda") -> tuple[dict, dict]:
     """Phase 8d, ``[graphs smc]``: SMC's captured absorb (``SmcGraph``, one
@@ -2751,6 +2874,168 @@ def graph_svi_phase(seed: int, smi: str, device: str = "cuda") -> dict:
     return out
 
 
+def _timed(fn) -> float:
+    """Seconds of ``fn()`` on the host clock, the card waited for before
+    and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def graph_cvb0_path(label: str, corpus, cfg, smi: str, gamma0=None) -> tuple[dict, dict]:
+    """``[graphs cvb0]`` / ``[graphs cvb0 wide]``: ``Cvb0Model.sweep`` (one
+    replay a sweep) against the eager ``cvb0_sweeps`` from the model's
+    start, 3 sweeps each (the captured ones as a call of 2 and one of 1):
+    gamma and the three tables bitwise; the scatter kernel's launches exact
+    (two a block a sweep and the warm-up sweep's), no plain call; then
+    ``GRAPH_TIMED[label]`` captured sweeps in one call, host calls a sweep
+    from a profiled call of 1 and one of 5, an eager sweep's.  Returns the
+    report and the launches."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model, cvb0_sweeps
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Cvb0Model(cfg, corpus, device="cuda", gamma0=gamma0)
+    init_s = time.perf_counter() - t0
+    blocks = model._padded.num_tokens // model.block_size
+
+    def eager(tables, n):
+        out = [t.clone() for t in tables]
+        cvb0_sweeps(*out, model._tw, model._td, model._tm, model._plans, n,
+                    alpha=cfg.alpha, beta=cfg.beta, block_size=model.block_size)
+        return out
+    zero_counters()
+    want = []
+    eager_s = _timed(lambda: want.extend(eager(model._tables(), 3)))
+    zero_counters()
+    model.sweep(2)
+    model.sweep(1)
+    torch.cuda.synchronize()
+    for name, w in zip(("gamma", "ndk", "nwk", "nk"), want):
+        if not torch.equal(getattr(model, name), w):
+            raise AssertionError(f"[graphs {label}] captured {name} differs from eager")
+    del want
+    launches, plain = read_counters()
+    got = {n: c for n, c in launches.items() if c}
+    if got != {"cvb0_scatter": 2 * blocks * 4} or any(plain.values()):
+        raise AssertionError(f"[graphs {label}] launches {got}, want two scatters a "
+                             f"block for 3 sweeps and the warm-up; plain {plain}")
+    n_timed = GRAPH_TIMED[label]
+    zero_counters()
+    timed = (n_timed, _timed(lambda: model.sweep(n_timed)))
+    if read_counters()[0]["cvb0_scatter"] != 2 * blocks * n_timed:
+        raise AssertionError(f"[graphs {label}] {read_counters()[0]} in {n_timed} "
+                             "replays, not two scatters a block a replay")
+    got["cvb0_scatter"] += 2 * blocks * n_timed
+    one = launch_profile(lambda: model.sweep(1))
+    five = launch_profile(lambda: model.sweep(5))
+    eager_prof = launch_profile(lambda: eager(model._tables(), 1))
+    report = _graph_report(label, model.graph, eager_s, timed, corpus.num_tokens,
+                           eager_prof, _per_sweep(one, five), smi,
+                           checked="(gamma, ndk, nwk, nk)")
+    report.update(init_s=init_s, blocks=blocks, sweeps_per_call=(2, 1))
+    log(f"[graphs {label}] {corpus.num_tokens} tokens, K {cfg.topic_num}, block "
+        f"{model.block_size} ({blocks} blocks a sweep): model built in {init_s:.3f}s "
+        f"(the plans, the start, the copies to the card); scatter launches "
+        f"{2 * blocks} a sweep; {smi}")
+    del model
+    return report, got
+
+
+def graph_warp_phase(corpus, cfg, smi: str) -> dict:
+    """``[graphs warp]``: ``WarpModel.sweep`` (one replay a sweep) against the
+    eager ``_warp_sweep`` from the model's start, 3 sweeps each (the captured
+    ones as a call of 2 and one of 1), in external noise (uniforms made on
+    the card) and internal noise (each sweep's seed from a twin of the
+    model's host generator, a fresh device generator seeded with it): z and
+    the three tables bitwise, no kernel launched; then ``GRAPH_TIMED["warp"]``
+    captured sweeps in one call, host calls a sweep (a profiled call of 1
+    and one of 5), an eager sweep's."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.backends.warp import WarpModel, _warp_sweep
+    from ldagibbssampling_tpu_torch.ops.gibbs import sweep_seed
+
+    report = None
+    for mode in ("external", "internal"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = WarpModel(cfg, corpus, device="cuda", noise_mode=mode)
+        st0 = model.state
+        t_pad = st0.z.shape[0]
+        uniforms = card_noise("uniform", (8, t_pad), cfg.seed + 17)
+        gen = torch.Generator().manual_seed(st0.seed)
+
+        def eager(state, n, gen=gen, uniforms=uniforms, mode=mode, model=model):
+            for _ in range(n):
+                if mode == "external":
+                    u = uniforms(state.sweep)
+                else:
+                    g = torch.Generator(device="cuda").manual_seed(sweep_seed(gen))
+                    u = torch.rand((8, t_pad), generator=g, device="cuda")
+                state = _warp_sweep(state, u, alpha=model.alpha, beta=model.beta,
+                                    **model._args)
+            return state
+        zero_counters()
+        want = []
+        eager_s = _timed(lambda: want.append(eager(st0, 3)))
+        model.sweep(2, noise=uniforms)
+        model.sweep(1, noise=uniforms)
+        torch.cuda.synchronize()
+        st = model.state
+        _assert_tables(f"warp {mode}", (st.z, st.ndk, st.nwk, st.nk),
+                       (want[0].z, want[0].ndk, want[0].nwk, want[0].nk))
+        launches, plain = read_counters()
+        if any(launches.values()) or any(plain.values()):
+            raise AssertionError(f"[graphs warp] launches {launches}, plain {plain}")
+        if mode == "external":
+            continue
+        n_timed = GRAPH_TIMED["warp"]
+        timed = (n_timed, _timed(lambda: model.sweep(n_timed)))
+        one = launch_profile(lambda: model.sweep(1))
+        five = launch_profile(lambda: model.sweep(5))
+        eager_prof = launch_profile(lambda: eager(model.state, 1))
+        report = _graph_report("warp", model.graph, eager_s, timed, corpus.num_tokens,
+                               eager_prof, _per_sweep(one, five), smi,
+                               checked="(z, ndk, nwk, nk) in external and internal noise")
+        del model
+    return report
+
+
+def graph_backends_phase(seed: int, smi: str, rung5, wide_corpus) -> tuple[dict, dict]:
+    """Phases 8f-8g: CVB0 (``[graphs cvb0]`` at rung 5's 0.2, ``rung5``;
+    ``[graphs cvb0 wide]`` at bench.py's shape from a start made on the
+    card) and WarpLDA (``[graphs warp]`` at rung 5's 0.2) captured against
+    eager.  Returns the reports and the scatter's launches by path."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.config import LdaConfig
+
+    cfg = LdaConfig(topic_num=BACKEND_K, seed=seed, block_size=8_192)
+    out, launches = {}, {}
+    out["cvb0"], launches["cvb0"] = graph_cvb0_path("cvb0", rung5, cfg, smi)
+    out["warp"] = graph_warp_phase(rung5, cfg, smi)
+    # bench.py's shape: the start (normalised, masked) made on the card
+    wide = LdaConfig(topic_num=K, seed=seed, block_size=BLOCK, alpha=ALPHA, beta=BETA)
+    t_pad = -(-wide_corpus.num_tokens // BLOCK) * BLOCK
+    g = torch.rand((t_pad, K), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(seed)).add_(0.5)
+    g /= g.sum(dim=1, keepdim=True)
+    g[wide_corpus.num_tokens:] = 0
+    gamma0 = g.cpu().numpy()
+    del g
+    out["cvb0 wide"], launches["cvb0 wide"] = graph_cvb0_path(
+        "cvb0 wide", wide_corpus, wide, smi, gamma0=gamma0)
+    return out, launches
+
+
 def graphs_phase(seed: int, smi: str, wide_corpus) -> tuple[dict, dict]:
     """Phase 8c, ``[graphs]``: each captured path against its eager sweep
     at full width: the deferred tier (K = 500 and K = 100), the fused tier,
@@ -2780,27 +3065,6 @@ def graphs_phase(seed: int, smi: str, wide_corpus) -> tuple[dict, dict]:
     return out, launches
 
 
-def cvb0_sweep_ms(model, atomic: bool = False, sweeps: int = 3) -> float:
-    """Host ms per CVB0 sweep of ``model`` (synchronised), with its
-    fixed-order scatter or an atomic ``index_add_`` in its place."""
-    import torch
-
-    from ldagibbssampling_tpu_torch.backends import cvb0
-
-    fixed = cvb0.scatter_rows
-    if atomic:
-        cvb0.scatter_rows = lambda table, index, rows: table.index_add_(0, index, rows)
-    try:
-        model.sweep(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.sweep(sweeps)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / sweeps * 1e3
-    finally:
-        cvb0.scatter_rows = fixed
-
-
 def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
     """Phase 9: the five backends at rung 5's configuration (scale 0.2; SMC
     at scale 0.01): tokens/s, training and held-out perplexity, and each
@@ -2822,6 +3086,7 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
     out: dict = {}
     gibbs_launches: dict = {}
     smc_launches: dict = {}
+    cvb0_launches: dict = {}
     for name, warm, n, scale in BACKEND_RUNS:
         corpus, held = rung_corpus(5, scale)
         build = {"gibbs": lambda: LdaModel(cfg, corpus, device=device),
@@ -2858,6 +3123,14 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
                     "resample_write": n * corpus.num_tokens + 1}
             if smc_launches != want:
                 raise AssertionError(f"smc launched {launches}, want {want}")
+        elif name == "cvb0":
+            # two scatters a block and sweep; the graph's warm-up came with
+            # the untimed sweep
+            cvb0_launches = {k: v for k, v in launches.items() if v}
+            blocks = model._padded.num_tokens // model.block_size
+            want = {"cvb0_scatter": 2 * blocks * n}
+            if cvb0_launches != want:
+                raise AssertionError(f"cvb0 launched {launches}, want {want}")
         elif any(launches.values()):
             raise AssertionError(f"{name} launched kernels {launches}")
         v = corpus.vocab_size
@@ -2876,16 +3149,10 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
             for t in ("gamma", "ndk", "nwk", "nk"):
                 if not torch.equal(getattr(twin, t), getattr(model, t)):
                     raise AssertionError(f"two CVB0 runs differ in {t}")
-            # the fixed-order scatter's cost: the same sweeps with an
-            # atomic index_add_ scatter (order of additions not fixed)
-            fixed_ms = cvb0_sweep_ms(twin)
-            atomic_ms = cvb0_sweep_ms(twin, atomic=True)
-            out["cvb0_scatter"] = dict(fixed_order_ms_per_sweep=fixed_ms,
-                                       atomic_index_add_ms_per_sweep=atomic_ms)
             checks.append(f"invariants hold; a second run from the seed bitwise "
-                          f"equal; {fixed_ms:.2f} ms per sweep with the "
-                          f"fixed-order scatter, {atomic_ms:.2f} ms with an "
-                          f"atomic index_add_")
+                          f"equal; {dt / n * 1e3:.2f} ms a sweep captured (set-up "
+                          f"{model.graph.setup_s:.4f}s in the untimed sweep); "
+                          f"launches {cvb0_launches}")
         elif name == "warp":
             pc = model._padded
             real = pc.token_mask.astype(bool)
@@ -2932,7 +3199,8 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
             f"{'; '.join(checks)}")
         del model
         torch.cuda.empty_cache()
-    return out, {"backends gibbs": gibbs_launches, "backends smc": smc_launches}
+    return out, {"backends gibbs": gibbs_launches, "backends smc": smc_launches,
+                 "backends cvb0": cvb0_launches}
 
 
 def run_cli_inproc(args) -> tuple[int, str, str]:
@@ -3944,6 +4212,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
     sys.path.insert(0, str(REPO))
+    from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
     from ldagibbssampling_tpu_torch.ops import _build
 
     # 1. device
@@ -3987,6 +4256,9 @@ def main() -> int:
     kernels.update(check_probe(args.seed))                 # 3c.
     kernels["gibbs_tile_sample"].update(check_general_walk(corpus, args.seed))  # 3d.
     kernels.update(check_resample_kernels(args.seed))      # 3e.
+    wall("kernels 3-3e")
+    rung5, _ = rung_corpus(5, BACKEND_SCALE)
+    kernels.update(check_cvb0_scatter(args.seed, rung5, corpus))  # 3f.
     wall("kernels")
     paths = {}
     runs = [(use_pallas, sweeps, "float32", "bfloat16", K)
@@ -4023,6 +4295,12 @@ def main() -> int:
     graphs["smc"], graph_launches["smc"] = graph_smc_phase(  # 8d.
         args.seed, smi, {n: kernels[n] for n in ("resample_gather", "resample_write")})
     graphs["svi"] = graph_svi_phase(args.seed, smi)         # 8e.
+    wall("graphs 8c-8e")
+    backend_graphs, backend_graph_launches = graph_backends_phase(  # 8f, 8g.
+        args.seed, smi, rung5, corpus)
+    del rung5
+    graphs.update(backend_graphs)
+    graph_launches.update(backend_graph_launches)
     wall("graphs")
     backends, backend_launches = backends_phase(args.seed)  # 9.
     backends_resume_phase()                                 # 10.
@@ -4061,15 +4339,19 @@ def main() -> int:
         # no TPU kernel: the reference's lax.cond resample inside its scan
         "resample_gather": (f"{src}/smc_resample.cu", smc_cond),
         "resample_write": (f"{src}/smc_resample.cu", smc_cond),
+        # no TPU kernel: the reference's scatter-adds of CVB0's deltas
+        "cvb0_scatter": (f"{src}/cvb0_scatter.cu",
+                         "ldagibbssampling_tpu/backends/cvb0.py:69-70 "
+                         "(.at[d].add, .at[w].add; not a TPU kernel)"),
     }
     rows = []
     for kname, (source, replaces) in meta.items():
         k = kernels[kname]
         by_path = {tier: n[kname] for tier, (_, n) in paths.items() if kname in n}
-        for path, counts in backend_launches.items():  # phase 9's Gibbs and SMC
+        for path, counts in backend_launches.items():  # phase 9's Gibbs, SMC, CVB0
             if kname in counts:
                 by_path[path] = counts[kname]
-        for label, counts in graph_launches.items():  # phase 8c's captured runs
+        for label, counts in graph_launches.items():  # phase 8c-8g's captured runs
             if kname in counts:
                 by_path[f"graphs {label}"] = counts[kname]
         for path, counts in (*mesh_launches.items(),  # phases 12, 12c, 13
@@ -4091,7 +4373,8 @@ def main() -> int:
                    "ms_64_reps", "walk_ms", "walk_device_ms", "walk_bound_ms",
                    "fixed_us_per_tile", "event_ms", "device_ms",
                    "event_ms_three_tables", "bound_three_tables_ms",
-                   "library_device_ms", "ms_flag_false", "event_ms_flag_false")},
+                   "library_device_ms", "ms_flag_false", "event_ms_flag_false",
+                   "scatter_shapes")},
         })
     print(json.dumps({"kernels": rows, "main_path_tokens_per_s": {
         tier: tok_s for tier, (tok_s, _) in paths.items()},

@@ -13,16 +13,26 @@ the delta into ``ndk``, ``nwk`` and ``nk``: no random draw, no argmax.
 Blocks of ``block_size`` tokens run in order, as the reference's
 ``fori_loop`` does.
 
-**Fixed scatter order** (:func:`scatter_rows`).  A float32 ``index_add_``
-on CUDA adds with atomics, so its order of additions, and with it the run's
-last bits, would change from run to run.  On CUDA the scatters are
-``index_put_(..., accumulate=True)``, whose CUDA path sorts the indices (a
-stable radix sort) and adds each row's duplicates in that order.  On the
-CPU it is the other way round: ``index_put_`` accumulates with atomic adds
-across threads, and ``index_add_`` adds the rows one after another in index
-order.  Either way the same inputs give the same bits in every run, so a
-restored run continues the uninterrupted trajectory bit for bit.  ``nk``'s
-delta is a column sum, a fixed reduction.
+**Fixed scatter order** (``ops/cvb0_scatter.py``).  A float32
+``index_add_`` on CUDA adds with atomics, so its order of additions, and
+with it the run's last bits, would change from run to run.  A block's
+document and word ids never change during a run, so the model sorts each
+block's ids once, when it is built (``scatter_plan``, one plan per table),
+and each scatter adds along that plan: on the card a hand-written kernel
+adds each row's rows in ascending token order, on the CPU the serial
+``index_add_`` does the same.  Either way the same inputs give the same
+bits in every run, so a restored run continues the uninterrupted
+trajectory bit for bit.  ``nk``'s delta is a column sum, a fixed reduction.
+
+**One dispatch per sweep.**  The reference runs ``n`` sweeps as one
+``jit(fori_loop)`` (``cvb0_sweeps``).  ``Cvb0Model.sweep`` replays one CUDA
+graph of a whole sweep per sweep (``ops/graphs.SweepGraph``, which draws
+nothing here: no generator, no device seed), over static buffers γ,
+``ndk``, ``nwk`` and ``nk``.  Its body is :func:`cvb0_sweep`, in place,
+which also runs eagerly: the tests hold the replays to it bitwise.  α, β and V·β
+are Python floats that each op rounds to float32 as it reads them, baked
+into the graph: this backend has no Minka path.  On the CPU the same body
+runs eagerly on the same buffers.
 
 γ starts from a uniform(0.5, 1.5) draw on a ``torch.Generator`` seeded with
 ``config.seed`` (the reference's threefry draw cannot be reproduced);
@@ -40,16 +50,9 @@ import torch
 
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
-
-
-def scatter_rows(table: torch.Tensor, index: torch.Tensor,
-                 rows: torch.Tensor) -> None:
-    """``table[index[i]] += rows[i]`` in a fixed order of additions on either
-    device (see the module docstring)."""
-    if table.device.type == "cuda":
-        table.index_put_((index,), rows, accumulate=True)
-    else:
-        table.index_add_(0, index, rows)
+from ldagibbssampling_tpu_torch.ops.cvb0_scatter import (
+    ScatterPlan, cvb0_scatter, scatter_plan)
+from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
 
 
 def cvb0_sweep(
@@ -60,20 +63,22 @@ def cvb0_sweep(
     token_word: torch.Tensor,  # [T_pad] int64
     token_doc: torch.Tensor,   # [T_pad] int64
     token_mask: torch.Tensor,  # [T_pad]
+    plans: tuple[ScatterPlan, ScatterPlan],  # by token_doc, by token_word
     *,
     alpha: float,
     beta: float,
     block_size: int,
-) -> torch.Tensor:
+) -> None:
     """One CVB0 sweep, block after block, in place on ``gamma``, ``ndk``,
-    ``nwk`` and ``nk``; returns the new ``nk`` (a new tensor)."""
+    ``nwk`` and ``nk`` (the captured sweep's body)."""
     t_pad = gamma.shape[0]
     v = nwk.shape[0]
+    doc_plan, word_plan = plans
     # V·β as a Python product, as the reference's static floats form it;
     # each scalar is rounded to float32 by the op that reads it
     vbeta = v * beta
     msk_all = token_mask.to(gamma.dtype)
-    for start in range(0, t_pad, block_size):
+    for b, start in enumerate(range(0, t_pad, block_size)):
         sl = slice(start, start + block_size)
         w, d, msk = token_word[sl], token_doc[sl], msk_all[sl]
         g_old = gamma[sl]
@@ -86,21 +91,19 @@ def cvb0_sweep(
         g_new = g_new * msk[:, None]  # padding rows stay zero
 
         delta = g_new - g_old
-        scatter_rows(ndk, d, delta)
-        scatter_rows(nwk, w, delta)
-        nk = nk + delta.sum(dim=0)
+        cvb0_scatter(ndk, delta, doc_plan, b)
+        cvb0_scatter(nwk, delta, word_plan, b)
+        nk.add_(delta.sum(dim=0))
         gamma[sl] = g_new
-    return nk
 
 
-def cvb0_sweeps(gamma, ndk, nwk, nk, token_word, token_doc, token_mask,
+def cvb0_sweeps(gamma, ndk, nwk, nk, token_word, token_doc, token_mask, plans,
                 n_sweeps: int, *, alpha: float, beta: float,
-                block_size: int) -> torch.Tensor:
-    """``n_sweeps`` CVB0 sweeps (no host sync between them); returns ``nk``."""
+                block_size: int) -> None:
+    """``n_sweeps`` eager CVB0 sweeps in place (no host sync between them)."""
     for _ in range(n_sweeps):
-        nk = cvb0_sweep(gamma, ndk, nwk, nk, token_word, token_doc, token_mask,
-                        alpha=alpha, beta=beta, block_size=block_size)
-    return nk
+        cvb0_sweep(gamma, ndk, nwk, nk, token_word, token_doc, token_mask, plans,
+                   alpha=alpha, beta=beta, block_size=block_size)
 
 
 class Cvb0Model:
@@ -137,29 +140,43 @@ class Cvb0Model:
             if g.shape != (pc.num_tokens, k):
                 raise ValueError(f"gamma0 is {g.shape}, the model's "
                                  f"{(pc.num_tokens, k)}")
-        g = g.astype(np.float32)
-        ndk = np.zeros((pc.num_docs, k), np.float32)
-        nwk = np.zeros((pc.vocab_size, k), np.float32)
-        np.add.at(ndk, pc.token_doc, g)
-        np.add.at(nwk, pc.token_word, g)
-        self.gamma = torch.from_numpy(g).to(self.device)
-        self.ndk = torch.from_numpy(ndk).to(self.device)
-        self.nwk = torch.from_numpy(nwk).to(self.device)
-        self.nk = torch.from_numpy(nwk.sum(axis=0)).to(self.device)
+        g = torch.from_numpy(g.astype(np.float32))
+        # the expected counts: the CPU's serial index_add_ in token order
+        # (numpy's add.at's sums, many times faster)
+        ndk, nwk = (torch.zeros((n, k)).index_add_(
+                        0, torch.from_numpy(ids.astype(np.int64)), g)
+                    for n, ids in ((pc.num_docs, pc.token_doc),
+                                   (pc.vocab_size, pc.token_word)))
+        self.gamma = g.to(self.device)
+        self.ndk = ndk.to(self.device)
+        self.nwk = nwk.to(self.device)
+        self.nk = torch.from_numpy(nwk.numpy().sum(axis=0)).to(self.device)
 
-        def dev(x):
-            return torch.from_numpy(np.asarray(x, np.int64)).to(self.device)
-
-        self._tw, self._td, self._tm = (dev(pc.token_word), dev(pc.token_doc),
-                                        dev(pc.token_mask))
+        # each table's scatter plan; their index is the token's row
+        self._plans = (scatter_plan(pc.token_doc, block, self.device),
+                       scatter_plan(pc.token_word, block, self.device))
+        self._td, self._tw = (p.index for p in self._plans)
+        self._tm = torch.from_numpy(pc.token_mask.astype(np.int64)).to(self.device)
         self._sweeps = 0
+        self.graph = SweepGraph(self._body, self._tables(),
+                                vocab_size=pc.vocab_size, num_topics=k,
+                                noise_mode="deterministic")
 
     # ------------------------------------------------------------------
+    def _tables(self) -> tuple[torch.Tensor, ...]:
+        return self.gamma, self.ndk, self.nwk, self.nk
+
+    def _body(self, bufs, scalars, key, generators, noise) -> None:
+        cvb0_sweep(*bufs, self._tw, self._td, self._tm, self._plans,
+                   alpha=self.config.alpha, beta=self.config.beta,
+                   block_size=self.block_size)
+
     def sweep(self, n: int = 1) -> None:
-        self.nk = cvb0_sweeps(
-            self.gamma, self.ndk, self.nwk, self.nk, self._tw, self._td,
-            self._tm, n, alpha=self.config.alpha, beta=self.config.beta,
-            block_size=self.block_size)
+        """``n`` sweeps: one graph replay each on the card."""
+        if n <= 0:
+            return
+        self.gamma, self.ndk, self.nwk, self.nk = self.graph(
+            self._tables(), self.config.alpha, self.config.beta, n)
         self._sweeps += n
 
     @property
@@ -191,8 +208,7 @@ class Cvb0Model:
 
     # ------------------------------------------------------------------
     def _arrays(self) -> dict:
-        return {"gamma": self.gamma, "ndk": self.ndk, "nwk": self.nwk,
-                "nk": self.nk}
+        return dict(zip(("gamma", "ndk", "nwk", "nk"), self._tables()))
 
     def save_checkpoint(self, directory: str | Path) -> int:
         """Checkpoint of the whole CVB0 state (γ and the expected counts) at

@@ -22,9 +22,20 @@ which are exact and give the same tables in any order of additions.
 Chain semantics: an approximate MH chain (frozen-count proposals, parallel
 moves); per sweep it mixes more slowly than exact Gibbs.  Each sweep draws
 ``u[8, T_pad]`` uniforms: internally from a device ``torch.Generator``
-seeded from the chain's host generator, or externally from ``noise(sweep)``
-(the reference draws them from ``fold_in(state.key, sweep)``).  ``n``
-sweeps make no host sync.  Its speed on the H100 is in ``PERF.md``.
+seeded with a seed from the chain's host generator, or externally from
+``noise(sweep)`` (the reference draws them from ``fold_in(state.key,
+sweep)``).  Its speed on the H100 is in ``PERF.md``.
+
+**One dispatch per sweep.**  The reference runs ``n`` sweeps as one
+``jit`` of a ``fori_loop`` over sweeps (``_warp_sweeps``).
+``WarpModel.sweep`` replays one CUDA graph of a sweep per sweep
+(``ops/graphs.SweepGraph``) over static buffers ``z``, ``ndk``, ``nwk`` and
+``nk``; its body is :func:`_warp_sweep_`, in place, which the eager
+:func:`_warp_sweep` also runs (on copies), so a replay is bitwise the eager
+sweep.  Internal noise draws from the graph's one registered device
+generator, reseeded with the sweep's seed before each replay (the draws of
+a fresh generator with that seed); external noise is copied into the
+graph's noise buffer before each replay.  No host sync inside a sweep.
 
 Checkpoint and resume are a documented non-goal of this backend, as in the
 reference: it is an algorithmic reference, and long runs belong on the
@@ -43,6 +54,8 @@ import torch
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
 from ldagibbssampling_tpu_torch.models.state import SamplerState, init_state
+from ldagibbssampling_tpu_torch.ops.gibbs import _scatter_counts, sweep_seed
+from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
 
 
 def word_csr(token_word: np.ndarray, vocab_size: int, mask: np.ndarray):
@@ -61,8 +74,11 @@ def word_csr(token_word: np.ndarray, vocab_size: int, mask: np.ndarray):
     return perm_w, word_ptr
 
 
-def _warp_sweep(
-    state: SamplerState,
+def _warp_sweep_(
+    z: torch.Tensor,           # [T_pad] int32 assignments
+    ndk: torch.Tensor,         # [M, K] int32
+    nwk: torch.Tensor,         # [V, K] int32
+    nk: torch.Tensor,          # [K] int32
     u: torch.Tensor,           # [8, T_pad] float32 uniforms of this sweep
     token_word: torch.Tensor,  # [T_pad] int64 (doc-major)
     token_doc: torch.Tensor,   # [T_pad] int64
@@ -74,13 +90,13 @@ def _warp_sweep(
     perm_w: torch.Tensor,      # [T_pad] int64
     alpha: float,
     beta: float,
-) -> SamplerState:
-    """One WarpLDA sweep: both MH moves against the frozen tables, then the
-    reconciliation; returns the new state."""
-    from ldagibbssampling_tpu_torch.ops.gibbs import _scatter_counts
-
-    ndk, nwk, nk = state.ndk, state.nwk, state.nk
-    z = state.z.long()
+) -> None:
+    """One WarpLDA sweep in place on ``z``, ``ndk``, ``nwk`` and ``nk``
+    (the captured sweep's body): both MH moves against the frozen tables,
+    then the reconciliation.  ``z`` is written last: the word proposal
+    reads the frozen ``z``, the reconciliation both."""
+    z_buf = z
+    z = z.long()
     t_pad = z.shape[0]
     v, k = nwk.shape
     f32 = np.float32
@@ -133,11 +149,17 @@ def _warp_sweep(
     znew = torch.where((u[7] < ratio) & msk, kprop, zcur)
 
     # ---- delayed count reconciliation: exact int32 scatter-adds ----
-    ndk, nwk, nk = ndk.clone(), nwk.clone(), nk.clone()
     _scatter_counts(ndk[None], nwk[None], nk[None], d.long() * k, w.long() * k,
                     msk.to(torch.int32), z[None], znew[None])
-    return SamplerState(z=znew.to(torch.int32), ndk=ndk, nwk=nwk, nk=nk,
-                        sweep=state.sweep + 1, seed=state.seed)
+    z_buf.copy_(znew)
+
+
+def _warp_sweep(state: SamplerState, u: torch.Tensor, **args) -> SamplerState:
+    """One eager WarpLDA sweep (:func:`_warp_sweep_` on copies of the
+    state's tables); returns the new state."""
+    tables = tuple(t.clone() for t in (state.z, state.ndk, state.nwk, state.nk))
+    _warp_sweep_(*tables, u, **args)
+    return SamplerState(*tables, sweep=state.sweep + 1, seed=state.seed)
 
 
 class WarpModel:
@@ -191,22 +213,39 @@ class WarpModel:
             nw_tok=dev(word_count[tw], torch.float32),
             perm_w=dev(perm_w),
         )
+        st = self.state
+        self.graph = SweepGraph(
+            self._body, (st.z, st.ndk, st.nwk, st.nk), vocab_size=pc.vocab_size,
+            num_topics=config.topic_num, noise_mode=noise_mode,
+            num_generators=1 if noise_mode == "internal" else 0)
 
     # ------------------------------------------------------------------
+    def _body(self, bufs, scalars, key, generators, noise) -> None:
+        if noise is None:  # internal: the sweep's draws on its generator
+            noise = torch.rand((8, bufs[0].shape[0]), generator=generators[0],
+                               device=self.device)
+        _warp_sweep_(*bufs, noise, alpha=self.alpha, beta=self.beta, **self._args)
+
     def sweep(self, n: int = 1,
               noise: Optional[Callable[[int], torch.Tensor]] = None) -> None:
-        t_pad = self.state.z.shape[0]
-        for _ in range(n):
-            if self.noise_mode == "external":
-                if noise is None:
-                    raise ValueError("external noise needs noise(sweep)")
-                u = noise(self.state.sweep).to(self.device, torch.float32)
-            else:
-                seed = int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
-                gen = torch.Generator(device=self.device).manual_seed(seed)
-                u = torch.rand((8, t_pad), generator=gen, device=self.device)
-            self.state = _warp_sweep(self.state, u, alpha=self.alpha,
-                                     beta=self.beta, **self._args)
+        """``n`` sweeps: one graph replay each on the card.  Internal noise
+        draws each sweep's seed from the model's host generator; external
+        noise is ``noise(sweep)``, each sweep's ``[8, T_pad]`` uniforms."""
+        if n <= 0:
+            return
+        st = self.state
+        if self.noise_mode == "external":
+            if noise is None:
+                raise ValueError("external noise needs noise(sweep)")
+            seeds = None
+
+            def u(i):
+                return noise(st.sweep + i).to(self.device, torch.float32)
+        else:
+            seeds, u = [(sweep_seed(self.generator),) for _ in range(n)], None
+        out = self.graph((st.z, st.ndk, st.nwk, st.nk), self.alpha, self.beta, n,
+                         seeds=seeds, noise=u)
+        self.state = SamplerState(*out, sweep=st.sweep + n, seed=st.seed)
 
     @property
     def sweeps_done(self) -> int:

@@ -178,8 +178,9 @@ class SweepGraph:
     V·β and K·α, ``key`` the sweep's int64 ``[1]`` seed (``device_seeds``;
     else ``None``), ``generators`` ``num_generators`` generators on the
     device, reseeded per sweep (``internal`` noise), and ``noise`` the
-    sweep's noise array (``external`` noise; else ``None``).  Everything it
-    reads besides these must outlive the graph.  ``padded[i]``, where given,
+    sweep's noise array (``external`` noise; else ``None``).  A body that
+    draws nothing (CVB0's) takes ``noise_mode="deterministic"``: no seeds,
+    no noise.  Everything it reads besides these must outlive the graph.  ``padded[i]``, where given,
     is table ``i``'s buffer shape: the buffer is that zeroed tensor, the
     table its leading corner (``buffer[:V, :K]``), and ``body`` gets the
     whole buffer.

@@ -1256,3 +1256,154 @@ def test_captured_svi_equals_eager_on_card(cuda):
     steps = -(-fc.num_docs // 16)
     assert model.graph.graph.replays == steps
     assert sum(e.name.startswith("cudaGraphLaunch") for e in prof.events()) == steps
+
+
+# --- CVB0's fixed-order scatter (ops/cvb0_scatter.py) against its plain
+# version on the CPU, and CVB0's and WarpLDA's captured sweeps against their
+# eager sweeps
+
+
+@pytest.mark.parametrize("case", ["doc_major", "random_words", "one_long_run"])
+def test_cvb0_scatter_equals_plain_on_cpu_copies(cuda, case):
+    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
+
+    rng = np.random.default_rng(11)
+    block, k = 512, 37
+    if case == "doc_major":  # a padded last block: its zeros after real ids
+        ids = np.sort(rng.integers(0, 40, size=3 * block - 100))
+        ids = np.concatenate([ids, np.zeros(100, np.int64)])
+    elif case == "random_words":
+        ids = ((rng.zipf(1.2, size=3 * block) - 1) % V)
+    else:  # one row takes a whole block: one run of 512 adds
+        ids = np.concatenate([np.full(block, 3), rng.integers(0, 9, size=block)])
+    rows_n = int(ids.max()) + 1
+    host_table = torch.from_numpy(rng.uniform(0, 5, size=(rows_n, k)).astype(np.float32))
+    deltas = [torch.from_numpy(rng.normal(size=(block, k)).astype(np.float32))
+              for _ in range(len(ids) // block)]
+    plan = cs.scatter_plan(ids, block, cuda)
+    host_plan = cs.scatter_plan(ids, block, "cpu")
+    table = host_table.to(cuda)
+    launches = cs.LAUNCHES["cvb0_scatter"]
+    for b, delta in enumerate(deltas):
+        cs.cvb0_scatter(table, delta.to(cuda), plan, b)
+        cs.cvb0_scatter(host_table, delta, host_plan, b)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["cvb0_scatter"] == launches + len(deltas)
+    assert torch.equal(table.cpu(), host_table)
+    with pytest.raises(ValueError, match="on the CPU"):
+        cs.cvb0_scatter_plain(table, plan.index[:block], deltas[0].to(cuda))
+
+
+def _cvb0_eager_on_card(model, n):
+    from ldagibbssampling_tpu_torch.backends.cvb0 import cvb0_sweeps
+
+    out = [t.clone() for t in model._tables()]
+    cvb0_sweeps(*out, model._tw, model._td, model._tm, model._plans, n,
+                alpha=model.config.alpha, beta=model.config.beta,
+                block_size=model.block_size)
+    return out
+
+
+@pytest.mark.parametrize("sort_blocks", [False, True])
+def test_captured_cvb0_equals_eager_on_card(cuda, sort_blocks):
+    from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model
+    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
+
+    cfg = LdaConfig(topic_num=6, backend="cvb0", block_size=128, seed=2,
+                    sort_blocks=sort_blocks)
+    model = Cvb0Model(cfg, _small_corpus(seed=4), device=cuda)
+    blocks = model._padded.num_tokens // 128
+    want = _cvb0_eager_on_card(model, 3)
+    before = dict(cs.LAUNCHES), dict(cs.PLAIN_CALLS)
+    model.sweep(2)
+    model.sweep(1)
+    torch.cuda.synchronize()
+    for name, w in zip(("gamma", "ndk", "nwk", "nk"), want):
+        assert torch.equal(getattr(model, name), w), name
+    # two scatters a block: the warm-up sweep's, then one replay a sweep
+    assert cs.LAUNCHES["cvb0_scatter"] - before[0]["cvb0_scatter"] == 2 * blocks * 4
+    assert cs.PLAIN_CALLS == before[1]
+    assert model.graph.per_replay == {(cs.__name__, "cvb0_scatter"): 2 * blocks}
+    model.check_invariants()
+
+
+@pytest.mark.parametrize("mode", ["internal", "external"])
+def test_captured_warp_equals_eager_on_card(cuda, mode):
+    from ldagibbssampling_tpu_torch.backends.warp import WarpModel, _warp_sweep
+    from ldagibbssampling_tpu_torch.ops.gibbs import sweep_seed
+
+    cfg = LdaConfig(topic_num=6, backend="warp", block_size=128, seed=3)
+    model = WarpModel(cfg, _small_corpus(seed=5), device=cuda, noise_mode=mode)
+    st = model.state
+    t_pad = st.z.shape[0]
+    noise = _card_noise(cuda, t_pad, "uniform", k=8)
+
+    def u_of(sweep):
+        return noise(sweep).t().contiguous()  # [8, T_pad]
+    gen = torch.Generator().manual_seed(st.seed)
+    want = st
+    for _ in range(3):
+        if mode == "external":
+            u = u_of(want.sweep)
+        else:
+            g = torch.Generator(device=cuda).manual_seed(sweep_seed(gen))
+            u = torch.rand((8, t_pad), generator=g, device=cuda)
+        want = _warp_sweep(want, u, alpha=model.alpha, beta=model.beta, **model._args)
+    model.sweep(2, noise=u_of)
+    model.sweep(1, noise=u_of)
+    torch.cuda.synchronize()
+    for name in ("z", "ndk", "nwk", "nk"):
+        assert torch.equal(getattr(model.state, name), getattr(want, name)), name
+    assert model.graph.replays == 3 and model.sweeps_done == 3
+
+
+@pytest.mark.parametrize("backend", ["cvb0", "warp"])
+def test_captured_backend_is_one_graph_launch_a_sweep_without_host_sync(cuda, backend):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldagibbssampling_tpu_torch.backends import make_backend
+
+    cfg = LdaConfig(topic_num=5, backend=backend, block_size=128, seed=1)
+    model = make_backend(cfg, _small_corpus(seed=6), device=cuda)
+    model.sweep(1)  # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # no host read inside the sweeps
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.sweep(3)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = sum(e.name.startswith("cudaGraphLaunch") for e in prof.events())
+    assert launches == 3 == model.graph.replays - 1
+
+
+def test_refused_cvb0_capture_raises_and_runs_no_sweep_eagerly(cuda, monkeypatch):
+    """A scatter launch refused inside the capture fails the call with the
+    launch's error; the model's state is untouched and nothing ran the
+    sweep eagerly instead."""
+    from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model
+    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
+
+    build, lib = cs._lib()
+
+    class Refusing:
+        def __getattr__(self, attr):
+            return getattr(lib, attr)
+
+        def lda_cvb0_scatter(self, *args):
+            if torch.cuda.is_current_stream_capturing():
+                return 1  # cudaErrorInvalidValue
+            return lib.lda_cvb0_scatter(*args)
+
+    monkeypatch.setattr(cs, "_lib", lambda: (build, Refusing()))
+    cfg = LdaConfig(topic_num=4, backend="cvb0", block_size=128, seed=2)
+    model = Cvb0Model(cfg, _small_corpus(seed=7), device=cuda)
+    keep = [t.clone() for t in model._tables()]
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="lda_cvb0_scatter failed: CUDA error 1"):
+            model.sweep(1)
+        assert model.graph.graph is None and model.graph.replays == 0
+    torch.cuda.synchronize()
+    assert model.sweeps_done == 0
+    assert all(torch.equal(a, b) for a, b in zip(model._tables(), keep))
