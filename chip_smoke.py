@@ -199,20 +199,33 @@ success:
    --rungs 1,2,3,4,5 --scale 0.01`` as a subprocess (rung 3 floored at 2^24
    training tokens on the card): exit 0, no gate failure, each rung's dict
    printed;
-12. mesh: the parallel runtimes (``parallel/``), each in the deferred tier
-   with its kernels' launches counted exactly, every table an exact
+12. mesh: the parallel runtimes (``parallel/``), each replaying one CUDA
+   graph a sweep (``MeshRuntime.sweep``), each in the deferred tier
+   with its kernels' launches counted exactly (the graph's warm-up sweep
+   once per runtime), every table an exact
    recount: rung 3 through ``ladder.rung3`` at scale 0.2 (V = 100,000,
    K = 100, 60,000 NYT-shaped documents, ~17.1M training tokens, block
    65,536, on every position: one here; two warm-up sweeps and 10 timed;
    tokens/s, set-up seconds and, of those, ``plan_s``: the seconds of the
    deferred layouts, ``plan_timer``); the same corpus as four shards on the one
-   card (5 timed sweeps, ``psum``'s time per sweep by CUDA events, one
-   sweep under CUDA's sync debug mode set to error); the four shards saved,
+   card (5 timed sweeps, one sweep under CUDA's sync debug mode set to
+   error); the four shards saved,
    run 3 sweeps on, restored and run the same 3 (bitwise); the 2x2 grid,
    token=4 and chain=2,data=2 at rung 3's 0.02 on four positions of the
-   card (3 sweeps each, one sharded Minka update, one LL on the card: the
+   card (a call that captures, then 3 sweeps each, one sharded Minka
+   update, one LL on the card: the
    chain mesh records both chains' and holds chain 0's to the host formula
-   within relative 1e-9); the CLI with
+   within relative 1e-9).  ``[graphs mesh ...]``: each runtime's graph
+   against its eager sweep (``_eager_sweeps``, op by op from the host)
+   from the same state, seeds and noise, 2 sweeps and then one at other
+   alpha and beta each way, z and every table bitwise at every position:
+   the four shards at 0.2, AD-LDA on four positions at 0.02 in the
+   deferred, fused and XLA tiers, the grid, token=4 and chain=2,data=2,
+   each in internal noise (ms and tokens/s a sweep both ways, 10 captured
+   sweeps in one call, host calls and graph launches a sweep from
+   ``torch.profiler``, one eager sweep's ``psum`` by CUDA events, nodes,
+   set-up and capture seconds, peak memory) and in external noise (made
+   on the card); then the CLI with
    ``--mesh data=-1`` killed at 30 and resumed to 60 (the ten artifacts
    byte-identical).  12b, ``[mesh two processes]``: the multi-process
    branch (``psum``'s ``all_reduce`` across processes, ``gather``,
@@ -221,10 +234,14 @@ success:
    ``initialize_distributed``, one position each on the card, train
    ``ShardedLda`` over ``{"data": 2}`` on rung 3's corpus at 0.2 and
    ``GridLda`` over ``{"data": 1, "vocab": 2}`` at 0.02, 10 sweeps each
-   in the deferred tier: counts exact, launches counted exactly (per
-   process and sweep one walk, one rebuild, one snapshot), z and every
+   in the deferred tier through the graphs' split form (per sweep the
+   graph before the reduction, the ``all_reduce`` on the host, the graph
+   after): counts exact, launches counted exactly (per
+   process and sweep one walk, one rebuild, one snapshot, and the warm-up
+   sweep's), z and every
    table bitwise the one-process run's on two positions of the card, both
-   processes exit 0; tokens/s, ``psum`` ms per sweep (CUDA events) and
+   processes exit 0; tokens/s, graph launches and ``all_reduce`` ms per
+   sweep (CUDA events) and
    set-up seconds (and ``plan_s``) beside the card's name and power limit.
    NCCL itself is not run here (one card).  12c, ``[rung3 full]``: the
    main path at rung 3's full size, the reference ladder's NYT-shaped corpus
@@ -240,7 +257,8 @@ success:
    perplexity on the 15,000 held-out documents; one checkpoint saved
    (seconds, bytes) and restored bitwise (the state, and the next sweep
    from it); then ``ladder.rung3(1.0)`` on the same corpus (one shard),
-   its report and launches.
+   its report and launches, and its runtime's graph against its eager
+   sweep (``[graphs mesh rung3 full]``, 3 sweeps each way, bitwise).
 13. ingest: the CLI's corpus ingest (``corpus/native.py``, the host C++
    library of ``csrc/ldacorpus.cc``, built by ``g++`` here) and the CLI end
    to end at rung 3's corpus size: rung 3's whole corpus at scale 0.2
@@ -351,6 +369,8 @@ BENCH_RUNS = (("deferred", 100), ("fused", 100), ("1", 100), ("0", 20))
 # on its corpus, and the grid, token and chain meshes at rung 3's 0.02
 MESH_SCALE, MESH_SMALL_SCALE = 0.2, 0.02
 MESH_SWEEPS, MESH_FOUR_SWEEPS, MESH_SMALL_SWEEPS = 10, 5, 3
+# [graphs mesh ...]: captured sweeps timed in one call after the comparison
+MESH_GRAPH_TIMED = 10
 # [rung3 full]: rung 3 at the reference's own size (300,000 documents,
 # V = 100,000, 96,728,858 training tokens), two untimed sweeps and 10 timed
 FULL_SCALE, FULL_WARMUP, FULL_SWEEPS = 1.0, 2, 10
@@ -3306,34 +3326,55 @@ def ladder_phase(tmp_root: str) -> list:
     return report["rungs"]
 
 
-def _psum_timer():
-    """Wrap ``multihost.psum`` with CUDA events; returns the list of each
-    call's milliseconds and a function that restores the plain ``psum``."""
+def _sync(device: str = "cuda") -> None:
     import torch
 
-    from ldagibbssampling_tpu_torch.parallel import multihost
+    if device == "cuda":
+        torch.cuda.synchronize()
 
-    plain, times = multihost.psum, []
 
-    def timed(parts, mesh, axis):
+def _event_timer(module, name: str):
+    """Wrap ``module.name`` with CUDA events (the host clock on the CPU);
+    returns the list of each call's milliseconds and a function that
+    restores the plain function."""
+    import torch
+
+    plain, times = getattr(module, name), []
+
+    def timed(*args):
         if not torch.cuda.is_available():  # a rehearsal on the CPU
             t0 = time.perf_counter()
-            out = plain(parts, mesh, axis)
+            out = plain(*args)
             times.append((time.perf_counter() - t0) * 1e3)
             return out
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        out = plain(parts, mesh, axis)
+        out = plain(*args)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
         return out
 
-    multihost.psum = timed
+    setattr(module, name, timed)
 
     def restore():
-        multihost.psum = plain
+        setattr(module, name, plain)
     return times, restore
+
+
+def _psum_timer():
+    """``multihost.psum`` timed (the eager sweep's reconciliation)."""
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    return _event_timer(multihost, "psum")
+
+
+def _reduce_timer():
+    """``multihost.reduce_across`` timed: the ``all_reduce`` that a mesh
+    graph runs between its replays where a group spans processes."""
+    from ldagibbssampling_tpu_torch.parallel import multihost
+
+    return _event_timer(multihost, "reduce_across")
 
 
 @contextlib.contextmanager
@@ -3375,16 +3416,158 @@ def _mesh_launches(label: str, expect: dict) -> dict:
     return got
 
 
-def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
-    """Phase 12: the parallel runtimes (``parallel/``) on the card.
+def mesh_noise(model, seed: int, device: str = "cuda"):
+    """``noise(position, sweep)``: external noise made on the position's
+    device from the seed, shaped for the runtime's tier (Gumbel values for
+    the XLA tier, the kernels' uniforms)."""
+    import torch
+
+    k = model.config.topic_num
+
+    def noise(p, sweep):
+        g = torch.Generator(device=device).manual_seed(seed * 1_000_003 + 1_000 * p + sweep)
+        t = model._tokens[p][0].shape[0]
+        if model.kernel_tier == "xla":
+            u = torch.rand((t, k), generator=g, device=device).mul_(1 - 2e-7).add_(1e-7)
+            return -torch.log(-torch.log(u))
+        return torch.rand((t, -(-k // 128) * 128), generator=g,
+                          device=device).mul_(1 - 2e-7).add_(1e-7)
+    return noise
+
+
+def mesh_graph_compare(label: str, model, smi: str, *, noise=None, timed: int = 0,
+                       profile: bool = True, recount: bool = True,
+                       device: str = "cuda") -> dict:
+    """``[graphs mesh <label>]``: the runtime's graph (``MeshRuntime.sweep``,
+    one replay a sweep) against its eager sweep (``_eager_sweeps``) from
+    the runtime's present state, seeds and noise: 2 sweeps at
+    ``GRAPH_HYPERS[0]`` and one at ``GRAPH_HYPERS[1]`` each way, z and every
+    table bitwise, and (``recount``) the counts a recount of z.  Then, where
+    asked, ``timed`` captured sweeps in one call, host calls and graph
+    launches a sweep (``profile``: a profiled call of 1 and one of 5; an
+    eager sweep's), one eager sweep's ``psum`` time (CUDA events), nodes,
+    set-up, peak memory.  The eager comparison's state is
+    thrown away: the runtime goes on from the captured one."""
+    import torch
+
+    from ldagibbssampling_tpu_torch.parallel.runtime import TABLES
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    # the real tokens a sweep resamples (every chain's)
+    tokens = sum(int(model._tokens[p][2].sum()) for p in model.positions)
+    start = {n: dict(getattr(model, n)) for n in TABLES}
+    gen, idx, hyper = model.generator.get_state(), model.sweep_idx, (model.alpha, model.beta)
+
+    def three(run):
+        out = 0.0
+        for (a, b), n in zip(GRAPH_HYPERS, (2, 1)):
+            model.alpha, model.beta = a, b
+            _sync(device)
+            t0 = time.perf_counter()
+            run(n, noise=noise)
+            _sync(device)
+            out += time.perf_counter() - t0
+        return out
+    eager_s = three(model._eager_sweeps)
+    want = {n: dict(getattr(model, n)) for n in TABLES}
+    for n in TABLES:
+        setattr(model, n, dict(start[n]))
+    model.generator.set_state(gen)
+    model.sweep_idx = idx
+    first_call = model.graph is None or model.graph.graph is None
+    captured_s = three(model.sweep)
+    for n in TABLES:
+        for p in model.positions:
+            if not torch.equal(getattr(model, n)[p], want[n][p]):
+                raise AssertionError(f"[graphs mesh {label}] captured {n} differs "
+                                     f"from eager at position {p}")
+    if recount:
+        model.check_counts_consistent()
+    model.alpha, model.beta = hyper
+    graph = model.graph
+    out = dict(tokens=tokens, positions=len(model.positions), tier=model.kernel_tier,
+               noise=model.noise_mode, eager_ms_per_sweep=eager_s / 3 * 1e3,
+               eager_tokens_per_s=3 * tokens / eager_s,
+               captured_ms_per_sweep_comparison=captured_s / 3 * 1e3,
+               nodes=graph.nodes, graph_launches=graph.launches,
+               setup_s=graph.setup_s, capture_s=graph.capture_s,
+               per_replay={n: c for (_, n), c in graph.per_replay.items()})
+    if graph.launches != 1:
+        raise AssertionError(f"[graphs mesh {label}] {graph.launches} graph launches "
+                             "a sweep in one process")
+    if timed:
+        dt = _timed(lambda: model.sweep(timed, noise=noise)) if on_card else None
+        out.update(captured_ms_per_sweep=dt / timed * 1e3 if dt else None,
+                   captured_tokens_per_s=timed * tokens / dt if dt else None)
+    if profile and on_card:
+        one = launch_profile(lambda: model.sweep(1, noise=noise))
+        five = launch_profile(lambda: model.sweep(5, noise=noise))
+        out["captured_per_sweep"] = _per_sweep(one, five)
+        out["eager_per_sweep"] = launch_profile(lambda: model._eager_sweeps(1, noise))
+        if out["captured_per_sweep"]["graph_launches"] != 1:
+            raise AssertionError(f"[graphs mesh {label}] "
+                                 f"{out['captured_per_sweep']} per sweep")
+    times, restore = _psum_timer()
+    try:
+        model._eager_sweeps(1, noise)
+    finally:
+        restore()
+    out["eager_psum_ms_per_sweep"] = sum(times)
+    out["eager_psum_calls_per_sweep"] = len(times)
+    if on_card:
+        out.update(peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    out["phase_s"] = time.perf_counter() - t_phase
+    hc = out.get("captured_per_sweep", {})
+    he = out.get("eager_per_sweep", {})
+    log(f"[graphs mesh {label}] {out['positions']} positions, {model.kernel_tier}, "
+        f"{model.noise_mode} noise, {tokens:,} tokens a sweep: captured against eager "
+        f"bitwise (z, ndk, nwk, nk at every position) across an alpha/beta change "
+        f"{GRAPH_HYPERS[0]} -> {GRAPH_HYPERS[1]}"
+        f"{'; counts exact' if recount else ''}; eager "
+        f"{out['eager_ms_per_sweep']:.2f} ms a sweep ({out['eager_tokens_per_s']:,.0f} "
+        f"tokens/s), captured {out['captured_ms_per_sweep_comparison']:.2f} ms in the "
+        f"comparison{' (its first call captures)' if first_call and on_card else ''}"
+        + (f", {out['captured_ms_per_sweep']:.2f} ms ({out['captured_tokens_per_s']:,.0f} "
+           f"tokens/s) over {timed} sweeps in one call" if out.get("captured_ms_per_sweep")
+           else "")
+        + (f"; host calls a sweep eager {he['host_calls']:,} -> captured "
+           f"{hc['host_calls']:g} ({hc['graph_launches']:g} graph launch)" if hc else "")
+        + f"; graph nodes {graph.nodes:,}, per replay {out['per_replay']}; "
+        f"set-up {graph.setup_s if graph.setup_s is not None else float('nan'):.4f}s "
+        f"(capture and instantiation "
+        f"{graph.capture_s if graph.capture_s is not None else float('nan'):.4f}s"
+        f"{'' if first_call else ', before this phase'}); eager psum "
+        f"{out['eager_psum_ms_per_sweep']:.3f} ms a sweep ({len(times)} calls, CUDA "
+        f"events; captured: inside the graph, not timed apart)"
+        + (f"; peak device memory {out['peak_allocated_gb']:.3f} GB allocated, "
+           f"{out['peak_reserved_gb']:.3f} GB reserved" if on_card else "")
+        + f" ({out['phase_s']:.1f}s); {smi}")
+    return out
+
+
+def mesh_phase(seed: int, smi: str = "", device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 12: the parallel runtimes (``parallel/``) on the card, each a
+    graph replayed per sweep (``MeshRuntime.sweep``).
 
     Rung 3 through ``ladder.rung3`` at scale 0.2 on every position (one
-    here); the same corpus as four shards on the one card; the 2x2 grid,
+    here); the same corpus as four shards on one card; the 2x2 grid,
     four-way token sharding and the 2x2 chains x data mesh at rung 3's 0.02;
     every run in the deferred tier with exact counts and its launches
-    counted; a four-shard checkpoint restored bitwise; the CLI with
+    counted (the graph's warm-up sweep once per runtime); a four-shard
+    checkpoint restored bitwise; each runtime's graph against its eager
+    sweep (``[graphs mesh ...]``: the four shards at 0.2, AD-LDA on four
+    positions at 0.02 in the deferred, fused and XLA tiers and the other
+    three runtimes, in internal and external noise); the CLI with
     ``--mesh data=-1`` killed and resumed byte-identical.  Returns the
-    results and each path's launches by kernel."""
+    results (``graphs`` the comparisons) and each path's launches by
+    kernel."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -3399,35 +3582,38 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
     from ldagibbssampling_tpu_torch.parallel.tokenshard import TokenShardedLda
 
     walk = sample_name(torch.bfloat16, "float32")
-    out, by_path = {}, {}
+    out, by_path, graphs = {}, {}, {}
     pos0 = multihost.local_devices(device)[0]
     n_dev = len(multihost.local_devices(device))
+    t0 = time.perf_counter()
+    built = ladder.rung3_corpus(MESH_SCALE, floor=pos0.type == "cuda")
+    corpus_s = time.perf_counter() - t0
     zero_counters()
     t0 = time.perf_counter()
     with plan_timer() as plans:
-        r3 = ladder.rung3(MESH_SCALE, sweeps=MESH_SWEEPS, device=device)
-    r3["plan_s"] = sum(plans)
+        r3 = ladder.rung3(MESH_SCALE, sweeps=MESH_SWEEPS, device=device, corpus=built)
+    r3["plan_s"], r3["corpus_s"] = sum(plans), corpus_s
     wall = time.perf_counter() - t0
-    runs = MESH_SWEEPS + 2
-    by_path["mesh rung3"] = _mesh_launches("rung3", {
+    runs = MESH_SWEEPS + 2 + 1  # the ladder's two warm-up calls, the graph's warm-up
+    by_path["mesh rung3"] = _launches_match("rung3", {
         walk: runs * r3["shards"], "rebuild_counts": runs * r3["shards"],
-        "cast_mirror": runs})
+        "cast_mirror": runs}, device)
     if r3["kernel_tier"] != "deferred" or (pos0.type == "cuda"
                                            and r3["tokens"] < (1 << 24)):
         raise AssertionError(f"[mesh rung3] {r3}")
     out["rung3"] = r3
     log(f"[mesh rung3] scale {MESH_SCALE}: {r3['corpus']}, K 100, "
         f"{r3['tokens']} training tokens (>= 2^24), {r3['shards']} shard(s) on "
-        f"{n_dev} device(s), tier {r3['kernel_tier']}: {r3['tokens_per_s']:,.0f} "
-        f"tokens/s over {MESH_SWEEPS} sweeps; set-up: corpus {r3['corpus_s']:.1f}s, "
-        f"sharding + layout + state {r3['setup_s']:.2f}s (plan_s {r3['plan_s']:.3f}, "
-        f"{len(plans)} plan(s)), two warm-up sweeps "
-        f"{r3['warmup_s']:.2f}s; check_counts_consistent passed; held-out "
+        f"{n_dev} device(s), tier {r3['kernel_tier']}, one graph replay a sweep: "
+        f"{r3['tokens_per_s']:,.0f} tokens/s over {MESH_SWEEPS} sweeps; set-up: corpus "
+        f"{r3['corpus_s']:.1f}s, sharding + layout + state {r3['setup_s']:.2f}s (plan_s "
+        f"{r3['plan_s']:.3f}, {len(plans)} plan(s)), two warm-up calls (the first "
+        f"captures) {r3['warmup_s']:.2f}s; check_counts_consistent passed; held-out "
         f"perplexity {r3['held_out_ppl']:.1f}; launches {by_path['mesh rung3']} "
         f"({wall:.1f}s)")
 
     # the same corpus as four shards on one card, in turn
-    corpus, _, _, _ = ladder.rung3_corpus(MESH_SCALE, floor=pos0.type == "cuda")
+    corpus = built[0]
     cfg = LdaConfig(topic_num=100, seed=seed, block_size=65_536)
     mesh4 = multihost.make_mesh({"data": 4}, [pos0] * 4)
     t0 = time.perf_counter()
@@ -3435,7 +3621,7 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
         four = ShardedLda(cfg, corpus, mesh=mesh4, device=device)
     block_on_backend(four)
     setup_s, plan_s = time.perf_counter() - t0, sum(plans)
-    four.sweep(1)
+    four.sweep(1)  # captures
     block_on_backend(four)
     if pos0.type == "cuda":
         torch.cuda.set_sync_debug_mode("error")  # a sweep makes no host sync
@@ -3446,31 +3632,29 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
             torch.cuda.set_sync_debug_mode("default")
     block_on_backend(four)
     zero_counters()
-    times, restore = _psum_timer()
-    try:
-        t0 = time.perf_counter()
-        four.sweep(MESH_FOUR_SWEEPS)
-        block_on_backend(four)
-        dt = time.perf_counter() - t0
-    finally:
-        restore()
-    by_path["mesh four shards"] = _mesh_launches("four shards", {
+    t0 = time.perf_counter()
+    four.sweep(MESH_FOUR_SWEEPS)
+    block_on_backend(four)
+    dt = time.perf_counter() - t0
+    by_path["mesh four shards"] = _launches_match("four shards", {
         walk: 4 * MESH_FOUR_SWEEPS, "rebuild_counts": 4 * MESH_FOUR_SWEEPS,
-        "cast_mirror": MESH_FOUR_SWEEPS})
+        "cast_mirror": MESH_FOUR_SWEEPS}, device)
     four.check_counts_consistent()
-    psum_ms = sum(times) / MESH_FOUR_SWEEPS
     tok_s = MESH_FOUR_SWEEPS * corpus.num_tokens / dt
     out["four_shards"] = dict(tokens=corpus.num_tokens, tokens_per_s=tok_s,
                               ms_per_sweep=dt / MESH_FOUR_SWEEPS * 1e3,
-                              psum_ms_per_sweep=psum_ms, setup_s=setup_s,
-                              plan_s=plan_s, kernel_tier=four.kernel_tier)
+                              setup_s=setup_s, plan_s=plan_s,
+                              kernel_tier=four.kernel_tier)
     log(f"[mesh four shards] the rung-3 corpus as 4 shards on {pos0} "
         f"({four.kernel_tier}): {tok_s:,.0f} tokens/s ({dt / MESH_FOUR_SWEEPS * 1e3:.2f}"
-        f" ms per sweep), psum {psum_ms:.3f} ms per sweep (CUDA events, "
-        f"{len(times) // MESH_FOUR_SWEEPS} call(s) per sweep); set-up "
+        f" ms per sweep, one graph replay each); set-up "
         f"{setup_s:.2f}s (plan_s {plan_s:.3f}, {len(plans)} plans); counts exact; "
-        f"no host sync in a sweep; launches "
-        f"{by_path['mesh four shards']}")
+        f"no host sync in a sweep; launches {by_path['mesh four shards']}")
+    # the host calls a sweep are those of the runtime at 0.02 (below)
+    graphs["four shards"] = mesh_graph_compare(
+        "four shards", four, smi, timed=MESH_FOUR_SWEEPS, profile=False,
+        device=device)
+    out["four_shards"]["psum_ms_per_sweep"] = graphs["four shards"]["eager_psum_ms_per_sweep"]
 
     # the four shards saved, run 3 sweeps on; restored, run the same 3
     with tempfile.TemporaryDirectory() as tmp:
@@ -3489,67 +3673,95 @@ def mesh_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
         log(f"[mesh checkpoint] four shards saved at sweep {step} and run to "
             f"{step + 3}, restored and run to {step + 3}: z and every table "
             f"bitwise equal ({time.perf_counter() - t0:.1f}s)")
-    del four, b, corpus
+    del four, b, corpus, built
     if pos0.type == "cuda":
         torch.cuda.empty_cache()
 
     small, _, _, _ = ladder.rung3_corpus(MESH_SMALL_SCALE)
+
+    def on(axes):
+        return multihost.make_mesh(axes, [pos0] * 4)
     for label, build, per_sweep in (
-            ("grid 2x2", lambda: GridLda(cfg, small, mesh=multihost.make_mesh(
-                {"data": 2, "vocab": 2}, [pos0] * 4), device=device), 2),
-            ("token=4", lambda: TokenShardedLda(cfg, small, mesh=multihost.make_mesh(
-                {"data": 4}, [pos0] * 4), device=device), 1),
-            ("chain=2,data=2", lambda: ShardedChainSet(
-                cfg, small, num_chains=2, mesh=multihost.make_mesh(
-                    {"chain": 2, "data": 2}, [pos0] * 4), device=device), 2)):
-        model = build()
-        if model.kernel_tier != "deferred":
+            ("adlda deferred", lambda mode: ShardedLda(
+                cfg, small, mesh=on({"data": 4}), device=device, noise_mode=mode), 1),
+            ("adlda fused", lambda mode: ShardedLda(
+                dataclasses.replace(cfg, use_pallas="fused"), small,
+                mesh=on({"data": 4}), device=device, noise_mode=mode), None),
+            ("adlda xla", lambda mode: ShardedLda(
+                dataclasses.replace(cfg, use_pallas=False), small,
+                mesh=on({"data": 4}), device=device, noise_mode=mode), None),
+            ("grid 2x2", lambda mode: GridLda(
+                cfg, small, mesh=on({"data": 2, "vocab": 2}), device=device,
+                noise_mode=mode), 2),
+            ("token=4", lambda mode: TokenShardedLda(
+                cfg, small, mesh=on({"data": 4}), device=device, noise_mode=mode), 1),
+            ("chain=2,data=2", lambda mode: ShardedChainSet(
+                cfg, small, num_chains=2, mesh=on({"chain": 2, "data": 2}),
+                device=device, noise_mode=mode), 2)):
+        model = build("internal")
+        tier = label.split()[1] if label.startswith("adlda") else "deferred"
+        if model.kernel_tier != tier:
             raise AssertionError(f"[mesh {label}] tier {model.kernel_tier}")
         zero_counters()
+        model.sweep(1)  # captures
+        block_on_backend(model)
         t0 = time.perf_counter()
         model.sweep(MESH_SMALL_SWEEPS)
         block_on_backend(model)
         dt = time.perf_counter() - t0
-        by_path[f"mesh {label}"] = _mesh_launches(label, {
-            walk: 4 * MESH_SMALL_SWEEPS, "rebuild_counts": 4 * MESH_SMALL_SWEEPS,
-            "cast_mirror": per_sweep * MESH_SMALL_SWEEPS})
+        runs = MESH_SMALL_SWEEPS + 2  # the capturing call and its warm-up sweep
+        want = ({walk: 4 * runs, "rebuild_counts": 4 * runs,
+                 "cast_mirror": per_sweep * runs} if per_sweep else
+                {n: c * runs for (_, n), c in model.graph.per_replay.items()})
+        by_path[f"mesh {label}"] = _launches_match(label, want, device)
         model.check_counts_consistent()
-        t1 = time.perf_counter()
-        alpha, beta = model.optimize_hyperparameters()
-        minka_s = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        if label.startswith("chain"):  # every chain's LL, recorded
-            model.record(ll=True)
-            ll = float(model.ll_trace[-1][0] * small.num_tokens)
-        else:
-            ll = model.device_log_likelihood()
-        ll_s = time.perf_counter() - t1
-        if label.startswith("chain"):  # once against the host formula
-            from ldagibbssampling_tpu_torch.evaluation.metrics import log_likelihood
-
-            a = model.arrays()
-            host = log_likelihood(model.chain_phi(0, a), model.chain_theta(0, a), small)
-            if _rel(ll, host) > 1e-9 or _rel(model.device_log_likelihood(), host) > 1e-9:
-                raise AssertionError(f"[mesh {label}] device LL {ll} vs host {host}")
-        if not (np.isfinite(ll) and np.isfinite(alpha) and np.isfinite(beta)):
-            raise AssertionError(f"[mesh {label}] LL {ll}, alpha {alpha}, beta {beta}")
         chains = getattr(model, "num_chains", 1)
         tok_s = MESH_SMALL_SWEEPS * chains * small.num_tokens / dt
-        out[label] = dict(tokens=small.num_tokens, tokens_per_s=tok_s, ll=ll,
-                          ll_s=ll_s, alpha=alpha, beta=beta, minka_s=minka_s)
-        log(f"[mesh {label}] scale {MESH_SMALL_SCALE} ({small.num_tokens} tokens, "
-            f"V {small.vocab_size}, K 100) on 4 positions of {pos0}, deferred: "
-            f"{tok_s:,.0f} tokens/s over {MESH_SMALL_SWEEPS} sweeps "
-            f"(chain-sweeps for the chains); counts exact"
-            f"{' per chain' if label.startswith('chain') else ''}; Minka alpha "
-            f"{alpha:.4f} beta {beta:.5f} ({minka_s * 1e3:.1f} ms); LL {ll:.1f} "
-            f"({ll_s * 1e3:.1f} ms, device"
-            f"{', both chains recorded, within 1e-9 of the host' if label.startswith('chain') else ''}); "
-            f"launches {by_path[f'mesh {label}']}")
+        out[label] = dict(tokens=small.num_tokens, tokens_per_s=tok_s,
+                          kernel_tier=model.kernel_tier)
+        if not label.startswith("adlda"):  # one Minka update and one LL
+            t1 = time.perf_counter()
+            alpha, beta = model.optimize_hyperparameters()
+            minka_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            if label.startswith("chain"):  # every chain's LL, recorded
+                model.record(ll=True)
+                ll = float(model.ll_trace[-1][0] * small.num_tokens)
+            else:
+                ll = model.device_log_likelihood()
+            ll_s = time.perf_counter() - t1
+            if label.startswith("chain"):  # once against the host formula
+                from ldagibbssampling_tpu_torch.evaluation.metrics import log_likelihood
+
+                a = model.arrays()
+                host = log_likelihood(model.chain_phi(0, a), model.chain_theta(0, a),
+                                      small)
+                if _rel(ll, host) > 1e-9 or _rel(model.device_log_likelihood(),
+                                                 host) > 1e-9:
+                    raise AssertionError(f"[mesh {label}] device LL {ll} vs host {host}")
+            if not (np.isfinite(ll) and np.isfinite(alpha) and np.isfinite(beta)):
+                raise AssertionError(f"[mesh {label}] LL {ll}, alpha {alpha}, beta {beta}")
+            out[label].update(ll=ll, ll_s=ll_s, alpha=alpha, beta=beta, minka_s=minka_s)
+            log(f"[mesh {label}] scale {MESH_SMALL_SCALE} ({small.num_tokens} tokens, "
+                f"V {small.vocab_size}, K 100) on 4 positions of {pos0}, deferred, one "
+                f"graph replay a sweep: {tok_s:,.0f} tokens/s over {MESH_SMALL_SWEEPS} "
+                f"sweeps (chain-sweeps for the chains) after the call that captures; counts "
+                f"exact{' per chain' if label.startswith('chain') else ''}; Minka alpha "
+                f"{alpha:.4f} beta {beta:.5f} ({minka_s * 1e3:.1f} ms); LL {ll:.1f} "
+                f"({ll_s * 1e3:.1f} ms, device"
+                f"{', both chains recorded, within 1e-9 of the host' if label.startswith('chain') else ''}); "
+                f"launches {by_path[f'mesh {label}']}")
+        graphs[label] = mesh_graph_compare(label, model, smi, timed=MESH_GRAPH_TIMED,
+                                           device=device)
+        del model
+        model = build("external")
+        graphs[f"{label} external"] = mesh_graph_compare(
+            f"{label} external", model, smi, noise=mesh_noise(model, seed, device),
+            profile=False, device=device)
         del model
         if pos0.type == "cuda":
             torch.cuda.empty_cache()
-
+    out["graphs"] = graphs
     mesh_resume_phase(["--device", device])
     return out, by_path
 
@@ -3642,10 +3854,11 @@ def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
     itself (NCCL refuses two ranks on one card), then the port's topology
     through ``initialize_distributed``, which finds the group up and leaves
     it to this function; trains each run of :func:`mesh2_runs` for
-    ``sweeps`` sweeps on its one position, with its launches counted and
-    ``psum`` timed, its counts checked and its gathered state held bitwise
-    against the one-process run's digests; prints one ``[mesh2 worker]``
-    JSON line."""
+    ``sweeps`` sweeps on its one position (one call that captures, then
+    ``sweeps - 1`` timed with the ``all_reduce`` between the graphs timed),
+    with its launches counted, its counts checked and its gathered state
+    held bitwise against the one-process run's digests; prints one
+    ``[mesh2 worker]`` JSON line."""
     import torch
     import torch.distributed as dist
 
@@ -3680,19 +3893,21 @@ def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
                 raise AssertionError(f"[mesh2 worker {rank}] {label}: tier "
                                      f"{model.kernel_tier}, positions {model.positions}")
             zero_counters()
-            times, restore = _psum_timer()
+            model.sweep(1)  # captures the graphs (the warm-up sweep, one replay)
+            block_on_backend(model)
+            times, restore = _reduce_timer()
             try:
                 t1 = time.perf_counter()
-                model.sweep(n_sweeps)
+                model.sweep(n_sweeps - 1)
                 block_on_backend(model)
                 dt = time.perf_counter() - t1
             finally:
                 restore()
             # this process's one shard: per sweep one walk, one rebuild and
-            # the snapshot of its table
+            # the snapshot of its table; once more in the graph's warm-up
             launches = _launches_match(f"two processes {label}", {
-                walk: n_sweeps, "rebuild_counts": n_sweeps, "cast_mirror": n_sweeps},
-                device)
+                walk: n_sweeps + 1, "rebuild_counts": n_sweeps + 1,
+                "cast_mirror": n_sweeps + 1}, device)
             model.check_counts_consistent()
             got = state_digests(model.arrays())
             differ = [n for n in got if got[n] != want[label][n]]
@@ -3701,8 +3916,10 @@ def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
                                      "from the one-process run")
             out["runs"][label] = dict(
                 tokens=tokens, sweep_s=dt, setup_s=setup_s, plan_s=sum(plans),
-                psum_ms_per_sweep=sum(times) / n_sweeps,
-                psum_calls_per_sweep=len(times) / n_sweeps, launches=launches)
+                all_reduce_ms_per_sweep=sum(times) / (n_sweeps - 1),
+                all_reduce_calls_per_sweep=len(times) / (n_sweeps - 1),
+                graph_launches_per_sweep=model.graph.launches,
+                graph_setup_s=model.graph.setup_s, launches=launches)
             del model
         print("[mesh2 worker] " + json.dumps(out), flush=True)
     finally:
@@ -3775,21 +3992,26 @@ def mesh_two_process_phase(seed: int, smi: str, device: str = "cuda",
         sweep_s = max(r["sweep_s"] for r in runs)
         launches = {n: sum(r["launches"][n] for r in runs) for n in runs[0]["launches"]}
         by_path[f"mesh two processes {label}"] = launches
+        timed = sweeps - 1
         out[label] = dict(
-            tokens=run["tokens"], tokens_per_s=sweeps * run["tokens"] / sweep_s,
-            ms_per_sweep=sweep_s / sweeps * 1e3,
-            psum_ms_per_sweep=[r["psum_ms_per_sweep"] for r in runs],
-            psum_calls_per_sweep=run["psum_calls_per_sweep"],
+            tokens=run["tokens"], tokens_per_s=timed * run["tokens"] / sweep_s,
+            ms_per_sweep=sweep_s / timed * 1e3,
+            all_reduce_ms_per_sweep=[r["all_reduce_ms_per_sweep"] for r in runs],
+            all_reduce_calls_per_sweep=run["all_reduce_calls_per_sweep"],
+            graph_launches_per_sweep=run["graph_launches_per_sweep"],
+            graph_setup_s=[r["graph_setup_s"] for r in runs],
             setup_s=[r["setup_s"] for r in runs],
             plan_s=[r["plan_s"] for r in runs], one_process_s=ref_s[label],
             launches=launches)
         log(f"[mesh two processes] {label}: {run['tokens']} tokens, 2 processes "
-            f"(gloo) x 1 position on {pos0}, deferred, {sweeps} sweeps: "
-            f"{out[label]['tokens_per_s']:,.0f} tokens/s ({sweep_s / sweeps * 1e3:.2f} ms "
-            f"per sweep, the slower process); psum "
-            f"{', '.join(f'{x:.3f}' for x in out[label]['psum_ms_per_sweep'])} ms per "
-            f"sweep (CUDA events, processes 0 and 1, {run['psum_calls_per_sweep']:g} "
-            f"call(s) per sweep); set-up "
+            f"(gloo) x 1 position on {pos0}, deferred, {sweeps} sweeps (the first "
+            f"captures; {timed} timed): {out[label]['tokens_per_s']:,.0f} tokens/s "
+            f"({sweep_s / timed * 1e3:.2f} ms per sweep, the slower process); "
+            f"{run['graph_launches_per_sweep']} graph launches a sweep with "
+            f"{run['all_reduce_calls_per_sweep']:g} all_reduce(s) between them: "
+            f"{', '.join(f'{x:.3f}' for x in out[label]['all_reduce_ms_per_sweep'])} "
+            f"ms per sweep (CUDA events, processes 0 and 1); graph set-up "
+            f"{', '.join(f'{x or 0:.3f}' for x in out[label]['graph_setup_s'])} s; set-up "
             f"{', '.join(f'{x:.2f}' for x in out[label]['setup_s'])} s (plan_s "
             f"{', '.join(f'{x:.3f}' for x in out[label]['plan_s'])} s); counts exact; z "
             f"and every table bitwise the one-process run's (2 positions on {pos0}, "
@@ -3927,12 +4149,27 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
     if on_card:
         torch.cuda.empty_cache()
 
-    # 3. the ladder's rung 3 on the same corpus
+    # 3. the ladder's rung 3 on the same corpus (its runtime kept for the
+    # comparison of its graph with its eager sweep)
+    from ldagibbssampling_tpu_torch.parallel import adlda
+
+    made, plain_cls = [], adlda.ShardedLda
+
+    class Kept(plain_cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
     zero_counters()
-    with plan_timer() as plans:
-        r3 = ladder.rung3(scale, sweeps=sweeps, device=device, corpus=built)
+    adlda.ShardedLda = Kept
+    try:
+        with plan_timer() as plans:
+            r3 = ladder.rung3(scale, sweeps=sweeps, device=device, corpus=built)
+    finally:
+        adlda.ShardedLda = plain_cls
     r3["plan_s"] = sum(plans)
-    shards, runs = r3["shards"], 2 + sweeps  # the ladder's two warm-up sweeps
+    # the ladder's two warm-up calls and the graph's warm-up sweep
+    shards, runs = r3["shards"], 2 + sweeps + 1
     r3["launches"] = _launches_match("rung3 full ladder", {
         sample_name(torch.bfloat16, "float32"): runs * shards,
         "rebuild_counts": runs * shards, "cast_mirror": runs}, device)
@@ -3948,6 +4185,10 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
         f"counts consistent; held-out perplexity {r3['held_out_ppl']:.1f}; "
         f"launches {r3['launches']}; host peak RSS {out['host_peak_rss_gb']:.2f} GB; "
         f"nvidia-smi: {smi}")
+    # the ladder recounted this runtime's tables (its counts_consistent)
+    out["graph"] = mesh_graph_compare("rung3 full", made[0], smi, profile=False,
+                                      recount=False, device=device)
+    del made
     return out, {"rung3 full": launches, "rung3 full ladder": r3["launches"]}
 
 
@@ -4308,7 +4549,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ladder = ladder_phase(tmp)                          # 11.
     wall("ladder")
-    mesh, mesh_launches = mesh_phase(args.seed)             # 12.
+    mesh, mesh_launches = mesh_phase(args.seed, smi)        # 12.
     wall("mesh")
     mesh2, mesh2_launches = mesh_two_process_phase(args.seed, smi)  # 12b.
     mesh_launches.update(mesh2_launches)

@@ -45,7 +45,9 @@ CUDA graph per sweep (``xla_sweep_graph``, ``draw_sweep_graph``,
 ``run.graphs``); on the CPU the same sweep body runs eagerly.
 ``gibbs_sweep``, ``gibbs_sweep_chains``, ``fused_gibbs_sweep`` and
 ``_deferred_sweep_impl`` (``deferred_local_counts``) are the eager sweeps,
-which the mesh runtimes and the tests run.
+which the tests (and the mesh runtimes' eager reference) run; the mesh
+runtimes' graphs (``parallel/runtime.py``) replay the in-place bodies
+``_xla_sweep_``, ``_fused_sweep_`` and ``_deferred_walk_``.
 
 Noise modes: ``internal`` (each sweep draws one seed from the caller's
 ``torch.Generator``: the kernels key Philox4x32-10 with it, the XLA draws
@@ -210,6 +212,27 @@ def _deferred_sweep_impl(state: SamplerState, token_word, token_doc,
                         sweep=state.sweep + 1, seed=state.seed), mirror_out
 
 
+def _deferred_walk_(z, ndk, nk, mirror, token_word, token_doc, token_mask, *,
+                    out: tuple[torch.Tensor, torch.Tensor], scalars: torch.Tensor,
+                    key: Optional[torch.Tensor], row_tile: int, noise_mode: str,
+                    noise: Optional[torch.Tensor], compute_dtype: str) -> None:
+    """A token stream's deferred sweep in place, without the snapshot:
+    K1's walk against ``mirror`` (α, β, V·β from ``scalars`` and the seed
+    from ``key``, device values) moves ``ndk [M, K]`` and ``nk [K]`` (its
+    running normaliser) in place and writes the new ``z``; then K2 rebuilds
+    the stream's own counts from ``z`` into ``out``, K2's padded ``(nwk
+    [v_pad, k_pad], nk [k_pad])``.  The body of ``_deferred_sweep_`` and of
+    the mesh runtimes' deferred sweep (``parallel/runtime.py``), which adds
+    the streams' tables up itself."""
+    z_new = gibbs_tiles(mirror, ndk, nk, z, token_word, token_doc, token_mask,
+                        scalars=scalars, key=key, row_tile=row_tile,
+                        noise_mode=noise_mode, uniforms=noise,
+                        compute_dtype=compute_dtype)
+    z.copy_(z_new)
+    v_pad, k_pad = out[0].shape
+    rebuild_counts(z, token_word, token_mask, v_pad=v_pad, k_pad=k_pad, out=out)
+
+
 def _deferred_sweep_(z, ndk, nwk, nk, mirror, token_word, token_doc,
                      token_mask, *, scalars: torch.Tensor,
                      key: Optional[torch.Tensor], row_tile: int,
@@ -224,15 +247,10 @@ def _deferred_sweep_(z, ndk, nwk, nk, mirror, token_word, token_doc,
     and ``nk[:K]`` as its running normaliser; K2 rebuilds ``nwk`` and ``nk``
     from the new ``z`` (its ``nk`` is the table's column sum exactly, so the
     eager sweep's sum past 2^24 tokens gives the same integers)."""
-    k = ndk.shape[1]
-    v_pad, k_pad = nwk.shape
-    z_new = gibbs_tiles(mirror, ndk, nk[:k], z, token_word, token_doc,
-                        token_mask, scalars=scalars, key=key, row_tile=row_tile,
-                        noise_mode=noise_mode, uniforms=noise,
-                        compute_dtype=compute_dtype)
-    z.copy_(z_new)
-    rebuild_counts(z, token_word, token_mask, v_pad=v_pad, k_pad=k_pad,
-                   out=(nwk, nk))
+    _deferred_walk_(z, ndk, nk[:ndk.shape[1]], mirror, token_word, token_doc,
+                    token_mask, out=(nwk, nk), scalars=scalars, key=key,
+                    row_tile=row_tile, noise_mode=noise_mode, noise=noise,
+                    compute_dtype=compute_dtype)
     if mirror_dtype == "bfloat16":
         cast_mirror(nwk, out=mirror)
     else:

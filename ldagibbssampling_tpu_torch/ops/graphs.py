@@ -47,6 +47,12 @@ after it, once), ``capture_s``, the capture and instantiation alone, and
 ``nodes``, the captured graph's node count (the device operations of one
 replay).
 
+A sweep may also be a list of steps, each on a device or on the host
+(the mesh runtimes' sweep, ``parallel/runtime.py``): the steps between two
+host steps are one graph, the host steps (a collective across processes,
+a copy between devices) run between the replays; each device holds its
+own ``params``, and a sweep takes one device seed per position.
+
 :class:`StepGraph` is the same contract for a body that is not one sweep of
 Gibbs tables: ``n`` steps of it in a row as one replay (a graph per distinct
 ``n``), its state copied in unless it is what the last call handed out,
@@ -60,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import time
 from typing import Callable, Optional, Sequence
@@ -168,6 +175,16 @@ Body = Callable[[Sequence[torch.Tensor], torch.Tensor, Optional[torch.Tensor],
                  Sequence[torch.Generator], Optional[torch.Tensor]], None]
 
 
+@dataclasses.dataclass
+class _Segment:
+    """Consecutive steps of a sweep: on ``device`` (captured as one graph),
+    or on the host (``device`` None: run between the replays)."""
+
+    device: Optional[torch.device]
+    fns: list
+    generators: list  # the indices of the generators its steps draw from
+
+
 class SweepGraph:
     """One sweep of ``body`` over static buffers shaped like ``tables``:
     captured as a CUDA graph at the first call on the card and replayed
@@ -175,68 +192,134 @@ class SweepGraph:
 
     ``body(buffers, scalars, key, generators, noise)`` runs one sweep in
     place on ``buffers``: ``scalars`` is the float32 ``[4]`` view of α, β,
-    V·β and K·α, ``key`` the sweep's int64 ``[1]`` seed (``device_seeds``;
-    else ``None``), ``generators`` ``num_generators`` generators on the
-    device, reseeded per sweep (``internal`` noise), and ``noise`` the
-    sweep's noise array (``external`` noise; else ``None``).  A body that
-    draws nothing (CVB0's) takes ``noise_mode="deterministic"``: no seeds,
-    no noise.  Everything it reads besides these must outlive the graph.  ``padded[i]``, where given,
-    is table ``i``'s buffer shape: the buffer is that zeroed tensor, the
-    table its leading corner (``buffer[:V, :K]``), and ``body`` gets the
-    whole buffer.
+    V·β and K·α, ``key`` the sweep's int64 ``[device_seeds]`` seeds (else
+    ``None``), ``generators`` ``num_generators`` generators on the device,
+    reseeded per sweep (``internal`` noise), and ``noise`` the sweep's
+    noise array (``external`` noise; else ``None``).  A body that draws
+    nothing (CVB0's) takes ``noise_mode="deterministic"``: no seeds, no
+    noise.  Everything it reads besides these must outlive the graph.
+    ``padded[i]``, where given, is table ``i``'s buffer shape: the buffer is
+    that zeroed tensor, the table its leading corner (``buffer[:V, :K]``),
+    and ``body`` gets the whole buffer.
+
+    ``body`` may instead be a list of steps ``(device, fn, gens)`` (the mesh
+    runtimes' sweep, ``parallel/runtime.py``): ``fn`` takes the arguments of
+    ``body``, with the ``scalars`` and ``key`` of its device (each device
+    holds its own ``params``), and draws from the generators at the indices
+    ``gens``; a step whose ``device`` is ``None`` is ``fn(buffers)`` on the
+    host (a collective across processes, a copy between devices).  Consecutive
+    steps on one device are captured as one graph, in one memory pool per
+    device; a sweep replays the graphs in order with the host steps between
+    them (``launches`` graph launches a sweep).  Then ``generator_devices``
+    places the generators and ``noise_devices`` the noise buffers: a call's
+    ``noise(i)`` gives one array per noise buffer.
     """
 
-    def __init__(self, body: Body, tables: Sequence[torch.Tensor], *,
+    def __init__(self, body: Body | Sequence[tuple], tables: Sequence[torch.Tensor], *,
                  vocab_size: int, num_topics: int, noise_mode: str,
-                 num_generators: int = 0, device_seeds: bool = False,
-                 padded: Optional[Sequence[Optional[tuple]]] = None) -> None:
-        self.body = body
+                 num_generators: int = 0, device_seeds: int = 0,
+                 padded: Optional[Sequence[Optional[tuple]]] = None,
+                 generator_devices: Optional[Sequence[torch.device]] = None,
+                 noise_devices: Optional[Sequence[torch.device]] = None) -> None:
         self.device = tables[0].device
         self.vocab_size, self.num_topics = vocab_size, num_topics
         self.noise_mode = noise_mode
         padded = padded or (None,) * len(tables)
         self.buffers = [torch.empty_like(t, memory_format=torch.contiguous_format)
                         if p is None else
-                        torch.zeros(p, dtype=t.dtype, device=self.device)
+                        torch.zeros(p, dtype=t.dtype, device=t.device)
                         for t, p in zip(tables, padded)]
         # each table's corner of its buffer (the whole buffer where unpadded)
         self._corners = [None if p is None else tuple(slice(0, n) for n in t.shape)
                          for t, p in zip(tables, padded)]
-        self.device_seeds = device_seeds and noise_mode == "internal"
-        self.params = torch.zeros(2 + (1 + SEED_CHUNK if self.device_seeds else 0),
-                                  dtype=torch.int64, device=self.device)
-        self.scalars = self.params[:2].view(torch.float32)
-        self.generators = ([torch.Generator(device=self.device)
-                            for _ in range(num_generators)]
+        # device seeds a sweep (True: one)
+        self.device_seeds = int(device_seeds) if noise_mode == "internal" else 0
+        gen_devs = (list(generator_devices) if generator_devices is not None
+                    else [self.device] * num_generators)
+        self.generators = ([torch.Generator(device=d) for d in gen_devs]
                            if noise_mode == "internal" else [])
-        self.noise: Optional[torch.Tensor] = None  # allocated at the first call
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        steps = ([(self.device, body, list(range(len(self.generators))))]
+                 if callable(body) else list(body))
+        self.devices = list(dict.fromkeys(
+            [self.device] + [d for d, _, _ in steps if d is not None]))
+        self._params = {d: torch.zeros(
+            2 + (1 + SEED_CHUNK * self.device_seeds if self.device_seeds else 0),
+            dtype=torch.int64, device=d) for d in self.devices}
+        self.params = self._params[self.device]
+        self.scalars = self.params[:2].view(torch.float32)
+        self._keys = {d: torch.zeros((1, self.device_seeds), dtype=torch.int64,
+                                     device=d) for d in self.devices}
+        self._segments = self._split(steps)
+        self._noise_devices = noise_devices
+        self.noise = None  # allocated at the first call
+        self.graph: Optional[torch.cuda.CUDAGraph] = None  # the first graph
+        self.graphs: list = []  # per segment: its graph, None for the host's
         self.per_replay: dict = {}   # kernel launches of one replay
         self.setup_s = self.capture_s = None
-        self.nodes = 0  # the graph's nodes: the card's operations a replay
+        self.nodes = 0  # the graphs' nodes: the card's operations a replay
+        self.launches = sum(s.device is not None for s in self._segments)
         self.replays = 0
         # the tensors the last call returned and their versions: the same
         # memory (a view of it too), unmodified, is what the buffers hold
         self._last: Optional[tuple] = None
 
     # ------------------------------------------------------------------
+    def _split(self, steps) -> list[_Segment]:
+        """The steps as segments; a device's seed cursor moves on just
+        before its first step of the sweep."""
+        out: list[_Segment] = []
+        for dev, fn, gens in steps:
+            fns = [fn]
+            if dev is not None and self.device_seeds and not any(
+                    s.device == dev for s in out):
+                fns.insert(0, lambda *args, dev=dev: self._next_key(dev))
+            if out and out[-1].device == dev:
+                out[-1].fns += fns
+                out[-1].generators += list(gens)
+            else:
+                out.append(_Segment(dev, fns, list(gens)))
+        return out
+
+    def _next_key(self, dev: torch.device) -> None:
+        """The sweep's seeds at the device's cursor, into its key buffer."""
+        params = self._params[dev]
+        cursor = params[2:3]
+        torch.index_select(params[3:].view(-1, self.device_seeds), 0, cursor,
+                           out=self._keys[dev])
+        cursor.add_(1)
+
+    def _run(self, seg: _Segment) -> None:
+        if seg.device is None:
+            for fn in seg.fns:
+                fn(self.buffers)
+            return
+        key = self._keys[seg.device].view(-1) if self.device_seeds else None
+        scalars = self._params[seg.device][:2].view(torch.float32)
+        for fn in seg.fns:
+            fn(self.buffers, scalars, key, self.generators, self.noise)
+
     def _sweep(self) -> None:
-        key = None
-        if self.device_seeds:
-            cursor = self.params[2:3]
-            key = torch.index_select(self.params[3:], 0, cursor)
-            cursor.add_(1)
-        self.body(self.buffers, self.scalars, key, self.generators, self.noise)
+        for seg in self._segments:
+            self._run(seg)
 
     def _write_params(self, alpha: float, beta: float,
                       seeds: Sequence[int] = ()) -> None:
+        """α, β, V·β, K·α and, with device seeds, a zero cursor and the
+        sweeps' seeds (``device_seeds`` a sweep, in a row), to every
+        device's params."""
         words = sweep_scalars(alpha, beta, self.vocab_size,
                               self.num_topics).view(np.int64)
         if self.device_seeds:
             words = np.concatenate([words, np.array(
                 [0, *(seed_word(s) for s in seeds)], np.int64)])
-        self.params[:words.shape[0]].copy_(staged(words, self.device),
-                                           non_blocking=True)
+        for d, params in self._params.items():
+            params[:words.shape[0]].copy_(staged(words, d), non_blocking=True)
+
+    def _device_words(self, seeds, c0: int, c1: int) -> list:
+        """Sweeps ``c0`` to ``c1``'s device seeds, in a row."""
+        if not self.device_seeds:
+            return []
+        return [x for s in seeds[c0:c1] for x in s[:self.device_seeds]]
 
     def _copy_in(self, tables: Sequence[torch.Tensor]) -> None:
         if not _holds(self._last, tables):  # else the buffers hold this state
@@ -251,18 +334,57 @@ class SweepGraph:
         """The host's part of sweep ``i``: its generators' seeds, its noise."""
         for g, s in zip(self.generators, seeds[i] if self.generators else ()):
             g.manual_seed(int(s))
-        if noise is not None:
-            u = noise(i)
+        if noise is None:
+            return
+        u = noise(i)
+        if self._noise_devices is None:
             if self.noise is None:
                 self.noise = torch.empty(u.shape, dtype=u.dtype, device=self.device)
             self.noise.copy_(u, non_blocking=True)
+            return
+        if self.noise is None:
+            self.noise = [torch.empty(x.shape, dtype=x.dtype, device=d)
+                          for x, d in zip(u, self._noise_devices)]
+        for buf, x in zip(self.noise, u):
+            buf.copy_(x, non_blocking=True)
 
     def _capture(self) -> None:
-        """A warm-up sweep, then one sweep captured into the graph's private
-        memory pool and instantiated (``capture_graph``)."""
-        self.graph, self.nodes, self.per_replay, self.capture_s = capture_graph(
-            self._sweep, self.device, warm_up=self._sweep,
-            generators=self.generators)
+        """A warm-up sweep, then each device segment captured into its
+        device's memory pool and instantiated (``capture_graph``)."""
+        graphs, per_replay, nodes, capture_s = [], {}, 0, 0.0
+        pools = {d: torch.cuda.graph_pool_handle() for d in self.devices
+                 if sum(s.device == d for s in self._segments) > 1}
+        for seg in self._segments:
+            if seg.device is None:
+                graphs.append(None)
+                continue
+            with torch.cuda.device(seg.device):
+                graph, n, per, secs = capture_graph(
+                    lambda seg=seg: self._run(seg), seg.device,
+                    warm_up=None if graphs else self._sweep,
+                    generators=[self.generators[i] for i in seg.generators],
+                    pool=pools.get(seg.device))
+            graphs.append(graph)
+            nodes += n
+            capture_s += secs
+            for k, c in per.items():
+                per_replay[k] = per_replay.get(k, 0) + c
+        self.graphs, self.graph = graphs, next(g for g in graphs if g is not None)
+        self.nodes, self.per_replay, self.capture_s = nodes, per_replay, capture_s
+
+    def _replay(self) -> None:
+        for seg, graph in zip(self._segments, self.graphs):
+            if graph is None:
+                self._run(seg)
+            elif seg.device == self.device:
+                graph.replay()
+            else:
+                with torch.cuda.device(seg.device):
+                    graph.replay()
+
+    def _synchronize(self) -> None:
+        for d in self.devices:
+            torch.cuda.synchronize(d)
 
     def __call__(self, tables: Sequence[torch.Tensor], alpha: float, beta: float,
                  n: int, seeds: Optional[Sequence[Sequence[int]]] = None,
@@ -270,7 +392,7 @@ class SweepGraph:
                  ) -> tuple[torch.Tensor, ...]:
         """``n`` (> 0) sweeps from ``tables`` at ``alpha`` and ``beta``;
         returns the new tables (new tensors).  ``seeds[i]`` are sweep
-        ``i``'s seeds (one per generator, or the device seed first);
+        ``i``'s seeds (one per generator, or the device seeds first);
         ``noise(i)`` its noise array (``external``)."""
         if n <= 0:
             raise ValueError(f"{n} sweeps: a call runs at least one")
@@ -282,25 +404,23 @@ class SweepGraph:
         loaded = False  # sweep 0's noise already in its buffer
         with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
             if on_card and self.graph is None:
-                torch.cuda.synchronize(self.device)
+                self._synchronize()
                 t0 = time.perf_counter()
                 self._copy_in(tables)
-                self._write_params(alpha, beta, [s[0] for s in seeds[:1]]
-                                   if self.device_seeds else ())
+                self._write_params(alpha, beta, self._device_words(seeds, 0, 1))
                 self._sweep_inputs(0, seeds, noise)
                 self._capture()
-                torch.cuda.synchronize(self.device)
+                self._synchronize()
                 self.setup_s = time.perf_counter() - t0
                 self._last, loaded = None, True
             self._copy_in(tables)
             for c0 in range(0, n, SEED_CHUNK if self.device_seeds else n):
                 c1 = min(n, c0 + SEED_CHUNK) if self.device_seeds else n
-                self._write_params(alpha, beta, [s[0] for s in seeds[c0:c1]]
-                                   if self.device_seeds else ())
+                self._write_params(alpha, beta, self._device_words(seeds, c0, c1))
                 for i in range(c0, c1):
                     self._sweep_inputs(i, seeds, None if i == 0 and loaded else noise)
                     if on_card:
-                        self.graph.replay()
+                        self._replay()
                     else:
                         self._sweep()
             if on_card:

@@ -17,6 +17,10 @@ as the reference's ``local_sweeps`` bodies do:
   ``rebuild_counts`` of its local table, ``nwk = psum(local tables)`` and
   ``nk`` its column sum.
 
+A sweep is one replay of the runtime's graph (``runtime._build_graph``;
+the rules above are ``_reconcile_rules``); ``_eager_sweep_once`` is the
+same sweep op by op, the tests' reference.
+
 The tier is resolved as the reference's constructor resolves it
 (``:474-506``), without its platform rule: on the card each tier launches
 its CUDA kernels, on ``device="cpu"`` their plain versions, and nothing
@@ -228,7 +232,15 @@ class ShardedLda(MeshRuntime):
         self._tokens = {p: (tw[p], td[p], tm[p]) for p in self.positions}
         self._dl = self._put(shards.doc_lengths, (self.axis,))
 
-    def _sweep_once(self, seeds: dict, noise: dict) -> None:
+    def _reconcile_rules(self) -> list[tuple[str, str, tuple]]:
+        a = (self.axis,)
+        if self.kernel_tier == "deferred":
+            return [("nwk", "set", a), ("nk", "colsum", ())]
+        if self.kernel_tier == "fused":
+            return [("nwk", "add", a), ("nk", "colsum", ())]
+        return [("nwk", "add", a), ("nk", "add", a)]
+
+    def _eager_sweep_once(self, seeds: dict, noise: dict) -> None:
         tier = self.kernel_tier
         new = self._local_sweeps(seeds, noise)
         if tier == "deferred":

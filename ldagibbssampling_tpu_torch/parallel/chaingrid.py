@@ -10,6 +10,10 @@ never across chains (``:150-250``):
 - deferred tier: ``nwk = psum(local tables, 'data')``, ``nk`` its column
   sum.
 
+A sweep of every chain is one replay of the runtime's graph
+(``runtime._build_graph``; the rules above are ``_reconcile_rules``);
+``_eager_sweep_once`` is the same sweep op by op, the tests' reference.
+
 The chain runtime has no fused tier (``fused`` runs the deferred tier) and
 no v1-draw tier (``use_pallas=True`` runs XLA), as the reference's
 (``:74-108``).  The convergence diagnostics (split-R̂ on the chains' LL
@@ -122,7 +126,12 @@ class ShardedChainSet(MeshRuntime):
         self.phi_window = None
         self.phi_accum = None
 
-    def _sweep_once(self, seeds: dict, noise: dict) -> None:
+    def _reconcile_rules(self) -> list[tuple[str, str, tuple]]:
+        if self.kernel_tier == "deferred":
+            return [("nwk", "set", ("data",)), ("nk", "colsum", ())]
+        return [("nwk", "add", ("data",)), ("nk", "add", ("data",))]
+
+    def _eager_sweep_once(self, seeds: dict, noise: dict) -> None:
         tier = self.kernel_tier
         new = self._local_sweeps(seeds, noise)
         psum = multihost.psum

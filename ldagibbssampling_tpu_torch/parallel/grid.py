@@ -16,6 +16,10 @@ vocabulary size.  Reconciliation, as the reference's bodies (``:418-460``,
   ``'vocab'`` of the reconciled slabs' column sums;
 - deferred tier: ``nwk = psum(local slab tables, 'data')``, ``ndk +=
   psum(Δndk, 'vocab')``, ``nk = psum(column sums, 'vocab')``.
+
+A sweep is one replay of the runtime's graph (``runtime._build_graph``;
+the rules above are ``_reconcile_rules``); ``_eager_sweep_once`` is the
+same sweep op by op, the tests' reference.
 """
 
 from __future__ import annotations
@@ -313,10 +317,19 @@ class GridLda(MeshRuntime):
         self._tokens = {p: (tw[p], td[p], tm[p]) for p in self.positions}
         self._dl = self._put(shards.doc_lengths, ("data",))
 
-    def _sweep_once(self, seeds: dict, noise: dict) -> None:
-        tier = self.kernel_tier
+    def _reconcile_rules(self) -> list[tuple[str, str, tuple]]:
+        nwk = "set" if self.kernel_tier == "deferred" else "add"
+        nk = (("nk", "add", ("data", "vocab")) if self.kernel_tier == "xla"
+              else ("nk", "colsum", ("vocab",)))
+        return [("nwk", nwk, ("data",)), ("ndk", "add", ("vocab",)), nk]
+
+    def _global_vocab(self) -> Optional[int]:
         # V·β with the global vocabulary size, not the slab's height
-        new = self._local_sweeps(seeds, noise, vocab_size=self.shards.vocab_size)
+        return self.shards.vocab_size
+
+    def _eager_sweep_once(self, seeds: dict, noise: dict) -> None:
+        tier = self.kernel_tier
+        new = self._local_sweeps(seeds, noise)
         psum, mesh = multihost.psum, self.mesh
         if tier == "deferred":
             z = {p: new[p][0] for p in new}

@@ -22,8 +22,12 @@ Counterpart of ``ldagibbssampling_tpu/parallel/multihost.py`` and of
 - :func:`psum` sums the shards' tensors over a named axis, in shard order,
   and is the only collective the runtimes call.  With several processes
   each holds only its own positions' shards, and ``psum`` adds one
-  ``all_reduce(SUM)`` over the processes that span the group.  Each such
-  process group is made once per process (``_groups``, in the same order in
+  ``all_reduce(SUM)`` over the processes that span the group.  It is made
+  of two halves, which the runtimes' captured sweeps run apart:
+  :func:`local_sum`, this process's positions of a group added on one
+  device (capturable), and :func:`reduce_across`, the ``all_reduce``
+  (between the graph replays).  Each process group that a group spanning
+  several processes needs is made once per process (``_groups``, in the same order in
   every process, as ``new_group`` is collective) and looked up afterwards.
 """
 
@@ -252,30 +256,85 @@ def _groups(mesh: Mesh, axes: tuple[str, ...]) -> list[list[int]]:
     return groups
 
 
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """One ``psum`` group with a position in this process: ``local`` its
+    positions that this process holds, in shard order, and ``procs`` the
+    processes that hold any of its positions."""
+
+    positions: tuple[int, ...]
+    local: tuple[int, ...]
+    procs: tuple[int, ...]
+
+    @property
+    def spans(self) -> bool:
+        """Whether the group's sum needs an ``all_reduce`` across processes."""
+        return len(self.procs) > 1
+
+
+def local_groups(mesh: Mesh, axis) -> list[Group]:
+    """The groups of ``axis`` (a name or a tuple of names) that hold a
+    position of this process, ordered by their first position; makes each
+    spanning group's process group the first time it is seen
+    (``_groups``)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    rank, out = world()[0], []
+    for g in _groups(mesh, axes):
+        local = tuple(p for p in g if mesh.ranks[p] == rank)
+        if local:
+            out.append(Group(tuple(g), local,
+                             tuple(sorted({mesh.ranks[p] for p in g}))))
+    return out
+
+
+def local_sum(parts: Sequence[torch.Tensor],
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``psum``'s first half: ``parts`` (one device, in shard order) added
+    left to right, into ``out`` where it is given (one add per part after
+    the second; a copy for one part), else into a new tensor (the one part
+    itself, uncopied).  It reads no value on the host, so a CUDA graph can
+    capture it."""
+    if out is None:
+        total = parts[0]
+        for t in parts[1:]:
+            total = total + t
+        return total
+    if len(parts) == 1:
+        return out.copy_(parts[0])
+    torch.add(parts[0], parts[1], out=out)
+    for t in parts[2:]:
+        out.add_(t)
+    return out
+
+
+def reduce_across(total: torch.Tensor, group: Group) -> None:
+    """``psum``'s second half: ``all_reduce(SUM)`` of ``total`` in place
+    over the processes that span ``group`` (nothing for a group that one
+    process holds).  The runtimes' graphs run it between their replays."""
+    if not group.spans:
+        return
+    pg = None if len(group.procs) == world()[1] else _GROUPS[group.procs]
+    _dist().all_reduce(total, group=pg)
+
+
 def psum(parts: Mapping[int, torch.Tensor], mesh: Mesh, axis) -> dict[int, torch.Tensor]:
     """Sum ``parts`` (this process's positions -> tensor) over ``axis`` (a
     name or a tuple of names): each position gets the sum over its group,
     added in shard order on the device of the group's first local position
-    and placed on the position's device.  Positions of a group on one device
-    share the result tensor: callers never write into it.  A group that
-    spans several processes adds one ``all_reduce(SUM)`` over them."""
-    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    (:func:`local_sum`) and placed on the position's device.  Positions of
+    a group on one device share the result tensor: callers never write
+    into it.  A group that spans several processes adds one
+    ``all_reduce(SUM)`` over them (:func:`reduce_across`)."""
     out: dict[int, torch.Tensor] = {}
-    for group in _groups(mesh, axes):
-        local = [p for p in group if p in parts]
-        if not local:
-            continue
-        total = parts[local[0]]
-        for p in local[1:]:
-            total = total + parts[p].to(total.device)
-        procs = tuple(sorted({mesh.ranks[p] for p in group}))
-        if len(procs) > 1:
-            if len(local) == 1:
+    for group in local_groups(mesh, axis):
+        dev0 = parts[group.local[0]].device
+        total = local_sum([parts[p].to(dev0) for p in group.local])
+        if group.spans:
+            if len(group.local) == 1:
                 total = total.clone()  # all_reduce writes in place
-            group = None if len(procs) == world()[1] else _GROUPS[procs]
-            _dist().all_reduce(total, group=group)
+            reduce_across(total, group)
         placed: dict[torch.device, torch.Tensor] = {}
-        for p in local:
+        for p in group.local:
             dev = mesh.devices[p]
             if dev not in placed:
                 placed[dev] = total if total.device == dev else total.to(dev)

@@ -15,7 +15,10 @@ bodies do:
   ``nk`` the column sum.
 
 The runtime has no fused tier: ``fused`` runs the XLA tier, and a deferred
-layout that cannot be made runs the XLA tier too (``:234-266``).
+layout that cannot be made runs the XLA tier too (``:234-266``).  A sweep
+is one replay of the runtime's graph (``runtime._build_graph``; the rules
+above are ``_reconcile_rules``); ``_eager_sweep_once`` is the same sweep op
+by op, the tests' reference.
 """
 
 from __future__ import annotations
@@ -137,7 +140,13 @@ class TokenShardedLda(MeshRuntime):
         self._tokens = {p: (tws[p], tds[p], tms[p]) for p in self.positions}
         self._dl = self._put(self.doc_lengths, ())
 
-    def _sweep_once(self, seeds: dict, noise: dict) -> None:
+    def _reconcile_rules(self) -> list[tuple[str, str, tuple]]:
+        a = (self.axis,)
+        if self.kernel_tier == "deferred":
+            return [("ndk", "add", a), ("nwk", "set", a), ("nk", "colsum", ())]
+        return [("ndk", "add", a), ("nwk", "add", a), ("nk", "add", a)]
+
+    def _eager_sweep_once(self, seeds: dict, noise: dict) -> None:
         tier = self.kernel_tier
         new = self._local_sweeps(seeds, noise)
         psum = multihost.psum

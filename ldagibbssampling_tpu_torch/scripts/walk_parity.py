@@ -12,8 +12,14 @@ order other, this, this, other, each importing the package of its own
 checkout: every K1 instantiation (the six deferred (chain, snapshot)
 settings and the live int32 table) in the three noise modes from the same
 state, and the time of the whole walk (draw and count move per tile,
-internal noise) per block.  Every run's ``z``, ``ndk`` and ``nk`` must hash
-the same as every other's.  Prints one JSON line; exits 1 on a difference.
+internal noise) per block.  Then the same block at K = 100 (``chip_smoke``'s
+``K_GENERAL``: row tile 2,048, the two-barrier walk that the mesh
+runtimes' deferred tier runs; its state from ``init_state`` at K = 100):
+the f32 chain on the bf16 snapshot in the three noise modes, and its time.
+``--rounds`` repeats the four runs (other, this, this, other) that many
+times, for the spread of each side's times.  Every run's ``z``, ``ndk`` and
+``nk`` must hash the same as every other's.  Prints one JSON line; exits 1
+on a difference.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ SETTINGS = (
     ("gibbs_tile_sample_bf16p_f32rows", "bf16p", "float32"),
     ("gibbs_tile_sample_live", "float32", "int32"),
 )
+# the K = 100 block: the two-barrier walk (row tile 2,048)
+K_GENERAL = 100
 REPS = 20
 
 
@@ -67,7 +75,18 @@ def make_inputs(path: Path, seed: int) -> None:
     nwk_pad = F.pad(st.nwk, (0, k_pad - K, 0, plan.v_pad - V)).contiguous()
     g = torch.Generator(device="cuda").manual_seed(seed)
     blk = slice(0, BLOCK)
+    st100 = init_state(plan.token_word, plan.token_doc, plan.token_mask,
+                       num_docs=M, vocab_size=V, num_topics=K_GENERAL, seed=seed,
+                       device="cuda")
+    k100_pad = -(-K_GENERAL // 128) * 128
+    nwk100 = F.pad(st100.nwk, (0, k100_pad - K_GENERAL, 0, plan.v_pad - V)).contiguous()
     torch.save({
+        "k100_bfloat16": ck.cast_mirror_plain(nwk100).cpu(),
+        "k100_ndk": st100.ndk.cpu(), "k100_nk": st100.nk.cpu(),
+        "k100_z": st100.z[blk].cpu(),
+        "k100_uniforms": (torch.rand((BLOCK, k100_pad), generator=g, device="cuda")
+                          * (1 - 2e-7) + 1e-7).cpu(),
+        "k100_row_tile": _pick_row_tile(BLOCK, K_GENERAL),
         "bfloat16": ck.cast_mirror_plain(nwk_pad).cpu(),
         "float32": nwk_pad.float().cpu(), "int32": st.nwk.cpu(),
         "ndk": st.ndk.cpu(), "nk": st.nk.cpu(), "z": st.z[blk].cpu(),
@@ -98,7 +117,6 @@ def run_side(root: Path, inputs: Path, out: Path) -> None:
            for k, v in torch.load(inputs).items()}
     toks = (inp["w"], inp["d"], inp["m"])
     res = {"package": str(pkg), "hashes": {}, "walk_ms": {}, "moved": {}}
-    ndk, nk = inp["ndk"].clone(), inp["nk"].clone()
     # a K1 that reads its scalars and seed from the device takes them as
     # tensors made once; an earlier checkout's takes them by value
     if "scalars" in inspect.signature(fk.gibbs_tiles).parameters:
@@ -110,29 +128,36 @@ def run_side(root: Path, inputs: Path, out: Path) -> None:
         scalars = device_values(sweep_scalars(ALPHA, BETA, V, K), "cuda")
         keys = {s: device_values(np.array([seed_word(s)], np.int64), "cuda")
                 for s in (1234, 7)}
+        scalars100 = device_values(sweep_scalars(ALPHA, BETA, V, K_GENERAL), "cuda")
 
-        def values(seed):
-            return dict(scalars=scalars, key=keys[seed])
+        def values(seed, pre=""):
+            return dict(scalars=scalars100 if pre else scalars, key=keys[seed])
     else:
-        def values(seed):
+        def values(seed, pre=""):
             return dict(alpha=ALPHA, beta=BETA, vbeta=inp["vbeta"], seed=seed)
 
-    def walk(chain, rows, mode, seed):
-        ndk.copy_(inp["ndk"])
-        nk.copy_(inp["nk"])
-        return fk.gibbs_tiles(inp[rows], ndk, nk, inp["z"], *toks, noise_mode=mode,
-                              uniforms=inp["uniforms"], compute_dtype=chain,
-                              row_tile=inp["row_tile"], **values(seed))
+    for name, chain, rows, pre in (*((*x, "") for x in SETTINGS),
+                                   ("gibbs_tile_sample_k100", "float32", "bfloat16",
+                                    "k100_")):
+        ndk, nk = inp[pre + "ndk"].clone(), inp[pre + "nk"].clone()
 
-    for name, chain, rows in SETTINGS:
+        def walk(mode, seed, chain=chain, rows=rows, pre=pre, ndk=ndk, nk=nk):
+            ndk.copy_(inp[pre + "ndk"])
+            nk.copy_(inp[pre + "nk"])
+            return fk.gibbs_tiles(
+                inp[pre + rows], ndk, nk, inp[pre + "z"], *toks, noise_mode=mode,
+                uniforms=inp[pre + "uniforms"], compute_dtype=chain,
+                row_tile=inp[pre + "row_tile"], **values(seed, pre))
+
         for mode in MODES:
-            z = walk(chain, rows, mode, 1234)
+            z = walk(mode, 1234)
             torch.cuda.synchronize()
             res["hashes"][f"{name}/{mode}"] = [_digest(x) for x in (z, ndk, nk)]
-            res["moved"][f"{name}/{mode}"] = int(((z != inp["z"]) & (inp["m"] > 0)).sum())
+            res["moved"][f"{name}/{mode}"] = int(
+                ((z != inp[pre + "z"]) & (inp["m"] > 0)).sum())
         times = []
-        for fn in (lambda: walk(chain, rows, "internal", 7),
-                   lambda: (ndk.copy_(inp["ndk"]), nk.copy_(inp["nk"]))):
+        for fn in (lambda: walk("internal", 7),
+                   lambda: (ndk.copy_(inp[pre + "ndk"]), nk.copy_(inp[pre + "nk"]))):
             fn()
             torch.cuda.synchronize()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -150,6 +175,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, help="root of the other checkout")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times to run other, this, this, other")
     ap.add_argument("--side", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
@@ -173,7 +200,7 @@ def main() -> int:
         inputs = Path(tmp) / "inputs.pt"
         make_inputs(inputs, args.seed)
         runs = []
-        for i, side in enumerate(("other", "this", "this", "other")):
+        for i, side in enumerate(("other", "this", "this", "other") * args.rounds):
             out = Path(tmp) / f"{i}_{side}.json"
             subprocess.run([sys.executable, str(HERE), "--side", str(sides[side]),
                             "--inputs", str(inputs), "--out", str(out)],
@@ -182,12 +209,16 @@ def main() -> int:
     ref = runs[0][1]["hashes"]
     differ = sorted({key for _, r in runs for key, h in r["hashes"].items()
                      if h != ref[key]})
-    walk_ms = {side: {name: sum(r["walk_ms"][name] for s, r in runs if s == side) / 2
-                      for name, _, _ in SETTINGS} for side in sides}
+    names = list(runs[0][1]["walk_ms"])
+    walk_ms = {side: {name: [r["walk_ms"][name] for s, r in runs if s == side]
+                      for name in names} for side in sides}
     print(json.dumps({
         "device": smi, "equal": not differ, "differ": differ,
         "cases": len(ref), "moved": runs[1][1]["moved"],
-        "walk_ms_per_block": walk_ms,
+        "walk_ms_per_block": {side: {n: sum(x) / len(x) for n, x in by.items()}
+                              for side, by in walk_ms.items()},
+        "walk_ms_spread": {side: {n: [min(x), max(x)] for n, x in by.items()}
+                           for side, by in walk_ms.items()},
         "walk_ms_by_run": [(s, r["walk_ms"]) for s, r in runs],
         "packages": [r["package"] for _, r in runs]}), flush=True)
     return 1 if differ else 0

@@ -1407,3 +1407,152 @@ def test_refused_cvb0_capture_raises_and_runs_no_sweep_eagerly(cuda, monkeypatch
     torch.cuda.synchronize()
     assert model.sweeps_done == 0
     assert all(torch.equal(a, b) for a, b in zip(model._tables(), keep))
+
+
+# --- the mesh runtimes' sweep in one dispatch (parallel/runtime.py on
+# ops/graphs.SweepGraph): four positions on the one card, captured against
+# the eager sweep (_eager_sweeps), bitwise
+
+
+def _mesh_model(device, kind, tier, mode="internal", seed=5):
+    from ldagibbssampling_tpu_torch.parallel import multihost
+    from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda
+    from ldagibbssampling_tpu_torch.parallel.chaingrid import ShardedChainSet
+    from ldagibbssampling_tpu_torch.parallel.grid import GridLda
+    from ldagibbssampling_tpu_torch.parallel.tokenshard import TokenShardedLda
+
+    axes = {"adlda": {"data": 4}, "grid": {"data": 2, "vocab": 2},
+            "token": {"data": 4}, "chain": {"chain": 2, "data": 2}}[kind]
+    cls = {"adlda": ShardedLda, "grid": GridLda, "token": TokenShardedLda,
+           "chain": ShardedChainSet}[kind]
+    rng = np.random.default_rng(seed)
+    fc = FlatCorpus.from_ragged(
+        [list((rng.zipf(1.3, size=int(rng.integers(40, 240))) - 1) % V)
+         for _ in range(120)], vocab_size=V)
+    cfg = LdaConfig(topic_num=K, block_size=512, seed=seed, use_pallas=tier)
+    model = cls(cfg, fc, mesh=multihost.make_mesh(axes, [device] * 4),
+                device=device, noise_mode=mode)
+    assert model.kernel_tier == (tier or "xla")
+    return model
+
+
+def _mesh_noise(device, model):
+    def noise(p, sweep):
+        g = torch.Generator(device=device).manual_seed(1000 * p + sweep)
+        t = model._tokens[p][0].shape[0]
+        if model.kernel_tier == "xla":
+            u = torch.rand((t, K), generator=g, device=device) * 0.999 + 5e-4
+            return -torch.log(-torch.log(u))
+        return torch.rand((t, 128), generator=g, device=device) * 0.999 + 5e-4
+    return noise
+
+
+@pytest.mark.parametrize("mode", ["internal", "external"])
+@pytest.mark.parametrize("kind,tier", [("adlda", "deferred"), ("adlda", "fused"),
+                                       ("adlda", False), ("grid", "deferred"),
+                                       ("token", "deferred"), ("chain", "deferred")])
+def test_captured_mesh_sweeps_equal_eager_on_card(cuda, kind, tier, mode):
+    """Each runtime's graph (one replay a sweep) against its eager sweep
+    from the same state, seeds and noise, α and β changed between calls:
+    z and every table bitwise; the counts a recount of z."""
+    a, b = _mesh_model(cuda, kind, tier, mode), _mesh_model(cuda, kind, tier, mode)
+    kw = dict(noise=_mesh_noise(cuda, a)) if mode == "external" else {}
+    for (alpha, beta), n in (((0.5, 0.1), 2), ((0.013, 0.71), 1), ((0.5, 0.1), 3)):
+        a.alpha = b.alpha = alpha
+        a.beta = b.beta = beta
+        a.sweep(n, **kw)
+        b._eager_sweeps(n, **kw)
+        torch.cuda.synchronize()
+        for name in ("z", "ndk", "nwk", "nk"):
+            for p in a.positions:
+                assert torch.equal(getattr(a, name)[p], getattr(b, name)[p]), (name, p)
+    assert a.graph.graph is not None and a.graph.replays == 6
+    assert a.graph.launches == 1
+    a.check_counts_consistent()
+
+
+@pytest.mark.parametrize("kind", ["adlda", "grid", "token", "chain"])
+def test_captured_mesh_sweep_is_one_graph_launch_without_host_sync(cuda, kind):
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _mesh_model(cuda, kind, "deferred")
+    model.sweep(1)  # captures
+    torch.cuda.synchronize()
+    for _ in range(3):  # a run where the profiler saw nothing on the card is retried
+        torch.cuda.set_sync_debug_mode("error")  # no host read inside the sweeps
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model.sweep(3)
+                torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
+            break
+    names = [e.name for e in prof.events()]
+    assert sum(n.startswith("cudaGraphLaunch") for n in names) == 3
+    assert not [n for n in names if n.startswith(("cudaLaunchCooperativeKernel",
+                                                  "cudaLaunchKernel"))]
+    model.check_counts_consistent()
+
+
+@pytest.mark.parametrize("kind,tier", [("adlda", "deferred"), ("adlda", "fused"),
+                                       ("chain", "deferred")])
+def test_captured_mesh_counts_its_kernels_per_replay(cuda, kind, tier):
+    """The capture's counts are each replay's: the warm-up sweep's launches,
+    then the per-replay counts times the sweeps."""
+    model = _mesh_model(cuda, kind, tier)
+    name = fk.sample_name(torch.bfloat16 if tier == "deferred" else torch.int32)
+    def counters():
+        return {**fk.LAUNCHES, **ck.LAUNCHES}
+
+    before = counters()
+    model.sweep(2)
+    torch.cuda.synchronize()
+    per = {n: c for (_, n), c in model.graph.per_replay.items()}
+    if tier == "deferred":
+        tables = 2 if kind == "chain" else 1  # distinct nwk: one per chain
+        assert per == {name: 4, "rebuild_counts": 4, "cast_mirror": tables}
+    else:
+        blocks = sum(t[0].shape[0] // model.block_size for t in model._tokens.values())
+        assert per == {name: blocks, "count_move": blocks}
+    after = counters()
+    assert {n: after[n] - before[n] for n in per} == {n: 3 * c for n, c in per.items()}
+    model.sweep(2)
+    again = counters()
+    assert {n: again[n] - after[n] for n in per} == {n: 2 * c for n, c in per.items()}
+    assert model.graph.nodes >= sum(per.values()) and model.graph.setup_s > 0
+
+
+def test_refused_mesh_capture_raises_and_runs_no_sweep_eagerly(cuda, monkeypatch):
+    """A capture that refuses K1's cooperative launch fails the runtime's
+    sweep, and every later one: the state and the sweep count stay, and no
+    eager sweep runs instead (the walks launched are the warm-up sweeps')."""
+    build, lib = fk._lib()
+
+    class Refusing:
+        def __getattr__(self, attr):
+            return getattr(lib, attr)
+
+        def lda_gibbs_tiles(self, *args):
+            if torch.cuda.is_current_stream_capturing():
+                return 82  # cudaErrorCooperativeLaunchTooLarge
+            return lib.lda_gibbs_tiles(*args)
+
+    monkeypatch.setattr(fk, "_lib", lambda: (build, Refusing()))
+    model = _mesh_model(cuda, "adlda", "deferred")
+    keep = {n: {p: t.clone() for p, t in getattr(model, n).items()}
+            for n in ("z", "ndk", "nwk", "nk")}
+    gen = model.generator.get_state()
+    name = fk.sample_name(torch.bfloat16)
+    walks = fk.LAUNCHES[name]
+    for calls in (1, 2):
+        with pytest.raises(RuntimeError, match="lda_gibbs_tiles failed: CUDA error 82"):
+            model.sweep(2)
+        assert model.graph.graph is None and model.graph.replays == 0
+        assert fk.LAUNCHES[name] == walks + 4 * calls  # the warm-up sweeps alone
+    torch.cuda.synchronize()
+    assert model.sweeps_done == 0
+    for n, parts in keep.items():
+        for p, t in parts.items():
+            assert torch.equal(getattr(model, n)[p], t), (n, p)
+    assert torch.equal(model.generator.get_state(), gen)  # no seed taken
