@@ -46,10 +46,12 @@ success:
    ``[graphs cvb0]``'s two shapes (rung 5 at 0.2, K = 15, block 8,192; and
    bench.py's, K = 500, block 65,536, where a frequent word's run holds
    thousands of a block's tokens), both tables (``ndk`` by document,
-   ``nwk`` by word), the first and the last (padded) block, against its
-   plain version (the CPU's ``index_add_`` in token order) on copies of the
-   same inputs (bitwise), timed beside ``index_put_(accumulate=True)`` and
-   the atomic ``index_add_`` on the card;
+   ``nwk`` by word), and one word filling a block at K = 500, the first and
+   the last (padded) block, against its plain version (the CPU's
+   ``index_add_`` in token order) on copies of the same inputs (bitwise),
+   timed beside ``index_put_(accumulate=True)`` and the atomic
+   ``index_add_`` on the card, and with ``--scatter-parent DIR`` against
+   the kernel of another checkout in turns (``scripts/scatter_parity.py``);
 4. main paths: ``make_backend`` -> ``LdaModel`` -> ``run_inference`` at
    bench.py's shape (T = 2^20 Zipf(1.1) tokens, V = 50,000, M = 4,096
    documents, K = 500, block 65,536, alpha 0.5, beta 0.1): 10 sweeps each of
@@ -310,6 +312,8 @@ T, V, M, K = 1 << 20, 50_000, 4_096, 500
 K_GENERAL = 100
 BLOCK, ALPHA, BETA, SWEEPS = 65_536, 0.5, 0.1, 10
 HBM_BYTES_PER_S = 3.35e12
+# a float32 add's latency in cycles: the floor of a chain of dependent adds
+SCATTER_ADD_CYCLES = 4
 F32_OPS_PER_S = 67e12
 # packed bf16 outside the tensor cores: twice the float32 rate (133.8
 # TFLOP/s in NVIDIA's H100 architecture whitepaper, SXM part)
@@ -2564,42 +2568,73 @@ def check_resample_kernels(seed: int, device: str = "cuda") -> dict:
     return out
 
 
-def scatter_bound(plan, block: int, k: int) -> tuple[float, str]:
-    """The least time of one block's scatter along ``plan``: the block's
-    rows, its plan entries and the table rows it touches read once, those
-    rows written once; one float32 add per row element."""
-    runs = plan.block_runs[block + 1] - plan.block_runs[block]
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi's ``clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def scatter_bound(plan, block: int, k: int, clock_hz: float) -> tuple[float, str]:
+    """The least time of one block's scatter along ``plan``: the larger of
+    the bytes' time (the block's rows, its plan entries and the table rows
+    it touches read once, those rows written once) and the chain's floor,
+    the longest run's dependent float32 adds at ``SCATTER_ADD_CYCLES`` each
+    at the SM clock ("operations": no order of additions but the plan's
+    keeps the bits)."""
+    r0, r1 = plan.block_runs[block], plan.block_runs[block + 1]
+    runs = r1 - r0
     b = plan.block_size
-    return bound(4 * (b * k + b + 2 * runs + 1 + 2 * runs * k), b * k)
+    t_bytes, _ = bound(4 * (b * k + b + 2 * runs + 1 + 2 * runs * k), 0)
+    longest = int((plan.bounds[r0 + 1:r1 + 1] - plan.bounds[r0:r1]).max())
+    t_chain = longest * SCATTER_ADD_CYCLES / clock_hz * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "operations")
 
 
-def check_cvb0_scatter(seed: int, rung5, wide_corpus, device: str = "cuda") -> dict:
+def check_cvb0_scatter(seed: int, rung5, wide_corpus, device: str = "cuda",
+                       parent: Path | None = None) -> dict:
     """Phase 3f: CVB0's fixed-order scatter (``ops/cvb0_scatter.py``) along
     the plans of ``[graphs cvb0]``'s two shapes, rung 5 at 0.2 (``rung5``,
     K = 15, block 8,192) and bench.py's (Zipf(1.1), K = 500, block 65,536; a frequent
-    word's run holds thousands of a block's tokens): each table (``ndk`` by
-    document, ``nwk`` by word), a random table and block of rows from the
-    seed, the first and the last (padded) block, against the plain version
-    (the CPU's ``index_add_`` in token order) on copies of the same inputs,
-    bitwise.  Each scatter's device time per launch (``torch.profiler``),
+    word's run holds thousands of a block's tokens), each table (``ndk`` by
+    document, ``nwk`` by word), and of one word filling a block of 65,536
+    at K = 500 (then a padded block: the chain's floor): a random table and
+    block of rows from the seed, the first and the last (padded) block,
+    against the plain version (the CPU's ``index_add_`` in token order) on
+    copies of the same inputs, bitwise.  Each scatter's device time per launch (``torch.profiler``),
     events, the plain version's host ms on the copies (the least of five
     calls: the host's clock varies), and the library's
     calls on the card: ``index_put_(accumulate=True)`` (sort-based: a fixed
     order) and the atomic ``index_add_`` (no fixed order), events and
-    device time per call; the bound per block (``scatter_bound``).  The
-    kernels line's ``ms`` is ``nwk``'s at rung 5's shape."""
+    device time per call; the bound per block (``scatter_bound``).  With
+    ``parent`` (the root of another checkout), the two kernels at the same
+    shapes in turns, each in a process of its own, bitwise
+    (``scripts/scatter_parity.compare``).  The kernels line's ``ms`` is
+    ``nwk``'s at rung 5's shape."""
+    import numpy as np
     import torch
 
     from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
 
+    clock = sm_clock_hz()
+    wide = wide_corpus.pad_to(BLOCK)
+    one_word = np.concatenate([np.full(2 * BLOCK - 5_000, 7), np.zeros(5_000, np.int64)])
     shapes, err = {}, 0.0
-    for label, corpus, k, block in (("rung5", rung5, BACKEND_K, 8_192),
-                                    ("bench", wide_corpus, K, BLOCK)):
-        pc = corpus.pad_to(block)
+    for label, k, block, tables in (
+            ("rung5", BACKEND_K, 8_192, ((rung5.pad_to(8_192), "ndk"),
+                                         (rung5.pad_to(8_192), "nwk"))),
+            ("bench", K, BLOCK, ((wide, "ndk"), (wide, "nwk"))),
+            ("one_word", K, BLOCK, ((one_word, "nwk"),))):
         g = torch.Generator(device=device).manual_seed(seed)
         rows = torch.rand((block, k), generator=g, device=device).sub_(0.5)
-        for table_name, ids, n_rows in (("ndk", pc.token_doc, pc.num_docs),
-                                        ("nwk", pc.token_word, pc.vocab_size)):
+        for src, table_name in tables:
+            if isinstance(src, np.ndarray):
+                ids, n_rows = src, int(src.max()) + 1
+            elif table_name == "ndk":
+                ids, n_rows = src.token_doc, src.num_docs
+            else:
+                ids, n_rows = src.token_word, src.vocab_size
             plan = cs.scatter_plan(ids, block, device)
             host_plan = cs.scatter_plan(ids, block, "cpu")
             table = torch.rand((n_rows, k), generator=g, device=device)
@@ -2613,7 +2648,8 @@ def check_cvb0_scatter(seed: int, rung5, wide_corpus, device: str = "cuda") -> d
                     raise AssertionError(f"[kernels] cvb0_scatter {label} {table_name} "
                                          f"block {b}: differs from the plain version")
             runs = plan.block_runs[1] - plan.block_runs[0]
-            longest = int((plan.bounds[1:runs + 1] - plan.bounds[:runs]).max())
+            longest = int((host_plan.bounds[1:runs + 1] - host_plan.bounds[:runs]).max())
+            units = plan.block_units[1] - plan.block_units[0]
             index = plan.index[:block]
             host = (table.cpu(), index.cpu(), rows.cpu())
 
@@ -2630,26 +2666,30 @@ def check_cvb0_scatter(seed: int, rung5, wide_corpus, device: str = "cuda") -> d
                 table.index_add_(0, index, rows)
             plain()
             plain_ms = min(_timed(plain) for _ in range(5)) * 1e3
-            b_ms, b_by = scatter_bound(plan, 0, k)
+            b_ms, b_by = scatter_bound(host_plan, 0, k, clock)
             row = dict(ms=device_ms(fn, "cvb0_scatter"), event_ms=cuda_ms(fn),
                        plain_host_ms=plain_ms,
                        index_put_ms=cuda_ms(put), index_put_device_ms=call_device_ms(put),
                        index_add_ms=cuda_ms(add), index_add_device_ms=call_device_ms(add),
                        bound_ms=b_ms, bound_by=b_by, runs=runs, longest_run=longest,
-                       k=k, block=block, rows=n_rows)
+                       units=units, k=k, block=block, rows=n_rows)
             shapes[f"{label} {table_name}"] = row
             log(f"[kernels] cvb0_scatter {label} {table_name} (K {k}, block {block}, "
-                f"{runs} runs, the longest {longest}): device {row['ms']} ms per "
+                f"{runs} runs, the longest {longest}; {units} units): device "
+                f"{row['ms']} ms per "
                 f"launch, events {row['event_ms']:.4f} ms; plain (CPU index_add_, least of "
                 f"5) {row['plain_host_ms']:.4f} ms; index_put_ accumulate events "
                 f"{row['index_put_ms']:.4f} ms, device {row['index_put_device_ms']}; "
                 f"atomic index_add_ events {row['index_add_ms']:.4f} ms, device "
-                f"{row['index_add_device_ms']}; bound {b_ms:.5f} ms by {b_by}")
+                f"{row['index_add_device_ms']}; bound {b_ms:.5f} ms by {b_by} "
+                f"(SM clock {clock / 1e6:.0f} MHz)")
+            del plan, host_plan, table, host
     torch.cuda.synchronize()
-    log(f"[kernels] cvb0_scatter: both tables at both shapes, the first and the last "
-        f"block, bitwise the plain version on copies of the same inputs")
+    log(f"[kernels] cvb0_scatter: both tables at rung 5's and bench.py's shapes and "
+        f"one word filling a block, the first and the last block, bitwise the plain "
+        f"version on copies of the same inputs")
     main = shapes["rung5 nwk"]
-    return {"cvb0_scatter": dict(
+    res = dict(
         max_abs_err=err, ms=main["ms"], event_ms=main["event_ms"],
         device_ms=main["ms"], plain_ms=main["plain_host_ms"],
         library_ms=main["index_put_ms"], library_device_ms=main["index_put_device_ms"],
@@ -2657,7 +2697,21 @@ def check_cvb0_scatter(seed: int, rung5, wide_corpus, device: str = "cuda") -> d
         unit=(f"one block's nwk scatter at rung 5's 0.2 (K {BACKEND_K}, block 8,192); "
               "plain_ms: the CPU's index_add_ on the host, least of 5; library_ms: "
               "index_put_(accumulate=True) on the card"),
-        scatter_shapes=shapes)}
+        scatter_shapes=shapes)
+    if parent is not None:
+        from ldagibbssampling_tpu_torch.scripts import scatter_parity
+
+        turns = scatter_parity.compare(parent, seed)
+        if not turns["equal"]:
+            raise AssertionError(f"[kernels] cvb0_scatter differs from {parent}'s: "
+                                 f"{turns['differ']}")
+        for label in turns["device_ms"]["this"]:
+            this, other = (turns["device_ms"][side][label] for side in ("this", "other"))
+            log(f"[kernels] cvb0_scatter {label} in turns (other, this, this, other), "
+                f"device ms per launch: this {this['min']:.5f}-{this['max']:.5f}, "
+                f"{parent.name} {other['min']:.5f}-{other['max']:.5f}; bitwise")
+        res["scatter_turns"] = turns
+    return {"cvb0_scatter": res}
 
 
 def graph_smc_phase(seed: int, smi: str, resample: dict,
@@ -4439,6 +4493,9 @@ def ingest_phase(seed: int, device: str = "cuda", scale: float = INGEST_SCALE,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scatter-parent", type=Path, default=None,
+                    help="root of another checkout: time its CVB0 scatter "
+                         "against this one's in turns (scripts/scatter_parity.py)")
     args = ap.parse_args()
     t_main = time.perf_counter()
 
@@ -4499,7 +4556,8 @@ def main() -> int:
     kernels.update(check_resample_kernels(args.seed))      # 3e.
     wall("kernels 3-3e")
     rung5, _ = rung_corpus(5, BACKEND_SCALE)
-    kernels.update(check_cvb0_scatter(args.seed, rung5, corpus))  # 3f.
+    kernels.update(check_cvb0_scatter(args.seed, rung5, corpus,  # 3f.
+                                      parent=args.scatter_parent))
     wall("kernels")
     paths = {}
     runs = [(use_pallas, sweeps, "float32", "bfloat16", K)
@@ -4615,7 +4673,7 @@ def main() -> int:
                    "fixed_us_per_tile", "event_ms", "device_ms",
                    "event_ms_three_tables", "bound_three_tables_ms",
                    "library_device_ms", "ms_flag_false", "event_ms_flag_false",
-                   "scatter_shapes")},
+                   "scatter_shapes", "scatter_turns")},
         })
     print(json.dumps({"kernels": rows, "main_path_tokens_per_s": {
         tier: tok_s for tier, (tok_s, _) in paths.items()},

@@ -6,11 +6,23 @@ Not the port of a TPU kernel.  The reference's CVB0 sweep adds each block's
 A block's document and word ids never change during a run, so
 :func:`scatter_plan` sorts them once, on the host in numpy, when the model
 is built: per block, the stable argsort of the block's ids (block-local
-positions), the start of each run of equal ids in that order, and each
-run's table row.  The plan lives on the device.  :func:`cvb0_scatter` adds
-a block's rows into a table along it (``csrc/cvb0_scatter.cu``): one thread
-per (run, topic column) adds the run's rows in ascending token order onto
-the table's cell, with no atomic, so every run gives the same bits.
+positions), the start of each run of equal ids in that order, each run's
+table row, and the block's work units.  A unit is a span of whole runs:
+runs of at most ``SHORT_RUN`` rows are packed several to a unit of at most
+``UNIT_ROWS`` rows, a longer run is a unit of its own, and the units with
+the longest runs come first.  The plan lives on the device.
+
+:func:`cvb0_scatter` adds a block's rows into a table along it
+(``csrc/cvb0_scatter.cu``): one CTA per (unit, slab of ``SLAB_COLS`` topic
+columns), so a frequent word's run is spread over as many SMs as it has
+slabs.  A unit's rows reach shared memory with ``cp.async`` (a lone run
+of more than ``UNIT_ROWS`` rows, ``SHORT_RUN`` in a table of several
+slabs, through a ring of stages, the next chunks loading while one is
+added; a one-slab table's units of runs of at most 8 rows straight into
+registers), and one thread per (run, column) adds the run's rows onto the
+table's value in ascending token order, one float32 add at a time, with
+no atomic: every cell's order of additions is ``table + r_i1 + r_i2 +
+...``, so every run gives the same bits.
 
 The plain version (:func:`cvb0_scatter_plain`) is the CPU's serial
 ``table.index_add_(0, index, rows)``, which adds the rows in token order:
@@ -37,6 +49,11 @@ LAUNCHES = {"cvb0_scatter": 0}
 PLAIN_CALLS = {"cvb0_scatter": 0}
 LAUNCH_COUNTERS[__name__] = LAUNCHES
 _INT32_MAX = 2**31 - 1
+# the kernel's geometry (csrc/cvb0_scatter.cu's kUnitRows, kSlabCols; the
+# library refuses a launch whose values differ)
+UNIT_ROWS = 256  # a unit's rows at most, unless it is one longer run
+SHORT_RUN = UNIT_ROWS // 2  # a run of more rows is a unit of its own
+SLAB_COLS = 32  # topic columns per CTA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +64,11 @@ class ScatterPlan:
     (int32) each block's block-local positions stably sorted by row, run
     ``r`` is ``order[bounds[r]:bounds[r + 1]]`` (``bounds [R + 1]``, int32
     positions in ``order``) and adds into row ``dest[r]`` (``dest [R]``,
-    int32).  Block ``b``'s runs are ``block_runs[b]:block_runs[b + 1]``."""
+    int32).  Block ``b``'s runs are ``block_runs[b]:block_runs[b + 1]``.
+    ``units [U, 4]`` (int32) are the kernel's work units, each runs
+    ``units[u, 0]:units[u, 1]`` at positions ``units[u, 2]:units[u, 3]``;
+    block ``b``'s are ``block_units[b]:block_units[b + 1]``, the longest
+    run's first."""
 
     index: torch.Tensor
     order: torch.Tensor
@@ -55,10 +76,48 @@ class ScatterPlan:
     dest: torch.Tensor
     block_runs: tuple[int, ...]
     block_size: int
+    units: torch.Tensor
+    block_units: tuple[int, ...]
 
     @property
     def num_blocks(self) -> int:
         return len(self.block_runs) - 1
+
+
+def scatter_slabs(k: int) -> list[tuple[int, int]]:
+    """``(first column, width)`` of each slab of ``k`` topic columns, in the
+    kernel's order: ``SLAB_COLS`` wide but the last."""
+    return [(c, min(SLAB_COLS, k - c)) for c in range(0, k, SLAB_COLS)]
+
+
+def _work_units(starts: np.ndarray, t_pad: int,
+                block_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """The work units of the runs that start at ``starts`` (``[R]``
+    positions, block-major) and their blocks' offsets: a run of more than
+    ``SHORT_RUN`` rows alone; the others, between two such runs in one
+    block, grouped by the window of ``SHORT_RUN`` positions their first row
+    lies in (so a unit holds fewer than ``UNIT_ROWS`` rows); in each block
+    by the longest run's length, longest first, then in run order."""
+    bounds = np.append(starts, t_pad)
+    lengths = np.diff(bounds)
+    run_block = starts // block_size
+    alone = lengths > SHORT_RUN
+    # a stretch: runs of one block with no run of its own between them
+    new_stretch = np.ones(len(starts), bool)
+    new_stretch[1:] = alone[1:] | alone[:-1] | (run_block[1:] != run_block[:-1])
+    stretch_start = starts[np.flatnonzero(new_stretch)][np.cumsum(new_stretch) - 1]
+    window = (starts - stretch_start) // SHORT_RUN
+    new_unit = new_stretch.copy()
+    new_unit[1:] |= window[1:] != window[:-1]
+    first = np.flatnonzero(new_unit)
+    end = np.append(first[1:], len(starts))
+    longest = np.maximum.reduceat(lengths, first)
+    unit_block = run_block[first]
+    by = np.lexsort((-longest, unit_block))  # stable: run order among equals
+    first, end, unit_block = first[by], end[by], unit_block[by]
+    units = np.stack([first, end, bounds[first], bounds[end]], axis=1)
+    block_units = np.searchsorted(unit_block, np.arange(t_pad // block_size + 1))
+    return units, block_units
 
 
 def scatter_plan(index: np.ndarray, block_size: int,
@@ -83,6 +142,7 @@ def scatter_plan(index: np.ndarray, block_size: int,
     starts = np.flatnonzero(new)
     bounds = np.append(starts, t_pad).astype(np.int32)
     block_runs = np.searchsorted(starts, np.arange(0, t_pad + 1, block_size))
+    units, block_units = _work_units(starts, t_pad, block_size)
     dev = torch.device(device)
 
     def on(x, dtype):
@@ -92,7 +152,9 @@ def scatter_plan(index: np.ndarray, block_size: int,
         index=on(ids, torch.int64),
         order=on(perm - block * block_size, torch.int32),
         bounds=on(bounds, torch.int32), dest=on(sorted_ids[starts], torch.int32),
-        block_runs=tuple(int(x) for x in block_runs), block_size=int(block_size))
+        block_runs=tuple(int(x) for x in block_runs), block_size=int(block_size),
+        units=on(units, torch.int32),
+        block_units=tuple(int(x) for x in block_units))
 
 
 @functools.cache
@@ -103,7 +165,8 @@ def _lib():
     lib = _build.load("cvb0_scatter")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lda_cvb0_scatter.restype = i32
-    lib.lda_cvb0_scatter.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp]
+    lib.lda_cvb0_scatter.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                     i32, i32, vp]
     return _build, lib
 
 
@@ -142,12 +205,13 @@ def cvb0_scatter(table: torch.Tensor, rows: torch.Tensor, plan: ScatterPlan,
         cvb0_scatter_plain(table, plan.index[block * b:(block + 1) * b], rows)
         return
     build, lib = _lib()
-    r0, r1 = plan.block_runs[block], plan.block_runs[block + 1]
+    u0, u1 = plan.block_units[block], plan.block_units[block + 1]
     wide = max(table.numel(), rows.numel()) > _INT32_MAX
     with torch.cuda.device(dev):
         err = lib.lda_cvb0_scatter(
             table.data_ptr(), rows.data_ptr(), plan.order.data_ptr(),
-            plan.bounds.data_ptr() + 4 * r0, plan.dest.data_ptr() + 4 * r0,
-            r1 - r0, k, int(wide), torch.cuda.current_stream().cuda_stream)
+            plan.bounds.data_ptr(), plan.dest.data_ptr(),
+            plan.units.data_ptr() + 16 * u0, u1 - u0, k, UNIT_ROWS, SLAB_COLS,
+            int(wide), torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_cvb0_scatter")
     LAUNCHES["cvb0_scatter"] += 1

@@ -1294,6 +1294,67 @@ def test_cvb0_scatter_equals_plain_on_cpu_copies(cuda, case):
         cs.cvb0_scatter_plain(table, plan.index[:block], deltas[0].to(cuda))
 
 
+@pytest.mark.parametrize("case,k", [
+    ("one_word_block", 500),  # one run of 65,536 rows: streamed, 16 slabs
+    ("thresholds", 1), ("thresholds", 15), ("thresholds", 17), ("thresholds", 500),
+    ("padded", 15), ("padded", 500), ("zipf", 37)])
+def test_cvb0_scatter_units_equal_plain_on_cpu_copies(cuda, case, k):
+    """The kernel's packed and streamed units, both copy widths (K = 500's
+    16-byte rows, K = 1, 15, 17 and 37's 4-byte ones) and its slabs against
+    the plain version, bitwise, on every block."""
+    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
+
+    rng = np.random.default_rng(k)
+    block = 65_536 if case == "one_word_block" else 2_048
+    if case == "one_word_block":
+        ids = np.concatenate([np.full(block, 7), np.full(block - 5_000, 7),
+                              np.zeros(5_000, np.int64)])
+    elif case == "thresholds":  # runs of SHORT_RUN and UNIT_ROWS, and one more
+        lens = [3, cs.SHORT_RUN, cs.SHORT_RUN + 1, 1, cs.UNIT_ROWS, 2,
+                cs.UNIT_ROWS + 1, 700]
+        ids = np.repeat(np.arange(len(lens)), lens)
+        ids = rng.permutation(np.concatenate([ids, rng.integers(8, 300,
+                                                                size=block - len(ids))]))
+        ids = np.concatenate([ids, np.repeat(np.arange(3), [1, cs.UNIT_ROWS, block - 257])])
+    elif case == "padded":  # doc-major, the last block's padding zeros
+        ids = np.sort(rng.integers(0, 9, size=3 * block - 600))
+        ids = np.concatenate([ids, np.zeros(600, np.int64)])
+    else:
+        ids = (rng.zipf(1.1, size=3 * block) - 1) % 400
+    rows_n = int(ids.max()) + 1
+    host_table = torch.from_numpy(rng.uniform(0, 5, size=(rows_n, k)).astype(np.float32))
+    plan = cs.scatter_plan(ids, block, cuda)
+    host_plan = cs.scatter_plan(ids, block, "cpu")
+    table = host_table.to(cuda)
+    for b in range(plan.num_blocks):
+        delta = torch.from_numpy(rng.normal(size=(block, k)).astype(np.float32))
+        cs.cvb0_scatter(table, delta.to(cuda), plan, b)
+        cs.cvb0_scatter(host_table, delta, host_plan, b)
+        torch.cuda.synchronize()
+        assert torch.equal(table.cpu(), host_table), f"block {b}"
+
+
+def test_cvb0_scatter_takes_unaligned_rows_by_the_4_byte_path(cuda):
+    """A K = 500 block of rows that is not 16-byte aligned (a view one float
+    into its storage) goes by the 4-byte copies, bitwise the plain version."""
+    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
+
+    rng = np.random.default_rng(5)
+    block, k = 1_024, 500
+    ids = (rng.zipf(1.1, size=block) - 1) % 50
+    host_table = torch.from_numpy(rng.uniform(0, 5, size=(50, k)).astype(np.float32))
+    delta = torch.from_numpy(rng.normal(size=(block, k)).astype(np.float32))
+    storage = torch.empty(block * k + 1, device=cuda)
+    rows = storage[1:].view(block, k)
+    rows.copy_(delta.to(cuda))
+    assert rows.data_ptr() % 16 != 0
+    table = host_table.to(cuda)
+    cs.cvb0_scatter(table, rows, cs.scatter_plan(ids, block, cuda), 0)
+    cs.cvb0_scatter(host_table, delta, cs.scatter_plan(ids, block, "cpu"), 0)
+    torch.cuda.synchronize()
+    assert torch.equal(table.cpu(), host_table)
+
+
 def _cvb0_eager_on_card(model, n):
     from ldagibbssampling_tpu_torch.backends.cvb0 import cvb0_sweeps
 
@@ -1325,6 +1386,35 @@ def test_captured_cvb0_equals_eager_on_card(cuda, sort_blocks):
     assert cs.PLAIN_CALLS == before[1]
     assert model.graph.per_replay == {(cs.__name__, "cvb0_scatter"): 2 * blocks}
     model.check_invariants()
+
+
+@pytest.mark.parametrize("sort_blocks", [False, True])
+def test_captured_cvb0_with_long_runs_equals_eager_on_card(cuda, sort_blocks):
+    """Blocks of 2,048 at K = 40 (two slabs, 16-byte copies) whose documents
+    and frequent words hold runs of more than UNIT_ROWS rows (streamed)
+    beside packed ones: the captured sweeps bitwise the eager ones, two
+    scatters a block a replay."""
+    from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model
+    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
+
+    rng = np.random.default_rng(9)
+    ragged = [[int(x) for x in (rng.zipf(1.1, size=int(rng.integers(300, 900))) - 1) % 200]
+              for _ in range(12)]
+    cfg = LdaConfig(topic_num=40, backend="cvb0", block_size=2_048, seed=3,
+                    sort_blocks=sort_blocks)
+    model = Cvb0Model(cfg, FlatCorpus.from_ragged(ragged, vocab_size=200), device=cuda)
+    runs = [np.diff(p.bounds.cpu().numpy()).max() for p in model._plans]
+    assert min(runs) > cs.UNIT_ROWS
+    blocks = model._padded.num_tokens // 2_048
+    want = _cvb0_eager_on_card(model, 3)
+    before = cs.LAUNCHES["cvb0_scatter"]
+    model.sweep(2)
+    model.sweep(1)
+    torch.cuda.synchronize()
+    for name, w in zip(("gamma", "ndk", "nwk", "nk"), want):
+        assert torch.equal(getattr(model, name), w), name
+    assert cs.LAUNCHES["cvb0_scatter"] - before == 2 * blocks * 4
+    assert model.graph.per_replay == {(cs.__name__, "cvb0_scatter"): 2 * blocks}
 
 
 @pytest.mark.parametrize("mode", ["internal", "external"])
