@@ -18,6 +18,13 @@ checkpoints and resume for a backend without them (smc, warp, several
 chains) and ``--check-counts`` for one without integer count tables.  K1's
 chain and the deferred snapshot's type come in through ``--config-json``
 (``kernel_compute_dtype``, ``mirror_dtype``), as in the reference.
+``--profile-dir`` writes a ``torch.profiler`` trace of the run from the
+backend's construction on, its set-up spans included
+(``evaluation/tracing``); ``--metrics-file``'s header row carries the
+ingest's and the backend's seconds (the spans ``cli.ingest`` and
+``cli.backend_init``), the seconds of the set-up spans inside them
+(``<name>_s``) and the kernel libraries built and opened
+(``kernels_built``, ``kernels_loaded``).
 
 Usage:
     python -m ldagibbssampling_tpu_torch.cli --docs data/LdaOriginalDocs \\
@@ -34,6 +41,7 @@ from pathlib import Path
 
 from ldagibbssampling_tpu_torch import conf
 from ldagibbssampling_tpu_torch.config import LdaConfig, ReferenceGuardError
+from ldagibbssampling_tpu_torch.evaluation import tracing
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,6 +152,8 @@ def config_from_args(args: argparse.Namespace) -> LdaConfig:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # what this run records: its spans from here on, its counters' moves
+    since, counted = len(tracing.spans()), tracing.counters()
     try:
         cfg = config_from_args(args)
     except NotImplementedError as e:  # a config file naming an unported path
@@ -164,9 +174,9 @@ def main(argv=None) -> int:
     # (the same output; see corpus/native.py), the Python pipeline otherwise
     from ldagibbssampling_tpu_torch.corpus.native import read_docs_routed
 
-    t0 = time.perf_counter()
-    corpus, route = read_docs_routed(docs_dir)
-    ingest_s = time.perf_counter() - t0
+    with tracing.span("cli.ingest") as ingest:
+        corpus, route = read_docs_routed(docs_dir)
+    ingest_s = ingest.seconds
     print(f"ingest: {route}; {corpus.num_tokens} tokens of {corpus.num_docs} "
           f"documents in {ingest_s:.3f}s")
     print(f"wordMap size {corpus.vocab_size}")
@@ -189,44 +199,49 @@ def main(argv=None) -> int:
         MetricsLog, block_on_backend, trace)
     from ldagibbssampling_tpu_torch.runner import run_inference, save_backend_model
 
-    print("1 Initialize the model ...")
-    t0 = time.perf_counter()
-    model = make_backend(cfg, corpus, device=args.device)
-    block_on_backend(model)
-    setup_s = time.perf_counter() - t0
-
-    if args.checkpoint_every > 0 and not hasattr(model, "save_checkpoint"):
-        print(f"error: backend {cfg.backend!r} does not support "
-              "checkpointing (smc/warp are documented non-goals)",
-              file=sys.stderr)
-        return 2
-
-    if args.resume:
-        if not args.checkpoint_dir:
-            print("error: --resume requires --checkpoint-dir", file=sys.stderr)
-            return 2
-        if not hasattr(model, "restore_checkpoint"):
-            print(f"error: backend {cfg.backend!r} does not support resume",
-                  file=sys.stderr)
-            return 2
-        from ldagibbssampling_tpu_torch.lda_io.checkpoint import latest_step
-
-        if latest_step(args.checkpoint_dir) is not None:
-            step = model.restore_checkpoint(args.checkpoint_dir)
-            print(f"Resumed from sweep {step}")
-
-    print("2 Learning and Saving the model ...")
-    t0 = time.perf_counter()
-
     def progress(i: int) -> None:
         print(f"Iteration {i}")
 
     with contextlib.ExitStack() as stack:
+        if args.profile_dir:
+            # open before the backend: its set-up spans land in the trace
+            stack.enter_context(trace(args.profile_dir))
+        print("1 Initialize the model ...")
+        with tracing.span("cli.backend_init") as init:
+            model = make_backend(cfg, corpus, device=args.device)
+            block_on_backend(model)
+        setup_s = init.seconds
+
+        if args.checkpoint_every > 0 and not hasattr(model, "save_checkpoint"):
+            print(f"error: backend {cfg.backend!r} does not support "
+                  "checkpointing (smc/warp are documented non-goals)",
+                  file=sys.stderr)
+            return 2
+
+        if args.resume:
+            if not args.checkpoint_dir:
+                print("error: --resume requires --checkpoint-dir", file=sys.stderr)
+                return 2
+            if not hasattr(model, "restore_checkpoint"):
+                print(f"error: backend {cfg.backend!r} does not support resume",
+                      file=sys.stderr)
+                return 2
+            from ldagibbssampling_tpu_torch.lda_io.checkpoint import latest_step
+
+            if latest_step(args.checkpoint_dir) is not None:
+                step = model.restore_checkpoint(args.checkpoint_dir)
+                print(f"Resumed from sweep {step}")
+
+        print("2 Learning and Saving the model ...")
+        t0 = time.perf_counter()
+        now = tracing.counters()
+        header = {"ingest": route, "ingest_s": ingest_s, "setup_s": setup_s,
+                  **tracing.span_fields(since, skip=("cli.",)),
+                  **{name.replace(".", "_"): now.get(name, 0) - counted.get(name, 0)
+                     for name in ("kernels.built", "kernels.loaded")}}
         metrics = None
         if args.metrics_file:
             metrics = stack.enter_context(MetricsLog(args.metrics_file))
-        if args.profile_dir:
-            stack.enter_context(trace(args.profile_dir))
         try:
             run_inference(
                 model, cfg, corpus, result_dir, progress=progress,
@@ -235,8 +250,7 @@ def main(argv=None) -> int:
                 optimize_hyper_every=args.optimize_hyper_every,
                 checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every,
-                header={"ingest": route, "ingest_s": ingest_s,
-                        "setup_s": setup_s},
+                header=header,
             )
         except ReferenceGuardError as e:
             print(f"error: {e}", file=sys.stderr)

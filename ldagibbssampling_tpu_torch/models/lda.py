@@ -39,6 +39,7 @@ from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus, PaddedCorpus
 from ldagibbssampling_tpu_torch.evaluation.device_metrics import (
     device_log_likelihood)
+from ldagibbssampling_tpu_torch.evaluation.tracing import span
 from ldagibbssampling_tpu_torch.lda_io.artifacts import save_iterated_model
 from ldagibbssampling_tpu_torch.models import state as state_lib
 from ldagibbssampling_tpu_torch.models.hyper import optimize_alpha, optimize_beta
@@ -95,8 +96,9 @@ def resolve_tier(config: LdaConfig, corpus: FlatCorpus) -> TierChoice:
     plan = None
     if use_pallas == "deferred" and block >= 128:
         try:
-            plan = plan_deferred(corpus.token_word, corpus.token_doc,
-                                 corpus.vocab_size, block)
+            with span("plan.deferred"):
+                plan = plan_deferred(corpus.token_word, corpus.token_doc,
+                                     corpus.vocab_size, block)
         except ValueError as e:  # e.g. no multiple-of-8 tile
             use_pallas = "fused"
             reasons.append(f"no deferred layout ({e})")
@@ -130,11 +132,20 @@ def _assert_recount(token_word, token_doc, z, ndk, nwk, nk) -> None:
 
 
 class LdaModel:
-    """Collapsed-Gibbs LDA over a flat corpus (single chain, single device)."""
+    """Collapsed-Gibbs LDA over a flat corpus (single chain, single device).
+
+    The construction is the span ``lda.init``, around ``plan.deferred``
+    (``resolve_tier``), ``state.init`` and ``sweep_fn.build`` (each waits
+    for the card at its end); the deferred tier's first sweep casts its
+    snapshot in ``sweep.snapshot`` (``ops/gibbs.make_sweep_fn``)."""
 
     def __init__(self, config: LdaConfig, corpus: FlatCorpus,
                  device: Any = "cuda") -> None:
         self.device = resolve_device(device)
+        with span("lda.init", self.device):
+            self._init(config, corpus)
+
+    def _init(self, config: LdaConfig, corpus: FlatCorpus) -> None:
         self.config = config
         self.corpus = corpus
         self.doc_lengths = corpus.doc_lengths()
@@ -176,22 +187,24 @@ class LdaModel:
                 # reference's layout for these tiers
                 pc, self._perm = pc.sort_within_blocks(block)
         self._padded = pc
-        self.state = state_lib.init_state(
-            pc.token_word, pc.token_doc, pc.token_mask,
-            num_docs=pc.num_docs, vocab_size=pc.vocab_size,
-            num_topics=config.topic_num, seed=config.seed, device=self.device,
-        )
+        with span("state.init", self.device):
+            self.state = state_lib.init_state(
+                pc.token_word, pc.token_doc, pc.token_mask,
+                num_docs=pc.num_docs, vocab_size=pc.vocab_size,
+                num_topics=config.topic_num, seed=config.seed, device=self.device,
+            )
         # per-sweep seeds come from this generator (JAX: chain key)
         self.generator = torch.Generator().manual_seed(self.state.seed)
-        self._run_sweeps = make_sweep_fn(
-            pc.token_word, pc.token_doc, pc.token_mask, self.doc_lengths,
-            alpha=config.alpha, beta=config.beta, block_size=block,
-            draw_method=config.draw_method, num_sweeps=1,
-            use_pallas=choice.use_pallas, num_topics=config.topic_num,
-            deferred_plan=self._plan, device=self.device,
-            kernel_compute_dtype=config.kernel_compute_dtype,
-            mirror_dtype=config.mirror_dtype,
-        )
+        with span("sweep_fn.build", self.device):
+            self._run_sweeps = make_sweep_fn(
+                pc.token_word, pc.token_doc, pc.token_mask, self.doc_lengths,
+                alpha=config.alpha, beta=config.beta, block_size=block,
+                draw_method=config.draw_method, num_sweeps=1,
+                use_pallas=choice.use_pallas, num_topics=config.topic_num,
+                deferred_plan=self._plan, device=self.device,
+                kernel_compute_dtype=config.kernel_compute_dtype,
+                mirror_dtype=config.mirror_dtype,
+            )
 
     # ------------------------------------------------------------------
     def sweep(self, n: int = 1) -> None:

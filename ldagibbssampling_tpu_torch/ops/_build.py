@@ -17,6 +17,11 @@ processes that build one library at once all end with the whole file.
 
 No ``--use_fast_math``: it would swap ``logf`` for ``__logf`` and ``1/x``
 for an approximation, which changes the draws against the plain versions.
+
+A library that :func:`load` or :func:`load_host` has not opened yet is
+built and opened in the span ``kernels.load``; ``kernels.built`` counts
+each compiler run that succeeded and ``kernels.loaded`` each library
+opened (``evaluation/tracing``).  A library already open takes neither.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ import shlex
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+from ldagibbssampling_tpu_torch.evaluation import tracing
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -114,6 +120,7 @@ def _finish(name: str, job) -> None:
             f"{Path(proc.args[0]).name} failed on {Path(proc.args[-1]).name} "
             f"(exit {proc.returncode}):\n{stderr}")
     os.replace(tmp, out)
+    tracing.count("kernels.built")
 
 
 def _start_cuda(name: str):
@@ -122,10 +129,9 @@ def _start_cuda(name: str):
 
 def build_all(names: tuple[str, ...] = SOURCES) -> float:
     """Build every kernel library that is not built yet, all ``nvcc`` runs in
-    parallel; returns the seconds it took.  Every ``nvcc`` is waited for
-    before the first failure is raised."""
-    t0 = time.perf_counter()
-    with _lock:
+    parallel; returns the seconds it took (the span ``kernels.build``).
+    Every ``nvcc`` is waited for before the first failure is raised."""
+    with tracing.span("kernels.build") as built, _lock:
         jobs = {n: _start_cuda(n) for n in names}
         errors = []
         for n, job in jobs.items():
@@ -137,7 +143,7 @@ def build_all(names: tuple[str, ...] = SOURCES) -> float:
                 errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return time.perf_counter() - t0
+    return built.seconds
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -145,10 +151,12 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            job = _start_cuda(name)
-            if job is not None:
-                _finish(name, job)
-            lib = ctypes.CDLL(str(_lib_path(name)[1]))
+            with tracing.span("kernels.load"):
+                job = _start_cuda(name)
+                if job is not None:
+                    _finish(name, job)
+                lib = ctypes.CDLL(str(_lib_path(name)[1]))
+                tracing.count("kernels.loaded")
             lib.lda_error_string.restype = ctypes.c_char_p
             lib.lda_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib
@@ -177,16 +185,24 @@ def load_host(name: str, declare) -> ctypes.CDLL:
     ``declare(lib)`` typing its entry points once; raises ``RuntimeError``
     naming the compiler's or the loader's error.  A failure is not
     remembered: the next call tries again."""
-    path = build_host(name)
-    with _lock:
-        lib = _host_libs.get(path)
-        if lib is None:
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                raise RuntimeError(f"cannot load {path.name}: {e}") from e
-            declare(lib)
-            _host_libs[path] = lib
+    try:
+        lib = _host_libs.get(_lib_path(name, ".cc", HOST_FLAGS)[1])
+    except OSError:  # no source: build_host says so
+        lib = None
+    if lib is not None:
+        return lib
+    with tracing.span("kernels.load"):
+        path = build_host(name)
+        with _lock:
+            lib = _host_libs.get(path)
+            if lib is None:
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as e:
+                    raise RuntimeError(f"cannot load {path.name}: {e}") from e
+                tracing.count("kernels.loaded")
+                declare(lib)
+                _host_libs[path] = lib
     return lib
 
 

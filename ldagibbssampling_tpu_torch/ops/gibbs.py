@@ -66,6 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ldagibbssampling_tpu_torch.evaluation.tracing import span
 from ldagibbssampling_tpu_torch.models.state import SamplerState
 from ldagibbssampling_tpu_torch.ops._device import (
     device_values, seed_word, sweep_scalars)
@@ -865,15 +866,16 @@ def make_sweep_fn(
             snapshot (in ``mirror_dtype``), one graph replay each; returns
             ``(state, mirror)``.  ``mirror=None`` (cold start) casts it from
             ``state.nwk`` first, outside the graph (the reference's
-            ``_cast_mirror``); ``noise(sweep)`` gives the sweep's
-            ``[T_pad, k_pad]`` float32 uniforms.  ``alpha`` and ``beta``
-            are read at every call."""
+            ``_cast_mirror``; the span ``sweep.snapshot``);
+            ``noise(sweep)`` gives the sweep's ``[T_pad, k_pad]`` float32
+            uniforms.  ``alpha`` and ``beta`` are read at every call."""
             n = num_sweeps if n_sweeps is None else n_sweeps
             if n <= 0:
                 return state, mirror
             if mirror is None:
-                mirror = snapshot(state.nwk, v_pad,
-                                  _round_up(state.nwk.shape[1], 128), mirror_dtype)
+                with span("sweep.snapshot", state.nwk.device):
+                    mirror = snapshot(state.nwk, v_pad,
+                                      _round_up(state.nwk.shape[1], 128), mirror_dtype)
             out = replay(deferred_graph,
                          (state.z, state.ndk, state.nwk, state.nk, mirror),
                          state.sweep, alpha, beta, n, generator, noise)

@@ -41,11 +41,17 @@ raises; nothing runs the sweep eagerly instead.  On the CPU the same sweep
 body runs eagerly on the same buffers (what the tests run).
 
 The first call on the card reports its set-up: ``setup_s``, its whole
-wall time before the first replay (the copies in, the warm-up sweep, the
-capture and the instantiation; the call waits for the card before and
-after it, once), ``capture_s``, the capture and instantiation alone, and
-``nodes``, the captured graph's node count (the device operations of one
-replay).
+wall time before the first replay (the span ``graph.setup``: the copies in,
+``graph.copy_in``; the warm-up sweep, ``graph.warm_up``; the capture and
+the instantiation, ``graph.capture``; the call waits for the card before
+and after it, once, and at the end of each part), ``capture_s``, the
+capture and instantiation alone, and ``nodes``, the captured graph's node
+count (the device operations of one replay).  Every call adds integer
+counters (``evaluation/tracing.count``) and opens no span:
+``graph.replays``, ``graph.handout_bytes`` (the bytes of the clones it
+hands back) and ``graph.copy_in_bytes`` (the tables it copied in because
+they were not what it last handed out; 0 in a steady run);
+``capture_graph`` counts ``graph.captures``.
 
 A sweep may also be a list of steps, each on a device or on the host
 (the mesh runtimes' sweep, ``parallel/runtime.py``): the steps between two
@@ -68,12 +74,12 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
-import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ldagibbssampling_tpu_torch.evaluation.tracing import count, span
 from ldagibbssampling_tpu_torch.ops._device import (
     LAUNCH_COUNTERS, seed_word, staged, sweep_scalars)
 
@@ -109,15 +115,17 @@ def _capture_node_count(stream: torch.cuda.Stream) -> int:
 def capture_graph(fn: Callable[[], None], device: torch.device, *,
                   warm_up: Optional[Callable[[], None]] = None,
                   generators: Sequence[torch.Generator] = (),
-                  pool=None) -> tuple:
+                  pool=None, warm_up_devices: Optional[Sequence] = None) -> tuple:
     """``fn()`` captured into a new CUDA graph on a side stream, after
     ``warm_up()`` on that stream (it fills every launch configuration the
-    kernel wrappers cache; outside the capture), into ``pool`` where given
-    (else the graph's own private pool); raises if the capture fails.
-    Returns ``(graph, nodes, per_replay, capture_s)``: the instantiated
-    graph, its node count, the kernel launches the capture counted (now
-    taken back: the capture launched nothing; they are each replay's) and
-    the seconds of the capture and instantiation."""
+    kernel wrappers cache; outside the capture; the span ``graph.warm_up``,
+    which waits for ``warm_up_devices``, default ``device``), into ``pool``
+    where given (else the graph's own private pool); raises if the capture
+    fails.  Returns ``(graph, nodes, per_replay, capture_s)``: the
+    instantiated graph, its node count, the kernel launches the capture
+    counted (now taken back: the capture launched nothing; they are each
+    replay's) and the seconds of the capture and instantiation (the span
+    ``graph.capture``)."""
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
@@ -126,31 +134,32 @@ def capture_graph(fn: Callable[[], None], device: torch.device, *,
     side.wait_stream(main)
     with torch.cuda.stream(side):
         if warm_up is not None:
-            warm_up()
+            with span("graph.warm_up", warm_up_devices or device):
+                warm_up()
         # a graph that only a reference cycle holds is freed now: freed by
         # the collector during the capture, it would invalidate the capture
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
         before = _counts()
-        t0 = time.perf_counter()
-        graph.capture_begin(pool=pool)
-        try:
-            fn()
-            nodes = _capture_node_count(side)
-        finally:
+        with span("graph.capture", device) as captured:
+            graph.capture_begin(pool=pool)
             try:
-                graph.capture_end()  # instantiates the graph
+                fn()
+                nodes = _capture_node_count(side)
             finally:
-                if collecting:
-                    gc.enable()
-        capture_s = time.perf_counter() - t0
+                try:
+                    graph.capture_end()  # instantiates the graph
+                finally:
+                    if collecting:
+                        gc.enable()
+    count("graph.captures")
     main.wait_stream(side)
     after = _counts()
     per_replay = {k: n - before.get(k, 0) for k, n in after.items()
                   if n != before.get(k, 0)}
     _add_counts(per_replay, -1)
-    return graph, nodes, per_replay, capture_s
+    return graph, nodes, per_replay, captured.seconds
 
 
 def _holds(last: Optional[tuple], tables: Sequence[torch.Tensor]) -> bool:
@@ -259,6 +268,8 @@ class SweepGraph:
         self.nodes = 0  # the graphs' nodes: the card's operations a replay
         self.launches = sum(s.device is not None for s in self._segments)
         self.replays = 0
+        # the bytes of the clones a call hands out
+        self._handout_bytes = sum(b.numel() * b.element_size() for b in self.buffers)
         # the tensors the last call returned and their versions: the same
         # memory (a view of it too), unmodified, is what the buffers hold
         self._last: Optional[tuple] = None
@@ -324,6 +335,9 @@ class SweepGraph:
     def _copy_in(self, tables: Sequence[torch.Tensor]) -> None:
         if not _holds(self._last, tables):  # else the buffers hold this state
             _copy_into(self._corners_of(self.buffers), tables)
+            if self._last is not None:  # not what this graph handed out
+                count("graph.copy_in_bytes",
+                      sum(t.numel() * t.element_size() for t in tables))
 
     def _corners_of(self, buffers: Sequence[torch.Tensor]) -> list:
         """The tables that ``buffers`` (the graph's, or clones of them)
@@ -350,7 +364,8 @@ class SweepGraph:
 
     def _capture(self) -> None:
         """A warm-up sweep, then each device segment captured into its
-        device's memory pool and instantiated (``capture_graph``)."""
+        device's memory pool and instantiated (``capture_graph``; its
+        ``graph.capture`` spans summed in ``capture_s``)."""
         graphs, per_replay, nodes, capture_s = [], {}, 0, 0.0
         pools = {d: torch.cuda.graph_pool_handle() for d in self.devices
                  if sum(s.device == d for s in self._segments) > 1}
@@ -363,7 +378,7 @@ class SweepGraph:
                     lambda seg=seg: self._run(seg), seg.device,
                     warm_up=None if graphs else self._sweep,
                     generators=[self.generators[i] for i in seg.generators],
-                    pool=pools.get(seg.device))
+                    pool=pools.get(seg.device), warm_up_devices=self.devices)
             graphs.append(graph)
             nodes += n
             capture_s += secs
@@ -405,13 +420,14 @@ class SweepGraph:
         with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
             if on_card and self.graph is None:
                 self._synchronize()
-                t0 = time.perf_counter()
-                self._copy_in(tables)
-                self._write_params(alpha, beta, self._device_words(seeds, 0, 1))
-                self._sweep_inputs(0, seeds, noise)
-                self._capture()
-                self._synchronize()
-                self.setup_s = time.perf_counter() - t0
+                with span("graph.setup", self.devices) as setup:
+                    with span("graph.copy_in", self.devices):
+                        self._copy_in(tables)
+                        self._write_params(alpha, beta,
+                                           self._device_words(seeds, 0, 1))
+                        self._sweep_inputs(0, seeds, noise)
+                    self._capture()
+                self.setup_s = setup.seconds
                 self._last, loaded = None, True
             self._copy_in(tables)
             for c0 in range(0, n, SEED_CHUNK if self.device_seeds else n):
@@ -426,7 +442,9 @@ class SweepGraph:
             if on_card:
                 _add_counts(self.per_replay, n)
                 self.replays += n
+                count("graph.replays", n)
             out = tuple(self._corners_of([b.clone() for b in self.buffers]))
+            count("graph.handout_bytes", self._handout_bytes)
         self._last = (out, tuple(t._version for t in out))
         return out
 
@@ -447,10 +465,11 @@ class StepGraph:
     launches its capture counted; a failed capture or replay raises, and
     nothing runs the steps eagerly instead.
 
-    ``setup_s`` is the first capture's wall time (the warm-up, the capture
-    and the instantiation; the card waited for before and after),
+    ``setup_s`` is the first capture's wall time (the span ``graph.setup``:
+    the warm-up, ``graph.warm_up``; the capture and the instantiation,
+    ``graph.capture``; the card waited for before and after),
     ``capture_s[n]`` and ``nodes[n]`` each graph's capture and instantiation
-    seconds and node count.
+    seconds (its ``graph.capture`` span) and node count.
     """
 
     def __init__(self, step: Callable[[], None], state: Sequence[torch.Tensor],
@@ -511,14 +530,14 @@ class StepGraph:
         with torch.cuda.device(self.device):
             if first:
                 torch.cuda.synchronize(self.device)
-                t0 = time.perf_counter()
                 self._pool = torch.cuda.graph_pool_handle()
-            graph, nodes, per_replay, secs = capture_graph(
-                lambda: self._steps(n), self.device,
-                warm_up=self._warm_up if first else None, pool=self._pool)
+            with (span("graph.setup", self.device) if first
+                  else contextlib.nullcontext()) as setup:
+                graph, nodes, per_replay, secs = capture_graph(
+                    lambda: self._steps(n), self.device,
+                    warm_up=self._warm_up if first else None, pool=self._pool)
             if first:
-                torch.cuda.synchronize(self.device)
-                self.setup_s = time.perf_counter() - t0
+                self.setup_s = setup.seconds
         self.graphs[n], self.nodes[n] = graph, nodes
         self.per_replay[n], self.capture_s[n] = per_replay, secs
         return graph

@@ -7,7 +7,10 @@ into one ``backend.sweep(chunk)`` call, with the reference's Minka (α, β)
 updates (``optimize_hyper_every``), training log-likelihood rows
 (``ll_every``), the multi-chain R̂ rows and checkpoints
 (``checkpoint_every``).  Backends without per-token assignments (SVI) get
-MAP assignments from (φ, θ) for the ``.tassign`` artifact.
+MAP assignments from (φ, θ) for the ``.tassign`` artifact.  The LL, Minka,
+checkpoint and artifact steps are the spans ``runner.ll``, ``runner.hyper``,
+``runner.checkpoint`` and ``runner.save`` (``evaluation/tracing``), which a
+``--profile-dir`` trace shows.
 """
 
 from __future__ import annotations
@@ -20,9 +23,14 @@ import numpy as np
 from ldagibbssampling_tpu_torch.backends.base import InferenceBackend
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.evaluation.tracing import (
-    MetricsLog, SweepTimer, block_on_backend)
+    MetricsLog, SweepTimer, block_on_backend, span)
 from ldagibbssampling_tpu_torch.lda_io.artifacts import save_iterated_model
+
+# counters a metrics row carries when they moved since the row before: a
+# recapture or a state copied into the sweep graph mid-run (ops/graphs.py)
+ROW_COUNTERS = ("graph.captures", "graph.copy_in_bytes")
 
 
 def map_assignments(phi: np.ndarray, theta: np.ndarray, corpus: FlatCorpus) -> np.ndarray:
@@ -45,10 +53,11 @@ def save_backend_model(
     corpus: FlatCorpus,
     config: LdaConfig,
 ):
-    return save_iterated_model(
-        result_dir, iteration, backend.phi(), backend.theta(),
-        _assignments(backend, corpus), corpus, config,
-    )
+    with span("runner.save"):
+        return save_iterated_model(
+            result_dir, iteration, backend.phi(), backend.theta(),
+            _assignments(backend, corpus), corpus, config,
+        )
 
 
 def run_inference(
@@ -82,11 +91,28 @@ def run_inference(
     ``checkpoint_every`` save the backend's checkpoint after every N-th
     sweep (after that sweep's hyperparameter update); the loop starts at the
     backend's ``sweeps_done``, so a restored backend resumes mid-schedule.
+    A row also carries the seconds of the spans recorded since the row
+    before, other than the runner's own (``<name>_s``: the sweep graph's
+    set-up in the first row after it), and the counters of
+    ``ROW_COUNTERS`` that moved since then, by how much
+    (``graph_captures``, ``graph_copy_in_bytes``).
     """
     if result_dir is not None:
         config.validate_reference_guard()
     timer = SweepTimer(corpus.num_tokens)
     start = int(getattr(backend, "sweeps_done", 0))
+    since, last = len(tracing.spans()), tracing.counters()
+
+    def _moved() -> dict:
+        """The spans and ``ROW_COUNTERS`` since the last row, as fields."""
+        nonlocal since, last
+        now = tracing.counters()
+        out = tracing.span_fields(since, skip=("runner.",))
+        out.update({name.replace(".", "_"): now.get(name, 0) - last.get(name, 0)
+                    for name in ROW_COUNTERS if now.get(name, 0) != last.get(name, 0)})
+        since, last = len(tracing.spans()), now
+        return out
+
     if metrics is not None:
         metrics.log(
             start, kernel_tier=getattr(backend, "kernel_tier", "n/a"),
@@ -128,11 +154,13 @@ def run_inference(
         if (optimize_hyper_every > 0
                 and (i_last + 1) % optimize_hyper_every == 0
                 and hasattr(backend, "optimize_hyperparameters")):
-            backend.optimize_hyperparameters()
+            with span("runner.hyper"):
+                backend.optimize_hyperparameters()
         if (checkpoint_dir is not None and checkpoint_every > 0
                 and (i_last + 1) % checkpoint_every == 0
                 and hasattr(backend, "save_checkpoint")):
-            backend.save_checkpoint(checkpoint_dir)
+            with span("runner.checkpoint"):
+                backend.save_checkpoint(checkpoint_dir)
         if metrics is not None:
             scalars = {
                 "tokens_per_s": chunk * corpus.num_tokens
@@ -142,13 +170,14 @@ def run_inference(
                 scalars["sweeps_in_chunk"] = chunk
             if ll_every > 0 and (i_last + 1) % ll_every == 0:
                 dev_ll = getattr(backend, "device_log_likelihood", None)
-                if callable(dev_ll):
-                    ll = dev_ll()  # chunked on the device
-                else:
-                    from ldagibbssampling_tpu_torch.evaluation.metrics import (
-                        log_likelihood)
+                with span("runner.ll"):
+                    if callable(dev_ll):
+                        ll = dev_ll()  # chunked on the device
+                    else:
+                        from ldagibbssampling_tpu_torch.evaluation.metrics import (
+                            log_likelihood)
 
-                    ll = log_likelihood(backend.phi(), backend.theta(), corpus)
+                        ll = log_likelihood(backend.phi(), backend.theta(), corpus)
                 scalars["log_likelihood"] = ll
                 if corpus.num_tokens:
                     scalars["perplexity"] = float(np.exp(-ll / corpus.num_tokens))
@@ -168,7 +197,7 @@ def run_inference(
                     p99 = rhp_fn().get("p99", float("nan"))
                     if p99 == p99:
                         scalars["r_hat_phi_p99"] = p99
-            metrics.log(i_last, **scalars)
+            metrics.log(i_last, **scalars, **_moved())
         if progress is not None:
             for j in range(i, i_last + 1):  # keep per-iteration stdout parity
                 progress(j)

@@ -1646,3 +1646,85 @@ def test_refused_mesh_capture_raises_and_runs_no_sweep_eagerly(cuda, monkeypatch
         for p, t in parts.items():
             assert torch.equal(getattr(model, n)[p], t), (n, p)
     assert torch.equal(model.generator.get_state(), gen)  # no seed taken
+
+
+# ---------------------------------------------------------------------------
+# the sweep graph's set-up spans and per-call counters (evaluation/tracing)
+def _traced_model(device):
+    from ldagibbssampling_tpu_torch.evaluation import tracing
+
+    rng = np.random.default_rng(2)
+    ragged = [[int(x) for x in rng.integers(0, 80, size=60)] for _ in range(30)]
+    model = LdaModel(LdaConfig(topic_num=9, block_size=512),
+                     FlatCorpus.from_ragged(ragged, vocab_size=80), device=device)
+    assert model.kernel_tier == "deferred"
+    tracing.reset()
+    return model, tracing
+
+
+def _table_bytes(model):
+    tables = (*(getattr(model.state, n) for n in ("z", "ndk", "nwk", "nk")),
+              model._mirror)
+    return sum(t.numel() * t.element_size() for t in tables)
+
+
+def test_graph_setup_and_capture_s_are_their_spans_on_card(cuda):
+    model, tracing = _traced_model(cuda)
+    model.sweep(1)
+    (graph,) = model._run_sweeps.graphs.values()
+    assert graph.setup_s == tracing.span_seconds("graph.setup")
+    assert graph.capture_s == tracing.span_seconds("graph.capture")
+    assert graph.setup_s > graph.capture_s > 0
+    (setup,) = [s for s in tracing.spans() if s.name == "graph.setup"]
+    for name in ("graph.copy_in", "graph.warm_up", "graph.capture"):
+        (child,) = [s for s in tracing.spans() if s.name == name]
+        assert child.parent is setup and setup.start_ns <= child.start_ns
+        assert child.end_ns <= setup.end_ns
+    assert tracing.counters()["graph.captures"] == 1
+    tracing.reset()
+    model.sweep(1)
+    model.sweep(2)
+    assert tracing.spans() == []  # no graph.* span, no snapshot: counters only
+    assert "graph.captures" not in tracing.counters()
+
+
+def test_graph_counts_its_replays_handout_and_copy_in_on_card(cuda):
+    model, tracing = _traced_model(cuda)
+    model.sweep(1)
+    (graph,) = model._run_sweeps.graphs.values()
+    handout = sum(b.numel() * b.element_size() for b in graph.buffers)
+    for _ in range(3):
+        model.sweep(1)
+    counted = tracing.counters()
+    assert counted["graph.replays"] == graph.replays == 4
+    assert counted["graph.handout_bytes"] == 4 * handout
+    assert counted["graph.handout_bytes"] / counted["graph.replays"] == handout
+    assert "graph.copy_in_bytes" not in counted  # back to back: nothing copied in
+    st = model.state  # the caller alters the state
+    model.state = st.__class__(z=st.z.clone(), ndk=st.ndk, nwk=st.nwk, nk=st.nk,
+                               sweep=st.sweep, seed=st.seed)
+    model.sweep(1)
+    assert tracing.counters()["graph.copy_in_bytes"] == _table_bytes(model)
+    model.sweep(1)
+    assert tracing.counters()["graph.copy_in_bytes"] == _table_bytes(model)
+    model.check_counts_consistent()
+
+
+def test_step_graph_setup_is_a_span_tree_on_card(cuda):
+    from ldagibbssampling_tpu_torch.evaluation import tracing
+    from ldagibbssampling_tpu_torch.ops.graphs import StepGraph
+
+    buf = torch.zeros(1024, device=cuda)
+    g = StepGraph(lambda: buf.add_(1), [buf])
+    tracing.reset()
+    g.run(3)
+    assert g.setup_s == tracing.span_seconds("graph.setup")
+    assert g.capture_s[3] == tracing.span_seconds("graph.capture")
+    (setup,) = [s for s in tracing.spans() if s.name == "graph.setup"]
+    assert {s.name for s in tracing.spans() if s.parent is setup} == {
+        "graph.warm_up", "graph.capture"}
+    g.run(3)
+    g.run(2)  # a graph of its own: captured, with no second set-up
+    assert [s.name for s in tracing.spans()].count("graph.setup") == 1
+    assert tracing.counters()["graph.captures"] == 2
+    assert float(buf[0]) == 8.0
