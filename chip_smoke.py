@@ -35,9 +35,10 @@ success:
    seven instantiations, and the same walk with every token masked, its
    fixed cost per tile; K2's ``build_nwk(emit_mirror=False)`` (bitwise); K4,
    the dtype probe, in float32 and bf16 (both bitwise) at [32768, 512]; K1
-   at K = 100, where the sweep's row tile is 2,048 and the walk takes its
-   two-barrier form: the block against the plain walk in the three modes
-   (bitwise), its whole walk and its fixed cost per tile; the SMC
+   at K = 100, where the sweep's row tile is 2,048 (four tokens a thread
+   for each CTA's fold of a tile's moves in the one-barrier walk): the block
+   against the plain walk in the three modes (bitwise), its whole walk and
+   its fixed cost per tile; the SMC
    resample's two gated kernels (``ops/smc_resample.py``) at SMC's shape in
    phase 9 (16 particles, K = 15, rung 5 at 0.01) against their plain
    versions with the flag true and false (bitwise, and the resample count),
@@ -70,7 +71,7 @@ success:
    ``trace`` (device time by kernel, busy share).  Then the deferred tier in
    its five other (chain, snapshot) settings, 10 sweeps each, the same
    checks (``cast_mirror`` only on the bf16 snapshot), and once more at
-   K = 100 (the two-barrier walk); the chains' quality
+   K = 100 (tiles of 2,048); the chains' quality
    on a planted-topic corpus (2,048 documents, V = 5,000, K = 500, about
    2^19 tokens, alpha 0.1 and beta 0.05 as it was generated): each of the
    six deferred settings for 20 sweeps from the
@@ -135,8 +136,8 @@ success:
    replay CUDA graphs), and their host calls from one profiled sweep.  8c, ``[graphs]``:
    each captured path (``ops/graphs.SweepGraph``, one CUDA graph replayed
    per sweep) against its eager sweep from the same state, seeds and noise:
-   the deferred tier (K = 500, the one-barrier walk, and K = 100, the
-   two-barrier walk; its snapshot carried), the fused tier, the XLA tier
+   the deferred tier (K = 500, tiles of 512, and K = 100, tiles of 2,048,
+   both one barrier a tile; its snapshot carried), the fused tier, the XLA tier
    and the v1-draw tier at bench.py's shape through ``make_sweep_fn`` on
    ``make_backend``'s layout, the chains at rung 4's full size and at
    K = 500 on bench.py's shape through ``ChainSet``; in internal and
@@ -251,8 +252,8 @@ success:
    training tokens; generated once): ``make_backend`` -> ``LdaModel`` ->
    ``run_inference``, K = 100, block 65,536, the deferred tier (f32 chain,
    bf16 snapshot), 2 untimed and 10 timed sweeps, then
-   ``check_counts_consistent``; exactly 13 walks (the K = 100 two-barrier
-   form; 12 sweeps and the graph's warm-up), 13 rebuilds and 14 snapshots,
+   ``check_counts_consistent``; exactly 13 walks (K = 100, one barrier a
+   tile; 12 sweeps and the graph's warm-up), 13 rebuilds and 14 snapshots,
    no other kernel and no plain version; prints ``corpus_s``, ``plan_s``,
    ``setup_s`` (plan + state init + transfer), tokens/s, peak device
    memory (``max_memory_allocated``), the host's peak RSS and the held-out
@@ -307,8 +308,8 @@ REPO = Path(__file__).resolve().parent
 PKG = "ldagibbssampling_tpu_torch"
 
 T, V, M, K = 1 << 20, 50_000, 4_096, 500
-# a topic count at which the sweep's row tile is 2,048 tokens and K1's walk
-# takes its two-barrier form
+# a topic count at which the sweep's row tile is 2,048 tokens: K1's
+# one-barrier walk folds four of a tile's moves a thread
 K_GENERAL = 100
 BLOCK, ALPHA, BETA, SWEEPS = 65_536, 0.5, 0.1, 10
 HBM_BYTES_PER_S = 3.35e12
@@ -582,7 +583,9 @@ def walk_report(res: dict, name: str, rows, ndk, nk, z, w, d, m, *, chain: str,
     launch, internal noise at ``values``' scalars and seed) with its bound
     from that walk's own moves (``draw_cost``: the draw's bytes and
     operations), and its fixed cost: the same walk with every token masked
-    (barriers, the reciprocal hoist, index loads), per tile."""
+    (barriers, the reciprocal hoist, index loads), per tile, in device time
+    (events where the profiler misses the launch: a walk shorter than its
+    wrapper's host work times the host)."""
     import torch
 
     from ldagibbssampling_tpu_torch.evaluation.tracing import kernel_device_ms
@@ -612,8 +615,10 @@ def walk_report(res: dict, name: str, rows, ndk, nk, z, w, d, m, *, chain: str,
     # a ms well): None, "not measured", where the profiler missed the launch
     res[f"{prefix}walk_device_ms"] = dev_ms = kernel_device_ms(whole, "gibbs_walk")
     res[f"{prefix}walk_bound_ms"] = b_ms
+    fixed_ms = kernel_device_ms(lambda: walk(masked), "gibbs_walk")
     res[f"{prefix}fixed_us_per_tile"] = fixed = (
-        cuda_ms(lambda: walk(masked)) * 1e3 / n_tiles)
+        (cuda_ms(lambda: walk(masked)) if fixed_ms is None else fixed_ms)
+        * 1e3 / n_tiles)
     log(f"[kernels] {name} walk (draw + move, one launch) at K={k}: {ms:.4f} ms "
         f"per block of {z.shape[0]} tokens, device "
         f"{'not measured' if dev_ms is None else dev_ms} ms per launch "
@@ -812,9 +817,10 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
 
 def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
     """Phase 3d: K1 at K = 100, where the sweep's row tile is 2,048 and
-    the walk takes its two-barrier form (walk_general) over 32 tiles: the
-    first block of the deferred layout against the plain walk in the three
-    noise modes (bitwise), then its whole walk and fixed cost per tile."""
+    the one-barrier walk (walk_pipelined) folds four of a tile's moves a
+    thread, over 32 tiles: the first block of the deferred layout against
+    the plain walk in the three noise modes (bitwise), then its whole walk
+    and fixed cost per tile."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -831,8 +837,8 @@ def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
                     device=dev)
     k_pad, row_tile = 128, _pick_row_tile(BLOCK, K_GENERAL)
     cfg = fk.walk_config(torch.bfloat16, "float32", "internal", k_pad, BLOCK,
-                         row_tile)
-    if cfg["pipelined"]:
+                         row_tile, ndk_bytes=st.ndk.nbytes)
+    if not cfg["pipelined"]:
         raise AssertionError(f"K={K_GENERAL}, row tile {row_tile}: {cfg}")
     mirror = ck.cast_mirror(F.pad(st.nwk, (0, k_pad - K_GENERAL, 0,
                                            plan.v_pad - V)).contiguous())
@@ -851,12 +857,12 @@ def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
             torch.cuda.synchronize()
             res.append((zn, ndk, nk))
         if not all(torch.equal(a, b) for a, b in zip(*res)):
-            raise AssertionError(f"K1 at K={K_GENERAL} (walk_general), {mode}: "
+            raise AssertionError(f"K1 at K={K_GENERAL} (walk_pipelined), {mode}: "
                                  "the walk differs from the plain walk")
     real = m > 0
     n_real = int(real.sum())
     log(f"[kernels] K1 at K={K_GENERAL}, row tile {row_tile} ({BLOCK // row_tile} "
-        f"tiles, {cfg['team']} threads per token, two barriers per tile): z, ndk "
+        f"tiles, {cfg['team']} threads per token, one barrier per tile): z, ndk "
         f"and nk equal to the plain walk in all three modes")
     nbytes = (torch.unique(w[real]).numel() * k_pad * 2
               + torch.unique(d[real]).numel() * K_GENERAL * 4 + K_GENERAL * 4
@@ -4144,8 +4150,8 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
     runs = warmup + sweeps
     if model.sweeps_done != runs:
         raise AssertionError(f"[rung3 full] ran {model.sweeps_done} sweeps, not {runs}")
-    # the first snapshot, then per sweep one walk (the K = 100 two-barrier
-    # form), one rebuild and one snapshot, and once more in the graph's
+    # the first snapshot, then per sweep one walk (K = 100, one barrier a
+    # tile), one rebuild and one snapshot, and once more in the graph's
     # warm-up sweep
     launches = _launches_match("rung3 full", {
         sample_name(torch.bfloat16, "float32"): runs + 1,
@@ -4542,7 +4548,8 @@ def main() -> int:
         f"{cfg['smem']} bytes of log tables each")
     for rows, chain in ((torch.int32, "float32"), (torch.bfloat16, "float32"),
                         *((getattr(torch, r), c) for c, r in CHAIN_SETTINGS)):
-        cfg = fk.walk_config(rows, chain, "internal", k_pad, BLOCK, row_tile)
+        cfg = fk.walk_config(rows, chain, "internal", k_pad, BLOCK, row_tile,
+                             ndk_bytes=M * K * 4)
         log(f"[build] walk {fk.sample_name(rows, chain)}: {cfg['grid']} CTAs "
             f"({cfg['grid'] // sms} per SM, from the occupancy query) of "
             f"{cfg['threads']} threads, {cfg['team']} threads per token, "

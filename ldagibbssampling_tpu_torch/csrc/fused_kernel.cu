@@ -66,25 +66,28 @@
 // - walk_general, any shape: every draw of the tile reads the counts; grid
 //   barrier; the tile's unmasked tokens move their ndk and nk counts with
 //   integer atomics; grid barrier; the next tile;
-// - walk_pipelined, a sweep whose tiles are one pass each (the deferred and
-//   fused tiers at K over 256, whose row tiles are at most 512; at K up to
-//   256 their tiles of 1,024 or 2,048 tokens take walk_general): one grid
-//   barrier per tile, and a move per thread of each CTA.  ndk is
-//   double-buffered, each CTA keeps nk in shared memory, and a tile's draws
-//   add the previous tile's moves of their own document to a buffer that
-//   nobody writes between the two barriers around them (see there).  The
-//   next tile's token is read a tile ahead, and its row entries and noise
-//   while the barrier settles.
+// - walk_pipelined, where every tile is one pass (a team per token of a
+//   tile, at most a topic group per thread: the deferred and fused tiers'
+//   tiles at every K up to k_pad 2,048 on a grid of 132 SMs) and the caller
+//   gives the second ndk buffer (ops/fused_kernel.py takes it where the
+//   launch's tiles repay its copy): one grid barrier per tile.  ndk is double-buffered, and each leader moves its
+//   token of the tile it drew and of the one before into the buffer that the
+//   next tile reads and nobody reads before the next barrier.  Each CTA keeps
+//   nk in shared memory and folds in the previous tile's moves, which every
+//   leader also writes as one packed record (zo | zn << 16) into a ring of
+//   two tiles: each thread folds ceil(tile / kWalkThreads) of them.  The next
+//   tile's token is read a tile ahead, and its row entries and noise while
+//   the barrier settles.
 //
 // The grid barrier is a sense-reversing arrival counter in an int32 that
 // the caller zeroes (cooperative_groups' grid barrier, written out so that
 // no -rdc build is needed), split in two so that work that needs no other
 // CTA's writes runs while it settles: after a __syncthreads one thread per
 // CTA arrives with a release add, and waits with acquire loads before the
-// next __syncthreads.  ndk, nk and z_new change during the launch, so they
-// are read through L2 (__ldcg), never through the non-coherent read-only
-// path, which could return a previous tile's values.  The rows (only read
-// during a walk), the tokens and the noise take __ldg.
+// next __syncthreads.  ndk, nk, z_new and the move records change during the
+// launch, so they are read through L2 (__ldcg), never through the
+// non-coherent read-only path, which could return a previous tile's values.
+// The rows (only read during a walk), the tokens and the noise take __ldg.
 //
 // What bounds it on an H100: the chain of dependent tiles.  A tile of 512
 // tokens at K = 500 is ~0.2 us of operations for the whole card; what it
@@ -136,6 +139,9 @@ namespace {
 
 constexpr int kWalkThreads = 512;
 constexpr int kWalkWarps = kWalkThreads / 32;
+// the one-barrier walk's fold: records loaded per thread before the first of
+// their shared atomics
+constexpr int kFoldBatch = 4;
 // the count move: one thread per token in CTAs of kMoveThreads; nk goes
 // through the shared histograms of clusters of kMoveCluster CTAs up to
 // kMaxHistTopics topics (48 KB), straight to global atomics above
@@ -178,6 +184,8 @@ struct WalkArgs {
   bool vec_noise;    // a group's 4 uniforms in one load
   bool pipelined;    // walk_pipelined: a sweep whose tiles are one pass each
   unsigned int* barrier;
+  unsigned int* moves;  // walk_pipelined's ring [2][row_tile] of move
+                        // records zo | zn << 16 (null in walk_general)
 };
 
 // the launch's hyperparameters and key, read from the device at the start
@@ -510,70 +518,66 @@ __device__ __forceinline__ Token fetch_token(const WalkArgs& a, long long t0,
   return tk;
 }
 
-// Move m of the tile at t0 (m < n), read for fold_move: every load at once
-__device__ __forceinline__ Move fetch_move(const WalkArgs& a, long long t0,
-                                           long long n, int m) {
-  Move mv = {0, 0, 0, false};
-  if (m < n) {
-    const long long i = t0 + m;
-    mv.real = __ldg(a.mask + i) != 0;
-    mv.zo = __ldg(a.z_old + i);
-    mv.zn = __ldcg(a.z_new + i);  // stored by another CTA in this launch
-    mv.doc = __ldg(a.doc + i);
-  }
-  return mv;
-}
-
-// Fold a move into this CTA's topic totals s_nk and into s_corr[q], the
-// doc-row correction of team q, where s_doc[q] is its document
-__device__ __forceinline__ void fold_move(const Move& mv, int per_cta,
-                                          int k_pad, int* s_nk, int* s_corr,
-                                          const int* s_doc) {
-  if (!mv.real || mv.zo == mv.zn) return;
-  atomicSub(s_nk + mv.zo, 1);
-  atomicAdd(s_nk + mv.zn, 1);
-  for (int q = 0; q < per_cta; ++q) {
-    if (s_doc[q] == mv.doc) {
-      atomicSub(s_corr + q * k_pad + mv.zo, 1);
-      atomicAdd(s_corr + q * k_pad + mv.zn, 1);
+// Fold the n move records of a tile (zo | zn << 16; zo == zn for a token
+// that kept its topic or is masked) into this CTA's topic totals s_nk: each
+// thread takes records tid, tid + kWalkThreads, ..., kFoldBatch at a time,
+// all loaded (through L2: other CTAs stored them in this launch) before the
+// first of their shared atomics
+__device__ __forceinline__ void fold_moves(const unsigned int* rec, int n,
+                                           int* s_nk) {
+  for (int m0 = threadIdx.x; m0 < n; m0 += kFoldBatch * kWalkThreads) {
+    unsigned int r[kFoldBatch];
+#pragma unroll
+    for (int j = 0; j < kFoldBatch; ++j) {
+      const int m = m0 + j * kWalkThreads;
+      r[j] = m < n ? __ldcg(rec + m) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kFoldBatch; ++j) {
+      const int zo = static_cast<int>(r[j] & 0xFFFFu);
+      const int zn = static_cast<int>(r[j] >> 16);
+      if (zo != zn) {
+        atomicSub(s_nk + zo, 1);
+        atomicAdd(s_nk + zn, 1);
+      }
     }
   }
 }
 
 // The walk where every tile is one pass (a team per token, a topic group per
-// thread at most, a move per thread; the launch sets a.pipelined), with ONE
-// grid barrier per tile.  ndk is double-buffered: X0 = a.ndk, X1 =
-// a.ndk_copy (a copy of it at the start).  Tile t's draws read X[t % 2],
-// which holds the counts before tile t - 1 moved, and add tile t - 1's moves
-// of their own document (s_corr), read from the z_new that tile t - 1
-// published before the barrier; meanwhile each leader adds the moves of its
-// tokens of tiles t - 2 and t - 1 to X[(t + 1) % 2], which nobody reads
-// before the next barrier and which then holds the counts after tile t - 1.
-// nk lives in each CTA's shared memory, which folds every tile's moves in.
-// Reads and writes of a buffer never meet between two barriers, so each
-// tile draws against exactly the counts the previous tile left, as the
-// two-barrier walk does.  A thread's next token is read a tile ahead; its
-// row entries and noise are read and computed while the barrier settles.
-// CTAs whose teams have no token in any tile only keep the barrier.  At the
-// end X0 takes the moves it lacks and CTA 0 writes nk back.
+// thread at most; the launch sets a.pipelined), with ONE grid barrier per
+// tile.  ndk is double-buffered: X0 = a.ndk, X1 = a.ndk_copy (a copy of it at
+// the start).  Tile t's draws read X[t % 2], which holds the counts after
+// tile t - 1; meanwhile each leader adds the moves of its tokens of tiles
+// t - 1 and t to X[(t + 1) % 2], which nobody reads before the next barrier
+// and which held the counts after tile t - 2 (written during tile t - 1, read
+// by its draws): after the barrier it holds the counts after tile t.  Reads
+// and writes of a buffer never meet between two barriers, so each tile draws
+// against exactly the counts the previous tile left, as the two-barrier walk
+// does.  nk lives in each CTA's shared memory, which folds in every tile's
+// moves from the ring a.moves[t % 2] of the leaders' records; the ring a tile
+// writes is read after the next barrier, and written again only after the
+// one after it.  A thread's next token is read a tile ahead; its row entries
+// and noise are read and computed while the barrier settles.  CTAs whose
+// teams have no token in any tile only keep the barrier.  At the end X0 takes
+// the last tile's moves where X1 was the last buffer written, and CTA 0 folds
+// the last tile into nk and writes it back.
 template <int kMode, int kChain, typename RowT>
 __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, const Hyper& h,
                                                float4* s_r4, int* s_nk,
-                                               int* s_corr,
-                                               int* s_doc, float* s_best,
-                                               int* s_k) {
+                                               float* s_best, int* s_k) {
   const int tid = threadIdx.x;
   const int per_cta = kWalkThreads / a.team;
   const int tl = tid & (a.team - 1);
-  const int q = tid / a.team;  // the team's place in the CTA
-  const long long team = static_cast<long long>(blockIdx.x) * per_cta + q;
+  const long long team =
+      static_cast<long long>(blockIdx.x) * per_cta + tid / a.team;
   const bool busy = static_cast<long long>(blockIdx.x) * per_cta < a.row_tile;
   const bool mine_group = 4 * tl < a.k_pad;
   const RowT* rows = static_cast<const RowT*>(a.rows);
   float* s_r = reinterpret_cast<float*>(s_r4);
   unsigned int sense = 0;
-  Move prev = {0, 0, 0, false}, prev2 = prev;
-  // tile 0's token, noise and row entries; nk; the first corrections
+  Move prev = {0, 0, 0, false};
+  // tile 0's token, noise and row entries; nk
   Token cur = fetch_token(a, 0, team);
   float inv_e[4], w[4];
   if (mine_group && cur.real) {
@@ -583,13 +587,11 @@ __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, const Hyper& h
   }
   for (int k = tid; k < a.k_pad; k += kWalkThreads)
     s_nk[k] = k < a.k_real ? a.nk[k] : 0;
-  for (int k = tid; k < per_cta * a.k_pad; k += kWalkThreads) s_corr[k] = 0;
-  if (tl == 0) s_doc[q] = cur.real ? cur.doc : -1;
   __syncthreads();
   long long t = 0;
   for (long long t0 = 0; t0 < a.n_tokens; t0 += a.row_tile, ++t) {
     if (busy) {
-      // this tile's doc counts, the previous tile's move and the next
+      // this tile's doc counts, the previous tile's moves and the next
       // tile's token go out together
       const bool mine = cur.real && mine_group;
       int dc[4] = {0, 0, 0, 0};
@@ -597,10 +599,9 @@ __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, const Hyper& h
         load_ndk4((t & 1 ? a.ndk_copy : a.ndk) +
                       static_cast<long long>(cur.doc) * a.k_real,
                   tl, a.k_real, a.vec_ndk, dc);
-      const Move mv = t0 > 0 ? fetch_move(a, t0 - a.row_tile, a.row_tile, tid)
-                             : prev;  // prev is not real here
       const Token nxt = fetch_token(a, t0 + a.row_tile, team);
-      fold_move(mv, per_cta, a.k_pad, s_nk, s_corr, s_doc);
+      if (t0 > 0)
+        fold_moves(a.moves + ((t - 1) & 1) * a.row_tile, a.row_tile, s_nk);
       __syncthreads();
       for (int k = tid; k < a.k_pad; k += kWalkThreads)
         s_r[k] = k < a.k_real
@@ -612,45 +613,42 @@ __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, const Hyper& h
       if (mine) {
         float d[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          d[j] = static_cast<float>(dc[j] + s_corr[q * a.k_pad + 4 * tl + j]);
+        for (int j = 0; j < 4; ++j) d[j] = static_cast<float>(dc[j]);
         score4<kMode, kChain>(a, h, w, d, s_r4[tl], inv_e, cur.zo, tl, best,
                               best_k);
       }
       team_argmax(best, best_k, a.team, s_best, s_k);
       const int zn = cur.real ? best_k : cur.zo;
       if (tl == 0) {
-        if (cur.live) a.z_new[cur.i] = zn;
+        if (cur.live) {  // a masked token's record is 0: no move
+          a.z_new[cur.i] = zn;
+          a.moves[(t & 1) * a.row_tile + team] =
+              cur.real ? static_cast<unsigned int>(cur.zo) |
+                             (static_cast<unsigned int>(zn) << 16)
+                       : 0u;
+        }
+        const Move mv = {cur.doc, cur.zo, zn, cur.real};
         int* const out = t & 1 ? a.ndk : a.ndk_copy;
-        move_doc(out, a.k_real, prev2);
         move_doc(out, a.k_real, prev);
+        move_doc(out, a.k_real, mv);
+        prev = mv;
       }
-      prev2 = prev;
-      prev = {cur.doc, cur.zo, zn, cur.real};
       cur = nxt;
     }
-    grid_arrive(a.barrier, sense);  // tile t's z_new and the buffer's moves are out
-    if (busy) {  // the next tile's row entries and noise
-      if (mine_group && cur.real) {
-        load_row4(rows + static_cast<long long>(cur.word) * a.row_stride, tl,
-                  a.k_real, a.vec_rows, w);
-        noise4<kMode>(a, h, cur.i, tl, inv_e);
-      }
-      for (int k = tid; k < per_cta * a.k_pad; k += kWalkThreads) s_corr[k] = 0;
-      if (tl == 0) s_doc[q] = cur.real ? cur.doc : -1;
+    grid_arrive(a.barrier, sense);  // tile t's z_new, records and moves are out
+    if (busy && mine_group && cur.real) {  // the next tile's row entries, noise
+      load_row4(rows + static_cast<long long>(cur.word) * a.row_stride, tl,
+                a.k_real, a.vec_rows, w);
+      noise4<kMode>(a, h, cur.i, tl, inv_e);
     }
     grid_wait(a.barrier, sense);
   }
-  // X0 lacks the last tile's moves, and the one before it when X1 was the
-  // last buffer written; CTA 0 folds the last tile into nk and writes it
-  if (tl == 0) {
-    if (t & 1) move_doc(a.ndk, a.k_real, prev2);
-    move_doc(a.ndk, a.k_real, prev);
-  }
+  // an odd number of tiles wrote X1 last: X0 lacks the last tile's moves
+  if (tl == 0 && (t & 1)) move_doc(a.ndk, a.k_real, prev);
   if (blockIdx.x == 0) {
     const long long t0 = (t - 1) * a.row_tile;
-    fold_move(fetch_move(a, t0, a.n_tokens - t0, tid), 0, a.k_pad, s_nk,
-              s_corr, s_doc);
+    fold_moves(a.moves + ((t - 1) & 1) * a.row_tile,
+               static_cast<int>(a.n_tokens - t0), s_nk);
     __syncthreads();
     for (int k = tid; k < a.k_real; k += kWalkThreads) a.nk[k] = s_nk[k];
   }
@@ -728,11 +726,10 @@ __device__ __forceinline__ void walk_general(const WalkArgs& a, const Hyper& h,
 template <int kMode, int kChain, typename RowT>
 __global__ void __launch_bounds__(kWalkThreads, 1) gibbs_walk(const WalkArgs a) {
   // [k_pad / 4] float4: the tile's nk reciprocals; the pipelined walk adds
-  // its nk [k_pad] and its teams' doc corrections [teams per CTA][k_pad]
+  // its nk [k_pad]
   extern __shared__ float4 s_r4[];
   __shared__ float s_best[kWalkWarps];
   __shared__ int s_k[kWalkWarps];
-  __shared__ int s_doc[kWalkWarps];
   // the launch's values, read once per CTA, then held in registers
   __shared__ Hyper s_h;
   if (threadIdx.x == 0) {
@@ -750,8 +747,7 @@ __global__ void __launch_bounds__(kWalkThreads, 1) gibbs_walk(const WalkArgs a) 
   const Hyper h = s_h;
   if (a.pipelined) {
     int* s_nk = reinterpret_cast<int*>(s_r4 + a.k_pad / 4);
-    walk_pipelined<kMode, kChain, RowT>(a, h, s_r4, s_nk, s_nk + a.k_pad,
-                                        s_doc, s_best, s_k);
+    walk_pipelined<kMode, kChain, RowT>(a, h, s_r4, s_nk, s_best, s_k);
   } else {
     walk_general<kMode, kChain, RowT>(a, h, s_r4, s_best, s_k);
   }
@@ -904,9 +900,9 @@ bool aligned(const void* p, uintptr_t bytes) {
 }
 
 // How a walk launches: its grid, team, dynamic shared memory, and whether
-// it runs walk_pipelined (a sweep whose tiles are one pass each, with a
-// move per thread, if its larger shared memory leaves the grid as it is) or
-// walk_general.
+// its shape allows walk_pipelined (a team per token of a tile, a topic group
+// per thread at most, topics that fit a record's 16 bits, if its larger
+// shared memory leaves the grid as it is); the caller then picks the form.
 struct WalkConfig {
   int grid = 0;
   int team = 32;
@@ -924,9 +920,9 @@ cudaError_t walk_config(WalkKernel kernel, int phases, int k_pad,
                       k_pad / 4);
   const int per_cta = kWalkThreads / c->team;
   if (phases != 3 || static_cast<long long>(c->grid) * per_cta < tile ||
-      k_pad / 4 > c->team || row_tile > kWalkThreads)
+      k_pad / 4 > c->team || k_pad > (1 << 16))
     return cudaSuccess;
-  const size_t smem = static_cast<size_t>(2 + per_cta) * k_pad * sizeof(int);
+  const size_t smem = 2 * static_cast<size_t>(k_pad) * sizeof(int);
   int grid = 0;
   err = walk_grid(kernel, smem, &grid);
   if (err == cudaSuccess && grid == c->grid) {
@@ -967,8 +963,9 @@ extern "C" const char* lda_error_string(int err) {
 
 // The launch configuration lda_gibbs_tiles gives a walk (phases 3) of
 // n_tokens in tiles of row_tile with k_pad topics, on the current device:
-// CTAs (*grid) of *threads, *team threads per token, *pipelined 1 for the
-// one-barrier walk.
+// CTAs (*grid) of *threads, *team threads per token, *pipelined 1 where the
+// shape allows the one-barrier walk (the caller takes it by passing
+// ndk_copy).
 extern "C" int lda_walk_config(int rows_kind, int chain, int noise_mode,
                                int k_pad, long long n_tokens, int row_tile,
                                int* grid, int* threads, int* team,
@@ -991,9 +988,11 @@ extern "C" int lda_walk_config(int rows_kind, int chain, int noise_mode,
 // Philox key (internal mode only), both on the device and read when the
 // walk starts.  phases: 1 = draw only (every token against the given
 // counts), 3 = draw and count move per tile (the sweep; needs `barrier`, one
-// int32 that the caller zeroes, and, where lda_walk_config says pipelined,
-// `ndk_copy`, a copy of ndk that the walk overwrites; walk_general ignores
-// it).  Returns the launch's CUDA error: a launch the card refuses
+// int32 that the caller zeroes).  Where lda_walk_config says pipelined, a
+// walk given `ndk_copy`, a copy of ndk that the walk overwrites, takes the
+// one-barrier form, and then `barrier` holds 1 + 2 * row_tile int32 (the
+// counter, then the ring of move records); without it, walk_general.
+// Returns the launch's CUDA error: a launch the card refuses
 // (cooperative grid too large, too much shared memory, a stream capture that
 // takes no cooperative launch) is reported, never split into smaller
 // launches nor made a launch without the co-residency that the grid barrier
@@ -1020,8 +1019,7 @@ extern "C" int lda_gibbs_tiles(
   cudaError_t err =
       cached_walk_config(kernel, phases, k_pad, n_tokens, row_tile, &c);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (c.pipelined && ndk_copy == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool pipelined = c.pipelined && ndk_copy != nullptr;
   const size_t row_bytes = rows_kind == kRowsBf16 ? 2 : 4;
   WalkArgs a;
   a.rows = rows;
@@ -1047,12 +1045,14 @@ extern "C" int lda_gibbs_tiles(
   a.vec_rows = row_stride % 4 == 0 && aligned(rows, 4 * row_bytes);
   a.vec_ndk = k_real % 4 == 0 && aligned(ndk, 16) && aligned(ndk_copy, 16);
   a.vec_noise = aligned(uniforms, 16);
-  a.pipelined = c.pipelined;
+  a.pipelined = pipelined;
   a.barrier = static_cast<unsigned int*>(barrier);
+  a.moves = pipelined ? a.barrier + 1 : nullptr;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(c.grid), dim3(kWalkThreads), params,
-                                    c.smem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(c.grid), dim3(kWalkThreads),
+      params, pipelined ? c.smem : static_cast<size_t>(k_pad) * sizeof(float),
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,14 +22,22 @@ float32 chain only, as the reference does.  The CUDA kernels are in
   reciprocals, and draws ``argmax p / E``, the reference's exponential
   race), then the tile's moves of ``ndk`` and ``nk`` go in with integer
   atomics before the next tile draws; templated on the noise mode, the chain
-  and the row type.  Where every tile is one pass over the grid (the
-  deferred and fused tiers at K over 256, row tiles up to 512) it takes one
-  grid barrier per tile, with ``ndk`` double-buffered; otherwise two
-  (``walk_config`` says which).  The wrapper allocates the barrier's
-  counter (one int32, ``torch.zeros``) per walk and, for the one-barrier
-  walk only, the second ``ndk`` buffer (a clone: ``ndk``'s memory twice
-  while the walk runs); inside a stream capture they are a memset and a
-  copy of the graph.  A launch the card refuses raises; nothing splits
+  and the row type.  Where every tile is one pass over the grid (a team of
+  threads per token of a tile: the deferred and fused tiers' tiles at every
+  K up to 2,048 on an H100, 2,048 tokens at K <= 128 and 1,024 at
+  K <= 256 included) and the launch's tiles repay a copy of ``ndk``
+  (``one_barrier_pays``), it takes one grid barrier per tile, with ``ndk``
+  double-buffered and each CTA folding the previous tile's moves into its
+  own ``nk``; otherwise two (``walk_config`` says which).  The wrapper
+  allocates the barrier's counter (one int32, ``torch.zeros``; for the
+  one-barrier walk followed by a ring of two tiles' move records) per walk
+  and, for the one-barrier walk only, the second ``ndk`` buffer (a clone:
+  ``ndk``'s memory twice while the walk runs); inside a stream capture
+  they are a memset and a copy of the graph.  Each walk that moves counts
+  adds 1 to the recorder's counter ``walk.one_barrier`` or
+  ``walk.two_barrier`` (``evaluation/tracing.count``) when it launches:
+  eagerly, or once per capture where a graph replays it.  A launch the
+  card refuses raises; nothing splits
   a walk into smaller launches or launches it without co-residency.  The
   launch configuration is found once per kernel and shape
   (``csrc/fused_kernel.cu``'s cache), so a launch inside a capture makes
@@ -81,6 +89,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ldagibbssampling_tpu_torch.evaluation.tracing import count
 from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
 
 NOISE_MODES = ("deterministic", "external", "internal")
@@ -373,6 +382,28 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# What the one-barrier walk saves against the two-barrier walk, a tile: an
+# H100 at 700 W walked chip_smoke's K = 100 block (32 tiles of 2,048, its
+# ndk 1.6 MB and copied) in 0.108 ms one way and 0.211 ms the other
+# (scripts/walk_parity, in turns); and what its copy of ``ndk`` costs at
+# least (``ndk``'s bytes read and written at the HBM's 3.35 TB/s; 120 MB
+# copied in 0.086 ms on that card).
+TILE_SAVING_S = 3.2e-6
+HBM_BYTES_PER_S = 3.35e12
+
+
+def one_barrier_pays(n_tiles: int, ndk_bytes: int) -> bool:
+    """Do a launch's ``n_tiles`` tiles repay the one-barrier walk's copy of
+    ``ndk`` twice over?  A sweep in one launch does by far (NYTimes at
+    K = 100: ~48,600 tiles against a 120 MB ``ndk``); the fused tier's
+    launch of one block of 65,536 tokens (32 tiles of 2,048) does where
+    ``ndk`` is under ~86 MB, so not at NYTimes's 300,000 documents, where
+    its copy (0.086 ms) takes most of what the tiles save (0.10 ms).  The
+    margin covers a saving measured with ``ndk`` in L2 and a copy that
+    also evicts L2."""
+    return n_tiles * TILE_SAVING_S >= 2 * (2 * ndk_bytes / HBM_BYTES_PER_S)
+
+
 @functools.lru_cache(maxsize=256)
 def _walk_config(device_index: int, rows_kind: int, chain: int, mode: int,
                  k_pad: int, n_tokens: int, row_tile: int) -> tuple:
@@ -386,17 +417,21 @@ def _walk_config(device_index: int, rows_kind: int, chain: int, mode: int,
 
 
 def walk_config(rows_dtype: torch.dtype, compute_dtype: str, noise_mode: str,
-                k_pad: int, n_tokens: int, row_tile: int, device=None) -> dict:
-    """How ``gibbs_tiles`` launches a walk on the card: ``grid`` CTAs (as
-    many as the occupancy query says fit at once) of ``threads``, ``team``
-    threads per token, and ``pipelined`` (the one-barrier walk, where every
-    tile is one pass) or not (two barriers per tile)."""
+                k_pad: int, n_tokens: int, row_tile: int, device=None, *,
+                ndk_bytes: int = 0) -> dict:
+    """How ``gibbs_tiles`` launches a walk on the card with an ``ndk`` of
+    ``ndk_bytes``: ``grid`` CTAs (as many as the occupancy query says fit at
+    once) of ``threads``, ``team`` threads per token, and ``pipelined`` (the
+    one-barrier walk, where every tile is one pass and the tiles repay the
+    copy of ``ndk``) or not (two barriers per tile)."""
     with torch.cuda.device(device):
         index = torch.cuda.current_device()
     grid, threads, team, pipelined = _walk_config(
         index, _ROWS_KIND[rows_dtype], CHAINS.index(compute_dtype),
         NOISE_MODES.index(noise_mode), k_pad, n_tokens, row_tile)
-    return dict(grid=grid, threads=threads, team=team, pipelined=bool(pipelined))
+    n_tiles = -(-n_tokens // row_tile)
+    return dict(grid=grid, threads=threads, team=team,
+                pipelined=bool(pipelined) and one_barrier_pays(n_tiles, ndk_bytes))
 
 
 def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
@@ -409,14 +444,18 @@ def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
         return
     build, lib = _lib()
     k_pad = row_width(rows, ndk.shape[1])
-    # a walk that moves counts: the grid barrier's arrival counter, and the
-    # one-barrier walk's second doc-count buffer
+    # a walk that moves counts: the grid barrier's arrival counter, and for
+    # the one-barrier walk its ring of two tiles' move records after it and
+    # the second doc-count buffer
     barrier = ndk_copy = None
+    one = phases == 3 and walk_config(
+        rows.dtype, compute_dtype, noise_mode, k_pad, z.shape[0], row_tile,
+        ndk.device, ndk_bytes=ndk.nbytes)["pipelined"]
     if phases == 3:
-        barrier = torch.zeros(1, dtype=torch.int32, device=ndk.device)
-        if walk_config(rows.dtype, compute_dtype, noise_mode, k_pad, z.shape[0],
-                       row_tile, ndk.device)["pipelined"]:
-            ndk_copy = ndk.clone()
+        barrier = torch.zeros(1 + (2 * row_tile if one else 0), dtype=torch.int32,
+                              device=ndk.device)
+    if one:
+        ndk_copy = ndk.clone()
     with torch.cuda.device(ndk.device):
         err = lib.lda_gibbs_tiles(
             _ptr(rows), _ROWS_KIND[rows.dtype], rows.shape[1], k_pad, _ptr(ndk),
@@ -430,6 +469,8 @@ def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
         )
     build.check(lib, err, "lda_gibbs_tiles")
     LAUNCHES[sample_name(rows.dtype, compute_dtype)] += 1
+    if phases == 3:
+        count("walk.one_barrier" if one else "walk.two_barrier")
 
 
 def gibbs_tiles(

@@ -29,8 +29,10 @@ from ldagibbssampling_tpu_torch.evaluation.tracing import (
 from ldagibbssampling_tpu_torch.lda_io.artifacts import save_iterated_model
 
 # counters a metrics row carries when they moved since the row before: a
-# recapture or a state copied into the sweep graph mid-run (ops/graphs.py)
-ROW_COUNTERS = ("graph.captures", "graph.copy_in_bytes")
+# recapture or a state copied into the sweep graph mid-run (ops/graphs.py),
+# K1's walks launched or captured in each form (ops/fused_kernel.py)
+ROW_COUNTERS = ("graph.captures", "graph.copy_in_bytes", "walk.one_barrier",
+                "walk.two_barrier")
 
 
 def map_assignments(phi: np.ndarray, theta: np.ndarray, corpus: FlatCorpus) -> np.ndarray:
@@ -95,7 +97,8 @@ def run_inference(
     before, other than the runner's own (``<name>_s``: the sweep graph's
     set-up in the first row after it), and the counters of
     ``ROW_COUNTERS`` that moved since then, by how much
-    (``graph_captures``, ``graph_copy_in_bytes``).
+    (``graph_captures``, ``graph_copy_in_bytes``, ``walk_one_barrier``,
+    ``walk_two_barrier``).
     """
     if result_dir is not None:
         config.validate_reference_guard()

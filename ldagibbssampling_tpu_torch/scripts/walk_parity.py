@@ -13,9 +13,12 @@ checkout: every K1 instantiation (the six deferred (chain, snapshot)
 settings and the live int32 table) in the three noise modes from the same
 state, and the time of the whole walk (draw and count move per tile,
 internal noise) per block.  Then the same block at K = 100 (``chip_smoke``'s
-``K_GENERAL``: row tile 2,048, the two-barrier walk that the mesh
-runtimes' deferred tier runs; its state from ``init_state`` at K = 100):
-the f32 chain on the bf16 snapshot in the three noise modes, and its time.
+``K_GENERAL``: row tile 2,048, the tiles of the deferred tier and the mesh
+runtimes' deferred shards at K <= 128, which the one-barrier walk takes
+with four of a tile's moves folded a thread and a checkout from before
+that took with two barriers a tile; its state from ``init_state`` at
+K = 100): the f32 chain on the bf16 snapshot in the three noise modes, and
+its time.
 ``--rounds`` repeats the four runs (other, this, this, other) that many
 times, for the spread of each side's times.  Every run's ``z``, ``ndk`` and
 ``nk`` must hash the same as every other's.  Prints one JSON line; exits 1
@@ -48,7 +51,7 @@ SETTINGS = (
     ("gibbs_tile_sample_bf16p_f32rows", "bf16p", "float32"),
     ("gibbs_tile_sample_live", "float32", "int32"),
 )
-# the K = 100 block: the two-barrier walk (row tile 2,048)
+# the K = 100 block: row tile 2,048
 K_GENERAL = 100
 REPS = 20
 

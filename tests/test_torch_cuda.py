@@ -289,20 +289,26 @@ def test_k1_walk_doc_shared_tiles_equal_plain(cuda, chain, rows):
 @pytest.mark.parametrize("mode", ["deterministic", "external", "internal"])
 @pytest.mark.parametrize("k,n,row_tile,pipelined,one_doc", [
     (1000, 3 * 256, 256, True, False),   # k_pad 1024, the row tile the sweep picks
-    (128, 2048, 2048, False, False),     # a single-tile block of 2,048 tokens
+    (128, 2048, 2048, True, False),      # a single-tile block of 2,048 tokens
     (K, 1000, 256, True, False),         # n_tokens not a multiple of row_tile
     (K, 20000, 20000, False, False),     # more tokens in a tile than the grid has teams
+    # the one-barrier walk at tiles of more tokens than a CTA has threads:
+    # each CTA folds several of the previous tile's moves a thread into its
+    # nk, and the tile's draws read the doc rows its leaders moved
+    (100, 3 * 2048, 2048, True, True),   # the sweep's tiles at K <= 128, one document
+    (100, 3 * 2048 + 700, 2048, True, False),  # and a ragged last tile
+    (100, 2048 + 700, 2048, True, False),  # CTA 0's last fold: 1-2 moves a thread
+    (200, 4 * 1024, 1024, True, True),   # the sweep's tiles at 128 < K <= 256
     # the two-barrier walk over several tiles: each tile's moves, two
     # barriers, then the next tile's reads of ndk/nk through L2 and its hoist
-    (100, 3 * 2048, 2048, False, True),  # the sweep's tiles at K <= 128, one document
-    (100, 3 * 2048 + 700, 2048, False, False),  # and a ragged last tile
-    (200, 4 * 1024, 1024, False, True),  # the sweep's tiles at 128 < K <= 256
+    (100, 3 * 4096, 4096, False, True),  # K <= 256, a tile past the grid's teams
     (2100, 3 * 128 + 50, 128, False, False),  # k_pad 2176: more groups than a team
 ])
 def test_k1_walk_shapes_equal_plain(cuda, mode, k, n, row_tile, pipelined, one_doc):
     st, toks, mirror = _walk_setup(cuda, k=k, n=n, seed=k + n, one_doc=one_doc,
                                    masked=0.0 if one_doc else 0.05)
-    cfg = fk.walk_config(mirror.dtype, "float32", mode, mirror.shape[1], n, row_tile)
+    cfg = fk.walk_config(mirror.dtype, "float32", mode, mirror.shape[1], n, row_tile,
+                         ndk_bytes=st.ndk.nbytes)
     assert cfg["pipelined"] == pipelined  # both forms of the walk are held here
     uniforms = torch.rand((n, mirror.shape[1]), device=cuda) * 0.999 + 5e-4
     for rows in (mirror, st.nwk):
@@ -313,15 +319,18 @@ def test_k1_walk_shapes_equal_plain(cuda, mode, k, n, row_tile, pipelined, one_d
                    for s in range(0, n, row_tile))
 
 
-@pytest.mark.parametrize("k,row_tile,pipelined", [(100, 2048, False),
-                                                  (500, 512, True)])
-def test_k1_walk_second_ndk_buffer_only_when_pipelined(cuda, k, row_tile,
+@pytest.mark.parametrize("k,row_tile,m,pipelined", [
+    (100, 2048, 2000, True), (500, 512, 1000, True),
+    (100, 4096, 2000, False),    # a tile past the grid's teams
+    (100, 2048, 50000, False)])  # 4 tiles do not repay a 20 MB copy of ndk
+def test_k1_walk_second_ndk_buffer_only_when_pipelined(cuda, k, row_tile, m,
                                                        pipelined):
     # the one-barrier walk needs a copy of ndk; the two-barrier walk none
     n = 4 * row_tile
-    st, toks, mirror = _walk_setup(cuda, k=k, n=n, m=20000, seed=3)
+    st, toks, mirror = _walk_setup(cuda, k=k, n=n, m=m, seed=3)
     assert fk.walk_config(mirror.dtype, "float32", "internal", mirror.shape[1], n,
-                          row_tile)["pipelined"] == pipelined
+                          row_tile, ndk_bytes=st.ndk.nbytes)["pipelined"] == pipelined
+    assert fk.one_barrier_pays(4, st.ndk.nbytes) == (m < 50000)
     ndk, nk = st.ndk.clone(), st.nk.clone()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(cuda)
@@ -331,6 +340,36 @@ def test_k1_walk_second_ndk_buffer_only_when_pipelined(cuda, k, row_tile,
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated(cuda) - base
     assert (extra >= ndk.nbytes) == pipelined, (extra, ndk.nbytes)
+
+
+def test_k1_walk_counts_its_form_once_per_launch_or_capture(cuda):
+    from ldagibbssampling_tpu_torch.evaluation import tracing
+    from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
+
+    tracing.reset()
+    # eager: a walk in each form at K = 100; the draw alone counts in neither
+    for n, row_tile in ((3 * 2048, 2048), (3 * 4096, 4096)):
+        st, toks, mirror = _walk_setup(cuda, k=100, n=n, seed=6)
+        fk.gibbs_tiles(mirror, st.ndk.clone(), st.nk.clone(), st.z, *toks,
+                       row_tile=row_tile, **sweep_values(cuda, 4))
+    fk.gibbs_tile_sample(mirror, st.ndk, st.nk, st.z, *toks, row_tile=4096,
+                         **sweep_values(cuda, 4))
+    torch.cuda.synchronize()
+    assert tracing.counters() == {"walk.one_barrier": 1, "walk.two_barrier": 1}
+    # the deferred sweep at K = 100 captured: its warm-up sweep and its
+    # capture count, its replays do not
+    layout, st = _tier_layout("deferred", 100, seed=5)
+    run = make_sweep_fn(layout.token_word, layout.token_doc, layout.token_mask,
+                        alpha=0.5, beta=0.1, block_size=2048, num_topics=100,
+                        deferred_plan=layout, device=cuda)
+    tracing.reset()
+    run.with_mirror(st, 0.5, 0.1, None, n_sweeps=3,
+                    generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    (graph,) = run.graphs.values()
+    assert graph.replays == 3
+    assert tracing.counters()["walk.one_barrier"] == 2
+    assert "walk.two_barrier" not in tracing.counters()
 
 
 def test_k1_walk_empty_and_all_masked(cuda):
@@ -872,8 +911,8 @@ def test_failed_capture_raises_and_runs_no_sweep_eagerly(cuda):
 
 def _tier_layout(tier, k, seed=0, t=12_000, block=2048):
     """A Zipf corpus in ``tier``'s layout at ``k`` topics: the deferred plan
-    (block 2,048: row tiles of 512 at K = 500, the one-barrier walk; one
-    tile of 2,048 at K = 100, the two-barrier walk) or ``pad_to`` +
+    (block 2,048: row tiles of 512 at K = 500 and one tile of 2,048 at
+    K = 100, both the one-barrier walk) or ``pad_to`` +
     ``sort_within_blocks``; its state on the card."""
     rng = np.random.default_rng(seed)
     tw = ((rng.zipf(1.2, size=t) - 1) % V).astype(np.int32)
@@ -894,10 +933,11 @@ def _tier_layout(tier, k, seed=0, t=12_000, block=2048):
     ("deferred", 500, "float32", "bfloat16", "internal"),   # one barrier a tile
     ("deferred", 500, "float32", "bfloat16", "external"),
     ("deferred", 500, "bf16p", "float32", "internal"),
-    ("deferred", 100, "float32", "bfloat16", "internal"),   # two barriers a tile
+    ("deferred", 100, "float32", "bfloat16", "internal"),   # tiles of 2,048
     ("deferred", 100, "bfloat16", "float32", "external"),
     ("fused", 500, "float32", "bfloat16", "internal"),
     ("fused", 500, "float32", "bfloat16", "external"),
+    ("fused", 100, "float32", "bfloat16", "internal"),
 ])
 def test_captured_kernel_tiers_equal_eager_on_card(cuda, tier, k, chain, mirror, mode):
     from ldagibbssampling_tpu_torch.ops.gibbs import (
@@ -913,8 +953,9 @@ def test_captured_kernel_tiers_equal_eager_on_card(cuda, tier, k, chain, mirror,
                         mirror_dtype=mirror)
     k_pad = -(-k // 128) * 128
     cfg = fk.walk_config(torch.int32 if tier == "fused" else getattr(torch, mirror),
-                         chain, mode, k_pad, 2048, run.row_tile)
-    assert cfg["pipelined"] == (k == 500)
+                         chain, mode, k_pad, 2048, run.row_tile,
+                         ndk_bytes=st.ndk.nbytes)
+    assert cfg["pipelined"]  # one barrier a tile at K = 100 as at K = 500
 
     def noise(sweep):
         g = torch.Generator(device=cuda).manual_seed(100 + sweep)

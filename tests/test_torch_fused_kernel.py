@@ -433,3 +433,21 @@ def test_count_move_writes_back_z(alias):
     assert torch.equal(z_out, torch.where(mask > 0, z_new, z_old))
     with pytest.raises(ValueError, match="z_out"):
         fk.count_move(zo, z_new, mask, nk=got["nk"], z_out=z_out[:-1])
+
+
+@pytest.mark.parametrize("n_tiles,ndk_bytes,pays", [
+    (48_604, 300_000 * 100 * 4, True),   # a NYTimes sweep at K = 100 in one launch
+    (576_460, 1_640_000 * 1000 * 4, True),  # a PubMed sweep at K = 1,000
+    (32, 300_000 * 100 * 4, False),      # a fused block of 65,536 at NYTimes's ndk
+    (32, 4_096 * 100 * 4, True),         # the same block at bench.py's 4,096 documents
+    (128, 1_640_000 * 1000 * 4, False),  # a fused block at K = 1,000, PubMed's ndk
+    (1, 0, True),                        # no ndk to copy
+])
+def test_one_barrier_walk_pays_for_its_copy_of_ndk(n_tiles, ndk_bytes, pays):
+    # the one-barrier walk where its tiles save twice the copy's time
+    assert fk.one_barrier_pays(n_tiles, ndk_bytes) == pays
+    copy_s = 2 * ndk_bytes / fk.HBM_BYTES_PER_S
+    assert (n_tiles * fk.TILE_SAVING_S >= 2 * copy_s) == pays
+    if ndk_bytes:  # the rule is monotone: more tiles pay, more bytes do not
+        assert fk.one_barrier_pays(2 * n_tiles, ndk_bytes) or not pays
+        assert not fk.one_barrier_pays(n_tiles, 2 * ndk_bytes) or pays

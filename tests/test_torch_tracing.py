@@ -315,6 +315,37 @@ def test_runner_row_flags_a_copy_in_mid_run(tmp_path):
             backend.model._mirror))
 
 
+class _Walking:
+    """A backend whose sweeps count K1's walks as a card's would: one in
+    each form on its second call."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, 0
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def sweep(self, n=1):
+        self.calls += 1
+        if self.calls == 2:
+            tracing.count("walk.one_barrier")
+            tracing.count("walk.two_barrier")
+        self.model.sweep(n)
+
+
+def test_runner_row_carries_the_walk_forms_where_they_moved(tmp_path):
+    fc = _corpus()
+    cfg = LdaConfig(topic_num=6, block_size=128, iteration=4)
+    with MetricsLog(tmp_path / "m.jsonl") as log:
+        run_inference(_Walking(LdaModel(cfg, fc, device="cpu")), cfg, fc,
+                      metrics=log, metrics_every=1)
+    rows = read_metrics(tmp_path / "m.jsonl")
+    flagged = [(r["sweep"], r["walk_one_barrier"], r["walk_two_barrier"])
+               for r in rows if "walk_one_barrier" in r]
+    assert flagged == [(1, 1, 1)]
+    assert all(("walk_two_barrier" in r) == ("walk_one_barrier" in r) for r in rows)
+
+
 # ----------------------------------------------------------------- CLI
 def _cli(tmp_path, *extra):
     (tmp_path / "chain.json").write_text(json.dumps({"block_size": 256}))
