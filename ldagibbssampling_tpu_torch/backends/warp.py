@@ -53,6 +53,7 @@ import torch
 
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.evaluation.tracing import count, span
 from ldagibbssampling_tpu_torch.models.state import SamplerState, init_state
 from ldagibbssampling_tpu_torch.ops.gibbs import _scatter_counts, sweep_seed
 from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
@@ -167,7 +168,14 @@ class WarpModel:
 
     ``noise_mode="external"`` takes each sweep's ``[8, T_pad]`` uniforms from
     ``sweep(n, noise=noise)``, ``noise(sweep)``; ``state`` injects a start
-    (e.g. the reference's, through ``interop.from_jax_state``)."""
+    (e.g. the reference's, through ``interop.from_jax_state``).
+
+    The construction is the span ``warp.init`` (it waits for the card at its
+    end), around ``state.init`` (where no start is given), ``warp.word_csr``
+    (the host's stable sort of the tokens by word) and ``warp.args`` (the
+    per-token arrays built and copied to the card, waited for); the counter
+    ``warp.arg_bytes`` adds those arrays' bytes once a construction.  A
+    sweep opens no span."""
 
     def __init__(self, config: LdaConfig, corpus: FlatCorpus,
                  device: Any = "cuda", *, noise_mode: str = "internal",
@@ -177,6 +185,11 @@ class WarpModel:
         if noise_mode not in ("internal", "external"):
             raise ValueError(f"unknown noise_mode {noise_mode!r}")
         self.device = resolve_device(device)
+        with span("warp.init", self.device):
+            self._init(config, corpus, noise_mode, state)
+
+    def _init(self, config: LdaConfig, corpus: FlatCorpus, noise_mode: str,
+              state: Optional[SamplerState]) -> None:
         self.config = config
         self.corpus = corpus
         self.noise_mode = noise_mode
@@ -188,31 +201,37 @@ class WarpModel:
         self._padded = pc
         self.doc_lengths = corpus.doc_lengths()
         if state is None:
-            state = init_state(
-                pc.token_word, pc.token_doc, pc.token_mask,
-                num_docs=pc.num_docs, vocab_size=pc.vocab_size,
-                num_topics=config.topic_num, seed=config.seed,
-                device=self.device)
+            with span("state.init", self.device):
+                state = init_state(
+                    pc.token_word, pc.token_doc, pc.token_mask,
+                    num_docs=pc.num_docs, vocab_size=pc.vocab_size,
+                    num_topics=config.topic_num, seed=config.seed,
+                    device=self.device)
         self.state = state
         self.generator = torch.Generator().manual_seed(self.state.seed)
-        perm_w, word_ptr = word_csr(pc.token_word, pc.vocab_size, pc.token_mask)
-        # doc_ptr over the PADDED stream == original (padding sits at the end)
-        doc_ptr = np.zeros(pc.num_docs + 1, dtype=np.int64)
-        np.cumsum(self.doc_lengths, out=doc_ptr[1:])
-        word_count = np.diff(word_ptr)
+        with span("warp.word_csr"):
+            perm_w, word_ptr = word_csr(pc.token_word, pc.vocab_size, pc.token_mask)
+        with span("warp.args", self.device):
+            # doc_ptr over the PADDED stream == original (padding sits at the end)
+            doc_ptr = np.zeros(pc.num_docs + 1, dtype=np.int64)
+            np.cumsum(self.doc_lengths, out=doc_ptr[1:])
+            word_count = np.diff(word_ptr)
 
-        def dev(x, dtype=torch.int64):
-            return torch.from_numpy(np.asarray(x)).to(device=self.device, dtype=dtype)
+            def dev(x, dtype=torch.int64):
+                return torch.from_numpy(np.asarray(x)).to(device=self.device,
+                                                          dtype=dtype)
 
-        tw, td = pc.token_word.astype(np.int64), pc.token_doc.astype(np.int64)
-        self._args = dict(
-            token_word=dev(tw), token_doc=dev(td),
-            token_mask=dev(pc.token_mask, torch.int32),
-            doc_start=dev(doc_ptr[td]), word_start=dev(word_ptr[tw]),
-            nd_tok=dev(self.doc_lengths[td], torch.float32),
-            nw_tok=dev(word_count[tw], torch.float32),
-            perm_w=dev(perm_w),
-        )
+            tw, td = pc.token_word.astype(np.int64), pc.token_doc.astype(np.int64)
+            self._args = dict(
+                token_word=dev(tw), token_doc=dev(td),
+                token_mask=dev(pc.token_mask, torch.int32),
+                doc_start=dev(doc_ptr[td]), word_start=dev(word_ptr[tw]),
+                nd_tok=dev(self.doc_lengths[td], torch.float32),
+                nw_tok=dev(word_count[tw], torch.float32),
+                perm_w=dev(perm_w),
+            )
+        count("warp.arg_bytes", sum(a.numel() * a.element_size()
+                                    for a in self._args.values()))
         st = self.state
         self.graph = SweepGraph(
             self._body, (st.z, st.ndk, st.nwk, st.nk), vocab_size=pc.vocab_size,

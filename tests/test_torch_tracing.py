@@ -1,8 +1,9 @@
 """The port's span and counter recorder (``evaluation/tracing.py``) on the
-CPU: the recorder itself, the set-up spans of ``LdaModel``, the sweep
-graph's counters, the kernel libraries' load span, the runner's spans and
-the CLI's operator output (``--metrics-file``, ``--profile-dir``), and the
-benchmark's readers of them (``benchmark/metrics``)."""
+CPU: the recorder itself, the set-up spans of ``LdaModel`` and of
+``WarpModel``, the sweep graph's counters, the kernel libraries' load span,
+the runner's spans and the CLI's operator output (``--metrics-file``,
+``--profile-dir``), and the benchmark's readers of them
+(``benchmark/metrics``)."""
 
 from __future__ import annotations
 
@@ -36,7 +37,11 @@ READERS = {
     "graph_warm_up_s": ("graph.warm_up", 2.0),
     "graph_capture_s": ("graph.capture", 0.5),
     "handout_bytes_per_sweep": (None, 600.0),
+    "warp_init_s": ("warp.init", 3.0),
+    "word_csr_s": ("warp.word_csr", 1.25),
+    "warp_arg_bytes": (None, 4096.0),
 }
+WARP_SETUP = ("warp.init", "state.init", "warp.word_csr", "warp.args")
 
 
 @pytest.fixture(autouse=True)
@@ -234,6 +239,56 @@ def test_copy_in_counts_the_tables_a_caller_altered():
     assert tracing.counters()["graph.copy_in_bytes"] == want
 
 
+def _warp(**kw):
+    from ldagibbssampling_tpu_torch.backends.warp import WarpModel
+
+    return WarpModel(LdaConfig(backend="warp", topic_num=6, seed=4, block_size=128),
+                     _corpus(), device="cpu", **kw)
+
+
+def test_warp_init_records_its_phases_inside_warp_init():
+    model = _warp()
+    (init,) = _named("warp.init")
+    for name in WARP_SETUP[1:]:
+        (child,) = _named(name)
+        assert _inside(child, init), name
+    children = sum(tracing.span_seconds(n) for n in WARP_SETUP[1:])
+    assert children <= init.seconds
+    assert model.graph is not None
+
+
+def test_warp_with_a_given_start_draws_no_state():
+    start = _warp().state
+    tracing.reset()
+    _warp(state=start)
+    assert tracing.span_seconds("state.init") is None
+    assert {s.name for s in tracing.spans()} == set(WARP_SETUP) - {"state.init"}
+
+
+def test_warp_arg_bytes_counts_the_sweeps_arrays_once_a_construction():
+    model = _warp()
+    want = sum(a.numel() * a.element_size() for a in model._args.values())
+    assert want == 52 * model.state.z.shape[0]  # five int64, three 4-byte
+    assert tracing.counters() == {"warp.arg_bytes": want}
+    model.sweep(2)
+    assert tracing.counters()["warp.arg_bytes"] == want
+    _warp()
+    assert tracing.counters()["warp.arg_bytes"] == 2 * want
+
+
+@pytest.mark.parametrize("mode", ["internal", "external"])
+def test_warp_sweeps_open_no_span(mode):
+    model = _warp(noise_mode=mode)
+    t_pad = model.state.z.shape[0]
+    spans = len(tracing.spans())
+    model.sweep(3, noise=lambda s: torch.full((8, t_pad), 0.5))
+    assert len(tracing.spans()) == spans
+    # on the CPU nothing is replayed; each call hands its tables out
+    handout = sum(b.numel() * b.element_size() for b in model.graph.buffers)
+    assert tracing.counters()["graph.handout_bytes"] == handout
+    assert "graph.replays" not in tracing.counters()
+
+
 # ------------------------------------------------------------- kernels
 def test_kernel_library_load_is_a_span_only_on_a_miss(monkeypatch):
     from ldagibbssampling_tpu_torch.ops import count_kernel
@@ -373,6 +428,18 @@ def test_cli_header_carries_the_setup_spans(tmp_path, capsys):
     assert "sweep_snapshot_s" in rows[0]
 
 
+def test_cli_warp_header_carries_its_setup_spans(tmp_path):
+    assert _cli(tmp_path, "--backend", "warp") == 0
+    header, *rows = read_metrics(tmp_path / "m.jsonl")
+    assert header["setup_s"] == tracing.span_seconds("cli.backend_init")
+    for name in WARP_SETUP:
+        assert header[name.replace(".", "_") + "_s"] == tracing.span_seconds(name)
+    assert "lda_init_s" not in header
+    (init,) = _named("warp.init")
+    assert init.parent is _named("cli.backend_init")[0]
+    assert not any(k.startswith("warp_") for r in rows for k in r)
+
+
 def test_cli_profile_trace_holds_the_setup_spans(tmp_path):
     assert _cli(tmp_path, "--profile-dir", str(tmp_path / "prof")) == 0
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())
@@ -395,6 +462,7 @@ def _populate():
         s.start_ns, s.end_ns = 0, int(seconds * 1e9)
     tracing.count("graph.replays", 5)
     tracing.count("graph.handout_bytes", 3000)
+    tracing.count("warp.arg_bytes", 4096)
 
 
 @pytest.mark.parametrize("metric", sorted(READERS))
