@@ -59,20 +59,23 @@ from ldagibbssampling_tpu_torch.ops.gibbs import _scatter_counts, sweep_seed
 from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
 
 
-def word_csr(token_word: np.ndarray, vocab_size: int, mask: np.ndarray):
-    """Word-major CSR over the token stream: ``(perm_w [T], word_ptr [V+1])``.
+def word_csr(token_word: torch.Tensor, vocab_size: int, mask: torch.Tensor):
+    """Word-major CSR over the token stream on its device:
+    ``(perm_w [T] int64, word_ptr [V+1] int64)``.
 
     ``perm_w`` lists token indices sorted by word id (stable, padding last);
     the word proposal draws a uniform position inside a word's range and reuses
-    ``z[perm_w[j]]``.
+    ``z[perm_w[j]]``.  A stable order is unique, so ``perm_w`` is numpy's
+    ``argsort(kind="stable")`` of the same keys.  ``word_ptr[w]`` is the number
+    of real tokens with a word below ``w``, found in the sorted keys.
     """
     # order real tokens by word; padding tokens sort after every real word
-    sort_key = np.where(mask > 0, token_word.astype(np.int64), vocab_size)
-    perm_w = np.argsort(sort_key, kind="stable").astype(np.int32)
-    counts = np.bincount(token_word[mask > 0], minlength=vocab_size)
-    word_ptr = np.zeros(vocab_size + 1, dtype=np.int32)
-    np.cumsum(counts, out=word_ptr[1:])
-    return perm_w, word_ptr
+    sort_key = torch.where(mask > 0, token_word, vocab_size)
+    sorted_key, perm_w = torch.sort(sort_key, stable=True)
+    del sort_key
+    words = torch.arange(vocab_size + 1, dtype=sorted_key.dtype,
+                         device=sorted_key.device)
+    return perm_w, torch.searchsorted(sorted_key, words)
 
 
 def _warp_sweep_(
@@ -172,10 +175,13 @@ class WarpModel:
 
     The construction is the span ``warp.init`` (it waits for the card at its
     end), around ``state.init`` (where no start is given), ``warp.word_csr``
-    (the host's stable sort of the tokens by word) and ``warp.args`` (the
-    per-token arrays built and copied to the card, waited for); the counter
-    ``warp.arg_bytes`` adds those arrays' bytes once a construction.  A
-    sweep opens no span."""
+    (the word stream and mask uploaded as int32 and stably sorted by word on
+    the model's device, waited for) and ``warp.args`` (the document stream
+    and lengths uploaded, the per-token arrays gathered on the device,
+    waited for).  Once a construction, the counter ``warp.upload_bytes``
+    adds the bytes uploaded from the host (12 a slot and 4 a document) and
+    ``warp.arg_bytes`` the per-token arrays' bytes (52 a slot).  A sweep
+    opens no span."""
 
     def __init__(self, config: LdaConfig, corpus: FlatCorpus,
                  device: Any = "cuda", *, noise_mode: str = "internal",
@@ -209,27 +215,7 @@ class WarpModel:
                     device=self.device)
         self.state = state
         self.generator = torch.Generator().manual_seed(self.state.seed)
-        with span("warp.word_csr"):
-            perm_w, word_ptr = word_csr(pc.token_word, pc.vocab_size, pc.token_mask)
-        with span("warp.args", self.device):
-            # doc_ptr over the PADDED stream == original (padding sits at the end)
-            doc_ptr = np.zeros(pc.num_docs + 1, dtype=np.int64)
-            np.cumsum(self.doc_lengths, out=doc_ptr[1:])
-            word_count = np.diff(word_ptr)
-
-            def dev(x, dtype=torch.int64):
-                return torch.from_numpy(np.asarray(x)).to(device=self.device,
-                                                          dtype=dtype)
-
-            tw, td = pc.token_word.astype(np.int64), pc.token_doc.astype(np.int64)
-            self._args = dict(
-                token_word=dev(tw), token_doc=dev(td),
-                token_mask=dev(pc.token_mask, torch.int32),
-                doc_start=dev(doc_ptr[td]), word_start=dev(word_ptr[tw]),
-                nd_tok=dev(self.doc_lengths[td], torch.float32),
-                nw_tok=dev(word_count[tw], torch.float32),
-                perm_w=dev(perm_w),
-            )
+        self._args = self._sweep_args(pc)
         count("warp.arg_bytes", sum(a.numel() * a.element_size()
                                     for a in self._args.values()))
         st = self.state
@@ -237,6 +223,34 @@ class WarpModel:
             self._body, (st.z, st.ndk, st.nwk, st.nk), vocab_size=pc.vocab_size,
             num_topics=config.topic_num, noise_mode=noise_mode,
             num_generators=1 if noise_mode == "internal" else 0)
+
+    def _sweep_args(self, pc) -> dict:
+        """The sweep's per-token arrays, built on the model's device from the
+        padded stream and the document lengths, uploaded once as int32 (the
+        counter ``warp.upload_bytes``).  The sort's and the gathers'
+        temporaries are freed when this returns."""
+        def upload(x):
+            return torch.from_numpy(x).to(device=self.device, dtype=torch.int32)
+
+        with span("warp.word_csr", self.device):
+            tw, mask = upload(pc.token_word), upload(pc.token_mask)
+            perm_w, word_ptr = word_csr(tw, pc.vocab_size, mask)
+        with span("warp.args", self.device):
+            td, lengths = upload(pc.token_doc), upload(self.doc_lengths)
+            count("warp.upload_bytes", sum(
+                x.numel() * x.element_size() for x in (tw, mask, td, lengths)))
+            # doc_ptr over the PADDED stream == original (padding sits at the end)
+            doc_ptr = torch.zeros(pc.num_docs + 1, dtype=torch.int64,
+                                  device=self.device)
+            doc_ptr[1:] = torch.cumsum(lengths, 0, dtype=torch.int64)
+            tw, td = tw.long(), td.long()
+            return dict(
+                token_word=tw, token_doc=td, token_mask=mask,
+                doc_start=doc_ptr[td], word_start=word_ptr[tw],
+                nd_tok=lengths[td].to(torch.float32),
+                nw_tok=word_ptr.diff()[tw].to(torch.float32),
+                perm_w=perm_w,
+            )
 
     # ------------------------------------------------------------------
     def _body(self, bufs, scalars, key, generators, noise) -> None:

@@ -219,7 +219,10 @@ def test_warp_internal_noise_seeded_and_word_csr():
     b.sweep(3)
     assert torch.equal(a.state.z, b.state.z) and a.sweeps_done == 3
     pc = a._padded
-    perm_w, word_ptr = word_csr(pc.token_word, pc.vocab_size, pc.token_mask)
+    perm_w, word_ptr = word_csr(torch.from_numpy(pc.token_word), pc.vocab_size,
+                                torch.from_numpy(pc.token_mask))
+    assert torch.equal(perm_w, a._args["perm_w"])
+    perm_w, word_ptr = perm_w.numpy(), word_ptr.numpy()
     for w in range(pc.vocab_size):
         seg = perm_w[word_ptr[w]:word_ptr[w + 1]]
         assert (pc.token_word[seg] == w).all() and (pc.token_mask[seg] == 1).all()

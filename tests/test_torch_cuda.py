@@ -1488,6 +1488,39 @@ def test_captured_warp_equals_eager_on_card(cuda, mode):
     assert model.graph.replays == 3 and model.sweeps_done == 3
 
 
+def test_warp_setup_on_card_is_the_cpu_build_and_frees_its_temporaries(cuda):
+    """The word CSR and the per-token arrays built on the card equal the
+    CPU build elementwise, dtypes included; once built, the card holds the
+    model's own tensors and nothing of the sort or the gathers."""
+    import gc
+
+    from ldagibbssampling_tpu_torch.backends.warp import WarpModel
+
+    cfg = LdaConfig(topic_num=6, backend="warp", block_size=128, seed=3)
+    corpus = _small_corpus(seed=7)
+    want = WarpModel(cfg, corpus, device="cpu")
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    model = WarpModel(cfg, corpus, device=cuda)
+    held = torch.cuda.memory_allocated(cuda) - before
+    assert model._args.keys() == want._args.keys()
+    for name, w in want._args.items():
+        got = model._args[name]
+        assert got.device.type == "cuda" and got.dtype == w.dtype, name
+        assert torch.equal(got.cpu(), w), name
+    for name in ("z", "ndk", "nwk", "nk"):
+        assert torch.equal(getattr(model.state, name).cpu(),
+                           getattr(want.state, name)), name
+    graph = model.graph
+    own = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+           for t in (*model._args.values(),
+                     *(getattr(model.state, n) for n in ("z", "ndk", "nwk", "nk")),
+                     *graph.buffers, *graph._params.values(), *graph._keys.values())}
+    # the caching allocator hands out blocks in multiples of 512 B
+    assert 0 < held <= sum(-(-n // 512) * 512 for n in own.values())
+
+
 @pytest.mark.parametrize("backend", ["cvb0", "warp"])
 def test_captured_backend_is_one_graph_launch_a_sweep_without_host_sync(cuda, backend):
     from torch.profiler import ProfilerActivity, profile

@@ -265,15 +265,64 @@ def test_warp_with_a_given_start_draws_no_state():
     assert {s.name for s in tracing.spans()} == set(WARP_SETUP) - {"state.init"}
 
 
+def _upload_bytes(model):
+    """What a construction uploads: the padded word, document and mask
+    streams as int32 (12 B a slot) and the document lengths (4 B each)."""
+    return 12 * model.state.z.shape[0] + 4 * model.corpus.num_docs
+
+
 def test_warp_arg_bytes_counts_the_sweeps_arrays_once_a_construction():
     model = _warp()
     want = sum(a.numel() * a.element_size() for a in model._args.values())
     assert want == 52 * model.state.z.shape[0]  # five int64, three 4-byte
-    assert tracing.counters() == {"warp.arg_bytes": want}
+    assert tracing.counters() == {"warp.arg_bytes": want,
+                                  "warp.upload_bytes": _upload_bytes(model)}
     model.sweep(2)
     assert tracing.counters()["warp.arg_bytes"] == want
     _warp()
     assert tracing.counters()["warp.arg_bytes"] == 2 * want
+
+
+@pytest.mark.parametrize("given_start", [False, True])
+def test_warp_upload_bytes_counts_the_streams_once_a_construction(given_start):
+    start = _warp().state if given_start else None
+    tracing.reset()
+    model = _warp(state=start)
+    t_pad, docs = model.state.z.shape[0], model.corpus.num_docs
+    assert (t_pad, docs) == (1024, 24)  # 960 tokens padded to blocks of 128
+    want = _upload_bytes(model)
+    assert want == 12 * 1024 + 4 * 24
+    assert tracing.counters()["warp.upload_bytes"] == want
+    model.sweep(2)
+    assert tracing.counters()["warp.upload_bytes"] == want
+    _warp(state=start)
+    assert tracing.counters()["warp.upload_bytes"] == 2 * want
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_warp_word_csr_waits_for_the_card(cuda, monkeypatch):
+    """Each set-up span of ``WarpModel`` waits for the card as it closes:
+    the sort's time is ``warp.word_csr``'s, not the next phase's."""
+    from ldagibbssampling_tpu_torch.backends.warp import WarpModel
+
+    waited, synchronize = [], torch.cuda.synchronize
+
+    def recording(device=None):
+        synchronize(device)
+        stack = getattr(tracing._open, "stack", None)
+        waited.append(stack[-1].name if stack else None)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", recording)
+    WarpModel(LdaConfig(backend="warp", topic_num=6, seed=4, block_size=128),
+              _corpus(), device=cuda)
+    assert [n for n in waited if n] == list(WARP_SETUP[1:]) + ["warp.init"]
 
 
 @pytest.mark.parametrize("mode", ["internal", "external"])
