@@ -633,6 +633,7 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
     import torch
     import torch.nn.functional as F
 
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.models.state import init_state
     from ldagibbssampling_tpu_torch.ops import count_kernel as ck
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
@@ -723,13 +724,13 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
         raise AssertionError(f"rebuild_counts differs from its plain version: {r_err}")
     out["rebuild_counts"] = dict(max_abs_err=r_err)
     # build_nwk without the mirror (the float32-snapshot path): one rebuild
-    casts = ck.LAUNCHES["cast_mirror"]
+    counted = tracing.counters()
     nwk_n, nk_n = ck.build_nwk(st.z, tw, tm, vocab_size=V, num_topics=K,
                                v_pad=v_pad, k_pad=k_pad, emit_mirror=False)
     torch.cuda.synchronize()
     n_err = float(max((nwk_n - nwk_p[:V, :K]).abs().max(),
                       (nk_n - nk_p[:K]).abs().max()))
-    if n_err or ck.LAUNCHES["cast_mirror"] != casts:
+    if n_err or kernel_counts(counted)[0]["cast_mirror"]:
         raise AssertionError(f"build_nwk(emit_mirror=False) differs ({n_err}) or "
                              "cast a mirror")
     out["rebuild_counts"]["no_mirror_max_abs_err"] = n_err
@@ -1122,30 +1123,21 @@ def report(out: dict, times: dict, bounds: dict, units: dict) -> None:
             f"{b_ms:.4f} ms by {b_by}) per {units[name]}")
 
 
-def counters():
-    from ldagibbssampling_tpu_torch.ops import count_kernel as ck
-    from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
-    from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
-    from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
-    from ldagibbssampling_tpu_torch.ops import smc_resample as sr
-    from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
+def kernel_counts(before: dict) -> tuple:
+    """The kernel launches and plain-version calls counted since ``before``
+    (a ``tracing.counters()``): the moves of the recorder's
+    ``launch.<kernel>`` and ``plain.<kernel>`` counters, by kernel name, as
+    two ``collections.Counter`` (0 for a kernel that did not move)."""
+    import collections
 
-    return ((fk.LAUNCHES, ck.LAUNCHES, sk.LAUNCHES, probe.LAUNCHES, sr.LAUNCHES,
-             cs.LAUNCHES),
-            (fk.PLAIN_CALLS, ck.PLAIN_CALLS, sk.PLAIN_CALLS, probe.PLAIN_CALLS,
-             sr.PLAIN_CALLS, cs.PLAIN_CALLS))
+    from ldagibbssampling_tpu_torch.evaluation import tracing
 
-
-def zero_counters() -> None:
-    for counts in (d for group in counters() for d in group):
-        for name in counts:
-            counts[name] = 0
-
-
-def read_counters() -> tuple[dict, dict]:
-    launch_dicts, plain_dicts = counters()
-    return ({k: v for d in launch_dicts for k, v in d.items()},
-            {k: v for d in plain_dicts for k, v in d.items()})
+    moved = (collections.Counter(), collections.Counter())
+    for name, n in tracing.counters().items():
+        kind, _, kernel = name.partition(".")
+        if kind in ("launch", "plain") and n != before.get(name, 0):
+            moved[kind == "plain"][kernel] = n - before.get(name, 0)
+    return moved
 
 
 def run_label(use_pallas, chain: str, mirror: str, k: int) -> str:
@@ -1167,6 +1159,7 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
 
     from ldagibbssampling_tpu_torch import make_backend, run_inference
     from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
 
     tier = TIER_NAMES[use_pallas]
@@ -1184,20 +1177,20 @@ def main_path(corpus, seed: int, smi: str, use_pallas, sweeps: int,
     if model.kernel_tier != tier:
         raise AssertionError(f"asked for {tier}, the model runs {model.kernel_tier}")
     graphs = getattr(model._run_sweeps, "graphs", {})
-    zero_counters()
+    counted = tracing.counters()
     t0 = time.perf_counter()
     run_inference(model, cfg, corpus)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches, plain = read_counters()
+    launches, plain = kernel_counts(counted)
     # a graph's first call runs one warm-up sweep, then replays per sweep
     warmups = sum(g.graph is not None for g in graphs.values())
     setup_s = sum(g.setup_s for g in graphs.values() if g.graph is not None)
     for g in graphs.values():
         log(f"[main {label}] graph: set-up {g.setup_s:.4f}s (copies, warm-up "
             f"sweep, capture and instantiation {g.capture_s:.4f}s), {g.replays} "
-            f"replays, kernel launches per replay "
-            f"{ {n: c for (_, n), c in g.per_replay.items()} }, {g.nodes:,} nodes")
+            f"replays, counters per replay "
+            f"{g.per_replay}, {g.nodes:,} nodes")
     log(f"[main {label}] launches { {k: v for k, v in launches.items() if v} }, "
         f"plain calls { {k: v for k, v in plain.items() if v} }")
     if model.sweeps_done != sweeps:
@@ -1391,6 +1384,7 @@ def check_probe(seed: int, device: str = "cuda") -> dict:
     timing (the launches counted there)."""
     import torch
 
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
 
     dev = torch.device(device)
@@ -1419,9 +1413,9 @@ def check_probe(seed: int, device: str = "cuda") -> dict:
                                            name)
         out[name]["ms_64_reps"] = cuda_ms(
             lambda: probe.dtype_probe(a, b, dtype=dtype, reps=64))
-    zero_counters()
+    counted = tracing.counters()
     res = probe.measure(device)  # the entry point's own timing
-    launches, _ = read_counters()
+    launches, _ = kernel_counts(counted)
     nbytes = 3 * probe.ROWS * probe.K * 4
     # per element: y - e + 0.5 once, then 5 operations per repeat
     ops = probe.ROWS * probe.K * (2 + probe.REPS * 5)
@@ -2012,6 +2006,7 @@ def multichain_phase(label: str, corpus, cfg, ll_every: int, compare_sweeps: int
 
     from ldagibbssampling_tpu_torch import make_backend, run_inference
     from ldagibbssampling_tpu_torch.evaluation import metrics
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.evaluation.tracing import MetricsLog, read_metrics
 
     on_card = torch.device(device).type == "cuda"
@@ -2029,7 +2024,7 @@ def multichain_phase(label: str, corpus, cfg, ll_every: int, compare_sweeps: int
         raise AssertionError(f"chains={c_n} built {type(model).__name__} "
                              f"({model.kernel_tier})")
     chains = model.chains
-    zero_counters()
+    counted = tracing.counters()
     with tempfile.TemporaryDirectory() as tmp:
         with chain_part_timer(model, sync) as calls:
             t0 = time.perf_counter()
@@ -2040,7 +2035,7 @@ def multichain_phase(label: str, corpus, cfg, ll_every: int, compare_sweeps: int
         rows = read_metrics(Path(tmp) / "m.jsonl")
     parts = per_sweep_parts(calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
-    launches, plain = read_counters()
+    launches, plain = kernel_counts(counted)
     if any(launches.values()) or any(plain.values()):
         raise AssertionError(f"the chains' XLA tier launched kernels {launches} "
                              f"or plain versions {plain}")
@@ -2245,6 +2240,7 @@ def graph_single_path(corpus, seed: int, use_pallas: bool, smi: str) -> tuple[di
 
     from ldagibbssampling_tpu_torch import make_backend
     from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.ops.gibbs import gibbs_sweep, make_sweep_fn, sweep_seed
 
     dev = torch.device("cuda")
@@ -2269,12 +2265,12 @@ def graph_single_path(corpus, seed: int, use_pallas: bool, smi: str) -> tuple[di
         noise = (card_noise("uniform" if use_pallas else "gumbel",
                             (pc.num_tokens, K), seed + 11)
                  if mode == "external" else None)
-        zero_counters()
+        counted = tracing.counters()
         gen = torch.Generator().manual_seed(seed + 3)
         got = run(st0, a0, b0, n_sweeps=2, generator=gen, noise=noise)
         got = run(got, a1, b1, n_sweeps=1, generator=gen, noise=noise)
         torch.cuda.synchronize()
-        for name, n in read_counters()[0].items():
+        for name, n in kernel_counts(counted)[0].items():
             launches[name] = launches.get(name, 0) + n
         gen = torch.Generator().manual_seed(seed + 3)
 
@@ -2294,14 +2290,14 @@ def graph_single_path(corpus, seed: int, use_pallas: bool, smi: str) -> tuple[di
                        (want.z, want.ndk, want.nwk, want.nk))
         if mode == "external":
             continue
-        zero_counters()
+        counted = tracing.counters()
         n_timed = GRAPH_TIMED[label]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = run(got, n_sweeps=n_timed, generator=gen)
         torch.cuda.synchronize()
         timed = (n_timed, time.perf_counter() - t0)
-        for name, n in read_counters()[0].items():
+        for name, n in kernel_counts(counted)[0].items():
             launches[name] = launches.get(name, 0) + n
         run(got, n_sweeps=1, generator=gen)  # both profiled calls copy got in
         one = launch_profile(lambda: run(got, n_sweeps=1, generator=gen))
@@ -2327,6 +2323,7 @@ def graph_kernel_tier_path(corpus, seed: int, tier: str, k: int,
 
     from ldagibbssampling_tpu_torch import make_backend
     from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.ops.gibbs import (
         _deferred_sweep_impl, fused_gibbs_sweep, make_sweep_fn, sweep_seed)
 
@@ -2360,12 +2357,12 @@ def graph_kernel_tier_path(corpus, seed: int, tier: str, k: int,
             if tier == "deferred":
                 return run.with_mirror(st, a, b, mirror, **kw)
             return run(st, a, b, **kw), None
-        zero_counters()
+        counted = tracing.counters()
         gen = torch.Generator().manual_seed(seed + 3)
         got, snap = call(st0, None, a0, b0, 2, gen)
         got, snap = call(got, snap, a1, b1, 1, gen)
         torch.cuda.synchronize()
-        for name, n in read_counters()[0].items():
+        for name, n in kernel_counts(counted)[0].items():
             launches[name] = launches.get(name, 0) + n
         gen = torch.Generator().manual_seed(seed + 3)
 
@@ -2394,14 +2391,14 @@ def graph_kernel_tier_path(corpus, seed: int, tier: str, k: int,
                                  "from eager")
         if mode == "external":
             continue
-        zero_counters()
+        counted = tracing.counters()
         n_timed = GRAPH_TIMED[label]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got, snap = call(got, snap, n=n_timed, gen=gen)
         torch.cuda.synchronize()
         timed = (n_timed, time.perf_counter() - t0)
-        for name, n in read_counters()[0].items():
+        for name, n in kernel_counts(counted)[0].items():
             launches[name] = launches.get(name, 0) + n
         # each profiled call takes the state the last one returned, as
         # LdaModel and the bench script pass it back: no copy in
@@ -2416,7 +2413,7 @@ def graph_kernel_tier_path(corpus, seed: int, tier: str, k: int,
         (graph,) = run.graphs.values()
         report = _graph_report(label, graph, eager_s, timed, corpus.num_tokens,
                                eager_prof, _per_sweep(one, five), smi)
-        report["per_replay"] = {n: c for (_, n), c in graph.per_replay.items()}
+        report["per_replay"] = graph.per_replay
     del model
     return report, {n: c for n, c in launches.items() if c}
 
@@ -2742,6 +2739,7 @@ def graph_smc_phase(seed: int, smi: str, resample: dict,
         GRAPH_STEPS, NOISE_BLOCK, SmcModel, smc_absorb)
     from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
     from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation import tracing
 
     corpus, _ = rung_corpus(5, SMC_SCALE)
     cfg = LdaConfig(topic_num=BACKEND_K, seed=seed, block_size=8_192)
@@ -2780,7 +2778,7 @@ def graph_smc_phase(seed: int, smi: str, resample: dict,
             tables = sg.absorb(tables, True, p0, min(model.chunk_size, pos + c - p0),
                                fill, alpha=cfg.alpha, beta=cfg.beta)
         return tables
-    zero_counters()
+    counted = tracing.counters()
     sg.resamples.zero_()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2807,7 +2805,7 @@ def graph_smc_phase(seed: int, smi: str, resample: dict,
     torch.cuda.synchronize()
     rest_s = time.perf_counter() - t0
     resamples = int(sg.resamples)
-    launches, plain = read_counters()
+    launches, plain = kernel_counts(counted)
     want_launches = {"resample_gather": t_total + 1, "resample_write": t_total + 1}
     got_launches = {n: c for n, c in launches.items() if c}
     if got_launches != want_launches or any(plain.values()):
@@ -2978,6 +2976,7 @@ def graph_cvb0_path(label: str, corpus, cfg, smi: str, gamma0=None) -> tuple[dic
     import torch
 
     from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model, cvb0_sweeps
+    from ldagibbssampling_tpu_torch.evaluation import tracing
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2991,10 +2990,9 @@ def graph_cvb0_path(label: str, corpus, cfg, smi: str, gamma0=None) -> tuple[dic
         cvb0_sweeps(*out, model._tw, model._td, model._tm, model._plans, n,
                     alpha=cfg.alpha, beta=cfg.beta, block_size=model.block_size)
         return out
-    zero_counters()
     want = []
     eager_s = _timed(lambda: want.extend(eager(model._tables(), 3)))
-    zero_counters()
+    counted = tracing.counters()
     model.sweep(2)
     model.sweep(1)
     torch.cuda.synchronize()
@@ -3002,16 +3000,16 @@ def graph_cvb0_path(label: str, corpus, cfg, smi: str, gamma0=None) -> tuple[dic
         if not torch.equal(getattr(model, name), w):
             raise AssertionError(f"[graphs {label}] captured {name} differs from eager")
     del want
-    launches, plain = read_counters()
+    launches, plain = kernel_counts(counted)
     got = {n: c for n, c in launches.items() if c}
     if got != {"cvb0_scatter": 2 * blocks * 4} or any(plain.values()):
         raise AssertionError(f"[graphs {label}] launches {got}, want two scatters a "
                              f"block for 3 sweeps and the warm-up; plain {plain}")
     n_timed = GRAPH_TIMED[label]
-    zero_counters()
+    counted = tracing.counters()
     timed = (n_timed, _timed(lambda: model.sweep(n_timed)))
-    if read_counters()[0]["cvb0_scatter"] != 2 * blocks * n_timed:
-        raise AssertionError(f"[graphs {label}] {read_counters()[0]} in {n_timed} "
+    if kernel_counts(counted)[0]["cvb0_scatter"] != 2 * blocks * n_timed:
+        raise AssertionError(f"[graphs {label}] {kernel_counts(counted)[0]} in {n_timed} "
                              "replays, not two scatters a block a replay")
     got["cvb0_scatter"] += 2 * blocks * n_timed
     one = launch_profile(lambda: model.sweep(1))
@@ -3041,6 +3039,7 @@ def graph_warp_phase(corpus, cfg, smi: str) -> dict:
     import torch
 
     from ldagibbssampling_tpu_torch.backends.warp import WarpModel, _warp_sweep
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.ops.gibbs import sweep_seed
 
     report = None
@@ -3063,7 +3062,7 @@ def graph_warp_phase(corpus, cfg, smi: str) -> dict:
                 state = _warp_sweep(state, u, alpha=model.alpha, beta=model.beta,
                                     **model._args)
             return state
-        zero_counters()
+        counted = tracing.counters()
         want = []
         eager_s = _timed(lambda: want.append(eager(st0, 3)))
         model.sweep(2, noise=uniforms)
@@ -3072,7 +3071,7 @@ def graph_warp_phase(corpus, cfg, smi: str) -> dict:
         st = model.state
         _assert_tables(f"warp {mode}", (st.z, st.ndk, st.nwk, st.nk),
                        (want[0].z, want[0].ndk, want[0].nwk, want[0].nk))
-        launches, plain = read_counters()
+        launches, plain = kernel_counts(counted)
         if any(launches.values()) or any(plain.values()):
             raise AssertionError(f"[graphs warp] launches {launches}, plain {plain}")
         if mode == "external":
@@ -3157,6 +3156,7 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
         Cvb0Model, SmcModel, SviModel, WarpModel)
     from ldagibbssampling_tpu_torch.benchmarks.ladder import rung_corpus
     from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.evaluation.device_metrics import (
         heldout_perplexity_device)
     from ldagibbssampling_tpu_torch.evaluation.metrics import perplexity
@@ -3179,12 +3179,12 @@ def backends_phase(seed: int, device: str = "cuda") -> tuple[dict, dict]:
         if warm:
             model.sweep(warm)
         torch.cuda.synchronize()
-        zero_counters()
+        counted = tracing.counters()
         t0 = time.perf_counter()
         model.sweep(n)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches, plain = read_counters()
+        launches, plain = kernel_counts(counted)
         if any(plain.values()):
             raise AssertionError(f"{name}: plain versions ran: {plain}")
         if name == "gibbs":
@@ -3465,10 +3465,10 @@ def plan_timer():
             m.plan_deferred = fn
 
 
-def _mesh_launches(label: str, expect: dict) -> dict:
+def _mesh_launches(label: str, expect: dict, counted: dict) -> dict:
     """The run's kernel launches: each of ``expect`` exactly, no other
     kernel, no plain version."""
-    launches, plain = read_counters()
+    launches, plain = kernel_counts(counted)
     got = {n: c for n, c in launches.items() if c}
     if got != expect or any(plain.values()):
         raise AssertionError(f"[mesh {label}] launches {got}, want {expect}; "
@@ -3555,7 +3555,7 @@ def mesh_graph_compare(label: str, model, smi: str, *, noise=None, timed: int = 
                captured_ms_per_sweep_comparison=captured_s / 3 * 1e3,
                nodes=graph.nodes, graph_launches=graph.launches,
                setup_s=graph.setup_s, capture_s=graph.capture_s,
-               per_replay={n: c for (_, n), c in graph.per_replay.items()})
+               per_replay=graph.per_replay)
     if graph.launches != 1:
         raise AssertionError(f"[graphs mesh {label}] {graph.launches} graph launches "
                              "a sweep in one process")
@@ -3633,6 +3633,7 @@ def mesh_phase(seed: int, smi: str = "", device: str = "cuda") -> tuple[dict, di
 
     from ldagibbssampling_tpu_torch.benchmarks import ladder
     from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.evaluation.tracing import block_on_backend
     from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
     from ldagibbssampling_tpu_torch.parallel import multihost
@@ -3648,7 +3649,7 @@ def mesh_phase(seed: int, smi: str = "", device: str = "cuda") -> tuple[dict, di
     t0 = time.perf_counter()
     built = ladder.rung3_corpus(MESH_SCALE, floor=pos0.type == "cuda")
     corpus_s = time.perf_counter() - t0
-    zero_counters()
+    counted = tracing.counters()
     t0 = time.perf_counter()
     with plan_timer() as plans:
         r3 = ladder.rung3(MESH_SCALE, sweeps=MESH_SWEEPS, device=device, corpus=built)
@@ -3657,7 +3658,7 @@ def mesh_phase(seed: int, smi: str = "", device: str = "cuda") -> tuple[dict, di
     runs = MESH_SWEEPS + 2 + 1  # the ladder's two warm-up calls, the graph's warm-up
     by_path["mesh rung3"] = _launches_match("rung3", {
         walk: runs * r3["shards"], "rebuild_counts": runs * r3["shards"],
-        "cast_mirror": runs}, device)
+        "cast_mirror": runs}, device, counted)
     if r3["kernel_tier"] != "deferred" or (pos0.type == "cuda"
                                            and r3["tokens"] < (1 << 24)):
         raise AssertionError(f"[mesh rung3] {r3}")
@@ -3691,14 +3692,14 @@ def mesh_phase(seed: int, smi: str = "", device: str = "cuda") -> tuple[dict, di
         if pos0.type == "cuda":
             torch.cuda.set_sync_debug_mode("default")
     block_on_backend(four)
-    zero_counters()
+    counted = tracing.counters()
     t0 = time.perf_counter()
     four.sweep(MESH_FOUR_SWEEPS)
     block_on_backend(four)
     dt = time.perf_counter() - t0
     by_path["mesh four shards"] = _launches_match("four shards", {
         walk: 4 * MESH_FOUR_SWEEPS, "rebuild_counts": 4 * MESH_FOUR_SWEEPS,
-        "cast_mirror": MESH_FOUR_SWEEPS}, device)
+        "cast_mirror": MESH_FOUR_SWEEPS}, device, counted)
     four.check_counts_consistent()
     tok_s = MESH_FOUR_SWEEPS * corpus.num_tokens / dt
     out["four_shards"] = dict(tokens=corpus.num_tokens, tokens_per_s=tok_s,
@@ -3762,7 +3763,7 @@ def mesh_phase(seed: int, smi: str = "", device: str = "cuda") -> tuple[dict, di
         tier = label.split()[1] if label.startswith("adlda") else "deferred"
         if model.kernel_tier != tier:
             raise AssertionError(f"[mesh {label}] tier {model.kernel_tier}")
-        zero_counters()
+        counted = tracing.counters()
         model.sweep(1)  # captures
         block_on_backend(model)
         t0 = time.perf_counter()
@@ -3772,8 +3773,9 @@ def mesh_phase(seed: int, smi: str = "", device: str = "cuda") -> tuple[dict, di
         runs = MESH_SMALL_SWEEPS + 2  # the capturing call and its warm-up sweep
         want = ({walk: 4 * runs, "rebuild_counts": 4 * runs,
                  "cast_mirror": per_sweep * runs} if per_sweep else
-                {n: c * runs for (_, n), c in model.graph.per_replay.items()})
-        by_path[f"mesh {label}"] = _launches_match(label, want, device)
+                {n.removeprefix("launch."): c * runs
+                 for n, c in model.graph.per_replay.items() if n.startswith("launch.")})
+        by_path[f"mesh {label}"] = _launches_match(label, want, device, counted)
         model.check_counts_consistent()
         chains = getattr(model, "num_chains", 1)
         tok_s = MESH_SMALL_SWEEPS * chains * small.num_tokens / dt
@@ -3896,12 +3898,12 @@ def state_digests(arrays: dict) -> dict:
             for n, a in sorted(arrays.items())}
 
 
-def _launches_match(label: str, want: dict, device: str) -> dict:
+def _launches_match(label: str, want: dict, device: str, counted: dict) -> dict:
     """The run's launches (on the CPU, a rehearsal: its plain calls, the
     plain walk tile by tile)."""
     if device == "cuda":
-        return _mesh_launches(label, want)
-    launches, plain = read_counters()
+        return _mesh_launches(label, want, counted)
+    launches, plain = kernel_counts(counted)
     got = {n: plain[n] for n in want}
     if not all(got.values()) or any(launches.values()):
         raise AssertionError(f"[mesh {label}] plain {plain}, launches {launches}")
@@ -3922,6 +3924,7 @@ def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
     import torch
     import torch.distributed as dist
 
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.evaluation.tracing import block_on_backend
     from ldagibbssampling_tpu_torch.ops.fused_kernel import sample_name
     from ldagibbssampling_tpu_torch.parallel import multihost
@@ -3952,7 +3955,7 @@ def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
             if model.kernel_tier != "deferred" or model.positions != [rank]:
                 raise AssertionError(f"[mesh2 worker {rank}] {label}: tier "
                                      f"{model.kernel_tier}, positions {model.positions}")
-            zero_counters()
+            counted = tracing.counters()
             model.sweep(1)  # captures the graphs (the warm-up sweep, one replay)
             block_on_backend(model)
             times, restore = _reduce_timer()
@@ -3967,7 +3970,7 @@ def mesh2_worker(pid: str, addr: str, device: str, seed: str, scale: str,
             # the snapshot of its table; once more in the graph's warm-up
             launches = _launches_match(f"two processes {label}", {
                 walk: n_sweeps + 1, "rebuild_counts": n_sweeps + 1,
-                "cast_mirror": n_sweeps + 1}, device)
+                "cast_mirror": n_sweeps + 1}, device, counted)
             model.check_counts_consistent()
             got = state_digests(model.arrays())
             differ = [n for n in got if got[n] != want[label][n]]
@@ -4112,6 +4115,7 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
     from ldagibbssampling_tpu_torch import make_backend, run_inference
     from ldagibbssampling_tpu_torch.benchmarks import ladder
     from ldagibbssampling_tpu_torch.config import LdaConfig
+    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.evaluation.device_metrics import (
         heldout_perplexity_device)
     from ldagibbssampling_tpu_torch.evaluation.tracing import block_on_backend
@@ -4132,7 +4136,7 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
     cfg = LdaConfig(topic_num=100, seed=seed, block_size=65_536, iteration=warmup)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    zero_counters()
+    counted = tracing.counters()
     t0 = time.perf_counter()
     with plan_timer() as plans:
         model = make_backend(cfg, corpus, device=device)
@@ -4155,7 +4159,7 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
     # warm-up sweep
     launches = _launches_match("rung3 full", {
         sample_name(torch.bfloat16, "float32"): runs + 1,
-        "rebuild_counts": runs + 1, "cast_mirror": runs + 2}, device)
+        "rebuild_counts": runs + 1, "cast_mirror": runs + 2}, device, counted)
     out.update(sweep_s=dt, tokens_per_s=sweeps * corpus.num_tokens / dt,
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card
                else None, launches=launches)
@@ -4220,7 +4224,7 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
             super().__init__(*args, **kw)
             made.append(self)
 
-    zero_counters()
+    counted = tracing.counters()
     adlda.ShardedLda = Kept
     try:
         with plan_timer() as plans:
@@ -4232,7 +4236,7 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
     shards, runs = r3["shards"], 2 + sweeps + 1
     r3["launches"] = _launches_match("rung3 full ladder", {
         sample_name(torch.bfloat16, "float32"): runs * shards,
-        "rebuild_counts": runs * shards, "cast_mirror": runs}, device)
+        "rebuild_counts": runs * shards, "cast_mirror": runs}, device, counted)
     if r3["kernel_tier"] != "deferred" or r3["tokens"] != corpus.num_tokens \
             or not r3["counts_consistent"] or not np.isfinite(r3["held_out_ppl"]):
         raise AssertionError(f"[rung3 full ladder] {r3}")
@@ -4309,10 +4313,11 @@ _COUNTED_CLI = (
     "import json, sys\n"
     "import chip_smoke\n"
     "from ldagibbssampling_tpu_torch import cli\n"
-    "chip_smoke.zero_counters()\n"
+    "from ldagibbssampling_tpu_torch.evaluation import tracing\n"
+    "counted = tracing.counters()\n"
     "with chip_smoke.plan_timer() as plans:\n"
     "    rc = cli.main(sys.argv[1:])\n"
-    "print('[launches] ' + json.dumps(chip_smoke.read_counters()), flush=True)\n"
+    "print('[launches] ' + json.dumps(chip_smoke.kernel_counts(counted)), flush=True)\n"
     "print('[plan] ' + json.dumps(plans), flush=True)\n"
     "sys.exit(rc)\n")
 

@@ -1,20 +1,14 @@
 """Device values shared by the kernel wrappers and the captured sweep.
 
 α, β, V·β and K·α as the reference forms them (``sweep_scalars``), a sweep
-seed as the int64 word the kernels take (``seed_word``), host arrays moved
-to a card without a host wait (``device_values``), and the wrappers'
-launch counters by module (``LAUNCH_COUNTERS``: each kernel module enters
-its ``LAUNCHES`` when it is imported, so ``ops/graphs.py`` reads them
-without importing the kernel modules).
+seed as the int64 word the kernels take (``seed_word``), and host arrays
+moved to a card without a host wait (``device_values``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-# module name -> that module's LAUNCHES (kernel name -> launches)
-LAUNCH_COUNTERS: dict[str, dict[str, int]] = {}
 
 
 def sweep_scalars(alpha: float, beta: float, vocab_size: int,

@@ -19,18 +19,18 @@ the table is rebuilt once per sweep from the final assignments.
 - K2 (``csrc/count_kernel.cu``): ``rebuild_counts`` recounts
   ``nwk [v_pad, k_pad]`` and ``nk [k_pad]`` from ``z`` with integer atomics,
   and ``cast_mirror`` writes the bf16 snapshot for the next sweep.
-  ``build_nwk`` runs both (``emit_mirror=True``) or the rebuild alone
-  (``emit_mirror=False``, the float32-snapshot path, whose snapshot the
-  caller casts outside any kernel, as the reference does in XLA) and
+  ``build_nwk``, the reference's entry point, runs both
+  (``emit_mirror=True``) or the rebuild alone (``emit_mirror=False``) and
   returns the reference's layout.  ``rebuild_counts`` and ``cast_mirror``
-  also write into given tensors (``out=``): a captured deferred sweep
-  (``ops/gibbs.deferred_sweep_graph``) rebuilds straight into its graph's
-  padded tables and snapshot.
+  also write into given tensors (``out=``): the deferred sweep
+  (``ops/gibbs._deferred_sweep_``, eager or captured) rebuilds straight
+  into its padded tables and snapshot.
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it; any other device raises, and so does a failed
-launch.  ``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` calls of the
-plain versions.
+launch.  Each launch adds 1 to the recorder's counter ``launch.<kernel>``,
+each call of a plain version to ``plain.<kernel>``
+(``evaluation/tracing.count``).
 """
 
 from __future__ import annotations
@@ -44,11 +44,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
+from ldagibbssampling_tpu_torch.evaluation.tracing import count
 
-LAUNCHES = {"rebuild_counts": 0, "cast_mirror": 0}
-PLAIN_CALLS = {"rebuild_counts": 0, "cast_mirror": 0}
-LAUNCH_COUNTERS[__name__] = LAUNCHES
 # grid cap of the grid-stride kernels: 16 blocks of 256 threads per SM of an H100
 _MAX_BLOCKS = 132 * 16
 # rebuild_counts keeps a k_pad-wide int32 histogram in (static-limit) shared memory
@@ -417,7 +414,7 @@ def _check_tokens(z, token_word, token_mask):
 
 
 def rebuild_counts_plain(z, token_word, token_mask, *, v_pad: int, k_pad: int):
-    PLAIN_CALLS["rebuild_counts"] += 1
+    count("plain.rebuild_counts")
     real = token_mask > 0
     zr = z[real].long()
     one = torch.ones_like(zr, dtype=torch.int32)
@@ -467,12 +464,12 @@ def rebuild_counts(z: torch.Tensor, token_word: torch.Tensor,
             z.shape[0], nwk.data_ptr(), v_pad, k_pad, nk.data_ptr(),
             _MAX_BLOCKS, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_rebuild_counts")
-    LAUNCHES["rebuild_counts"] += 1
+    count("launch.rebuild_counts")
     return nwk, nk
 
 
 def cast_mirror_plain(nwk: torch.Tensor) -> torch.Tensor:
-    PLAIN_CALLS["cast_mirror"] += 1
+    count("plain.cast_mirror")
     return nwk.to(torch.bfloat16)
 
 
@@ -497,7 +494,7 @@ def cast_mirror(nwk: torch.Tensor,
             nwk.data_ptr(), mirror.data_ptr(), nwk.numel(), _MAX_BLOCKS,
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_cast_mirror")
-    LAUNCHES["cast_mirror"] += 1
+    count("launch.cast_mirror")
     return mirror
 
 

@@ -29,8 +29,9 @@ The plain version (:func:`cvb0_scatter_plain`) is the CPU's serial
 the kernel's order of additions, so the two agree bitwise.  The wrapper
 takes a CPU table to it; on a CUDA table it launches the kernel or raises.
 The plain version runs only on the CPU, where ``index_add_`` is serial (on
-CUDA it adds with atomics, in no fixed order).  ``LAUNCHES`` counts
-launches, ``PLAIN_CALLS`` calls of the plain version.
+CUDA it adds with atomics, in no fixed order).  A launch adds 1
+to the recorder's counter ``launch.cvb0_scatter``, a call of the plain
+version to ``plain.cvb0_scatter`` (``evaluation/tracing.count``).
 """
 
 from __future__ import annotations
@@ -43,11 +44,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
+from ldagibbssampling_tpu_torch.evaluation.tracing import count
 
-LAUNCHES = {"cvb0_scatter": 0}
-PLAIN_CALLS = {"cvb0_scatter": 0}
-LAUNCH_COUNTERS[__name__] = LAUNCHES
 _INT32_MAX = 2**31 - 1
 # the kernel's geometry (csrc/cvb0_scatter.cu's kUnitRows, kSlabCols; the
 # library refuses a launch whose values differ)
@@ -177,7 +175,7 @@ def cvb0_scatter_plain(table: torch.Tensor, index: torch.Tensor,
     if table.device.type != "cpu":
         raise ValueError("the plain scatter runs on the CPU, where index_add_ "
                          f"adds in token order (got {table.device})")
-    PLAIN_CALLS["cvb0_scatter"] += 1
+    count("plain.cvb0_scatter")
     table.index_add_(0, index, rows)
 
 
@@ -214,4 +212,4 @@ def cvb0_scatter(table: torch.Tensor, rows: torch.Tensor, plan: ScatterPlan,
             plan.units.data_ptr() + 16 * u0, u1 - u0, k, UNIT_ROWS, SLAB_COLS,
             int(wide), torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_cvb0_scatter")
-    LAUNCHES["cvb0_scatter"] += 1
+    count("launch.cvb0_scatter")

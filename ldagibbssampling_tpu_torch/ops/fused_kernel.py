@@ -35,9 +35,9 @@ float32 chain only, as the reference does.  The CUDA kernels are in
   ``ndk``'s memory twice while the walk runs); inside a stream capture
   they are a memset and a copy of the graph.  Each walk that moves counts
   adds 1 to the recorder's counter ``walk.one_barrier`` or
-  ``walk.two_barrier`` (``evaluation/tracing.count``) when it launches:
-  eagerly, or once per capture where a graph replays it.  A launch the
-  card refuses raises; nothing splits
+  ``walk.two_barrier`` (``evaluation/tracing.count``) when it launches,
+  and once per replay where a graph replays it.  A launch the card
+  refuses raises; nothing splits
   a walk into smaller launches or launches it without co-residency.  The
   launch configuration is found once per kernel and shape
   (``csrc/fused_kernel.cu``'s cache), so a launch inside a capture makes
@@ -70,14 +70,15 @@ float32 only inside the score (exact below the 2^24 guards of
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it; any other device raises, and so does a failed
-launch.  ``LAUNCHES`` counts kernel launches, one per walk, ``PLAIN_CALLS``
-calls of the plain versions (per tile), under the same names: a walk that
-draws counts under ``gibbs_tile_sample`` plus the chain's suffix (none,
-``_bf16``, ``_bf16p``) and the rows' (none for the bf16 snapshot,
-``_f32rows``, ``_live`` for the int32 table) — the instantiation that ran
-(``sample_name``); the count move under ``count_move``, and under
-``gibbs_tile_update`` where ``gibbs_tile_update()`` launches it (the walk's
-count move alone; ``PLAIN_CALLS``: the plain walk's per-tile moves).
+launch.  The recorder's counters ``launch.<kernel>`` count kernel
+launches, one per walk, and ``plain.<kernel>`` calls of the plain versions
+(per tile) (``evaluation/tracing.count``): a walk that draws counts under
+``gibbs_tile_sample`` plus the chain's suffix (none, ``_bf16``, ``_bf16p``)
+and the rows' (none for the bf16 snapshot, ``_f32rows``, ``_live`` for the
+int32 table) — the instantiation that ran (``sample_name``); the count move
+under ``count_move``, and under ``gibbs_tile_update`` where
+``gibbs_tile_update()`` launches it (the walk's count move alone; ``plain.``:
+the plain walk's per-tile moves).
 """
 
 from __future__ import annotations
@@ -90,7 +91,6 @@ import torch
 import torch.nn.functional as F
 
 from ldagibbssampling_tpu_torch.evaluation.tracing import count
-from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
 
 NOISE_MODES = ("deterministic", "external", "internal")
 CHAINS = ("float32", "bfloat16", "bf16p")
@@ -106,13 +106,6 @@ def sample_name(rows_dtype: torch.dtype, compute_dtype: str = "float32") -> str:
     return ("gibbs_tile_sample" + _CHAIN_SUFFIX[compute_dtype]
             + _ROWS_SUFFIX[rows_dtype])
 
-
-LAUNCHES = {
-    **{sample_name(r, c): 0 for c in CHAINS
-       for r in (torch.bfloat16, torch.float32)},
-    sample_name(torch.int32): 0, "gibbs_tile_update": 0, "count_move": 0}
-PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
-LAUNCH_COUNTERS[__name__] = LAUNCHES
 
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 2**64 - 1
@@ -183,7 +176,7 @@ def sample_plain(rows, ndk, nk, z, token_word, token_doc, token_mask, *,
     """Draw every token against the given counts (no count update), in the
     chain ``compute_dtype`` (pallas_gibbs.py:140-177, op for op), at the α,
     β, V·β of ``scalars`` and the seed of ``key``."""
-    PLAIN_CALLS[sample_name(rows.dtype, compute_dtype)] += 1
+    count("plain." + sample_name(rows.dtype, compute_dtype))
     k = ndk.shape[1]
     n, k_pad = z.shape[0], row_width(rows, k)
     f32 = torch.float32
@@ -241,7 +234,7 @@ def count_move_plain(z_old, z_new, token_mask, *, z_out=None, **tables) -> None:
     in each given table: ``nwk`` by ``token_word``, ``ndk`` by
     ``token_doc``, ``nk``; then, given ``z_out`` (which may be ``z_old``),
     ``z_out = mask ? z_new : z_old``."""
-    PLAIN_CALLS["count_move"] += 1
+    count("plain.count_move")
     _move_plain(z_old, z_new, token_mask, **tables)
     if z_out is not None:
         z_out.copy_(torch.where(token_mask > 0, z_new, z_old))
@@ -249,7 +242,7 @@ def count_move_plain(z_old, z_new, token_mask, *, z_out=None, **tables) -> None:
 
 def update_plain(ndk, nk, z_old, z_new, token_doc, token_mask) -> None:
     """One tile's move of ``ndk``/``nk``, in place (K1's walk)."""
-    PLAIN_CALLS["gibbs_tile_update"] += 1
+    count("plain.gibbs_tile_update")
     _move_plain(z_old, z_new, token_mask, ndk=ndk, token_doc=token_doc, nk=nk)
 
 
@@ -468,7 +461,7 @@ def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, err, "lda_gibbs_tiles")
-    LAUNCHES[sample_name(rows.dtype, compute_dtype)] += 1
+    count("launch." + sample_name(rows.dtype, compute_dtype))
     if phases == 3:
         count("walk.one_barrier" if one else "walk.two_barrier")
 
@@ -551,7 +544,7 @@ def gibbs_tile_update(ndk, nk, z_old, z_new, token_doc, token_mask) -> None:
         update_plain(ndk, nk, z_old, z_new, token_doc, token_mask)
         return
     _move_launch(z_old, z_new, token_mask, None, None, ndk, token_doc, nk)
-    LAUNCHES["gibbs_tile_update"] += 1
+    count("launch.gibbs_tile_update")
 
 
 def count_move(z_old: torch.Tensor, z_new: torch.Tensor,
@@ -596,7 +589,7 @@ def count_move(z_old: torch.Tensor, z_new: torch.Tensor,
         return
     _move_launch(z_old, z_new, token_mask, nwk, token_word, ndk, token_doc, nk,
                  z_out)
-    LAUNCHES["count_move"] += 1
+    count("launch.count_move")
 
 
 def _move_launch(z_old, z_new, token_mask, nwk, token_word, ndk, token_doc,

@@ -42,11 +42,13 @@ The reference's single-dispatch ``fori_loop`` over sweeps: in every tier
 CUDA graph per sweep (``xla_sweep_graph``, ``draw_sweep_graph``,
 ``fused_sweep_graph``, ``deferred_sweep_graph``; ``ops/graphs.SweepGraph``,
 α, β and the seeds as device values, one graph per table shapes in
-``run.graphs``); on the CPU the same sweep body runs eagerly.
-``gibbs_sweep``, ``gibbs_sweep_chains``, ``fused_gibbs_sweep`` and
-``_deferred_sweep_impl`` (``deferred_local_counts``) are the eager sweeps,
-which the tests (and the mesh runtimes' eager reference) run; the mesh
-runtimes' graphs (``parallel/runtime.py``) replay the in-place bodies
+``run.graphs``); on the CPU the same sweep body runs eagerly.  Each tier
+has one sweep body, in place on its tables (``_xla_sweep_``,
+``_draw_sweep_``, ``_fused_sweep_``, ``_deferred_sweep_``); the eager
+sweeps ``gibbs_sweep_chains``, ``gibbs_sweep``, ``fused_gibbs_sweep`` and
+``deferred_local_counts`` (``_deferred_sweep_impl``), which the tests (and
+the mesh runtimes' eager reference) run, clone the state and run that
+body.  The mesh runtimes (``parallel/runtime.py``) run the bodies
 ``_xla_sweep_``, ``_fused_sweep_`` and ``_deferred_walk_``.
 
 Noise modes: ``internal`` (each sweep draws one seed from the caller's
@@ -70,8 +72,7 @@ from ldagibbssampling_tpu_torch.evaluation.tracing import span
 from ldagibbssampling_tpu_torch.models.state import SamplerState
 from ldagibbssampling_tpu_torch.ops._device import (
     device_values, seed_word, sweep_scalars)
-from ldagibbssampling_tpu_torch.ops.count_kernel import (
-    build_nwk, cast_mirror, rebuild_counts)
+from ldagibbssampling_tpu_torch.ops.count_kernel import cast_mirror, rebuild_counts
 from ldagibbssampling_tpu_torch.ops.fused_kernel import (
     CHAINS, NOISE_MODES, count_move, gibbs_tiles)
 from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
@@ -143,74 +144,43 @@ def deferred_local_counts(
     uniforms: Optional[torch.Tensor] = None,
     compute_dtype: str = "float32",
     mirror_dtype: str = "bfloat16",
-    vocab_size: Optional[int] = None,
-    emit_mirror: bool = True,
 ):
-    """Deferred-mode sweep core: returns ``(z, ndk, nwk, nk, mirror_out)``.
+    """One deferred sweep, run eagerly: returns ``(z, ndk, nwk, nk,
+    mirror_out)``; ``deferred_sweep_graph`` replays the same sweep as a
+    CUDA graph.
 
-    ``state.nwk`` is only read, as the sweep-stale snapshot: ``mirror``
-    (``[v_pad, k_pad]`` in ``mirror_dtype``, the previous sweep's
+    ``_deferred_sweep_`` runs on clones of the state, ``nwk`` and ``nk`` in
+    K2's padded ``[v_pad, k_pad]`` and ``[k_pad]`` tables, and on a clone of
+    ``mirror`` (``[v_pad, k_pad]`` in ``mirror_dtype``, the previous sweep's
     ``mirror_out``) or, when ``None``, a fresh ``snapshot`` of
-    ``state.nwk``.  ``ndk`` comes from K1's in-place walk, in the chain
-    ``compute_dtype``, over a copy of ``state.ndk``; ``nwk`` and ``nk`` come
-    from K2's rebuild from the new ``z`` (K1's running ``nk`` is a sampling
-    normaliser only, as in the reference), and so does ``mirror_out``, the
-    next sweep's snapshot: K2's ride-along cast for the bf16 snapshot, a
-    PyTorch cast of the rebuilt padded table for the float32 one (the
-    reference's ``ops/gibbs.py:469-472`` and :491-501).
-
-    The mesh runtimes (``parallel/``) pass ``emit_mirror=False``: ``nwk``
-    is then this token stream's local count table, K2's rebuild alone, and
-    ``mirror_out`` is ``None`` (a shard's table is not the global one: the
-    runtime casts the snapshot after the reconciliation).  ``vocab_size``
-    overrides the V of ``V·β`` (a vocabulary slab's height is not V).
+    ``state.nwk``; neither the state nor ``mirror`` is modified.  ``nwk``
+    and ``nk`` are the padded tables' corners, as the graph hands them out;
+    ``mirror_out`` is the next sweep's snapshot.
     """
-    v_rows, k = state.nwk.shape
-    v = v_rows if vocab_size is None else int(vocab_size)
+    v, k = state.nwk.shape
     k_pad = _round_up(k, 128)
-    if mirror is None:
-        mirror = snapshot(state.nwk, v_pad, k_pad, mirror_dtype)
+    mirror = (snapshot(state.nwk, v_pad, k_pad, mirror_dtype) if mirror is None
+              else mirror.clone())
     # α, β and V·β in float32, as the reference forms them from its f32 β
     scalars, key = _sweep_values(alpha, beta, v, k, seed, state.z.device)
-    ndk = state.ndk.clone()
-    nk = state.nk.clone()
-    z = gibbs_tiles(
-        mirror, ndk, nk, state.z, token_word, token_doc, token_mask,
-        scalars=scalars, key=key, row_tile=row_tile, noise_mode=noise_mode,
-        uniforms=uniforms, compute_dtype=compute_dtype,
-    )
-    rebuild = dict(vocab_size=v_rows, num_topics=k, v_pad=v_pad, k_pad=k_pad)
-    if not emit_mirror:
-        nwk, nk_rebuilt = build_nwk(z, token_word, token_mask,
-                                    emit_mirror=False, **rebuild)
-        return z, ndk, nwk, nk_rebuilt, None
-    if mirror_dtype == "bfloat16":
-        nwk, nk_rebuilt, mirror_out = build_nwk(z, token_word, token_mask,
-                                                **rebuild)
-    else:
-        # K2's rebuild alone (build_nwk's emit_mirror=False form), and the
-        # float32 snapshot cast straight from its padded table
-        nwk_p, nk_p = rebuild_counts(z, token_word, token_mask,
-                                     v_pad=v_pad, k_pad=k_pad)
-        nwk, nk_rebuilt, mirror_out = nwk_p[:v_rows, :k], nk_p[:k], nwk_p.float()
-    return z, ndk, nwk, nk_rebuilt, mirror_out
+    z, ndk = state.z.clone(), state.ndk.clone()
+    nwk = F.pad(state.nwk, (0, k_pad - k, 0, v_pad - v))
+    nk = F.pad(state.nk, (0, k_pad - k))
+    _deferred_sweep_(z, ndk, nwk, nk, mirror, token_word, token_doc, token_mask,
+                     scalars=scalars, key=key, row_tile=row_tile,
+                     noise_mode=noise_mode, noise=uniforms,
+                     compute_dtype=compute_dtype, mirror_dtype=mirror_dtype)
+    return z, ndk, nwk[:v, :k], nk[:k], mirror
 
 
 def _deferred_sweep_impl(state: SamplerState, token_word, token_doc,
                          token_mask, alpha, beta, **kw):
     """One deferred sweep; returns ``(state', mirror')``.  Pass ``mirror'``
     back in as ``mirror=`` for the following sweep."""
-    z, ndk, nwk, nk_rebuilt, mirror_out = deferred_local_counts(
+    z, ndk, nwk, nk, mirror = deferred_local_counts(
         state, token_word, token_doc, token_mask, alpha, beta, **kw)
-    # topic totals: the rebuild's ride-along counts below 2^24 stream tokens,
-    # else the column sum of the table (the reference's f32 bound; both are
-    # exact int32 here)
-    if token_word.shape[0] < (1 << 24):
-        nk_new = nk_rebuilt
-    else:
-        nk_new = nwk.sum(dim=0, dtype=torch.int32)
-    return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk_new,
-                        sweep=state.sweep + 1, seed=state.seed), mirror_out
+    return SamplerState(z=z, ndk=ndk, nwk=nwk, nk=nk, sweep=state.sweep + 1,
+                        seed=state.seed), mirror
 
 
 def _deferred_walk_(z, ndk, nk, mirror, token_word, token_doc, token_mask, *,
@@ -239,15 +209,14 @@ def _deferred_sweep_(z, ndk, nwk, nk, mirror, token_word, token_doc,
                      key: Optional[torch.Tensor], row_tile: int,
                      noise_mode: str, noise: Optional[torch.Tensor],
                      compute_dtype: str, mirror_dtype: str) -> None:
-    """One deferred sweep in place: the body of ``deferred_sweep_graph``,
-    ``_deferred_sweep_impl``'s kernels in its order.  ``nwk [v_pad, k_pad]``
-    and ``nk [k_pad]`` are K2's padded tables (the state's ``nwk`` and
-    ``nk`` are their ``[:V, :K]`` and ``[:K]`` corners, as the eager sweep
-    hands them out); ``mirror`` is the snapshot that K1's walk reads and that
-    the sweep then overwrites with the next one.  K1 moves ``ndk`` in place
-    and ``nk[:K]`` as its running normaliser; K2 rebuilds ``nwk`` and ``nk``
-    from the new ``z`` (its ``nk`` is the table's column sum exactly, so the
-    eager sweep's sum past 2^24 tokens gives the same integers)."""
+    """One deferred sweep in place: the body of ``deferred_sweep_graph`` and
+    of ``deferred_local_counts``.  ``nwk [v_pad, k_pad]`` and ``nk [k_pad]``
+    are K2's padded tables (the state's ``nwk`` and ``nk`` are their
+    ``[:V, :K]`` and ``[:K]`` corners); ``mirror`` is the snapshot that K1's
+    walk reads and that the sweep then overwrites with the next one.  K1
+    moves ``ndk`` in place and ``nk[:K]`` as its running normaliser (as in
+    the reference); K2 rebuilds ``nwk`` and ``nk`` from the new ``z``, its
+    ``nk`` the table's exact column sum at any token count."""
     _deferred_walk_(z, ndk, nk[:ndk.shape[1]], mirror, token_word, token_doc,
                     token_mask, out=(nwk, nk), scalars=scalars, key=key,
                     row_tile=row_tile, noise_mode=noise_mode, noise=noise,
@@ -681,7 +650,7 @@ def deferred_sweep_graph(tables: Sequence[torch.Tensor],
     the next snapshot) as a :class:`graphs.SweepGraph` over one chain's
     ``z, ndk, nwk [V, K], nk [K]`` and the snapshot ``[v_pad, k_pad]`` in
     ``mirror_dtype``: the graph keeps ``nwk`` and ``nk`` in K2's padded
-    tables and hands out their corners, as ``_deferred_sweep_impl`` does;
+    tables and hands out their corners, as ``deferred_local_counts`` does;
     K1 reads α, β, V·β and the sweep's seed from the graph's ``params``."""
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")

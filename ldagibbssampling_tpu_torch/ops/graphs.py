@@ -34,9 +34,10 @@ What may change between replays lives on the device:
 A call returns clones of the buffers, so a state passed in or returned by
 an earlier call never changes under a later one (the reference's functional
 semantics; the eager sweeps clone the state they are given too).  The
-wrappers' launch counters (``_device.LAUNCH_COUNTERS``) are Python and do
-not run on a replay: the kernels a sweep launched during the capture are
-counted once per replay instead.  On the card a failed capture or replay
+counters that the kernel wrappers add to (``launch.<kernel>``,
+``walk.one_barrier`` and the others; ``evaluation/tracing.count``) are
+Python and do not run on a replay: what the capture counted is taken back
+and added once per replay instead.  On the card a failed capture or replay
 raises; nothing runs the sweep eagerly instead.  On the CPU the same sweep
 body runs eagerly on the same buffers (what the tests run).
 
@@ -79,22 +80,16 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ldagibbssampling_tpu_torch.evaluation.tracing import count, span
-from ldagibbssampling_tpu_torch.ops._device import (
-    LAUNCH_COUNTERS, seed_word, staged, sweep_scalars)
+from ldagibbssampling_tpu_torch.evaluation.tracing import count, counters, span
+from ldagibbssampling_tpu_torch.ops._device import seed_word, staged, sweep_scalars
 
 # sweeps whose device seeds go to the card in one copy
 SEED_CHUNK = 256
 
 
-def _counts() -> dict:
-    return {(mod, name): n for mod, d in LAUNCH_COUNTERS.items()
-            for name, n in d.items()}
-
-
 def _add_counts(per: dict, times: int) -> None:
-    for (mod, name), n in per.items():
-        LAUNCH_COUNTERS[mod][name] += n * times
+    for name, n in per.items():
+        count(name, n * times)
 
 
 def _capture_node_count(stream: torch.cuda.Stream) -> int:
@@ -122,8 +117,9 @@ def capture_graph(fn: Callable[[], None], device: torch.device, *,
     which waits for ``warm_up_devices``, default ``device``), into ``pool``
     where given (else the graph's own private pool); raises if the capture
     fails.  Returns ``(graph, nodes, per_replay, capture_s)``: the
-    instantiated graph, its node count, the kernel launches the capture
-    counted (now taken back: the capture launched nothing; they are each
+    instantiated graph, its node count, what the counters moved between
+    ``capture_begin`` and ``capture_end`` (the kernel launches and K1's
+    walks, now taken back: the capture launched nothing; they are each
     replay's) and the seconds of the capture and instantiation (the span
     ``graph.capture``)."""
     graph = torch.cuda.CUDAGraph()
@@ -141,8 +137,8 @@ def capture_graph(fn: Callable[[], None], device: torch.device, *,
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
-        before = _counts()
         with span("graph.capture", device) as captured:
+            before = counters()
             graph.capture_begin(pool=pool)
             try:
                 fn()
@@ -151,11 +147,11 @@ def capture_graph(fn: Callable[[], None], device: torch.device, *,
                 try:
                     graph.capture_end()  # instantiates the graph
                 finally:
+                    after = counters()
                     if collecting:
                         gc.enable()
     count("graph.captures")
     main.wait_stream(side)
-    after = _counts()
     per_replay = {k: n - before.get(k, 0) for k, n in after.items()
                   if n != before.get(k, 0)}
     _add_counts(per_replay, -1)
@@ -263,7 +259,7 @@ class SweepGraph:
         self.noise = None  # allocated at the first call
         self.graph: Optional[torch.cuda.CUDAGraph] = None  # the first graph
         self.graphs: list = []  # per segment: its graph, None for the host's
-        self.per_replay: dict = {}   # kernel launches of one replay
+        self.per_replay: dict = {}   # what one replay adds to each counter
         self.setup_s = self.capture_s = None
         self.nodes = 0  # the graphs' nodes: the card's operations a replay
         self.launches = sum(s.device is not None for s in self._segments)

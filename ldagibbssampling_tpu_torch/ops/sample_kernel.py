@@ -33,8 +33,9 @@ then.
 
 ``sample_block`` takes a CUDA tensor to the kernel and a CPU tensor to the
 plain PyTorch version ``sample_block_plain``; any other device raises, and so
-does a failed launch.  ``LAUNCHES`` counts launches, ``PLAIN_CALLS`` calls of
-the plain version.
+does a failed launch.  A launch adds 1 to the recorder's counter
+``launch.gibbs_block_sample``, a call of the plain version to
+``plain.gibbs_block_sample`` (``evaluation/tracing.count``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
+from ldagibbssampling_tpu_torch.evaluation.tracing import count
 from ldagibbssampling_tpu_torch.ops.fused_kernel import (
     NOISE_MODES, _check_tensors, philox_uniforms)
 
@@ -53,9 +54,6 @@ from ldagibbssampling_tpu_torch.ops.fused_kernel import (
 # (csrc/sample_kernel.cu, kLogTable)
 LOG_TABLE = 2048
 _MASK64 = 2**64 - 1
-LAUNCHES = {"gibbs_block_sample": 0}
-PLAIN_CALLS = {"gibbs_block_sample": 0}
-LAUNCH_COUNTERS[__name__] = LAUNCHES
 
 
 def sample_block_plain(nwk, ndk, nk, z_old, token_word, token_doc, *,
@@ -63,7 +61,7 @@ def sample_block_plain(nwk, ndk, nk, z_old, token_word, token_doc, *,
                        slot0=0) -> torch.Tensor:
     """The plain version of ``sample_block``, in the kernel's operation
     order, on the same ``scalars`` and ``key``."""
-    PLAIN_CALLS["gibbs_block_sample"] += 1
+    count("plain.gibbs_block_sample")
     f32 = torch.float32
     n, k = z_old.shape[0], nk.shape[0]
     dev = nwk.device
@@ -189,5 +187,5 @@ def sample_block(
             NOISE_MODES.index(noise_mode), slot0, cfg["grid"], cfg["smem"],
             int(cfg["nk_table"]), torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_block_sample")
-    LAUNCHES["gibbs_block_sample"] += 1
+    count("launch.gibbs_block_sample")
     return z_new

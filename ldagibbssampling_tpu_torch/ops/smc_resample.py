@@ -17,8 +17,9 @@ first (``ndk [P, M, K]``, ``nwk [P, V, K]``, ``nk [P, K]``, ``z [P, T]``),
 contiguous.  Each wrapper takes CUDA tensors to its kernel and CPU tensors
 to its plain PyTorch version (``if flag: scratch.copy_(table[idx])``, then
 ``if flag: table.copy_(scratch)``), which reads the flag on the host; any
-other device raises, and so does a failed launch.  ``LAUNCHES`` counts
-launches, ``PLAIN_CALLS`` calls of the plain versions.
+other device raises, and so does a failed launch.  A launch adds 1
+to the recorder's counter ``launch.<kernel>``, a call of a plain version
+to ``plain.<kernel>`` (``evaluation/tracing.count``).
 """
 
 from __future__ import annotations
@@ -29,11 +30,7 @@ from typing import Sequence
 
 import torch
 
-from ldagibbssampling_tpu_torch.ops._device import LAUNCH_COUNTERS
-
-LAUNCHES = {"resample_gather": 0, "resample_write": 0}
-PLAIN_CALLS = {"resample_gather": 0, "resample_write": 0}
-LAUNCH_COUNTERS[__name__] = LAUNCHES
+from ldagibbssampling_tpu_torch.evaluation import tracing
 # csrc/smc_resample.cu: particles held in shared memory
 MAX_PARTICLES = 1024
 # the grid: four CTAs of 256 threads per SM of an H100, one wave; a false
@@ -91,7 +88,7 @@ def _launch(gather: bool, flag, idx, src, dst, count) -> None:
 
 
 def resample_gather_plain(flag, idx, tables, scratch, count) -> None:
-    PLAIN_CALLS["resample_gather"] += 1
+    tracing.count("plain.resample_gather")
     if bool(flag):
         for t, s in zip(tables, scratch):
             s.copy_(t[idx])
@@ -114,11 +111,11 @@ def resample_gather(flag: torch.Tensor, idx: torch.Tensor,
         resample_gather_plain(flag, idx, tables, scratch, count)
         return
     _launch(True, flag, idx.contiguous(), tables, scratch, count)
-    LAUNCHES["resample_gather"] += 1
+    tracing.count("launch.resample_gather")
 
 
 def resample_write_plain(flag, scratch, tables) -> None:
-    PLAIN_CALLS["resample_write"] += 1
+    tracing.count("plain.resample_write")
     if bool(flag):
         for t, s in zip(tables, scratch):
             t.copy_(s)
@@ -132,4 +129,4 @@ def resample_write(flag: torch.Tensor, scratch: Sequence[torch.Tensor],
         resample_write_plain(flag, scratch, tables)
         return
     _launch(False, flag, None, scratch, tables, None)
-    LAUNCHES["resample_write"] += 1
+    tracing.count("launch.resample_write")

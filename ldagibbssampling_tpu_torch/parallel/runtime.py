@@ -52,7 +52,7 @@ from ldagibbssampling_tpu_torch.models.state import SamplerState
 from ldagibbssampling_tpu_torch.ops.count_kernel import cast_mirror
 from ldagibbssampling_tpu_torch.ops.fused_kernel import NOISE_MODES
 from ldagibbssampling_tpu_torch.ops.gibbs import (
-    _deferred_walk_, _fused_sweep_, _round_up, _xla_sweep_, deferred_local_counts,
+    _deferred_walk_, _fused_sweep_, _round_up, _sweep_values, _xla_sweep_,
     fused_gibbs_sweep, gibbs_sweep, snapshot)
 from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
 from ldagibbssampling_tpu_torch.parallel import multihost
@@ -297,13 +297,19 @@ class MeshRuntime:
         for p in self.positions:
             state, (tw, td, tm) = self._state(p), self._tokens[p]
             if tier == "deferred":
-                z, ndk, local, _, _ = deferred_local_counts(
-                    state, tw, td, tm, self.alpha, self.beta,
-                    row_tile=self._row_tile, v_pad=v_pad, mirror=snaps[p],
-                    noise_mode=self.noise_mode, seed=seeds[p],
-                    uniforms=noise.get(p), vocab_size=vocab_size,
-                    emit_mirror=False)
-                out[p] = (z, ndk, local)
+                # the graph's step (_local_step) on clones of the tables
+                v_rows, k = state.nwk.shape
+                k_pad = _round_up(k, 128)
+                scalars, key = _sweep_values(self.alpha, self.beta,
+                                             vocab_size or v_rows, k, seeds[p],
+                                             tw.device)
+                z, ndk, nk = state.z.clone(), state.ndk.clone(), state.nk.clone()
+                local = (tw.new_zeros((v_pad, k_pad)), tw.new_zeros(k_pad))
+                _deferred_walk_(z, ndk, nk, snaps[p], tw, td, tm, out=local,
+                                scalars=scalars, key=key, row_tile=self._row_tile,
+                                noise_mode=self.noise_mode, noise=noise.get(p),
+                                compute_dtype="float32")
+                out[p] = (z, ndk, local[0][:v_rows, :k])
             elif tier == "fused":
                 out[p] = fused_gibbs_sweep(
                     state, tw, td, tm, self.alpha, self.beta,

@@ -30,7 +30,8 @@ from ldagibbssampling_tpu_torch.lda_io.artifacts import save_iterated_model
 
 # counters a metrics row carries when they moved since the row before: a
 # recapture or a state copied into the sweep graph mid-run (ops/graphs.py),
-# K1's walks launched or captured in each form (ops/fused_kernel.py)
+# K1's walks in each form (ops/fused_kernel.py), counted at every launch and
+# every replay of a graph that holds one, so they move with every sweep
 ROW_COUNTERS = ("graph.captures", "graph.copy_in_bytes", "walk.one_barrier",
                 "walk.two_barrier")
 

@@ -27,12 +27,12 @@ import time
 
 import torch
 
+from ldagibbssampling_tpu_torch.evaluation.tracing import count
+
 ROWS = 1 << 15       # 32768 rows x 512 columns
 K = 512
 REPS = 8             # chain repeats per element
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-LAUNCHES = {"dtype_probe_f32": 0, "dtype_probe_bf16": 0}
-PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 
 def counter_name(dtype: str) -> str:
@@ -43,7 +43,7 @@ def probe_plain(a: torch.Tensor, b: torch.Tensor, *, reps: int = REPS,
                 dtype: str = "float32") -> torch.Tensor:
     """The chain in PyTorch ops, each rounded to ``dtype``; the constants
     are ``dtype(0.1)`` and ``dtype(0.5)``, as in the reference."""
-    PLAIN_CALLS[counter_name(dtype)] += 1
+    count("plain." + counter_name(dtype))
     dt = DTYPES[dtype]
     x, y = a.to(dt), b.to(dt)
     cols = torch.arange(a.shape[1], device=a.device)
@@ -94,7 +94,7 @@ def dtype_probe(a: torch.Tensor, b: torch.Tensor, *, reps: int = REPS,
                                   a.shape[0], reps, int(dtype == "bfloat16"),
                                   torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "lda_dtype_probe")
-    LAUNCHES[counter_name(dtype)] += 1
+    count("launch." + counter_name(dtype))
     return out
 
 

@@ -16,12 +16,15 @@ as its float32 variant.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import pytest
 import torch
 
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.models.lda import LdaModel
 from ldagibbssampling_tpu_torch.models.state import init_state
 from ldagibbssampling_tpu_torch.ops import count_kernel as ck
@@ -33,6 +36,21 @@ from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
 pytestmark = pytest.mark.cuda
 
 K, V, M = 37, 500, 40
+
+
+def launches(kind: str = "launch") -> collections.Counter:
+    """The recorder's ``launch.<kernel>`` counters (``kind="plain"``: its
+    ``plain.<kernel>`` ones) by kernel name; 0 for one never counted."""
+    return collections.Counter({n.split(".", 1)[1]: c for n, c in tracing.counters().items()
+                                if n.startswith(kind + ".")})
+
+
+def per_kernel(per_replay: dict) -> dict:
+    """A graph's kernel launches per replay, by kernel name."""
+    return {n.removeprefix("launch."): c for n, c in per_replay.items()
+            if n.startswith("launch.")}
+
+
 def sweep_values(device, seed, alpha=0.5, beta=0.1):
     """K1's and K3's device values: α, β, Vβ (and K·α) as the sweep forms
     them, and the seed's word."""
@@ -88,7 +106,7 @@ def test_k1_chains_walk_equals_plain(cuda, chain, rows, mode):
             else nwk.float().contiguous())
     uniforms = torch.rand((tw.shape[0], 128), device=cuda) * 0.999 + 5e-4
     name = fk.sample_name(snap.dtype, chain)
-    launched = fk.LAUNCHES[name]
+    launched = launches()[name]
     out = []
     for walk in (fk.gibbs_tiles, fk.gibbs_tiles_plain):
         ndk, nk = st.ndk.clone(), st.nk.clone()
@@ -96,7 +114,7 @@ def test_k1_chains_walk_equals_plain(cuda, chain, rows, mode):
                  uniforms=uniforms, compute_dtype=chain, **sweep_values(cuda, 80))
         out.append((z, ndk, nk))
     torch.cuda.synchronize()
-    assert fk.LAUNCHES[name] > launched
+    assert launches()[name] > launched
     for a, b in zip(*out):
         assert torch.equal(a, b)
 
@@ -137,9 +155,9 @@ def test_tile_update_alone_equals_plain(cuda):
     for kernel in (True, False):
         ndk, nk = st.ndk.clone(), st.nk.clone()
         if kernel:
-            launched = fk.LAUNCHES["gibbs_tile_update"]
+            launched = launches()["gibbs_tile_update"]
             fk.gibbs_tile_update(ndk, nk, st.z, z_new, td, tm)
-            assert fk.LAUNCHES["gibbs_tile_update"] == launched + 1
+            assert launches()["gibbs_tile_update"] == launched + 1
         else:
             fk.update_plain(ndk, nk, st.z, z_new, td, tm)
         out.append((ndk, nk))
@@ -166,11 +184,11 @@ def test_k2_equals_plain(cuda):
     nwk_p, nk_p = ck.rebuild_counts_plain(st.z, tw, tm, v_pad=plan.v_pad, k_pad=128)
     assert torch.equal(nwk, nwk_p) and torch.equal(nk, nk_p)
     assert torch.equal(ck.cast_mirror(nwk), ck.cast_mirror_plain(nwk))
-    casts = ck.LAUNCHES["cast_mirror"]
+    casts = launches()["cast_mirror"]
     out = ck.build_nwk(st.z, tw, tm, vocab_size=V, num_topics=K,
                        v_pad=plan.v_pad, k_pad=128, emit_mirror=False)
     torch.cuda.synchronize()
-    assert len(out) == 2 and ck.LAUNCHES["cast_mirror"] == casts
+    assert len(out) == 2 and launches()["cast_mirror"] == casts
     assert torch.equal(out[0], nwk_p[:V, :K]) and torch.equal(out[1], nk_p[:K])
 
 
@@ -194,11 +212,11 @@ def test_deferred_chains_on_card(cuda, chain, mirror):
     model = LdaModel(LdaConfig(topic_num=9, block_size=512,
                                kernel_compute_dtype=chain, mirror_dtype=mirror), fc)
     name = fk.sample_name(getattr(torch, mirror), chain)
-    launches, casts = fk.LAUNCHES[name], ck.LAUNCHES["cast_mirror"]
+    before = launches()
     model.sweep(4)
     model.check_counts_consistent()
-    assert fk.LAUNCHES[name] > launches
-    assert (ck.LAUNCHES["cast_mirror"] > casts) == (mirror == "bfloat16")
+    assert launches()[name] > before[name]
+    assert (launches()["cast_mirror"] > before["cast_mirror"]) == (mirror == "bfloat16")
     model.optimize_hyperparameters()
     model.sweep(1)
     assert np.isfinite(model.device_log_likelihood())
@@ -215,14 +233,14 @@ def test_model_on_card_counts_consistent(cuda, use_pallas, tier, kernel):
     rng = np.random.default_rng(2)
     ragged = [[int(x) for x in rng.integers(0, 80, size=60)] for _ in range(30)]
     fc = FlatCorpus.from_ragged(ragged, vocab_size=80)
-    launches = {**fk.LAUNCHES, **sk.LAUNCHES}
+    before = launches()
     model = LdaModel(LdaConfig(topic_num=9, block_size=512,
                                use_pallas=use_pallas), fc)
     assert model.state.z.is_cuda and model.kernel_tier == tier
     model.sweep(4)
     model.check_counts_consistent()
     if kernel is not None:
-        assert {**fk.LAUNCHES, **sk.LAUNCHES}[kernel] > launches[kernel]
+        assert launches()[kernel] > before[kernel]
 
 
 def test_failed_launch_raises(cuda):
@@ -343,8 +361,10 @@ def test_k1_walk_second_ndk_buffer_only_when_pipelined(cuda, k, row_tile, m,
 
 
 def test_k1_walk_counts_its_form_once_per_launch_or_capture(cuda):
-    from ldagibbssampling_tpu_torch.evaluation import tracing
     from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
+
+    def walks():
+        return {n: c for n, c in tracing.counters().items() if n.startswith("walk.")}
 
     tracing.reset()
     # eager: a walk in each form at K = 100; the draw alone counts in neither
@@ -355,9 +375,9 @@ def test_k1_walk_counts_its_form_once_per_launch_or_capture(cuda):
     fk.gibbs_tile_sample(mirror, st.ndk, st.nk, st.z, *toks, row_tile=4096,
                          **sweep_values(cuda, 4))
     torch.cuda.synchronize()
-    assert tracing.counters() == {"walk.one_barrier": 1, "walk.two_barrier": 1}
-    # the deferred sweep at K = 100 captured: its warm-up sweep and its
-    # capture count, its replays do not
+    assert walks() == {"walk.one_barrier": 1, "walk.two_barrier": 1}
+    # the deferred sweep at K = 100 captured: its warm-up sweep counts, and
+    # each replay counts the walk its capture took back
     layout, st = _tier_layout("deferred", 100, seed=5)
     run = make_sweep_fn(layout.token_word, layout.token_doc, layout.token_mask,
                         alpha=0.5, beta=0.1, block_size=2048, num_topics=100,
@@ -368,22 +388,21 @@ def test_k1_walk_counts_its_form_once_per_launch_or_capture(cuda):
     torch.cuda.synchronize()
     (graph,) = run.graphs.values()
     assert graph.replays == 3
-    assert tracing.counters()["walk.one_barrier"] == 2
-    assert "walk.two_barrier" not in tracing.counters()
+    assert walks() == {"walk.one_barrier": 4}
 
 
 def test_k1_walk_empty_and_all_masked(cuda):
     st, (tw, td, tm), mirror = _walk_setup(cuda, k=K, n=600, seed=4)
     name = fk.sample_name(mirror.dtype)
-    launched = fk.LAUNCHES[name]
+    launched = launches()[name]
     ndk, nk = st.ndk.clone(), st.nk.clone()
     empty = fk.gibbs_tiles(mirror, ndk, nk, st.z[:0], tw[:0], td[:0], tm[:0],
                            row_tile=256, **sweep_values(cuda, 1))
-    assert empty.shape == (0,) and fk.LAUNCHES[name] == launched  # nothing to launch
+    assert empty.shape == (0,) and launches()[name] == launched  # nothing to launch
     z = fk.gibbs_tiles(mirror, ndk, nk, st.z, tw, td, torch.zeros_like(tm),
                        row_tile=256, **sweep_values(cuda, 1))
     torch.cuda.synchronize()
-    assert fk.LAUNCHES[name] == launched + 1
+    assert launches()[name] == launched + 1
     assert torch.equal(z, st.z) and torch.equal(ndk, st.ndk) and torch.equal(nk, st.nk)
 
 
@@ -407,10 +426,10 @@ def test_k1_walk_is_one_launch(cuda, rows):
     snap = mirror if rows == "bfloat16" else st.nwk
     name = fk.sample_name(snap.dtype)
     for calls in range(1, 4):
-        before = dict(fk.LAUNCHES)
+        before = launches()
         fk.gibbs_tiles(snap, st.ndk.clone(), st.nk.clone(), st.z, *toks,
                        row_tile=256, **sweep_values(cuda, calls))
-        after = dict(fk.LAUNCHES)
+        after = launches()
         assert after[name] == before[name] + 1
         assert after["gibbs_tile_update"] == before["gibbs_tile_update"]
         assert after["count_move"] == before["count_move"]
@@ -526,10 +545,10 @@ def test_k3_ties_take_the_lowest_topic(cuda):
 
 def test_k3_empty_block_and_one_word(cuda):
     tables, (z_old, w, d) = _k3_tables(cuda, k=K, n=1500, one_word=True, seed=8)
-    launched = sk.LAUNCHES["gibbs_block_sample"]
+    launched = launches()["gibbs_block_sample"]
     empty = sk.sample_block(*tables, z_old[:0], w[:0], d[:0],
                             **sweep_values(cuda, 1))
-    assert empty.shape == (0,) and sk.LAUNCHES["gibbs_block_sample"] == launched
+    assert empty.shape == (0,) and launches()["gibbs_block_sample"] == launched
     for mode in ("deterministic", "internal"):
         z, zp = _both_k3(tables, (z_old, w, d), mode)
         assert torch.equal(z, zp)
@@ -596,10 +615,10 @@ def test_count_move_tables_equal_plain(cuda, names, case):
 @pytest.mark.parametrize("write_back", ["alias", "separate"])
 def test_count_move_writes_back_z(cuda, write_back):
     tables, toks, z_old, z_new, mask = _move_case(cuda, seed=4, sort_words=True)
-    launched = fk.LAUNCHES["count_move"]
+    launched = launches()["count_move"]
     (t, z), (tp, zp) = _both_moves(tables, toks, z_old, z_new, mask,
                                    ("nwk", "ndk", "nk"), write_back)
-    assert fk.LAUNCHES["count_move"] == launched + 1
+    assert launches()["count_move"] == launched + 1
     assert all(torch.equal(t[n], tp[n]) for n in t)
     assert torch.equal(z, zp)
     assert torch.equal(z, torch.where(mask > 0, z_new, z_old))
@@ -865,14 +884,14 @@ def test_captured_draw_counts_its_kernels_per_replay(cuda):
     run = make_sweep_fn(pc.token_word, pc.token_doc, pc.token_mask,
                         alpha=0.5, beta=0.1, block_size=256, use_pallas=True,
                         num_topics=K, device=cuda)
-    before = (sk.LAUNCHES["gibbs_block_sample"], fk.LAUNCHES["count_move"])
+    before = (launches()["gibbs_block_sample"], launches()["count_move"])
     out = run(st, n_sweeps=3, generator=torch.Generator().manual_seed(1))
     # the warm-up sweep ran its kernels; the capture ran none; 3 replays
-    assert (sk.LAUNCHES["gibbs_block_sample"] - before[0],
-            fk.LAUNCHES["count_move"] - before[1]) == (4 * blocks, 4 * blocks)
+    assert (launches()["gibbs_block_sample"] - before[0],
+            launches()["count_move"] - before[1]) == (4 * blocks, 4 * blocks)
     run(out, n_sweeps=2, generator=torch.Generator().manual_seed(2))
-    assert (sk.LAUNCHES["gibbs_block_sample"] - before[0],
-            fk.LAUNCHES["count_move"] - before[1]) == (6 * blocks, 6 * blocks)
+    assert (launches()["gibbs_block_sample"] - before[0],
+            launches()["count_move"] - before[1]) == (6 * blocks, 6 * blocks)
     (graph,) = run.graphs.values()
     assert set(graph.per_replay.values()) == {blocks}
     # the graph's own count of its kernels, and its set-up timed whole
@@ -1009,10 +1028,10 @@ def test_captured_kernel_tier_replay_is_one_graph_launch_and_one_walk(cuda, tier
             return run.with_mirror(state, mirror=mirror, n_sweeps=n, generator=gen)
         return run(state, n_sweeps=n, generator=gen), None
 
-    before = {**fk.LAUNCHES, **ck.LAUNCHES}
+    before = launches()
     out, snap = call(st, None, 3, 1)
     torch.cuda.synchronize()
-    after = {**fk.LAUNCHES, **ck.LAUNCHES}
+    after = launches()
     # the warm-up sweep ran its kernels, the capture none, then 3 replays;
     # the deferred tier's cold start casts one snapshot more
     want = ({name: 4, "rebuild_counts": 4, "cast_mirror": 5, "count_move": 0}
@@ -1020,7 +1039,7 @@ def test_captured_kernel_tier_replay_is_one_graph_launch_and_one_walk(cuda, tier
             {name: 4 * blocks, "count_move": 4 * blocks, "rebuild_counts": 0})
     assert {n: after[n] - before[n] for n in want} == want
     (graph,) = run.graphs.values()
-    assert {n: c for (_, n), c in graph.per_replay.items()} == {
+    assert per_kernel(graph.per_replay) == {
         n: c // 4 for n, c in want.items() if c and n != "cast_mirror"} | (
         {"cast_mirror": 1} if tier == "deferred" else {})
     # the runtime's calls of a call of two sweeps (the CUDA activity records
@@ -1065,14 +1084,14 @@ def test_refused_cooperative_capture_raises_and_runs_no_sweep_eagerly(cuda, monk
                         deferred_plan=layout, device=cuda)
     keep = [t.clone() for t in (st.z, st.ndk, st.nwk, st.nk)]
     name = fk.sample_name(torch.bfloat16)
-    walks = fk.LAUNCHES[name]
+    walks = launches()[name]
     for calls in (1, 2):
         with pytest.raises(RuntimeError, match="lda_gibbs_tiles failed: CUDA error 82"):
             run.with_mirror(st, mirror=None, n_sweeps=2,
                             generator=torch.Generator().manual_seed(1))
         (graph,) = run.graphs.values()
         assert graph.graph is None and graph.replays == 0
-        assert fk.LAUNCHES[name] == walks + calls  # the warm-up sweeps alone
+        assert launches()[name] == walks + calls  # the warm-up sweeps alone
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip((st.z, st.ndk, st.nwk, st.nk), keep))
 
@@ -1239,13 +1258,14 @@ def test_refused_smc_capture_raises_and_runs_no_step_eagerly(cuda, monkeypatch):
     monkeypatch.setattr(sr, "_lib", lambda: (build, Refusing()))
     _, model, _ = _smc_models(monkeypatch, 0.9, chunk=100)
     keep = [t.clone() for t in model._tables()]
-    before = dict(sr.LAUNCHES)
+    names = ("resample_gather", "resample_write")
+    before = launches()
     for calls in (1, 2):
         with pytest.raises(RuntimeError, match="lda_smc_resample failed: CUDA error 1"):
             model.sweep(1)
         assert model.graph.graph.graphs == {} and model.graph.graph.replays == 0
         # the warm-up steps alone launched the kernels
-        assert sr.LAUNCHES == {n: c + calls for n, c in before.items()}
+        assert {n: launches()[n] for n in names} == {n: before[n] + calls for n in names}
     torch.cuda.synchronize()
     assert model.sweeps_done == 0
     assert all(torch.equal(a, b) for a, b in zip(model._tables(), keep))
@@ -1324,12 +1344,12 @@ def test_cvb0_scatter_equals_plain_on_cpu_copies(cuda, case):
     plan = cs.scatter_plan(ids, block, cuda)
     host_plan = cs.scatter_plan(ids, block, "cpu")
     table = host_table.to(cuda)
-    launches = cs.LAUNCHES["cvb0_scatter"]
+    launched = launches()["cvb0_scatter"]
     for b, delta in enumerate(deltas):
         cs.cvb0_scatter(table, delta.to(cuda), plan, b)
         cs.cvb0_scatter(host_table, delta, host_plan, b)
     torch.cuda.synchronize()
-    assert cs.LAUNCHES["cvb0_scatter"] == launches + len(deltas)
+    assert launches()["cvb0_scatter"] == launched + len(deltas)
     assert torch.equal(table.cpu(), host_table)
     with pytest.raises(ValueError, match="on the CPU"):
         cs.cvb0_scatter_plain(table, plan.index[:block], deltas[0].to(cuda))
@@ -1416,16 +1436,16 @@ def test_captured_cvb0_equals_eager_on_card(cuda, sort_blocks):
     model = Cvb0Model(cfg, _small_corpus(seed=4), device=cuda)
     blocks = model._padded.num_tokens // 128
     want = _cvb0_eager_on_card(model, 3)
-    before = dict(cs.LAUNCHES), dict(cs.PLAIN_CALLS)
+    before = launches(), launches("plain")
     model.sweep(2)
     model.sweep(1)
     torch.cuda.synchronize()
     for name, w in zip(("gamma", "ndk", "nwk", "nk"), want):
         assert torch.equal(getattr(model, name), w), name
     # two scatters a block: the warm-up sweep's, then one replay a sweep
-    assert cs.LAUNCHES["cvb0_scatter"] - before[0]["cvb0_scatter"] == 2 * blocks * 4
-    assert cs.PLAIN_CALLS == before[1]
-    assert model.graph.per_replay == {(cs.__name__, "cvb0_scatter"): 2 * blocks}
+    assert launches()["cvb0_scatter"] - before[0]["cvb0_scatter"] == 2 * blocks * 4
+    assert launches("plain") == before[1]
+    assert model.graph.per_replay == {"launch.cvb0_scatter": 2 * blocks}
     model.check_invariants()
 
 
@@ -1448,14 +1468,14 @@ def test_captured_cvb0_with_long_runs_equals_eager_on_card(cuda, sort_blocks):
     assert min(runs) > cs.UNIT_ROWS
     blocks = model._padded.num_tokens // 2_048
     want = _cvb0_eager_on_card(model, 3)
-    before = cs.LAUNCHES["cvb0_scatter"]
+    before = launches()["cvb0_scatter"]
     model.sweep(2)
     model.sweep(1)
     torch.cuda.synchronize()
     for name, w in zip(("gamma", "ndk", "nwk", "nk"), want):
         assert torch.equal(getattr(model, name), w), name
-    assert cs.LAUNCHES["cvb0_scatter"] - before == 2 * blocks * 4
-    assert model.graph.per_replay == {(cs.__name__, "cvb0_scatter"): 2 * blocks}
+    assert launches()["cvb0_scatter"] - before == 2 * blocks * 4
+    assert model.graph.per_replay == {"launch.cvb0_scatter": 2 * blocks}
 
 
 @pytest.mark.parametrize("mode", ["internal", "external"])
@@ -1666,23 +1686,20 @@ def test_captured_mesh_counts_its_kernels_per_replay(cuda, kind, tier):
     then the per-replay counts times the sweeps."""
     model = _mesh_model(cuda, kind, tier)
     name = fk.sample_name(torch.bfloat16 if tier == "deferred" else torch.int32)
-    def counters():
-        return {**fk.LAUNCHES, **ck.LAUNCHES}
-
-    before = counters()
+    before = launches()
     model.sweep(2)
     torch.cuda.synchronize()
-    per = {n: c for (_, n), c in model.graph.per_replay.items()}
+    per = per_kernel(model.graph.per_replay)
     if tier == "deferred":
         tables = 2 if kind == "chain" else 1  # distinct nwk: one per chain
         assert per == {name: 4, "rebuild_counts": 4, "cast_mirror": tables}
     else:
         blocks = sum(t[0].shape[0] // model.block_size for t in model._tokens.values())
         assert per == {name: blocks, "count_move": blocks}
-    after = counters()
+    after = launches()
     assert {n: after[n] - before[n] for n in per} == {n: 3 * c for n, c in per.items()}
     model.sweep(2)
-    again = counters()
+    again = launches()
     assert {n: again[n] - after[n] for n in per} == {n: 2 * c for n, c in per.items()}
     assert model.graph.nodes >= sum(per.values()) and model.graph.setup_s > 0
 
@@ -1708,12 +1725,12 @@ def test_refused_mesh_capture_raises_and_runs_no_sweep_eagerly(cuda, monkeypatch
             for n in ("z", "ndk", "nwk", "nk")}
     gen = model.generator.get_state()
     name = fk.sample_name(torch.bfloat16)
-    walks = fk.LAUNCHES[name]
+    walks = launches()[name]
     for calls in (1, 2):
         with pytest.raises(RuntimeError, match="lda_gibbs_tiles failed: CUDA error 82"):
             model.sweep(2)
         assert model.graph.graph is None and model.graph.replays == 0
-        assert fk.LAUNCHES[name] == walks + 4 * calls  # the warm-up sweeps alone
+        assert launches()[name] == walks + 4 * calls  # the warm-up sweeps alone
     torch.cuda.synchronize()
     assert model.sweeps_done == 0
     for n, parts in keep.items():
@@ -1782,6 +1799,24 @@ def test_graph_counts_its_replays_handout_and_copy_in_on_card(cuda):
     model.sweep(1)
     assert tracing.counters()["graph.copy_in_bytes"] == _table_bytes(model)
     model.check_counts_consistent()
+
+
+def test_replayed_graph_counts_its_launches_per_replay_on_card(cuda):
+    """Once captured, a call of ``n`` sweeps moves K1's ``launch.`` counter
+    and its walk counter by ``n`` (each replay adds what the capture took
+    back) and ``graph.captures`` by 0."""
+    model, tracing = _traced_model(cuda)
+    model.sweep(1)
+    name = "launch." + fk.sample_name(model._mirror.dtype)
+    for n in (1, 3):
+        before = tracing.counters()
+        model.sweep(n)
+        after = tracing.counters()
+        moved = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in (name, "walk.one_barrier", "walk.two_barrier",
+                           "graph.captures")}
+        assert moved[name] == moved["walk.one_barrier"] + moved["walk.two_barrier"] == n
+        assert moved["graph.captures"] == 0
 
 
 def test_step_graph_setup_is_a_span_tree_on_card(cuda):

@@ -31,7 +31,7 @@ from ldagibbssampling_tpu.corpus.flat import FlatCorpus as JaxFlatCorpus
 from ldagibbssampling_tpu_torch.backends.cvb0 import Cvb0Model, cvb0_sweeps
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
-from ldagibbssampling_tpu_torch.ops import cvb0_scatter as cs
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.ops.cvb0_scatter import (
     cvb0_scatter, cvb0_scatter_plain, scatter_plan)
 from ldagibbssampling_tpu_torch.ops.graphs import SweepGraph
@@ -117,9 +117,9 @@ def test_plain_scatter_is_index_add_in_token_order(rows_n, table_n, k, seed):
     rows = rng.uniform(0.0, 1.0, size=(rows_n, k)).astype(np.float32)
     start = rng.uniform(0.0, 3.0, size=(table_n, k)).astype(np.float32)
     table = torch.from_numpy(start.copy())
-    before = cs.PLAIN_CALLS["cvb0_scatter"]
+    before = tracing.counters().get("plain.cvb0_scatter", 0)
     cvb0_scatter_plain(table, torch.from_numpy(index), torch.from_numpy(rows))
-    assert cs.PLAIN_CALLS["cvb0_scatter"] == before + 1
+    assert tracing.counters()["plain.cvb0_scatter"] == before + 1
     want = start.copy()
     for i, r in enumerate(index):  # one float32 add at a time, in token order
         want[r] = want[r] + rows[i]
@@ -138,15 +138,18 @@ def test_scatter_along_the_plan_is_the_plain_version_block_by_block(case):
     k, rows_n = 6, int(ids.max()) + 1
     start = torch.from_numpy(rng.normal(size=(rows_n, k)).astype(np.float32))
     got, want = start.clone(), start.clone()
-    launches, plain = cs.LAUNCHES["cvb0_scatter"], cs.PLAIN_CALLS["cvb0_scatter"]
+    before = tracing.counters()
     for b in range(plan.num_blocks):
         rows = torch.from_numpy(rng.normal(size=(block, k)).astype(np.float32))
         cvb0_scatter(got, rows, plan, b)
         want.index_add_(0, torch.from_numpy(np.asarray(ids[b * block:(b + 1) * block],
                                                        np.int64)), rows)
     assert torch.equal(got, want)
-    assert cs.LAUNCHES["cvb0_scatter"] == launches  # the CPU launches nothing
-    assert cs.PLAIN_CALLS["cvb0_scatter"] == plain + plan.num_blocks
+    after = tracing.counters()
+    # the CPU launches nothing
+    assert after.get("launch.cvb0_scatter", 0) == before.get("launch.cvb0_scatter", 0)
+    assert (after["plain.cvb0_scatter"]
+            == before.get("plain.cvb0_scatter", 0) + plan.num_blocks)
 
 
 @pytest.mark.parametrize("case", ["float64", "rows_shape", "strided", "block"])

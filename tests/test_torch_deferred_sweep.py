@@ -35,6 +35,7 @@ from ldagibbssampling_tpu.ops.gibbs import make_sweep_fn as jax_make_sweep_fn
 from ldagibbssampling_tpu_torch import interop
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.models.lda import LdaModel
 from ldagibbssampling_tpu_torch.ops import count_kernel as ck
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
@@ -235,9 +236,9 @@ def test_chain_knobs_match_reference_model(model_reference, chain, mirror):
     model.check_counts_consistent()
     # the model's own sweep runs the chain's kernel on its snapshot type
     name = fk.sample_name(getattr(torch, mirror), chain)
-    before = fk.PLAIN_CALLS[name]
+    before = tracing.counters().get("plain." + name, 0)
     model.sweep(1)
-    assert fk.PLAIN_CALLS[name] > before
+    assert tracing.counters().get("plain." + name, 0) > before
     assert model._mirror.dtype == getattr(torch, mirror)
     model.check_counts_consistent()
 

@@ -23,6 +23,7 @@ from ldagibbssampling_tpu.models.state import init_state as jax_init_state
 from ldagibbssampling_tpu.ops.gibbs import make_sweep_fn as jax_make_sweep_fn
 from ldagibbssampling_tpu_torch import interop
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
 from ldagibbssampling_tpu_torch.ops._device import seed_word, sweep_scalars
 from ldagibbssampling_tpu_torch.ops.gibbs import make_sweep_fn
@@ -74,12 +75,14 @@ def test_fused_sweeps_match_reference(seed, block, t_target, tiles):
         return torch.from_numpy(np.asarray(jax.random.uniform(
             key, (t_pad, 128), jnp.float32, minval=1e-7, maxval=1.0 - 1e-7)))
 
-    calls = dict(fk.PLAIN_CALLS)
+    calls = tracing.counters()
     out = run(_port_state(jst), noise=noise)
     # per sweep and block: one ndk/nk move per tile, then the nwk move
     nb = t_pad // block
-    assert fk.PLAIN_CALLS["gibbs_tile_update"] - calls["gibbs_tile_update"] == 2 * nb * tiles
-    assert fk.PLAIN_CALLS["count_move"] - calls["count_move"] == 2 * nb
+    moved = {n: tracing.counters().get(n, 0) - calls.get(n, 0)
+             for n in ("plain.gibbs_tile_update", "plain.count_move")}
+    assert moved == {"plain.gibbs_tile_update": 2 * nb * tiles,
+                     "plain.count_move": 2 * nb}
     assert out.sweep == 2 == int(ref.sweep)
     z = out.z.numpy()
     real = pc.token_mask > 0

@@ -49,8 +49,9 @@ from ldagibbssampling_tpu_torch.ops import count_kernel as ck
 from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
 from ldagibbssampling_tpu_torch.ops import sample_kernel as sk
 from ldagibbssampling_tpu_torch.ops.gibbs import (
-    _deferred_sweep_impl, draw_sweep_graph, fused_gibbs_sweep, gibbs_sweep,
-    gibbs_sweep_chains, make_sweep_fn, sweep_seed, xla_sweep_graph)
+    _deferred_sweep_impl, deferred_local_counts, draw_sweep_graph,
+    fused_gibbs_sweep, gibbs_sweep, gibbs_sweep_chains, make_sweep_fn,
+    snapshot, sweep_seed, xla_sweep_graph)
 
 torch.set_num_threads(1)
 
@@ -609,12 +610,37 @@ def test_kernel_tier_graphs_match_reference(tier, mode):
         _assert_matches_reference(layout, out, ref)
 
 
-@pytest.mark.parametrize("tier", ["deferred", "fused"])
+def _eager_deferred_inputs_never_change(layout, dl, jst):
+    """``deferred_local_counts`` (the graph's body on clones) leaves the
+    state and the snapshot it is given as they were, in both snapshot
+    types, from a given snapshot and from a cold start."""
+    tw, td, tm = _tokens(layout)
+    row_tile = _tier_run("deferred", layout, dl, "internal").row_tile
+    for mirror_dtype in ("bfloat16", "float32"):
+        st = _port_state(jst)
+        mirror = snapshot(st.nwk, layout.v_pad, 128, mirror_dtype)
+        keep, mirror_keep = [t.clone() for t in _tables(st)], mirror.clone()
+        for given in (mirror, None):
+            z, ndk, nwk, nk, out = deferred_local_counts(
+                st, tw, td, tm, 0.5, 0.1, row_tile=row_tile, v_pad=layout.v_pad,
+                mirror=given, seed=1, mirror_dtype=mirror_dtype)
+            _assert_equal(_tables(st), keep)
+            assert torch.equal(mirror, mirror_keep)
+            assert out.dtype == mirror.dtype and not torch.equal(out, mirror)
+            assert not torch.equal(z, st.z) and not torch.equal(nwk, st.nwk)
+
+
+@pytest.mark.parametrize("tier", ["deferred", "fused", "deferred_local_counts"])
 def test_kernel_tier_inputs_and_returned_states_never_change(tier):
     """As ``test_inputs_and_returned_states_never_change`` for the deferred
     and fused graphs, the snapshot included: a state and snapshot passed in,
     or returned earlier, keep their values; one modified in place is copied
-    in again; a cold start (``mirror=None``) equals the carried snapshot."""
+    in again; a cold start (``mirror=None``) equals the carried snapshot.
+    The eager deferred sweep keeps its inputs too
+    (``_eager_deferred_inputs_never_change``)."""
+    if tier == "deferred_local_counts":
+        _eager_deferred_inputs_never_change(*_tier_setup("deferred", 40))
+        return
     layout, dl, jst = _tier_setup(tier, 40)
     run = _tier_run(tier, layout, dl, "internal")
 

@@ -4,8 +4,8 @@
 On the CPU the graph's steps run eagerly on the same static buffers that a
 card captures and replays, so these tests hold that body against the
 runtimes' eager sweeps (``_eager_sweeps``: each runtime's
-``_eager_sweep_once``, the local sweeps through ``deferred_local_counts``,
-``fused_gibbs_sweep`` and ``gibbs_sweep`` and the reconciliation through
+``_eager_sweep_once``, the local sweeps through ``_deferred_walk_`` on
+clones, ``fused_gibbs_sweep`` and ``gibbs_sweep`` and the reconciliation through
 ``multihost.psum``), which ``test_torch_mesh_sweep.py`` and
 ``test_torch_chaingrid.py`` hold against the JAX package.
 
@@ -22,8 +22,7 @@ import torch
 
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
-from ldagibbssampling_tpu_torch.ops import count_kernel as ck
-from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.parallel import multihost
 from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda, make_sharded_sweep_fn
 from ldagibbssampling_tpu_torch.parallel.chaingrid import ShardedChainSet
@@ -196,11 +195,15 @@ def test_kernel_calls_per_sweep_equal_the_eager_sweep():
     a, b = build("grid", "deferred"), build("grid", "deferred")
     calls = []
     for model, run in ((a, a.sweep), (b, b._eager_sweeps)):
-        ck.PLAIN_CALLS.update(dict.fromkeys(ck.PLAIN_CALLS, 0))
+        before = tracing.counters()
         run(2)
-        calls.append(dict(ck.PLAIN_CALLS))
-    assert calls[0] == calls[1] == {"rebuild_counts": 8, "cast_mirror": 4}
-    assert not any(fk.LAUNCHES.values()) and not any(ck.LAUNCHES.values())
+        calls.append({n: c - before.get(n, 0) for n, c in tracing.counters().items()
+                      if n.startswith(("launch.", "plain.")) and c != before.get(n, 0)})
+    assert calls[0] == calls[1]
+    assert not any(n.startswith("launch.") for n in calls[0])
+    assert {n: c for n, c in calls[0].items()
+            if n in ("plain.rebuild_counts", "plain.cast_mirror")} == {
+        "plain.rebuild_counts": 8, "plain.cast_mirror": 4}
 
 
 @pytest.mark.parametrize("kind,tier", [("adlda", False), ("adlda", "fused"),

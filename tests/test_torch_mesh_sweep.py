@@ -43,8 +43,7 @@ from ldagibbssampling_tpu.parallel.tokenshard import TokenShardedLda as JaxToken
 from ldagibbssampling_tpu_torch import interop
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
-from ldagibbssampling_tpu_torch.ops import count_kernel as ck
-from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.parallel import make_sharded_sweep_fn, multihost
 from ldagibbssampling_tpu_torch.parallel.adlda import ShardedLda
 from ldagibbssampling_tpu_torch.parallel.chaingrid import ShardedChainSet
@@ -222,16 +221,18 @@ def test_internal_noise_seeded_and_exact(kind, tier):
     sweep)."""
     _, pc = mesh_corpora(11)
     cfg = dict(topic_num=K, block_size=256, use_pallas=tier)
-    zero = {n: 0 for n in ck.PLAIN_CALLS}
-    ck.PLAIN_CALLS.update(zero)
+    before = tracing.counters()
     a = port(kind, pc, noise_mode="internal", seed=3, **cfg)
     z0 = a.arrays()["z"]
     a.sweep(2)
+    moved = {n: c - before.get(n, 0) for n, c in tracing.counters().items()
+             if n.startswith(("launch.", "plain.")) and c != before.get(n, 0)}
     if tier == "deferred":
         tables = int(np.prod([a.mesh.axis_size(x) for x in a.SPEC["nwk"]]))
-        assert ck.PLAIN_CALLS == {"cast_mirror": 2 * tables,
-                                  "rebuild_counts": 2 * a.mesh.size}
-    assert not any(fk.LAUNCHES.values()) and not any(ck.LAUNCHES.values())
+        assert {n: moved.get(n, 0) for n in ("plain.cast_mirror", "plain.rebuild_counts")
+                } == {"plain.cast_mirror": 2 * tables,
+                      "plain.rebuild_counts": 2 * a.mesh.size}
+    assert not any(n.startswith("launch.") for n in moved)
     b = port(kind, pc, noise_mode="internal", seed=3, **cfg)
     b.sweep(2)
     c = port(kind, pc, noise_mode="internal", seed=4, **cfg)

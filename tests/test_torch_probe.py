@@ -27,6 +27,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.scripts import vpu_dtype_probe as probe
 from test_torch_chains import run_without_excess_precision
 
@@ -90,9 +91,9 @@ def test_plain_probe_matches_reference(reference, dtype):
 
 def test_wrapper_cpu_path_is_plain_and_counts():
     a, b = (torch.from_numpy(x) for x in _inputs(1))
-    before = dict(probe.PLAIN_CALLS)
+    before = tracing.counters().get("plain.dtype_probe_bf16", 0)
     out = probe.dtype_probe(a, b, dtype="bfloat16", reps=3)
-    assert probe.PLAIN_CALLS["dtype_probe_bf16"] == before["dtype_probe_bf16"] + 1
+    assert tracing.counters()["plain.dtype_probe_bf16"] == before + 1
     assert torch.equal(out, probe.probe_plain(a, b, dtype="bfloat16", reps=3))
     assert probe.ops_counted() == 32768 * 512 * 8 * 5
 

@@ -33,6 +33,7 @@ from ldagibbssampling_tpu_torch.backends.smc import (
     GRAPH_STEPS, SmcModel, smc_absorb, smc_scalars)
 from ldagibbssampling_tpu_torch.config import LdaConfig
 from ldagibbssampling_tpu_torch.corpus.flat import FlatCorpus
+from ldagibbssampling_tpu_torch.evaluation import tracing
 from ldagibbssampling_tpu_torch.ops import smc_resample as sr
 from ldagibbssampling_tpu_torch.ops._device import sweep_scalars
 from ldagibbssampling_tpu_torch.ops.graphs import StepGraph
@@ -194,11 +195,13 @@ def test_resample_plain_gathers_only_when_flagged(flag):
     scratch = [torch.full_like(t, -1) for t in tables]
     idx = torch.tensor([2, 2, 0])
     count = torch.zeros(1, dtype=torch.int64)
-    calls = dict(sr.PLAIN_CALLS)
+    names = ("plain.resample_gather", "plain.resample_write")
+    calls = tracing.counters()
     f = torch.tensor(flag)
     sr.resample_gather(f, idx, tables, scratch, count)
     sr.resample_write(f, scratch, tables)
-    assert sr.PLAIN_CALLS == {n: c + 1 for n, c in calls.items()}
+    assert {n: tracing.counters()[n] for n in names} == {
+        n: calls.get(n, 0) + 1 for n in names}
     assert int(count) == int(flag)
     for t, s, b in zip(tables, scratch, before):
         assert torch.equal(t, b[idx] if flag else b)
