@@ -36,7 +36,7 @@ success:
    fixed cost per tile; K2's ``build_nwk(emit_mirror=False)`` (bitwise); K4,
    the dtype probe, in float32 and bf16 (both bitwise) at [32768, 512]; K1
    at K = 100, where the sweep's row tile is 2,048 (four tokens a thread
-   for each CTA's fold of a tile's moves in the one-barrier walk): the block
+   for each CTA's fold of a tile's records in the tagged walk): the block
    against the plain walk in the three modes (bitwise), its whole walk and
    its fixed cost per tile; the SMC
    resample's two gated kernels (``ops/smc_resample.py``) at SMC's shape in
@@ -137,7 +137,7 @@ success:
    each captured path (``ops/graphs.SweepGraph``, one CUDA graph replayed
    per sweep) against its eager sweep from the same state, seeds and noise:
    the deferred tier (K = 500, tiles of 512, and K = 100, tiles of 2,048,
-   both one barrier a tile; its snapshot carried), the fused tier, the XLA tier
+   both the tagged walk; its snapshot carried), the fused tier, the XLA tier
    and the v1-draw tier at bench.py's shape through ``make_sweep_fn`` on
    ``make_backend``'s layout, the chains at rung 4's full size and at
    K = 500 on bench.py's shape through ``ChainSet``; in internal and
@@ -252,8 +252,8 @@ success:
    training tokens; generated once): ``make_backend`` -> ``LdaModel`` ->
    ``run_inference``, K = 100, block 65,536, the deferred tier (f32 chain,
    bf16 snapshot), 2 untimed and 10 timed sweeps, then
-   ``check_counts_consistent``; exactly 13 walks (K = 100, one barrier a
-   tile; 12 sweeps and the graph's warm-up), 13 rebuilds and 14 snapshots,
+   ``check_counts_consistent``; exactly 13 walks (K = 100, the tagged
+   walk; 12 sweeps and the graph's warm-up), 13 rebuilds and 14 snapshots,
    no other kernel and no plain version; prints ``corpus_s``, ``plan_s``,
    ``setup_s`` (plan + state init + transfer), tokens/s, peak device
    memory (``max_memory_allocated``), the host's peak RSS and the held-out
@@ -309,7 +309,7 @@ PKG = "ldagibbssampling_tpu_torch"
 
 T, V, M, K = 1 << 20, 50_000, 4_096, 500
 # a topic count at which the sweep's row tile is 2,048 tokens: K1's
-# one-barrier walk folds four of a tile's moves a thread
+# tagged walk folds four of a tile's records a thread
 K_GENERAL = 100
 BLOCK, ALPHA, BETA, SWEEPS = 65_536, 0.5, 0.1, 10
 HBM_BYTES_PER_S = 3.35e12
@@ -583,7 +583,7 @@ def walk_report(res: dict, name: str, rows, ndk, nk, z, w, d, m, *, chain: str,
     launch, internal noise at ``values``' scalars and seed) with its bound
     from that walk's own moves (``draw_cost``: the draw's bytes and
     operations), and its fixed cost: the same walk with every token masked
-    (barriers, the reciprocal hoist, index loads), per tile, in device time
+    (the waits between tiles, index loads), per tile, in device time
     (events where the profiler misses the launch: a walk shorter than its
     wrapper's host work times the host)."""
     import torch
@@ -818,7 +818,7 @@ def check_kernels(corpus, seed: int, device: str = "cuda") -> dict:
 
 def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
     """Phase 3d: K1 at K = 100, where the sweep's row tile is 2,048 and
-    the one-barrier walk (walk_pipelined) folds four of a tile's moves a
+    the tagged walk (walk_pipelined) folds four of a tile's records a
     thread, over 32 tiles: the first block of the deferred layout against
     the plain walk in the three noise modes (bitwise), then its whole walk
     and fixed cost per tile."""
@@ -863,7 +863,7 @@ def check_general_walk(corpus, seed: int, device: str = "cuda") -> dict:
     real = m > 0
     n_real = int(real.sum())
     log(f"[kernels] K1 at K={K_GENERAL}, row tile {row_tile} ({BLOCK // row_tile} "
-        f"tiles, {cfg['team']} threads per token, one barrier per tile): z, ndk "
+        f"tiles, {cfg['team']} threads per token, tagged records): z, ndk "
         f"and nk equal to the plain walk in all three modes")
     nbytes = (torch.unique(w[real]).numel() * k_pad * 2
               + torch.unique(d[real]).numel() * K_GENERAL * 4 + K_GENERAL * 4
@@ -4154,8 +4154,8 @@ def rung3_full_phase(seed: int, smi: str, device: str = "cuda",
     runs = warmup + sweeps
     if model.sweeps_done != runs:
         raise AssertionError(f"[rung3 full] ran {model.sweeps_done} sweeps, not {runs}")
-    # the first snapshot, then per sweep one walk (K = 100, one barrier a
-    # tile), one rebuild and one snapshot, and once more in the graph's
+    # the first snapshot, then per sweep one walk (K = 100, the tagged
+    # walk), one rebuild and one snapshot, and once more in the graph's
     # warm-up sweep
     launches = _launches_match("rung3 full", {
         sample_name(torch.bfloat16, "float32"): runs + 1,
@@ -4558,7 +4558,7 @@ def main() -> int:
         log(f"[build] walk {fk.sample_name(rows, chain)}: {cfg['grid']} CTAs "
             f"({cfg['grid'] // sms} per SM, from the occupancy query) of "
             f"{cfg['threads']} threads, {cfg['team']} threads per token, "
-            f"{'one barrier' if cfg['pipelined'] else 'two barriers'} per tile")
+            f"{'tagged records' if cfg['pipelined'] else 'two barriers per tile'}")
 
     corpus = synth_corpus(args.seed)
     kernels = check_kernels(corpus, args.seed)             # 3.

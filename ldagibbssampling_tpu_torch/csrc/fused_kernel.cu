@@ -57,45 +57,83 @@
 // a tile's tokens) inside one CTA, each thread scanning topic groups of 4 in
 // increasing order with a strict >, so a token's argmax is a warp shuffle and
 // one step through shared memory, and ties keep the lowest topic however the
-// groups are spread.  Each CTA computes the tile's nk reciprocal of each
-// real topic once, into shared memory.  A group's 4 row entries, doc counts
-// and uniforms are one load each where the row stride and alignment allow it
-// (the snapshots always; the live table and ndk, stride K, when K % 4 == 0).
-// Two forms, the same chain to the bit:
+// groups are spread.  A group's 4 row entries, doc counts and uniforms are
+// one load each where the row stride and alignment allow it (the snapshots
+// always; the live table and ndk, stride K, when K % 4 == 0).  Two forms,
+// the same chain to the bit:
 //
-// - walk_general, any shape: every draw of the tile reads the counts; grid
-//   barrier; the tile's unmasked tokens move their ndk and nk counts with
-//   integer atomics; grid barrier; the next tile;
+// - walk_general, any shape: each CTA computes the tile's nk reciprocal of
+//   each real topic once, into shared memory; every draw of the tile reads
+//   the counts; grid barrier; the tile's unmasked tokens move their ndk and
+//   nk counts with integer atomics; grid barrier; the next tile.  The grid
+//   barrier is a sense-reversing arrival counter in an int32 that the caller
+//   zeroes (cooperative_groups' grid barrier, written out so that no -rdc
+//   build is needed): after a __syncthreads one thread per CTA arrives with
+//   a release add, and waits with acquire loads before the next
+//   __syncthreads;
 // - walk_pipelined, where every tile is one pass (a team per token of a
 //   tile, at most a topic group per thread: the deferred and fused tiers'
 //   tiles at every K up to k_pad 2,048 on a grid of 132 SMs) and the caller
 //   gives the second ndk buffer (ops/fused_kernel.py takes it where the
-//   launch's tiles repay its copy): one grid barrier per tile.  ndk is double-buffered, and each leader moves its
-//   token of the tile it drew and of the one before into the buffer that the
-//   next tile reads and nobody reads before the next barrier.  Each CTA keeps
-//   nk in shared memory and folds in the previous tile's moves, which every
-//   leader also writes as one packed record (zo | zn << 16) into a ring of
-//   two tiles: each thread folds ceil(tile / kWalkThreads) of them.  The next
-//   tile's token is read a tile ahead, and its row entries and noise while
-//   the barrier settles.
+//   launch's tiles repay its copy): no grid barrier.  Each leader writes its
+//   token's move as a tagged record, each CTA releases once a tile its count
+//   of finished tiles, and the next tile waits on those counts and records
+//   themselves.
 //
-// The grid barrier is a sense-reversing arrival counter in an int32 that
-// the caller zeroes (cooperative_groups' grid barrier, written out so that
-// no -rdc build is needed), split in two so that work that needs no other
-// CTA's writes runs while it settles: after a __syncthreads one thread per
-// CTA arrives with a release add, and waits with acquire loads before the
-// next __syncthreads.  ndk, nk, z_new and the move records change during the
-// launch, so they are read through L2 (__ldcg), never through the
+// walk_pipelined's records and counts.  The caller zeroes, at every launch
+// (a memset node of a graph that holds the walk), a ring a.moves of two
+// tiles of 64-bit records and after it one uint32 per CTA.  A record holds
+// the token's zo (bits 0-10) and zn (11-21; k_pad <= 2,048), a tag (22-31)
+// and its doc (32-63); a masked token's record moves nothing (zo == zn).
+// Tile t's tag is t % 1023 + 1: never 0, so a zeroed slot never passes, and
+// never tile t - 2's, whose record the slot held before; a replay starts
+// from a zeroed ring, so nothing of an earlier one passes either.  Leaders
+// write records with relaxed stores; after a __syncthreads thread 0
+// releases its CTA's count, t + 1 after tile t.  One release a CTA a tile:
+// a release fence stalls its warp, and a release per leader stalls every
+// warp that holds a team (on an H100 it cost more than the grid barrier it
+// replaced).  At tile t, thread i of each busy CTA polls CTA i's count with
+// acquire loads until it reaches t, while each thread polls its share of
+// tile t - 1's records (ceil(tile / kWalkThreads), at most kFoldBatch) with
+// relaxed loads and folds each into the CTA's shared nk as soon as it
+// carries tile t - 1's tag: a record carries all of its move, so the fold
+// needs no acquire and runs while the counts settle.  No arrival counter is
+// shared by the CTAs: each count has one writer.  A wait of more than ~2^26
+// polls (tens of seconds) traps: the launch fails with an error instead of
+// hanging.  The cooperative launch keeps every CTA resident, so a count's
+// writer always runs.
+//
+// Why readers and writers of ndk never meet.  ndk is double-buffered: X0 =
+// ndk, X1 its copy at the start.  Tile t's draws read X[t % 2], loaded after
+// the wait, which holds the counts after tile t - 1; each leader adds its
+// moves of tiles t - 1 and t to X[(t + 1) % 2] after its argmax.  That buffer
+// was last read for tile t - 1's draws, which every CTA finished before it
+// released t, and it is next read for tile t + 1's, after the wait on the
+// counts of t + 1, which cover the adds.  So each tile draws against exactly
+// the counts the previous tile left, as walk_general does.  Where X1 was
+// written last, each leader adds its last move to X0 once every count has
+// reached the last tile.  nk lives in each CTA's shared memory, which folds
+// every tile's moves; CTA 0 folds the last tile's records and writes it
+// back.  A ring slot is rewritten at tile t + 2, after the wait on the
+// counts of t + 2, whose releasers had read the slot before.  A thread
+// prefetches its next token's doc counts into L2 a tile ahead (the moves
+// land in L2, so the load after the wait finds the line there).
+//
+// ndk, nk, z_new and the move records change during the launch, so they
+// are read through L2 (__ldcg, the acquire loads), never through the
 // non-coherent read-only path, which could return a previous tile's values.
 // The rows (only read during a walk), the tokens and the noise take __ldg.
 //
 // What bounds it on an H100: the chain of dependent tiles.  A tile of 512
-// tokens at K = 500 is ~0.2 us of operations for the whole card; what it
-// costs is its grid barrier, the L2 round trips of its doc counts and of the
-// previous tile's moves, the reciprocal hoist and the argmax, none of which
-// more parallelism hides.  Per token the walk reads one row of nwk
-// (k_pad * 2 or * 4 bytes of a snapshot, K * 4 of the live table; under Zipf
-// word statistics mostly from the 50 MB L2) and one int32 doc row.
+// tokens at K = 500 is ~0.2 us of operations for the whole card; what a
+// tile of walk_pipelined costs is the chain from the argmax through thread
+// 0's release and the readers' polls to their doc counts' load and their
+// draws, and the work of each CTA's tile (the noise, the fold of 2,048
+// moves into nk, the score and the argmax), none of which more parallelism
+// hides.  Per token the walk
+// reads one row of nwk (k_pad * 2 or * 4 bytes of a snapshot, K * 4 of the
+// live table; under Zipf word statistics mostly from the 50 MB L2) and one
+// int32 doc row.
 //
 // Noise modes: 0 deterministic (no noise), 1 external (caller uniforms
 // [n, k_pad]), 2 internal (Philox4x32-10 keyed by a per-sweep seed, counter
@@ -139,9 +177,16 @@ namespace {
 
 constexpr int kWalkThreads = 512;
 constexpr int kWalkWarps = kWalkThreads / 32;
-// the one-barrier walk's fold: records loaded per thread before the first of
-// their shared atomics
+// walk_pipelined: the most records of a tile a thread waits on and folds (a
+// tile has at most kFoldBatch * kWalkThreads tokens)
 constexpr int kFoldBatch = 4;
+// a move record (64 bits): zo in bits 0-10 and zn in 11-21 (k_pad <= 2,048),
+// the tile's tag in 22-31, the doc in 32-63; tile t's tag is t % 1023 + 1,
+// never 0 (the zeroed ring) and never tile t - 2's (the same ring slot)
+constexpr int kTopicBits = 11;
+constexpr unsigned int kTopicMask = (1u << kTopicBits) - 1;
+constexpr int kTagShift = 2 * kTopicBits;
+constexpr unsigned int kTagWrap = (1u << 10) - 1;
 // the count move: one thread per token in CTAs of kMoveThreads; nk goes
 // through the shared histograms of clusters of kMoveCluster CTAs up to
 // kMaxHistTopics topics (48 KB), straight to global atomics above
@@ -162,8 +207,8 @@ struct WalkArgs {
   long long row_stride;
   int k_pad;
   int* ndk;
-  int* ndk_copy;     // a copy of ndk: the pipelined walk's second buffer
-                     // (null in walk_general, which does not read it)
+  int* ndk_copy;     // a copy of ndk: walk_pipelined's second buffer (null
+                     // in walk_general)
   int k_real;
   int* nk;
   const int* z_old;
@@ -183,9 +228,9 @@ struct WalkArgs {
   bool vec_ndk;      // a group's 4 doc counts in one load
   bool vec_noise;    // a group's 4 uniforms in one load
   bool pipelined;    // walk_pipelined: a sweep whose tiles are one pass each
-  unsigned int* barrier;
-  unsigned int* moves;  // walk_pipelined's ring [2][row_tile] of move
-                        // records zo | zn << 16 (null in walk_general)
+  unsigned int* barrier;         // walk_general's grid barrier (else null)
+  unsigned long long* moves;     // walk_pipelined's ring [2][row_tile] of
+                                 // tagged move records (else null)
 };
 
 // the launch's hyperparameters and key, read from the device at the start
@@ -200,7 +245,7 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 // pl.reciprocal(x, approx=True) as the reference computes it on the CPU
 __device__ __forceinline__ float approx_recip(float x) {
-  return 1.0f / bf16_round(x);
+  return __frcp_rn(bf16_round(x));  // 1.0f / x, correctly rounded
 }
 
 __device__ __forceinline__ float bf16_bits(uint32_t hi16) {
@@ -518,139 +563,260 @@ __device__ __forceinline__ Token fetch_token(const WalkArgs& a, long long t0,
   return tk;
 }
 
-// Fold the n move records of a tile (zo | zn << 16; zo == zn for a token
-// that kept its topic or is masked) into this CTA's topic totals s_nk: each
-// thread takes records tid, tid + kWalkThreads, ..., kFoldBatch at a time,
-// all loaded (through L2: other CTAs stored them in this launch) before the
-// first of their shared atomics
-__device__ __forceinline__ void fold_moves(const unsigned int* rec, int n,
-                                           int* s_nk) {
-  for (int m0 = threadIdx.x; m0 < n; m0 += kFoldBatch * kWalkThreads) {
-    unsigned int r[kFoldBatch];
+// A record of walk_pipelined's ring: the token's doc, its old and new topic
+// (equal where it kept its topic or is masked: no move) and its tile's tag
+__device__ __forceinline__ unsigned long long pack_move(int doc, int zo, int zn,
+                                                        unsigned int tag) {
+  return (static_cast<unsigned long long>(static_cast<unsigned int>(doc)) << 32) |
+         (tag << kTagShift) | (static_cast<unsigned int>(zn) << kTopicBits) |
+         static_cast<unsigned int>(zo);
+}
+
+__device__ __forceinline__ unsigned int record_tag(unsigned long long r) {
+  return static_cast<unsigned int>(r >> kTagShift) & kTagWrap;
+}
+
+__device__ __forceinline__ unsigned int next_tag(unsigned int tag) {
+  return tag == kTagWrap ? 1u : tag + 1u;
+}
+
+__device__ __forceinline__ unsigned int prev_tag(unsigned int tag) {
+  return tag == 1u ? kTagWrap : tag - 1u;
+}
+
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :
+               : "l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned int* p, unsigned int v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;"
+               :
+               : "l"(p), "r"(v)
+               : "memory");
+}
+
+// walk_pipelined's shared memory
+struct WalkShared {
+  int* nk;   // [k_pad] topic totals, as the previous tile left them
+  float* r;  // [k_pad] the tile's nk reciprocals
+};
+
+// A thread's records of a tile of n: tid, tid + kWalkThreads, ... (0 past
+// n: no move)
+__device__ __forceinline__ void load_records(const unsigned long long* rec,
+                                             int n,
+                                             unsigned long long r[kFoldBatch]) {
 #pragma unroll
-    for (int j = 0; j < kFoldBatch; ++j) {
-      const int m = m0 + j * kWalkThreads;
-      r[j] = m < n ? __ldcg(rec + m) : 0u;
-    }
-#pragma unroll
-    for (int j = 0; j < kFoldBatch; ++j) {
-      const int zo = static_cast<int>(r[j] & 0xFFFFu);
-      const int zn = static_cast<int>(r[j] >> 16);
-      if (zo != zn) {
-        atomicSub(s_nk + zo, 1);
-        atomicAdd(s_nk + zn, 1);
-      }
-    }
+  for (int j = 0; j < kFoldBatch; ++j) {
+    const int m = threadIdx.x + j * kWalkThreads;
+    r[j] = m < n ? load_relaxed(rec + m) : 0ull;
   }
 }
 
+// Wait for a tile: thread i < busy polls CTA i's count of finished tiles
+// with acquire loads until it reaches `tiles`, and every thread polls its
+// records with relaxed loads, all of its polls of a round in flight at once,
+// folding each record into the CTA's topic totals s_nk as soon as it carries
+// `tag` (a record carries all of its move itself).  What CTA i did before
+// its release is then seen by this CTA after its next __syncthreads.  More
+// than ~2^26 rounds (tens of seconds) trap: the launch fails with an error
+// instead of hanging.
+__device__ __forceinline__ void wait_tile(const unsigned int* done, int busy,
+                                          unsigned int tiles,
+                                          const unsigned long long* rec, int n,
+                                          unsigned long long r[kFoldBatch],
+                                          unsigned int tag, int* s_nk) {
+  const int tid = threadIdx.x;
+  bool counted = tid >= busy;
+  unsigned int pending = 0;  // bit j: record j not folded yet
+#pragma unroll
+  for (int j = 0; j < kFoldBatch; ++j)
+    if (tid + j * kWalkThreads < n) pending |= 1u << j;
+  unsigned int polls = 0;
+  for (;;) {
+#pragma unroll
+    for (int j = 0; j < kFoldBatch; ++j) {
+      if (!(pending >> j & 1u)) continue;
+      if (record_tag(r[j]) == tag) {
+        const int zo = static_cast<int>(r[j] & kTopicMask);
+        const int zn = static_cast<int>((r[j] >> kTopicBits) & kTopicMask);
+        if (zo != zn) {
+          atomicSub(s_nk + zo, 1);
+          atomicAdd(s_nk + zn, 1);
+        }
+        pending &= ~(1u << j);
+      } else {
+        r[j] = load_relaxed(rec + tid + j * kWalkThreads);
+      }
+    }
+    if (!counted) counted = load_acquire(done + tid) >= tiles;
+    if (pending == 0u && counted) return;
+    if (++polls > (1u << 26)) __trap();
+  }
+}
+
+// Thread i < busy waits, with acquire loads, until CTA i's count of
+// finished tiles reaches `tiles` (what CTA i did before its release is then
+// seen by this CTA after its next __syncthreads).  The same trap.
+__device__ __forceinline__ void wait_counts(const unsigned int* done, int busy,
+                                            unsigned int tiles) {
+  if (static_cast<int>(threadIdx.x) >= busy) return;
+  unsigned int polls = 0;
+  while (load_acquire(done + threadIdx.x) < tiles)
+    if (++polls > (1u << 26)) __trap();
+}
+
 // The walk where every tile is one pass (a team per token, a topic group per
-// thread at most; the launch sets a.pipelined), with ONE grid barrier per
-// tile.  ndk is double-buffered: X0 = a.ndk, X1 = a.ndk_copy (a copy of it at
-// the start).  Tile t's draws read X[t % 2], which holds the counts after
-// tile t - 1; meanwhile each leader adds the moves of its tokens of tiles
-// t - 1 and t to X[(t + 1) % 2], which nobody reads before the next barrier
-// and which held the counts after tile t - 2 (written during tile t - 1, read
-// by its draws): after the barrier it holds the counts after tile t.  Reads
-// and writes of a buffer never meet between two barriers, so each tile draws
-// against exactly the counts the previous tile left, as the two-barrier walk
-// does.  nk lives in each CTA's shared memory, which folds in every tile's
-// moves from the ring a.moves[t % 2] of the leaders' records; the ring a tile
-// writes is read after the next barrier, and written again only after the
-// one after it.  A thread's next token is read a tile ahead; its row entries
-// and noise are read and computed while the barrier settles.  CTAs whose
-// teams have no token in any tile only keep the barrier.  At the end X0 takes
-// the last tile's moves where X1 was the last buffer written, and CTA 0 folds
-// the last tile into nk and writes it back.
+// thread at most, a tile of at most kFoldBatch * kWalkThreads tokens; the
+// launch sets a.pipelined), with no grid barrier.  ndk is double-buffered,
+// X0 = a.ndk and X1 = a.ndk_copy (a copy of it at the start): tile t's
+// draws read X[t % 2], which holds the counts after tile t - 1.  Per tile t,
+// each CTA with a token in some tile (the busy CTAs):
+// 1. loads the token of tile t + 2 and its share of tile t - 1's move
+//    records; thread i < busy waits until CTA i has finished tile t - 1
+//    (its count of finished tiles, released once a tile) while each thread
+//    polls its records until each carries tile t - 1's tag; __syncthreads;
+// 2. each thread loads its token's doc counts from X[t % 2] and, while they
+//    come, folds its records into the CTA's shared nk; __syncthreads; the
+//    nk reciprocals of its share of the topics; __syncthreads;
+// 3. it draws its token; after the argmax each leader writes its token's
+//    record (doc, zo, zn, tile t's tag) into the ring slot a.moves[t % 2]
+//    and z_new, and adds its moves of tiles t - 1 and t to X[(t + 1) % 2];
+//    __syncthreads; thread 0 releases the CTA's count of finished tiles,
+//    t + 1, while every thread loads the next token's row entries and
+//    computes its noise.
+// Why the chain is walk_general's: the head of this file.  CTAs whose teams
+// have no token in any tile leave at once.  Where X1 was the last buffer
+// written, each leader adds its last move to X0 once every busy CTA has
+// finished the last tile; CTA 0 waits for that too, folds the last tile's
+// records and writes nk back.
 template <int kMode, int kChain, typename RowT>
 __device__ __forceinline__ void walk_pipelined(const WalkArgs& a, const Hyper& h,
-                                               float4* s_r4, int* s_nk,
+                                               const WalkShared& s,
                                                float* s_best, int* s_k) {
   const int tid = threadIdx.x;
   const int per_cta = kWalkThreads / a.team;
+  const long long teamed = (a.row_tile + per_cta - 1) / per_cta;
+  const int busy = teamed < gridDim.x ? static_cast<int>(teamed)
+                                      : static_cast<int>(gridDim.x);
+  if (static_cast<int>(blockIdx.x) >= busy) return;
+  const int slot = tid / a.team;
   const int tl = tid & (a.team - 1);
-  const long long team =
-      static_cast<long long>(blockIdx.x) * per_cta + tid / a.team;
-  const bool busy = static_cast<long long>(blockIdx.x) * per_cta < a.row_tile;
+  const long long team = static_cast<long long>(blockIdx.x) * per_cta + slot;
   const bool mine_group = 4 * tl < a.k_pad;
   const RowT* rows = static_cast<const RowT*>(a.rows);
-  float* s_r = reinterpret_cast<float*>(s_r4);
-  unsigned int sense = 0;
-  Move prev = {0, 0, 0, false};
-  // tile 0's token, noise and row entries; nk
+  unsigned int* done = reinterpret_cast<unsigned int*>(a.moves + 2 * a.row_tile);
+  for (int k = tid; k < a.k_pad; k += kWalkThreads)
+    s.nk[k] = k < a.k_real ? __ldcg(a.nk + k) : 0;
+  // tile 0's token, its row entries and noise; tile 1's token
   Token cur = fetch_token(a, 0, team);
-  float inv_e[4], w[4];
+  Token nxt = fetch_token(a, a.row_tile, team);
+  float w[4], inv_e[4];
   if (mine_group && cur.real) {
     load_row4(rows + static_cast<long long>(cur.word) * a.row_stride, tl,
               a.k_real, a.vec_rows, w);
     noise4<kMode>(a, h, cur.i, tl, inv_e);
   }
-  for (int k = tid; k < a.k_pad; k += kWalkThreads)
-    s_nk[k] = k < a.k_real ? a.nk[k] : 0;
-  __syncthreads();
+  Move prev = {0, 0, 0, false};  // this leader's move of tile t - 1
+  unsigned int tag = 1;          // tile t's: t % 1023 + 1
   long long t = 0;
   for (long long t0 = 0; t0 < a.n_tokens; t0 += a.row_tile, ++t) {
-    if (busy) {
-      // this tile's doc counts, the previous tile's moves and the next
-      // tile's token go out together
-      const bool mine = cur.real && mine_group;
-      int dc[4] = {0, 0, 0, 0};
-      if (mine)
-        load_ndk4((t & 1 ? a.ndk_copy : a.ndk) +
-                      static_cast<long long>(cur.doc) * a.k_real,
-                  tl, a.k_real, a.vec_ndk, dc);
-      const Token nxt = fetch_token(a, t0 + a.row_tile, team);
-      if (t0 > 0)
-        fold_moves(a.moves + ((t - 1) & 1) * a.row_tile, a.row_tile, s_nk);
-      __syncthreads();
-      for (int k = tid; k < a.k_pad; k += kWalkThreads)
-        s_r[k] = k < a.k_real
-                     ? approx_recip(static_cast<float>(s_nk[k]) + h.vbeta)
-                     : 0.0f;
-      __syncthreads();
-      float best = -INFINITY;
-      int best_k = a.k_pad;
-      if (mine) {
-        float d[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) d[j] = static_cast<float>(dc[j]);
-        score4<kMode, kChain>(a, h, w, d, s_r4[tl], inv_e, cur.zo, tl, best,
-                              best_k);
-      }
-      team_argmax(best, best_k, a.team, s_best, s_k);
-      const int zn = cur.real ? best_k : cur.zo;
-      if (tl == 0) {
-        if (cur.live) {  // a masked token's record is 0: no move
-          a.z_new[cur.i] = zn;
-          a.moves[(t & 1) * a.row_tile + team] =
-              cur.real ? static_cast<unsigned int>(cur.zo) |
-                             (static_cast<unsigned int>(zn) << 16)
-                       : 0u;
-        }
-        const Move mv = {cur.doc, cur.zo, zn, cur.real};
-        int* const out = t & 1 ? a.ndk : a.ndk_copy;
-        move_doc(out, a.k_real, prev);
-        move_doc(out, a.k_real, mv);
-        prev = mv;
-      }
-      cur = nxt;
+    const Token nxt2 = fetch_token(a, t0 + 2 * a.row_tile, team);
+    if (t > 0) {
+      const unsigned long long* rec = a.moves + ((t - 1) & 1) * a.row_tile;
+      unsigned long long r[kFoldBatch];
+      load_records(rec, a.row_tile, r);
+      wait_tile(done, busy, static_cast<unsigned int>(t), rec, a.row_tile, r,
+                prev_tag(tag), s.nk);
     }
-    grid_arrive(a.barrier, sense);  // tile t's z_new, records and moves are out
-    if (busy && mine_group && cur.real) {  // the next tile's row entries, noise
+    __syncthreads();  // every busy CTA has finished tile t - 1
+    int dc[4] = {0, 0, 0, 0};
+    if (mine_group && cur.real)
+      load_ndk4((t & 1 ? a.ndk_copy : a.ndk) +
+                    static_cast<long long>(cur.doc) * a.k_real,
+                tl, a.k_real, a.vec_ndk, dc);
+    for (int k = tid; k < a.k_pad; k += kWalkThreads)
+      s.r[k] = k < a.k_real ? approx_recip(static_cast<float>(s.nk[k]) + h.vbeta)
+                            : 0.0f;
+    __syncthreads();
+    float best = -INFINITY;
+    int best_k = a.k_pad;
+    if (mine_group && cur.real) {
+      float d[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d[j] = static_cast<float>(dc[j]);
+      score4<kMode, kChain>(a, h, w, d, reinterpret_cast<const float4*>(s.r)[tl],
+                            inv_e, cur.zo, tl, best, best_k);
+    }
+    team_argmax(best, best_k, a.team, s_best, s_k);
+    const int zn = cur.real ? best_k : cur.zo;
+    if (tl == 0) {
+      const Move mv = {cur.doc, cur.zo, zn, cur.real};
+      if (cur.live) {  // a masked token's record moves nothing
+        store_relaxed(a.moves + (t & 1) * a.row_tile + team,
+                      cur.real ? pack_move(cur.doc, cur.zo, zn, tag)
+                               : pack_move(0, 0, 0, tag));
+        a.z_new[cur.i] = zn;
+      }
+      int* const out = t & 1 ? a.ndk : a.ndk_copy;
+      move_doc(out, a.k_real, prev);
+      move_doc(out, a.k_real, mv);
+      prev = mv;
+    }
+    __syncthreads();  // the CTA's records and moves of tile t are out
+    if (tid == 0) store_release(done + blockIdx.x, static_cast<unsigned int>(t + 1));
+    cur = nxt;
+    nxt = nxt2;
+    if (mine_group && cur.real) {  // the next tile's row entries and noise
       load_row4(rows + static_cast<long long>(cur.word) * a.row_stride, tl,
                 a.k_real, a.vec_rows, w);
+      // its doc counts into L2 (read after the next wait; moves land in L2)
+      asm volatile("prefetch.global.L2 [%0];"
+                   :
+                   : "l"((t & 1 ? a.ndk : a.ndk_copy) +
+                         static_cast<long long>(cur.doc) * a.k_real + 4 * tl));
       noise4<kMode>(a, h, cur.i, tl, inv_e);
     }
-    grid_wait(a.barrier, sense);
+    tag = next_tag(tag);
   }
-  // an odd number of tiles wrote X1 last: X0 lacks the last tile's moves
+  // every busy CTA has finished the last tile: an odd number of tiles wrote
+  // X1 last, and X0, read by the last tile, lacks its moves
+  wait_counts(done, busy, static_cast<unsigned int>(t));
+  __syncthreads();
   if (tl == 0 && (t & 1)) move_doc(a.ndk, a.k_real, prev);
-  if (blockIdx.x == 0) {
-    const long long t0 = (t - 1) * a.row_tile;
-    fold_moves(a.moves + ((t - 1) & 1) * a.row_tile,
-               static_cast<int>(a.n_tokens - t0), s_nk);
+  if (blockIdx.x == 0) {  // the last tile's moves into nk, then nk back
+    const long long t_last = t - 1;
+    const int n = static_cast<int>(a.n_tokens - t_last * a.row_tile);
+    const unsigned long long* rec = a.moves + (t_last & 1) * a.row_tile;
+    unsigned long long r[kFoldBatch];
+    load_records(rec, n, r);
+    wait_tile(done, busy, static_cast<unsigned int>(t), rec, n, r, prev_tag(tag),
+              s.nk);
     __syncthreads();
-    for (int k = tid; k < a.k_real; k += kWalkThreads) a.nk[k] = s_nk[k];
+    for (int k = tid; k < a.k_real; k += kWalkThreads) a.nk[k] = s.nk[k];
   }
 }
 
@@ -725,9 +891,9 @@ __device__ __forceinline__ void walk_general(const WalkArgs& a, const Hyper& h,
 
 template <int kMode, int kChain, typename RowT>
 __global__ void __launch_bounds__(kWalkThreads, 1) gibbs_walk(const WalkArgs a) {
-  // [k_pad / 4] float4: the tile's nk reciprocals; the pipelined walk adds
-  // its nk [k_pad]
-  extern __shared__ float4 s_r4[];
+  // walk_general: [k_pad / 4] float4, the tile's nk reciprocals;
+  // walk_pipelined: its WalkShared
+  extern __shared__ float4 s_dyn[];
   __shared__ float s_best[kWalkWarps];
   __shared__ int s_k[kWalkWarps];
   // the launch's values, read once per CTA, then held in registers
@@ -746,10 +912,12 @@ __global__ void __launch_bounds__(kWalkThreads, 1) gibbs_walk(const WalkArgs a) 
   __syncthreads();
   const Hyper h = s_h;
   if (a.pipelined) {
-    int* s_nk = reinterpret_cast<int*>(s_r4 + a.k_pad / 4);
-    walk_pipelined<kMode, kChain, RowT>(a, h, s_r4, s_nk, s_best, s_k);
+    WalkShared s;
+    s.nk = reinterpret_cast<int*>(s_dyn + a.k_pad / 4);
+    s.r = reinterpret_cast<float*>(s_dyn);
+    walk_pipelined<kMode, kChain, RowT>(a, h, s, s_best, s_k);
   } else {
-    walk_general<kMode, kChain, RowT>(a, h, s_r4, s_best, s_k);
+    walk_general<kMode, kChain, RowT>(a, h, s_dyn, s_best, s_k);
   }
 }
 
@@ -901,8 +1069,9 @@ bool aligned(const void* p, uintptr_t bytes) {
 
 // How a walk launches: its grid, team, dynamic shared memory, and whether
 // its shape allows walk_pipelined (a team per token of a tile, a topic group
-// per thread at most, topics that fit a record's 16 bits, if its larger
-// shared memory leaves the grid as it is); the caller then picks the form.
+// per thread at most, kFoldBatch records per thread at most, topics that fit
+// a record's 11 bits, if its larger shared memory leaves the grid as it is);
+// the caller then picks the form.
 struct WalkConfig {
   int grid = 0;
   int team = 32;
@@ -920,8 +1089,10 @@ cudaError_t walk_config(WalkKernel kernel, int phases, int k_pad,
                       k_pad / 4);
   const int per_cta = kWalkThreads / c->team;
   if (phases != 3 || static_cast<long long>(c->grid) * per_cta < tile ||
-      k_pad / 4 > c->team || k_pad > (1 << 16))
+      tile > kFoldBatch * kWalkThreads || k_pad / 4 > c->team ||
+      k_pad > (1 << kTopicBits))
     return cudaSuccess;
+  // WalkShared: the reciprocals and nk
   const size_t smem = 2 * static_cast<size_t>(k_pad) * sizeof(int);
   int grid = 0;
   err = walk_grid(kernel, smem, &grid);
@@ -964,8 +1135,7 @@ extern "C" const char* lda_error_string(int err) {
 // The launch configuration lda_gibbs_tiles gives a walk (phases 3) of
 // n_tokens in tiles of row_tile with k_pad topics, on the current device:
 // CTAs (*grid) of *threads, *team threads per token, *pipelined 1 where the
-// shape allows the one-barrier walk (the caller takes it by passing
-// ndk_copy).
+// shape allows walk_pipelined (the caller takes it by passing ndk_copy).
 extern "C" int lda_walk_config(int rows_kind, int chain, int noise_mode,
                                int k_pad, long long n_tokens, int row_tile,
                                int* grid, int* threads, int* team,
@@ -989,14 +1159,15 @@ extern "C" int lda_walk_config(int rows_kind, int chain, int noise_mode,
 // walk starts.  phases: 1 = draw only (every token against the given
 // counts), 3 = draw and count move per tile (the sweep; needs `barrier`, one
 // int32 that the caller zeroes).  Where lda_walk_config says pipelined, a
-// walk given `ndk_copy`, a copy of ndk that the walk overwrites, takes the
-// one-barrier form, and then `barrier` holds 1 + 2 * row_tile int32 (the
-// counter, then the ring of move records); without it, walk_general.
-// Returns the launch's CUDA error: a launch the card refuses
-// (cooperative grid too large, too much shared memory, a stream capture that
-// takes no cooperative launch) is reported, never split into smaller
-// launches nor made a launch without the co-residency that the grid barrier
-// needs.  (The count move alone is lda_count_move.)
+// walk given `ndk_copy`, two copies of ndk interleaved by doc ([M, 2, K])
+// that the walk overwrites, takes walk_pipelined, and then `barrier` is
+// instead its ring of move records, 2 * row_tile uint64 that the caller
+// zeroes; without it, walk_general.  Returns the launch's CUDA error: a
+// launch the card refuses (cooperative grid too large, too much shared
+// memory, a stream capture that takes no cooperative launch) is reported,
+// never split into smaller launches nor made a launch without the
+// co-residency that both forms' waits need.  (The count move alone is
+// lda_count_move.)
 extern "C" int lda_gibbs_tiles(
     const void* rows, int rows_kind, long long row_stride, int k_pad,
     void* ndk, int k_real, void* nk, const void* z_old, void* z_new,
@@ -1046,8 +1217,8 @@ extern "C" int lda_gibbs_tiles(
   a.vec_ndk = k_real % 4 == 0 && aligned(ndk, 16) && aligned(ndk_copy, 16);
   a.vec_noise = aligned(uniforms, 16);
   a.pipelined = pipelined;
-  a.barrier = static_cast<unsigned int*>(barrier);
-  a.moves = pipelined ? a.barrier + 1 : nullptr;
+  a.barrier = pipelined ? nullptr : static_cast<unsigned int*>(barrier);
+  a.moves = pipelined ? static_cast<unsigned long long*>(barrier) : nullptr;
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kernel), dim3(c.grid), dim3(kWalkThreads),

@@ -26,20 +26,28 @@ float32 chain only, as the reference does.  The CUDA kernels are in
   threads per token of a tile: the deferred and fused tiers' tiles at every
   K up to 2,048 on an H100, 2,048 tokens at K <= 128 and 1,024 at
   K <= 256 included) and the launch's tiles repay a copy of ``ndk``
-  (``one_barrier_pays``), it takes one grid barrier per tile, with ``ndk``
-  double-buffered and each CTA folding the previous tile's moves into its
-  own ``nk``; otherwise two (``walk_config`` says which).  The wrapper
-  allocates the barrier's counter (one int32, ``torch.zeros``; for the
-  one-barrier walk followed by a ring of two tiles' move records) per walk
-  and, for the one-barrier walk only, the second ``ndk`` buffer (a clone:
-  ``ndk``'s memory twice while the walk runs); inside a stream capture
-  they are a memset and a copy of the graph.  Each walk that moves counts
-  adds 1 to the recorder's counter ``walk.one_barrier`` or
-  ``walk.two_barrier`` (``evaluation/tracing.count``) when it launches,
-  and once per replay where a graph replays it.  A launch the card
-  refuses raises; nothing splits
-  a walk into smaller launches or launches it without co-residency.  The
-  launch configuration is found once per kernel and shape
+  (``one_barrier_pays``), it takes no grid barrier: each leader writes its
+  token's move as a 64-bit record (doc, old and new topic, a tag naming the
+  tile) into a ring of two tiles, each CTA releases its own count of
+  finished tiles once a tile, and the next tile waits on those counts and
+  records themselves, folding each record into its CTA's own ``nk`` as it
+  arrives; ``ndk`` is double-buffered (the kernel's head comment says why
+  readers and writers never meet).  A tag is never 0 and never the tag of
+  the tile two back, so neither a zeroed slot nor the slot's previous
+  record passes as current; a wait of more than ~2^26 polls traps, so a
+  fault fails the launch instead of hanging it.  Otherwise the walk takes
+  two grid barriers per tile (``walk_config`` says which).  The wrapper
+  allocates, per walk, the grid barrier's counter (one int32,
+  ``torch.zeros``) or the ring and the counts (``2 * row_tile`` int64 and a
+  uint32 a CTA, zeros) and, for the tagged walk only, the second ``ndk``
+  buffer (a clone: ``ndk``'s memory twice while the walk runs); inside a
+  stream capture they are a memset and a copy of the graph.  Each walk that
+  moves counts adds 1 to the recorder's counter ``walk.tagged_records`` or
+  ``walk.two_barrier`` (``evaluation/tracing.count``) when it launches, and
+  once per replay where a graph replays it.  A launch the card refuses
+  raises; nothing splits a walk into smaller launches or launches it
+  without co-residency, which both forms' waits need.  The launch
+  configuration is found once per kernel and shape
   (``csrc/fused_kernel.cu``'s cache), so a launch inside a capture makes
   no occupancy query;
 - ``gibbs_tile_update``: the count move, ``count_move``: -1 at ``z_old``,
@@ -375,25 +383,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# What the one-barrier walk saves against the two-barrier walk, a tile: an
-# H100 at 700 W walked chip_smoke's K = 100 block (32 tiles of 2,048, its
-# ndk 1.6 MB and copied) in 0.108 ms one way and 0.211 ms the other
-# (scripts/walk_parity, in turns); and what its copy of ``ndk`` costs at
-# least (``ndk``'s bytes read and written at the HBM's 3.35 TB/s; 120 MB
-# copied in 0.086 ms on that card).
+# What the tagged walk saves against the two-barrier walk, a tile: an H100
+# at 700 W walked chip_smoke's K = 100 block (32 tiles of 2,048, its ndk
+# 1.6 MB and copied) in 0.108 ms with one grid barrier a tile and 0.211 ms
+# with two (scripts/walk_parity, in turns); the tagged walk takes as long as
+# the one-barrier walk there.  What its copy of ``ndk`` costs at least:
+# ``ndk``'s bytes read and written at the HBM's 3.35 TB/s (120 MB copied in
+# 0.086 ms on that card).
 TILE_SAVING_S = 3.2e-6
 HBM_BYTES_PER_S = 3.35e12
+# the tagged walk's ring of move records, in tiles, and the tiles whose
+# records' tags differ before they repeat (t % 1023 + 1)
+RING_TILES = 2
+TAG_RANGE = 1023
 
 
 def one_barrier_pays(n_tiles: int, ndk_bytes: int) -> bool:
-    """Do a launch's ``n_tiles`` tiles repay the one-barrier walk's copy of
+    """Do a launch's ``n_tiles`` tiles repay the tagged walk's copy of
     ``ndk`` twice over?  A sweep in one launch does by far (NYTimes at
     K = 100: ~48,600 tiles against a 120 MB ``ndk``); the fused tier's
     launch of one block of 65,536 tokens (32 tiles of 2,048) does where
     ``ndk`` is under ~86 MB, so not at NYTimes's 300,000 documents, where
     its copy (0.086 ms) takes most of what the tiles save (0.10 ms).  The
-    margin covers a saving measured with ``ndk`` in L2 and a copy that
-    also evicts L2."""
+    margin covers a saving measured with ``ndk`` in L2 and a copy that also
+    evicts L2."""
     return n_tiles * TILE_SAVING_S >= 2 * (2 * ndk_bytes / HBM_BYTES_PER_S)
 
 
@@ -415,8 +428,8 @@ def walk_config(rows_dtype: torch.dtype, compute_dtype: str, noise_mode: str,
     """How ``gibbs_tiles`` launches a walk on the card with an ``ndk`` of
     ``ndk_bytes``: ``grid`` CTAs (as many as the occupancy query says fit at
     once) of ``threads``, ``team`` threads per token, and ``pipelined`` (the
-    one-barrier walk, where every tile is one pass and the tiles repay the
-    copy of ``ndk``) or not (two barriers per tile)."""
+    tagged walk, where every tile is one pass and the tiles repay the
+    copies of ``ndk``) or not (two barriers per tile)."""
     with torch.cuda.device(device):
         index = torch.cuda.current_device()
     grid, threads, team, pipelined = _walk_config(
@@ -437,18 +450,20 @@ def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
         return
     build, lib = _lib()
     k_pad = row_width(rows, ndk.shape[1])
-    # a walk that moves counts: the grid barrier's arrival counter, and for
-    # the one-barrier walk its ring of two tiles' move records after it and
-    # the second doc-count buffer
+    # a walk that moves counts: the grid barrier's arrival counter, or for
+    # the tagged walk its ring of two tiles' move records, each CTA's count
+    # of finished tiles and the second doc-count buffer
     barrier = ndk_copy = None
-    one = phases == 3 and walk_config(
+    cfg = phases == 3 and walk_config(
         rows.dtype, compute_dtype, noise_mode, k_pad, z.shape[0], row_tile,
-        ndk.device, ndk_bytes=ndk.nbytes)["pipelined"]
-    if phases == 3:
-        barrier = torch.zeros(1 + (2 * row_tile if one else 0), dtype=torch.int32,
-                              device=ndk.device)
-    if one:
+        ndk.device, ndk_bytes=ndk.nbytes)
+    tagged = bool(cfg) and cfg["pipelined"]
+    if tagged:  # the records, then a uint32 count of finished tiles a CTA
+        barrier = torch.zeros(RING_TILES * row_tile + -(-cfg["grid"] // 2),
+                              dtype=torch.int64, device=ndk.device)
         ndk_copy = ndk.clone()
+    elif phases == 3:
+        barrier = torch.zeros(1, dtype=torch.int32, device=ndk.device)
     with torch.cuda.device(ndk.device):
         err = lib.lda_gibbs_tiles(
             _ptr(rows), _ROWS_KIND[rows.dtype], rows.shape[1], k_pad, _ptr(ndk),
@@ -463,7 +478,7 @@ def _launch(ndk, nk, z, z_new, token_doc, token_mask, *, rows, token_word,
     build.check(lib, err, "lda_gibbs_tiles")
     count("launch." + sample_name(rows.dtype, compute_dtype))
     if phases == 3:
-        count("walk.one_barrier" if one else "walk.two_barrier")
+        count("walk.tagged_records" if tagged else "walk.two_barrier")
 
 
 def gibbs_tiles(

@@ -35,7 +35,7 @@ A call returns clones of the buffers, so a state passed in or returned by
 an earlier call never changes under a later one (the reference's functional
 semantics; the eager sweeps clone the state they are given too).  The
 counters that the kernel wrappers add to (``launch.<kernel>``,
-``walk.one_barrier`` and the others; ``evaluation/tracing.count``) are
+``walk.tagged_records`` and the others; ``evaluation/tracing.count``) are
 Python and do not run on a replay: what the capture counted is taken back
 and added once per replay instead.  On the card a failed capture or replay
 raises; nothing runs the sweep eagerly instead.  On the CPU the same sweep

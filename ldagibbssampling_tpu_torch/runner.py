@@ -32,7 +32,7 @@ from ldagibbssampling_tpu_torch.lda_io.artifacts import save_iterated_model
 # recapture or a state copied into the sweep graph mid-run (ops/graphs.py),
 # K1's walks in each form (ops/fused_kernel.py), counted at every launch and
 # every replay of a graph that holds one, so they move with every sweep
-ROW_COUNTERS = ("graph.captures", "graph.copy_in_bytes", "walk.one_barrier",
+ROW_COUNTERS = ("graph.captures", "graph.copy_in_bytes", "walk.tagged_records",
                 "walk.two_barrier")
 
 
@@ -98,7 +98,7 @@ def run_inference(
     before, other than the runner's own (``<name>_s``: the sweep graph's
     set-up in the first row after it), and the counters of
     ``ROW_COUNTERS`` that moved since then, by how much
-    (``graph_captures``, ``graph_copy_in_bytes``, ``walk_one_barrier``,
+    (``graph_captures``, ``graph_copy_in_bytes``, ``walk_tagged_records``,
     ``walk_two_barrier``).
     """
     if result_dir is not None:

@@ -12,13 +12,17 @@ order other, this, this, other, each importing the package of its own
 checkout: every K1 instantiation (the six deferred (chain, snapshot)
 settings and the live int32 table) in the three noise modes from the same
 state, and the time of the whole walk (draw and count move per tile,
-internal noise) per block.  Then the same block at K = 100 (``chip_smoke``'s
+internal noise) per block, by events and in device time (``torch.profiler``;
+events time the wrapper's host work too where a walk is shorter).  Then
+the same block at K = 100 (``chip_smoke``'s
 ``K_GENERAL``: row tile 2,048, the tiles of the deferred tier and the mesh
-runtimes' deferred shards at K <= 128, which the one-barrier walk takes
-with four of a tile's moves folded a thread and a checkout from before
-that took with two barriers a tile; its state from ``init_state`` at
+runtimes' deferred shards at K <= 128, which the tagged walk takes with
+four of a tile's records folded a thread, an older checkout with one or two
+grid barriers a tile; its state from ``init_state`` at
 K = 100): the f32 chain on the bf16 snapshot in the three noise modes, and
-its time.
+its time.  For each walk also its fixed cost: the same walk with every
+token masked, in device time per tile (``torch.profiler``), as chip_smoke
+reports it.
 ``--rounds`` repeats the four runs (other, this, this, other) that many
 times, for the spread of each side's times.  Every run's ``z``, ``ndk`` and
 ``nk`` must hash the same as every other's.  Prints one JSON line; exits 1
@@ -111,6 +115,7 @@ def run_side(root: Path, inputs: Path, out: Path) -> None:
     sys.path.insert(0, str(root))
     import torch
 
+    from ldagibbssampling_tpu_torch.evaluation.tracing import kernel_device_ms
     from ldagibbssampling_tpu_torch.ops import fused_kernel as fk
 
     pkg = Path(fk.__file__).resolve()
@@ -119,7 +124,8 @@ def run_side(root: Path, inputs: Path, out: Path) -> None:
     inp = {k: v.cuda() if torch.is_tensor(v) else v
            for k, v in torch.load(inputs).items()}
     toks = (inp["w"], inp["d"], inp["m"])
-    res = {"package": str(pkg), "hashes": {}, "walk_ms": {}, "moved": {}}
+    res = {"package": str(pkg), "hashes": {}, "walk_ms": {}, "moved": {},
+           "walk_device_ms": {}, "fixed_us_per_tile": {}}
     # a K1 that reads its scalars and seed from the device takes them as
     # tensors made once; an earlier checkout's takes them by value
     if "scalars" in inspect.signature(fk.gibbs_tiles).parameters:
@@ -171,6 +177,16 @@ def run_side(root: Path, inputs: Path, out: Path) -> None:
             end.synchronize()
             times.append(start.elapsed_time(end) / REPS)
         res["walk_ms"][name] = times[0] - times[1]  # less the state's reset
+        res["walk_device_ms"][name] = kernel_device_ms(lambda: walk("internal", 7),
+                                                       "gibbs_walk")
+        masked = torch.zeros_like(inp["m"])
+        fixed_ms = kernel_device_ms(lambda: fk.gibbs_tiles(
+            inp[pre + rows], ndk, nk, inp[pre + "z"], inp["w"], inp["d"], masked,
+            noise_mode="internal", compute_dtype=chain,
+            row_tile=inp[pre + "row_tile"], **values(7, pre)), "gibbs_walk")
+        res["fixed_us_per_tile"][name] = (
+            None if fixed_ms is None
+            else fixed_ms * 1e3 * inp[pre + "row_tile"] / inp["m"].shape[0])
     out.write_text(json.dumps(res))
 
 
@@ -215,6 +231,10 @@ def main() -> int:
     names = list(runs[0][1]["walk_ms"])
     walk_ms = {side: {name: [r["walk_ms"][name] for s, r in runs if s == side]
                       for name in names} for side in sides}
+    fixed = {side: {name: [r["fixed_us_per_tile"][name] for s, r in runs
+                           if s == side] for name in names} for side in sides}
+    device = {side: {name: [r["walk_device_ms"][name] for s, r in runs
+                            if s == side] for name in names} for side in sides}
     print(json.dumps({
         "device": smi, "equal": not differ, "differ": differ,
         "cases": len(ref), "moved": runs[1][1]["moved"],
@@ -223,6 +243,8 @@ def main() -> int:
         "walk_ms_spread": {side: {n: [min(x), max(x)] for n, x in by.items()}
                            for side, by in walk_ms.items()},
         "walk_ms_by_run": [(s, r["walk_ms"]) for s, r in runs],
+        "walk_device_ms": device,
+        "fixed_us_per_tile": fixed,
         "packages": [r["package"] for _, r in runs]}), flush=True)
     return 1 if differ else 0
 

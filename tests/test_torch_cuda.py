@@ -310,9 +310,9 @@ def test_k1_walk_doc_shared_tiles_equal_plain(cuda, chain, rows):
     (128, 2048, 2048, True, False),      # a single-tile block of 2,048 tokens
     (K, 1000, 256, True, False),         # n_tokens not a multiple of row_tile
     (K, 20000, 20000, False, False),     # more tokens in a tile than the grid has teams
-    # the one-barrier walk at tiles of more tokens than a CTA has threads:
-    # each CTA folds several of the previous tile's moves a thread into its
-    # nk, and the tile's draws read the doc rows its leaders moved
+    # the tagged walk at tiles of more tokens than a CTA has threads: each
+    # CTA waits on and folds several of the previous tile's records a thread
+    # into its nk and its teams' doc rows
     (100, 3 * 2048, 2048, True, True),   # the sweep's tiles at K <= 128, one document
     (100, 3 * 2048 + 700, 2048, True, False),  # and a ragged last tile
     (100, 2048 + 700, 2048, True, False),  # CTA 0's last fold: 1-2 moves a thread
@@ -321,6 +321,7 @@ def test_k1_walk_doc_shared_tiles_equal_plain(cuda, chain, rows):
     # barriers, then the next tile's reads of ndk/nk through L2 and its hoist
     (100, 3 * 4096, 4096, False, True),  # K <= 256, a tile past the grid's teams
     (2100, 3 * 128 + 50, 128, False, False),  # k_pad 2176: more groups than a team
+    (2000, 3 * 128 + 50, 128, True, False),   # k_pad 2048: the records' widest topics
 ])
 def test_k1_walk_shapes_equal_plain(cuda, mode, k, n, row_tile, pipelined, one_doc):
     st, toks, mirror = _walk_setup(cuda, k=k, n=n, seed=k + n, one_doc=one_doc,
@@ -343,7 +344,7 @@ def test_k1_walk_shapes_equal_plain(cuda, mode, k, n, row_tile, pipelined, one_d
     (100, 2048, 50000, False)])  # 4 tiles do not repay a 20 MB copy of ndk
 def test_k1_walk_second_ndk_buffer_only_when_pipelined(cuda, k, row_tile, m,
                                                        pipelined):
-    # the one-barrier walk needs a copy of ndk; the two-barrier walk none
+    # the tagged walk needs a copy of ndk; the two-barrier walk none
     n = 4 * row_tile
     st, toks, mirror = _walk_setup(cuda, k=k, n=n, m=m, seed=3)
     assert fk.walk_config(mirror.dtype, "float32", "internal", mirror.shape[1], n,
@@ -375,7 +376,7 @@ def test_k1_walk_counts_its_form_once_per_launch_or_capture(cuda):
     fk.gibbs_tile_sample(mirror, st.ndk, st.nk, st.z, *toks, row_tile=4096,
                          **sweep_values(cuda, 4))
     torch.cuda.synchronize()
-    assert walks() == {"walk.one_barrier": 1, "walk.two_barrier": 1}
+    assert walks() == {"walk.tagged_records": 1, "walk.two_barrier": 1}
     # the deferred sweep at K = 100 captured: its warm-up sweep counts, and
     # each replay counts the walk its capture took back
     layout, st = _tier_layout("deferred", 100, seed=5)
@@ -388,7 +389,7 @@ def test_k1_walk_counts_its_form_once_per_launch_or_capture(cuda):
     torch.cuda.synchronize()
     (graph,) = run.graphs.values()
     assert graph.replays == 3
-    assert walks() == {"walk.one_barrier": 4}
+    assert walks() == {"walk.tagged_records": 4}
 
 
 def test_k1_walk_empty_and_all_masked(cuda):
@@ -436,6 +437,104 @@ def test_k1_walk_is_one_launch(cuda, rows):
     cfg = fk.walk_config(snap.dtype, "float32", "internal", 128, 8 * 256, 256)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert cfg["grid"] >= sms and cfg["grid"] % sms == 0 and cfg["pipelined"]
+
+
+# --- the tagged walk's records: tags that wrap, a ring zeroed at every
+# replay, CTAs without a token, docs that span tiles and tiles of many docs
+
+
+def _tagged_walk_equals_plain(rows, st, toks, *, row_tile, modes, uniforms=None):
+    n = st.z.shape[0]
+    assert fk.walk_config(rows.dtype, "float32", "internal", fk.row_width(
+        rows, st.ndk.shape[1]), n, row_tile, ndk_bytes=st.ndk.nbytes)["pipelined"]
+    for mode in modes:
+        (z, ndk, nk), (zp, ndkp, nkp) = _both_walks(
+            rows, st, toks, row_tile=row_tile, mode=mode, uniforms=uniforms)
+        assert torch.equal(z, zp) and torch.equal(ndk, ndkp) and torch.equal(nk, nkp)
+        assert (z != st.z).any()
+
+
+def test_k1_walk_tags_wrap_equal_plain(cuda):
+    # more tiles than a tag tells apart: records of tile t and t + TAG_RANGE
+    # carry the same tag, twice over in this walk
+    row_tile = 8
+    n = (2 * fk.TAG_RANGE + 5) * row_tile + 3
+    st, toks, mirror = _walk_setup(cuda, k=K, n=n, seed=21)
+    uniforms = torch.rand((n, 128), device=cuda) * 0.999 + 5e-4
+    _tagged_walk_equals_plain(mirror, st, toks, row_tile=row_tile,
+                              modes=("external",), uniforms=uniforms)
+
+
+@pytest.mark.parametrize("row_tile", [1, 17, 40])
+def test_k1_walk_ctas_without_a_token_equal_plain(cuda, row_tile):
+    # tiles of a few tokens: most CTAs have no token in any tile and leave
+    # at once; at 17 and 40 the last busy CTA holds teams without a token
+    st, toks, mirror = _walk_setup(cuda, k=K, n=300, seed=22 + row_tile)
+    _tagged_walk_equals_plain(mirror, st, toks, row_tile=row_tile,
+                              modes=("deterministic", "internal"))
+
+
+@pytest.mark.parametrize("k,row_tile", [(100, 2048), (1000, 256), (K, 256)])
+def test_k1_walk_long_and_mixed_docs_equal_plain(cuda, k, row_tile):
+    # one document over three tiles, then a tile of many documents, a tile
+    # whose documents repeat within each CTA, one mixing the long document
+    # in, and a ragged last tile: each tile's draws read the doc rows the
+    # tile before moved
+    rng = np.random.default_rng(k)
+    m, t = 1000, row_tile
+    td = np.concatenate([np.zeros(3 * t), rng.integers(1, m, t),
+                         np.arange(t) % 5 + 1,
+                         np.where(rng.random(t) < 0.5, 0, rng.integers(1, m, t)),
+                         rng.integers(0, m, t // 3)]).astype(np.int32)
+    n = td.shape[0]
+    tw = ((rng.zipf(1.2, size=n) - 1) % 300).astype(np.int32)
+    tm = (rng.random(n) >= 0.05).astype(np.int32)
+    st = init_state(tw, td, tm, num_docs=m, vocab_size=300, num_topics=k,
+                    seed=k, device=cuda)
+    toks = [torch.from_numpy(a).to(cuda) for a in (tw, td, tm)]
+    k_pad = -(-k // 128) * 128
+    mirror = ck.cast_mirror(torch.nn.functional.pad(st.nwk, (0, k_pad - k)).contiguous())
+    uniforms = torch.rand((n, k_pad), device=cuda) * 0.999 + 5e-4
+    for rows in (mirror, st.nwk):
+        _tagged_walk_equals_plain(rows, st, toks, row_tile=row_tile,
+                                  modes=("deterministic", "external", "internal"),
+                                  uniforms=uniforms)
+
+
+@pytest.mark.parametrize("n_tiles", [1, 2, 3])
+def test_k1_walk_replayed_graph_equals_plain(cuda, n_tiles):
+    # a captured walk replayed over the same ring, each replay at another
+    # seed: the graph zeroes the ring and the CTAs' counts first, so no
+    # record of an earlier replay (the same slots, the same tags) passes as
+    # current
+    row_tile = 2048
+    st, toks, mirror = _walk_setup(cuda, k=100, n=n_tiles * row_tile - 700,
+                                   seed=23)
+    assert fk.walk_config(mirror.dtype, "float32", "internal", 128,
+                          st.z.shape[0], row_tile,
+                          ndk_bytes=st.ndk.nbytes)["pipelined"]
+    values = sweep_values(cuda, 0)
+    ndk, nk = st.ndk.clone(), st.nk.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the launch's configuration found first
+        fk.gibbs_tiles(mirror, ndk.clone(), nk.clone(), st.z, *toks,
+                       row_tile=row_tile, **values)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        z = fk.gibbs_tiles(mirror, ndk, nk, st.z, *toks, row_tile=row_tile,
+                           **values)
+    for seed in (31, 32, 31, 33):
+        values["key"].fill_(seed_word(seed))
+        ndk.copy_(st.ndk)
+        nk.copy_(st.nk)
+        graph.replay()
+        ndkp, nkp = st.ndk.clone(), st.nk.clone()
+        zp = fk.gibbs_tiles_plain(mirror, ndkp, nkp, st.z, *toks, row_tile=row_tile,
+                                  noise_mode="internal", **values)
+        torch.cuda.synchronize()
+        assert torch.equal(z, zp) and torch.equal(ndk, ndkp) and torch.equal(nk, nkp)
 
 
 # --- K3 with its log tables: every lookup against the logf it replaces,
@@ -931,7 +1030,7 @@ def test_failed_capture_raises_and_runs_no_sweep_eagerly(cuda):
 def _tier_layout(tier, k, seed=0, t=12_000, block=2048):
     """A Zipf corpus in ``tier``'s layout at ``k`` topics: the deferred plan
     (block 2,048: row tiles of 512 at K = 500 and one tile of 2,048 at
-    K = 100, both the one-barrier walk) or ``pad_to`` +
+    K = 100, both the tagged walk) or ``pad_to`` +
     ``sort_within_blocks``; its state on the card."""
     rng = np.random.default_rng(seed)
     tw = ((rng.zipf(1.2, size=t) - 1) % V).astype(np.int32)
@@ -949,7 +1048,7 @@ def _tier_layout(tier, k, seed=0, t=12_000, block=2048):
 
 
 @pytest.mark.parametrize("tier,k,chain,mirror,mode", [
-    ("deferred", 500, "float32", "bfloat16", "internal"),   # one barrier a tile
+    ("deferred", 500, "float32", "bfloat16", "internal"),   # the tagged walk
     ("deferred", 500, "float32", "bfloat16", "external"),
     ("deferred", 500, "bf16p", "float32", "internal"),
     ("deferred", 100, "float32", "bfloat16", "internal"),   # tiles of 2,048
@@ -974,7 +1073,7 @@ def test_captured_kernel_tiers_equal_eager_on_card(cuda, tier, k, chain, mirror,
     cfg = fk.walk_config(torch.int32 if tier == "fused" else getattr(torch, mirror),
                          chain, mode, k_pad, 2048, run.row_tile,
                          ndk_bytes=st.ndk.nbytes)
-    assert cfg["pipelined"]  # one barrier a tile at K = 100 as at K = 500
+    assert cfg["pipelined"]  # the tagged walk at K = 100 as at K = 500
 
     def noise(sweep):
         g = torch.Generator(device=cuda).manual_seed(100 + sweep)
@@ -1813,9 +1912,9 @@ def test_replayed_graph_counts_its_launches_per_replay_on_card(cuda):
         model.sweep(n)
         after = tracing.counters()
         moved = {k: after.get(k, 0) - before.get(k, 0)
-                 for k in (name, "walk.one_barrier", "walk.two_barrier",
+                 for k in (name, "walk.tagged_records", "walk.two_barrier",
                            "graph.captures")}
-        assert moved[name] == moved["walk.one_barrier"] + moved["walk.two_barrier"] == n
+        assert moved[name] == moved["walk.tagged_records"] + moved["walk.two_barrier"] == n
         assert moved["graph.captures"] == 0
 
 

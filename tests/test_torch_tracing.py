@@ -432,7 +432,7 @@ class _Walking:
     def sweep(self, n=1):
         self.calls += 1
         if self.calls == 2:
-            tracing.count("walk.one_barrier")
+            tracing.count("walk.tagged_records")
             tracing.count("walk.two_barrier")
         self.model.sweep(n)
 
@@ -444,10 +444,10 @@ def test_runner_row_carries_the_walk_forms_where_they_moved(tmp_path):
         run_inference(_Walking(LdaModel(cfg, fc, device="cpu")), cfg, fc,
                       metrics=log, metrics_every=1)
     rows = read_metrics(tmp_path / "m.jsonl")
-    flagged = [(r["sweep"], r["walk_one_barrier"], r["walk_two_barrier"])
-               for r in rows if "walk_one_barrier" in r]
+    flagged = [(r["sweep"], r["walk_tagged_records"], r["walk_two_barrier"])
+               for r in rows if "walk_tagged_records" in r]
     assert flagged == [(1, 1, 1)]
-    assert all(("walk_two_barrier" in r) == ("walk_one_barrier" in r) for r in rows)
+    assert all(("walk_two_barrier" in r) == ("walk_tagged_records" in r) for r in rows)
 
 
 # ----------------------------------------------------------------- CLI
